@@ -1,0 +1,102 @@
+"""Factory / mode dispatch: the single construction entry point.
+
+Port of ``bolt_tpu/factory.py``.  The registry is ``[('gpu', ConstructGPU),
+('local', ConstructLocal)]`` and the context that selects the device
+backend is a ``torch.device``.  With no context and no mode the local
+NumPy oracle answers; ``mode='gpu'`` with no context means ``cuda:0`` and
+raises when CUDA is not available.
+"""
+
+from bolt_tpu_torch.gpu.construct import ConstructGPU
+from bolt_tpu_torch.local.construct import ConstructLocal
+
+# checked in order; the local backend is the fallback
+constructors = [("gpu", ConstructGPU), ("local", ConstructLocal)]
+
+
+def _lookup(*args, **kwargs):
+    """Find the constructor class for the given arguments (reference:
+    ``bolt/factory.py`` dispatch helper)."""
+    mode = kwargs.get("mode")
+    if mode is not None:
+        for name, cls in constructors:
+            if name == mode:
+                return cls
+        raise ValueError("unknown mode %r (known: %s)"
+                         % (mode, [n for n, _ in constructors]))
+    for name, cls in constructors:
+        if cls._argcheck(*args, **kwargs):
+            return cls
+    return ConstructLocal
+
+
+def array(a, context=None, axis=(0,), mode=None, dtype=None,
+          npartitions=None):
+    """Create a bolt array from an array-like.  ``mode='gpu'`` (or a
+    ``torch.device`` as ``context``) puts ``axis`` as key axes on the
+    device; otherwise a local NumPy-backed array is returned."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.array(a, dtype=dtype)
+    return ConstructGPU.array(a, context=context, axis=axis, dtype=dtype,
+                              npartitions=npartitions)
+
+
+def ones(shape, context=None, axis=(0,), mode=None, dtype=None):
+    """Bolt array of ones."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.ones(shape, dtype=dtype)
+    return ConstructGPU.ones(shape, context=context, axis=axis, dtype=dtype)
+
+
+def zeros(shape, context=None, axis=(0,), mode=None, dtype=None):
+    """Bolt array of zeros."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.zeros(shape, dtype=dtype)
+    return ConstructGPU.zeros(shape, context=context, axis=axis, dtype=dtype)
+
+
+def full(shape, value, context=None, axis=(0,), mode=None, dtype=None):
+    """Bolt array filled with ``value`` (numpy ``full`` semantics: the
+    dtype defaults to the fill value's)."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.full(shape, value, dtype=dtype)
+    return ConstructGPU.full(shape, value, context=context, axis=axis,
+                             dtype=dtype)
+
+
+def randn(shape, context=None, axis=(0,), mode=None, dtype=None, seed=0):
+    """Bolt array of standard normals; ``mode='gpu'`` generates it on the
+    device (backends use different RNG streams)."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.randn(shape, dtype=dtype, seed=seed)
+    return ConstructGPU.randn(shape, context=context, axis=axis, dtype=dtype,
+                              seed=seed)
+
+
+def rand(shape, context=None, axis=(0,), mode=None, dtype=None, seed=0):
+    """Bolt array of uniform [0, 1) samples; see :func:`randn`."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.rand(shape, dtype=dtype, seed=seed)
+    return ConstructGPU.rand(shape, context=context, axis=axis, dtype=dtype,
+                             seed=seed)
+
+
+def concatenate(arrays, axis=0, context=None, mode=None):
+    """Concatenate bolt arrays; dispatches on the first array's backend
+    unless overridden."""
+    if isinstance(arrays, (tuple, list)) and len(arrays) and mode is None \
+            and context is None:
+        from bolt_tpu_torch.gpu.array import BoltArrayGPU
+        if isinstance(arrays[0], BoltArrayGPU):
+            return ConstructGPU.concatenate(arrays, axis=axis)
+        return ConstructLocal.concatenate(arrays, axis=axis)
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.concatenate(arrays, axis=axis)
+    return ConstructGPU.concatenate(arrays, axis=axis, context=context)

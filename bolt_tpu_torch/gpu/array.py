@@ -1,0 +1,844 @@
+"""The ``mode='gpu'`` backend: a ``torch.Tensor`` on one ``torch.device``.
+
+Port of ``bolt_tpu/tpu/array.py :: BoltArrayTPU``.  The array holds ONE
+tensor carrying the full logical shape, key axes leading; ``split`` says
+how many leading axes are keys.  Where the reference maps key axes onto a
+mesh, this backend runs on a single card, so a re-axis is a permute and a
+contiguous copy, and every terminal runs eagerly in PyTorch:
+
+=====================  =======================================
+reference lowering     here
+=====================  =======================================
+``jit(vmap(func))``    nested ``torch.func.vmap`` over the keys
+``jax.eval_shape``     ``func`` run on a ``device="meta"`` tensor
+pairwise tree (jit)    the same fixed-order pairwise tree, eager
+``jnp`` reductions     torch reductions, numpy's output dtypes
+shard_map Welford      ``fused_welford`` CUDA kernel (stats.py)
+transpose+reshard      ``permute`` + ``contiguous``
+=====================  =======================================
+
+**Laziness.**  As in the reference, a traceable ``map`` is deferred: the
+array records a chain of per-record functions over its parent.  A
+terminal (``reduce``, ``sum``/``mean``/..., ``swap``, ``first``) applies
+the chain without keeping the mapped tensor; any other consumer
+materialises it once and keeps it.
+
+**Host fallback.**  A callable ``torch.func.vmap`` cannot batch
+(data-dependent control flow, ``.item()``, numpy coercion of a tensor)
+reroutes through the local NumPy oracle with a
+:class:`~bolt_tpu_torch.base.HostFallbackWarning`; any other error out of
+the callable is a bug in it and surfaces.
+"""
+
+import operator
+import warnings
+from functools import lru_cache
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
+from bolt_tpu_torch.utils import (argpack, check_value_shape, inshape,
+                                  isreshapeable, istransposeable, prod,
+                                  tupleize)
+
+
+@lru_cache(maxsize=None)
+def torch_dtype(dtype):
+    """The torch dtype holding numpy ``dtype`` (f64 stays f64)."""
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+@lru_cache(maxsize=None)
+def numpy_dtype(dtype):
+    """The numpy dtype of torch ``dtype`` (``TypeError`` for bfloat16,
+    which numpy has no type for)."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _traceable(func):
+    """Translate a NumPy ufunc to its torch twin (``np.add`` → ``torch.add``,
+    ``np.maximum`` → ``torch.maximum``) so reference user code
+    (``b.reduce(np.maximum)``) runs on the card; other callables pass
+    through."""
+    if isinstance(func, np.ufunc):
+        tf = getattr(torch, func.__name__, None)
+        if tf is not None:
+            return tf
+    return func
+
+
+# Messages of the errors that mean "vmap cannot batch this callable": the
+# data-dependent control flow and .item() refusals of torch.func.vmap, and
+# numpy coercion of a (meta) tensor — the counterparts of the reference's
+# _TRACE_ERRORS (tracer concreteness and array conversion).  Anything else
+# out of shape inference (a bad reshape, a typo, a user assert) is a bug in
+# the callable and must surface, not reroute a host round-trip.
+_TRACE_MESSAGES = ("vmap: It looks like you're",
+                   "can't convert meta device type tensor to numpy")
+
+
+def _is_trace_error(exc):
+    return isinstance(exc, (RuntimeError, TypeError)) and \
+        str(exc).startswith(_TRACE_MESSAGES)
+
+
+def _warn_fallback(op, func, exc):
+    name = getattr(func, "__name__", repr(func))
+    warnings.warn(
+        "%s: callable %r cannot be batched by torch.func.vmap (%s: %s); "
+        "falling back to the local oracle via a device->host->device "
+        "round-trip. Rewrite with torch tensor operations to stay on "
+        "device." % (op, name, type(exc).__name__,
+                     str(exc).splitlines()[0] if str(exc) else ""),
+        HostFallbackWarning, stacklevel=3)
+
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _infer_map(func, vshape, dtype, split=None):
+    """Per-record output ``(shape, dtype)`` of ``func``, from a vmapped call
+    on a one-record meta tensor (``split`` set: a ``with_keys`` func,
+    called with ``split`` int32 key scalars)."""
+    x = _meta((1,) + tuple(vshape), dtype)
+    if split is None:
+        out = vmap(func)(x)
+    else:
+        keys = [_meta((1,), torch.int32) for _ in range(split)]
+        out = vmap(lambda v, *k: func((tuple(k), v)))(x, *keys)
+    if not isinstance(out, torch.Tensor):
+        raise TypeError("map function must return a tensor, got %s"
+                        % type(out).__name__)
+    return tuple(out.shape[1:]), out.dtype
+
+
+class _WithKeysFunc:
+    """Deferred-chain entry for ``map(func, with_keys=True)``: ``func``
+    takes ``((k0, ..., kn-1), value)``, so :func:`_chain_apply` vmaps it
+    over flattened records zipped with their int32 key tuples."""
+
+    __slots__ = ("func",)
+
+    def __init__(self, func):
+        self.func = func
+
+
+def _chain_apply(funcs, split, data):
+    """Apply a deferred map chain: each func nested-vmapped over the
+    ``split`` leading key axes, in order; ``with_keys`` entries vmap over
+    flattened records zipped with their int32 key tuples."""
+    out = data
+    for func in funcs:
+        if isinstance(func, _WithKeysFunc):
+            kshape = tuple(out.shape[:split])
+            n = prod(kshape)
+            flat = out.reshape((n,) + tuple(out.shape[split:]))
+            keys = [k.to(torch.int32) for k in torch.unravel_index(
+                torch.arange(n, device=out.device), kshape)]
+
+            def one(v, *k, _f=func.func):
+                return _f((tuple(k), v))
+
+            res = vmap(one)(flat, *keys)
+            out = res.reshape(kshape + tuple(res.shape[1:]))
+            continue
+        f = func
+        for _ in range(split):
+            f = vmap(f)
+        out = f(out)
+    return out
+
+
+def _reduce_tree(data, func, n, vshape):
+    """The fixed-order pairwise tree of ``bolt_tpu/tpu/array.py ::
+    _reduce_tree_expr`` (and of the local oracle's ``reduce``): each round
+    combines the first half of the records with the second, the odd one
+    out carried to the end, so integral reduces stay bit-identical."""
+    x = data.reshape((n,) + tuple(vshape))
+    vfunc = vmap(func)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        combined = vfunc(x[:half], x[half:2 * half])
+        rem = x[2 * half:]
+        x = torch.cat([combined, rem], dim=0) if rem.shape[0] else combined
+    out = x[0]
+    if tuple(out.shape) != tuple(vshape):
+        raise ValueError("reduce produced shape %s, expected value shape %s"
+                         % (tuple(out.shape), tuple(vshape)))
+    return out
+
+
+def _stat_dtype(name, dtype, ndim, axes, ddof):
+    """The numpy (and jnp) output dtype of ``name`` over ``axes``, from a
+    probe on a one-element array — so ``mean`` of int32 is f64 and
+    ``sum`` of int32 is int64, as in the reference (``_masked_stat_expr``)."""
+    kw = {} if ddof is None else {"ddof": ddof}
+    with warnings.catch_warnings(), np.errstate(all="ignore"):
+        warnings.simplefilter("ignore", RuntimeWarning)
+        probe = getattr(np, name)(np.zeros((1,) * ndim, dtype), axis=axes,
+                                  **kw)
+    return torch_dtype(np.asarray(probe).dtype)
+
+
+def _reduce_stat(x, name, axes, keepdims, ddof, dtype):
+    """One stat terminal over ``axes`` of ``x`` with numpy's dtype rule."""
+    out_dt = _stat_dtype(name, dtype, x.ndim, axes, ddof)
+    if not axes:
+        # numpy reduces nothing over axis=(); torch reads dim=() as "all"
+        x, axes = x.unsqueeze(0), (0,)
+        keepdims = False
+    dims = tuple(axes)
+    if name == "sum":
+        out = torch.sum(x, dim=dims, keepdim=keepdims, dtype=out_dt)
+    elif name == "mean":
+        out = torch.mean(x.to(out_dt), dim=dims, keepdim=keepdims)
+    elif name in ("var", "std"):
+        op = torch.var if name == "var" else torch.std
+        out = op(x.to(out_dt), dim=dims, keepdim=keepdims,
+                 correction=0 if ddof is None else ddof)
+    elif name == "max":
+        out = torch.amax(x, dim=dims, keepdim=keepdims)
+    elif name == "min":
+        out = torch.amin(x, dim=dims, keepdim=keepdims)
+    elif name == "ptp":
+        out = torch.amax(x, dim=dims, keepdim=keepdims) - \
+            torch.amin(x, dim=dims, keepdim=keepdims)
+    elif name == "prod":
+        # torch.prod takes one dim: fold the axes from the last one down
+        out = x
+        for d in sorted(dims, reverse=True):
+            out = torch.prod(out, dim=d, keepdim=keepdims, dtype=out_dt)
+    elif name in ("all", "any"):
+        out = getattr(torch, name)(x, dim=dims, keepdim=keepdims)
+    else:
+        raise ValueError("unknown statistic %r" % (name,))
+    return out if out.dtype == out_dt else out.to(out_dt)
+
+
+# the elementwise operators that fuse into the map chain with a scalar
+# operand: (operator, numpy twin for the result dtype)
+_OPS = {"add": (operator.add, np.add), "sub": (operator.sub, np.subtract),
+        "mul": (operator.mul, np.multiply),
+        "truediv": (operator.truediv, np.true_divide)}
+
+
+def _result_dtype(nop, a, b, reverse):
+    """The torch dtype of numpy's ``a (op) b`` (or ``b (op) a``), probed
+    on zeros (numeric warnings of the probe silenced)."""
+    with np.errstate(all="ignore"):
+        out = nop(b, a) if reverse else nop(a, b)
+    return torch_dtype(np.asarray(out).dtype)
+
+
+def _scalar_fn(name, other, reverse, dtype):
+    """Per-record ``v (op) other`` computed in numpy's result dtype, the
+    local oracle's (``int32 / 2`` is f64, ``f32 * 2.0`` stays f32)."""
+    op, nop = _OPS[name]
+    out_dt = _result_dtype(nop, np.zeros((), dtype), other, reverse)
+    scalar = other.item() if isinstance(other, np.generic) else other
+
+    def fn(v):
+        v = v.to(out_dt)
+        return op(scalar, v) if reverse else op(v, scalar)
+    fn.__name__ = name
+    return fn
+
+
+class BoltArrayGPU(BoltArray):
+    """n-d array on one ``torch.device``: key axes leading, value axes
+    after them."""
+
+    _mode = "gpu"
+    # numpy defers to the reflected operators (np.ones(3) * b → b.__rmul__)
+    __array_ufunc__ = None
+
+    def __init__(self, data, split, device):
+        if data is not None and (split < 0 or split > data.ndim):
+            raise ValueError("split %d out of range for %d-d array"
+                             % (split, data.ndim))
+        self._concrete = data
+        self._split = int(split)
+        self._device = device
+        # deferred map chain: (base tensor, (func, ...)) or None
+        self._chain = None
+        self._donated = False
+        self._shape = None if data is None else tuple(data.shape)
+        self._dtype = None if data is None else numpy_dtype(data.dtype)
+
+    @classmethod
+    def _deferred(cls, base, funcs, split, device, shape, dtype):
+        b = cls(None, split, device)
+        b._chain = (base, tuple(funcs))
+        b._shape = tuple(shape)
+        b._dtype = np.dtype(dtype)
+        return b
+
+    # ------------------------------------------------------------------
+    # properties
+    # ------------------------------------------------------------------
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def split(self):
+        """Number of leading key axes (reference: ``BoltArraySpark.split``)."""
+        return self._split
+
+    @property
+    def device(self):
+        """The ``torch.device`` holding the data (the reference's mesh)."""
+        return self._device
+
+    @property
+    def deferred(self):
+        """True while this array is an unmaterialised map chain."""
+        return self._concrete is None and self._chain is not None
+
+    @property
+    def keys(self):
+        """Key-axis shape view (reference: ``bolt/spark/shapes.py :: Keys``)."""
+        from bolt_tpu_torch.gpu.shapes import Keys
+        return Keys(self)
+
+    @property
+    def values(self):
+        """Value-axis shape view (reference: ``bolt/spark/shapes.py :: Values``)."""
+        from bolt_tpu_torch.gpu.shapes import Values
+        return Values(self)
+
+    @property
+    def _constructor(self):
+        from bolt_tpu_torch.gpu.construct import ConstructGPU
+        return ConstructGPU
+
+    def _wrap(self, data, split):
+        return BoltArrayGPU(data, split, self._device)
+
+    def _guard_donated(self):
+        if self._donated:
+            raise RuntimeError(
+                "this array's device buffer was donated to %s and can no "
+                "longer be read" % self._donated)
+
+    @property
+    def _data(self):
+        """The concrete tensor; materialises (and keeps) a deferred chain."""
+        self._guard_donated()
+        if self._concrete is None:
+            base, funcs = self._chain
+            self._concrete = _chain_apply(funcs, self._split, base)
+            self._chain = None
+        return self._concrete
+
+    def _mapped(self):
+        """The tensor a terminal consumes: the deferred chain applied
+        without keeping the result (the reference fuses the chain into the
+        terminal's program), or the concrete data."""
+        self._guard_donated()
+        if self.deferred:
+            base, funcs = self._chain
+            return _chain_apply(funcs, self._split, base)
+        return self._concrete
+
+    def _align(self, axes):
+        """Ensure ``axes`` are exactly the key axes, swapping if not — value
+        axes named in ``axes`` move to keys, key axes missing from ``axes``
+        move to values (reference: ``BoltArraySpark._align``)."""
+        inshape(self.shape, axes)
+        tokeys = [a - self._split for a in axes if a >= self._split]
+        tovalues = [a for a in range(self._split) if a not in axes]
+        if tokeys or tovalues:
+            return self.swap(tovalues, tokeys)
+        return self
+
+    # ------------------------------------------------------------------
+    # functional operators
+    # ------------------------------------------------------------------
+
+    def map(self, func, axis=(0,), value_shape=None, dtype=None,
+            with_keys=False):
+        """Apply ``func`` to every key's value block, batched over the key
+        axes with nested ``torch.func.vmap`` (reference:
+        ``BoltArrayTPU.map``).  Deferred: the map joins the array's chain
+        and runs when a consumer needs the data.  Shape inference runs
+        ``func`` on a meta tensor; a callable vmap cannot batch falls back
+        to the local oracle with a :class:`HostFallbackWarning`.
+        ``value_shape``/``dtype`` are validated / applied when given."""
+        func = _traceable(func)
+        axes = sorted(tupleize(axis))
+        aligned = self._align(axes)
+        split = aligned._split
+        kshape = aligned.shape[:split]
+        vshape = aligned.shape[split:]
+        try:
+            out_vshape, out_dtype = _infer_map(
+                func, vshape, torch_dtype(aligned.dtype),
+                split if with_keys else None)
+        except (RuntimeError, TypeError) as exc:
+            if not _is_trace_error(exc):
+                raise
+            _warn_fallback("map", func, exc)
+            local = aligned.tolocal().map(
+                func, axis=tuple(range(split)), value_shape=value_shape,
+                dtype=dtype, with_keys=with_keys)
+            return self._constructor.array(
+                local.toarray(), context=self._device,
+                axis=tuple(range(split)))
+        check_value_shape(value_shape, out_vshape)
+        entry = _WithKeysFunc(func) if with_keys else func
+        if aligned.deferred:
+            base, funcs = aligned._chain
+            funcs = funcs + (entry,)
+        else:
+            base, funcs = aligned._data, (entry,)
+        out = BoltArrayGPU._deferred(base, funcs, split, self._device,
+                                     kshape + out_vshape,
+                                     numpy_dtype(out_dtype))
+        if dtype is not None and np.dtype(dtype) != out.dtype:
+            return out.astype(dtype)
+        return out
+
+    def filter(self, func, axis=(0,), sort=False):
+        raise NotImplementedError(
+            "filter is not ported to the gpu backend yet (ROADMAP A5); "
+            "use tolocal().filter(...)")
+
+    def reduce(self, func, axis=(0,), keepdims=False):
+        """Fixed-order pairwise tree reduction over the key axes (reference:
+        ``BoltArrayTPU.reduce``): each round vmaps the binary ``func`` over
+        half the records, in the local oracle's order.  A deferred map
+        chain on the input is applied first."""
+        func = _traceable(func)
+        axes = sorted(tupleize(axis))
+        aligned = self._align(axes)
+        split = aligned._split
+        kshape = aligned.shape[:split]
+        vshape = aligned.shape[split:]
+        n = prod(kshape)
+        if n == 0:
+            # same error contract as the local oracle (and functools.reduce)
+            raise TypeError("reduce of an empty array with no initial value")
+        new_split = split if keepdims else 0
+        try:
+            rec = _meta((1,) + tuple(vshape), torch_dtype(aligned.dtype))
+            vmap(func)(rec, rec)
+        except (RuntimeError, TypeError) as exc:
+            if not _is_trace_error(exc):
+                raise
+            _warn_fallback("reduce", func, exc)
+            out = aligned.tolocal().reduce(
+                func, axis=tuple(range(split)), keepdims=keepdims)
+            return self._wrap(_upload(np.asarray(out), self._device),
+                              new_split)
+        out = _reduce_tree(aligned._mapped(), func, n, vshape)
+        if keepdims:
+            out = out.reshape((1,) * split + tuple(vshape))
+        return self._wrap(out, new_split)
+
+    # ------------------------------------------------------------------
+    # statistics: eager torch reductions with numpy's output dtypes
+    # ------------------------------------------------------------------
+
+    def _stat(self, axis, name, keepdims=False, ddof=None):
+        if axis is None:
+            axes = tuple(range(self._split)) if self._split \
+                else tuple(range(self.ndim))
+        else:
+            axes = tuple(sorted(tupleize(axis)))
+            inshape(self.shape, axes)
+        split = self._split
+        nkeys_reduced = sum(1 for a in axes if a < split)
+        new_split = split if keepdims else split - nkeys_reduced
+        out = _reduce_stat(self._mapped(), name, axes, keepdims, ddof,
+                           self.dtype)
+        return self._wrap(out, new_split)
+
+    def mean(self, axis=None, keepdims=False):
+        """Mean over ``axis`` (default: all key axes)."""
+        return self._stat(axis, "mean", keepdims)
+
+    def var(self, axis=None, keepdims=False, ddof=0):
+        """Variance over ``axis`` (``ddof=0`` population default; fractional
+        ``ddof`` passes through like numpy's)."""
+        return self._stat(axis, "var", keepdims, ddof=ddof)
+
+    def std(self, axis=None, keepdims=False, ddof=0):
+        """Standard deviation over ``axis`` (``ddof`` like :meth:`var`)."""
+        return self._stat(axis, "std", keepdims, ddof=ddof)
+
+    def ptp(self, axis=None, keepdims=False):
+        """Peak-to-peak (max − min) over ``axis``."""
+        return self._stat(axis, "ptp", keepdims)
+
+    def sum(self, axis=None, keepdims=False):
+        return self._stat(axis, "sum", keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return self._stat(axis, "max", keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._stat(axis, "min", keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        """Product over ``axis`` (default: all KEY axes, like mean)."""
+        return self._stat(axis, "prod", keepdims)
+
+    def all(self, axis=None, keepdims=False):
+        """Truth-reduction AND over ``axis`` (default: the key axes)."""
+        return self._stat(axis, "all", keepdims)
+
+    def any(self, axis=None, keepdims=False):
+        """Truth-reduction OR over ``axis`` (default: the key axes)."""
+        return self._stat(axis, "any", keepdims)
+
+    def stats(self, *requested, axis=None, **kwargs):
+        """Count/mean/var/std/min/max in one pass, as a
+        :class:`~bolt_tpu_torch.statcounter.StatCounter` of value-shaped
+        moments (``bolt_tpu_torch/gpu/stats.py :: welford``, whose default
+        geometry runs the ``fused_welford`` kernel).  Positional legacy
+        form ``stats(requested[, axis])`` as in the reference."""
+        if requested and all(isinstance(r, str) for r in requested):
+            raise NotImplementedError(
+                "the fluent stats(%s) form is the fused multi-stat, not "
+                "ported to the gpu backend yet (ROADMAP A3); call the "
+                "terminals (b.sum(), b.var(), ...) one by one"
+                % ", ".join(repr(r) for r in requested))
+        from bolt_tpu_torch.gpu.stats import welford
+        if requested:
+            if len(requested) > 2:
+                raise TypeError("stats() takes at most 2 positional "
+                                "arguments (requested, axis)")
+            kwargs.setdefault("requested", requested[0])
+            if len(requested) == 2:
+                if axis is not None:
+                    raise TypeError("stats() got axis twice")
+                axis = requested[1]
+        return welford(self, axis=axis, **kwargs)
+
+    # ------------------------------------------------------------------
+    # elementwise operators: a scalar operand joins the map chain
+    # ------------------------------------------------------------------
+
+    def _elementwise(self, other, name, reverse=False):
+        if isinstance(other, (int, float, complex, np.number)):
+            fn = _scalar_fn(name, other, reverse, self.dtype)
+            if self._split == 0:
+                return self._wrap(fn(self._data), 0)
+            return self.map(fn, axis=tuple(range(self._split)))
+        if isinstance(other, BoltArrayGPU):
+            if other._device != self._device:
+                raise ValueError(
+                    "elementwise operands live on different devices (%s vs "
+                    "%s); move one explicitly first" % (self._device,
+                                                        other._device))
+            odata = other._data
+        elif isinstance(other, BoltArray):
+            odata = _upload(other.toarray(), self._device)
+        elif isinstance(other, torch.Tensor):
+            odata = other.to(self._device)
+        else:
+            odata = _upload(np.asarray(other), self._device)
+        op, nop = _OPS[name]
+        # numpy broadcasting is symmetric: keys survive while they remain
+        # the leading axes with unchanged lengths
+        out_shape = np.broadcast_shapes(self.shape, tuple(odata.shape))
+        split = self._split
+        if out_shape != self.shape and (
+                len(out_shape) != self.ndim
+                or out_shape[:split] != self.shape[:split]):
+            split = 0
+        out_dt = _result_dtype(nop, np.zeros((), self.dtype),
+                               np.zeros((), numpy_dtype(odata.dtype)),
+                               reverse)
+        x, y = self._data.to(out_dt), odata.to(out_dt)
+        return self._wrap(op(y, x) if reverse else op(x, y), split)
+
+    def __add__(self, other):
+        return self._elementwise(other, "add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._elementwise(other, "sub")
+
+    def __rsub__(self, other):
+        return self._elementwise(other, "sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._elementwise(other, "mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._elementwise(other, "truediv")
+
+    def __rtruediv__(self, other):
+        return self._elementwise(other, "truediv", reverse=True)
+
+    # ------------------------------------------------------------------
+    # re-axis
+    # ------------------------------------------------------------------
+
+    def swap(self, kaxes, vaxes, size="150", donate=False):
+        """Move key axes ``kaxes`` into the values and value axes ``vaxes``
+        into the keys.  New keys = (remaining keys) + (moved-in value
+        axes); new values = (moved-out key axes) + (remaining value axes)
+        — the reference's composite-key algebra (``BoltArrayTPU.swap``).
+        On one card this is one ``permute`` plus ``.contiguous()``.
+        ``donate=True`` releases this array's tensor once the copy exists
+        (the array is unreadable afterwards); ``size`` is accepted for
+        signature parity."""
+        kaxes = tuple(tupleize(kaxes) or ())
+        vaxes = tuple(tupleize(vaxes) or ())
+        split = self._split
+        nvalue = self.ndim - split
+        for a in kaxes:
+            if a < 0 or a >= split:
+                raise ValueError("key axis %d out of range for split %d"
+                                 % (a, split))
+        for a in vaxes:
+            if a < 0 or a >= nvalue:
+                raise ValueError("value axis %d out of range for %d value "
+                                 "axes" % (a, nvalue))
+        if len(set(kaxes)) != len(kaxes) or len(set(vaxes)) != len(vaxes):
+            raise ValueError("swap axes must be unique")
+        if len(kaxes) == split and len(vaxes) == 0:
+            raise ValueError("cannot perform a swap that would leave the "
+                             "array with no key axes")
+        return self._do_swap(kaxes, vaxes, donate=donate)
+
+    def _do_swap(self, kaxes, vaxes, donate=False):
+        """The swap without the no-key-axes guard — the chunk primitives
+        (``keys_to_values`` over every key axis) produce key-less
+        intermediates, which this representation holds as ``split=0``."""
+        split = self._split
+        nvalue = self.ndim - split
+        keys_rest = [k for k in range(split) if k not in kaxes]
+        values_rest = [v for v in range(nvalue) if v not in vaxes]
+        perm = (keys_rest + [split + v for v in vaxes]
+                + list(kaxes) + [split + v for v in values_rest])
+        new_split = len(keys_rest) + len(vaxes)
+        if perm == list(range(self.ndim)) and new_split == split:
+            return self
+        out = self._mapped().permute(perm).contiguous()
+        if donate:
+            self._concrete = None
+            self._chain = None
+            self._donated = "swap(..., donate=True)"
+        return self._wrap(out, new_split)
+
+    def chunk(self, size="150", axis=None, padding=None):
+        """Decompose the value axes into chunks; returns a
+        :class:`~bolt_tpu_torch.gpu.chunk.ChunkedArray` view — no data
+        moves until its ``map`` runs."""
+        from bolt_tpu_torch.gpu.chunk import ChunkedArray
+        return ChunkedArray.chunk(self, size=size, axis=axis,
+                                  padding=padding)
+
+    # ------------------------------------------------------------------
+    # shaping (within-group only, no data shuffle)
+    # ------------------------------------------------------------------
+
+    def transpose(self, *axes):
+        axes = argpack(axes)
+        if len(axes) == 0:
+            axes = tuple(reversed(range(self.ndim)))
+        if not istransposeable(axes, range(self.ndim)):
+            raise ValueError("axes %s is not a permutation of %d axes"
+                             % (str(axes), self.ndim))
+        split = self._split
+        if sorted(axes[:split]) != list(range(split)):
+            raise ValueError(
+                "transpose may not move axes between keys and values; "
+                "use swap (key axes: %s)" % str(tuple(range(split))))
+        if tuple(axes) == tuple(range(self.ndim)):
+            return self
+        return self._wrap(self._data.permute(tuple(axes)), split)
+
+    @property
+    def T(self):
+        """Reverse keys among themselves and values among themselves."""
+        split = self._split
+        perm = tuple(reversed(range(split))) + tuple(
+            reversed(range(split, self.ndim)))
+        return self.transpose(*perm)
+
+    def swapaxes(self, axis1, axis2):
+        perm = list(range(self.ndim))
+        perm[axis1], perm[axis2] = perm[axis2], perm[axis1]
+        return self.transpose(*perm)
+
+    def reshape(self, *shape):
+        shape = argpack(shape)
+        if not isreshapeable(shape, self.shape):
+            raise ValueError("cannot reshape %s to %s"
+                             % (str(self.shape), str(shape)))
+        ksize = prod(self.shape[:self._split])
+        # the boundary: the smallest non-empty key prefix whose product
+        # matches (the keys/values views state it explicitly instead)
+        start = 1 if self._split > 0 else 0
+        new_split = None
+        for k in range(start, len(shape) + 1):
+            if prod(shape[:k]) == ksize:
+                new_split = k
+                break
+        if new_split is None:
+            raise ValueError(
+                "new shape %s does not preserve the key/value boundary "
+                "(key size %d)" % (str(shape), ksize))
+        return self._reshape_with_split(shape, new_split)
+
+    def _reshape_with_split(self, shape, new_split):
+        """Reshape to ``shape`` with an explicitly stated key-axis count
+        (used by the ``keys``/``values`` views, which know the boundary)."""
+        shape = tuple(shape)
+        if prod(shape[:new_split]) != prod(self.shape[:self._split]):
+            raise ValueError(
+                "new key shape %s does not match key size %d"
+                % (str(shape[:new_split]), prod(self.shape[:self._split])))
+        if shape == self.shape and new_split == self._split:
+            return self
+        return self._wrap(self._data.reshape(shape), new_split)
+
+    def squeeze(self, axis=None):
+        if axis is None:
+            axes = tuple(i for i, s in enumerate(self.shape) if s == 1)
+        else:
+            axes = tupleize(axis)
+            inshape(self.shape, axes)
+            for a in axes:
+                if self.shape[a] != 1:
+                    raise ValueError("cannot squeeze axis %d of size %d"
+                                     % (a, self.shape[a]))
+        new_shape = tuple(s for i, s in enumerate(self.shape)
+                          if i not in axes)
+        new_split = self._split - sum(1 for a in axes if a < self._split)
+        if new_shape == self.shape:
+            return self
+        return self._wrap(self._data.reshape(new_shape), new_split)
+
+    # ------------------------------------------------------------------
+    # indexing: per-axis int/slice/list/bool; advanced indices apply
+    # orthogonally per axis, like the reference
+    # ------------------------------------------------------------------
+
+    def __getitem__(self, index):
+        from bolt_tpu_torch.utils import normalize_index
+        norm, squeezed = normalize_index(index, self.shape)
+        slices, takes = [], {}
+        for ax, s in enumerate(norm):
+            if isinstance(s, slice) and s.step > 0:
+                slices.append(s)
+                continue
+            # torch slices take no negative step: gather those axes too
+            takes[ax] = s if isinstance(s, np.ndarray) \
+                else np.ascontiguousarray(np.arange(self.shape[ax])[s])
+            slices.append(slice(None))
+        out = self._data[tuple(slices)]
+        for ax, idx in takes.items():
+            out = torch.index_select(out, ax, torch.as_tensor(
+                idx, dtype=torch.int64, device=out.device))
+        if squeezed:
+            out = out.reshape(tuple(s for i, s in enumerate(out.shape)
+                                    if i not in squeezed))
+        new_split = self._split - sum(1 for a in squeezed if a < self._split)
+        return self._wrap(out, new_split)
+
+    def __len__(self):
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    # ------------------------------------------------------------------
+    # conversions
+    # ------------------------------------------------------------------
+
+    def toarray(self, out=None):
+        """Copy to a host ``numpy.ndarray`` in key order; with ``out=`` the
+        copy lands in the caller's buffer."""
+        a = _download(self._data)
+        if out is not None:
+            BoltArray._check_out(out, a.shape, a.dtype)
+            out[...] = a
+            return out
+        return a
+
+    def iter_shards(self):
+        """One ``(index, block)`` covering the whole array: a single card
+        holds a single shard."""
+        yield (tuple(slice(0, d) for d in self.shape), self.toarray())
+
+    def tolocal(self):
+        from bolt_tpu_torch.local.array import BoltArrayLocal
+        return BoltArrayLocal(self.toarray())
+
+    def togpu(self, context=None, axis=(0,)):
+        if context is None or context == self._device:
+            return self
+        return BoltArray.togpu(self, context=context, axis=axis)
+
+    def totorch(self):
+        """Unwrap to the engine-native object, the device tensor
+        (materialises a deferred chain first) — the structural slot of the
+        reference's ``tojax``."""
+        return self._data
+
+    def first(self):
+        """The value block at the first key tuple; on a deferred chain the
+        chain runs on that one record only."""
+        if self.deferred:
+            base, funcs = self._chain
+            split = self._split
+            rec = base[(slice(0, 1),) * split]
+            return _download(_chain_apply(funcs, split, rec)[(0,) * split])
+        return _download(self._data[(0,) * self._split])
+
+    def astype(self, dtype, casting="unsafe"):
+        """Cast elements (deferred like a map, so it joins the chain);
+        ``casting`` is validated against numpy's rules."""
+        np.empty(0, dtype=self.dtype).astype(dtype, casting=casting)
+        target = torch_dtype(dtype)
+        if self._split == 0:
+            return self._wrap(self._data.to(target), 0)
+
+        def cast(v):
+            return v.to(target)
+        return self.map(cast, axis=tuple(range(self._split)))
+
+    def cache(self):
+        """Materialise a deferred chain and keep the result."""
+        self._data
+        return self
+
+    def __repr__(self):
+        s = "BoltArray\n"
+        s += "mode: %s\n" % self.mode
+        s += "shape: %s\n" % str(self.shape)
+        s += "split: %d\n" % self._split
+        s += "dtype: %s\n" % str(self.dtype)
+        s += "device: %s\n" % str(self._device)
+        if self._donated:
+            s += "donated: buffer consumed by %s\n" % self._donated
+        elif self.deferred:
+            s += "deferred: %d-op map chain\n" % len(self._chain[1])
+        return s
+
+
+def _upload(a, device):
+    """A numpy array as a tensor on ``device`` (a copy: the caller's array
+    never aliases the bolt array)."""
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def _download(t):
+    """A tensor as a host numpy array that aliases nothing."""
+    return t.detach().to("cpu", copy=True).numpy()

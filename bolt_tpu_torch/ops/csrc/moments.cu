@@ -1,0 +1,391 @@
+// One-pass moment kernels for Hopper (sm_90a), bound with ctypes through a
+// plain C interface (bolt_tpu_torch/ops/_build.py builds this file with nvcc,
+// bolt_tpu_torch/ops/kernels.py holds the wrappers and their plain PyTorch
+// versions).
+//
+// bolt_fused_welford replaces the Pallas kernel bolt_tpu/ops/kernels.py ::
+// fused_welford (_welford_kernel, welford_plan).  It computes, for a
+// contiguous (n, C) matrix, the column-wise (mean, m2, min, max) with
+// m2 = sum of squared deviations, in ONE read of device memory.
+//   Bound on an H100 SXM: the bytes, n*C*sizeof(T) read once (plus 4*C
+//   outputs) over 3.35 TB/s; the arithmetic (8 operations an element) is
+//   far below the 67 TFLOP/s f32 rate.
+//   Design: each thread owns VEC neighbouring columns and walks its rows
+//   with a Welford update in registers, so neighbouring threads read
+//   neighbouring addresses and every load is 16 bytes when the wrapper
+//   allows it; four rows are loaded before they are used, which keeps
+//   enough bytes in flight to cover the memory latency.  When C is too
+//   narrow to fill the card the rows split into R chunks over blockIdx.y;
+//   each chunk writes its partial moments to scratch and a second kernel
+//   Chan-combines the R partials in chunk order.  No atomics: the result is
+//   the same from run to run.
+//
+// bolt_fused_stats replaces bolt_tpu/ops/kernels.py :: fused_stats
+// (_stats_kernel).  It computes (sum, sum of squares, min, max) over every
+// element.
+//   Bound: N*sizeof(T) bytes read once over 3.35 TB/s.
+//   Design: a grid-stride pass with 16-byte loads writes one partial per
+//   block; a second one-block kernel folds the partials in a fixed order.
+//   The grid size is fixed by the wrapper, so the order is too.
+//
+// Both accumulate in f32 for f32/f16/bf16 and in f64 for f64, and write
+// their results in the input's type.  min/max propagate NaN like
+// jnp.min/jnp.max (fminf/fmaxf would drop it).
+
+#include <cuda_runtime.h>
+#include <cuda_fp16.h>
+#include <cuda_bf16.h>
+#include <math_constants.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // threads per block, a multiple of 32
+constexpr int kUnroll = 4;      // rows (or grid strides) loaded ahead
+
+template <typename T> struct Acc { using type = float; };
+template <> struct Acc<double> { using type = double; };
+
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_acc(typename Acc<T>::type v);
+template <> __device__ __forceinline__ float from_acc<float>(float v) { return v; }
+template <> __device__ __forceinline__ double from_acc<double>(double v) { return v; }
+template <> __device__ __forceinline__ __half from_acc<__half>(float v) { return __float2half_rn(v); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename A> __device__ __forceinline__ A pos_inf();
+template <> __device__ __forceinline__ float pos_inf<float>() { return CUDART_INF_F; }
+template <> __device__ __forceinline__ double pos_inf<double>() { return CUDART_INF; }
+
+// NaN-propagating min/max: once either side is NaN the result is NaN.
+template <typename A> __device__ __forceinline__ A nan_min(A a, A b) {
+  return (b < a || b != b) ? b : a;
+}
+template <typename A> __device__ __forceinline__ A nan_max(A a, A b) {
+  return (b > a || b != b) ? b : a;
+}
+
+__device__ __forceinline__ int64_t imin64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// VEC neighbouring elements from p: one 16-byte load when VEC * sizeof(T)
+// is 16 (the wrapper guarantees the alignment), else one element.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_pack(const T* __restrict__ p, T (&out)[VEC]) {
+  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "a pack is one element or 16 bytes");
+  if constexpr (VEC == 1) {
+    out[0] = p[0];
+  } else {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    memcpy(out, &raw, sizeof(raw));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fused_welford
+// ---------------------------------------------------------------------------
+
+// Partial moments of rows [blockIdx.y * rpc, min(n, (blockIdx.y + 1) * rpc))
+// for VEC columns per thread.  part is (R, 4, C) in the accumulator type.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+welford_partial_kernel(const T* __restrict__ x, typename Acc<T>::type* __restrict__ part,
+                       int64_t n, int64_t C, int64_t rpc) {
+  using A = typename Acc<T>::type;
+  const int64_t col = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (col >= C) return;
+  const int64_t r0 = (int64_t)blockIdx.y * rpc;
+  const int64_t r1 = imin64(n, r0 + rpc);
+
+  A mean[VEC], m2[VEC], mn[VEC], mx[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    mean[v] = A(0);
+    m2[v] = A(0);
+    mn[v] = pos_inf<A>();
+    mx[v] = -pos_inf<A>();
+  }
+  const T* p = x + r0 * C + col;
+  int64_t k = 0;   // rows folded in so far
+  int64_t r = r0;
+  for (; r + kUnroll <= r1; r += kUnroll) {
+    T buf[kUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) load_pack<T, VEC>(p + (int64_t)u * C, buf[u]);
+    p += (int64_t)kUnroll * C;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      ++k;
+      const A inv = A(1) / A(k);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const A xv = to_acc(buf[u][v]);
+        const A d = xv - mean[v];
+        mean[v] += d * inv;
+        m2[v] += d * (xv - mean[v]);
+        mn[v] = nan_min(mn[v], xv);
+        mx[v] = nan_max(mx[v], xv);
+      }
+    }
+  }
+  for (; r < r1; ++r) {   // ragged rows past the last full group of kUnroll
+    T b[VEC];
+    load_pack<T, VEC>(p, b);
+    p += C;
+    ++k;
+    const A inv = A(1) / A(k);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const A xv = to_acc(b[v]);
+      const A d = xv - mean[v];
+      mean[v] += d * inv;
+      m2[v] += d * (xv - mean[v]);
+      mn[v] = nan_min(mn[v], xv);
+      mx[v] = nan_max(mx[v], xv);
+    }
+  }
+  A* out = part + (int64_t)blockIdx.y * 4 * C + col;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    out[v] = mean[v];
+    out[C + v] = m2[v];
+    out[2 * C + v] = mn[v];
+    out[3 * C + v] = mx[v];
+  }
+}
+
+// Chan combine of the R partials of each column, in chunk order; chunk r
+// holds min(rpc, n - r * rpc) rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+welford_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __restrict__ mu_out,
+                       T* __restrict__ m2_out, T* __restrict__ mn_out, T* __restrict__ mx_out,
+                       int64_t n, int64_t C, int64_t rpc, int R) {
+  using A = typename Acc<T>::type;
+  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= C) return;
+  A na = A(0), mean = A(0), m2 = A(0);
+  A mn = pos_inf<A>(), mx = -pos_inf<A>();
+  for (int r = 0; r < R; ++r) {
+    const A* q = part + (int64_t)r * 4 * C + col;
+    const A nb = A(imin64(rpc, n - (int64_t)r * rpc));
+    const A tot = na + nb;
+    const A d = q[0] - mean;
+    mean += d * (nb / tot);
+    m2 += q[C] + d * d * (na * nb / tot);
+    na = tot;
+    mn = nan_min(mn, q[2 * C]);
+    mx = nan_max(mx, q[3 * C]);
+  }
+  mu_out[col] = from_acc<T>(mean);
+  m2_out[col] = from_acc<T>(m2);
+  mn_out[col] = from_acc<T>(mn);
+  mx_out[col] = from_acc<T>(mx);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_welford(const void* x, void* part, void* mu, void* m2, void* mn, void* mx,
+                           int64_t n, int64_t C, int64_t rpc, int R, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  const int64_t groups = (C + VEC - 1) / VEC;
+  dim3 grid((unsigned)((groups + kThreads - 1) / kThreads), (unsigned)R);
+  welford_partial_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<A*>(part), n, C, rpc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned cgrid = (unsigned)((C + kThreads - 1) / kThreads);
+  welford_combine_kernel<T><<<cgrid, kThreads, 0, stream>>>(
+      static_cast<const A*>(part), static_cast<T*>(mu), static_cast<T*>(m2),
+      static_cast<T*>(mn), static_cast<T*>(mx), n, C, rpc, R);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_welford(int vec, const void* x, void* part, void* mu, void* m2, void* mn,
+                             void* mx, int64_t n, int64_t C, int64_t rpc, int R,
+                             cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec) return launch_welford<T, kVec>(x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+  if (vec == 1) return launch_welford<T, 1>(x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// fused_stats
+// ---------------------------------------------------------------------------
+
+// Deterministic block reduction of (sum, sumsq, min, max) into thread 0.
+template <typename A>
+__device__ __forceinline__ void block_reduce4(A& s, A& sq, A& mn, A& mx) {
+  __shared__ A sh[4][kThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+    sq += __shfl_down_sync(0xffffffffu, sq, off);
+    mn = nan_min(mn, __shfl_down_sync(0xffffffffu, mn, off));
+    mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    sh[0][warp] = s;
+    sh[1][warp] = sq;
+    sh[2][warp] = mn;
+    sh[3][warp] = mx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    const bool live = lane < nwarps;
+    s = live ? sh[0][lane] : A(0);
+    sq = live ? sh[1][lane] : A(0);
+    mn = live ? sh[2][lane] : pos_inf<A>();
+    mx = live ? sh[3][lane] : -pos_inf<A>();
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, off);
+      sq += __shfl_down_sync(0xffffffffu, sq, off);
+      mn = nan_min(mn, __shfl_down_sync(0xffffffffu, mn, off));
+      mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
+    }
+  }
+}
+
+template <typename A>
+__device__ __forceinline__ void fold(A xv, A& s, A& sq, A& mn, A& mx) {
+  s += xv;
+  sq += xv * xv;
+  mn = nan_min(mn, xv);
+  mx = nan_max(mx, xv);
+}
+
+// One partial (sum, sumsq, min, max) per block; part is (gridDim.x, 4).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+stats_partial_kernel(const T* __restrict__ x, typename Acc<T>::type* __restrict__ part,
+                     int64_t N) {
+  using A = typename Acc<T>::type;
+  A s = A(0), sq = A(0), mn = pos_inf<A>(), mx = -pos_inf<A>();
+  const int64_t nvec = N / VEC;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t i = tid;
+  for (; i + (kUnroll - 1) * stride < nvec; i += kUnroll * stride) {
+    T buf[kUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) load_pack<T, VEC>(x + (i + u * stride) * VEC, buf[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) fold(to_acc(buf[u][v]), s, sq, mn, mx);
+  }
+  for (; i < nvec; i += stride) {
+    T b[VEC];
+    load_pack<T, VEC>(x + i * VEC, b);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) fold(to_acc(b[v]), s, sq, mn, mx);
+  }
+  // the N % VEC elements past the last whole pack
+  const int64_t tail = nvec * VEC + tid;
+  if (tail < N) fold(to_acc(x[tail]), s, sq, mn, mx);
+  block_reduce4(s, sq, mn, mx);
+  if (threadIdx.x == 0) {
+    A* out = part + (int64_t)blockIdx.x * 4;
+    out[0] = s;
+    out[1] = sq;
+    out[2] = mn;
+    out[3] = mx;
+  }
+}
+
+// One block folds the P partials: thread t takes t, t + kThreads, ... in
+// order, then the block reduction runs in its fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stats_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __restrict__ out,
+                     int P) {
+  using A = typename Acc<T>::type;
+  A s = A(0), sq = A(0), mn = pos_inf<A>(), mx = -pos_inf<A>();
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    const A* q = part + (int64_t)p * 4;
+    s += q[0];
+    sq += q[1];
+    mn = nan_min(mn, q[2]);
+    mx = nan_max(mx, q[3]);
+  }
+  block_reduce4(s, sq, mn, mx);
+  if (threadIdx.x == 0) {
+    out[0] = from_acc<T>(s);
+    out[1] = from_acc<T>(sq);
+    out[2] = from_acc<T>(mn);
+    out[3] = from_acc<T>(mx);
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_stats(const void* x, void* part, void* out, int64_t N, int blocks,
+                         cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  stats_partial_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<A*>(part), N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stats_combine_kernel<T><<<1, kThreads, 0, stream>>>(static_cast<const A*>(part),
+                                                      static_cast<T*>(out), blocks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_stats(int vec, const void* x, void* part, void* out, int64_t N,
+                           int blocks, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec) return launch_stats<T, kVec>(x, part, out, N, blocks, s);
+  if (vec == 1) return launch_stats<T, 1>(x, part, out, N, blocks, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype codes shared with bolt_tpu_torch/ops/kernels.py :: _DTYPE_CODE
+enum : int { kF32 = 0, kF64 = 1, kF16 = 2, kBF16 = 3 };
+
+extern "C" {
+
+// x: contiguous (n, C); part: (R, 4, C) scratch in the accumulator type;
+// mu/m2/mn/mx: C outputs in x's type.  Returns cudaGetLastError() after the
+// launches (0 on success).
+int bolt_fused_welford(const void* x, void* part, void* mu, void* m2, void* mn, void* mx,
+                       int64_t n, int64_t C, int64_t rpc, int R, int dtype, int vec,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return dispatch_welford<float>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+    case kF64: return dispatch_welford<double>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+    case kF16: return dispatch_welford<__half>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+    case kBF16:
+      return dispatch_welford<__nv_bfloat16>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// x: N contiguous elements; part: (blocks, 4) scratch in the accumulator
+// type; out: 4 elements (sum, sumsq, min, max) in x's type.
+int bolt_fused_stats(const void* x, void* part, void* out, int64_t N, int blocks, int dtype,
+                     int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return dispatch_stats<float>(vec, x, part, out, N, blocks, s);
+    case kF64: return dispatch_stats<double>(vec, x, part, out, N, blocks, s);
+    case kF16: return dispatch_stats<__half>(vec, x, part, out, N, blocks, s);
+    case kBF16: return dispatch_stats<__nv_bfloat16>(vec, x, part, out, N, blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"
