@@ -18,6 +18,7 @@ This package imports torch and numpy only: never jax, never ``bolt_tpu``.
 
 __version__ = "0.1.0"
 
+from bolt_tpu_torch._precision import precision
 from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
 from bolt_tpu_torch.factory import (array, concatenate, full, ones, rand,
                                     randn, zeros)
@@ -26,5 +27,6 @@ from bolt_tpu_torch.local.array import BoltArrayLocal
 from bolt_tpu_torch.utils import allclose
 
 __all__ = ["array", "ones", "zeros", "full", "rand", "randn",
-           "concatenate", "allclose", "BoltArray", "BoltArrayLocal",
-           "BoltArrayGPU", "HostFallbackWarning", "__version__"]
+           "concatenate", "allclose", "precision", "BoltArray",
+           "BoltArrayLocal", "BoltArrayGPU", "HostFallbackWarning",
+           "__version__"]

@@ -39,15 +39,11 @@ import torch
 from torch.func import vmap
 
 from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
+from bolt_tpu_torch.gpu import dtypes
+from bolt_tpu_torch.gpu.dtypes import torch_dtype
 from bolt_tpu_torch.utils import (argpack, check_value_shape, inshape,
                                   isreshapeable, istransposeable, prod,
                                   tupleize)
-
-
-@lru_cache(maxsize=None)
-def torch_dtype(dtype):
-    """The torch dtype holding numpy ``dtype`` (f64 stays f64)."""
-    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 
 @lru_cache(maxsize=None)
@@ -171,28 +167,20 @@ def _reduce_tree(data, func, n, vshape):
     return out
 
 
-def _stat_dtype(name, dtype, ndim, axes, ddof):
-    """The numpy (and jnp) output dtype of ``name`` over ``axes``, from a
-    probe on a one-element array — so ``mean`` of int32 is f64 and
-    ``sum`` of int32 is int64, as in the reference (``_masked_stat_expr``)."""
-    kw = {} if ddof is None else {"ddof": ddof}
-    with warnings.catch_warnings(), np.errstate(all="ignore"):
-        warnings.simplefilter("ignore", RuntimeWarning)
-        probe = getattr(np, name)(np.zeros((1,) * ndim, dtype), axis=axes,
-                                  **kw)
-    return torch_dtype(np.asarray(probe).dtype)
-
-
 def _reduce_stat(x, name, axes, keepdims, ddof, dtype):
-    """One stat terminal over ``axes`` of ``x`` with numpy's dtype rule."""
-    out_dt = _stat_dtype(name, dtype, x.ndim, axes, ddof)
+    """One stat terminal over ``axes`` of ``x`` with the reference's
+    (jnp's) dtype rule: ``mean`` of int32 is f32, ``sum`` of int32 int64."""
+    out_dt = dtypes.stat_dtype(name, torch_dtype(dtype))
     if not axes:
         # numpy reduces nothing over axis=(); torch reads dim=() as "all"
         x, axes = x.unsqueeze(0), (0,)
         keepdims = False
     dims = tuple(axes)
+    # torch has no uint64 sum or product: accumulate in int64, which wraps
+    # modulo 2**64 alike, and cast at the end
+    acc_dt = torch.int64 if out_dt == torch.uint64 else out_dt
     if name == "sum":
-        out = torch.sum(x, dim=dims, keepdim=keepdims, dtype=out_dt)
+        out = torch.sum(x, dim=dims, keepdim=keepdims, dtype=acc_dt)
     elif name == "mean":
         out = torch.mean(x.to(out_dt), dim=dims, keepdim=keepdims)
     elif name in ("var", "std"):
@@ -210,7 +198,7 @@ def _reduce_stat(x, name, axes, keepdims, ddof, dtype):
         # torch.prod takes one dim: fold the axes from the last one down
         out = x
         for d in sorted(dims, reverse=True):
-            out = torch.prod(out, dim=d, keepdim=keepdims, dtype=out_dt)
+            out = torch.prod(out, dim=d, keepdim=keepdims, dtype=acc_dt)
     elif name in ("all", "any"):
         out = getattr(torch, name)(x, dim=dims, keepdim=keepdims)
     else:
@@ -219,25 +207,20 @@ def _reduce_stat(x, name, axes, keepdims, ddof, dtype):
 
 
 # the elementwise operators that fuse into the map chain with a scalar
-# operand: (operator, numpy twin for the result dtype)
-_OPS = {"add": (operator.add, np.add), "sub": (operator.sub, np.subtract),
-        "mul": (operator.mul, np.multiply),
-        "truediv": (operator.truediv, np.true_divide)}
-
-
-def _result_dtype(nop, a, b, reverse):
-    """The torch dtype of numpy's ``a (op) b`` (or ``b (op) a``), probed
-    on zeros (numeric warnings of the probe silenced)."""
-    with np.errstate(all="ignore"):
-        out = nop(b, a) if reverse else nop(a, b)
-    return torch_dtype(np.asarray(out).dtype)
+# operand: (operator, its dtype rule)
+_OPS = {"add": (operator.add, dtypes.promote),
+        "sub": (operator.sub, dtypes.promote),
+        "mul": (operator.mul, dtypes.promote),
+        "truediv": (operator.truediv, dtypes.true_divide)}
 
 
 def _scalar_fn(name, other, reverse, dtype):
-    """Per-record ``v (op) other`` computed in numpy's result dtype, the
-    local oracle's (``int32 / 2`` is f64, ``f32 * 2.0`` stays f32)."""
-    op, nop = _OPS[name]
-    out_dt = _result_dtype(nop, np.zeros((), dtype), other, reverse)
+    """Per-record ``v (op) other`` computed in the reference's (jnp's)
+    result dtype: a Python scalar is weakly typed, a numpy scalar strongly
+    (``int32 / 2`` and ``int32 + np.float32(1.5)`` are f32, ``int32 * 2.5``
+    is f64, ``f32 * 2.0`` stays f32)."""
+    op, rule = _OPS[name]
+    out_dt = rule(torch_dtype(dtype), other)
     scalar = other.item() if isinstance(other, np.generic) else other
 
     def fn(v):
@@ -322,6 +305,17 @@ class BoltArrayGPU(BoltArray):
 
     def _wrap(self, data, split):
         return BoltArrayGPU(data, split, self._device)
+
+    def _clone(self):
+        """A new wrapper over the same device state (reference:
+        ``BoltArrayTPU._clone``): the identity filter returns it, so a
+        result never aliases its input wrapper."""
+        b = BoltArrayGPU(self._concrete, self._split, self._device)
+        b._chain = self._chain
+        b._shape = self._shape
+        b._dtype = self._dtype
+        b._donated = self._donated
+        return b
 
     def _guard_donated(self):
         if self._donated:
@@ -547,7 +541,7 @@ class BoltArrayGPU(BoltArray):
             odata = other.to(self._device)
         else:
             odata = _upload(np.asarray(other), self._device)
-        op, nop = _OPS[name]
+        op, rule = _OPS[name]
         # numpy broadcasting is symmetric: keys survive while they remain
         # the leading axes with unchanged lengths
         out_shape = np.broadcast_shapes(self.shape, tuple(odata.shape))
@@ -556,9 +550,7 @@ class BoltArrayGPU(BoltArray):
                 len(out_shape) != self.ndim
                 or out_shape[:split] != self.shape[:split]):
             split = 0
-        out_dt = _result_dtype(nop, np.zeros((), self.dtype),
-                               np.zeros((), numpy_dtype(odata.dtype)),
-                               reverse)
+        out_dt = rule(torch_dtype(self.dtype), odata.dtype)
         x, y = self._data.to(out_dt), odata.to(out_dt)
         return self._wrap(op(y, x) if reverse else op(x, y), split)
 

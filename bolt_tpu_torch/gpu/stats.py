@@ -9,8 +9,7 @@ CUDA ``fused_welford`` kernel when the reduced axes lead, and from the
 two-pass torch body otherwise.
 """
 
-import numpy as np
-
+from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.statcounter import StatCounter
 from bolt_tpu_torch.utils import inshape, prod, tupleize
 
@@ -27,16 +26,15 @@ def _moments(x, axes):
     axes view ``x`` as ``(prod(leading), *rest)`` for one kernel call —
     the same algebra as the reference's Chan combine of the remaining
     leading axes (``stats.py:51-62``), done by the kernel's own row
-    combine.  Other geometries take the two-pass body, in numpy's mean
-    dtype (f64 for integers)."""
+    combine.  Other geometries take the two-pass body, in the reference's
+    (jnp's) mean dtype: f32 for int32, f64 for int64."""
     if _kernel_gate(axes, x.ndim, x.dtype):
         from bolt_tpu_torch.ops.kernels import fused_welford
         lead = prod(tuple(x.shape[:len(axes)]))
         r = fused_welford(x.reshape((lead,) + tuple(x.shape[len(axes):])))
         if r is not None:
             return r
-    from bolt_tpu_torch.gpu.array import numpy_dtype, torch_dtype
-    xf = x.to(torch_dtype(np.mean(np.zeros(1, numpy_dtype(x.dtype))).dtype))
+    xf = x.to(dtypes.inexact(x.dtype))
     mu = xf.mean(dim=axes)
     m2 = ((xf - xf.mean(dim=axes, keepdim=True)) ** 2).sum(dim=axes)
     return mu, m2, x.amin(dim=axes), x.amax(dim=axes)

@@ -17,8 +17,11 @@
 //   enough bytes in flight to cover the memory latency.  When C is too
 //   narrow to fill the card the rows split into R chunks over blockIdx.y;
 //   each chunk writes its partial moments to scratch and a second kernel
-//   Chan-combines the R partials in chunk order.  No atomics: the result is
-//   the same from run to run.
+//   Chan-combines the R partials.  When C is narrower than a block, the
+//   block's threads also split the chunk's rows into row lanes, which fold
+//   into one state by a tree in shared memory; the combining kernel folds
+//   its partials the same way.  No atomics, and every fold has a fixed
+//   order: the result is the same from run to run.
 //
 // bolt_fused_stats replaces bolt_tpu/ops/kernels.py :: fused_stats
 // (_stats_kernel).  It computes (sum, sum of squares, min, max) over every
@@ -91,15 +94,92 @@ __device__ __forceinline__ void load_pack(const T* __restrict__ p, T (&out)[VEC]
 // fused_welford
 // ---------------------------------------------------------------------------
 
+// One Welford state: the count of values folded in, their mean, m2 (sum of
+// squared deviations), min and max.
+template <typename A>
+struct Moments {
+  A n, mean, m2, mn, mx;
+};
+
+template <typename A>
+__device__ __forceinline__ Moments<A> empty_moments() {
+  return {A(0), A(0), A(0), pos_inf<A>(), -pos_inf<A>()};
+}
+
+// Chan's combine a <- a (+) b.  An empty b leaves a's moments as they are;
+// an empty a takes b's.
+template <typename A>
+__device__ __forceinline__ void chan(Moments<A>& a, const Moments<A>& b) {
+  if (b.n > A(0)) {
+    const A tot = a.n + b.n;
+    const A d = b.mean - a.mean;
+    a.mean += d * (b.n / tot);
+    a.m2 += b.m2 + d * d * (a.n * b.n / tot);
+    a.n = tot;
+  }
+  a.mn = nan_min(a.mn, b.mn);
+  a.mx = nan_max(a.mx, b.mx);
+}
+
+// The block's threads form `lanes` row lanes of kThreads / lanes column
+// threads each (thread t: column thread t % (kThreads / lanes), lane
+// t / (kThreads / lanes)).  Folds every lane's VEC states into lane 0 by a
+// tree in a fixed order, so the result is the same from run to run.  At
+// each step the upper half of the remaining lanes hands its states to the
+// lower half through dynamic shared memory of combine_smem<A, VEC>(lanes)
+// bytes.
+template <typename A, int VEC>
+constexpr size_t combine_smem(int lanes) {
+  return lanes > 1 ? size_t(5) * VEC * (kThreads / 2) * sizeof(A) : 0;
+}
+
+template <typename A, int VEC>
+__device__ __forceinline__ void combine_lanes(Moments<A> (&m)[VEC], int lanes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  A* sh = reinterpret_cast<A*>(smem);
+  constexpr int kHalf = kThreads / 2;
+  const int t = threadIdx.x;
+  const int width = kThreads / lanes;
+  const int lane = t / width;
+  for (int s = lanes / 2; s > 0; s >>= 1) {
+    if (lane >= s && lane < 2 * s) {
+      const int i = t - s * width;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        A* q = sh + v * 5 * kHalf + i;
+        q[0] = m[v].n;
+        q[kHalf] = m[v].mean;
+        q[2 * kHalf] = m[v].m2;
+        q[3 * kHalf] = m[v].mn;
+        q[4 * kHalf] = m[v].mx;
+      }
+    }
+    __syncthreads();
+    if (lane < s) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const A* q = sh + v * 5 * kHalf + t;
+        const Moments<A> b = {q[0], q[kHalf], q[2 * kHalf], q[3 * kHalf], q[4 * kHalf]};
+        chan(m[v], b);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // Partial moments of rows [blockIdx.y * rpc, min(n, (blockIdx.y + 1) * rpc))
-// for VEC columns per thread.  part is (R, 4, C) in the accumulator type.
+// for VEC columns per column thread; lane l of the block walks rows
+// r0 + l, r0 + l + lanes, ..., so a warp reads whole neighbouring rows when
+// C is narrow.  part is (R, 4, C) in the accumulator type.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 welford_partial_kernel(const T* __restrict__ x, typename Acc<T>::type* __restrict__ part,
-                       int64_t n, int64_t C, int64_t rpc) {
+                       int64_t n, int64_t C, int64_t rpc, int lanes) {
   using A = typename Acc<T>::type;
-  const int64_t col = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
-  if (col >= C) return;
+  const int width = kThreads / lanes;
+  const int lane = threadIdx.x / width;
+  const int64_t col = ((int64_t)blockIdx.x * width + threadIdx.x % width) * VEC;
+  const bool active = col < C;   // idle threads still join combine_lanes
   const int64_t r0 = (int64_t)blockIdx.y * rpc;
   const int64_t r1 = imin64(n, r0 + rpc);
 
@@ -111,21 +191,40 @@ welford_partial_kernel(const T* __restrict__ x, typename Acc<T>::type* __restric
     mn[v] = pos_inf<A>();
     mx[v] = -pos_inf<A>();
   }
-  const T* p = x + r0 * C + col;
   int64_t k = 0;   // rows folded in so far
-  int64_t r = r0;
-  for (; r + kUnroll <= r1; r += kUnroll) {
-    T buf[kUnroll][VEC];
+  if (active) {
+    const int64_t step = (int64_t)lanes * C;
+    const T* p = x + (r0 + lane) * C + col;
+    int64_t r = r0 + lane;
+    for (; r + (int64_t)(kUnroll - 1) * lanes < r1; r += (int64_t)kUnroll * lanes) {
+      T buf[kUnroll][VEC];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) load_pack<T, VEC>(p + (int64_t)u * C, buf[u]);
-    p += (int64_t)kUnroll * C;
+      for (int u = 0; u < kUnroll; ++u) load_pack<T, VEC>(p + (int64_t)u * step, buf[u]);
+      p += (int64_t)kUnroll * step;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kUnroll; ++u) {
+        ++k;
+        const A inv = A(1) / A(k);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const A xv = to_acc(buf[u][v]);
+          const A d = xv - mean[v];
+          mean[v] += d * inv;
+          m2[v] += d * (xv - mean[v]);
+          mn[v] = nan_min(mn[v], xv);
+          mx[v] = nan_max(mx[v], xv);
+        }
+      }
+    }
+    for (; r < r1; r += lanes) {   // the lane's rows past its last group of kUnroll
+      T b[VEC];
+      load_pack<T, VEC>(p, b);
+      p += step;
       ++k;
       const A inv = A(1) / A(k);
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
-        const A xv = to_acc(buf[u][v]);
+        const A xv = to_acc(b[v]);
         const A d = xv - mean[v];
         mean[v] += d * inv;
         m2[v] += d * (xv - mean[v]);
@@ -134,85 +233,89 @@ welford_partial_kernel(const T* __restrict__ x, typename Acc<T>::type* __restric
       }
     }
   }
-  for (; r < r1; ++r) {   // ragged rows past the last full group of kUnroll
-    T b[VEC];
-    load_pack<T, VEC>(p, b);
-    p += C;
-    ++k;
-    const A inv = A(1) / A(k);
+  Moments<A> m[VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const A xv = to_acc(b[v]);
-      const A d = xv - mean[v];
-      mean[v] += d * inv;
-      m2[v] += d * (xv - mean[v]);
-      mn[v] = nan_min(mn[v], xv);
-      mx[v] = nan_max(mx[v], xv);
-    }
-  }
+  for (int v = 0; v < VEC; ++v) m[v] = {A(k), mean[v], m2[v], mn[v], mx[v]};
+  combine_lanes<A, VEC>(m, lanes);
+  if (!active || lane != 0) return;
   A* out = part + (int64_t)blockIdx.y * 4 * C + col;
 #pragma unroll
   for (int v = 0; v < VEC; ++v) {
-    out[v] = mean[v];
-    out[C + v] = m2[v];
-    out[2 * C + v] = mn[v];
-    out[3 * C + v] = mx[v];
+    out[v] = m[v].mean;
+    out[C + v] = m[v].m2;
+    out[2 * C + v] = m[v].mn;
+    out[3 * C + v] = m[v].mx;
   }
 }
 
-// Chan combine of the R partials of each column, in chunk order; chunk r
-// holds min(rpc, n - r * rpc) rows.
+// Chan combine of the R partials of each column (chunk r holds
+// min(rpc, n - r * rpc) rows): lane l folds chunks l, l + lanes, ... in
+// order, then the lanes fold into lane 0 by the fixed tree.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 welford_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __restrict__ mu_out,
                        T* __restrict__ m2_out, T* __restrict__ mn_out, T* __restrict__ mx_out,
-                       int64_t n, int64_t C, int64_t rpc, int R) {
+                       int64_t n, int64_t C, int64_t rpc, int R, int lanes) {
   using A = typename Acc<T>::type;
-  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= C) return;
-  A na = A(0), mean = A(0), m2 = A(0);
-  A mn = pos_inf<A>(), mx = -pos_inf<A>();
-  for (int r = 0; r < R; ++r) {
-    const A* q = part + (int64_t)r * 4 * C + col;
-    const A nb = A(imin64(rpc, n - (int64_t)r * rpc));
-    const A tot = na + nb;
-    const A d = q[0] - mean;
-    mean += d * (nb / tot);
-    m2 += q[C] + d * d * (na * nb / tot);
-    na = tot;
-    mn = nan_min(mn, q[2 * C]);
-    mx = nan_max(mx, q[3 * C]);
+  const int width = kThreads / lanes;
+  const int lane = threadIdx.x / width;
+  const int64_t col = (int64_t)blockIdx.x * width + threadIdx.x % width;
+  const bool active = col < C;
+  Moments<A> m[1] = {empty_moments<A>()};
+  if (active) {
+    for (int r = lane; r < R; r += lanes) {
+      const A* q = part + (int64_t)r * 4 * C + col;
+      const Moments<A> b = {A(imin64(rpc, n - (int64_t)r * rpc)), q[0], q[C], q[2 * C],
+                            q[3 * C]};
+      chan(m[0], b);
+    }
   }
-  mu_out[col] = from_acc<T>(mean);
-  m2_out[col] = from_acc<T>(m2);
-  mn_out[col] = from_acc<T>(mn);
-  mx_out[col] = from_acc<T>(mx);
+  combine_lanes<A, 1>(m, lanes);
+  if (!active || lane != 0) return;
+  mu_out[col] = from_acc<T>(m[0].mean);
+  m2_out[col] = from_acc<T>(m[0].m2);
+  mn_out[col] = from_acc<T>(m[0].mn);
+  mx_out[col] = from_acc<T>(m[0].mx);
+}
+
+// Row lanes of the combining kernel: enough that no lane folds more than a
+// few partials, while a warp still spans 8 columns.
+inline int combine_lanes_for(int R) {
+  int lanes = 1;
+  while (lanes < R && lanes < kThreads / 8) lanes <<= 1;
+  return lanes;
 }
 
 template <typename T, int VEC>
 cudaError_t launch_welford(const void* x, void* part, void* mu, void* m2, void* mn, void* mx,
-                           int64_t n, int64_t C, int64_t rpc, int R, cudaStream_t stream) {
+                           int64_t n, int64_t C, int64_t rpc, int R, int lanes,
+                           cudaStream_t stream) {
   using A = typename Acc<T>::type;
+  if (lanes < 1 || lanes > kThreads || kThreads % lanes != 0) return cudaErrorInvalidValue;
   const int64_t groups = (C + VEC - 1) / VEC;
-  dim3 grid((unsigned)((groups + kThreads - 1) / kThreads), (unsigned)R);
-  welford_partial_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<A*>(part), n, C, rpc);
+  const int64_t width = kThreads / lanes;
+  dim3 grid((unsigned)((groups + width - 1) / width), (unsigned)R);
+  welford_partial_kernel<T, VEC><<<grid, kThreads, combine_smem<A, VEC>(lanes), stream>>>(
+      static_cast<const T*>(x), static_cast<A*>(part), n, C, rpc, lanes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned cgrid = (unsigned)((C + kThreads - 1) / kThreads);
-  welford_combine_kernel<T><<<cgrid, kThreads, 0, stream>>>(
+  const int clanes = combine_lanes_for(R);
+  const int64_t cwidth = kThreads / clanes;
+  const unsigned cgrid = (unsigned)((C + cwidth - 1) / cwidth);
+  welford_combine_kernel<T><<<cgrid, kThreads, combine_smem<A, 1>(clanes), stream>>>(
       static_cast<const A*>(part), static_cast<T*>(mu), static_cast<T*>(m2),
-      static_cast<T*>(mn), static_cast<T*>(mx), n, C, rpc, R);
+      static_cast<T*>(mn), static_cast<T*>(mx), n, C, rpc, R, clanes);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_welford(int vec, const void* x, void* part, void* mu, void* m2, void* mn,
-                             void* mx, int64_t n, int64_t C, int64_t rpc, int R,
+                             void* mx, int64_t n, int64_t C, int64_t rpc, int R, int lanes,
                              cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
-  if (vec == kVec) return launch_welford<T, kVec>(x, part, mu, m2, mn, mx, n, C, rpc, R, s);
-  if (vec == 1) return launch_welford<T, 1>(x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+  if (vec == kVec)
+    return launch_welford<T, kVec>(x, part, mu, m2, mn, mx, n, C, rpc, R, lanes, s);
+  if (vec == 1) return launch_welford<T, 1>(x, part, mu, m2, mn, mx, n, C, rpc, R, lanes, s);
   return cudaErrorInvalidValue;
 }
 
@@ -361,15 +464,19 @@ extern "C" {
 // mu/m2/mn/mx: C outputs in x's type.  Returns cudaGetLastError() after the
 // launches (0 on success).
 int bolt_fused_welford(const void* x, void* part, void* mu, void* m2, void* mn, void* mx,
-                       int64_t n, int64_t C, int64_t rpc, int R, int dtype, int vec,
-                       void* stream) {
+                       int64_t n, int64_t C, int64_t rpc, int R, int lanes, int dtype,
+                       int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return dispatch_welford<float>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
-    case kF64: return dispatch_welford<double>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
-    case kF16: return dispatch_welford<__half>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+    case kF32:
+      return dispatch_welford<float>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, lanes, s);
+    case kF64:
+      return dispatch_welford<double>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, lanes, s);
+    case kF16:
+      return dispatch_welford<__half>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, lanes, s);
     case kBF16:
-      return dispatch_welford<__nv_bfloat16>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, s);
+      return dispatch_welford<__nv_bfloat16>(vec, x, part, mu, m2, mn, mx, n, C, rpc, R, lanes,
+                                             s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,25 +1,35 @@
-"""One-pass moment kernels: CUDA on the card, plain PyTorch on the CPU.
+"""Hand-written CUDA kernels on the card, plain PyTorch on the CPU.
 
 Each wrapper checks its tensor and then, for a tensor on a CUDA device,
-launches its hand-written kernel from ``csrc/moments.cu`` or raises; only a
-tensor that lies on the CPU takes the plain PyTorch version beside it.
-The plain versions are also the kernels' oracle on the card.  Each
-wrapper counts its launches in ``LAUNCHES``, so a run can show that its
-path went through the kernel.
+launches its hand-written kernel from ``csrc/`` or raises; only a tensor
+that lies on the CPU takes the plain PyTorch version beside it.  The plain
+versions are also the kernels' oracle on the card.  Each wrapper counts
+its launches in ``LAUNCHES``, so a run can show that its path went through
+the kernel.
 
 * :func:`fused_welford` replaces ``bolt_tpu/ops/kernels.py ::
   fused_welford`` — column-wise ``(mean, m2, min, max)`` over axis 0 in
-  one read of device memory (the body of ``stats()``).
+  one read of device memory (the body of ``stats()``; ``csrc/moments.cu``).
 * :func:`fused_stats` replaces ``bolt_tpu/ops/kernels.py :: fused_stats``
-  — ``(sum, sum_sq, min, max)`` over every element.
+  — ``(sum, sum_sq, min, max)`` over every element (``csrc/moments.cu``).
+* :func:`sepfilter1d` replaces ``bolt_tpu/ops/kernels.py :: sepfilter1d``
+  — a 'same'-size 1-d correlation along any axis with numpy-pad boundary
+  modes, in one read and one write (``csrc/window.cu``).
+* :func:`lane_band` replaces ``bolt_tpu/ops/kernels.py ::
+  lane_band_pallas`` — the same correlation along the last axis in
+  constant mode (``csrc/window.cu``; the last-axis kernel also serves
+  :func:`sepfilter1d` on the last axis, so it counts as ``lane_band``
+  whichever entry point launched it).
 
-The reference's TPU gates (128-lane minor dimension, the VMEM budgets)
-are not carried over: :func:`fused_welford` returns ``None`` only where
-the function does not apply (a non-floating dtype, fewer than two
-dimensions or fewer than two rows).
+The reference's TPU gates (128-lane minor dimension, the VMEM budgets,
+``_MINOR_MAX_TAPS``, the band's radius of 128) are not carried over: each
+wrapper returns ``None`` only where the function does not apply
+(:func:`fused_welford`: a non-floating dtype, fewer than two dimensions or
+fewer than two rows; the window kernels: a non-floating dtype).
 """
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -27,8 +37,9 @@ import torch
 from bolt_tpu_torch.utils import prod
 
 # launches of each kernel since the last reset (chip_smoke.py zeroes these
-# before it drives the main path and reads them after)
-LAUNCHES = {"fused_welford": 0, "fused_stats": 0}
+# before it drives a path and reads them after)
+LAUNCHES = {"fused_welford": 0, "fused_stats": 0, "sepfilter1d": 0,
+            "lane_band": 0}
 
 # dtype codes of the C entry points (moments.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
@@ -37,13 +48,22 @@ _THREADS = 256          # threads per block (moments.cu kThreads)
 _MIN_CHUNK_ROWS = 16    # fewest rows a welford row chunk holds
 _RESIDENT_THREADS = 2048   # threads one SM holds at once (Hopper)
 
+# C entry points of each source and their argument types
 _SIGNATURES = {
-    "bolt_fused_welford": [ctypes.c_void_p] * 6 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "bolt_fused_stats": [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
+    "moments.cu": {
+        "bolt_fused_welford": [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "bolt_fused_stats": [ctypes.c_void_p] * 3 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p],
+    },
+    "window.cu": {
+        "bolt_window_strided": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "bolt_window_lane": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    },
 }
 
 
@@ -52,10 +72,10 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _lib():
+def _lib(source="moments.cu"):
     from bolt_tpu_torch.ops import _build
-    lib = _build.load("moments.cu")
-    for name, argtypes in _SIGNATURES.items():
+    lib = _build.load(source)
+    for name, argtypes in _SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -105,15 +125,23 @@ def _fused_welford_plain(x):
 
 
 def welford_rows(n, columns, vec, sm_count):
-    """``(rows per chunk, chunks)`` for :func:`fused_welford` on ``n``
-    rows of ``columns`` columns: split the rows only as far as the
-    column threads alone leave the card's resident threads idle, and
-    never below ``_MIN_CHUNK_ROWS`` rows a chunk."""
+    """``(lanes, rows per chunk, chunks)`` for :func:`fused_welford` on
+    ``n`` rows of ``columns`` columns.  A block's ``_THREADS`` threads
+    cover ``_THREADS // lanes`` column threads (``vec`` columns each) and
+    ``lanes`` row lanes: as many lanes as the columns leave threads idle.
+    The rows then split into chunks only as far as the blocks alone leave
+    the card's resident threads idle, and never below ``_MIN_CHUNK_ROWS``
+    rows a lane."""
     col_threads = -(-columns // vec)
-    want = -(-sm_count * _RESIDENT_THREADS // col_threads)
-    chunks = max(1, min(want, n // _MIN_CHUNK_ROWS, 65535))
+    width = _THREADS
+    while width > 1 and width // 2 >= col_threads:
+        width //= 2
+    lanes = _THREADS // width
+    threads = -(-col_threads // width) * _THREADS
+    want = -(-sm_count * _RESIDENT_THREADS // threads)
+    chunks = max(1, min(want, n // (_MIN_CHUNK_ROWS * lanes), 65535))
     rpc = -(-n // chunks)
-    return rpc, -(-n // rpc)
+    return lanes, rpc, -(-n // rpc)
 
 
 def fused_welford(x):
@@ -133,7 +161,7 @@ def fused_welford(x):
     columns = prod(vshape)
     vec = _vec(x, columns)
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rpc, chunks = welford_rows(n, columns, vec, sm_count)
+    lanes, rpc, chunks = welford_rows(n, columns, vec, sm_count)
     part = torch.empty((chunks, 4, columns), dtype=_acc_dtype(x.dtype),
                        device=x.device)
     outs = [torch.empty(vshape, dtype=x.dtype, device=x.device)
@@ -143,7 +171,7 @@ def fused_welford(x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.bolt_fused_welford(
             x.data_ptr(), part.data_ptr(), *(o.data_ptr() for o in outs),
-            n, columns, rpc, chunks, _DTYPE_CODE[x.dtype], vec, stream)
+            n, columns, rpc, chunks, lanes, _DTYPE_CODE[x.dtype], vec, stream)
     _check(code, "fused_welford")
     LAUNCHES["fused_welford"] += 1
     return tuple(outs)
@@ -205,3 +233,185 @@ def fused_stats(x):
     _check(code, "fused_stats")
     LAUNCHES["fused_stats"] += 1
     return tuple(out[i] for i in range(4))
+
+
+# ---------------------------------------------------------------------------
+# window kernels: sepfilter1d (any axis) and lane_band (the last axis)
+# ---------------------------------------------------------------------------
+
+# boundary-mode codes of the C entry points (window.cu), numpy.pad names
+_MODE_CODE = {"constant": 0, "reflect": 1, "edge": 2, "symmetric": 3}
+
+
+@lru_cache(maxsize=256)
+def pad_index(n, left, right, mode):
+    """Source index of each position of an axis of length ``n`` padded by
+    ``left``/``right`` with numpy.pad boundary ``mode`` — the rule both
+    the kernels and their plain versions follow (``jnp.pad`` agrees with
+    it, pads wider than the axis included).  Position ``i`` in
+    ``[-left, n + right)`` reads:
+
+    * ``constant``: index ``n``, a zero slot the caller appends;
+    * ``edge``: ``clamp(i, 0, n - 1)``;
+    * ``reflect``: 0 if ``n == 1``, else ``j = |i| mod 2(n-1)`` folded
+      back past ``n - 1``;
+    * ``symmetric``: ``j = i mod 2n`` folded back past ``n - 1``.
+    """
+    i = np.arange(-left, n + right, dtype=np.int64)
+    inside = (i >= 0) & (i < n)
+    if mode == "constant":
+        idx = np.where(inside, i, n)
+    elif mode == "edge":
+        idx = np.clip(i, 0, n - 1)
+    elif mode == "reflect":
+        if n == 1:
+            idx = np.zeros_like(i)
+        else:
+            p = 2 * (n - 1)
+            j = np.abs(i) % p
+            idx = np.where(j < n, j, p - j)
+    elif mode == "symmetric":
+        p = 2 * n
+        j = np.mod(i, p)
+        idx = np.where(j < n, j, p - 1 - j)
+    else:
+        raise ValueError("mode must be one of %s, got %r"
+                         % (tuple(_MODE_CODE), mode))
+    idx.setflags(write=False)
+    return idx
+
+
+def halo_pad(x, ax, left, right, mode):
+    """Pad the tensor ``x`` along ``ax`` by ``left``/``right`` with
+    numpy.pad boundary ``mode``, through :func:`pad_index` and
+    ``index_select`` (``torch.nn.functional.pad`` has no ``symmetric``
+    mode and limits ``reflect``'s rank and width).  Runs under
+    ``torch.func.vmap``."""
+    n = x.shape[ax]
+    idx = torch.tensor(pad_index(n, left, right, mode), device=x.device)
+    if mode == "constant":
+        zero_shape = list(x.shape)
+        zero_shape[ax] = 1
+        x = torch.cat([x, x.new_zeros(zero_shape)], dim=ax)
+    return torch.index_select(x, ax, idx)
+
+
+def _filter1d(x, ax, taps, mode):
+    """Plain correlation of the tensor ``x`` with ``taps`` along ``ax``
+    ('same' size, boundary per ``mode``), the arithmetic of the
+    reference's ``overlap._filter1d``: ``acc = x[i-r] * t0``, then
+    ``acc = acc + x[i-r+k] * tk`` for ``k = 1 .. w-1``, every tap
+    multiplied (zero pads and zero taps too), in ``x``'s dtype."""
+    w = len(taps)
+    n = x.shape[ax]
+    xpad = halo_pad(x, ax, w // 2, w - 1 - w // 2, mode)
+    acc = None
+    for off, t in enumerate(taps):
+        piece = xpad.narrow(ax, off, n) * t
+        acc = piece if acc is None else acc + piece
+    return acc
+
+
+def _sepfilter1d_plain(x, taps, ax, mode="constant"):
+    """The plain PyTorch version of both window kernels: f32/f64 compute
+    in their own dtype, f16/bf16 load into f32, accumulate there and
+    round once on the store, as the kernels do."""
+    acc_dt = _acc_dtype(x.dtype)
+    return _filter1d(x.to(acc_dt), ax, taps, mode).to(x.dtype)
+
+
+def _lane_band_plain(x, taps):
+    return _sepfilter1d_plain(x, taps, x.ndim - 1, "constant")
+
+
+@lru_cache(maxsize=64)
+def _taps_on(taps, dtype, device):
+    """The taps as a tensor on the card, rounded to the compute dtype once
+    on the host (as torch rounds a Python scalar operand)."""
+    return torch.tensor(taps, dtype=dtype).to(device)
+
+
+def _window_args(x, taps, ax, mode):
+    """Validate the arguments common to both window entry points; returns
+    ``(taps tuple, axis)``."""
+    taps = tuple(float(t) for t in taps)
+    if not taps:
+        raise ValueError("a window needs at least one tap")
+    if mode not in _MODE_CODE:
+        raise ValueError("mode must be one of %s, got %r"
+                         % (tuple(_MODE_CODE), mode))
+    if x.ndim == 0:
+        raise ValueError("a window runs along an axis; got a 0-d tensor")
+    if not -x.ndim <= ax < x.ndim:
+        raise ValueError("axis %d out of range for a %d-d tensor"
+                         % (ax, x.ndim))
+    return taps, ax % x.ndim
+
+
+def _window(x, taps, ax, mode):
+    """Launch the window kernel for axis ``ax`` of the CUDA tensor ``x``:
+    the last-axis kernel when ``ax`` is the last axis (counted as
+    ``lane_band``), the strided-axis kernel otherwise (``sepfilter1d``)."""
+    if x.device.type != "cuda":
+        raise ValueError("the window kernels run on CUDA or CPU tensors, "
+                         "got device %s" % x.device)
+    last = ax == x.ndim - 1
+    name = "lane_band" if last else "sepfilter1d"
+    x = _on_card(x, name)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    n = x.shape[ax]
+    outer = prod(tuple(x.shape[:ax]))
+    inner = prod(tuple(x.shape[ax + 1:]))
+    t = _taps_on(taps, _acc_dtype(x.dtype), x.device)
+    lib = _lib("window.cu")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        # 16-byte staging loads when the filtered rows keep the alignment
+        vec = _vec(x, n if last else inner)
+        if last:
+            code = lib.bolt_window_lane(
+                x.data_ptr(), y.data_ptr(), t.data_ptr(), outer, n,
+                len(taps), _MODE_CODE[mode], _DTYPE_CODE[x.dtype], vec,
+                stream)
+        else:
+            code = lib.bolt_window_strided(
+                x.data_ptr(), y.data_ptr(), t.data_ptr(), outer, n, inner,
+                len(taps), _MODE_CODE[mode], _DTYPE_CODE[x.dtype], vec,
+                stream)
+    _check(code, name)
+    LAUNCHES[name] += 1
+    return y
+
+
+def sepfilter1d(x, taps, ax, mode="constant", precision=None):
+    """'same'-size correlation of ``x`` with the 1-d ``taps`` along axis
+    ``ax``, boundary per numpy-pad ``mode`` (constant/reflect/edge/
+    symmetric), in one read and one write of device memory.  Any rank,
+    axis, width (a radius wider than the axis too) and mode; ``None``
+    only for a non-floating dtype.  ``precision`` is resolved through
+    ``bolt_tpu_torch.precision``: every mode computes the exact f32/f64
+    sum (f16/bf16 accumulate in f32), inside each mode's envelope."""
+    from bolt_tpu_torch._precision import resolve
+    resolve(precision)
+    taps, ax = _window_args(x, taps, ax, mode)
+    if not x.is_floating_point():
+        return None
+    if x.device.type == "cpu":
+        return _sepfilter1d_plain(x, taps, ax, mode)
+    return _window(x, taps, ax, mode)
+
+
+def lane_band(x, taps, precision=None):
+    """The correlation along the LAST axis in constant mode (the reference's
+    banded-matmul ``lane_band_pallas``), on the last-axis window kernel:
+    any length and any radius.  ``None`` for a non-floating dtype."""
+    from bolt_tpu_torch._precision import resolve
+    resolve(precision)
+    taps, ax = _window_args(x, taps, -1, "constant")
+    if not x.is_floating_point():
+        return None
+    if x.device.type == "cpu":
+        return _lane_band_plain(x, taps)
+    return _window(x, taps, ax, "constant")

@@ -20,15 +20,28 @@ result):
    built on the card with ``randn``: ``map(v + 1).sum()``,
    ``reduce(add)``, ``stats()``, the ``ops.fused_stats`` export and
    ``swap``, against f64 references computed on the card;
-4. each kernel against its plain PyTorch version on the card, at both
-   main-path shapes and at odd shapes (ragged rows and columns, f64,
-   bf16, f16, a NaN column), then timed beside its plain version, one
-   PyTorch library call for the same function and its bound.
+4. the imaging path at the full width of ``fam_halo_gaussian``
+   (``scripts/perf_regress.py``), ``(64, 2048, 4096)`` f32 (2.15 GB) built
+   on the card with ``randn`` (seed 6, split 1): ``ops.gaussian(sigma=2,
+   axis=(0, 1))`` bit for bit against the window kernels' plain versions
+   and on four records against ``scipy.ndimage.correlate1d`` in f64;
+   ``ops.smooth`` (reflect) and ``ops.convolve`` (symmetric) on the same
+   records against scipy; ``ops.median_filter`` of four frames against
+   ``scipy.ndimage.median_filter`` exactly; then ``swap`` to pixel time
+   series, ``zscore(detrend(...))`` on 1024 seeded pixels against numpy f64
+   and ``stats()`` against numpy on the downloaded series;
+5. each kernel against its plain PyTorch version on the card, at the
+   main-path shapes (``fused_welford`` also at the ``(8388608, 64)``
+   pixel series that the imaging path's ``stats()`` hands it) and at odd
+   shapes (ragged rows and columns, f64,
+   bf16, f16, a NaN column; every boundary mode of the window kernels),
+   then timed beside its plain version, one PyTorch library call for the
+   same function and its bound.
 
-The launch counters are zeroed just before phase 2 and read just after
-phase 3: the main path must have launched every kernel.  The last two
-lines are a ``{"kernels": [...]}`` JSON object and
-``{"ok": true, "device": {...}}``.  A fuller report goes to
+The launch counters are zeroed just before each path (phases 2–3, and
+phase 4) and read just after it: each path must have launched every
+kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
+object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -49,13 +62,26 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12,
             "float16": 67e12}
 # operations per element: welford = 2 sub + 2 fma (2 each) + min + max;
-# stats = add + fma (2) + min + max
+# stats = add + fma (2) + min + max; a window of w taps = w products and
+# w - 1 sums
 OPS_PER_ELEMENT = {"fused_welford": 8, "fused_stats": 5}
 REPLACES = {"fused_welford": "bolt_tpu/ops/kernels.py:188",
-            "fused_stats": "bolt_tpu/ops/kernels.py:141"}
-SOURCE = "bolt_tpu_torch/ops/csrc/moments.cu"
+            "fused_stats": "bolt_tpu/ops/kernels.py:141",
+            "sepfilter1d": "bolt_tpu/ops/kernels.py:534",
+            "lane_band": "bolt_tpu/ops/kernels.py:395"}
+SOURCE = {"fused_welford": "bolt_tpu_torch/ops/csrc/moments.cu",
+          "fused_stats": "bolt_tpu_torch/ops/csrc/moments.cu",
+          "sepfilter1d": "bolt_tpu_torch/ops/csrc/window.cu",
+          "lane_band": "bolt_tpu_torch/ops/csrc/window.cu"}
 CONFIG1 = (200, 200, 64, 64)
 NORTH_STAR = (3200, 200, 64, 64)
+# fam_halo_gaussian (scripts/perf_regress.py): gaussian(sigma=2.0,
+# axis=(0, 1), size="64") over a (64, 2048, 4096) f32 stack, seed 6
+IMAGING = (64, 2048, 4096)
+WINDOW_MODES = ("constant", "reflect", "edge", "symmetric")
+# numpy.pad mode -> scipy.ndimage's name for it
+SCIPY_MODE = {"constant": "constant", "reflect": "mirror", "edge": "nearest",
+              "symmetric": "reflect"}
 
 
 def check(cond, what):
@@ -130,6 +156,202 @@ def sum_close(got, ref, n, what):
     check(bool((err <= tol).all()), "%s: max abs err %.3g"
           % (what, float(err.max())))
     return float(err.max())
+
+
+def gaussian_taps(sigma, truncate=4.0):
+    """``ops.gaussian``'s taps (scipy.ndimage's construction)."""
+    import numpy as np
+    radius = int(truncate * sigma + 0.5)
+    grid = np.arange(-radius, radius + 1, dtype=np.float64)
+    taps = np.exp(-0.5 * (grid / sigma) ** 2)
+    return [float(t) for t in taps / taps.sum()]
+
+
+def scipy_records(x, recs, taps_per_axis, mode):
+    """``scipy.ndimage.correlate1d`` over the value axes of records
+    ``recs`` of the card tensor ``x``, in f64 on the host."""
+    import numpy as np
+    from scipy import ndimage
+    out = []
+    for k in recs:
+        r = x[k].double().cpu().numpy()
+        for ax, taps in taps_per_axis:
+            r = ndimage.correlate1d(r, np.asarray(taps), axis=ax,
+                                    mode=SCIPY_MODE[mode])
+        out.append(r)
+    return np.stack(out)
+
+
+def imaging_phase(bolt, ops, K, torch, np, dev, report):
+    """Phase 4, the imaging path at full width; returns its launches, the
+    input tensor (for the kernel timings), the gaussian's taps and the
+    pixel series ``z`` as the ``(pixels, 64)`` input its ``stats()`` gave
+    ``fused_welford``."""
+    from scipy import ndimage, signal
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    b = bolt.randn(IMAGING, mode="gpu", dtype=np.float32, seed=6)
+    x = b.totorch()
+    torch.cuda.synchronize()
+    recs = [int(k) for k in np.random.RandomState(6).choice(
+        IMAGING[0], 4, replace=False)]
+    taps = gaussian_taps(2.0)
+    check(len(taps) == 17, "gaussian sigma 2 has 17 taps")
+
+    steps = {}
+
+    def step(name, fn):
+        """Run one step of the path and keep its wall time, synchronised
+        (the breakdown of PERF.md section 5)."""
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t
+        return out
+
+    conv_taps = [0.05, -0.1, 0.2, 0.6, 0.15, 0.06, 0.04]
+    K.reset_launches()
+    g = step("gaussian", lambda: ops.gaussian(b, sigma=2.0, axis=(0, 1),
+                                              size="64"))
+    sm = step("smooth", lambda: ops.smooth(b, 5, mode="reflect"))
+    cv = step("convolve", lambda: ops.convolve(b, conv_taps,
+                                               mode="symmetric"))
+    med = step("median_filter", lambda: ops.median_filter(b[:4], 3,
+                                                          axis=(0, 1)))
+    s = step("swap", lambda: g.swap((0,), (0, 1)))
+    z = step("detrend_zscore", lambda: ops.zscore(ops.detrend(s, order=1),
+                                                  epsilon=1e-9))
+    st = step("stats", z.stats)       # runs the deferred detrend + zscore
+    launches = dict(K.LAUNCHES)
+    wall = sum(steps.values())
+    log("imaging path launches: %s" % json.dumps(launches))
+    for name in ("sepfilter1d", "lane_band", "fused_welford"):
+        check(launches[name] >= 1, "imaging path never launched %s" % name)
+
+    # gaussian against the plain versions applied per axis, bit for bit
+    gt = g.totorch()
+    check(g.shape == IMAGING and g.split == 1 and gt.dtype == torch.float32,
+          "imaging gaussian shape/dtype")
+    want = K._sepfilter1d_plain(K._sepfilter1d_plain(x, taps, 1, "constant"),
+                                taps, 2, "constant")
+    check(torch.equal(gt, want), "imaging gaussian differs from its plain "
+          "versions (max abs diff %.3g)" % float((gt - want).abs().max()))
+    del want
+    errs = {}
+    for label, got, tpa, mode in (
+            ("gaussian", gt, [(0, taps), (1, taps)], "constant"),
+            ("smooth", sm.totorch(), [(0, [0.2] * 5), (1, [0.2] * 5)],
+             "reflect"),
+            ("convolve", cv.totorch(), [(0, conv_taps), (1, conv_taps)],
+             "symmetric")):
+        ref = scipy_records(x, recs, tpa, mode)
+        mine = got[recs].double().cpu().numpy()
+        np.testing.assert_allclose(mine, ref, rtol=1e-5, atol=1e-6,
+                                   err_msg="imaging %s vs scipy" % label)
+        errs[label] = float(np.abs(mine - ref).max())
+    del sm, cv
+    x4 = x[:4].cpu().numpy()
+    med_ref = np.stack([ndimage.median_filter(r, size=3, mode="reflect")
+                        for r in x4])
+    check(med.shape == (4,) + IMAGING[1:]
+          and np.array_equal(med.toarray(), med_ref),
+          "imaging median_filter vs scipy")
+    del med, med_ref, x4
+
+    # pixel time series: swap, detrend + zscore, stats
+    check(s.shape == (IMAGING[1], IMAGING[2], IMAGING[0]) and s.split == 2,
+          "imaging swap shape/split")
+    zt = z.totorch()
+    rs = np.random.RandomState(6)
+    ii = rs.randint(0, IMAGING[1], 1024)
+    jj = rs.randint(0, IMAGING[2], 1024)
+    series = s.totorch()[ii, jj].double().cpu().numpy()
+    d = signal.detrend(series, axis=1, type="linear")
+    zref = (d - d.mean(axis=1, keepdims=True)) / (d.std(axis=1,
+                                                          keepdims=True)
+                                                   + 1e-9)
+    zmine = zt[ii, jj].double().cpu().numpy()
+    np.testing.assert_allclose(zmine, zref, rtol=1e-4, atol=1e-5,
+                               err_msg="imaging zscore(detrend) vs numpy")
+    errs["zscore_detrend"] = float(np.abs(zmine - zref).max())
+    # stats() against numpy f64 on the downloaded series, two passes in
+    # row chunks; mean and variance within a few standard deviations of
+    # the f32 rounding of n terms (4 sqrt(n) 2^-24 of the mean magnitude)
+    zh = zt.cpu().numpy().reshape(-1, IMAGING[0])
+    n = zh.shape[0]
+    tot, mn, mx, absm = 0.0, None, None, 0.0
+    for i in range(0, n, 1 << 20):
+        c = zh[i:i + (1 << 20)].astype(np.float64)
+        tot = tot + c.sum(axis=0)
+        absm = absm + np.abs(c).sum(axis=0)
+        mn = c.min(axis=0) if mn is None else np.minimum(mn, c.min(axis=0))
+        mx = c.max(axis=0) if mx is None else np.maximum(mx, c.max(axis=0))
+    mean = tot / n
+    m2, sq = 0.0, 0.0
+    for i in range(0, n, 1 << 20):
+        c = zh[i:i + (1 << 20)].astype(np.float64)
+        m2 = m2 + ((c - mean) ** 2).sum(axis=0)
+        sq = sq + (c * c).sum(axis=0)
+    bound = 4 * math.sqrt(n) * 2.0 ** -24
+    check(st.count() == n, "imaging stats count")
+    check(bool((np.abs(st.mean() - mean) <= bound * absm / n + 1e-7).all()),
+          "imaging stats mean: max abs err %.3g"
+          % float(np.abs(st.mean() - mean).max()))
+    check(bool((np.abs(st.variance() - m2 / n) <= bound * sq / n + 1e-7)
+               .all()), "imaging stats variance: max abs err %.3g"
+          % float(np.abs(st.variance() - m2 / n).max()))
+    check(np.array_equal(st.min(), mn.astype(np.float32))
+          and np.array_equal(st.max(), mx.astype(np.float32)),
+          "imaging stats min/max")
+    errs["stats_mean"] = float(np.abs(st.mean() - mean).max())
+    errs["stats_var"] = float(np.abs(st.variance() - m2 / n).max())
+    zv = zt.reshape(n, IMAGING[0])
+    del zh, zt, z, s, g, gt, st
+    torch.cuda.synchronize()
+    report["imaging"] = {"path_s": wall, "steps_s": steps, "errors": errs,
+                         "launches": launches,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report["phases"]["imaging_s"] = time.perf_counter() - t0
+    log("imaging phase ok in %.1f s (path %.3f s, peak %.1f GB): %s"
+        % (report["phases"]["imaging_s"], wall,
+           report["imaging"]["peak_gb"], json.dumps(errs)))
+    log("imaging path steps (s, synchronised): %s" % json.dumps(steps))
+    return launches, b, taps, zv
+
+
+def window_cases(K, torch, dev, x, taps):
+    """Both window kernels against their plain versions: at full width in
+    every mode (f32, bit for bit), and in f64 (bit for bit) and bf16
+    (1.6e-2) at a smaller size; returns the largest difference of each."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    small = torch.randn((8, 512, 1000), generator=gen, device=dev)
+    cases = [("imaging_f32", x), ("8x512x1000_f64", small.double()),
+             ("8x512x1000_bf16", small.to(torch.bfloat16))]
+    err = {"sepfilter1d": 0.0, "lane_band": 0.0}
+    rows = []
+    for label, xt in cases:
+        for ax, name in ((1, "sepfilter1d"), (2, "lane_band")):
+            for mode in WINDOW_MODES:
+                got = K.sepfilter1d(xt, taps, ax, mode=mode)
+                want = K._sepfilter1d_plain(xt, taps, ax, mode)
+                torch.cuda.synchronize()
+                d = float((got.double() - want.double()).abs().max())
+                if xt.dtype in (torch.float32, torch.float64):
+                    check(torch.equal(got, want), "%s %s %s: not bit for bit "
+                          "(max abs diff %.3g)" % (name, label, mode, d))
+                else:
+                    check(d <= 1.6e-2 * (1 + float(want.abs().max())),
+                          "%s %s %s: max abs diff %.3g" % (name, label,
+                                                           mode, d))
+                err[name] = max(err[name], d)
+                rows.append({"kernel": name, "case": label, "mode": mode,
+                             "max_abs_err": d})
+                del got, want
+            log("%s %-16s every mode ok" % (name, label))
+    lb = K.lane_band(x, taps)
+    check(torch.equal(lb, K._lane_band_plain(x, taps)), "lane_band entry")
+    del lb, small, cases
+    return err, rows
 
 
 def main():
@@ -299,10 +521,15 @@ def main():
         % (report["phases"]["north_star_s"], report["north_star_peak_gb"],
            err_sum, err_red, err_mu, err_var))
     log("main-path launches: %s" % json.dumps(launches))
-    for name in K.LAUNCHES:
+    for name in ("fused_welford", "fused_stats"):
         check(launches[name] > 0, "main path never launched %s" % name)
 
-    # ---- phase 4: kernels against their plain versions --------------------
+    # ---- phase 4: the imaging path at full width -------------------------
+    img_launches, bimg, taps, zimg = imaging_phase(bolt, ops, K, torch, np,
+                                                   dev, report)
+    ximg = bimg.totorch()
+
+    # ---- phase 5: kernels against their plain versions --------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(11)
     cases = [("north_star", xv), ("config1", xv[:200])]
@@ -317,6 +544,11 @@ def main():
     nan = torch.randn((64, 256), generator=gen, device=dev)
     nan[:, 3] = float("nan")
     cases.append(("64x256_nan_column", nan))
+    # the imaging path's input to fused_welford: z.stats() reduces the
+    # (2048, 4096) pixel axes of z, so the kernel sees (8388608, 64), whose
+    # 64 columns take row lanes, row chunks and the combining kernel
+    cases.append(("imaging_z", zimg))
+    case_kernels = {"imaging_z": ("fused_welford",)}
     tol = {torch.float64: 1e-10, torch.float32: 1e-4}
     kern = {"fused_welford": (K.fused_welford, K._fused_welford_plain),
             "fused_stats": (K.fused_stats, K._fused_stats_plain)}
@@ -324,6 +556,8 @@ def main():
     report["cases"] = []
     for label, xt in cases:
         for name, (fn, plain) in kern.items():
+            if name not in case_kernels.get(label, kern):
+                continue
             got, want_ = fn(xt), plain(xt)
             torch.cuda.synchronize()
             err = 0.0
@@ -356,10 +590,22 @@ def main():
         "fused_stats": lambda a: (a.sum(), (a * a).sum(),
                                   torch.aminmax(a)),
     }
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes, rpc, chunks = K.welford_rows(zimg.shape[0], zimg.shape[1], 4,
+                                        sm_count)
+    log("fused_welford imaging_z plan: %d row chunks of %d rows, %d row "
+        "lanes a block, then the combining kernel" % (chunks, rpc, lanes))
+    report["imaging_welford_plan"] = {"lanes": lanes, "rows_per_chunk": rpc,
+                                      "chunks": chunks}
     timings = {}
-    for label, xt, reps in (("north_star", xv, 5), ("config1", xv[:200], 20)):
+    path_of = {"north_star": launches, "config1": launches,
+               "imaging_z": img_launches}
+    for label, xt, reps in (("north_star", xv, 5), ("config1", xv[:200], 20),
+                            ("imaging_z", zimg, 10)):
         n_el = xt.numel()
         for name, (fn, plain) in kern.items():
+            if name not in case_kernels.get(label, kern):
+                continue
             out_bytes = (4 * xt[0].numel() if name == "fused_welford" else 4) \
                 * xt.element_size()
             t_bytes = (n_el * xt.element_size() + out_bytes) / HBM_BYTES_PER_S
@@ -375,18 +621,61 @@ def main():
                 "bound_ms %.4f (%s) launches %d" % (
                     name, label, row["ms"], row["plain_ms"],
                     row["library_ms"], row["bound_ms"], row["bound_by"],
-                    launches[name]))
+                    path_of[label][name]))
+    del b, x, xv, cases, zimg
+
+    # the window kernels: every mode against the plain versions, then
+    # timed at the imaging path's full width
+    win_err, report["window_cases"] = window_cases(K, torch, dev, ximg, taps)
+    max_err.update(win_err)
+    wt = torch.tensor(taps, device=dev)
+    n_img = ximg.shape[0]
+    win_library = {
+        "sepfilter1d": lambda a: torch.nn.functional.conv2d(
+            a.view(n_img, 1, *a.shape[1:]), wt.view(1, 1, -1, 1),
+            padding=(len(taps) // 2, 0)),
+        "lane_band": lambda a: torch.nn.functional.conv1d(
+            a.view(-1, 1, a.shape[-1]), wt.view(1, 1, -1),
+            padding=len(taps) // 2),
+    }
+    for name, ax in (("sepfilter1d", 1), ("lane_band", 2)):
+        lib_out = win_library[name](ximg).view(ximg.shape)
+        check(bool(torch.allclose(lib_out, K.sepfilter1d(ximg, taps, ax),
+                                  rtol=1e-4, atol=1e-5)),
+              "%s library yardstick computes another function" % name)
+        del lib_out
+        n_el = ximg.numel()
+        t_bytes = 2 * n_el * ximg.element_size() / HBM_BYTES_PER_S
+        t_ops = (2 * len(taps) - 1) * n_el / PEAK_OPS["float32"]
+        row = {"ms": timed_ms(lambda: K.sepfilter1d(ximg, taps, ax), 10),
+               "plain_ms": timed_ms(lambda: K._sepfilter1d_plain(
+                   ximg, taps, ax, "constant"), 2),
+               "library_ms": timed_ms(lambda: win_library[name](ximg), 5),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        timings[(name, "imaging")] = row
+        log("%s %-10s kernel_ms %.4f plain_ms %.4f library_ms %.4f "
+            "bound_ms %.4f (%s) launches %d" % (
+                name, "imaging", row["ms"], row["plain_ms"],
+                row["library_ms"], row["bound_ms"], row["bound_by"],
+                img_launches[name]))
+    del bimg, ximg, wt
     report["timings"] = {"%s@%s" % k: v for k, v in timings.items()}
     report["phases"]["kernels_s"] = time.perf_counter() - t0
     report["total_s"] = time.perf_counter() - t_start
-    del b, x, xv, cases
 
+    # each kernel's launches are those of the path that runs it: the moment
+    # kernels' from phases 2-3, the window kernels' from phase 4
     kernels = []
-    for name in kern:
-        row = timings[(name, "north_star")]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
-                        "launches": launches[name],
+    for name, path_launches, label in (
+            ("fused_welford", launches, "north_star"),
+            ("fused_stats", launches, "north_star"),
+            ("sepfilter1d", img_launches, "imaging"),
+            ("lane_band", img_launches, "imaging")):
+        row = timings[(name, label)]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE[name], "replaces": REPLACES[name],
+                        "launches": path_launches[name],
                         "max_abs_err": max_err[name], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

@@ -134,23 +134,28 @@ def test_deferred_chain_with_operators_matches_reference(mesh):
           (1 / (ref.array(x, mesh) + 10)).toarray())
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int8, np.int16, np.uint8,
+                                   np.bool_])
 @pytest.mark.parametrize("op", ["add", "sub", "mul", "truediv"])
 @pytest.mark.parametrize("other", [2, 2.5, np.float32(1.5)])
-def test_scalar_operator_dtypes_match_reference(mesh, op, other):
-    # result dtypes follow numpy (the local oracle); jnp's promotion keeps
-    # int32 with a float operand in f32, where the values agree to f32
-    # precision (ROADMAP C)
-    x = np.arange(1, 8 * 3 + 1, dtype=np.int32).reshape(8, 3)
+def test_scalar_operator_dtypes_match_reference(mesh, op, other, dtype):
+    # result dtypes follow the reference's jnp promotion (a Python scalar
+    # is weak, a numpy scalar strong): int32 / 2 and int32 + np.float32
+    # are f32, int32 * 2.5 is f64; the values agree with numpy's
+    x = np.arange(1, 8 * 3 + 1).reshape(8, 3)
+    x = x % 2 == 0 if dtype == np.bool_ else x.astype(dtype)
     f = getattr(__import__("operator"), op)
-    t = f(ref.array(x, mesh), other)
-    g = f(bolt.array(x, CPU), other)
-    want = f(x, other)
-    _same(g.toarray(), want)
-    if g.dtype == t.dtype:
-        _same(g.toarray(), t.toarray())
-    else:
-        assert (g.dtype, t.dtype) == (np.float64, np.float32)
+    for fn in (lambda a: f(a, other), lambda a: f(other, a)):
+        t = fn(ref.array(x, mesh))
+        g = fn(bolt.array(x, CPU))
+        assert g.dtype == t.dtype
         np.testing.assert_allclose(g.toarray(), t.toarray(), rtol=1e-6)
+        with np.errstate(all="ignore"):
+            want = fn(x)
+        if np.issubdtype(g.dtype, np.floating):
+            np.testing.assert_allclose(g.toarray(), want, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(g.toarray(), want)
 
 
 def test_array_operands_match_reference(mesh):
@@ -535,3 +540,31 @@ def test_baseline_config5_chunk_svd_pipeline(mesh):
                                rtol=1e-10)
     np.testing.assert_allclose(b.unchunk().mean().toarray(),
                                a.unchunk().mean().toarray(), rtol=1e-10)
+
+
+_KINDS = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
+          "uint32", "uint64", "float16", "bfloat16", "float32", "float64"]
+
+
+@pytest.mark.parametrize("kind", _KINDS)
+def test_promotion_table_matches_jnp(kind):
+    # the port's table of jnp's rule (gpu/dtypes.py) against jnp itself,
+    # under the x64 setting the reference's tests run with
+    import jax.numpy as jnp
+    from bolt_tpu_torch.gpu import dtypes
+
+    def tdt(k):
+        return getattr(torch, {"bool": "bool"}.get(k, k))
+
+    a = jnp.zeros(2, dtype=kind)
+    others = [2, 2.5, True, np.float32(1.5), np.int32(2), np.int64(3),
+              np.uint8(1), np.float64(1.5)] + [jnp.zeros(2, dtype=k)
+                                               for k in _KINDS]
+    for o in others:
+        oper = tdt(str(o.dtype)) if isinstance(o, jnp.ndarray) else o
+        assert dtypes.promote(tdt(kind), oper) == tdt(str((a + o).dtype))
+        assert dtypes.true_divide(tdt(kind), oper) == \
+            tdt(str((a / o).dtype)), o
+    for name in ("mean", "var", "std", "sum", "prod", "min", "max"):
+        want = getattr(jnp, name)(a).dtype
+        assert dtypes.stat_dtype(name, tdt(kind)) == tdt(str(want)), name

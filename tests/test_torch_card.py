@@ -1,0 +1,122 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here is ``gpu``-marked and skips without a CUDA device.
+
+This file imports torch and the port only (no jax, no reference package),
+so it runs on a machine with a card and without jax; the repo's
+``tests/conftest.py`` imports jax, so skip it there::
+
+    python -m pytest --noconftest -m gpu tests/test_torch_card.py -q
+
+Tolerances: the window kernels equal their plain versions bit for bit in
+f32 and f64 (the same products and sums in the same order) and within
+``1.6e-2`` in f16/bf16 (both accumulate in f32 and round once); the moment
+kernels sum in another order (f64 ``1e-10``, f32 ``1e-4``, f16/bf16
+``1.6e-2``).
+"""
+
+import pytest
+import torch
+
+from bolt_tpu_torch.ops import kernels as K
+
+_MODES = ["constant", "edge", "reflect", "symmetric"]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((64, 256), torch.float32), ((3, 5, 7), torch.float32),
+    ((1000, 333), torch.float32), ((257, 64, 64), torch.float64),
+    ((128, 4096), torch.bfloat16), ((200, 1000), torch.float16),
+    # narrow columns: row lanes in each block and many row chunks
+    ((50000, 64), torch.float32), ((100000, 3), torch.float64),
+    ((4097, 2), torch.float32), ((70000, 24), torch.float16)])
+def test_kernels_match_plain_on_card(shape, dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x.reshape(shape[0], -1)[:, 1] = float("nan")
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}.get(dtype, 1.6e-2)
+    before = dict(K.LAUNCHES)
+    for got, want in ((K.fused_welford(x), K._fused_welford_plain(x)),
+                      (K.fused_stats(x), K._fused_stats_plain(x))):
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_.double(), w_.double(), rtol=tol,
+                                       atol=tol, equal_nan=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_welford"] == before["fused_welford"] + 1
+    assert K.LAUNCHES["fused_stats"] == before["fused_stats"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ax,w,dtype", [
+    ((8, 300, 520), 1, 17, torch.float32),     # strided, ragged tiles
+    ((8, 300, 520), 2, 17, torch.float32),     # last axis
+    ((5, 70, 33), 0, 9, torch.float64),
+    ((3, 2100), 1, 255, torch.float64),        # wide last-axis window
+    ((4, 3, 7), 1, 41, torch.float32),         # radius past the axis
+    ((2, 6000, 3), 1, 801, torch.float32),     # past the staged tile
+    ((64, 256), 1, 13, torch.bfloat16),
+    ((64, 256), 0, 13, torch.float16)])
+def test_window_kernels_match_plain_on_card(shape, ax, w, dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    taps = (torch.rand(w, generator=torch.Generator().manual_seed(w))
+            - 0.3).tolist()
+    name = "lane_band" if ax == len(shape) - 1 else "sepfilter1d"
+    for mode in _MODES:
+        before = K.LAUNCHES[name]
+        got = K.sepfilter1d(x, taps, ax, mode=mode)
+        want = K._sepfilter1d_plain(x, taps, ax, mode)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before + 1
+        if dtype in (torch.float32, torch.float64):
+            assert torch.equal(got, want), mode      # bit for bit
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=1.6e-2, atol=1.6e-2)
+    if ax == len(shape) - 1:
+        assert torch.equal(K.lane_band(x, taps),
+                           K._lane_band_plain(x, taps))
+
+
+@pytest.mark.gpu
+def test_kernels_take_non_contiguous_on_card():
+    dev = _cuda()
+    x = torch.randn((64, 96), device=dev).t()     # a transposed view
+    for got, want in ((K.fused_welford(x), K._fused_welford_plain(x)),
+                      (K.fused_stats(x), K._fused_stats_plain(x))):
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+    taps = [0.25, 0.5, 0.25]
+    assert torch.equal(K.sepfilter1d(x, taps, 0, mode="reflect"),
+                       K._sepfilter1d_plain(x, taps, 0, "reflect"))
+    assert torch.equal(K.lane_band(x, taps), K._lane_band_plain(x, taps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_window_kernels_take_misaligned_data_on_card(dtype):
+    # a tensor that starts one element past a 16-byte boundary stages with
+    # element loads; an aligned one with 16-byte loads: both bit for bit
+    dev = _cuda()
+    base = torch.randn(1 + 6 * 40 * 128, device=dev).to(dtype)
+    taps = [0.1, -0.2, 0.4, 0.3, 0.05]
+    for x in (base[1:].view(6, 40, 128), base[:-1].view(6, 40, 128)):
+        assert x.is_contiguous()
+        for ax in (1, 2):
+            for mode in _MODES:
+                got = K.sepfilter1d(x, taps, ax, mode=mode)
+                want = K._sepfilter1d_plain(x, taps, ax, mode)
+                if dtype == torch.bfloat16:
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               rtol=1.6e-2, atol=1.6e-2)
+                else:
+                    assert torch.equal(got, want), (ax, mode)

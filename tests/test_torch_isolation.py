@@ -18,7 +18,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "bolt_tpu_torch")
 MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.gpu.chunk", "bolt_tpu_torch.gpu.stats",
-           "bolt_tpu_torch.convert", "bolt_tpu_torch.statcounter"]
+           "bolt_tpu_torch.convert", "bolt_tpu_torch.statcounter",
+           "bolt_tpu_torch.ops.overlap", "bolt_tpu_torch.ops.series",
+           "bolt_tpu_torch._precision", "bolt_tpu_torch.precision",
+           "bolt_tpu_torch.gpu.dtypes"]
 
 
 def _sources():
@@ -36,7 +39,16 @@ def test_imports_with_jax_blocked():
             + "import numpy as np, torch\n"
             + "b = bolt_tpu_torch.ones((4, 3), context=torch.device('cpu'))\n"
             + "assert float(b.map(lambda v: v + 1).sum().toarray().sum())"
-              " == 24.0\n")
+              " == 24.0\n"
+            + "from bolt_tpu_torch.ops import (gaussian, smooth, convolve, "
+              "median_filter, map_overlap, sepfilter1d, lane_band, detrend, "
+              "zscore)\n"
+            + "s = zscore(detrend(gaussian(bolt_tpu_torch.randn((4, 8, 6), "
+              "context=torch.device('cpu')), 1.0, axis=(0, 1))), "
+              "epsilon=1e-9).stats()\n"
+            + "assert s.mean().shape == (8, 6)\n"
+            + "assert not any(m == 'bolt_tpu' or m.startswith('bolt_tpu.')"
+              " for m in sys.modules), 'reference package imported'\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -12,8 +12,8 @@ generator and go through both.  Tolerances:
 * bf16: results are bf16, so two bf16 steps (``rtol=atol=1.6e-2``);
 * min/max and integer sums: exact.
 
-The ``gpu``-marked tests hold the CUDA kernels against the plain versions
-on the card and skip where there is none.
+The CUDA kernels are held against their plain versions on the card by
+``test_torch_card.py``.
 """
 
 import os
@@ -154,64 +154,211 @@ def test_wrappers_refuse_other_devices():
         K.fused_stats(x)
 
 
-@pytest.mark.parametrize("n,columns,vec,chunks", [
-    (3200, 819200, 4, 2),       # north-star stats(): two row chunks
-    (64, 256, 4, 4),            # narrow: rows split down to 16-row chunks
-    (20, 256, 4, 1),            # too few rows to split
-    (3, 35, 1, 1),
+# the ids name the first cases as the plan without row lanes did
+@pytest.mark.parametrize("n,columns,vec,lanes,chunks", [
+    # north-star stats(): wide, so one lane and two row chunks
+    pytest.param(3200, 819200, 4, 1, 2, id="3200-819200-4-2"),
+    # narrow: 64 column threads leave 4 lanes of 16 rows in one chunk
+    pytest.param(64, 256, 4, 4, 1, id="64-256-4-4"),
+    pytest.param(20, 256, 4, 4, 1, id="20-256-4-1"),    # too few rows
+    pytest.param(3, 35, 1, 4, 1, id="3-35-1-1"),
+    # the imaging path's stats(): 16 column threads, 16 lanes, and the
+    # rows split until the blocks fill 132 SMs
+    pytest.param(8388608, 64, 4, 16, 1056, id="imaging-pixels"),
 ])
-def test_welford_row_plan(n, columns, vec, chunks):
-    rpc, got = K.welford_rows(n, columns, vec, sm_count=132)
-    assert got == chunks
+def test_welford_row_plan(n, columns, vec, lanes, chunks):
+    got_lanes, rpc, got = K.welford_rows(n, columns, vec, sm_count=132)
+    assert (got_lanes, got) == (lanes, chunks)
     assert (got - 1) * rpc < n <= got * rpc
+    assert rpc >= min(n, K._MIN_CHUNK_ROWS * lanes)
 
 
 def test_launch_counters_reset():
     K.LAUNCHES["fused_welford"] = 5
+    K.LAUNCHES["lane_band"] = 2
     K.reset_launches()
-    assert K.LAUNCHES == {"fused_welford": 0, "fused_stats": 0}
+    assert K.LAUNCHES == {"fused_welford": 0, "fused_stats": 0,
+                          "sepfilter1d": 0, "lane_band": 0}
 
 
 # ---------------------------------------------------------------------------
-# on the card: kernel against its plain version
+# window kernels: sepfilter1d and lane_band
 # ---------------------------------------------------------------------------
 
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    return torch.device("cuda")
+_MODES = ["constant", "edge", "reflect", "symmetric"]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype", [
-    ((64, 256), torch.float32), ((3, 5, 7), torch.float32),
-    ((1000, 333), torch.float32), ((257, 64, 64), torch.float64),
-    ((128, 4096), torch.bfloat16), ((200, 1000), torch.float16)])
-def test_kernels_match_plain_on_card(shape, dtype):
-    dev = _cuda()
-    g = torch.Generator(device=dev).manual_seed(7)
-    x = torch.randn(shape, generator=g, device=dev).to(dtype)
-    x.reshape(shape[0], -1)[:, 1] = float("nan")
-    tol = {torch.float64: 1e-10, torch.float32: 1e-4}.get(dtype, 1.6e-2)
+def _np_window(a, ax, taps, mode):
+    """numpy oracle: pad the whole axis with ``np.pad``, sum the shifted
+    slices in tap order (test_ops_kernels.py's oracle)."""
+    a = np.asarray(a)
+    pad = [(0, 0)] * a.ndim
+    pad[ax] = (len(taps) // 2,) * 2
+    ap = np.pad(a, pad, mode=mode)
+    out = None
+    for off, t in enumerate(taps):
+        sl = [slice(None)] * a.ndim
+        sl[ax] = slice(off, off + a.shape[ax])
+        piece = ap[tuple(sl)] * t
+        out = piece if out is None else out + piece
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+@pytest.mark.parametrize("mode", _MODES)
+def test_pad_index_matches_np_pad(n, mode):
+    x = np.arange(10, 10 + n)
+    for left in range(21):
+        for right in (0, left, 20 - left):
+            got = np.concatenate([x, [0]])[K.pad_index(n, left, right, mode)]
+            np.testing.assert_array_equal(
+                got, np.pad(x, (left, right), mode=mode), (left, right))
+
+
+@pytest.mark.parametrize("mode", _MODES)
+def test_halo_pad_matches_np_pad_on_every_axis(mode):
+    x = np.random.RandomState(8).randn(3, 4, 5)
+    for ax in range(3):
+        for left, right in ((2, 2), (7, 7), (0, 9)):
+            pad = [(0, 0)] * 3
+            pad[ax] = (left, right)
+            got = K.halo_pad(torch.from_numpy(x), ax, left, right, mode)
+            np.testing.assert_array_equal(got.numpy(),
+                                          np.pad(x, pad, mode=mode))
+
+
+@pytest.mark.parametrize("ax", [0, 1, 2])
+@pytest.mark.parametrize("mode", _MODES)
+def test_sepfilter1d_matches_reference(ax, mode):
+    # test_ops_kernels.py::test_sepfilter1d_parity_all_axes inputs; the
+    # reference's Pallas kernel in interpret mode
+    from bolt_tpu.ops.kernels import sepfilter1d as ref_sep
+    x = np.random.RandomState(60).randn(6, 16, 256).astype(np.float32)
+    taps = [0.25, 0.5, 0.25]
+    want = ref_sep(jnp.asarray(x), taps, ax, mode=mode, interpret=True)
+    assert want is not None
+    got = K.sepfilter1d(torch.from_numpy(x), taps, ax, mode=mode)
+    assert got.dtype == torch.float32 and tuple(got.shape) == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), _np_window(x, ax, taps, mode),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,w", [((4, 6, 256), 17), ((3, 128), 11),
+                                     ((2, 256), 255)])
+def test_lane_band_matches_reference(shape, w):
+    # test_ops_kernels.py::test_lane_band_paths inputs, in f64
+    from bolt_tpu.ops.kernels import lane_band_pallas
+    rs = np.random.RandomState(63)
+    x = rs.randn(*shape)
+    taps = tuple((rs.rand(w) / w).tolist())
+    want = lane_band_pallas(jnp.asarray(x), taps, interpret=True)
+    got = K.lane_band(torch.from_numpy(x), taps)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
+                               atol=1e-12)
+    via_sep = K.sepfilter1d(torch.from_numpy(x), taps, len(shape) - 1)
+    np.testing.assert_array_equal(via_sep.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("shape,ax,w,mode", [
+    ((4, 100, 250), 2, 15, "reflect"),     # the reference declines all three
+    ((4, 100, 250), 2, 15, "constant"),
+    ((4, 100, 256), 2, 17, "symmetric"),
+    ((3, 5), 1, 31, "reflect"),            # radius wider than the axis
+    ((7, 3, 2), 1, 21, "symmetric"),
+    ((9, 1), 0, 5, "edge"),
+    ((5,), 0, 4, "constant"),              # an even window
+], ids=["wide_unaligned_reflect", "wide_unaligned_constant",
+        "wide_symmetric", "radius_past_axis", "strided_past_axis",
+        "one_column", "even_taps"])
+def test_sepfilter1d_where_reference_declines(shape, ax, w, mode):
+    # the port's kernels take every geometry; held to numpy (and to the
+    # reference's shifted-slice body where its kernel declines)
+    from bolt_tpu.ops.overlap import _filter1d as ref_filter1d
+    rs = np.random.RandomState(64)
+    x = rs.randn(*shape)
+    taps = (rs.rand(w) - 0.3).tolist()
+    got = K.sepfilter1d(torch.from_numpy(x), taps, ax, mode=mode).numpy()
+    np.testing.assert_allclose(got, ref_filter1d(x, ax, taps, mode, np),
+                               rtol=1e-12, atol=1e-12)
+    if w % 2:
+        np.testing.assert_allclose(got, _np_window(x, ax, taps, mode),
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_window_half_types_accumulate_in_f32(dtype):
+    x = np.random.RandomState(65).randn(4, 16, 128).astype(np.float32)
+    taps = [0.1, 0.2, 0.4, 0.2, 0.1]
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = _np_window(xt.float().numpy().astype(np.float64), 1, taps,
+                      "reflect")
+    got = K.sepfilter1d(xt, taps, 1, mode="reflect")
+    assert got.dtype == xt.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1.6e-2,
+                               atol=1.6e-2)
+    # accumulated in f32 and rounded once, exactly as the plain f32 body
+    f32 = K.sepfilter1d(xt.float(), taps, 1, mode="reflect")
+    assert torch.equal(got, f32.to(xt.dtype))
+
+
+def test_window_signed_zeros_and_nan_positions():
+    # every tap is multiplied, zero pads and zero taps too: -0.0 survives
+    # and inf * 0 is NaN, as in the reference's body
+    from bolt_tpu.ops.overlap import _filter1d as ref_filter1d
+    cases = [(np.array([[-0.0, -0.0, np.inf, 1.0, np.nan, 2.0, -0.0]]),
+              [0.0, -1.0, 0.5]),
+             (np.full((2, 5), -0.0), [0.5, 1.0, 0.5])]
+    for x, taps in cases:
+        for mode in _MODES:
+            got = K.sepfilter1d(torch.from_numpy(x), taps, 1,
+                                mode=mode).numpy()
+            want = np.asarray(ref_filter1d(jnp.asarray(x), 1, taps, mode,
+                                           jnp))
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            fin = ~np.isnan(want)
+            np.testing.assert_array_equal(got[fin], want[fin])
+            np.testing.assert_array_equal(np.signbit(got[fin]),
+                                          np.signbit(want[fin]), mode)
+    edge = K.sepfilter1d(torch.from_numpy(cases[1][0]), cases[1][1], 1,
+                         mode="edge").numpy()
+    assert np.signbit(edge).all()        # -0 * t + -0 * t ... stays -0
+
+
+def test_window_none_contract_and_refusals():
     before = dict(K.LAUNCHES)
-    for got, want in ((K.fused_welford(x), K._fused_welford_plain(x)),
-                      (K.fused_stats(x), K._fused_stats_plain(x))):
-        for g_, w_ in zip(got, want):
-            torch.testing.assert_close(g_.double(), w_.double(), rtol=tol,
-                                       atol=tol, equal_nan=True)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["fused_welford"] == before["fused_welford"] + 1
-    assert K.LAUNCHES["fused_stats"] == before["fused_stats"] + 1
+    xi = torch.ones((8, 256), dtype=torch.int32)
+    assert K.sepfilter1d(xi, [1.0], 0) is None
+    assert K.lane_band(xi, [0.5] * 11) is None
+    x = torch.ones((8, 16))
+    with pytest.raises(ValueError):
+        K.sepfilter1d(x, [1.0], 0, mode="wrap")
+    with pytest.raises(ValueError):
+        K.sepfilter1d(x, [], 0)
+    with pytest.raises(ValueError):
+        K.sepfilter1d(x, [1.0], 2)
+    with pytest.raises(ValueError):
+        K.sepfilter1d(torch.ones(()), [1.0], 0)
+    with pytest.raises(ValueError, match="precision mode"):
+        K.sepfilter1d(x, [1.0], 0, precision="bf16")
+    meta = torch.empty((8, 16), device="meta")
+    with pytest.raises(ValueError):
+        K.sepfilter1d(meta, [0.5, 0.5, 0.5], 0)
+    with pytest.raises(ValueError):
+        K.lane_band(meta, [0.5, 0.5, 0.5])
+    assert K.LAUNCHES == before             # nothing was launched
 
 
-@pytest.mark.gpu
-def test_kernels_take_non_contiguous_on_card():
-    dev = _cuda()
-    x = torch.randn((64, 96), device=dev).t()     # a transposed view
-    for got, want in ((K.fused_welford(x), K._fused_welford_plain(x)),
-                      (K.fused_stats(x), K._fused_stats_plain(x))):
-        for g_, w_ in zip(got, want):
-            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+def test_window_precision_modes_agree():
+    x = torch.from_numpy(np.random.RandomState(66).randn(3, 8, 128)
+                         .astype(np.float32))
+    taps = [0.2] * 5
+    want = K.sepfilter1d(x, taps, 2)
+    for mode in ("default", "high", "highest"):
+        assert torch.equal(K.sepfilter1d(x, taps, 2, precision=mode), want)
+        assert torch.equal(K.lane_band(x, taps, precision=mode), want)
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +390,8 @@ def test_build_writes_a_library_per_source_once(tmp_path, monkeypatch):
               'echo run >> %s' % (tmp_path / "runs"))
     monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path, script))
     built = _build.build()
-    assert sorted(built) == _build.sources() == ["moments.cu"]
+    assert sorted(built) == _build.sources() == ["moments.cu", "window.cu"]
     assert all(os.path.exists(p) and "-" in os.path.basename(p)
                for p in built.values())
     assert _build.build() == built          # present: not rebuilt
-    assert (tmp_path / "runs").read_text().count("run") == 1
+    assert (tmp_path / "runs").read_text().count("run") == 2

@@ -78,19 +78,29 @@ def test_stats_routes_through_fused_welford(monkeypatch):
     assert calls == [(24, 5)]
 
 
-def test_stats_integers_and_one_row(mesh):
-    # integer moments: the port takes numpy's mean dtype (f64, like the
-    # local oracle) where jnp's promotion gives the reference f32 — the
-    # values agree to f32 precision (ROADMAP C)
-    x = (_x() * 10).astype(np.int32)
+_INT_KINDS = [np.int32, np.int8, np.int16, np.uint8, np.bool_]
+
+
+def _ints(dtype, scale):
+    x = _x() * scale
+    return x > 0 if dtype == np.bool_ else x.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", _INT_KINDS)
+def test_stats_integers_and_one_row(mesh, dtype):
+    # integer moments take the reference's (jnp's) mean dtype: f32 for
+    # int32 and narrower; the local mode keeps numpy's f64
+    x = _ints(dtype, 10)
     for data, axes in ((x, (0,)), (x[:1], (0,))):
         t = ref.array(data, mesh).stats(axis=axes)
         g = bolt.array(data, CPU).stats(axis=axes)
         lo = bolt.array(data).stats(axis=axes)
         for name in ("mean", "variance"):
             _close(getattr(g, name)(), getattr(t, name)(), rtol=1e-6,
-                   dtype=np.float64)
-            _close(getattr(g, name)(), getattr(lo, name)())
+                   atol=1e-6)
+            np.testing.assert_allclose(getattr(g, name)(),
+                                       getattr(lo, name)(), rtol=1e-6,
+                                       atol=1e-6)
         for name in ("min", "max", "count"):
             _close(getattr(g, name)(), getattr(t, name)())
 
@@ -140,19 +150,19 @@ def test_ddof_matches_reference(mesh, name, ddof):
     _close(g.toarray(), getattr(x, name)(axis=0, ddof=ddof))
 
 
-@pytest.mark.parametrize("name", ["sum", "mean", "var", "min", "prod",
-                                  "ptp"])
-def test_integer_dtype_rule_matches_reference(mesh, name):
-    # output dtypes follow numpy's rule (sum of int32 is int64, mean is
-    # f64); jnp agrees except that it takes int32 means and variances to
-    # f32, where the values agree to f32 precision (ROADMAP C)
-    x = (_x() * 3).astype(np.int32)
+@pytest.mark.parametrize("name,dtype", [
+    (name, dtype) for dtype in _INT_KINDS
+    for name in ("sum", "mean", "var", "min", "prod", "ptp")
+    if not (dtype == np.bool_ and name == "ptp")])   # numpy/jnp refuse
+def test_integer_dtype_rule_matches_reference(mesh, name, dtype):
+    # output dtypes follow the reference's jnp rule: sum of int32 is
+    # int64, mean and var of int32 (and narrower) are f32
+    x = _ints(dtype, 3)
     t = getattr(ref.array(x, mesh), name)()
     g = getattr(bolt.array(x, CPU), name)()
-    want_dtype = getattr(np, name)(x, axis=0).dtype
-    assert g.dtype == want_dtype
+    assert g.dtype == t.dtype
     if name in ("mean", "var"):
-        _close(g.toarray(), t.toarray(), rtol=1e-6, dtype=want_dtype)
+        _close(g.toarray(), t.toarray(), rtol=1e-6, atol=1e-6)
     else:
         _close(g.toarray(), t.toarray())
 
