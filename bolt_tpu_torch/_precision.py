@@ -17,8 +17,9 @@ mode's envelope; ``ops/series.py`` pins its ``torch.matmul`` to
 ``"highest"`` (TF32 off), as the reference does.
 
 The reference also accepts ``jax.lax.Precision`` members; the port has no
-jax, so it takes the mode strings only.  ``accumulate``/``codec_bound``
-wait for their users (the fused multi-stat and the codec).
+jax, so it takes the mode strings only.  ``accumulate`` waits for its user
+(the fused multi-stat); ``codec_bound`` is the codec's parity contract
+(``gpu/codec.py``).
 """
 
 import threading
@@ -65,3 +66,23 @@ def resolve(explicit=None, pinned="highest"):
         return st[-1]
     return pinned
 
+
+# codec name -> (lossless, documented relative-error envelope vs the
+# uncompressed streamed result; None = bit-identical).  int8's envelope
+# is ABSOLUTE per element (~half the per-slab quantisation step,
+# value-range dependent): tests derive the concrete bound from each
+# slab's range.
+CODEC_BOUNDS = {
+    "bf16": (False, 1e-2),
+    "f16": (False, 1e-3),
+    "int8": (False, "~scale/2 absolute (scale = slab range / 255)"),
+    "delta-f32": (True, None),
+}
+
+
+def codec_bound(name):
+    """``(lossless, envelope)`` for a registered codec name, the
+    documented parity contract of ``gpu/codec.py``.  Unknown names return
+    ``(False, None)`` (a custom registered codec documents its own
+    bound)."""
+    return CODEC_BOUNDS.get(name, (False, None))

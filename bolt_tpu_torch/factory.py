@@ -87,6 +87,35 @@ def rand(shape, context=None, axis=(0,), mode=None, dtype=None, seed=0):
                              seed=seed)
 
 
+def fromcallback(fn, shape, context=None, axis=(0,), mode=None, dtype=None,
+                 chunks=None, codec=None):
+    """Build a bolt array by calling ``fn(index_slices) -> block`` per
+    record range (reference: ``bolt_tpu/factory.py :: fromcallback``).
+    ``mode='gpu'`` with an explicit ``dtype``: a LAZY stream whose
+    reduction terminals run slab by slab through the out-of-core executor
+    (``bolt_tpu_torch.stream``; ``chunks`` records a slab, ``codec=`` an
+    ingest codec); other consumers materialise it.  Local mode: one call
+    for the whole array."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.fromcallback(fn, shape, axis=axis, dtype=dtype)
+    return ConstructGPU.fromcallback(fn, shape, context=context, axis=axis,
+                                     dtype=dtype, chunks=chunks, codec=codec)
+
+
+def fromiter(blocks, shape, context=None, axis=(0,), mode=None, dtype=None,
+             codec=None):
+    """Build a bolt array from an ITERABLE of consecutive record blocks
+    (key-axes-first layout along the first key axis); ``dtype`` is
+    required.  ``mode='gpu'``: a lazy stream like :func:`fromcallback`'s;
+    local mode assembles the blocks on the host."""
+    cls = _lookup(context=context, mode=mode)
+    if cls is ConstructLocal:
+        return ConstructLocal.fromiter(blocks, shape, axis=axis, dtype=dtype)
+    return ConstructGPU.fromiter(blocks, shape, context=context, axis=axis,
+                                 dtype=dtype, codec=codec)
+
+
 def concatenate(arrays, axis=0, context=None, mode=None):
     """Concatenate bolt arrays; dispatches on the first array's backend
     unless overridden."""

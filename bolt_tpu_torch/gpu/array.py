@@ -23,6 +23,12 @@ terminal (``reduce``, ``sum``/``mean``/..., ``swap``, ``first``) applies
 the chain without keeping the mapped tensor; any other consumer
 materialises it once and keeps it.
 
+**Streams.**  ``fromcallback``/``fromiter`` with an explicit dtype give
+an array over a lazy out-of-core source (``bolt_tpu_torch/stream.py``):
+``map`` records a per-record stage, ``sum``/``mean``/``var``/``std``/
+``min``/``max``/``reduce`` over the key axes stream it slab by slab, and
+any other consumer materialises it (the whole array must then fit).
+
 **Host fallback.**  A callable ``torch.func.vmap`` cannot batch
 (data-dependent control flow, ``.item()``, numpy coercion of a tensor)
 reroutes through the local NumPy oracle with a
@@ -247,6 +253,9 @@ class BoltArrayGPU(BoltArray):
         self._device = device
         # deferred map chain: (base tensor, (func, ...)) or None
         self._chain = None
+        # lazy out-of-core source (bolt_tpu_torch.stream.StreamSource) or
+        # None: nothing is on the device until a consumer needs it
+        self._stream = None
         self._donated = False
         self._shape = None if data is None else tuple(data.shape)
         self._dtype = None if data is None else numpy_dtype(data.dtype)
@@ -257,6 +266,20 @@ class BoltArrayGPU(BoltArray):
         b._chain = (base, tuple(funcs))
         b._shape = tuple(shape)
         b._dtype = np.dtype(dtype)
+        return b
+
+    @classmethod
+    def _streamed(cls, source):
+        """Wrap a lazy :class:`bolt_tpu_torch.stream.StreamSource`:
+        shape and dtype come from its recorded stages, the streamed
+        terminals run the executor, anything else materialises through
+        ``_data``."""
+        from bolt_tpu_torch import stream
+        st = stream.result_state(source)
+        b = cls(None, st.split, source.device)
+        b._stream = source
+        b._shape = tuple(st.shape)
+        b._dtype = st.dtype
         return b
 
     # ------------------------------------------------------------------
@@ -287,6 +310,13 @@ class BoltArrayGPU(BoltArray):
         return self._concrete is None and self._chain is not None
 
     @property
+    def streaming(self):
+        """True while this array is a lazy out-of-core stream: nothing is
+        on the device; reduction terminals stream it slab by slab, other
+        consumers materialise it."""
+        return self._stream is not None
+
+    @property
     def keys(self):
         """Key-axis shape view (reference: ``bolt/spark/shapes.py :: Keys``)."""
         from bolt_tpu_torch.gpu.shapes import Keys
@@ -312,6 +342,9 @@ class BoltArrayGPU(BoltArray):
         result never aliases its input wrapper."""
         b = BoltArrayGPU(self._concrete, self._split, self._device)
         b._chain = self._chain
+        # a stream source is shared: either wrapper materialising adopts
+        # its own concrete tensor
+        b._stream = self._stream
         b._shape = self._shape
         b._dtype = self._dtype
         b._donated = self._donated
@@ -327,6 +360,16 @@ class BoltArrayGPU(BoltArray):
     def _data(self):
         """The concrete tensor; materialises (and keeps) a deferred chain."""
         self._guard_donated()
+        if self._stream is not None:
+            from bolt_tpu_torch import stream
+            out = stream.materialize(self._stream)
+            data = out._data
+            # adopt only after materialising succeeded: a failing source
+            # leaves the array streaming, so a retry raises the real error
+            self._stream = None
+            self._concrete = data
+            self._split = out._split
+            return data
         if self._concrete is None:
             base, funcs = self._chain
             self._concrete = _chain_apply(funcs, self._split, base)
@@ -341,7 +384,7 @@ class BoltArrayGPU(BoltArray):
         if self.deferred:
             base, funcs = self._chain
             return _chain_apply(funcs, self._split, base)
-        return self._concrete
+        return self._data
 
     def _align(self, axes):
         """Ensure ``axes`` are exactly the key axes, swapping if not — value
@@ -388,6 +431,14 @@ class BoltArrayGPU(BoltArray):
                 local.toarray(), context=self._device,
                 axis=tuple(range(split)))
         check_value_shape(value_shape, out_vshape)
+        if aligned._stream is not None and not with_keys:
+            # a stream records the map as a stage of its slab program
+            # (with_keys needs global key indices: it materialises below)
+            from bolt_tpu_torch import stream
+            out = stream.map_stage(aligned, func)
+            if dtype is not None and np.dtype(dtype) != out.dtype:
+                return out.astype(dtype)
+            return out
         entry = _WithKeysFunc(func) if with_keys else func
         if aligned.deferred:
             base, funcs = aligned._chain
@@ -433,6 +484,11 @@ class BoltArrayGPU(BoltArray):
                 func, axis=tuple(range(split)), keepdims=keepdims)
             return self._wrap(_upload(np.asarray(out), self._device),
                               new_split)
+        if aligned._stream is not None:
+            from bolt_tpu_torch import stream
+            out = stream.maybe_reduce(aligned, func, tuple(axes), keepdims)
+            if out is not NotImplemented:
+                return out
         out = _reduce_tree(aligned._mapped(), func, n, vshape)
         if keepdims:
             out = out.reshape((1,) * split + tuple(vshape))
@@ -443,6 +499,11 @@ class BoltArrayGPU(BoltArray):
     # ------------------------------------------------------------------
 
     def _stat(self, axis, name, keepdims=False, ddof=None):
+        if self._stream is not None:
+            from bolt_tpu_torch import stream
+            out = stream.maybe_stat(self, axis, name, keepdims, ddof)
+            if out is not NotImplemented:
+                return out
         if axis is None:
             axes = tuple(range(self._split)) if self._split \
                 else tuple(range(self.ndim))
@@ -820,6 +881,8 @@ class BoltArrayGPU(BoltArray):
         s += "device: %s\n" % str(self._device)
         if self._donated:
             s += "donated: buffer consumed by %s\n" % self._donated
+        elif self._stream is not None:
+            s += "streaming: %r\n" % (self._stream,)
         elif self.deferred:
             s += "deferred: %d-op map chain\n" % len(self._chain[1])
         return s

@@ -4,7 +4,8 @@ Port of ``bolt_tpu/tpu/construct.py :: ConstructTPU``.  The context that
 selects this backend is a ``torch.device`` (the reference's
 ``jax.sharding.Mesh``).  ``ones``/``zeros``/``full``/``rand``/``randn`` build
 their tensor directly on the device, never on the host; ``array`` moves the
-key axes to the front and uploads once.
+key axes to the front and uploads once; ``fromcallback``/``fromiter`` with
+a dtype give lazy out-of-core streams (``bolt_tpu_torch/stream.py``).
 """
 
 import numpy as np
@@ -140,6 +141,61 @@ class ConstructGPU:
         """Uniform [0, 1) array, generated on the device."""
         return ConstructGPU._random("rand", shape, context, axis, dtype,
                                     seed)
+
+    @staticmethod
+    def fromcallback(fn, shape, context=None, axis=(0,), dtype=None,
+                     chunks=None, codec=None):
+        """Build an array by calling ``fn(index)`` per record range, with
+        ``index`` a tuple of per-axis slices of the KEY-AXES-FIRST
+        ``shape`` (reference: ``ConstructTPU.fromcallback``).
+
+        With an explicit ``dtype`` the result is a LAZY stream
+        (``bolt_tpu_torch.stream``): nothing is produced or uploaded until
+        a consumer runs; the reduction terminals stream it slab by slab
+        (``chunks`` records a slab, default a ``BOLT_STREAM_SLAB_BYTES``
+        budget of 64 MiB), any other consumer materialises it.
+        ``codec=`` names an ingest codec (``bolt_tpu_torch.gpu.codec``)
+        for the streamed runs.  ``dtype=None`` keeps whatever the callback
+        produces and uploads at once, from one call over the whole
+        array."""
+        from bolt_tpu_torch.gpu.array import BoltArrayGPU
+        explicit = dtype is not None
+        device, shape, split, _ = ConstructGPU._device_build_spec(
+            shape, context, axis, dtype)
+        if explicit:
+            from bolt_tpu_torch.stream import StreamSource
+            src = StreamSource.from_callback(fn, shape, split, dtype, device,
+                                             chunks=chunks, codec=codec)
+            return BoltArrayGPU._streamed(src)
+        from bolt_tpu_torch.stream import transfer
+        index = tuple(slice(0, n) for n in shape)
+        block = np.asarray(fn(index))
+        if block.shape != shape:
+            raise ValueError(
+                "fromcallback callback returned shape %s for index %s "
+                "(expected %s)" % (block.shape, index, shape))
+        return BoltArrayGPU(transfer(block, device), split, device)
+
+    @staticmethod
+    def fromiter(blocks, shape, context=None, axis=(0,), dtype=None,
+                 codec=None):
+        """A lazy stream over an ITERABLE of consecutive record blocks
+        (key-axes-first layout, concatenated along the first key axis;
+        together they must cover ``shape``), the sequential twin of
+        :meth:`fromcallback` (reference: ``ConstructTPU.fromiter``).
+        ``dtype`` is required.  The reduction terminals stream the
+        iterator once; other consumers assemble it on the host first."""
+        from bolt_tpu_torch.gpu.array import BoltArrayGPU
+        from bolt_tpu_torch.stream import StreamSource
+        if dtype is None:
+            raise ValueError(
+                "fromiter requires an explicit dtype (blocks are consumed "
+                "lazily, so the element type cannot be inferred up front)")
+        device, shape, split, _ = ConstructGPU._device_build_spec(
+            shape, context, axis, dtype)
+        src = StreamSource.from_iter(blocks, shape, split, dtype, device,
+                                     codec=codec)
+        return BoltArrayGPU._streamed(src)
 
     @staticmethod
     def ones(shape, context=None, axis=(0,), dtype=None):

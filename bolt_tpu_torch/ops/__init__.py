@@ -3,14 +3,15 @@ plain PyTorch version beside it (``bolt_tpu_torch/ops/kernels.py``), the
 halo-overlap filters (``ops/overlap.py``) and the per-record series
 transforms (``ops/series.py``)."""
 
-from bolt_tpu_torch.ops.kernels import (fused_stats, fused_welford,
-                                        lane_band, sepfilter1d)
+from bolt_tpu_torch.ops.kernels import (fused_decode_sum, fused_stats,
+                                        fused_welford, lane_band,
+                                        sepfilter1d)
 from bolt_tpu_torch.ops.overlap import (convolve, gaussian, map_overlap,
                                         median_filter, smooth)
 from bolt_tpu_torch.ops.series import (center, crosscorr, detrend, fourier,
                                        normalize, zscore)
 
 __all__ = ["center", "convolve", "crosscorr", "detrend", "fourier",
-           "fused_stats", "fused_welford", "gaussian", "lane_band",
-           "map_overlap", "median_filter", "normalize", "sepfilter1d",
-           "smooth", "zscore"]
+           "fused_decode_sum", "fused_stats", "fused_welford", "gaussian",
+           "lane_band", "map_overlap", "median_filter", "normalize",
+           "sepfilter1d", "smooth", "zscore"]

@@ -20,12 +20,17 @@ the kernel.
   constant mode (``csrc/window.cu``; the last-axis kernel also serves
   :func:`sepfilter1d` on the last axis, so it counts as ``lane_band``
   whichever entry point launched it).
+* :func:`fused_decode_sum` replaces ``bolt_tpu/ops/kernels.py ::
+  fused_decode_sum`` — the int8 codec's decode fused into the streamed
+  ``sum`` partial, ``sum(q * scale + zp, axis=0)`` in f32
+  (``csrc/codec.cu``).
 
 The reference's TPU gates (128-lane minor dimension, the VMEM budgets,
 ``_MINOR_MAX_TAPS``, the band's radius of 128) are not carried over: each
 wrapper returns ``None`` only where the function does not apply
 (:func:`fused_welford`: a non-floating dtype, fewer than two dimensions or
-fewer than two rows; the window kernels: a non-floating dtype).
+fewer than two rows; the window kernels: a non-floating dtype;
+:func:`fused_decode_sum`: not uint8/int8, or fewer than two dimensions).
 """
 
 import ctypes
@@ -39,7 +44,7 @@ from bolt_tpu_torch.utils import prod
 # launches of each kernel since the last reset (chip_smoke.py zeroes these
 # before it drives a path and reads them after)
 LAUNCHES = {"fused_welford": 0, "fused_stats": 0, "sepfilter1d": 0,
-            "lane_band": 0}
+            "lane_band": 0, "fused_decode_sum": 0}
 
 # dtype codes of the C entry points (moments.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
@@ -63,6 +68,10 @@ _SIGNATURES = {
         + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "bolt_window_lane": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
         + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    },
+    "codec.cu": {
+        "bolt_fused_decode_sum": [ctypes.c_void_p] * 5 + [
+            ctypes.c_int64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     },
 }
 
@@ -125,8 +134,9 @@ def _fused_welford_plain(x):
 
 
 def welford_rows(n, columns, vec, sm_count):
-    """``(lanes, rows per chunk, chunks)`` for :func:`fused_welford` on
-    ``n`` rows of ``columns`` columns.  A block's ``_THREADS`` threads
+    """``(lanes, rows per chunk, chunks)`` for :func:`fused_welford` (and
+    :func:`fused_decode_sum`, which shares its plan) on ``n`` rows of
+    ``columns`` columns.  A block's ``_THREADS`` threads
     cover ``_THREADS // lanes`` column threads (``vec`` columns each) and
     ``lanes`` row lanes: as many lanes as the columns leave threads idle.
     The rows then split into chunks only as far as the blocks alone leave
@@ -415,3 +425,69 @@ def lane_band(x, taps, precision=None):
     if x.device.type == "cpu":
         return _lane_band_plain(x, taps)
     return _window(x, taps, ax, "constant")
+
+
+# ---------------------------------------------------------------------------
+# fused_decode_sum
+# ---------------------------------------------------------------------------
+
+def _fused_decode_sum_plain(q, scale, zp):
+    """The plain PyTorch version: decode in f32 (the multiply, then the
+    add), then the sum over axis 0."""
+    return (q.to(torch.float32) * scale + zp).sum(0)
+
+
+def _f32_on(v, device):
+    """A sidecar scalar (a Python or numpy number, or a one-element tensor)
+    as a one-element f32 tensor on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32).reshape(1)
+    return torch.tensor([float(v)], dtype=torch.float32, device=device)
+
+
+def _byte_vec(q, columns):
+    """Bytes a thread loads a row: the widest of 16, 8 and 4 that the
+    start of ``q`` and its row length of ``columns`` bytes keep aligned,
+    else 1."""
+    for vec in (16, 8, 4):
+        if q.data_ptr() % vec == 0 and columns % vec == 0:
+            return vec
+    return 1
+
+
+def fused_decode_sum(q, scale, zp):
+    """The int8 codec's decode fused into the sum over axis 0:
+    ``sum(q * scale + zp, axis=0)`` in f32, shaped ``q.shape[1:]``, for
+    the uint8/int8 wire block ``q`` of shape ``(n, *vshape)`` and its f32
+    sidecar ``scale``/``zp`` (numbers or one-element tensors).  ``None``
+    when ``q`` is not uint8/int8 or has fewer than two dimensions (the
+    caller then keeps the decode route)."""
+    if q.dtype not in (torch.uint8, torch.int8) or q.ndim < 2:
+        return None
+    if q.device.type == "cpu":
+        return _fused_decode_sum_plain(q, scale, zp)
+    if q.device.type != "cuda":
+        raise ValueError("fused_decode_sum runs on CUDA or CPU tensors, got "
+                         "device %s" % q.device)
+    q = q.contiguous()
+    n, vshape = q.shape[0], tuple(q.shape[1:])
+    columns = prod(vshape)
+    out = torch.empty(vshape, dtype=torch.float32, device=q.device)
+    if n == 0 or columns == 0:
+        return out.zero_()
+    s, z = _f32_on(scale, q.device), _f32_on(zp, q.device)
+    vec = _byte_vec(q, columns)
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    lanes, rpc, chunks = welford_rows(n, columns, vec, sm_count)
+    part = out if chunks == 1 else torch.empty(
+        (chunks, columns), dtype=torch.float32, device=q.device)
+    lib = _lib("codec.cu")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.bolt_fused_decode_sum(
+            q.data_ptr(), part.data_ptr(), out.data_ptr(), s.data_ptr(),
+            z.data_ptr(), n, columns, rpc, chunks, lanes,
+            int(q.dtype == torch.int8), vec, stream)
+    _check(code, "fused_decode_sum")
+    LAUNCHES["fused_decode_sum"] += 1
+    return out

@@ -32,19 +32,35 @@ result):
    and ``stats()`` against numpy on the downloaded series;
 5. each kernel against its plain PyTorch version on the card, at the
    main-path shapes (``fused_welford`` also at the ``(8388608, 64)``
-   pixel series that the imaging path's ``stats()`` hands it) and at odd
-   shapes (ragged rows and columns, f64,
-   bf16, f16, a NaN column; every boundary mode of the window kernels),
-   then timed beside its plain version, one PyTorch library call for the
-   same function and its bound.
+   pixel series that the imaging path's ``stats()`` hands it;
+   ``fused_decode_sum`` at the streamed slab ``(20, 819200)`` and the whole
+   north-star wire ``(3200, 819200)`` uint8) and at odd shapes (ragged rows
+   and columns, f64, bf16, f16, a NaN column; every boundary mode of the
+   window kernels; int8, one row, a width that is not a multiple of 16, a
+   misaligned view, the narrow ``(16, 1024)``), then timed beside its plain
+   version, one PyTorch library call for the same function where there is
+   one (for ``fused_decode_sum`` the decode route's torch expression
+   instead) and its bound;
+6. the streamed north-star: ``fromcallback(cb, (3200, 200, 64, 64),
+   mode="gpu", dtype=float32)`` with the default slabs (20 records, 160
+   slabs), each record from ``np.random.default_rng(seed + record)``, under
+   ``stream.uploaders(4)``: uncompressed ``map(v + 1).sum()``, ``mean()``
+   and ``var()`` against f64 references of the same source materialised on
+   the card (then freed); ``delta-f32`` ``sum()`` bit for bit against the
+   uncompressed one; ``bf16`` ``mean()`` within ``codec_bound("bf16")``;
+   ``int8`` ``sum()`` armed (``BOLT_CODEC_KERNEL=1``, one
+   ``fused_decode_sum`` launch a slab) and unarmed, both within the int8
+   step bound; the lossy codec's refusal of ``min()``; each streamed run
+   under 2 GB of peak device memory.
 
-The launch counters are zeroed just before each path (phases 2–3, and
-phase 4) and read just after it: each path must have launched every
+The launch counters are zeroed just before each path (phases 2–3, phase
+4 and phase 6) and read just after it: each path must have launched every
 kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import itertools
 import json
 import math
 import os
@@ -63,16 +79,19 @@ PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12,
             "float16": 67e12}
 # operations per element: welford = 2 sub + 2 fma (2 each) + min + max;
 # stats = add + fma (2) + min + max; a window of w taps = w products and
-# w - 1 sums
-OPS_PER_ELEMENT = {"fused_welford": 8, "fused_stats": 5}
+# w - 1 sums; decode_sum = multiply + add + the sum's add
+OPS_PER_ELEMENT = {"fused_welford": 8, "fused_stats": 5,
+                   "fused_decode_sum": 3}
 REPLACES = {"fused_welford": "bolt_tpu/ops/kernels.py:188",
             "fused_stats": "bolt_tpu/ops/kernels.py:141",
             "sepfilter1d": "bolt_tpu/ops/kernels.py:534",
-            "lane_band": "bolt_tpu/ops/kernels.py:395"}
+            "lane_band": "bolt_tpu/ops/kernels.py:395",
+            "fused_decode_sum": "bolt_tpu/ops/kernels.py:308"}
 SOURCE = {"fused_welford": "bolt_tpu_torch/ops/csrc/moments.cu",
           "fused_stats": "bolt_tpu_torch/ops/csrc/moments.cu",
           "sepfilter1d": "bolt_tpu_torch/ops/csrc/window.cu",
-          "lane_band": "bolt_tpu_torch/ops/csrc/window.cu"}
+          "lane_band": "bolt_tpu_torch/ops/csrc/window.cu",
+          "fused_decode_sum": "bolt_tpu_torch/ops/csrc/codec.cu"}
 CONFIG1 = (200, 200, 64, 64)
 NORTH_STAR = (3200, 200, 64, 64)
 # fam_halo_gaussian (scripts/perf_regress.py): gaussian(sigma=2.0,
@@ -82,6 +101,12 @@ WINDOW_MODES = ("constant", "reflect", "edge", "symmetric")
 # numpy.pad mode -> scipy.ndimage's name for it
 SCIPY_MODE = {"constant": "constant", "reflect": "mirror", "edge": "nearest",
               "symmetric": "reflect"}
+# the streamed north-star: records of the default 64 MiB slab and the seed
+# of each record's generator (np.random.default_rng(STREAM_SEED + record))
+SLAB_RECORDS = 20
+STREAM_SEED = 7
+# peak device memory a streamed run of the 10.49 GB source may reach
+STREAM_PEAK_BYTES = 2e9
 
 
 def check(cond, what):
@@ -119,17 +144,40 @@ def timed_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def device_us(fn):
+    """``fn()`` under ``torch.profiler``: its result, and the device time
+    in microseconds of the kernels and of the copies it ran on any
+    stream (``None`` where the profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern = copy = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue        # host ops: their kernels are rows of their own
+        if "memcpy" in e.key.lower():
+            copy += e.self_device_time_total
+        else:
+            kern += e.self_device_time_total
+    return out, kern or None, copy or None
+
+
 def f64_column_refs(x, chunk=4096):
-    """Column-wise sums of ``v + 1`` and ``|v + 1|``, sums of squares,
+    """Column-wise sums of ``v + 1``, ``|v + 1|`` and ``|v|``, sums of squares,
     mean, var, min and max of an (n, C) tensor over axis 0, in f64 on the
     card, ``chunk`` columns at a time."""
     import torch
-    parts = {k: [] for k in ("sum1", "abs1", "sq", "mean", "var", "min",
-                             "max")}
+    parts = {k: [] for k in ("sum1", "abs1", "abs", "sq", "mean", "var",
+                             "min", "max")}
     for j in range(0, x.shape[1], chunk):
         d = x[:, j:j + chunk].double()
         parts["sum1"].append((d + 1).sum(0))
         parts["abs1"].append((d + 1).abs().sum(0))
+        parts["abs"].append(d.abs().sum(0))
         parts["sq"].append((d * d).sum(0))
         parts["mean"].append(d.mean(0))
         parts["var"].append(d.var(0, correction=0))
@@ -352,6 +400,241 @@ def window_cases(K, torch, dev, x, taps):
     check(torch.equal(lb, K._lane_band_plain(x, taps)), "lane_band entry")
     del lb, small, cases
     return err, rows
+
+
+def decode_sum_cases(K, torch, dev):
+    """``fused_decode_sum`` against its plain version at the streamed
+    slab, the whole north-star wire and the odd shapes (f32 ``rtol=1e-5,
+    atol=1e-3``: the kernel sums in another order), then timed at the slab
+    and the wire beside its plain version, the decode route's torch
+    expression (decode, then ``sum(0)``: no single PyTorch call computes
+    the function) and its bound.  Returns the largest difference, the
+    cases and the timings by shape."""
+    from bolt_tpu_torch.gpu import codec as C
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n, cols = NORTH_STAR[0], math.prod(NORTH_STAR[1:])
+    wire = torch.randint(0, 256, (n, cols), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    flat = wire.view(-1)
+    signed = torch.randint(-128, 128, (300, 4096), generator=gen,
+                           device=dev, dtype=torch.int8)
+    scale = torch.tensor(0.0431, device=dev)
+    zp = torch.tensor(-5.37, device=dev)
+    cases = [("slab", wire[:SLAB_RECORDS]), ("wire", wire),
+             ("int8_300x4096", signed), ("one_row", wire[:1]),
+             ("ragged_37x1001", flat[:37 * 1001].view(37, 1001)),
+             ("misaligned_64x1000", flat[1:1 + 64 * 1000].view(64, 1000)),
+             ("narrow_16x1024", flat[:16 * 1024].view(16, 1024))]
+    err, rows = 0.0, []
+    for label, q in cases:
+        got = K.fused_decode_sum(q, scale, zp)
+        want = K._fused_decode_sum_plain(q, scale, zp)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        check(got.shape == q.shape[1:] and bool(torch.allclose(
+            got, want, rtol=1e-5, atol=1e-3)),
+            "fused_decode_sum %s: max abs diff %.3g" % (label, d))
+        err = max(err, d)
+        rows.append({"case": label, "shape": list(q.shape),
+                     "dtype": str(q.dtype), "max_abs_err": d})
+        log("fused_decode_sum %-20s max_abs_diff %.3g" % (label, d))
+        del got, want
+    int8 = C.get("int8")
+    timings = {}
+    # the slab case walks the wire's 160 slabs in turn, so every launch
+    # reads its slab from device memory (a slab fits in the 50 MB L2)
+    slabs = [wire[i:i + SLAB_RECORDS] for i in range(0, n, SLAB_RECORDS)]
+    for label, qs, reps in (("slab", slabs, 50), ("wire", [wire], 5)):
+        q = qs[0]
+        turn = itertools.cycle(qs)
+        t_bytes = (q.numel() + 4 * q[0].numel()) / HBM_BYTES_PER_S
+        t_ops = OPS_PER_ELEMENT["fused_decode_sum"] * q.numel() / PEAK_OPS[
+            "float32"]
+        row = {"ms": timed_ms(lambda: K.fused_decode_sum(
+                   next(turn), scale, zp), reps),
+               "plain_ms": timed_ms(lambda: K._fused_decode_sum_plain(
+                   next(turn), scale, zp), reps),
+               "decode_route_ms": timed_ms(lambda: int8.decode(
+                   next(turn), (scale, zp), torch.float32).sum(0), reps),
+               "library_ms": None,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        # the kernels' own device time, beside the launch loop's ms
+        _, dev_us, _ = device_us(lambda: [K.fused_decode_sum(
+            next(turn), scale, zp) for _ in range(reps)])
+        row["device_ms"] = None if dev_us is None else dev_us / reps / 1e3
+        timings[label] = row
+        log("fused_decode_sum %-5s %s kernel_ms %.4f (device %s) plain_ms "
+            "%.4f decode_route_ms %.4f bound_ms %.4f (%s)" % (
+                label, "x".join(map(str, q.shape)), row["ms"],
+                "not measured" if row["device_ms"] is None
+                else "%.4f" % row["device_ms"], row["plain_ms"],
+                row["decode_route_ms"], row["bound_ms"], row["bound_by"]))
+    del wire, flat, signed, cases, slabs
+    return err, rows, timings
+
+
+def stream_phase(bolt, K, torch, np, dev, report):
+    """Phase 6, the streamed north-star; returns the path's launches."""
+    from bolt_tpu_torch import engine, stream
+    from bolt_tpu_torch._precision import codec_bound
+    t0 = time.perf_counter()
+    rec = NORTH_STAR[1:]
+
+    def cb(index):
+        lo, hi = index[0].start, index[0].stop
+        out = np.empty((hi - lo,) + rec, np.float32)
+        for r in range(lo, hi):
+            out[r - lo] = np.random.default_rng(STREAM_SEED + r) \
+                .standard_normal(rec, dtype=np.float32)
+        return out
+
+    def source(codec=None):
+        return bolt.fromcallback(cb, NORTH_STAR, mode="gpu",
+                                 dtype=np.float32, codec=codec)
+
+    n = NORTH_STAR[0]
+    nslabs = len(source()._stream.slab_ranges())
+    check(source()._stream.slab == SLAB_RECORDS and nslabs == -(
+        -n // SLAB_RECORDS), "streamed north-star slab plan")
+    with stream.uploaders(4):
+        # the f64 references of the same source, materialised on the card
+        # (the pool produces its slabs) and freed before the streamed runs
+        t = time.perf_counter()
+        mat = source()
+        x = mat.totorch()
+        check(tuple(x.shape) == NORTH_STAR and not mat.streaming,
+              "streamed source materialised")
+        ref = f64_column_refs(x.view(n, -1))
+        lo_all, hi_all = float(ref["min"].min()), float(ref["max"].max())
+        del x, mat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        report["stream_materialise_s"] = time.perf_counter() - t
+        log("streamed source materialised and its f64 references taken in "
+            "%.1f s; %.3f GB resident after freeing it"
+            % (report["stream_materialise_s"],
+               torch.cuda.memory_allocated() / 1e9))
+
+        runs = {}
+
+        def run(label, fn, profiled=False):
+            """One streamed run: its result, and its wall, bytes, link
+            seconds, overlap share and peak device memory; ``profiled``
+            also takes the device's busy time (kernels and copies) from
+            ``torch.profiler``."""
+            c0 = engine.counters()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            if profiled:
+                out, kern_us, copy_us = device_us(
+                    lambda: fn().totorch().reshape(-1))
+            else:
+                out, kern_us, copy_us = fn().totorch().reshape(-1), None, None
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            c1 = engine.counters()
+            d = {k: c1[k] - c0[k] for k in c1}
+            peak = torch.cuda.max_memory_allocated()
+            runs[label] = {
+                "wall_s": wall, "slabs": d["stream_chunks"],
+                "raw_bytes": d["codec_bytes_raw"] or 4 * math.prod(
+                    NORTH_STAR),
+                "wire_bytes": d["transfer_bytes"],
+                "link_s": d["transfer_seconds"],
+                "ingest_s": d["stream_ingest_seconds"],
+                "compute_s": d["stream_compute_seconds"],
+                "overlap_share": d["stream_overlap_seconds"]
+                / max(d["stream_ingest_seconds"], 1e-12),
+                "peak_gb": peak / 1e9, "resident_before_gb": base / 1e9,
+                "device_kernel_s": kern_us and kern_us / 1e6,
+                "device_copy_s": copy_us and copy_us / 1e6}
+            if profiled:
+                log("stream %-12s device busy (profiled, kernels + copies "
+                    "on any stream): kernels %s s, copies %s s of %.3f s "
+                    "wall" % (label, runs[label]["device_kernel_s"],
+                              runs[label]["device_copy_s"], wall))
+            log("stream %-12s wall %.3f s, %d slabs, raw %.3f GB, wire "
+                "%.3f GB, link %.3f s (summed over workers), overlap share "
+                "%.3f, peak %.3f GB (%.3f GB resident before)" % (
+                    label, wall, d["stream_chunks"],
+                    runs[label]["raw_bytes"] / 1e9, d["transfer_bytes"] / 1e9,
+                    d["transfer_seconds"], runs[label]["overlap_share"],
+                    peak / 1e9, base / 1e9))
+            check(d["stream_chunks"] == nslabs, "%s streamed %d slabs, not "
+                  "%d" % (label, d["stream_chunks"], nslabs))
+            check(peak < STREAM_PEAK_BYTES, "%s peak device memory %.3f GB"
+                  % (label, peak / 1e9))
+            return out
+
+        K.reset_launches()
+        os.environ.pop("BOLT_CODEC_KERNEL", None)
+        errs = {}
+        s1 = run("map_sum", lambda: source().map(lambda v: v + 1).sum())
+        errs["map_sum"] = sum_close(s1, ref, n, "streamed map(v+1).sum()")
+        errs["mean"] = close(run("mean", lambda: source().mean()),
+                             ref["mean"], 1e-5, 1e-6, "streamed mean()")
+        errs["var"] = close(run("var", lambda: source().var()),
+                            ref["var"], 1e-4, 1e-5, "streamed var()")
+        raw = run("sum", lambda: source().sum(), profiled=True)
+        delta = run("delta_sum", lambda: source("delta-f32").sum())
+        check(torch.equal(raw.view(torch.int32), delta.view(torch.int32)),
+              "delta-f32 sum() is not bit-identical to the uncompressed "
+              "sum()")
+        # bf16 mean: within the codec's relative envelope of the mean
+        # magnitude (the means of zero-mean data are themselves near 0)
+        mb = run("bf16_mean", lambda: source("bf16").mean())
+        _, env = codec_bound("bf16")
+        dm = (mb.double() - ref["mean"]).abs()
+        check(bool((dm <= env * ref["abs"] / n).all()),
+              "bf16 mean outside codec_bound: max abs err %.3g"
+              % float(dm.max()))
+        errs["bf16_mean"] = float(dm.max())
+        # int8 sum: half a quantisation step a record, against the raw sum
+        bound = (hi_all - lo_all) / 255.0 / 2 * n + 1e-2
+        raw_sum = ref["sum1"] - n
+        before = K.LAUNCHES["fused_decode_sum"]
+        os.environ["BOLT_CODEC_KERNEL"] = "1"
+        try:
+            armed = run("int8_armed", lambda: source("int8").sum(),
+                        profiled=True)
+        finally:
+            os.environ.pop("BOLT_CODEC_KERNEL", None)
+        check(K.LAUNCHES["fused_decode_sum"] - before == nslabs,
+              "armed int8 sum launched fused_decode_sum %d times for %d "
+              "slabs" % (K.LAUNCHES["fused_decode_sum"] - before, nslabs))
+        before = K.LAUNCHES["fused_decode_sum"]
+        unarmed = run("int8_decode", lambda: source("int8").sum())
+        check(K.LAUNCHES["fused_decode_sum"] == before,
+              "the unarmed int8 sum launched fused_decode_sum")
+        for label, got in (("int8_armed", armed), ("int8_decode", unarmed)):
+            d = float((got.double() - raw_sum).abs().max())
+            check(d <= bound, "%s sum: max abs err %.3g > step bound %.3g"
+                  % (label, d, bound))
+            errs[label] = d
+        d = float((armed - unarmed).abs().max())
+        check(d <= bound, "armed and unarmed int8 sums differ by %.3g" % d)
+        errs["int8_armed_vs_decode"] = d
+        try:
+            source("bf16").min()
+        except ValueError as exc:
+            check("order-statistic" in str(exc), "lossy min() refusal text")
+        else:
+            check(False, "a bf16 stream's min() was not refused")
+    launches = dict(K.LAUNCHES)
+    check(launches["fused_decode_sum"] == nslabs,
+          "streamed path launched fused_decode_sum %d times"
+          % launches["fused_decode_sum"])
+    report["stream"] = {"runs": runs, "errors": errs, "slabs": nslabs,
+                        "launches": launches,
+                        "int8_step_bound": bound}
+    report["phases"]["stream_s"] = time.perf_counter() - t0
+    log("stream phase ok in %.1f s: %s" % (report["phases"]["stream_s"],
+                                            json.dumps(errs)))
+    log("streamed path launches: %s" % json.dumps(launches))
+    return launches
 
 
 def main():
@@ -622,7 +905,7 @@ def main():
                     name, label, row["ms"], row["plain_ms"],
                     row["library_ms"], row["bound_ms"], row["bound_by"],
                     path_of[label][name]))
-    del b, x, xv, cases, zimg
+    del b, x, xv, xt, cases, zimg
 
     # the window kernels: every mode against the plain versions, then
     # timed at the imaging path's full width
@@ -660,18 +943,27 @@ def main():
                 row["library_ms"], row["bound_ms"], row["bound_by"],
                 img_launches[name]))
     del bimg, ximg, wt
+    max_err["fused_decode_sum"], report["decode_sum_cases"], ds_t = \
+        decode_sum_cases(K, torch, dev)
+    for label, row in ds_t.items():
+        timings[("fused_decode_sum", label)] = row
     report["timings"] = {"%s@%s" % k: v for k, v in timings.items()}
     report["phases"]["kernels_s"] = time.perf_counter() - t0
+
+    # ---- phase 6: the streamed north-star --------------------------------
+    stream_launches = stream_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
-    # kernels' from phases 2-3, the window kernels' from phase 4
+    # kernels' from phases 2-3, the window kernels' from phase 4,
+    # fused_decode_sum's from phase 6 (timed at the slab it is given there)
     kernels = []
     for name, path_launches, label in (
             ("fused_welford", launches, "north_star"),
             ("fused_stats", launches, "north_star"),
             ("sepfilter1d", img_launches, "imaging"),
-            ("lane_band", img_launches, "imaging")):
+            ("lane_band", img_launches, "imaging"),
+            ("fused_decode_sum", stream_launches, "slab")):
         row = timings[(name, label)]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],

@@ -11,9 +11,11 @@ Tolerances: the window kernels equal their plain versions bit for bit in
 f32 and f64 (the same products and sums in the same order) and within
 ``1.6e-2`` in f16/bf16 (both accumulate in f32 and round once); the moment
 kernels sum in another order (f64 ``1e-10``, f32 ``1e-4``, f16/bf16
-``1.6e-2``).
+``1.6e-2``), and so does ``fused_decode_sum`` (f32 ``rtol=1e-5,
+atol=1e-3``).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -120,3 +122,74 @@ def test_window_kernels_take_misaligned_data_on_card(dtype):
                                                rtol=1.6e-2, atol=1.6e-2)
                 else:
                     assert torch.equal(got, want), (ax, mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((20, 819200), torch.uint8),       # the north-star slab
+    ((16, 1024), torch.uint8),         # narrow: row lanes in one block
+    ((1, 4096), torch.uint8),          # one row
+    ((37, 1001), torch.uint8),         # C not a multiple of 16 (1-byte loads)
+    ((33, 1000), torch.int8),          # 8-byte loads, signed
+    ((50, 5, 3, 4), torch.int8),       # 4-byte loads, rank 4
+    ((5000, 64), torch.uint8),         # many rows: row chunks + combine
+    ((3200, 1024), torch.int8)])
+def test_fused_decode_sum_matches_plain_on_card(shape, dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(13)
+    lo = -128 if dtype == torch.int8 else 0
+    q = torch.randint(lo, lo + 256, shape, generator=g, device=dev,
+                      dtype=torch.int32).to(dtype)
+    scale = torch.tensor(0.0173, device=dev)
+    zp = torch.tensor(-1.25, device=dev)
+    before = K.LAUNCHES["fused_decode_sum"]
+    got = K.fused_decode_sum(q, scale, zp)
+    want = K._fused_decode_sum_plain(q, scale, zp)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_decode_sum"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape[1:]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_fused_decode_sum_takes_misaligned_data_on_card():
+    # a view one byte past a 16-byte boundary loads one byte at a time; a
+    # transposed view is copied to a contiguous tensor first
+    dev = _cuda()
+    base = torch.randint(0, 256, (1 + 24 * 2048,), device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    for q in (base[1:].view(24, 2048), base[:-1].view(24, 2048),
+              base[:-1].view(2048, 24).t()):
+        got = K.fused_decode_sum(q, 0.5, 3.0)
+        want = K._fused_decode_sum_plain(q, 0.5, 3.0)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "delta-f32", "bf16", "int8"])
+def test_stream_on_card(codec, monkeypatch):
+    # the card's half of the executor: pinned ring, copy streams and events
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import stream
+    dev = _cuda()
+    x = np.random.RandomState(3).rand(64, 16, 136).astype(np.float32)
+    monkeypatch.setenv("BOLT_CODEC_KERNEL", "1")
+    K.reset_launches()
+    with stream.uploaders(4):
+        src = bolt.fromcallback(lambda idx: x[idx], x.shape, dev,
+                                dtype=np.float32, chunks=8, codec=codec)
+        got = src.sum().toarray()
+        mean = bolt.fromcallback(lambda idx: x[idx], x.shape, dev,
+                                 dtype=np.float32, chunks=8,
+                                 codec=codec).map(lambda v: v * 2).mean()
+    want = x.astype(np.float64).sum(axis=0)
+    if codec == "int8":
+        assert K.LAUNCHES["fused_decode_sum"] == 8      # once a slab
+        step = (x.max() - x.min()) / 255.0
+        assert np.abs(got - want).max() <= step / 2 * 64 + 1e-3
+    else:
+        assert K.LAUNCHES["fused_decode_sum"] == 0
+        rtol = 1e-2 if codec == "bf16" else 1e-5
+        np.testing.assert_allclose(got, want, rtol=rtol)
+        np.testing.assert_allclose(mean.toarray(), 2 * x.mean(axis=0),
+                                   rtol=rtol)

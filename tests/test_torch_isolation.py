@@ -21,7 +21,8 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.convert", "bolt_tpu_torch.statcounter",
            "bolt_tpu_torch.ops.overlap", "bolt_tpu_torch.ops.series",
            "bolt_tpu_torch._precision", "bolt_tpu_torch.precision",
-           "bolt_tpu_torch.gpu.dtypes"]
+           "bolt_tpu_torch.gpu.dtypes", "bolt_tpu_torch.stream",
+           "bolt_tpu_torch.engine", "bolt_tpu_torch.gpu.codec"]
 
 
 def _sources():
@@ -47,6 +48,12 @@ def test_imports_with_jax_blocked():
               "context=torch.device('cpu')), 1.0, axis=(0, 1))), "
               "epsilon=1e-9).stats()\n"
             + "assert s.mean().shape == (8, 6)\n"
+            + "x = np.arange(24.0, dtype=np.float32).reshape(6, 4)\n"
+            + "with bolt_tpu_torch.stream.uploaders(2):\n"
+            + "    t = bolt_tpu_torch.fromcallback(lambda i: x[i], x.shape, "
+              "torch.device('cpu'), dtype=np.float32, chunks=2, "
+              "codec='delta-f32').sum().toarray()\n"
+            + "assert np.array_equal(t, x.sum(0))\n"
             + "assert not any(m == 'bolt_tpu' or m.startswith('bolt_tpu.')"
               " for m in sys.modules), 'reference package imported'\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -80,6 +87,18 @@ def test_gpu_mode_without_cuda_raises(monkeypatch):
                  lambda: bolt.zeros((4, 3), context=torch.device("cuda")),
                  lambda: bolt.ones((4, 3)).togpu(),
                  lambda: convert.moments_from_reference(0, 0, 0, 0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_stream_constructors_without_cuda_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: bolt.fromcallback(lambda i: None, (4, 3),
+                                           mode="gpu", dtype="float32"),
+                 lambda: bolt.fromiter([], (4, 3), mode="gpu",
+                                       dtype="float32"),
+                 lambda: bolt.fromcallback(lambda i: None, (4, 3),
+                                           context=torch.device("cuda"))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

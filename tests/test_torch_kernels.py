@@ -178,7 +178,8 @@ def test_launch_counters_reset():
     K.LAUNCHES["lane_band"] = 2
     K.reset_launches()
     assert K.LAUNCHES == {"fused_welford": 0, "fused_stats": 0,
-                          "sepfilter1d": 0, "lane_band": 0}
+                          "sepfilter1d": 0, "lane_band": 0,
+                          "fused_decode_sum": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +376,11 @@ def _fake_nvcc(tmp_path, body):
 def test_build_raises_on_compiler_failure(tmp_path, monkeypatch):
     from bolt_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "out"))
-    monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(
-        tmp_path, "echo 'moments.cu(1): error: simulated' ; exit 2"))
+    # the script is written once: rewriting it while an earlier process
+    # still reads it would hand that process an empty script
+    nvcc = _fake_nvcc(tmp_path,
+                      "echo 'moments.cu(1): error: simulated' ; exit 2")
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     with pytest.raises(RuntimeError, match="simulated"):
         _build.build()
     assert not any(f.endswith(".so") for f in os.listdir(tmp_path / "out"))
@@ -388,10 +392,12 @@ def test_build_writes_a_library_per_source_once(tmp_path, monkeypatch):
     # the fake compiler writes its -o argument and counts its runs
     script = ('while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"; '
               'echo run >> %s' % (tmp_path / "runs"))
-    monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path, script))
+    nvcc = _fake_nvcc(tmp_path, script)
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     built = _build.build()
-    assert sorted(built) == _build.sources() == ["moments.cu", "window.cu"]
+    assert sorted(built) == _build.sources() == ["codec.cu", "moments.cu",
+                                                 "window.cu"]
     assert all(os.path.exists(p) and "-" in os.path.basename(p)
                for p in built.values())
     assert _build.build() == built          # present: not rebuilt
-    assert (tmp_path / "runs").read_text().count("run") == 2
+    assert (tmp_path / "runs").read_text().count("run") == 3
