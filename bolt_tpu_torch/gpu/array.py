@@ -6,22 +6,35 @@ how many leading axes are keys.  Where the reference maps key axes onto a
 mesh, this backend runs on a single card, so a re-axis is a permute and a
 contiguous copy, and every terminal runs eagerly in PyTorch:
 
-=====================  =======================================
-reference lowering     here
-=====================  =======================================
-``jit(vmap(func))``    nested ``torch.func.vmap`` over the keys
-``jax.eval_shape``     ``func`` run on a ``device="meta"`` tensor
-pairwise tree (jit)    the same fixed-order pairwise tree, eager
-``jnp`` reductions     torch reductions, numpy's output dtypes
-shard_map Welford      ``fused_welford`` CUDA kernel (stats.py)
-transpose+reshard      ``permute`` + ``contiguous``
-=====================  =======================================
+=========================  =======================================
+reference lowering         here
+=========================  =======================================
+``jit(vmap(func))``        nested ``torch.func.vmap`` over the keys
+``jax.eval_shape``         ``func`` run on a ``device="meta"`` tensor
+pairwise tree (jit)        the same fixed-order pairwise tree, eager
+``jnp`` reductions         torch reductions, numpy's output dtypes
+chain fused into ``sum``   ``fused_map_reduce`` CUDA kernel, the
+                           chain compiled to an expression program
+shard_map Welford          ``fused_welford`` CUDA kernel (stats.py)
+transpose+reshard          ``permute`` + ``contiguous``
+filter compaction          a boolean gather of the survivor rows
+masked filter terminals    ``fused_map_reduce`` with a record mask
+=========================  =======================================
 
 **Laziness.**  As in the reference, a traceable ``map`` is deferred: the
 array records a chain of per-record functions over its parent.  A
 terminal (``reduce``, ``sum``/``mean``/..., ``swap``, ``first``) applies
 the chain without keeping the mapped tensor; any other consumer
-materialises it once and keeps it.
+materialises it once and keeps it.  ``sum`` over the key axes (or every
+axis) of a chain that compiles (``bolt_tpu_torch/ops/mapexpr.py``: a
+pointwise chain of the opcode table) reads the base once through the
+``fused_map_reduce`` kernel, with no mapped temporary.
+
+**Filter.**  ``filter`` is deferred too: the result is *pending* (its
+survivor count unknown) until its shape or data is read.  ``sum``/
+``mean``/``var``/... and ``reduce`` over the key axis fold the predicate's
+mask into the reduction instead (the reference's fused filter terminals);
+any other consumer resolves it by one boolean gather of the survivors.
 
 **Streams.**  ``fromcallback``/``fromiter`` with an explicit dtype give
 an array over a lazy out-of-core source (``bolt_tpu_torch/stream.py``):
@@ -47,6 +60,7 @@ from torch.func import vmap
 from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
 from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
+from bolt_tpu_torch.ops import kernels, mapexpr
 from bolt_tpu_torch.utils import (argpack, check_value_shape, inshape,
                                   isreshapeable, istransposeable, prod,
                                   tupleize)
@@ -212,6 +226,61 @@ def _reduce_stat(x, name, axes, keepdims, ddof, dtype):
     return out if out.dtype == out_dt else out.to(out_dt)
 
 
+def _as_tensor(out, device):
+    """A predicate's value as a tensor (a Python bool or number too)."""
+    return out if isinstance(out, torch.Tensor) else torch.tensor(
+        out, device=device)
+
+
+def _pred_mask(pred, flat):
+    """The filter predicate as a bool mask over the flattened records —
+    the reference's ONE coercion rule (``asarray(..., bool).reshape(())``
+    per record), shared by the resolution and the fused terminals."""
+    return vmap(lambda v: _as_tensor(pred(v), flat.device).to(
+        torch.bool).reshape(()))(flat).contiguous()
+
+
+def _identity(name, dtype):
+    """The value a dropped record takes in the masked ``name`` reduction
+    (reference: ``_masked_stat_expr``)."""
+    if name in ("sum", "prod", "any", "all"):
+        return {"sum": 0, "prod": 1, "any": False, "all": True}[name]
+    if dtype.is_floating_point or dtype.is_complex:
+        return -np.inf if name == "max" else np.inf
+    if dtype == torch.bool:
+        return name == "min"
+    info = torch.iinfo(dtype)
+    return info.min if name == "max" else info.max
+
+
+def _masked_stat(name, flat, mask, axes, keepdims, ddof, vshape, vdtype):
+    """ONE masked reduction over the flattened filtered records, the
+    arithmetic of the reference's ``_masked_stat_expr``: ``mean``/``var``/
+    ``std`` divide by the masked COUNT (var as the one-pass moment form
+    ``(Σx² − (Σx)²/n)/(n−ddof)``); the rest fold dropped records onto
+    their identity."""
+    mfull = mask.reshape(mask.shape + (1,) * len(vshape))
+    if name in ("sum", "prod", "any", "all", "max", "min"):
+        ident = torch.tensor(_identity(name, flat.dtype), device=flat.device
+                             ).to(flat.dtype)
+        return _reduce_stat(torch.where(mfull, flat, ident), name, axes,
+                            keepdims, None, vdtype)
+    out_dt = dtypes.stat_dtype(name, torch_dtype(vdtype))
+    # element count each output slot divides by beyond the mask: the
+    # reduced VALUE axes are dense (the mask only thins records)
+    prodv = prod([vshape[a - 1] for a in axes if a > 0])
+    den = (mask.sum(dtype=torch.int32) * prodv).to(out_dt)
+    xf = torch.where(mfull, flat, torch.zeros((), dtype=flat.dtype,
+                                              device=flat.device)).to(out_dt)
+    s1 = xf.sum(dim=axes, keepdim=keepdims)
+    if name == "mean":
+        return s1 / den
+    dd = 0.0 if ddof is None else ddof
+    s2 = (xf * xf).sum(dim=axes, keepdim=keepdims)
+    out = (s2 - s1 * s1 / den) / (den - dd)
+    return torch.sqrt(out) if name == "std" else out
+
+
 # the elementwise operators that fuse into the map chain with a scalar
 # operand: (operator, its dtype rule)
 _OPS = {"add": (operator.add, dtypes.promote),
@@ -236,6 +305,12 @@ def _scalar_fn(name, other, reverse, dtype):
     return fn
 
 
+# the reductions a pending filter folds its mask into (reference:
+# BoltArrayTPU._FUSED_STAT_NAMES)
+_FUSED_STAT_NAMES = ("sum", "prod", "any", "all", "mean", "var", "std",
+                     "max", "min")
+
+
 class BoltArrayGPU(BoltArray):
     """n-d array on one ``torch.device``: key axes leading, value axes
     after them."""
@@ -256,6 +331,10 @@ class BoltArrayGPU(BoltArray):
         # lazy out-of-core source (bolt_tpu_torch.stream.StreamSource) or
         # None: nothing is on the device until a consumer needs it
         self._stream = None
+        # deferred filter: (base, funcs, predicate, parent split, value
+        # shape, records) or None — the survivor count is unknown until a
+        # consumer resolves it (see filter)
+        self._fpending = None
         self._donated = False
         self._shape = None if data is None else tuple(data.shape)
         self._dtype = None if data is None else numpy_dtype(data.dtype)
@@ -288,6 +367,8 @@ class BoltArrayGPU(BoltArray):
 
     @property
     def shape(self):
+        if self._fpending is not None:
+            self._resolve_filter()
         return self._shape
 
     @property
@@ -308,6 +389,14 @@ class BoltArrayGPU(BoltArray):
     def deferred(self):
         """True while this array is an unmaterialised map chain."""
         return self._concrete is None and self._chain is not None
+
+    @property
+    def pending(self):
+        """True while this array is an unresolved ``filter`` result: its
+        survivor count is unknown until its shape (or any consumer but a
+        fused reduction) is read; ``repr`` and ``dtype`` leave it
+        pending."""
+        return self._fpending is not None
 
     @property
     def streaming(self):
@@ -345,6 +434,7 @@ class BoltArrayGPU(BoltArray):
         # a stream source is shared: either wrapper materialising adopts
         # its own concrete tensor
         b._stream = self._stream
+        b._fpending = self._fpending
         b._shape = self._shape
         b._dtype = self._dtype
         b._donated = self._donated
@@ -360,6 +450,8 @@ class BoltArrayGPU(BoltArray):
     def _data(self):
         """The concrete tensor; materialises (and keeps) a deferred chain."""
         self._guard_donated()
+        if self._fpending is not None:
+            self._resolve_filter()
         if self._stream is not None:
             from bolt_tpu_torch import stream
             out = stream.materialize(self._stream)
@@ -453,9 +545,172 @@ class BoltArrayGPU(BoltArray):
         return out
 
     def filter(self, func, axis=(0,), sort=False):
-        raise NotImplementedError(
-            "filter is not ported to the gpu backend yet (ROADMAP A5); "
-            "use tolocal().filter(...)")
+        """Keep the records whose predicate ``func`` is true (reference:
+        ``BoltArrayTPU.filter``).  Survivors are re-keyed to a flat
+        ``(n,)`` key axis, ``split=1``, in the original key order; a
+        filter on value axes aligns first.  ``sort`` is accepted for
+        parity: the output is always ordered.
+
+        Deferred: no work runs here.  The result is *pending* until its
+        shape or data is needed; then the deferred map chain and the
+        predicate run under ``vmap`` and one boolean gather keeps the
+        survivor rows (on one card that gather already yields survivor
+        rows only, so the reference's padded-buffer resolution and its
+        two-phase path above ``_FILTER_FUSED_MAX_BYTES`` are one path
+        here).  A reduction terminal folds the predicate's mask into its
+        own pass instead (:meth:`_fused_filter_stat`,
+        :meth:`_fused_filter_reduce`).  The predicate must give a scalar
+        truth value per record; one ``vmap`` cannot batch takes the host
+        fallback with a :class:`HostFallbackWarning`.  A streamed source
+        materialises first, as for any other consumer."""
+        func = _traceable(func)
+        axes = sorted(tupleize(axis))
+        aligned = self._align(axes)
+        split = aligned._split
+        vshape = tuple(aligned.shape[split:])
+        n = prod(aligned.shape[:split])
+        try:
+            out = vmap(lambda v: _as_tensor(func(v), "meta"))(
+                _meta((1,) + vshape, torch_dtype(aligned.dtype)))
+        except (RuntimeError, TypeError) as exc:
+            if not _is_trace_error(exc):
+                raise
+            _warn_fallback("filter", func, exc)
+            local = aligned.tolocal().filter(func, axis=tuple(range(split)))
+            return self._wrap(_upload(np.asarray(local), self._device), 1)
+        if prod(tuple(out.shape[1:])) != 1:
+            raise ValueError(
+                "filter predicate must return a scalar truth value per "
+                "record; got shape %s for value shape %s"
+                % (tuple(out.shape[1:]), vshape))
+        if aligned.deferred:
+            base, funcs = aligned._chain
+        else:
+            base, funcs = aligned._data, ()
+        out = BoltArrayGPU(None, 1, self._device)
+        out._fpending = (base, funcs, func, split, vshape, n)
+        out._dtype = aligned.dtype
+        return out
+
+    def _filtered(self):
+        """The pending filter's mapped records, flattened to ``(n,
+        *vshape)``, and the predicate's bool mask over them."""
+        base, funcs, pred, split, vshape, n = self._fpending
+        flat = _chain_apply(funcs, split, base).reshape((n,) + vshape)
+        return flat, _pred_mask(pred, flat)
+
+    def _resolve_filter(self):
+        """Run the pending filter: the chain and the predicate under
+        ``vmap``, then one boolean gather of the survivor rows."""
+        self._guard_donated()
+        flat, mask = self._filtered()
+        self._concrete = flat[mask]
+        self._shape = tuple(self._concrete.shape)
+        self._fpending = None
+
+    def _fused_filter_stat(self, axis, name, keepdims, ddof):
+        """Single-pass ``filter(...).sum()``-family terminal (reference:
+        ``BoltArrayTPU._fused_filter_stat``): the predicate's mask folds
+        into the reduction, so no survivor tensor is gathered.  ``sum``
+        and ``mean`` over the key axis of a chain that compiles run the
+        ``fused_map_reduce`` kernel with the mask (a dropped record is not
+        read); the others run the reference's masked expression.
+        ``max``/``min`` with no survivor raise the zero-size
+        ``ValueError``.  Returns NotImplemented for geometries the fused
+        form does not serve (the caller resolves and takes the
+        materialising path): reductions that keep the key axis, ``ptp``,
+        complex ``var``/``std``."""
+        base, funcs, pred, split, vshape, n = self._fpending
+        ndim = 1 + len(vshape)
+        if axis is None:
+            axes = (0,)                      # the flat key axis (split=1)
+        else:
+            axes = tuple(sorted(tupleize(axis)))
+            if any(not 0 <= a < ndim for a in axes):
+                return NotImplemented        # let the eager path reject
+        if 0 not in axes or name not in _FUSED_STAT_NAMES:
+            return NotImplemented
+        vdtype = self.dtype
+        if name in ("var", "std") and np.issubdtype(vdtype,
+                                                    np.complexfloating):
+            return NotImplemented
+        self._guard_donated()
+        new_split = 1 if keepdims else 0
+        flat, mask = self._filtered()
+        program = None
+        if name in ("sum", "mean") and axes == (0,) and \
+                base.is_contiguous():
+            program = mapexpr.compile(funcs, base.shape[split:], base.dtype)
+        if program is None:
+            out = _masked_stat(name, flat, mask, axes, keepdims, ddof,
+                               vshape, vdtype)
+            if name in ("max", "min") and not bool(mask.any()):
+                raise ValueError("zero-size array to reduction operation "
+                                 "%s which has no identity" % name)
+            return self._wrap(out, new_split)
+        del flat                    # B1 reads the base through the chain
+        out = kernels.fused_map_reduce_cols(
+            base.reshape(n, prod(vshape)), program, mask).reshape(vshape)
+        if name == "mean":
+            out = out / mask.sum(dtype=torch.int32).to(out.dtype)
+        if keepdims:
+            out = out.reshape((1,) + vshape)
+        return self._wrap(out, new_split)
+
+    def _fused_filter_reduce(self, func, axis, keepdims):
+        """Single-pass ``filter(...).reduce(func)`` (reference:
+        ``BoltArrayTPU._fused_filter_reduce``): the pairwise tree carries
+        a validity bit per slot; combining a valid with an invalid slot
+        keeps the valid operand unchanged, so dropped records (NaN too)
+        never reach the result.  No survivor raises the empty-reduce
+        ``TypeError``.  NotImplemented (the resolving path) off the flat
+        key axis or for a reducer ``vmap`` cannot batch."""
+        if tuple(sorted(tupleize(axis))) != (0,):
+            return NotImplemented
+        base, funcs, pred, split, vshape, n = self._fpending
+        if n == 0:
+            raise TypeError("reduce of an empty array with no initial value")
+        try:
+            rec = _meta((1,) + vshape, torch_dtype(self.dtype))
+            vmap(func)(rec, rec)
+        except (RuntimeError, TypeError) as exc:
+            if not _is_trace_error(exc):
+                raise
+            return NotImplemented        # the host fallback path resolves
+        self._guard_donated()
+        x, valid = self._filtered()
+        vfunc = vmap(func)
+
+        def bc(m, like):
+            return m.reshape(m.shape + (1,) * (like.ndim - 1))
+
+        while x.shape[0] > 1:
+            half = x.shape[0] // 2
+            a, b = x[:half], x[half:2 * half]
+            va, vb = valid[:half], valid[half:2 * half]
+            comb = vfunc(a, b)
+            if comb.shape != a.shape:
+                raise ValueError("reduce produced shape %s, expected value "
+                                 "shape %s" % (tuple(comb.shape[1:]), vshape))
+            # both valid: combined; one valid: that operand (the combined
+            # slot may be garbage and is discarded)
+            sel = torch.where(bc(va & vb, comb), comb,
+                              torch.where(bc(va, comb), a, b))
+            vsel = va | vb
+            rem, vrem = x[2 * half:], valid[2 * half:]
+            if rem.shape[0]:
+                x = torch.cat([sel, rem], dim=0)
+                valid = torch.cat([vsel, vrem], dim=0)
+            else:
+                x, valid = sel, vsel
+        if not bool(valid[0]):
+            # every record was filtered out: the contract of reducing an
+            # (0, ...)-shaped resolved result
+            raise TypeError("reduce of an empty array with no initial value")
+        out = x[0]
+        if keepdims:
+            out = out.reshape((1,) + vshape)
+        return self._wrap(out, 1 if keepdims else 0)
 
     def reduce(self, func, axis=(0,), keepdims=False):
         """Fixed-order pairwise tree reduction over the key axes (reference:
@@ -463,6 +718,12 @@ class BoltArrayGPU(BoltArray):
         half the records, in the local oracle's order.  A deferred map
         chain on the input is applied first."""
         func = _traceable(func)
+        if self._fpending is not None:
+            # a pending filter feeding the reduce: fold the predicate into
+            # the pairwise tree (NotImplemented geometries resolve)
+            out = self._fused_filter_reduce(func, axis, keepdims)
+            if out is not NotImplemented:
+                return out
         axes = sorted(tupleize(axis))
         aligned = self._align(axes)
         split = aligned._split
@@ -504,6 +765,12 @@ class BoltArrayGPU(BoltArray):
             out = stream.maybe_stat(self, axis, name, keepdims, ddof)
             if out is not NotImplemented:
                 return out
+        if self._fpending is not None:
+            # a pending filter feeding a reduction: fold the predicate's
+            # mask into it (other geometries resolve below)
+            out = self._fused_filter_stat(axis, name, keepdims, ddof)
+            if out is not NotImplemented:
+                return out
         if axis is None:
             axes = tuple(range(self._split)) if self._split \
                 else tuple(range(self.ndim))
@@ -513,9 +780,41 @@ class BoltArrayGPU(BoltArray):
         split = self._split
         nkeys_reduced = sum(1 for a in axes if a < split)
         new_split = split if keepdims else split - nkeys_reduced
-        out = _reduce_stat(self._mapped(), name, axes, keepdims, ddof,
-                           self.dtype)
+        out = None
+        if name == "sum" and self.deferred:
+            out = self._fused_sum(axes)
+        if out is None:
+            out = _reduce_stat(self._mapped(), name, axes, keepdims, ddof,
+                               self.dtype)
+        elif keepdims:
+            out = out.reshape(tuple(1 if a in axes else d
+                                    for a, d in enumerate(self.shape)))
         return self._wrap(out, new_split)
+
+    def _fused_sum(self, axes):
+        """``sum`` of the deferred chain over ``axes`` through the
+        ``fused_map_reduce`` kernel, reading the base once with no mapped
+        temporary: the column form when ``axes`` are the key axes, the
+        full form when they are every axis.  ``None`` (the caller keeps
+        the torch path) when the chain does not compile, the base is not
+        contiguous or the axes are another set — a plan decision, made
+        before any launch."""
+        base, funcs = self._chain
+        split = self._split
+        if not base.is_contiguous():
+            return None
+        cols = split > 0 and axes == tuple(range(split))
+        if not cols and axes != tuple(range(self.ndim)):
+            return None
+        vshape = tuple(base.shape[split:])
+        program = mapexpr.compile(funcs, vshape, base.dtype)
+        if program is None:
+            return None
+        if not cols:
+            return kernels.fused_map_reduce_program(base, program)
+        n = prod(base.shape[:split])
+        return kernels.fused_map_reduce_cols(
+            base.reshape(n, prod(vshape)), program).reshape(vshape)
 
     def mean(self, axis=None, keepdims=False):
         """Mean over ``axis`` (default: all key axes)."""
@@ -875,7 +1174,12 @@ class BoltArrayGPU(BoltArray):
     def __repr__(self):
         s = "BoltArray\n"
         s += "mode: %s\n" % self.mode
-        s += "shape: %s\n" % str(self.shape)
+        if self._fpending is not None:
+            # don't run the filter just to print; show what is known
+            s += "shape: (%s)\n" % ", ".join(
+                ["?"] + [str(d) for d in self._fpending[4]])
+        else:
+            s += "shape: %s\n" % str(self.shape)
         s += "split: %d\n" % self._split
         s += "dtype: %s\n" % str(self.dtype)
         s += "device: %s\n" % str(self._device)
@@ -885,6 +1189,8 @@ class BoltArrayGPU(BoltArray):
             s += "streaming: %r\n" % (self._stream,)
         elif self.deferred:
             s += "deferred: %d-op map chain\n" % len(self._chain[1])
+        elif self._fpending is not None:
+            s += "pending: deferred filter (predicate not yet run)\n"
         return s
 
 

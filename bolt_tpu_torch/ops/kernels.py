@@ -24,6 +24,12 @@ the kernel.
   fused_decode_sum`` — the int8 codec's decode fused into the streamed
   ``sum`` partial, ``sum(q * scale + zp, axis=0)`` in f32
   (``csrc/codec.cu``).
+* :func:`fused_map_reduce` replaces ``bolt_tpu/ops/kernels.py ::
+  fused_map_reduce`` — ``sum(fn(x))`` in one read, ``fn`` running inside
+  the kernel as an expression program (``ops/mapexpr.py``); and
+  :func:`fused_map_reduce_cols`, the same kernel's column form
+  ``(n, C) -> (C,)`` with an optional record mask, the body of
+  ``map(fn).sum()`` and ``filter(...).sum()`` (``csrc/mapreduce.cu``).
 
 The reference's TPU gates (128-lane minor dimension, the VMEM budgets,
 ``_MINOR_MAX_TAPS``, the band's radius of 128) are not carried over: each
@@ -31,6 +37,9 @@ wrapper returns ``None`` only where the function does not apply
 (:func:`fused_welford`: a non-floating dtype, fewer than two dimensions or
 fewer than two rows; the window kernels: a non-floating dtype;
 :func:`fused_decode_sum`: not uint8/int8, or fewer than two dimensions).
+:func:`fused_map_reduce` keeps the reference's contract instead: an
+integer input, or an ``fn`` that does not compile to a program, is summed
+by torch.
 """
 
 import ctypes
@@ -39,12 +48,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from bolt_tpu_torch.ops import mapexpr
 from bolt_tpu_torch.utils import prod
 
 # launches of each kernel since the last reset (chip_smoke.py zeroes these
 # before it drives a path and reads them after)
 LAUNCHES = {"fused_welford": 0, "fused_stats": 0, "sepfilter1d": 0,
-            "lane_band": 0, "fused_decode_sum": 0}
+            "lane_band": 0, "fused_decode_sum": 0, "fused_map_reduce": 0}
 
 # dtype codes of the C entry points (moments.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
@@ -72,6 +82,13 @@ _SIGNATURES = {
     "codec.cu": {
         "bolt_fused_decode_sum": [ctypes.c_void_p] * 5 + [
             ctypes.c_int64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    },
+    "mapreduce.cu": {
+        "bolt_fused_map_reduce_cols": [ctypes.c_void_p] * 5 + [
+            ctypes.c_int64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "bolt_fused_map_reduce_full": [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "bolt_map_program_bytes": [],
     },
 }
 
@@ -491,3 +508,212 @@ def fused_decode_sum(q, scale, zp):
     _check(code, "fused_decode_sum")
     LAUNCHES["fused_decode_sum"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# fused_map_reduce
+# ---------------------------------------------------------------------------
+
+class _Instr(ctypes.Structure):
+    """mapreduce.cu's ``Instr``: ``r[dst] = op(r[a], r[b], k)``."""
+    _fields_ = [("op", ctypes.c_int8), ("dst", ctypes.c_int8),
+                ("a", ctypes.c_int8), ("b", ctypes.c_int8),
+                ("flags", ctypes.c_int32), ("k", ctypes.c_double)]
+
+
+class _Program(ctypes.Structure):
+    """mapreduce.cu's ``Program``, which the C entry points copy into the
+    launch's parameters."""
+    _fields_ = [("n", ctypes.c_int32), ("flags", ctypes.c_int32),
+                ("nfile", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("ins", _Instr * mapexpr.MAX_INSTRUCTIONS)]
+
+
+# instruction and program flags of mapreduce.cu
+_READ_A, _READ_B, _READ_C, _A_PREV, _B_PREV, _C_PREV, _STORE = (
+    1, 2, 4, 8, 16, 32, 64)
+_STORE_X = 1
+_READS_B = frozenset(("ADD", "SUB", "MUL", "DIV", "MAX", "MIN", "GT", "GE",
+                      "LT", "LE", "EQ", "NE", "WHERE"))
+
+
+def _reads(ins):
+    """``(flag, previous-result flag, register)`` of each register the
+    instruction ``ins`` reads."""
+    name = mapexpr.OPS[ins.op]
+    out = [] if name == "LOADC" else [(_READ_A, _A_PREV, ins.a)]
+    if name in _READS_B:
+        out.append((_READ_B, _B_PREV, ins.b))
+    if name == "WHERE":
+        out.append((_READ_C, _C_PREV, ins.dst))
+    return out
+
+
+@lru_cache(maxsize=256)
+def _program_struct(program):
+    """The kernel's encoding of ``program``: each instruction's flags say
+    which operands it reads, which of them is the previous instruction's
+    result (kept in registers), and whether its result goes to the
+    register file in shared memory, which only a read past the next
+    instruction needs; ``nfile`` sizes that file."""
+    ins = program.instrs
+    p = _Program(len(ins), 0, 0, 0)
+    stored = set()
+
+    def read_later(reg, i):
+        """Whether the value instruction ``i`` writes to ``reg`` (``i ==
+        -1``: the element in register 0) is read past the next instruction
+        before one overwrites it (the next one reads it forwarded)."""
+        for j in range(i + 1, len(ins)):
+            if j > i + 1 and any(r == reg for _, _, r in _reads(ins[j])):
+                return True
+            if ins[j].dst == reg:
+                return False
+        return False
+
+    if read_later(0, -1):
+        p.flags = _STORE_X
+        stored.add(0)
+    for i, cur in enumerate(ins):
+        prev = 0 if i == 0 else ins[i - 1].dst
+        flags = 0
+        for read, fwd, reg in _reads(cur):
+            flags |= read | (fwd if reg == prev else 0)
+        if read_later(cur.dst, i):
+            flags |= _STORE
+            stored.add(cur.dst)
+        p.ins[i] = _Instr(cur.op, cur.dst, cur.a, cur.b, flags, cur.const)
+    p.nfile = 1 + max(stored) if stored else 0
+    return p
+
+
+def _calls(program):
+    """Whether ``program`` calls into the math library (sin, cos, a pow
+    of a general exponent): mapreduce.cu then runs its variant that loads
+    one element at a time."""
+    return any(mapexpr.OPS[op] in ("SIN", "COS") or (
+        mapexpr.OPS[op] == "POWC" and k not in mapexpr.POW_SPECIAL)
+        for op, _, _, _, k in program.instrs)
+
+
+def _mapreduce_lib():
+    lib = _lib("mapreduce.cu")
+    if lib.bolt_map_program_bytes() != ctypes.sizeof(_Program):
+        raise RuntimeError("mapreduce.cu's Program is %d bytes, its ctypes "
+                           "mirror %d" % (lib.bolt_map_program_bytes(),
+                                          ctypes.sizeof(_Program)))
+    return lib
+
+
+def _fused_map_reduce_plain(x, program, mask=None, cols=False):
+    """The plain PyTorch version: :func:`mapexpr.evaluate`, then the sum
+    over every element (``cols``: over axis 0, skipping the rows whose
+    ``mask`` is false) in the accumulator dtype, cast to ``x.dtype``."""
+    y = mapexpr.evaluate(program, x).to(_acc_dtype(x.dtype))
+    if not cols:
+        return y.sum().to(x.dtype)
+    if mask is not None:
+        keep = mask.to(torch.bool).reshape((-1,) + (1,) * (y.ndim - 1))
+        y = torch.where(keep, y, torch.zeros((), dtype=y.dtype,
+                                             device=y.device))
+    return y.sum(0).to(x.dtype)
+
+
+def _check_program(x, program):
+    if program.dtype != x.dtype:
+        raise TypeError("program compiled for %s, got a %s tensor"
+                        % (program.dtype, x.dtype))
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError("fused_map_reduce runs on CUDA or CPU tensors, got "
+                         "device %s" % x.device)
+
+
+def fused_map_reduce_cols(x, program, mask=None):
+    """The column form of :func:`fused_map_reduce`: ``sum(fn(x), axis=0)``
+    of the 2-d tensor ``x`` ``(n, C)`` as a ``(C,)`` tensor of ``x.dtype``
+    (accumulated in f32 for f16/bf16), ``fn`` given as the
+    :class:`mapexpr.Program` ``program``.  ``mask``, a bool or uint8
+    ``(n,)`` tensor, drops the rows where it is false: they are not read,
+    so a dropped row of NaN leaves the sum finite."""
+    _check_program(x, program)
+    if x.ndim != 2:
+        raise ValueError("fused_map_reduce_cols takes a 2-d tensor, got "
+                         "shape %s" % (tuple(x.shape),))
+    n, columns = x.shape
+    if mask is not None and (tuple(mask.shape) != (n,)
+                             or mask.dtype not in (torch.bool, torch.uint8)
+                             or mask.device != x.device):
+        raise ValueError("the mask must be a bool or uint8 (%d,) tensor on "
+                         "%s" % (n, x.device))
+    if x.device.type == "cpu":
+        return _fused_map_reduce_plain(x, program, mask, cols=True)
+    x = _on_card(x, "fused_map_reduce")
+    out = torch.empty(columns, dtype=x.dtype, device=x.device)
+    if n == 0 or columns == 0:
+        return out.zero_()
+    m = None if mask is None else mask.contiguous().view(torch.uint8)
+    vec = 1 if _calls(program) else _vec(x, columns)
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    lanes, rpc, chunks = welford_rows(n, columns, vec, sm_count)
+    part = torch.empty((chunks, columns), dtype=_acc_dtype(x.dtype),
+                       device=x.device)
+    prog = _program_struct(program)
+    lib = _mapreduce_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.bolt_fused_map_reduce_cols(
+            ctypes.byref(prog), x.data_ptr(),
+            None if m is None else m.data_ptr(), part.data_ptr(),
+            out.data_ptr(), n, columns, rpc, chunks, lanes,
+            _DTYPE_CODE[x.dtype], vec, stream)
+    _check(code, "fused_map_reduce")
+    LAUNCHES["fused_map_reduce"] += 1
+    return out
+
+
+def fused_map_reduce_program(x, program):
+    """``sum(fn(x))`` over every element of ``x`` as a 0-d tensor of
+    ``x.dtype`` (accumulated in f32 for f16/bf16), ``fn`` given as the
+    :class:`mapexpr.Program` ``program``: the full form of the kernel."""
+    _check_program(x, program)
+    if x.device.type == "cpu":
+        return _fused_map_reduce_plain(x, program)
+    x = _on_card(x, "fused_map_reduce").reshape(-1)
+    out = torch.zeros(1, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out.reshape(())
+    # one row: the kernel folds the ragged tail itself
+    vec = 1 if _calls(program) else _vec(x, 0)
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)), 4 * sm_count))
+    part = torch.empty(blocks, dtype=_acc_dtype(x.dtype), device=x.device)
+    prog = _program_struct(program)
+    lib = _mapreduce_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.bolt_fused_map_reduce_full(
+            ctypes.byref(prog), x.data_ptr(), part.data_ptr(),
+            out.data_ptr(), x.numel(), blocks, _DTYPE_CODE[x.dtype], vec,
+            stream)
+    _check(code, "fused_map_reduce")
+    LAUNCHES["fused_map_reduce"] += 1
+    return out.reshape(())
+
+
+def fused_map_reduce(x, fn=None):
+    """``sum(fn(x))`` over every element of the tensor ``x`` in one read
+    (``fn``: an elementwise callable, the identity when ``None``), as a
+    0-d tensor of ``x.dtype``, accumulated in f32 for f16/bf16.  ``fn``
+    runs inside the kernel when it compiles to an expression program
+    (:func:`mapexpr.compile`: a pointwise chain of the opcode table); an
+    integer ``x``, or an ``fn`` that does not compile, is summed by torch
+    in jnp's sum dtype, as the reference's own fallback branch does."""
+    program = mapexpr.compile(() if fn is None else (fn,), tuple(x.shape),
+                              x.dtype)
+    if program is None:
+        y = x if fn is None else fn(x)
+        sdt = _sum_dtype(y.dtype) if not y.is_floating_point() else y.dtype
+        # torch has no uint64 sum: int64 wraps modulo 2**64 alike
+        acc = torch.int64 if sdt == torch.uint64 else sdt
+        return torch.sum(y, dtype=acc).to(sdt)
+    return fused_map_reduce_program(x, program)

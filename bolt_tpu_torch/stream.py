@@ -47,8 +47,9 @@ Accounting lands in :mod:`bolt_tpu_torch.engine` (``transfer_*``,
 ``stream_*``, ``codec_*``).  Not ported yet (ROADMAP A9): pods,
 resume and checkpoints, in-run retries, the serving lease, streamed
 ``swap``/``chunk``/``stacked``/``filter`` stages and multi-stat groups.
-Any consumer other than a streamed terminal materialises the source
-(:func:`materialize`), which needs the whole array to fit.
+Any consumer other than a streamed terminal — ``filter`` too —
+materialises the source (:func:`materialize`), which needs the whole
+array to fit.
 """
 
 import contextlib

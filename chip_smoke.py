@@ -12,14 +12,24 @@ result):
    process per source, all started together) and print the card's name
    and power limit;
 2. the main path at BASELINE config 1, ``(200, 200, 64, 64)`` f32:
-   ``ones().map(v + 1).sum()`` bit-exact against the local oracle, the
-   stat terminals and ``stats()`` against numpy, ``swap`` against
-   ``np.transpose``, ``chunk().map()`` with a halo and with a per-chunk
-   SVD (config 5);
+   ``ones().map(v + 1).sum()`` (one ``fused_map_reduce`` launch)
+   bit-exact against the local oracle, the stat terminals and ``stats()``
+   against numpy, ``swap`` against ``np.transpose``, ``chunk().map()``
+   with a halo and with a per-chunk SVD (config 5), and config 4's
+   ``filter``: ``toarray()`` bit-exact against the local oracle with the
+   same survivor count, ``reduce(add)`` against the oracle;
 3. the main path at the north-star ``(3200, 200, 64, 64)`` f32 (10.49 GB)
-   built on the card with ``randn``: ``map(v + 1).sum()``,
-   ``reduce(add)``, ``stats()``, the ``ops.fused_stats`` export and
-   ``swap``, against f64 references computed on the card;
+   built on the card with ``randn``: ``map(v + 1).sum()`` through one
+   ``fused_map_reduce`` launch (its wall and peak-memory growth beside the
+   torch path's, which materialises the chain; under 1 GB), the
+   ``ops.fused_map_reduce`` export (full form), a chain that does not
+   compile taking the torch path, ``reduce(add)``, ``stats()``, the
+   ``ops.fused_stats`` export and ``swap``, against f64 references
+   computed on the card; then config 4 at the same width:
+   ``map(v + 1).filter(v.mean() > 1)`` with ``sum()`` and ``mean()``
+   (one masked ``fused_map_reduce`` launch each) against f64 references
+   of the same mask, and an all-False filter (shape ``(0, ...)``, a zero
+   ``sum()``, ``max()`` raising ``ValueError``);
 4. the imaging path at the full width of ``fam_halo_gaussian``
    (``scripts/perf_regress.py``), ``(64, 2048, 4096)`` f32 (2.15 GB) built
    on the card with ``randn`` (seed 6, split 1): ``ops.gaussian(sigma=2,
@@ -34,10 +44,13 @@ result):
    main-path shapes (``fused_welford`` also at the ``(8388608, 64)``
    pixel series that the imaging path's ``stats()`` hands it;
    ``fused_decode_sum`` at the streamed slab ``(20, 819200)`` and the whole
-   north-star wire ``(3200, 819200)`` uint8) and at odd shapes (ragged rows
-   and columns, f64, bf16, f16, a NaN column; every boundary mode of the
-   window kernels; int8, one row, a width that is not a multiple of 16, a
-   misaligned view, the narrow ``(16, 1024)``), then timed beside its plain
+   north-star wire ``(3200, 819200)`` uint8; ``fused_map_reduce`` in both
+   forms at the north-star in f32 and a bf16 copy and at config 1 in f64)
+   and at odd shapes (ragged rows and columns, f64, bf16, f16, a NaN
+   column; every boundary mode of the window kernels; int8, one row, a
+   width that is not a multiple of 16, a misaligned view, the narrow
+   ``(16, 1024)``; for ``fused_map_reduce`` a masked NaN record and
+   programs that together use every opcode), then timed beside its plain
    version, one PyTorch library call for the same function where there is
    one (for ``fused_decode_sum`` the decode route's torch expression
    instead) and its bound;
@@ -80,18 +93,21 @@ PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12,
 # operations per element: welford = 2 sub + 2 fma (2 each) + min + max;
 # stats = add + fma (2) + min + max; a window of w taps = w products and
 # w - 1 sums; decode_sum = multiply + add + the sum's add
+# map_reduce (the main path's v + 1) = the map's add + the sum's add
 OPS_PER_ELEMENT = {"fused_welford": 8, "fused_stats": 5,
-                   "fused_decode_sum": 3}
+                   "fused_decode_sum": 3, "fused_map_reduce": 2}
 REPLACES = {"fused_welford": "bolt_tpu/ops/kernels.py:188",
             "fused_stats": "bolt_tpu/ops/kernels.py:141",
             "sepfilter1d": "bolt_tpu/ops/kernels.py:534",
             "lane_band": "bolt_tpu/ops/kernels.py:395",
-            "fused_decode_sum": "bolt_tpu/ops/kernels.py:308"}
+            "fused_decode_sum": "bolt_tpu/ops/kernels.py:308",
+            "fused_map_reduce": "bolt_tpu/ops/kernels.py:110"}
 SOURCE = {"fused_welford": "bolt_tpu_torch/ops/csrc/moments.cu",
           "fused_stats": "bolt_tpu_torch/ops/csrc/moments.cu",
           "sepfilter1d": "bolt_tpu_torch/ops/csrc/window.cu",
           "lane_band": "bolt_tpu_torch/ops/csrc/window.cu",
-          "fused_decode_sum": "bolt_tpu_torch/ops/csrc/codec.cu"}
+          "fused_decode_sum": "bolt_tpu_torch/ops/csrc/codec.cu",
+          "fused_map_reduce": "bolt_tpu_torch/ops/csrc/mapreduce.cu"}
 CONFIG1 = (200, 200, 64, 64)
 NORTH_STAR = (3200, 200, 64, 64)
 # fam_halo_gaussian (scripts/perf_regress.py): gaussian(sigma=2.0,
@@ -107,6 +123,8 @@ SLAB_RECORDS = 20
 STREAM_SEED = 7
 # peak device memory a streamed run of the 10.49 GB source may reach
 STREAM_PEAK_BYTES = 2e9
+# peak device memory growth allowed to the north-star map(v + 1).sum()
+FUSED_SUM_PEAK_BYTES = 1e9
 
 
 def check(cond, what):
@@ -167,16 +185,17 @@ def device_us(fn):
 
 
 def f64_column_refs(x, chunk=4096):
-    """Column-wise sums of ``v + 1``, ``|v + 1|`` and ``|v|``, sums of squares,
-    mean, var, min and max of an (n, C) tensor over axis 0, in f64 on the
-    card, ``chunk`` columns at a time."""
+    """Column-wise sums of ``v + 1``, ``|v + 1|``, ``|2v + 1|`` and ``|v|``,
+    sums of squares, mean, var, min and max of an (n, C) tensor over axis
+    0, in f64 on the card, ``chunk`` columns at a time."""
     import torch
-    parts = {k: [] for k in ("sum1", "abs1", "abs", "sq", "mean", "var",
-                             "min", "max")}
+    parts = {k: [] for k in ("sum1", "abs1", "abs21", "abs", "sq", "mean",
+                             "var", "min", "max")}
     for j in range(0, x.shape[1], chunk):
         d = x[:, j:j + chunk].double()
         parts["sum1"].append((d + 1).sum(0))
         parts["abs1"].append((d + 1).abs().sum(0))
+        parts["abs21"].append((2 * d + 1).abs().sum(0))
         parts["abs"].append(d.abs().sum(0))
         parts["sq"].append((d * d).sum(0))
         parts["mean"].append(d.mean(0))
@@ -228,6 +247,288 @@ def scipy_records(x, recs, taps_per_axis, mode):
                                     mode=SCIPY_MODE[mode])
         out.append(r)
     return np.stack(out)
+
+
+def measured(torch, fn):
+    """``fn()``, its synchronised wall in seconds and the growth of peak
+    device memory over what was allocated before it, in bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, torch.cuda.max_memory_allocated() \
+        - base
+
+
+def north_star_map_reduce(bolt, ops, K, torch, b, x, ref, report):
+    """Phase 3's ``fused_map_reduce`` steps at the north-star: the main
+    path's ``map(v + 1).sum()`` (one launch; wall and peak growth beside the
+    torch path's), the full-form export and a chain that does not compile;
+    returns the largest error."""
+    from bolt_tpu_torch.gpu.array import _reduce_stat
+    n = NORTH_STAR[0]
+
+    def plus1(v):
+        return v + 1
+
+    before = K.LAUNCHES["fused_map_reduce"]
+    s, wall, grow = measured(torch, lambda: b.map(plus1).sum())
+    check(K.LAUNCHES["fused_map_reduce"] == before + 1,
+          "north-star map(v+1).sum() launched fused_map_reduce %d times"
+          % (K.LAUNCHES["fused_map_reduce"] - before))
+    # the same callable again: its program comes from the compiler's cache,
+    # so this wall has no trace in it
+    _, cached_wall, _ = measured(torch, lambda: b.map(plus1).sum())
+    check(s.shape == NORTH_STAR[1:] and s.split == 0, "map-sum shape")
+    err = sum_close(s.totorch().reshape(-1), ref, n,
+                    "north-star map(v+1).sum()")
+    check(grow < FUSED_SUM_PEAK_BYTES, "north-star map(v+1).sum() grew the "
+          "peak device memory by %.3f GB" % (grow / 1e9))
+    del s
+    # the same sum through the torch path (the chain under vmap, then
+    # torch.sum), as the port ran it before fused_map_reduce
+    m = b.map(lambda v: v + 1)
+    t, twall, tgrow = measured(torch, lambda: _reduce_stat(
+        m._mapped(), "sum", (0,), False, None, m.dtype))
+    sum_close(t.reshape(-1), ref, n, "north-star torch-path map-sum")
+    del t, m
+    report["map_sum"] = {"fused_wall_s": wall, "fused_cached_wall_s":
+                         cached_wall, "fused_peak_growth_gb": grow / 1e9,
+                         "torch_path_wall_s": twall,
+                         "torch_path_peak_growth_gb": tgrow / 1e9}
+    log("north-star map(v+1).sum(): fused_map_reduce %.4f s (%.4f s with "
+        "the program cached), peak growth %.4f GB; torch path (vmap chain + "
+        "torch.sum) %.4f s, peak growth %.4f GB"
+        % (wall, cached_wall, grow / 1e9, twall, tgrow / 1e9))
+    # the ops export, full form: sum(2v + 1) = 2 sum(v + 1) - numel, within
+    # 1e-6 of sum|2v + 1|
+    before = K.LAUNCHES["fused_map_reduce"]
+    full = float(ops.fused_map_reduce(x, lambda v: v * 2 + 1))
+    check(K.LAUNCHES["fused_map_reduce"] == before + 1,
+          "ops.fused_map_reduce did not launch its kernel once")
+    want = 2 * float(ref["sum1"].sum()) - x.numel()
+    d = abs(full - want)
+    check(d <= 1e-6 * float(ref["abs21"].sum()),
+          "north-star ops.fused_map_reduce: err %.3g of %.6g" % (d, want))
+    err = max(err, d / float(ref["abs21"].sum()))
+    # a chain that does not compile (a reduction inside the map) takes the
+    # torch path: same sum as an f64 reference, no launch
+    before = K.LAUNCHES["fused_map_reduce"]
+    c = b.map(lambda v: v - v.mean()).sum().totorch().reshape(-1)
+    check(K.LAUNCHES["fused_map_reduce"] == before,
+          "a chain that does not compile launched fused_map_reduce")
+    xv = x.view(n, -1)
+    rowmean = torch.cat([xv[i:i + 200].double().mean(1)
+                         for i in range(0, n, 200)])
+    cref = (ref["sum1"] - n) - float(rowmean.sum())
+    cerr = (c.double() - cref).abs()
+    tol = 4 * math.sqrt(n) * 2.0 ** -24 * (ref["abs"] + float(
+        rowmean.abs().sum()))
+    check(bool((cerr <= tol).all()), "north-star map(v - v.mean()).sum(): "
+          "max abs err %.3g" % float(cerr.max()))
+    return err
+
+
+def config4_north_star(bolt, K, torch, b, x, report):
+    """Config 4 at the north-star: ``map(v + 1).filter(v.mean() > 1)`` with
+    ``sum()`` and ``mean()`` through one masked ``fused_map_reduce`` launch
+    each, against f64 references of the same mask; an all-False filter."""
+    from bolt_tpu_torch.gpu.array import _pred_mask
+    n = NORTH_STAR[0]
+
+    def pred(v):
+        return v.mean() > 1
+
+    mask = _pred_mask(pred, x + 1)
+    count = int(mask.sum())
+    check(0 < count < n, "config 4 survivors: %d of %d" % (count, n))
+    xv = x.view(n, -1)
+    rsum, rabs = [], []
+    for j in range(0, xv.shape[1], 4096):
+        d = xv[mask, j:j + 4096].double() + 1
+        rsum.append(d.sum(0))
+        rabs.append(d.abs().sum(0))
+        del d
+    ref = {"sum1": torch.cat(rsum), "abs1": torch.cat(rabs)}
+    out = {}
+    for name in ("sum", "mean"):
+        before = K.LAUNCHES["fused_map_reduce"]
+        got, wall, grow = measured(torch, lambda: getattr(
+            b.map(lambda v: v + 1).filter(pred), name)())
+        check(K.LAUNCHES["fused_map_reduce"] == before + 1,
+              "config 4 filter().%s() launched fused_map_reduce %d times"
+              % (name, K.LAUNCHES["fused_map_reduce"] - before))
+        check(got.shape == NORTH_STAR[1:], "config 4 %s shape" % name)
+        g = got.totorch().reshape(-1)
+        out[name] = {"wall_s": wall, "peak_growth_gb": grow / 1e9,
+                     "max_abs_err": float((g.double() - (
+                         ref["sum1"] if name == "sum"
+                         else ref["sum1"] / count)).abs().max())}
+        if name == "sum":
+            sum_close(g, ref, count, "config 4 filter().sum()")
+        else:
+            sum_close(g * count, ref, count, "config 4 filter().mean()")
+        del got, g
+    # every record dropped: (0, ...) shape, a zero sum, max() refused
+    def never(v):
+        return v.mean() > 1e9
+
+    zero = b.filter(never).sum().totorch()
+    check(bool((zero == 0).all()), "all-False filter().sum() is not zero")
+    try:
+        b.filter(never).max()
+    except ValueError:
+        pass
+    else:
+        check(False, "all-False filter().max() did not raise ValueError")
+    check(b.filter(never).shape == (0,) + NORTH_STAR[1:],
+          "all-False filter shape")
+    report["config4_north_star"] = {"survivors": count, "runs": out}
+    log("config 4 at the north-star: %d of %d records survive; %s"
+        % (count, n, json.dumps(out)))
+
+
+def every_opcode_programs(torch):
+    """Functions whose programs together use every opcode of
+    ``bolt_tpu_torch/ops/mapexpr.py`` (a program holds at most 32
+    instructions, fewer than the opcodes)."""
+    def arith(v):
+        a = torch.abs(v) + 0.5
+        w = (v * 1.5 - 0.25) * (v - a) / (a + 1) - (0.75 - v) / 3 - v
+        return torch.maximum(w, v) + torch.minimum(w, -v)
+
+    def unary(v):
+        a = torch.abs(v) + 0.5
+        w = torch.sqrt(a) + torch.rsqrt(a) + torch.exp(-v * v) + torch.log(a)
+        w = w + torch.tanh(v) + torch.sigmoid(v) + 2 / a + a ** 1.5
+        return torch.clamp(w, -50.0, 50.0) + torch.relu(v)
+
+    def trig(v):
+        return torch.sin(v) * torch.cos(v) + v ** 2 + v ** 3
+
+    def compare(v):
+        w = v * 0.5
+        c = v > 0.25
+        out = torch.where(c, v, 1.0) + torch.where(c, 2.0, w)
+        out = out + torch.where(v >= w, v, w) + torch.where(v < w, 1.0, w)
+        out = out + torch.where(v <= w, w, v) + torch.where(v == w, v, 0.0)
+        return out + torch.where(v != w, w, 0.5)
+
+    def compare_number(v):
+        w = v * 0.5
+        out = torch.where(v >= 0.5, v, w) + torch.where(v < -0.5, v, w)
+        out = out + torch.where(v <= 0.1, w, v) + torch.where(v == 0.0, w, v)
+        return out + torch.where(v != 1.0, v, w) + torch.where(v > w, w, v)
+
+    return {"arith": arith, "unary": unary, "trig": trig, "compare": compare,
+            "compare_number": compare_number}
+
+
+def map_reduce_cases(K, mapexpr, torch, dev, xv, report):
+    """``fused_map_reduce`` in both forms against its plain version: at the
+    north-star in f32 and a bf16 copy, at config 1 in f64, at an odd ``n``
+    and width through a misaligned view, with a masked NaN record, and on
+    programs that together use every opcode (f32 ``rtol=1e-5, atol=1e-3``,
+    f64 ``1e-10``, bf16 ``1.6e-2``: the kernel sums in another order; full
+    forms within ``1e-6`` of the sum of magnitudes).  Returns the largest
+    column difference and the rows of the cases."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    flat = torch.randn(1 + 37 * 1001, generator=gen, device=dev)
+    nanx = torch.randn((64, 4096), generator=gen, device=dev)
+    nanx[5] = float("nan")
+    keep = torch.ones(64, dtype=torch.bool, device=dev)
+    keep[5] = False
+    keep[9] = False
+    v1 = lambda v: v + 1            # noqa: E731
+    v21 = lambda v: v * 2 + 1       # noqa: E731
+    cases = [("north_star", xv, v1, None), ("north_star_bf16",
+             xv.to(torch.bfloat16), v1, None),
+             ("config1_f64", xv[:200].double(), v21, None),
+             ("misaligned_37x1001", flat[1:].view(37, 1001), v21, None),
+             ("masked_nan_64x4096", nanx, v1, keep)]
+    for name, f in every_opcode_programs(torch).items():
+        cases.append(("opcodes_%s" % name, xv[:64, :8192], f, None))
+    used, err, rows = set(), 0.0, []
+    tol = {torch.float32: (1e-5, 1e-3), torch.float64: (1e-10, 1e-9),
+           torch.bfloat16: (1.6e-2, 1.6e-2)}
+    for label, xt, f, mask in cases:
+        prog = mapexpr.compile((f,), tuple(xt.shape[1:]), xt.dtype)
+        check(prog is not None, "%s: the map does not compile" % label)
+        used.update(i.op for i in prog.instrs)
+        before = K.LAUNCHES["fused_map_reduce"]
+        got = K.fused_map_reduce_cols(xt, prog, mask)
+        want = K._fused_map_reduce_plain(xt, prog, mask, cols=True)
+        fprog = mapexpr.compile((f,), tuple(xt.shape), xt.dtype)
+        gfull = float(K.fused_map_reduce_program(xt, fprog))
+        wfull = float(K._fused_map_reduce_plain(xt, fprog))
+        torch.cuda.synchronize()
+        check(K.LAUNCHES["fused_map_reduce"] == before + 2,
+              "%s: not one launch a form" % label)
+        rtol, atol = tol[xt.dtype]
+        d = (got.double() - want.double()).abs()
+        check(bool(torch.isfinite(got).all())
+              and bool((d <= atol + rtol * want.double().abs()).all()),
+              "fused_map_reduce %s: max abs diff %.3g" % (label,
+                                                           float(d.max())))
+        if mask is None:       # (the masked case's full form sums a NaN)
+            mag = float(mapexpr.evaluate(fprog, xt).abs().sum(
+                dtype=torch.float64))
+            fd = abs(gfull - wfull)
+            check(fd <= max(1e-6, rtol) * mag + atol,
+                  "fused_map_reduce %s full form: %r vs %r" % (label, gfull,
+                                                              wfull))
+        err = max(err, float(d.max()))
+        rows.append({"case": label, "shape": list(xt.shape),
+                     "dtype": str(xt.dtype), "max_abs_err": float(d.max()),
+                     "full": gfull, "full_plain": wfull,
+                     "instructions": len(prog.instrs)})
+        log("fused_map_reduce %-22s max_abs_diff %.3g full %r vs %r"
+            % (label, float(d.max()), gfull, wfull))
+        del got, want
+    missing = sorted(set(range(len(mapexpr.OPS))) - used)
+    check(not missing, "opcodes no case used: %s"
+          % [mapexpr.OPS[i] for i in missing])
+    del cases, flat, nanx
+    return err, rows
+
+
+def map_reduce_timings(K, mapexpr, torch, xv, launches):
+    """``fused_map_reduce`` timed at the north-star: the column form with the
+    main path's ``v + 1`` beside its plain version, ``torch.sum(x, 0)`` (the
+    library call for the identity) and the two-call ``(x + 1).sum(0)``; the
+    full form with ``v * 2 + 1`` beside its plain version and
+    ``torch.sum(x)``."""
+    n_el = xv.numel()
+    cols = mapexpr.compile((lambda v: v + 1,), tuple(xv.shape[1:]),
+                           xv.dtype)
+    full = mapexpr.compile((lambda v: v * 2 + 1,), tuple(xv.shape),
+                           xv.dtype)
+    out = {}
+    for label, run, plain, library, out_bytes, ops in (
+            ("north_star_cols", lambda: K.fused_map_reduce_cols(xv, cols),
+             lambda: K._fused_map_reduce_plain(xv, cols, cols=True),
+             lambda: torch.sum(xv, 0), 4 * xv.shape[1], 2),
+            ("north_star_full", lambda: K.fused_map_reduce_program(xv, full),
+             lambda: K._fused_map_reduce_plain(xv, full),
+             lambda: torch.sum(xv), 4, 3)):
+        t_bytes = (4 * n_el + out_bytes) / HBM_BYTES_PER_S
+        t_ops = ops * n_el / PEAK_OPS["float32"]
+        row = {"ms": timed_ms(run, 10), "plain_ms": timed_ms(plain, 3),
+               "library_ms": timed_ms(library, 10),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if label == "north_star_cols":
+            row["two_call_ms"] = timed_ms(lambda: (xv + 1).sum(0), 5)
+        out[("fused_map_reduce", label)] = row
+        log("fused_map_reduce %-15s kernel_ms %.4f plain_ms %.4f library_ms "
+            "%.4f%s bound_ms %.4f (%s) launches %d" % (
+                label, row["ms"], row["plain_ms"], row["library_ms"],
+                " two_call_ms %.4f" % row["two_call_ms"]
+                if "two_call_ms" in row else "", row["bound_ms"],
+                row["bound_by"], launches["fused_map_reduce"]))
+    return out
 
 
 def imaging_phase(bolt, ops, K, torch, np, dev, report):
@@ -658,6 +959,7 @@ def main():
     from bolt_tpu_torch import ops
     from bolt_tpu_torch.ops import _build
     from bolt_tpu_torch.ops import kernels as K
+    from bolt_tpu_torch.ops import mapexpr
 
     warnings.simplefilter("error", bolt.HostFallbackWarning)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -692,6 +994,8 @@ def main():
     log("config1 map(v+1).sum(): total %.1f, bit-exact vs local oracle: %s"
         % (total, bit_exact))
     check(bit_exact and total == 2.0 * np.prod(CONFIG1), "config1 map-sum")
+    check(K.LAUNCHES["fused_map_reduce"] == 1,
+          "config1 map(v+1).sum() did not launch fused_map_reduce once")
     del ones, lo, lo_sum
 
     b1 = bolt.randn(CONFIG1, mode="gpu", dtype=np.float32, seed=1)
@@ -742,7 +1046,22 @@ def main():
                                      compute_uv=False) for i in range(8)]
                       for k in range(2)])
     np.testing.assert_allclose(sv.toarray()[:2], want5, rtol=1e-4, atol=1e-4)
-    del b5, sv, b1, xh
+    del b5, sv
+    # config 4: filter on the keyed axis, against the local oracle
+    local4 = bolt.array(xh).filter(lambda v: v.mean() > 0)
+    f4 = b1.filter(lambda v: v.mean() > 0)
+    check(f4.pending, "config 4 filter is not pending")
+    got4 = f4.toarray()
+    check(got4.shape == local4.shape and 0 < got4.shape[0] < CONFIG1[0]
+          and np.array_equal(got4, local4.toarray()),
+          "config 4 filter().toarray() vs the local oracle")
+    r4 = b1.filter(lambda v: v.mean() > 0).reduce(add).toarray()
+    np.testing.assert_allclose(r4, local4.reduce(add).toarray(), rtol=1e-5,
+                               atol=1e-5)
+    report["config4_survivors"] = int(got4.shape[0])
+    log("config 4 filter at config 1: %d of %d records survive"
+        % (got4.shape[0], CONFIG1[0]))
+    del b1, xh, f4, got4, r4, local4
     torch.cuda.synchronize()
     report["phases"]["config1_s"] = time.perf_counter() - t0
     log("config1 phase ok in %.1f s" % report["phases"]["config1_s"])
@@ -755,11 +1074,10 @@ def main():
     n = NORTH_STAR[0]
     xv = x.view(n, -1)
     ref = f64_column_refs(xv)
-    s = b.map(lambda v: v + 1).sum().totorch().reshape(-1)
-    err_sum = sum_close(s, ref, n, "north-star map(v+1).sum()")
+    err_sum = north_star_map_reduce(bolt, ops, K, torch, b, x, ref, report)
     r = b.map(lambda v: v + 1).reduce(add).totorch().reshape(-1)
     err_red = sum_close(r, ref, n, "north-star map(v+1).reduce(add)")
-    del s, r
+    del r
     before = K.LAUNCHES["fused_welford"]
     st = b.stats()
     check(K.LAUNCHES["fused_welford"] == before + 1,
@@ -794,6 +1112,7 @@ def main():
           and torch.equal(sw.totorch(), x.permute(1, 0, 2, 3)),
           "north-star swap")
     del sw, st, mu, var
+    config4_north_star(bolt, K, torch, b, x, report)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     report["main_path_launches"] = launches
@@ -804,7 +1123,7 @@ def main():
         % (report["phases"]["north_star_s"], report["north_star_peak_gb"],
            err_sum, err_red, err_mu, err_var))
     log("main-path launches: %s" % json.dumps(launches))
-    for name in ("fused_welford", "fused_stats"):
+    for name in ("fused_welford", "fused_stats", "fused_map_reduce"):
         check(launches[name] > 0, "main path never launched %s" % name)
 
     # ---- phase 4: the imaging path at full width -------------------------
@@ -905,7 +1224,11 @@ def main():
                     name, label, row["ms"], row["plain_ms"],
                     row["library_ms"], row["bound_ms"], row["bound_by"],
                     path_of[label][name]))
-    del b, x, xv, xt, cases, zimg
+    del xt, cases
+    max_err["fused_map_reduce"], report["map_reduce_cases"] = \
+        map_reduce_cases(K, mapexpr, torch, dev, xv, report)
+    timings.update(map_reduce_timings(K, mapexpr, torch, xv, launches))
+    del b, x, xv, zimg
 
     # the window kernels: every mode against the plain versions, then
     # timed at the imaging path's full width
@@ -955,15 +1278,17 @@ def main():
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
-    # kernels' from phases 2-3, the window kernels' from phase 4,
-    # fused_decode_sum's from phase 6 (timed at the slab it is given there)
+    # kernels' and fused_map_reduce's from phases 2-3, the window kernels'
+    # from phase 4, fused_decode_sum's from phase 6 (timed at the slab it is
+    # given there)
     kernels = []
     for name, path_launches, label in (
             ("fused_welford", launches, "north_star"),
             ("fused_stats", launches, "north_star"),
             ("sepfilter1d", img_launches, "imaging"),
             ("lane_band", img_launches, "imaging"),
-            ("fused_decode_sum", stream_launches, "slab")):
+            ("fused_decode_sum", stream_launches, "slab"),
+            ("fused_map_reduce", launches, "north_star_cols")):
         row = timings[(name, label)]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],

@@ -11,8 +11,10 @@ Tolerances: the window kernels equal their plain versions bit for bit in
 f32 and f64 (the same products and sums in the same order) and within
 ``1.6e-2`` in f16/bf16 (both accumulate in f32 and round once); the moment
 kernels sum in another order (f64 ``1e-10``, f32 ``1e-4``, f16/bf16
-``1.6e-2``), and so does ``fused_decode_sum`` (f32 ``rtol=1e-5,
-atol=1e-3``).
+``1.6e-2``), and so do ``fused_decode_sum`` (f32 ``rtol=1e-5,
+atol=1e-3``) and ``fused_map_reduce`` (as the moment kernels; its mapped
+values equal the plain version's bit for bit for ``+ - * /`` and
+``sqrt``, which a one-row column sum shows).
 """
 
 import numpy as np
@@ -193,3 +195,145 @@ def test_stream_on_card(codec, monkeypatch):
         np.testing.assert_allclose(got, want, rtol=rtol)
         np.testing.assert_allclose(mean.toarray(), 2 * x.mean(axis=0),
                                    rtol=rtol)
+
+
+def _mr_programs():
+    from bolt_tpu_torch.ops import mapexpr as M
+    return M, {
+        "identity": lambda v: v,
+        "v+1": lambda v: v + 1,
+        "v*2+1": lambda v: v * 2 + 1,
+        "where": lambda v: torch.where(v > 0.1, v, 0.0) + torch.clamp(
+            v, -0.5, 0.5),
+        "live": lambda v: (lambda c: torch.where(c, v, 1.0) + torch.where(
+            c, 2.0, v))(v > 0) * (v + 1),
+        "trans": lambda v: torch.exp(-v * v) * 0.5 + torch.sigmoid(v)
+        + torch.sin(v) + torch.abs(v) ** 1.7}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((257, 4096), torch.float32), ((3, 5, 7), torch.float32),
+    ((1000, 333), torch.float32), ((257, 64, 64), torch.float64),
+    ((128, 4096), torch.bfloat16), ((200, 1000), torch.float16),
+    # narrow columns: row lanes in each block and many row chunks
+    ((50000, 64), torch.float32), ((4097, 2), torch.float64)])
+def test_fused_map_reduce_matches_plain_on_card(shape, dtype):
+    # both forms against the plain version (evaluate, then a torch sum):
+    # the sums run in another order (f64 1e-10, f32 1e-4, f16/bf16 1.6e-2)
+    M, programs = _mr_programs()
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x2 = x.reshape(shape[0], -1)
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}.get(dtype, 1.6e-2)
+    for name, f in programs.items():
+        cols = M.compile((f,), tuple(x2.shape[1:]), dtype)
+        full = M.compile((f,), tuple(x.shape), dtype)
+        before = K.LAUNCHES["fused_map_reduce"]
+        got = K.fused_map_reduce_cols(x2, cols)
+        want = K._fused_map_reduce_plain(x2, cols, cols=True)
+        gf = K.fused_map_reduce_program(x, full)
+        wf = K._fused_map_reduce_plain(x, full)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fused_map_reduce"] == before + 2
+        assert got.dtype == dtype and gf.dtype == dtype and gf.shape == ()
+        torch.testing.assert_close(got.double(), want.double(), rtol=tol,
+                                   atol=tol)
+        # an f16 sum of 200000 values overflows to inf in both
+        mag = float(M.evaluate(full, x).abs().sum(dtype=torch.float64))
+        assert float(gf) == float(wf) or \
+            abs(float(gf) - float(wf)) <= tol * (1 + mag), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_fused_map_reduce_elementwise_values_exact_on_card(dtype):
+    # one row: the column sums are the mapped values themselves, and + - * /
+    # (by a number: times its reciprocal, as torch) and sqrt round alike
+    from bolt_tpu_torch.ops import mapexpr as M
+    dev = _cuda()
+    x = torch.randn((1, 4099), generator=torch.Generator(
+        device=dev).manual_seed(18), device=dev).to(dtype)
+    for f in (lambda v: v + 1, lambda v: v * 2 + 1, lambda v: 0.3 - v / 3,
+              lambda v: (v * 1.1 + 0.2) * (v - 0.3) / (torch.abs(v) + 1),
+              lambda v: torch.sqrt(torch.abs(v)) - v * v):
+        program = M.compile((f,), (4099,), dtype)
+        got = K.fused_map_reduce_cols(x, program)
+        assert torch.equal(got, K._fused_map_reduce_plain(x, program,
+                                                          cols=True))
+
+
+@pytest.mark.gpu
+def test_fused_map_reduce_masks_and_misaligned_views_on_card():
+    from bolt_tpu_torch.ops import mapexpr as M
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn((64, 4096), generator=g, device=dev)
+    x[5] = float("nan")
+    keep = torch.ones(64, dtype=torch.bool, device=dev)
+    keep[5] = keep[9] = False
+    program = M.compile((lambda v: v + 1,), (4096,), torch.float32)
+    got = K.fused_map_reduce_cols(x, program, keep)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, K._fused_map_reduce_plain(
+        x, program, keep, cols=True), rtol=1e-5, atol=1e-4)
+    base = torch.randn(1 + 37 * 1001, generator=g, device=dev)
+    for view in (base[1:].view(37, 1001), base[:-1].view(1001, 37).t()):
+        program = M.compile((lambda v: v * 2 + 1,), (view.shape[1],),
+                            torch.float32)
+        torch.testing.assert_close(
+            K.fused_map_reduce_cols(view, program),
+            K._fused_map_reduce_plain(view, program, cols=True),
+            rtol=1e-5, atol=1e-4)
+        full = M.compile((lambda v: v * 2 + 1,), tuple(view.shape),
+                         torch.float32)
+        torch.testing.assert_close(
+            K.fused_map_reduce_program(view, full),
+            K._fused_map_reduce_plain(view, full), rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_map_sum_and_filter_sum_launch_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    b = bolt.randn((64, 8, 16), dev, dtype=np.float32, seed=3)
+    x = b.toarray().astype(np.float64)
+    K.reset_launches()
+    s = b.map(lambda v: v * 2 + 1).sum().toarray()
+    assert K.LAUNCHES["fused_map_reduce"] == 1
+    np.testing.assert_allclose(s, (x * 2 + 1).sum(0), rtol=1e-5, atol=1e-4)
+    f = b.map(lambda v: v + 1).filter(lambda v: v.mean() > 1)
+    keep = x[(x + 1).reshape(64, -1).mean(1) > 1]
+    np.testing.assert_allclose(f.sum().toarray(), (keep + 1).sum(0),
+                               rtol=1e-5, atol=1e-4)
+    assert K.LAUNCHES["fused_map_reduce"] == 2
+    np.testing.assert_allclose(
+        b.map(lambda v: v + 1).filter(lambda v: v.mean() > 1).mean()
+        .toarray(), (keep + 1).mean(0), rtol=1e-5, atol=1e-5)
+    assert K.LAUNCHES["fused_map_reduce"] == 3
+
+
+@pytest.mark.gpu
+def test_fused_map_reduce_launch_failure_raises(monkeypatch):
+    # a failing launch raises; no plain-version result takes its place
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch.ops import mapexpr as M
+    dev = _cuda()
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *a: 98          # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(K, "_mapreduce_lib", lambda: Failing())
+    x = torch.ones((8, 16), device=dev)
+    program = M.compile((lambda v: v + 1,), (16,), torch.float32)
+    for call in (lambda: K.fused_map_reduce_cols(x, program),
+                 lambda: K.fused_map_reduce(x, lambda v: v + 1),
+                 lambda: bolt.ones((8, 16), dev).map(lambda v: v + 1).sum(),
+                 lambda: bolt.ones((8, 16), dev).filter(
+                     lambda v: v.sum() > 0).sum()):
+        with pytest.raises(RuntimeError, match="fused_map_reduce launch "
+                                               "failed: CUDA error 98"):
+            call()

@@ -22,7 +22,8 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.ops.overlap", "bolt_tpu_torch.ops.series",
            "bolt_tpu_torch._precision", "bolt_tpu_torch.precision",
            "bolt_tpu_torch.gpu.dtypes", "bolt_tpu_torch.stream",
-           "bolt_tpu_torch.engine", "bolt_tpu_torch.gpu.codec"]
+           "bolt_tpu_torch.engine", "bolt_tpu_torch.gpu.codec",
+           "bolt_tpu_torch.ops.mapexpr", "bolt_tpu_torch.ops.kernels"]
 
 
 def _sources():
@@ -41,6 +42,10 @@ def test_imports_with_jax_blocked():
             + "b = bolt_tpu_torch.ones((4, 3), context=torch.device('cpu'))\n"
             + "assert float(b.map(lambda v: v + 1).sum().toarray().sum())"
               " == 24.0\n"
+            + "assert bolt_tpu_torch.ops.mapexpr.compile((lambda v: v * 2,),"
+              " (3,), torch.float32) is not None\n"
+            + "f = b.map(lambda v: v + 1).filter(lambda v: v.sum() > 0)\n"
+            + "assert f.pending and float(f.mean().toarray().sum()) == 6.0\n"
             + "from bolt_tpu_torch.ops import (gaussian, smooth, convolve, "
               "median_filter, map_overlap, sepfilter1d, lane_band, detrend, "
               "zscore)\n"

@@ -179,7 +179,7 @@ def test_launch_counters_reset():
     K.reset_launches()
     assert K.LAUNCHES == {"fused_welford": 0, "fused_stats": 0,
                           "sepfilter1d": 0, "lane_band": 0,
-                          "fused_decode_sum": 0}
+                          "fused_decode_sum": 0, "fused_map_reduce": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -395,9 +395,9 @@ def test_build_writes_a_library_per_source_once(tmp_path, monkeypatch):
     nvcc = _fake_nvcc(tmp_path, script)
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     built = _build.build()
-    assert sorted(built) == _build.sources() == ["codec.cu", "moments.cu",
-                                                 "window.cu"]
+    assert sorted(built) == _build.sources() == ["codec.cu", "mapreduce.cu",
+                                                 "moments.cu", "window.cu"]
     assert all(os.path.exists(p) and "-" in os.path.basename(p)
                for p in built.values())
     assert _build.build() == built          # present: not rebuilt
-    assert (tmp_path / "runs").read_text().count("run") == 3
+    assert (tmp_path / "runs").read_text().count("run") == 4
