@@ -117,8 +117,18 @@ class _CastCodec(Codec):
 
 
 def _cast_bf16(block):
-    # torch rounds to nearest even from f32 and f64 alike
-    return torch.from_numpy(np.ascontiguousarray(block)).to(torch.bfloat16)
+    """The reference's bf16 wire bits (its ml_dtypes cast): an f64 block
+    rounds to f32 first; every non-NaN value rounds to nearest even (torch's
+    cast, on the f32 bits); a NaN becomes ``sign | 0x7FC0``, payload and
+    signalling bit aside, where torch's cast gives ``0xFFFF``."""
+    with np.errstate(over="ignore"):     # a finite f64 beyond f32's range
+        f32 = np.ascontiguousarray(block, dtype=np.float32)
+    out = torch.from_numpy(f32).to(torch.bfloat16)
+    nan = np.isnan(f32)
+    if nan.any():
+        sign = (f32.view(np.uint32)[nan] >> 16).astype(np.uint16) & 0x8000
+        out.view(torch.int16).numpy()[nan] = (sign | 0x7FC0).view(np.int16)
+    return out
 
 
 def _cast_f16(block):

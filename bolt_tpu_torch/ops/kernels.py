@@ -42,7 +42,9 @@ integer input, or an ``fn`` that does not compile to a program, is summed
 by torch.
 """
 
+import contextlib
 import ctypes
+from collections import namedtuple
 from functools import lru_cache
 
 import numpy as np
@@ -82,12 +84,17 @@ _SIGNATURES = {
     "codec.cu": {
         "bolt_fused_decode_sum": [ctypes.c_void_p] * 5 + [
             ctypes.c_int64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "bolt_fused_decode_sum_rows": [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p],
     },
     "mapreduce.cu": {
         "bolt_fused_map_reduce_cols": [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+            ctypes.c_int64] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         "bolt_fused_map_reduce_full": [ctypes.c_void_p] * 4 + [
-            ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+            ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "bolt_map_reduce_resident": [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int)],
         "bolt_map_program_bytes": [],
     },
 }
@@ -98,7 +105,10 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+@lru_cache(maxsize=None)
 def _lib(source="moments.cu"):
+    """The library built from ``csrc/<source>``, its entry points' argument
+    types set once."""
     from bolt_tpu_torch.ops import _build
     lib = _build.load(source)
     for name, argtypes in _SIGNATURES[source].items():
@@ -106,6 +116,27 @@ def _lib(source="moments.cu"):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device):
+    """Streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _stream(device):
+    """The handle of ``device``'s current CUDA stream, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it, without
+    building the stream's Python object (a tenth of the host time)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _on_device(device):
+    """A context that makes ``device`` current for a launch, or nothing
+    when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _acc_dtype(dtype):
@@ -150,6 +181,17 @@ def _fused_welford_plain(x):
                  (mu, m2, torch.amin(xa, dim=0), torch.amax(xa, dim=0)))
 
 
+def _lanes(columns, vec):
+    """Row lanes of a ``_THREADS``-thread block on ``columns`` columns of
+    ``vec``-element packs: as many as the columns leave threads idle
+    (:func:`welford_rows`'s lanes)."""
+    col_threads = -(-columns // vec)
+    width = _THREADS
+    while width > 1 and width // 2 >= col_threads:
+        width //= 2
+    return _THREADS // width
+
+
 def welford_rows(n, columns, vec, sm_count):
     """``(lanes, rows per chunk, chunks)`` for :func:`fused_welford` (and
     :func:`fused_decode_sum`, which shares its plan) on ``n`` rows of
@@ -160,10 +202,8 @@ def welford_rows(n, columns, vec, sm_count):
     the card's resident threads idle, and never below ``_MIN_CHUNK_ROWS``
     rows a lane."""
     col_threads = -(-columns // vec)
-    width = _THREADS
-    while width > 1 and width // 2 >= col_threads:
-        width //= 2
-    lanes = _THREADS // width
+    lanes = _lanes(columns, vec)
+    width = _THREADS // lanes
     threads = -(-col_threads // width) * _THREADS
     want = -(-sm_count * _RESIDENT_THREADS // threads)
     chunks = max(1, min(want, n // (_MIN_CHUNK_ROWS * lanes), 65535))
@@ -187,15 +227,14 @@ def fused_welford(x):
     n, vshape = x.shape[0], tuple(x.shape[1:])
     columns = prod(vshape)
     vec = _vec(x, columns)
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    lanes, rpc, chunks = welford_rows(n, columns, vec, sm_count)
+    lanes, rpc, chunks = welford_rows(n, columns, vec, _sm_count(x.device))
     part = torch.empty((chunks, 4, columns), dtype=_acc_dtype(x.dtype),
                        device=x.device)
     outs = [torch.empty(vshape, dtype=x.dtype, device=x.device)
             for _ in range(4)]
     lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _stream(x.device)
+    with _on_device(x.device):
         code = lib.bolt_fused_welford(
             x.data_ptr(), part.data_ptr(), *(o.data_ptr() for o in outs),
             n, columns, rpc, chunks, lanes, _DTYPE_CODE[x.dtype], vec, stream)
@@ -246,14 +285,14 @@ def fused_stats(x):
                          "device %s" % x.device)
     x = _on_card(x, "fused_stats").reshape(-1)
     vec = _vec(x, 0)      # one row: the kernel folds the ragged tail itself
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)), 4 * sm_count))
+    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)),
+                        4 * _sm_count(x.device)))
     part = torch.empty((blocks, 4), dtype=_acc_dtype(x.dtype),
                        device=x.device)
     out = torch.empty(4, dtype=x.dtype, device=x.device)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _stream(x.device)
+    with _on_device(x.device):
         code = lib.bolt_fused_stats(
             x.data_ptr(), part.data_ptr(), out.data_ptr(), x.numel(),
             blocks, _DTYPE_CODE[x.dtype], vec, stream)
@@ -393,10 +432,10 @@ def _window(x, taps, ax, mode):
     inner = prod(tuple(x.shape[ax + 1:]))
     t = _taps_on(taps, _acc_dtype(x.dtype), x.device)
     lib = _lib("window.cu")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        # 16-byte staging loads when the filtered rows keep the alignment
-        vec = _vec(x, n if last else inner)
+    stream = _stream(x.device)
+    # 16-byte staging loads when the filtered rows keep the alignment
+    vec = _vec(x, n if last else inner)
+    with _on_device(x.device):
         if last:
             code = lib.bolt_window_lane(
                 x.data_ptr(), y.data_ptr(), t.data_ptr(), outer, n,
@@ -454,10 +493,13 @@ def _fused_decode_sum_plain(q, scale, zp):
     return (q.to(torch.float32) * scale + zp).sum(0)
 
 
-def _f32_on(v, device):
+def _sidecar(v, device):
     """A sidecar scalar (a Python or numpy number, or a one-element tensor)
-    as a one-element f32 tensor on ``device``."""
+    as a one-element f32 tensor on ``device``: the tensor itself when it
+    already is one (the stream's sidecar is), else a new one."""
     if isinstance(v, torch.Tensor):
+        if v.dtype == torch.float32 and v.device == device and v.numel() == 1:
+            return v
         return v.to(device=device, dtype=torch.float32).reshape(1)
     return torch.tensor([float(v)], dtype=torch.float32, device=device)
 
@@ -470,6 +512,46 @@ def _byte_vec(q, columns):
         if q.data_ptr() % vec == 0 and columns % vec == 0:
             return vec
     return 1
+
+
+# most rows the short-slab form of fused_decode_sum loads ahead (codec.cu
+# kRowsAhead)
+_ROWS_AHEAD = 24
+
+DecodePlan = namedtuple("DecodePlan", "kind blocks threads span lanes rpc "
+                                      "chunks")
+
+
+@lru_cache(maxsize=256)
+def decode_sum_plan(n, columns, vec, sm_count):
+    """The launch plan of :func:`fused_decode_sum` on ``n`` rows of
+    ``columns`` bytes, loaded ``vec`` bytes a thread a row, on a card of
+    ``sm_count`` SMs.
+
+    * ``kind == "rows"`` (a short, wide slab: 16-byte loads, at most
+      ``_ROWS_AHEAD`` rows, and at least a warp's worth of 16-column groups
+      for every SM): ``blocks``, a multiple of ``sm_count``, of
+      ``threads`` threads (a multiple of 32, at most ``_THREADS``), each
+      block summing ``span`` neighbouring groups, so every SM takes the same
+      share; each thread loads all its rows before it adds the first.
+    * ``kind == "lanes"`` otherwise: ``lanes`` row lanes a block (as
+      :func:`welford_rows`), and the rows split into ``chunks`` of ``rpc``
+      rows over a grid of ``_THREADS``-thread column blocks: as many chunks
+      as the card's resident threads hold in one wave (rounded down, where
+      :func:`welford_rows` rounds up), never below ``_MIN_CHUNK_ROWS``
+      rows a lane."""
+    groups = -(-columns // vec)
+    if vec == 16 and n <= _ROWS_AHEAD and groups >= 32 * sm_count:
+        per_sm = -(-groups // sm_count)
+        blocks = -(-per_sm // _THREADS) * sm_count
+        span = -(-groups // blocks)
+        return DecodePlan("rows", blocks, -(-span // 32) * 32, span, 1, n, 1)
+    lanes = _lanes(columns, vec)
+    threads = -(-groups // (_THREADS // lanes)) * _THREADS
+    fit = sm_count * _RESIDENT_THREADS // threads
+    chunks = max(1, min(fit, n // (_MIN_CHUNK_ROWS * lanes), 65535))
+    rpc = -(-n // chunks)
+    return DecodePlan("lanes", 0, _THREADS, 0, lanes, rpc, -(-n // rpc))
 
 
 def fused_decode_sum(q, scale, zp):
@@ -487,24 +569,31 @@ def fused_decode_sum(q, scale, zp):
         raise ValueError("fused_decode_sum runs on CUDA or CPU tensors, got "
                          "device %s" % q.device)
     q = q.contiguous()
-    n, vshape = q.shape[0], tuple(q.shape[1:])
-    columns = prod(vshape)
-    out = torch.empty(vshape, dtype=torch.float32, device=q.device)
+    dev = q.device
+    n = q.shape[0]
+    columns = q.numel() // n if n else prod(tuple(q.shape[1:]))
+    out = torch.empty(q.shape[1:], dtype=torch.float32, device=dev)
     if n == 0 or columns == 0:
         return out.zero_()
-    s, z = _f32_on(scale, q.device), _f32_on(zp, q.device)
+    s, z = _sidecar(scale, dev), _sidecar(zp, dev)
     vec = _byte_vec(q, columns)
-    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
-    lanes, rpc, chunks = welford_rows(n, columns, vec, sm_count)
-    part = out if chunks == 1 else torch.empty(
-        (chunks, columns), dtype=torch.float32, device=q.device)
+    plan = decode_sum_plan(n, columns, vec, _sm_count(dev))
     lib = _lib("codec.cu")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.bolt_fused_decode_sum(
-            q.data_ptr(), part.data_ptr(), out.data_ptr(), s.data_ptr(),
-            z.data_ptr(), n, columns, rpc, chunks, lanes,
-            int(q.dtype == torch.int8), vec, stream)
+    signed = int(q.dtype == torch.int8)
+    stream = _stream(dev)
+    with _on_device(dev):
+        if plan.kind == "rows":
+            code = lib.bolt_fused_decode_sum_rows(
+                q.data_ptr(), out.data_ptr(), s.data_ptr(), z.data_ptr(), n,
+                columns, plan.blocks, plan.threads, plan.span, signed,
+                stream)
+        else:
+            part = out if plan.chunks == 1 else torch.empty(
+                (plan.chunks, columns), dtype=torch.float32, device=dev)
+            code = lib.bolt_fused_decode_sum(
+                q.data_ptr(), part.data_ptr(), out.data_ptr(), s.data_ptr(),
+                z.data_ptr(), n, columns, plan.rpc, plan.chunks, plan.lanes,
+                signed, vec, stream)
     _check(code, "fused_decode_sum")
     LAUNCHES["fused_decode_sum"] += 1
     return out
@@ -549,8 +638,7 @@ def _reads(ins):
     return out
 
 
-@lru_cache(maxsize=256)
-def _program_struct(program):
+def _encode(program):
     """The kernel's encoding of ``program``: each instruction's flags say
     which operands it reads, which of them is the previous instruction's
     result (kept in registers), and whether its result goes to the
@@ -589,13 +677,28 @@ def _program_struct(program):
 
 def _calls(program):
     """Whether ``program`` calls into the math library (sin, cos, a pow
-    of a general exponent): mapreduce.cu then runs its variant that loads
-    one element at a time."""
+    of a general exponent): mapreduce.cu then runs its variant that makes
+    those calls one value at a time through the register file."""
     return any(mapexpr.OPS[op] in ("SIN", "COS") or (
         mapexpr.OPS[op] == "POWC" and k not in mapexpr.POW_SPECIAL)
         for op, _, _, _, k in program.instrs)
 
 
+def _encoded(program):
+    """``(struct, calls)`` of ``program``: its :func:`_encode` struct and
+    :func:`_calls`, made on its first launch and kept on the program."""
+    enc = program.kernel
+    if enc is None:
+        enc = program.kernel = (_encode(program), _calls(program))
+    return enc
+
+
+def _program_struct(program):
+    """The kernel's encoding of ``program`` (kept on the program)."""
+    return _encoded(program)[0]
+
+
+@lru_cache(maxsize=None)
 def _mapreduce_lib():
     lib = _lib("mapreduce.cu")
     if lib.bolt_map_program_bytes() != ctypes.sizeof(_Program):
@@ -603,6 +706,66 @@ def _mapreduce_lib():
                            "mirror %d" % (lib.bolt_map_program_bytes(),
                                           ctypes.sizeof(_Program)))
     return lib
+
+
+# shared memory a block's register file may take at the wide tile: seven
+# registers, so two blocks still share an SM's 227 KB; a larger file takes
+# the half tile (in f32 at the north-star, a file of eight registers held
+# one block an SM at the wide tile and read 22% slower there, files of
+# four to seven read 20-25% faster: PERF.md)
+_FILE_BYTES = 112 * 1024
+
+
+def tile_rows(element_size, vec, nregs):
+    """Packs of ``vec`` elements (of ``element_size`` bytes) a thread holds
+    in one tile of the map-reduce kernel, for a program whose register file
+    holds ``nregs`` registers: the wide tile (4 packs; 2 for f16/bf16,
+    whose 16-byte packs hold 8 values) while its file fits
+    ``_FILE_BYTES``, else half of it; 4 single elements when ``vec`` is
+    1.  A wide tile's register takes 16 KB of a block's file in every
+    dtype."""
+    if vec == 1:
+        return 4
+    wide = 2 if element_size == 2 else 4
+    per_register = 16 * 1024
+    return wide if nregs * per_register <= _FILE_BYTES else wide // 2
+
+
+MapReducePlan = namedtuple("MapReducePlan", "lanes blocks segs direct")
+
+
+def map_reduce_plan(n, columns, vec, resident):
+    """The grid of :func:`fused_map_reduce_cols` on ``n`` rows of
+    ``columns`` columns, ``vec`` elements a pack, when the card holds
+    ``resident`` blocks of the kernel at once.  The ``lanes``-lane blocks
+    cover ``G`` column blocks of ``_THREADS // lanes * vec`` columns, and
+    the ``W = G * n`` row units split into ``blocks = min(resident, W)``
+    equal shares, one a block: one wave, so no SM waits on a second one.
+    ``segs`` bounds the column blocks one share touches (the scratch holds
+    ``blocks * segs`` partial rows); ``direct`` when every block holds one
+    column block whole (``blocks == G``), so the kernel writes the output
+    and no partials are combined."""
+    lanes = _lanes(columns, vec)
+    groups = -(-columns // (_THREADS // lanes * vec))
+    units = groups * n
+    blocks = max(1, min(resident, units))
+    if blocks == groups:
+        return MapReducePlan(lanes, blocks, 1, True)
+    segs = (-(-units // blocks) - 1) // n + 2
+    return MapReducePlan(lanes, blocks, segs, False)
+
+
+@lru_cache(maxsize=None)
+def _resident(device, form, lanes, dtype, vec, rows, calls, nfile):
+    """Blocks of the map-reduce variant that ``device`` holds at once,
+    over all its SMs (the occupancy API, asked once a variant)."""
+    per_sm = ctypes.c_int(0)
+    with _on_device(device):
+        code = _mapreduce_lib().bolt_map_reduce_resident(
+            form, lanes, _DTYPE_CODE[dtype], vec, rows, int(calls), nfile,
+            ctypes.byref(per_sm))
+    _check(code, "fused_map_reduce")
+    return per_sm.value * _sm_count(device)
 
 
 def _fused_map_reduce_plain(x, program, mask=None, cols=False):
@@ -652,20 +815,24 @@ def fused_map_reduce_cols(x, program, mask=None):
     if n == 0 or columns == 0:
         return out.zero_()
     m = None if mask is None else mask.contiguous().view(torch.uint8)
-    vec = 1 if _calls(program) else _vec(x, columns)
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    lanes, rpc, chunks = welford_rows(n, columns, vec, sm_count)
-    part = torch.empty((chunks, columns), dtype=_acc_dtype(x.dtype),
-                       device=x.device)
-    prog = _program_struct(program)
+    struct, calls = _encoded(program)
+    vec = _vec(x, columns)
+    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
+    lanes = _lanes(columns, vec)
+    plan = map_reduce_plan(n, columns, vec, _resident(
+        x.device, 0, lanes, x.dtype, vec, rows, calls, struct.nfile))
+    part = None if plan.direct else torch.empty(
+        plan.blocks * plan.segs * (_THREADS // lanes) * vec,
+        dtype=_acc_dtype(x.dtype), device=x.device)
     lib = _mapreduce_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _stream(x.device)
+    with _on_device(x.device):
         code = lib.bolt_fused_map_reduce_cols(
-            ctypes.byref(prog), x.data_ptr(),
-            None if m is None else m.data_ptr(), part.data_ptr(),
-            out.data_ptr(), n, columns, rpc, chunks, lanes,
-            _DTYPE_CODE[x.dtype], vec, stream)
+            ctypes.byref(struct), x.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(), n,
+            columns, lanes, plan.blocks, plan.segs, _DTYPE_CODE[x.dtype],
+            vec, rows, stream)
     _check(code, "fused_map_reduce")
     LAUNCHES["fused_map_reduce"] += 1
     return out
@@ -679,22 +846,23 @@ def fused_map_reduce_program(x, program):
     if x.device.type == "cpu":
         return _fused_map_reduce_plain(x, program)
     x = _on_card(x, "fused_map_reduce").reshape(-1)
-    out = torch.zeros(1, dtype=x.dtype, device=x.device)
+    out = torch.empty(1, dtype=x.dtype, device=x.device)
     if x.numel() == 0:
-        return out.reshape(())
+        return out.zero_().reshape(())
+    struct, calls = _encoded(program)
     # one row: the kernel folds the ragged tail itself
-    vec = 1 if _calls(program) else _vec(x, 0)
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)), 4 * sm_count))
+    vec = _vec(x, 0)
+    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
+    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)), _resident(
+        x.device, 1, 1, x.dtype, vec, rows, calls, struct.nfile)))
     part = torch.empty(blocks, dtype=_acc_dtype(x.dtype), device=x.device)
-    prog = _program_struct(program)
     lib = _mapreduce_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _stream(x.device)
+    with _on_device(x.device):
         code = lib.bolt_fused_map_reduce_full(
-            ctypes.byref(prog), x.data_ptr(), part.data_ptr(),
+            ctypes.byref(struct), x.data_ptr(), part.data_ptr(),
             out.data_ptr(), x.numel(), blocks, _DTYPE_CODE[x.dtype], vec,
-            stream)
+            rows, stream)
     _check(code, "fused_map_reduce")
     LAUNCHES["fused_map_reduce"] += 1
     return out.reshape(())

@@ -55,9 +55,12 @@ Instr = namedtuple("Instr", "op dst a b const")
 
 class Program(namedtuple("Program", "instrs out dtype")):
     """``instrs``: a tuple of :data:`Instr`; ``out``: the register holding
-    the result; ``dtype``: the record dtype the program was compiled for."""
+    the result; ``dtype``: the record dtype the program was compiled for.
+    ``kernel``: what the kernel's wrapper derives from the program (its
+    encoding, ``ops/kernels.py``), kept here on its first launch so that
+    it is made once a program."""
 
-    __slots__ = ()
+    kernel = None
 
 
 _aten = torch.ops.aten

@@ -50,10 +50,15 @@ result):
    column; every boundary mode of the window kernels; int8, one row, a
    width that is not a multiple of 16, a misaligned view, the narrow
    ``(16, 1024)``; for ``fused_map_reduce`` a masked NaN record and
-   programs that together use every opcode), then timed beside its plain
-   version, one PyTorch library call for the same function where there is
-   one (for ``fused_decode_sum`` the decode route's torch expression
-   instead) and its bound;
+   programs that together use every opcode, and one that fills the
+   register file), then timed beside its plain version, one PyTorch
+   library call for the same function where there is one (for
+   ``fused_decode_sum`` the decode route's torch expression instead) and
+   its bound; ``fused_map_reduce`` also by program length, with the
+   programs of ``tools/mapreduce_probe.py``; ``fused_decode_sum``'s decoded
+   values bit for bit on all 256 byte values of uint8 and int8, and its
+   slab time three ways (the launch loop, the device time, the host's
+   share);
 6. the streamed north-star: ``fromcallback(cb, (3200, 200, 64, 64),
    mode="gpu", dtype=float32)`` with the default slabs (20 records, 160
    slabs), each record from ``np.random.default_rng(seed + record)``, under
@@ -450,6 +455,18 @@ def map_reduce_cases(K, mapexpr, torch, dev, xv, report):
              ("masked_nan_64x4096", nanx, v1, keep)]
     for name, f in every_opcode_programs(torch).items():
         cases.append(("opcodes_%s" % name, xv[:64, :8192], f, None))
+
+    def product8(v):
+        # eight registers live at once: the largest register file, and so
+        # the narrower tile
+        t = [v + i * 0.25 for i in range(1, 8)]
+        out = t[0]
+        for u in t[1:]:
+            out = out * u
+        return out + v
+
+    # rows that are not a multiple of any tile's
+    cases.append(("file8_1027x8192", xv[:1027, :8192], product8, None))
     used, err, rows = set(), 0.0, []
     tol = {torch.float32: (1e-5, 1e-3), torch.float64: (1e-10, 1e-9),
            torch.bfloat16: (1.6e-2, 1.6e-2)}
@@ -494,12 +511,25 @@ def map_reduce_cases(K, mapexpr, torch, dev, xv, report):
     return err, rows
 
 
-def map_reduce_timings(K, mapexpr, torch, xv, launches):
+def probe_tool():
+    """``tools/mapreduce_probe.py`` as a module: its programs time the
+    kernel by program length."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "mapreduce_probe", os.path.join(ROOT, "tools", "mapreduce_probe.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def map_reduce_timings(K, mapexpr, torch, xv, launches, report):
     """``fused_map_reduce`` timed at the north-star: the column form with the
     main path's ``v + 1`` beside its plain version, ``torch.sum(x, 0)`` (the
     library call for the identity) and the two-call ``(x + 1).sum(0)``; the
     full form with ``v * 2 + 1`` beside its plain version and
-    ``torch.sum(x)``."""
+    ``torch.sum(x)``; then the column form by program length, with the
+    programs of ``tools/mapreduce_probe.py`` (into the report's
+    ``map_reduce_by_program``)."""
     n_el = xv.numel()
     cols = mapexpr.compile((lambda v: v + 1,), tuple(xv.shape[1:]),
                            xv.dtype)
@@ -528,6 +558,14 @@ def map_reduce_timings(K, mapexpr, torch, xv, launches):
                 " two_call_ms %.4f" % row["two_call_ms"]
                 if "two_call_ms" in row else "", row["bound_ms"],
                 row["bound_by"], launches["fused_map_reduce"]))
+    gen = torch.Generator(device=xv.device).manual_seed(0)
+    rows = probe_tool().map_reduce_rows(torch, K, mapexpr, xv, gen)
+    report["map_reduce_by_program"] = rows
+    for row in rows:
+        log("fused_map_reduce by program %-16s instructions %s ms %.4f "
+            "bound_ms %.4f" % (row["map"] if "map" in row else row["kernel"],
+                               row.get("instructions", "-"), row["ms"],
+                               row["bound_ms"]))
     return out
 
 
@@ -726,6 +764,20 @@ def decode_sum_cases(K, torch, dev):
              ("ragged_37x1001", flat[:37 * 1001].view(37, 1001)),
              ("misaligned_64x1000", flat[1:1 + 64 * 1000].view(64, 1000)),
              ("narrow_16x1024", flat[:16 * 1024].view(16, 1024))]
+    # one row of every byte value: each sum is one decoded value, so the
+    # conversion equals the plain version's bit for bit (the short-slab
+    # form at the slab's width, row lanes at 4096)
+    for dt, lo in ((torch.uint8, 0), (torch.int8, -128)):
+        every = torch.arange(lo, lo + 256, device=dev,
+                             dtype=torch.int32).to(dt)
+        for width in (cols, 4096):
+            q = every.repeat(width // 256).view(1, width)
+            check(torch.equal(K.fused_decode_sum(q, scale, zp),
+                              K._fused_decode_sum_plain(q, scale, zp)),
+                  "fused_decode_sum %s conversion of every byte at %d "
+                  "columns" % (dt, width))
+    log("fused_decode_sum decoded values equal the plain version's bit for "
+        "bit on all 256 byte values of uint8 and int8")
     err, rows = 0.0, []
     for label, q in cases:
         got = K.fused_decode_sum(q, scale, zp)
@@ -764,12 +816,18 @@ def decode_sum_cases(K, torch, dev):
         _, dev_us, _ = device_us(lambda: [K.fused_decode_sum(
             next(turn), scale, zp) for _ in range(reps)])
         row["device_ms"] = None if dev_us is None else dev_us / reps / 1e3
+        # the launch loop's share that the device does not account for:
+        # the host's (Python, ctypes, the launch itself)
+        row["host_share"] = None if dev_us is None else \
+            1.0 - row["device_ms"] / row["ms"]
         timings[label] = row
-        log("fused_decode_sum %-5s %s kernel_ms %.4f (device %s) plain_ms "
-            "%.4f decode_route_ms %.4f bound_ms %.4f (%s)" % (
+        log("fused_decode_sum %-5s %s kernel_ms %.4f (device %s, host share "
+            "%s) plain_ms %.4f decode_route_ms %.4f bound_ms %.4f (%s)" % (
                 label, "x".join(map(str, q.shape)), row["ms"],
                 "not measured" if row["device_ms"] is None
-                else "%.4f" % row["device_ms"], row["plain_ms"],
+                else "%.4f" % row["device_ms"],
+                "not measured" if row["host_share"] is None
+                else "%.3f" % row["host_share"], row["plain_ms"],
                 row["decode_route_ms"], row["bound_ms"], row["bound_by"]))
     del wire, flat, signed, cases, slabs
     return err, rows, timings
@@ -1227,7 +1285,8 @@ def main():
     del xt, cases
     max_err["fused_map_reduce"], report["map_reduce_cases"] = \
         map_reduce_cases(K, mapexpr, torch, dev, xv, report)
-    timings.update(map_reduce_timings(K, mapexpr, torch, xv, launches))
+    timings.update(map_reduce_timings(K, mapexpr, torch, xv, launches,
+                                       report))
     del b, x, xv, zimg
 
     # the window kernels: every mode against the plain versions, then

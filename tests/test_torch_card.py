@@ -337,3 +337,160 @@ def test_fused_map_reduce_launch_failure_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="fused_map_reduce launch "
                                                "failed: CUDA error 98"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels' tiles, register files, grids and conversion
+# ---------------------------------------------------------------------------
+
+def _product8(v):
+    # eight registers live at once: the register file holds all eight
+    t = [v + i * 0.25 for i in range(1, 8)]
+    out = t[0]
+    for u in t[1:]:
+        out = out * u
+    return out + v
+
+
+def _reuse3(v):
+    a = v + 1
+    b = v * 2
+    return (a * b + v) * a - b
+
+
+# programs whose register files hold 0, 1, 3 and 8 registers (the tile
+# halves above seven), and one that calls the math library
+_FILE_PROGRAMS = {
+    0: lambda v: v * 2 + 1,
+    1: lambda v: v * (v + 1),
+    3: _reuse3,
+    8: _product8,
+    "calls": lambda v: torch.sin(v) * torch.cos(v) + torch.abs(v) ** 1.5
+    + v}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("nfile", sorted(_FILE_PROGRAMS, key=str))
+def test_fused_map_reduce_tiles_and_register_files_on_card(dtype, nfile):
+    # every file size and tile width, on row counts that are not a multiple
+    # of the tile's rows (and so leave part of the last tile empty), in
+    # both forms, against the plain version
+    from bolt_tpu_torch.ops import mapexpr as M
+    dev = _cuda()
+    f = _FILE_PROGRAMS[nfile]
+    g = torch.Generator(device=dev).manual_seed(21)
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}.get(dtype, 1.6e-2)
+    for shape in ((1027, 4096), (3, 8192), (4099, 64), (1, 16)):
+        x = (torch.rand(shape, generator=g, device=dev) + 0.1).to(dtype)
+        cols = M.compile((f,), shape[1:], dtype)
+        if nfile != "calls":
+            assert K._program_struct(cols).nfile == nfile
+        got = K.fused_map_reduce_cols(x, cols)
+        want = K._fused_map_reduce_plain(x, cols, cols=True)
+        torch.testing.assert_close(got.double(), want.double(), rtol=tol,
+                                   atol=tol)
+        full = M.compile((f,), shape, dtype)
+        gf, wf = K.fused_map_reduce_program(x, full), \
+            K._fused_map_reduce_plain(x, full)
+        mag = float(M.evaluate(full, x).abs().sum(dtype=torch.float64))
+        assert float(gf) == float(wf) or \
+            abs(float(gf) - float(wf)) <= tol * (1 + mag), (shape, nfile)
+
+
+@pytest.mark.gpu
+def test_fused_map_reduce_mask_inside_one_tile_on_card():
+    # rows 4..7 would form one tile of the lane: drop two of them, one
+    # full of NaN, and the last, ragged row too (a tile then takes the next
+    # kept rows); every kernel variant
+    from bolt_tpu_torch.ops import mapexpr as M
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((11, 8192), generator=g, device=dev)
+    x[5] = float("nan")
+    keep = torch.ones(11, dtype=torch.bool, device=dev)
+    keep[5] = keep[6] = keep[10] = False
+    alternate = torch.arange(11, device=dev) % 2 == 0
+    alternate[10] = False
+    none = torch.zeros(11, dtype=torch.bool, device=dev)
+    for f in _FILE_PROGRAMS.values():
+        program = M.compile((f,), (8192,), torch.float32)
+        for mask in (keep, alternate, none):
+            got = K.fused_map_reduce_cols(x, program, mask)
+            assert bool(torch.isfinite(got).all())
+            torch.testing.assert_close(got, K._fused_map_reduce_plain(
+                x, program, mask, cols=True), rtol=1e-5, atol=1e-4)
+        assert not bool(K.fused_map_reduce_cols(x, program, none).any())
+
+
+@pytest.mark.gpu
+def test_fused_map_reduce_calls_variant_loads_packs_on_card():
+    # a program that calls the math library runs on 16-byte packs like the
+    # others (and on single elements through a misaligned view)
+    from bolt_tpu_torch.ops import mapexpr as M
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(23)
+    base = torch.randn(1 + 300 * 4096, generator=g, device=dev)
+    f = _FILE_PROGRAMS["calls"]
+    for x in (base[:-1].view(300, 4096), base[1:].view(300, 4096),
+              base[1:1 + 37 * 1001].view(37, 1001)):
+        program = M.compile((f,), tuple(x.shape[1:]), torch.float32)
+        assert K._calls(program)
+        assert K._vec(x, x.shape[1]) == (4 if x.data_ptr() % 16 == 0
+                                         else 1)
+        torch.testing.assert_close(
+            K.fused_map_reduce_cols(x, program),
+            K._fused_map_reduce_plain(x, program, cols=True), rtol=1e-4,
+            atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_fused_decode_sum_conversion_exact_on_all_bytes_on_card(dtype):
+    # one row: each sum is one decoded value, so the byte permute's
+    # conversion and the decode equal the plain version bit for bit on
+    # every byte value, through both plans (the short-slab form at
+    # 819200 columns, row lanes at 4096)
+    dev = _cuda()
+    lo = -128 if dtype == torch.int8 else 0
+    every = torch.arange(lo, lo + 256, device=dev, dtype=torch.int32).to(
+        dtype)
+    for cols in (819200, 4096):
+        q = every.repeat(cols // 256).view(1, cols)
+        # ordinary scales, then zero, negative and very large ones
+        for scale, zp in ((1.0, 0.0), (0.0431, -5.37), (3.7e-3, 0.125),
+                          (0.0, 1.5), (-0.25, 3.0), (3e31, -1.0)):
+            s = torch.tensor(scale, device=dev)
+            z = torch.tensor(zp, device=dev)
+            assert torch.equal(K.fused_decode_sum(q, s, z),
+                               K._fused_decode_sum_plain(q, s, z))
+
+
+@pytest.mark.gpu
+def test_fused_decode_sum_plans_on_card():
+    # the slab and one row take the short-slab form, the rest row lanes:
+    # the whole wire, (300, 4096) int8, 1001 columns, a misaligned view
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(24)
+    wire = torch.randint(0, 256, (3200, 819200), generator=g, device=dev,
+                         dtype=torch.uint8)
+    signed = torch.randint(-128, 128, (300, 4096), generator=g, device=dev,
+                           dtype=torch.int8)
+    flat = wire.view(-1)
+    sm = K._sm_count(dev)
+    cases = [(wire[:20], "rows"), (wire[:1], "rows"), (wire, "lanes"),
+             (signed, "lanes"), (flat[:37 * 1001].view(37, 1001), "lanes"),
+             (flat[1:1 + 20 * 81920].view(20, 81920), "lanes")]
+    scale = torch.tensor(0.0173, device=dev)
+    zp = torch.tensor(-1.25, device=dev)
+    for q, kind in cases:
+        n, cols = q.shape
+        assert K.decode_sum_plan(n, cols, K._byte_vec(q, cols),
+                                 sm).kind == kind
+        before = K.LAUNCHES["fused_decode_sum"]
+        got = K.fused_decode_sum(q, scale, zp)
+        want = K._fused_decode_sum_plain(q, scale, zp)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fused_decode_sum"] == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)

@@ -190,15 +190,26 @@ def test_dict_refuses_high_cardinality_like_reference():
     assert str(mine.value) == str(ref.value)
 
 
-def test_bf16_nan_bits_differ_but_decode_to_nan():
-    # torch's cast gives every NaN the bits 0xFFFF, ml_dtypes keeps the
-    # sign and the top payload bits (ROADMAP C); both decode to NaN and the
-    # finite values agree bit for bit
-    x = np.array([[np.nan, 1.5, -np.nan, 2.0]], np.float32)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_bf16_wire_bits_equal_reference(dtype):
+    # the reference's ml_dtypes cast, bit for bit: NaN and -NaN keep their
+    # sign as 0x7FC0/0xFFC0 (a payload or signalling NaN too), infinities,
+    # zeros, subnormals, ties to even either way, the largest finite f32
+    # rounding up to inf; an f64 block rounds through f32 as the
+    # reference's does: +-(1 + 2^-8 + 2^-40) rounds to the f32 tie
+    # 1 + 2^-8, then to even (1.0), where one rounding would go up
+    bits = np.array([0x7FC00000, 0xFFC00000, 0x7F812345, 0xFF812345,
+                     0x7F800001, 0x7F800000, 0xFF800000, 0x00000000,
+                     0x80000000, 0x00000001, 0x80000001, 0x00408000,
+                     0x007FFFFF, 0x3F808000, 0x3F818000, 0x3F808001,
+                     0xBF808000, 0x7F7FFFFF], np.uint32)
+    above_tie = 1 + 2.0 ** -8 + 2.0 ** -40
+    x = np.concatenate([bits.view(np.float32).astype(dtype),
+                        np.array([above_tie, -above_tie], dtype)])
+    x = x.reshape(4, 5)
     wire, _ = P.get("bf16").encode(x)
     rwire, _ = R.get("bf16").encode(x)
-    assert np.array_equal(_bits(wire)[:, [1, 3]], _bits(rwire)[:, [1, 3]])
-    assert not np.array_equal(_bits(wire), _bits(rwire))
+    assert np.array_equal(_bits(wire), _bits(rwire))
     back = _port_decode("bf16", wire, (), np.float32)
     assert np.array_equal(np.isnan(back), np.isnan(x))
 
@@ -250,6 +261,34 @@ def test_fused_decode_sum_none_contract_and_devices():
     with pytest.raises(ValueError):
         K.fused_decode_sum(torch.empty((4, 8), dtype=torch.uint8,
                                        device="meta"), 1.0, 0.0)
+
+
+@pytest.mark.parametrize("n,columns,vec,plan", [
+    # the streamed slab: 51200 groups of 16 columns over 264 blocks (two
+    # an SM) of 194 groups, 224 threads; every row loaded ahead
+    (20, 819200, 16, K.DecodePlan("rows", 264, 224, 194, 1, 20, 1)),
+    (1, 819200, 16, K.DecodePlan("rows", 264, 224, 194, 1, 1, 1)),
+    # the whole wire: one lane, and five chunks of 640 rows, the 1000
+    # blocks that 132 SMs of 2048 threads hold in one wave
+    (3200, 819200, 16, K.DecodePlan("lanes", 0, 256, 0, 1, 640, 5)),
+    # 25 rows: one more than the short form loads ahead
+    (25, 819200, 16, K.DecodePlan("lanes", 0, 256, 0, 1, 25, 1)),
+    # (300, 4096) int8: 256 column threads, 18 chunks of 17 rows
+    (300, 4096, 16, K.DecodePlan("lanes", 0, 256, 0, 1, 17, 18)),
+    # narrow: 64 column threads, four lanes, one chunk
+    (16, 1024, 16, K.DecodePlan("lanes", 0, 256, 0, 4, 16, 1)),
+    # too few groups for a warp an SM, and loads narrower than 16 bytes
+    (20, 65536, 16, K.DecodePlan("lanes", 0, 256, 0, 1, 20, 1)),
+    (20, 819208, 8, K.DecodePlan("lanes", 0, 256, 0, 1, 20, 1)),
+])
+def test_decode_sum_plan(n, columns, vec, plan):
+    got = K.decode_sum_plan(n, columns, vec, 132)
+    assert got == plan
+    if got.kind == "rows":
+        groups = columns // 16
+        assert got.blocks % 132 == 0 and got.threads % 32 == 0
+        assert got.span <= got.threads <= 256
+        assert (got.blocks - 1) * got.span < groups <= got.blocks * got.span
 
 
 @pytest.mark.parametrize("columns,vec", [(1024, 16), (819200, 16),

@@ -173,6 +173,83 @@ def test_welford_row_plan(n, columns, vec, lanes, chunks):
     assert rpc >= min(n, K._MIN_CHUNK_ROWS * lanes)
 
 
+@pytest.mark.parametrize("element_size,vec,nregs,rows", [
+    (4, 4, 0, 4), (4, 4, 7, 4), (4, 4, 8, 2), (4, 4, 9, 2),   # f32
+    (8, 2, 3, 4), (8, 2, 8, 2),                              # f64
+    (2, 8, 1, 2), (2, 8, 7, 2), (2, 8, 8, 1),                # f16/bf16
+    (4, 1, 8, 4), (2, 1, 0, 4)])                             # one element
+def test_map_reduce_tile_rows(element_size, vec, nregs, rows):
+    # the wide tile is 16 values (8 in f64), 16 KB a register a block;
+    # it halves when the file would pass 112 KB (seven registers)
+    assert K.tile_rows(element_size, vec, nregs) == rows
+
+
+@pytest.mark.parametrize("n,columns,vec,resident,plan", [
+    # the north-star: 800 column blocks of 1024 columns, 2.56e6 row units
+    # over 396 resident blocks (three an SM) of 6464-6465 units, each
+    # touching at most 4 column blocks
+    (3200, 819200, 4, 396, K.MapReducePlan(1, 396, 4, False)),
+    (200, 819200, 4, 396, K.MapReducePlan(1, 396, 4, False)),     # config 1
+    (3200, 819200, 4, 1056, K.MapReducePlan(1, 1056, 2, False)),
+    # one row of 4099 single elements: 17 column blocks, each a block
+    (1, 4099, 1, 396, K.MapReducePlan(1, 17, 1, True)),
+    # 16 column threads: 16 lanes, one column block split by rows
+    (50000, 64, 4, 264, K.MapReducePlan(16, 264, 2, False)),
+    # fewer units than resident blocks: one unit a block
+    (3, 35, 1, 264, K.MapReducePlan(4, 3, 2, False)),
+])
+def test_map_reduce_plan(n, columns, vec, resident, plan):
+    assert K.map_reduce_plan(n, columns, vec, resident) == plan
+
+
+def _cols_grid(n, columns, vec, plan):
+    """mapreduce.cu's column form in Python: the row units each block
+    takes (mr_cols_kernel) and the partials each column adds
+    (mr_cols_combine_kernel), as ``{column: [rows in order]}``."""
+    cw = K._THREADS // plan.lanes * vec
+    G = -(-columns // cw)
+    W = G * n
+    P = plan.blocks
+    slots, written = {}, set()
+    for b in range(P):
+        u0, u1 = b * W // P, (b + 1) * W // P
+        assert u1 > u0                      # no block is empty
+        g, s = u0 // n, 0
+        while g * n < u1:
+            ra, rb = max(u0, g * n) - g * n, min(u1, g * n + n) - g * n
+            assert s < plan.segs
+            # a direct block writes its column block's output itself
+            slot = ("out", g) if plan.direct else (b, s)
+            assert slot not in written
+            written.add(slot)
+            slots[(g, b)] = (slot, list(range(ra, rb)))
+            g, s = g + 1, s + 1
+    rows = {}
+    for c in range(columns):
+        g = c // cw
+        b0 = ((g * n + 1) * P - 1) // W
+        b1 = ((g * n + n) * P - 1) // W
+        got = []
+        for b in range(b0, b1 + 1):
+            slot, rr = slots[(g, b)]
+            assert slot == (("out", g) if plan.direct
+                            else (b, g - (b * W // P) // n))
+            got += rr
+        rows[c] = got
+    return rows
+
+
+@pytest.mark.parametrize("n,columns,vec,resident", [
+    (3200, 8192, 4, 396), (200, 20480, 4, 396), (7, 4099, 1, 132),
+    (1, 4099, 1, 396), (50000, 64, 4, 264), (3, 35, 1, 264),
+    (1000, 333, 1, 528), (64, 4096, 4, 1056)])
+def test_map_reduce_grid_adds_every_row_once_in_order(n, columns, vec,
+                                                      resident):
+    plan = K.map_reduce_plan(n, columns, vec, resident)
+    rows = _cols_grid(n, columns, vec, plan)
+    assert all(r == list(range(n)) for r in rows.values())
+
+
 def test_launch_counters_reset():
     K.LAUNCHES["fused_welford"] = 5
     K.LAUNCHES["lane_band"] = 2

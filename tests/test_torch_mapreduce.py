@@ -108,6 +108,29 @@ def test_other_float_dtypes_match_reference(dtype, tol):
     np.testing.assert_allclose(float(got), want, **tol)
 
 
+@pytest.mark.parametrize("dtype,jdtype", [
+    (torch.bfloat16, jnp.bfloat16), (torch.float16, jnp.float16)])
+def test_half_maps_round_each_op_like_reference(dtype, jdtype):
+    # the reference's kernel, run in interpret mode, rounds fn's result op
+    # by op to the storage dtype, as the port's kernel and evaluate do:
+    # one element x (every other is 0, and fn(0) == 0) for which
+    # round(round(x * 3) * 0.7) differs from round(x * 3 * 0.7), so the
+    # sum is fn(x) and tells the two rules apart
+    f = lambda v: v * 3 * 0.7           # noqa: E731
+    cand = torch.arange(0x3C01, 0x3D00, dtype=torch.int16).view(dtype) \
+        if dtype == torch.float16 else \
+        torch.arange(0x3F81, 0x4000, dtype=torch.int16).view(dtype)
+    per_op = ((cand.float() * 3).to(dtype).float() * 0.7).to(dtype)
+    kept = (cand.float() * 3 * 0.7).to(dtype)
+    i = int(torch.nonzero(per_op != kept)[0])
+    x = np.zeros((16, 256), np.float32)
+    x[3, 17] = float(cand[i])
+    want = _float(ref_map_reduce(jnp.asarray(x, jdtype), f, interpret=True))
+    got = K.fused_map_reduce(torch.from_numpy(x).to(dtype), f)
+    assert got.dtype == dtype
+    assert float(got) == want == float(per_op[i]) != float(kept[i])
+
+
 def test_a_map_that_does_not_compile_is_summed_by_torch():
     x = torch.from_numpy(_rs(5).randn(6, 10))
     got = K.fused_map_reduce(x, lambda v: v - v.mean())
