@@ -19,16 +19,17 @@ This package imports torch and numpy only: never jax, never ``bolt_tpu``.
 
 __version__ = "0.1.0"
 
-from bolt_tpu_torch._precision import precision
+from bolt_tpu_torch._precision import accumulate, precision
 from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
 from bolt_tpu_torch.factory import (array, concatenate, fromcallback,
                                     fromiter, full, ones, rand, randn, zeros)
 from bolt_tpu_torch.gpu.array import BoltArrayGPU
+from bolt_tpu_torch.gpu.multistat import compute
 from bolt_tpu_torch.local.array import BoltArrayLocal
 from bolt_tpu_torch.utils import allclose
 from bolt_tpu_torch import stream  # noqa: E402  (bolt_tpu_torch.stream)
 
 __all__ = ["array", "ones", "zeros", "full", "rand", "randn",
            "concatenate", "fromcallback", "fromiter", "stream", "allclose",
-           "precision", "BoltArray", "BoltArrayLocal", "BoltArrayGPU",
+           "precision", "accumulate", "compute", "BoltArray", "BoltArrayLocal", "BoltArrayGPU",
            "HostFallbackWarning", "__version__"]

@@ -2,9 +2,10 @@
 streaming executor.
 
 Port of the accounting half of ``bolt_tpu/engine.py`` (``counters``,
-``record_transfer``, ``record_codec``, ``record_stream``), under the
-reference's counter names.  The program cache, donation and the rest of
-the reference's engine have no user in the port yet.  Every update takes
+``record_transfer``, ``record_codec``, ``record_stream``,
+``record_fused_stats``), under the reference's counter names.  The
+program cache, donation and the rest of the reference's engine have no
+user in the port yet.  Every update takes
 one lock, so a snapshot never sees half of a record.
 """
 
@@ -35,6 +36,10 @@ _COUNTERS = {
     "codec_encode_seconds": 0.0,    # host seconds inside slab encodes
     "codec_bytes_raw": 0,           # pre-encode slab bytes
     "codec_bytes_wire": 0,          # post-encode slab bytes
+    # fused stat groups (bolt_tpu_torch/gpu/multistat.py): one tally per
+    # group resolved together, and the pending terminals it served
+    "fused_stat_groups": 0,
+    "fused_stat_terminals": 0,
 }
 
 _MAXIMA = ("stream_prefetch_depth", "stream_upload_threads",
@@ -78,3 +83,9 @@ def record_stream(chunks, ingest_s, compute_s, wall_s, overlap_s, depth,
             stream_prefetch_depth=int(depth),
             stream_upload_threads=int(uploaders),
             stream_inflight_high_water=int(inflight))
+
+
+def record_fused_stats(n_terminals):
+    """Tally one fused stat group resolving ``n_terminals`` pending
+    terminals from one application of its chain or one mask pass."""
+    _update(fused_stat_groups=1, fused_stat_terminals=int(n_terminals))

@@ -19,6 +19,11 @@ shard_map Welford          ``fused_welford`` CUDA kernel (stats.py)
 transpose+reshard          ``permute`` + ``contiguous``
 filter compaction          a boolean gather of the survivor rows
 masked filter terminals    ``fused_map_reduce`` with a record mask
+``jnp`` ufuncs/operators   torch twins with jnp's dtypes
+                           (``gpu/ufuncs.py``)
+ndarray methods            torch sorts, gathers, scans
+                           (``gpu/methods.py``)
+fused multi-stat program   a stat group (``gpu/multistat.py``)
 =========================  =======================================
 
 **Laziness.**  As in the reference, a traceable ``map`` is deferred: the
@@ -28,13 +33,21 @@ the chain without keeping the mapped tensor; any other consumer
 materialises it once and keeps it.  ``sum`` over the key axes (or every
 axis) of a chain that compiles (``bolt_tpu_torch/ops/mapexpr.py``: a
 pointwise chain of the opcode table) reads the base once through the
-``fused_map_reduce`` kernel, with no mapped temporary.
+``fused_map_reduce`` kernel, with no mapped temporary.  A scalar
+operator or a unary numpy ufunc (``np.exp(-(b ** 2)) * 0.5``) joins the
+chain too.  The stat terminals are lazy: ``sum()`` returns a pending
+member of its source's group, resolved on its first read together with
+the other members (``bolt_tpu_torch.compute``).
 
 **Filter.**  ``filter`` is deferred too: the result is *pending* (its
 survivor count unknown) until its shape or data is read.  ``sum``/
 ``mean``/``var``/... and ``reduce`` over the key axis fold the predicate's
 mask into the reduction instead (the reference's fused filter terminals);
 any other consumer resolves it by one boolean gather of the survivors.
+The chain and the predicate run over blocks of about 768 MB of mapped
+records, so neither path holds the whole mapped chain; a stat terminal
+over the key axes of a longer chain folds the blocks' partials the same
+way.
 
 **Streams.**  ``fromcallback``/``fromiter`` with an explicit dtype give
 an array over a lazy out-of-core source (``bolt_tpu_torch/stream.py``):
@@ -49,7 +62,6 @@ reroutes through the local NumPy oracle with a
 the callable is a bug in it and surfaces.
 """
 
-import operator
 import warnings
 from functools import lru_cache
 
@@ -58,8 +70,9 @@ import torch
 from torch.func import vmap
 
 from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
-from bolt_tpu_torch.gpu import dtypes
+from bolt_tpu_torch.gpu import dtypes, ufuncs
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
+from bolt_tpu_torch.gpu.methods import ArrayMethods
 from bolt_tpu_torch.ops import kernels, mapexpr
 from bolt_tpu_torch.utils import (argpack, check_value_shape, inshape,
                                   isreshapeable, istransposeable, prod,
@@ -142,24 +155,28 @@ class _WithKeysFunc:
         self.func = func
 
 
-def _chain_apply(funcs, split, data):
+def _chain_apply(funcs, split, data, kshape=None, start=0):
     """Apply a deferred map chain: each func nested-vmapped over the
     ``split`` leading key axes, in order; ``with_keys`` entries vmap over
-    flattened records zipped with their int32 key tuples."""
+    flattened records zipped with their int32 key tuples.  ``kshape`` and
+    ``start``: ``data`` holds records ``start...`` of a flattened key
+    space of shape ``kshape`` (``split`` is then 1), so a ``with_keys``
+    entry still sees each record's own key tuple."""
     out = data
     for func in funcs:
         if isinstance(func, _WithKeysFunc):
-            kshape = tuple(out.shape[:split])
-            n = prod(kshape)
+            ks = tuple(out.shape[:split])
+            n = prod(ks)
             flat = out.reshape((n,) + tuple(out.shape[split:]))
             keys = [k.to(torch.int32) for k in torch.unravel_index(
-                torch.arange(n, device=out.device), kshape)]
+                torch.arange(start, start + n, device=out.device),
+                ks if kshape is None else kshape)]
 
             def one(v, *k, _f=func.func):
                 return _f((tuple(k), v))
 
             res = vmap(one)(flat, *keys)
-            out = res.reshape(kshape + tuple(res.shape[1:]))
+            out = res.reshape(ks + tuple(res.shape[1:]))
             continue
         f = func
         for _ in range(split):
@@ -253,56 +270,420 @@ def _identity(name, dtype):
     return info.min if name == "max" else info.max
 
 
-def _masked_stat(name, flat, mask, axes, keepdims, ddof, vshape, vdtype):
-    """ONE masked reduction over the flattened filtered records, the
-    arithmetic of the reference's ``_masked_stat_expr``: ``mean``/``var``/
-    ``std`` divide by the masked COUNT (var as the one-pass moment form
-    ``(Σx² − (Σx)²/n)/(n−ddof)``); the rest fold dropped records onto
-    their identity."""
+# a pending filter runs its chain and predicate, and a stat terminal its
+# chain, over blocks of about this many bytes of records (at least one
+# record): no filter pass and no stat over the key axes holds the whole
+# mapped chain.  The largest size that keeps config 4's filter under 1 GB
+# of peak growth at the north-star; smaller blocks pay more host dispatch
+# a byte (tools/block_probe.py)
+_BLOCK_BYTES = 768 << 20
+
+# how the partials of one block's masked reduction join the others'
+_COMBINE = {"sum": torch.add, "prod": torch.mul, "any": torch.logical_or,
+            "all": torch.logical_and, "max": torch.maximum,
+            "min": torch.minimum}
+
+
+def _block_records(rec_bytes):
+    """Records in a block of about ``_BLOCK_BYTES`` (at least one)."""
+    return max(1, _BLOCK_BYTES // max(1, rec_bytes))
+
+
+def _chain_blocks(base, funcs, split, rec_bytes):
+    """``(start, stop, records)`` for each block of about ``_BLOCK_BYTES``
+    (``rec_bytes`` a record): the chain applied to the base's flattened
+    records ``start:stop``."""
+    n = prod(base.shape[:split])
+    per = _block_records(rec_bytes)
+    kshape = tuple(base.shape[:split])
+    flat = base.reshape((n,) + tuple(base.shape[split:]))
+    for s in range(0, n, per):
+        e = min(n, s + per)
+        yield s, e, _chain_apply(funcs, 1, flat[s:e], kshape, s)
+
+
+def _filter_blocks(fp, dtype):
+    """``(start, stop, records)`` for each block of the pending filter
+    ``fp`` whose mapped records are ``(stop - start, *vshape)`` of torch
+    ``dtype``.  No record: one empty block."""
+    base, funcs, pred, split, vshape, n = fp
+    if n == 0:
+        yield 0, 0, torch.empty((0,) + vshape, dtype=dtype,
+                                device=base.device)
+        return
+    yield from _chain_blocks(base, funcs, split,
+                             prod(vshape) * dtype.itemsize)
+
+
+def _filter_values(fp, dtype):
+    """The pending filter ``fp``'s mapped records, ``(n, *vshape)`` of
+    torch ``dtype``, and the predicate's mask over them, both evaluated
+    over the blocks of :func:`_filter_blocks` (the validity-bit tree of
+    ``reduce`` needs every record at once): a chain longer than one block
+    is written block by block into one tensor, with no second mapped
+    tensor beside it."""
+    base, funcs, pred, split, vshape, n = fp
+    x = base.reshape((n,) + vshape) if not funcs else None
+    masks = []
+    for s, e, recs in _filter_blocks(fp, dtype):
+        masks.append(_pred_mask(pred, recs))
+        if funcs and e - s == n:
+            x = recs
+        elif funcs:
+            if x is None:
+                x = torch.empty((n,) + vshape, dtype=dtype,
+                                device=base.device)
+            x[s:e] = recs
+        del recs        # free the block before the next one is mapped
+    return x, torch.cat(masks)
+
+
+def _masked_partial(slot, recs, mask, vshape, vdtype):
+    """One block's part of the masked terminal ``slot``: the reduction of
+    the block with dropped records on the identity, or the block's
+    ``(Σx, Σx²)`` of the moment terminals."""
+    name, axes, keepdims, _ = slot
     mfull = mask.reshape(mask.shape + (1,) * len(vshape))
-    if name in ("sum", "prod", "any", "all", "max", "min"):
-        ident = torch.tensor(_identity(name, flat.dtype), device=flat.device
-                             ).to(flat.dtype)
-        return _reduce_stat(torch.where(mfull, flat, ident), name, axes,
+    if name in _COMBINE:
+        ident = torch.tensor(_identity(name, recs.dtype), device=recs.device
+                             ).to(recs.dtype)
+        return _reduce_stat(torch.where(mfull, recs, ident), name, axes,
                             keepdims, None, vdtype)
     out_dt = dtypes.stat_dtype(name, torch_dtype(vdtype))
-    # element count each output slot divides by beyond the mask: the
-    # reduced VALUE axes are dense (the mask only thins records)
-    prodv = prod([vshape[a - 1] for a in axes if a > 0])
-    den = (mask.sum(dtype=torch.int32) * prodv).to(out_dt)
-    xf = torch.where(mfull, flat, torch.zeros((), dtype=flat.dtype,
-                                              device=flat.device)).to(out_dt)
-    s1 = xf.sum(dim=axes, keepdim=keepdims)
+    xf = torch.where(mfull, recs, torch.zeros((), dtype=recs.dtype,
+                                              device=recs.device)).to(out_dt)
+    return (xf.sum(dim=axes, keepdim=keepdims),
+            (xf * xf).sum(dim=axes, keepdim=keepdims))
+
+
+def _masked_final(slot, acc, count, vshape, vdtype):
+    """The masked terminal ``slot`` from its folded partials: ``mean``/
+    ``var``/``std`` divide by the kept COUNT (var as the one-pass moment
+    form ``(Σx² − (Σx)²/n)/(n−ddof)``, as the reference's
+    ``_masked_stat_expr``)."""
+    name, axes, _, ddof = slot
+    if name in _COMBINE:
+        return acc
+    out_dt = dtypes.stat_dtype(name, torch_dtype(vdtype))
+    # the reduced VALUE axes are dense: only records are thinned
+    s1, s2 = acc
+    den = (count * prod([vshape[a - 1] for a in axes if a > 0])).to(out_dt)
     if name == "mean":
         return s1 / den
-    dd = 0.0 if ddof is None else ddof
-    s2 = (xf * xf).sum(dim=axes, keepdim=keepdims)
-    out = (s2 - s1 * s1 / den) / (den - dd)
+    out = (s2 - s1 * s1 / den) / (den - (0.0 if ddof is None else ddof))
     return torch.sqrt(out) if name == "std" else out
 
 
-# the elementwise operators that fuse into the map chain with a scalar
-# operand: (operator, its dtype rule)
-_OPS = {"add": (operator.add, dtypes.promote),
-        "sub": (operator.sub, dtypes.promote),
-        "mul": (operator.mul, dtypes.promote),
-        "truediv": (operator.truediv, dtypes.true_divide)}
+def _filter_stats(fp, vdtype, slots):
+    """The masked terminals ``slots`` (``(name, axes, keepdims, ddof)``,
+    ``axes`` holding the flat key axis 0) of the pending filter ``fp``
+    whose records have numpy dtype ``vdtype``, in order, from one pass of
+    the chain and the predicate over blocks.  ``sum`` and ``mean`` over
+    the key axis of a chain that compiles run ``fused_map_reduce`` with
+    the mask (a dropped record is not read); the others fold their block
+    partials in block order.  ``max``/``min`` with no survivor raise the
+    zero-size ``ValueError``.
+
+    A chain the compiler has not seen is traced after the mask pass is
+    queued, so the trace's host time overlaps the card's work; if it does
+    not compile, the ``sum``/``mean`` slots take a second pass of
+    partials (once: the compiler caches the answer)."""
+    base, funcs, pred, split, vshape, n = fp
+    cand = [base.is_contiguous() and s[0] in ("sum", "mean")
+            and s[1] == (0,) for s in slots]
+    vs = base.shape[split:]
+    known = not any(cand) or mapexpr.compiled(funcs, vs, base.dtype)
+    program = mapexpr.compile(funcs, vs, base.dtype) \
+        if any(cand) and known else None
+    # the slots whose partials the first pass folds: all but those that
+    # run (or may run, when not known yet) fused_map_reduce
+    first = [not c or (known and program is None) for c in cand]
+    accs = [None] * len(slots)
+
+    def fold(i, slot, recs, m):
+        part = _masked_partial(slot, recs, m, vshape, vdtype)
+        if accs[i] is None:
+            accs[i] = part
+        elif slot[0] in _COMBINE:
+            accs[i] = _COMBINE[slot[0]](accs[i], part)
+        else:
+            accs[i] = tuple(a + p for a, p in zip(accs[i], part))
+
+    masks, count = [], None
+    for _, _, recs in _filter_blocks(fp, torch_dtype(vdtype)):
+        m = _pred_mask(pred, recs) if recs.shape[0] else torch.zeros(
+            0, dtype=torch.bool, device=recs.device)
+        masks.append(m)
+        c = m.sum(dtype=torch.int32)
+        count = c if count is None else count + c
+        for i, slot in enumerate(slots):
+            if first[i] and not (slot[0] in ("max", "min") and not len(m)):
+                fold(i, slot, recs, m)
+        del recs
+    if not known:
+        program = mapexpr.compile(funcs, vs, base.dtype)
+        if program is None:
+            for k, (_, _, recs) in enumerate(_filter_blocks(
+                    fp, torch_dtype(vdtype))):
+                for i, slot in enumerate(slots):
+                    if cand[i]:
+                        fold(i, slot, recs, masks[k])
+                del recs
+    fused = [c and program is not None for c in cand]
+    mask = torch.cat(masks) if len(masks) > 1 else masks[0]
+    out = []
+    for i, slot in enumerate(slots):
+        name, _, keepdims, _ = slot
+        if name in ("max", "min") and not bool(mask.any()):
+            raise ValueError("zero-size array to reduction operation %s "
+                             "which has no identity" % name)
+        if not fused[i]:
+            out.append(_masked_final(slot, accs[i], count, vshape, vdtype))
+            continue
+        r = kernels.fused_map_reduce_cols(
+            base.reshape(n, prod(vshape)), program, mask).reshape(vshape)
+        if name == "mean":
+            r = r / count.to(r.dtype)
+        out.append(r.reshape((1,) + vshape) if keepdims else r)
+    return out
 
 
-def _scalar_fn(name, other, reverse, dtype):
-    """Per-record ``v (op) other`` computed in the reference's (jnp's)
-    result dtype: a Python scalar is weakly typed, a numpy scalar strongly
-    (``int32 / 2`` and ``int32 + np.float32(1.5)`` are f32, ``int32 * 2.5``
-    is f64, ``f32 * 2.0`` stays f32)."""
-    op, rule = _OPS[name]
-    out_dt = rule(torch_dtype(dtype), other)
-    scalar = other.item() if isinstance(other, np.generic) else other
+def _chain_sum(base, funcs, split, axes):
+    """``sum`` of the chain ``funcs`` over ``base`` through the
+    ``fused_map_reduce`` kernel, reading the base once with no mapped
+    temporary: the column form when ``axes`` are the key axes, the full
+    form when they are every axis.  ``None`` (the caller keeps the torch
+    path) when the chain is empty or does not compile, the base is not
+    contiguous or the axes are another set: a plan decision, made before
+    any launch."""
+    if not funcs or not base.is_contiguous():
+        return None
+    cols = split > 0 and axes == tuple(range(split))
+    if not cols and axes != tuple(range(base.ndim)):
+        return None
+    vshape = tuple(base.shape[split:])
+    program = mapexpr.compile(funcs, vshape, base.dtype)
+    if program is None:
+        return None
+    if not cols:
+        return kernels.fused_map_reduce_program(base, program)
+    n = prod(base.shape[:split])
+    return kernels.fused_map_reduce_cols(
+        base.reshape(n, prod(vshape)), program).reshape(vshape)
 
-    def fn(v):
-        v = v.to(out_dt)
-        return op(scalar, v) if reverse else op(v, scalar)
-    fn.__name__ = name
-    return fn
+
+def _chain_rec_bytes(base, split, shape, dtype):
+    """Bytes of one record of the chain over ``base``: the larger of a
+    base record and a mapped record (``shape`` of numpy ``dtype``)."""
+    return max(prod(shape[split:]) * torch_dtype(dtype).itemsize,
+               prod(base.shape[split:]) * base.element_size())
+
+
+def _chain_values(base, funcs, split, shape, dtype):
+    """The chain ``funcs`` applied to ``base``: the mapped tensor of
+    ``shape`` and numpy ``dtype``.  A chain longer than one block (see
+    ``_BLOCK_BYTES``) is written block by block of records into one
+    tensor, so a chain of several ops holds one mapped tensor, not two."""
+    if not funcs:
+        return base
+    n = prod(shape[:split])
+    rec = _chain_rec_bytes(base, split, shape, dtype)
+    if 0 < n <= _block_records(rec):
+        (_, _, recs), = _chain_blocks(base, funcs, split, rec)
+        return recs.reshape(shape)
+    out = torch.empty(shape, dtype=torch_dtype(dtype), device=base.device)
+    dst = out.view((n,) + tuple(shape[split:]))
+    for s, e, recs in _chain_blocks(base, funcs, split, rec):
+        dst[s:e] = recs
+        del recs        # free the block before the next one is mapped
+    return out
+
+
+def _wide(dtype):
+    """The dtype a block partial accumulates in: f32 for the half
+    floats, int64 for uint64 (torch has no uint64 sum), else ``dtype``."""
+    if dtype in (torch.float16, torch.bfloat16):
+        return torch.float32
+    return torch.int64 if dtype == torch.uint64 else dtype
+
+
+def _block_partial(recs, name, dims, dtype):
+    """One block's part of the stat terminal ``name`` over ``dims`` of the
+    block ``recs`` (records of numpy ``dtype``): the reduction itself for
+    ``min``/``max``/``any``/``all``, a wide sum or product, ``(count,
+    Σx)`` for ``mean`` and ``(count, mean, M2)`` for ``var``/``std``."""
+    out_dt = dtypes.stat_dtype(name, torch_dtype(dtype))
+    if name in ("max", "min", "any", "all"):
+        return _reduce_stat(recs, name, dims, False, None, dtype)
+    acc = _wide(out_dt)
+    if name == "sum":
+        return torch.sum(recs, dim=dims, dtype=acc)
+    if name == "prod":
+        out = recs
+        for d in sorted(dims, reverse=True):
+            out = torch.prod(out, dim=d, dtype=acc)
+        return out
+    x = recs.to(out_dt).to(acc)
+    count = prod([recs.shape[d] for d in dims])
+    if name == "mean":
+        return count, torch.sum(x, dim=dims)
+    var, mean = torch.var_mean(x, dim=dims, correction=0)
+    return count, mean, var * count
+
+
+def _fold_partials(name, a, b):
+    """Two blocks' partials of ``name`` as one: the moment terminals by
+    Chan's pairwise combine of ``(count, mean, M2)``."""
+    if name in _COMBINE:
+        return _COMBINE[name](a, b)
+    if name == "mean":
+        return a[0] + b[0], a[1] + b[1]
+    (na, ma, qa), (nb, mb, qb) = a, b
+    n = na + nb
+    d = mb - ma
+    d2 = d.real * d.real + d.imag * d.imag if d.is_complex() else d * d
+    return n, ma + d * (nb / n), qa + qb + d2 * (na * nb / n)
+
+
+def _final(name, acc, ddof, dtype):
+    """The stat terminal ``name`` from its folded partials."""
+    out_dt = dtypes.stat_dtype(name, torch_dtype(dtype))
+    if name == "mean":
+        acc = acc[1] / acc[0]
+    elif name in ("var", "std"):
+        n, _, q = acc
+        # torch's rule: no fewer than zero degrees of freedom
+        acc = q / max(0, n - (0 if ddof is None else ddof))
+        if name == "std":
+            acc = torch.sqrt(acc)
+    return acc if acc.dtype == out_dt else acc.to(out_dt)
+
+
+def _chain_stats(base, funcs, split, shape, dtype, slots):
+    """The stat terminals ``slots`` (``(name, axes, keepdims, ddof)``;
+    ``ptp`` is a group's ``max``/``min`` pair) of the chain ``funcs`` over
+    ``base`` (mapped values of ``shape`` and numpy ``dtype``), in order,
+    from one application of the chain.
+
+    No chain, or one that fits one block (``_BLOCK_BYTES``): every slot
+    reduces the mapped values whole with :func:`_reduce_stat`.  A longer
+    chain is applied block by block of records and never held whole: a
+    slot over every key axis folds its blocks' partials in block order,
+    a slot over value axes only joins its blocks' results, and a slot
+    over some key axes reduces the mapped values the loop writes into one
+    tensor.  Grouped or not, a slot takes the same path, so a group's
+    members equal their standalone terminals bit for bit."""
+    if not slots:
+        return []
+    n = prod(shape[:split])
+    rec = _chain_rec_bytes(base, split, shape, dtype) if funcs else 0
+    if not funcs or n <= _block_records(rec):
+        mapped = _chain_values(base, funcs, split, shape, dtype)
+        return [_reduce_stat(mapped, name, axes, keepdims, ddof, dtype)
+                for name, axes, keepdims, ddof in slots]
+    keys = set(range(split))
+    folded = [i for i, sl in enumerate(slots) if keys <= set(sl[1])]
+    joined = [i for i, sl in enumerate(slots) if not keys & set(sl[1])]
+    rest = [i for i in range(len(slots)) if i not in folded + joined]
+    # the slots' axes in a block's terms: the flat key axis is 0
+    dims = [tuple(([0] if i in folded else []) + [a - split + 1 for a in
+                                                  sl[1] if a >= split])
+            for i, sl in enumerate(slots)]
+    mapped = torch.empty(shape, dtype=torch_dtype(dtype),
+                         device=base.device) if rest else None
+    accs, parts = {}, {i: [] for i in joined}
+    for s, e, recs in _chain_blocks(base, funcs, split, rec):
+        if rest:
+            mapped.view((n,) + tuple(shape[split:]))[s:e] = recs
+        for i in folded:
+            p = _block_partial(recs, slots[i][0], dims[i], dtype)
+            accs[i] = p if i not in accs else _fold_partials(
+                slots[i][0], accs[i], p)
+        for i in joined:
+            name, _, keepdims, ddof = slots[i]
+            parts[i].append(_reduce_stat(recs, name, dims[i], keepdims,
+                                         ddof, dtype))
+        del recs        # free the block before the next one is mapped
+    out = []
+    for i, (name, axes, keepdims, ddof) in enumerate(slots):
+        oshape = tuple(1 if a in axes else d for a, d in enumerate(shape)
+                       ) if keepdims else tuple(
+            d for a, d in enumerate(shape) if a not in axes)
+        if i in folded:
+            out.append(_final(name, accs[i], ddof, dtype).reshape(oshape))
+        elif i in joined:
+            out.append(torch.cat(parts[i]).reshape(oshape))
+        else:
+            out.append(_reduce_stat(mapped, name, axes, keepdims, ddof,
+                                    dtype))
+    return out
+
+
+def _chain_stat(base, funcs, split, shape, dtype, name, axes, keepdims,
+                ddof):
+    """The stat terminal ``name`` over ``axes`` of the chain ``funcs``
+    over ``base`` (mapped values of ``shape`` and numpy ``dtype``): a
+    compiled chain's ``sum`` through ``fused_map_reduce``
+    (:func:`_chain_sum`), everything else by :func:`_chain_stats`
+    (``ptp`` as its ``max``/``min`` pair, as a group takes it)."""
+    if name == "sum":
+        out = _chain_sum(base, funcs, split, axes)
+        if out is not None:
+            if keepdims:
+                out = out.reshape(tuple(1 if a in axes else d
+                                        for a, d in enumerate(shape)))
+            return out
+    if name == "ptp":
+        mx, mn = _chain_stats(base, funcs, split, shape, dtype,
+                              [("max", axes, keepdims, None),
+                               ("min", axes, keepdims, None)])
+        return mx - mn
+    return _chain_stats(base, funcs, split, shape, dtype,
+                        [(name, axes, keepdims, ddof)])[0]
+
+
+def stat_axes(shape, split, axis):
+    """The validated axes of a stat terminal over an array of ``shape``
+    with ``split`` key axes (default: the key axes, or every axis without
+    keys)."""
+    if axis is None:
+        return tuple(range(split)) if split else tuple(range(len(shape)))
+    axes = tuple(sorted(tupleize(axis)))
+    inshape(shape, axes)
+    return axes
+
+
+def stat_split(split, axes, keepdims):
+    """The key axes left after reducing ``axes``."""
+    return split if keepdims else split - sum(1 for a in axes if a < split)
+
+
+def filter_axes(vshape, dtype, axis, name):
+    """The axes of the masked terminal ``name`` of a pending filter with
+    records of ``vshape`` and numpy ``dtype``, or NotImplemented for the
+    geometries the masked form does not serve (the caller resolves the
+    filter and takes the eager path): reductions that keep the key axis,
+    ``ptp``, complex ``var``/``std``, axes out of range (the eager path
+    rejects them)."""
+    if axis is None:
+        axes = (0,)                          # the flat key axis (split=1)
+    else:
+        axes = tuple(sorted(tupleize(axis)))
+        if any(not 0 <= a <= len(vshape) for a in axes):
+            return NotImplemented
+    if 0 not in axes or name not in _FUSED_STAT_NAMES or (
+            name in ("var", "std")
+            and np.issubdtype(dtype, np.complexfloating)):
+        return NotImplemented
+    return axes
+
+
+def _real(v):
+    return torch.real(v) if v.is_complex() else v
+
+
+def _imag(v):
+    return torch.imag(v) if v.is_complex() else torch.zeros_like(v)
 
 
 # the reductions a pending filter folds its mask into (reference:
@@ -311,13 +692,11 @@ _FUSED_STAT_NAMES = ("sum", "prod", "any", "all", "mean", "var", "std",
                      "max", "min")
 
 
-class BoltArrayGPU(BoltArray):
+class BoltArrayGPU(ArrayMethods, BoltArray):
     """n-d array on one ``torch.device``: key axes leading, value axes
     after them."""
 
     _mode = "gpu"
-    # numpy defers to the reflected operators (np.ones(3) * b → b.__rmul__)
-    __array_ufunc__ = None
 
     def __init__(self, data, split, device):
         if data is not None and (split < 0 or split > data.ndim):
@@ -335,6 +714,14 @@ class BoltArrayGPU(BoltArray):
         # shape, records) or None — the survivor count is unknown until a
         # consumer resolves it (see filter)
         self._fpending = None
+        # lazy stat terminal (gpu/multistat.py): this array is the
+        # unresolved result of a sum()/var()/... terminal, a PendingStat
+        # of a group that resolves on the first read of any member
+        self._spending = None
+        # the live group of this array's stat terminals: later terminals
+        # join it, so stats of one source share one application of its
+        # chain (or one mask pass of its filter)
+        self._stat_group = None
         self._donated = False
         self._shape = None if data is None else tuple(data.shape)
         self._dtype = None if data is None else numpy_dtype(data.dtype)
@@ -435,6 +822,10 @@ class BoltArrayGPU(BoltArray):
         # its own concrete tensor
         b._stream = self._stream
         b._fpending = self._fpending
+        # a pending stat is shared: either wrapper's first read resolves
+        # the group once and both adopt the same result
+        b._spending = self._spending
+        b._stat_group = self._stat_group
         b._shape = self._shape
         b._dtype = self._dtype
         b._donated = self._donated
@@ -450,6 +841,8 @@ class BoltArrayGPU(BoltArray):
     def _data(self):
         """The concrete tensor; materialises (and keeps) a deferred chain."""
         self._guard_donated()
+        if self._spending is not None:
+            self._resolve_spending()
         if self._fpending is not None:
             self._resolve_filter()
         if self._stream is not None:
@@ -467,6 +860,21 @@ class BoltArrayGPU(BoltArray):
             self._concrete = _chain_apply(funcs, self._split, base)
             self._chain = None
         return self._concrete
+
+    def _resolve_spending(self):
+        """Adopt the result of this array's lazy stat terminal, resolving
+        its group (every member of it at once) on first need."""
+        h = self._spending
+        if h.result is None:
+            h.group.resolve()
+        self._concrete = h.result
+        self._shape = tuple(h.result.shape)
+        self._spending = None
+
+    def _chain_parts(self):
+        """``(base tensor, funcs)`` of this array: the deferred chain, or
+        the concrete data and no func."""
+        return self._chain if self.deferred else (self._data, ())
 
     def _mapped(self):
         """The tensor a terminal consumes: the deferred chain applied
@@ -592,70 +1000,34 @@ class BoltArrayGPU(BoltArray):
         out._dtype = aligned.dtype
         return out
 
-    def _filtered(self):
-        """The pending filter's mapped records, flattened to ``(n,
-        *vshape)``, and the predicate's bool mask over them."""
-        base, funcs, pred, split, vshape, n = self._fpending
-        flat = _chain_apply(funcs, split, base).reshape((n,) + vshape)
-        return flat, _pred_mask(pred, flat)
-
     def _resolve_filter(self):
-        """Run the pending filter: the chain and the predicate under
-        ``vmap``, then one boolean gather of the survivor rows."""
+        """Run the pending filter block by block (the chain and the
+        predicate under ``vmap`` over about ``_BLOCK_BYTES`` of
+        mapped records), gathering each block's survivor rows."""
         self._guard_donated()
-        flat, mask = self._filtered()
-        self._concrete = flat[mask]
+        fp = self._fpending
+        pred = fp[2]
+        parts = [recs[_pred_mask(pred, recs)] if recs.shape[0] else recs
+                 for _, _, recs in _filter_blocks(fp, torch_dtype(
+                     self._dtype))]
+        self._concrete = torch.cat(parts) if len(parts) > 1 else parts[0]
         self._shape = tuple(self._concrete.shape)
         self._fpending = None
 
     def _fused_filter_stat(self, axis, name, keepdims, ddof):
         """Single-pass ``filter(...).sum()``-family terminal (reference:
         ``BoltArrayTPU._fused_filter_stat``): the predicate's mask folds
-        into the reduction, so no survivor tensor is gathered.  ``sum``
-        and ``mean`` over the key axis of a chain that compiles run the
-        ``fused_map_reduce`` kernel with the mask (a dropped record is not
-        read); the others run the reference's masked expression.
-        ``max``/``min`` with no survivor raise the zero-size
-        ``ValueError``.  Returns NotImplemented for geometries the fused
-        form does not serve (the caller resolves and takes the
-        materialising path): reductions that keep the key axis, ``ptp``,
-        complex ``var``/``std``."""
-        base, funcs, pred, split, vshape, n = self._fpending
-        ndim = 1 + len(vshape)
-        if axis is None:
-            axes = (0,)                      # the flat key axis (split=1)
-        else:
-            axes = tuple(sorted(tupleize(axis)))
-            if any(not 0 <= a < ndim for a in axes):
-                return NotImplemented        # let the eager path reject
-        if 0 not in axes or name not in _FUSED_STAT_NAMES:
-            return NotImplemented
-        vdtype = self.dtype
-        if name in ("var", "std") and np.issubdtype(vdtype,
-                                                    np.complexfloating):
+        into the reduction, so no survivor tensor is gathered and no pass
+        holds more than a block of mapped records (:func:`_filter_stats`).
+        Returns NotImplemented for the geometries :func:`filter_axes`
+        refuses."""
+        axes = filter_axes(self._fpending[4], self.dtype, axis, name)
+        if axes is NotImplemented:
             return NotImplemented
         self._guard_donated()
-        new_split = 1 if keepdims else 0
-        flat, mask = self._filtered()
-        program = None
-        if name in ("sum", "mean") and axes == (0,) and \
-                base.is_contiguous():
-            program = mapexpr.compile(funcs, base.shape[split:], base.dtype)
-        if program is None:
-            out = _masked_stat(name, flat, mask, axes, keepdims, ddof,
-                               vshape, vdtype)
-            if name in ("max", "min") and not bool(mask.any()):
-                raise ValueError("zero-size array to reduction operation "
-                                 "%s which has no identity" % name)
-            return self._wrap(out, new_split)
-        del flat                    # B1 reads the base through the chain
-        out = kernels.fused_map_reduce_cols(
-            base.reshape(n, prod(vshape)), program, mask).reshape(vshape)
-        if name == "mean":
-            out = out / mask.sum(dtype=torch.int32).to(out.dtype)
-        if keepdims:
-            out = out.reshape((1,) + vshape)
-        return self._wrap(out, new_split)
+        (out,) = _filter_stats(self._fpending, self.dtype,
+                               [(name, axes, keepdims, ddof)])
+        return self._wrap(out, 1 if keepdims else 0)
 
     def _fused_filter_reduce(self, func, axis, keepdims):
         """Single-pass ``filter(...).reduce(func)`` (reference:
@@ -678,7 +1050,7 @@ class BoltArrayGPU(BoltArray):
                 raise
             return NotImplemented        # the host fallback path resolves
         self._guard_donated()
-        x, valid = self._filtered()
+        x, valid = _filter_values(self._fpending, torch_dtype(self.dtype))
         vfunc = vmap(func)
 
         def bc(m, like):
@@ -760,6 +1132,14 @@ class BoltArrayGPU(BoltArray):
     # ------------------------------------------------------------------
 
     def _stat(self, axis, name, keepdims=False, ddof=None):
+        # the lazy door (gpu/multistat.py): the stat defers as a pending
+        # member of this source's group; validation stays here, at the
+        # call.  NotImplemented takes the eager paths below (streams,
+        # zero-size extrema, geometries a group does not serve).
+        from bolt_tpu_torch.gpu import multistat
+        out = multistat.defer_stat(self, axis, name, keepdims, ddof)
+        if out is not NotImplemented:
+            return out
         if self._stream is not None:
             from bolt_tpu_torch import stream
             out = stream.maybe_stat(self, axis, name, keepdims, ddof)
@@ -771,50 +1151,16 @@ class BoltArrayGPU(BoltArray):
             out = self._fused_filter_stat(axis, name, keepdims, ddof)
             if out is not NotImplemented:
                 return out
-        if axis is None:
-            axes = tuple(range(self._split)) if self._split \
-                else tuple(range(self.ndim))
-        else:
-            axes = tuple(sorted(tupleize(axis)))
-            inshape(self.shape, axes)
-        split = self._split
-        nkeys_reduced = sum(1 for a in axes if a < split)
-        new_split = split if keepdims else split - nkeys_reduced
-        out = None
-        if name == "sum" and self.deferred:
-            out = self._fused_sum(axes)
-        if out is None:
-            out = _reduce_stat(self._mapped(), name, axes, keepdims, ddof,
-                               self.dtype)
-        elif keepdims:
-            out = out.reshape(tuple(1 if a in axes else d
-                                    for a, d in enumerate(self.shape)))
-        return self._wrap(out, new_split)
-
-    def _fused_sum(self, axes):
-        """``sum`` of the deferred chain over ``axes`` through the
-        ``fused_map_reduce`` kernel, reading the base once with no mapped
-        temporary: the column form when ``axes`` are the key axes, the
-        full form when they are every axis.  ``None`` (the caller keeps
-        the torch path) when the chain does not compile, the base is not
-        contiguous or the axes are another set — a plan decision, made
-        before any launch."""
-        base, funcs = self._chain
-        split = self._split
-        if not base.is_contiguous():
-            return None
-        cols = split > 0 and axes == tuple(range(split))
-        if not cols and axes != tuple(range(self.ndim)):
-            return None
-        vshape = tuple(base.shape[split:])
-        program = mapexpr.compile(funcs, vshape, base.dtype)
-        if program is None:
-            return None
-        if not cols:
-            return kernels.fused_map_reduce_program(base, program)
-        n = prod(base.shape[:split])
-        return kernels.fused_map_reduce_cols(
-            base.reshape(n, prod(vshape)), program).reshape(vshape)
+        axes = stat_axes(self.shape, self._split, axis)
+        if name in ("max", "min", "ptp") and \
+                prod([self.shape[a] for a in axes]) == 0:
+            raise ValueError("zero-size array to reduction operation %s "
+                             "which has no identity" % name)
+        base, funcs = self._chain_parts()
+        self._guard_donated()
+        out = _chain_stat(base, funcs, self._split, self.shape, self.dtype,
+                          name, axes, keepdims, ddof)
+        return self._wrap(out, stat_split(self._split, axes, keepdims))
 
     def mean(self, axis=None, keepdims=False):
         """Mean over ``axis`` (default: all key axes)."""
@@ -854,18 +1200,24 @@ class BoltArrayGPU(BoltArray):
         """Truth-reduction OR over ``axis`` (default: the key axes)."""
         return self._stat(axis, "any", keepdims)
 
-    def stats(self, *requested, axis=None, **kwargs):
-        """Count/mean/var/std/min/max in one pass, as a
-        :class:`~bolt_tpu_torch.statcounter.StatCounter` of value-shaped
-        moments (``bolt_tpu_torch/gpu/stats.py :: welford``, whose default
-        geometry runs the ``fused_welford`` kernel).  Positional legacy
-        form ``stats(requested[, axis])`` as in the reference."""
+    def stats(self, *requested, axis=None, accumulate=None, **kwargs):
+        """Statistics in one pass, two forms (reference:
+        ``BoltArrayTPU.stats``):
+
+        * ``stats()`` / ``stats(("mean", "var"))`` / ``stats(requested=...,
+          axis=...)``: a :class:`~bolt_tpu_torch.statcounter.StatCounter`
+          of value-shaped moments (``gpu/stats.py :: welford``, whose
+          default geometry runs the ``fused_welford`` kernel), the legacy
+          positional ``stats(requested[, axis])`` too;
+        * ``stats("sum", "var", "min", ...)``: the fused stat group
+          (``gpu/multistat.py``), an ordered ``{name: array}`` dict, each
+          array equal to its standalone terminal; ``accumulate`` opts the
+          additive terminals into reduced precision (see
+          :func:`bolt_tpu_torch.compute`)."""
         if requested and all(isinstance(r, str) for r in requested):
-            raise NotImplementedError(
-                "the fluent stats(%s) form is the fused multi-stat, not "
-                "ported to the gpu backend yet (ROADMAP A3); call the "
-                "terminals (b.sum(), b.var(), ...) one by one"
-                % ", ".join(repr(r) for r in requested))
+            from bolt_tpu_torch.gpu.multistat import fluent_stats
+            return fluent_stats(self, requested, axis=axis,
+                                accumulate=accumulate)
         from bolt_tpu_torch.gpu.stats import welford
         if requested:
             if len(requested) > 2:
@@ -879,29 +1231,39 @@ class BoltArrayGPU(BoltArray):
         return welford(self, axis=axis, **kwargs)
 
     # ------------------------------------------------------------------
-    # elementwise operators: a scalar operand joins the map chain
+    # elementwise operators and numpy's ufuncs: a scalar operand joins
+    # the map chain (gpu/ufuncs.py holds the ops and their dtype rules)
     # ------------------------------------------------------------------
 
-    def _elementwise(self, other, name, reverse=False):
-        if isinstance(other, (int, float, complex, np.number)):
-            fn = _scalar_fn(name, other, reverse, self.dtype)
-            if self._split == 0:
-                return self._wrap(fn(self._data), 0)
-            return self.map(fn, axis=tuple(range(self._split)))
+    def _apply(self, fn):
+        """``fn`` per record: joins the map chain over the key axes, or
+        runs at once on a key-less array."""
+        if self._split == 0:
+            return self._wrap(fn(self._data), 0)
+        return self.map(fn, axis=tuple(range(self._split)))
+
+    def _unary(self, name):
+        return self._apply(ufuncs.unary_fn(name, torch_dtype(self.dtype)))
+
+    def _operand(self, other):
+        """A non-scalar operand as a tensor on this array's device."""
         if isinstance(other, BoltArrayGPU):
             if other._device != self._device:
                 raise ValueError(
-                    "elementwise operands live on different devices (%s vs "
-                    "%s); move one explicitly first" % (self._device,
-                                                        other._device))
-            odata = other._data
-        elif isinstance(other, BoltArray):
-            odata = _upload(other.toarray(), self._device)
-        elif isinstance(other, torch.Tensor):
-            odata = other.to(self._device)
-        else:
-            odata = _upload(np.asarray(other), self._device)
-        op, rule = _OPS[name]
+                    "operands live on different devices (%s vs %s); move "
+                    "one explicitly first" % (self._device, other._device))
+            return other._data
+        if isinstance(other, BoltArray):
+            return _upload(other.toarray(), self._device)
+        if isinstance(other, torch.Tensor):
+            return other.to(self._device)
+        return _upload(np.asarray(other), self._device)
+
+    def _elementwise(self, other, name, reverse=False):
+        if isinstance(other, (int, float, complex, np.number, np.bool_)):
+            return self._apply(ufuncs.scalar_fn(
+                name, other, reverse, torch_dtype(self.dtype)))
+        odata = self._operand(other)
         # numpy broadcasting is symmetric: keys survive while they remain
         # the leading axes with unchanged lengths
         out_shape = np.broadcast_shapes(self.shape, tuple(odata.shape))
@@ -910,9 +1272,39 @@ class BoltArrayGPU(BoltArray):
                 len(out_shape) != self.ndim
                 or out_shape[:split] != self.shape[:split]):
             split = 0
-        out_dt = rule(torch_dtype(self.dtype), odata.dtype)
-        x, y = self._data.to(out_dt), odata.to(out_dt)
-        return self._wrap(op(y, x) if reverse else op(x, y), split)
+        x = self._data
+        out = ufuncs.binary(name, odata, x) if reverse \
+            else ufuncs.binary(name, x, odata)
+        return self._wrap(out, split)
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        """numpy's ufuncs on this array (reference:
+        ``BoltArrayTPU.__array_ufunc__``): ``__call__`` of a one- or
+        two-input ufunc with a torch twin joins the map chain like the
+        operators (``np.exp(b)``, ``np.add(x, b)``), ``np.matmul`` is
+        ``@``, and the methods ``reduce``/``accumulate``/``outer``/
+        ``reduceat`` run on the device.  ``out=``, a masking ``where=``,
+        ``at``, multi-output ufuncs and ufuncs with no torch twin return
+        NotImplemented, so numpy raises ``TypeError`` (never a silent
+        copy to the host)."""
+        if method in ("reduce", "accumulate", "outer", "reduceat"):
+            from bolt_tpu_torch.gpu.methods import ufunc_method
+            return ufunc_method(self, ufunc, method, inputs, kwargs)
+        if method != "__call__" or kwargs or ufunc.nout != 1 \
+                or len(inputs) not in (1, 2):
+            return NotImplemented
+        name = ufunc.__name__
+        if name == "matmul" and len(inputs) == 2:
+            a, b = inputs
+            return self._matmul(b if a is self else a, reverse=a is not self)
+        if not ufuncs.has(name, len(inputs)):
+            return NotImplemented
+        if len(inputs) == 1:
+            return self._unary(name)
+        a, b = inputs
+        if a is self:
+            return self._elementwise(b, name)
+        return self._elementwise(a, name, reverse=True)
 
     def __add__(self, other):
         return self._elementwise(other, "add")
@@ -920,21 +1312,139 @@ class BoltArrayGPU(BoltArray):
     __radd__ = __add__
 
     def __sub__(self, other):
-        return self._elementwise(other, "sub")
+        return self._elementwise(other, "subtract")
 
     def __rsub__(self, other):
-        return self._elementwise(other, "sub", reverse=True)
+        return self._elementwise(other, "subtract", reverse=True)
 
     def __mul__(self, other):
-        return self._elementwise(other, "mul")
+        return self._elementwise(other, "multiply")
 
     __rmul__ = __mul__
 
     def __truediv__(self, other):
-        return self._elementwise(other, "truediv")
+        return self._elementwise(other, "true_divide")
 
     def __rtruediv__(self, other):
-        return self._elementwise(other, "truediv", reverse=True)
+        return self._elementwise(other, "true_divide", reverse=True)
+
+    def __pow__(self, other):
+        return self._elementwise(other, "power")
+
+    def __rpow__(self, other):
+        return self._elementwise(other, "power", reverse=True)
+
+    def __mod__(self, other):
+        return self._elementwise(other, "remainder")
+
+    def __rmod__(self, other):
+        return self._elementwise(other, "remainder", reverse=True)
+
+    def __floordiv__(self, other):
+        return self._elementwise(other, "floor_divide")
+
+    def __rfloordiv__(self, other):
+        return self._elementwise(other, "floor_divide", reverse=True)
+
+    def __matmul__(self, other):
+        return self._matmul(other)
+
+    def __rmatmul__(self, other):
+        return self._matmul(other, reverse=True)
+
+    # in-place forms rebind to a new array (device tensors are not
+    # mutated; other references to the old array keep its values)
+    __iadd__ = __add__
+    __isub__ = __sub__
+    __imul__ = __mul__
+    __itruediv__ = __truediv__
+    __ifloordiv__ = __floordiv__
+    __ipow__ = __pow__
+    __imod__ = __mod__
+    __imatmul__ = __matmul__
+
+    def __neg__(self):
+        # a bool array refuses, like numpy's and jnp's negative
+        return self._unary("negative")
+
+    def __abs__(self):
+        return self._unary("absolute")
+
+    def __lt__(self, other):
+        return self._elementwise(other, "less")
+
+    def __le__(self, other):
+        return self._elementwise(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._elementwise(other, "greater")
+
+    def __ge__(self, other):
+        return self._elementwise(other, "greater_equal")
+
+    def __eq__(self, other):
+        try:
+            return self._elementwise(other, "equal")
+        except (TypeError, ValueError, RuntimeError):
+            # an operand that does not compare elementwise (None, a
+            # sentinel): Python falls back to identity
+            return NotImplemented
+
+    def __ne__(self, other):
+        try:
+            return self._elementwise(other, "not_equal")
+        except (TypeError, ValueError, RuntimeError):
+            return NotImplemented
+
+    # elementwise == makes the array unhashable, as an ndarray is
+    __hash__ = None
+
+    def clip(self, min=None, max=None, a_min=None, a_max=None):
+        """Bound values to ``[min, max]`` (``ndarray.clip``'s keywords;
+        ``a_min``/``a_max`` as aliases): ``maximum(min)`` then
+        ``minimum(max)``, numpy's order (the upper bound wins when
+        ``min > max``), so scalar bounds join the map chain and array
+        bounds broadcast like operands."""
+        if a_min is not None:
+            if min is not None:
+                raise ValueError("pass min= or a_min=, not both")
+            min = a_min
+        if a_max is not None:
+            if max is not None:
+                raise ValueError("pass max= or a_max=, not both")
+            max = a_max
+        if min is None and max is None:
+            raise ValueError("clip needs at least one of min/max")
+        out = self
+        if min is not None:
+            out = out._elementwise(min, "maximum")
+        if max is not None:
+            out = out._elementwise(max, "minimum")
+        return out
+
+    def round(self, decimals=0):
+        """Round to ``decimals`` places, halves to even (``jnp.round``)."""
+        from numbers import Integral
+        if not isinstance(decimals, Integral):
+            raise TypeError("decimals must be an integer, got %r"
+                            % (decimals,))
+        return self._apply(ufuncs.round_fn(int(decimals)))
+
+    @property
+    def real(self):
+        """Real part (elementwise; joins the map chain)."""
+        return self._apply(_real)
+
+    @property
+    def imag(self):
+        """Imaginary part, zeros of the same dtype for real input."""
+        return self._apply(_imag)
+
+    def conj(self):
+        """Elementwise complex conjugate (identity for real dtypes)."""
+        return self._unary("conjugate")
+
+    conjugate = conj
 
     # ------------------------------------------------------------------
     # re-axis
@@ -1124,6 +1634,19 @@ class BoltArrayGPU(BoltArray):
             return out
         return a
 
+    def __array__(self, dtype=None, copy=None):
+        """The host copy numpy asks for (``np.asarray(b)``,
+        ``np.allclose(b, x)``): :meth:`toarray` in this array's dtype, or
+        cast to ``dtype``.  A copy is always made, so ``copy=False``
+        raises as numpy 2 asks; above ``IMPLICIT_GATHER_WARN_BYTES`` the
+        first such copy of the process warns."""
+        if copy is False:
+            raise ValueError("a device array cannot be viewed as a host "
+                             "array without a copy")
+        implicit_gather_warning(self.size * self.dtype.itemsize)
+        a = self.toarray()
+        return a if dtype is None else a.astype(dtype, copy=False)
+
     def iter_shards(self):
         """One ``(index, block)`` covering the whole array: a single card
         holds a single shard."""
@@ -1171,6 +1694,22 @@ class BoltArrayGPU(BoltArray):
         self._data
         return self
 
+    def unpersist(self):
+        """Counterpart of :meth:`cache`; the caching allocator owns the
+        memory, so this is a no-op kept for parity."""
+        return self
+
+    def repartition(self, npartitions):
+        """Accepted for parity: one card holds one partition."""
+        return self
+
+    def concatenate(self, arry, axis=0):
+        """Concatenate with another array along ``axis`` (reference:
+        ``BoltArrayTPU.concatenate``); the result keeps this array's
+        split."""
+        from bolt_tpu_torch.gpu.construct import ConstructGPU
+        return ConstructGPU.concatenate((self, arry), axis=int(axis))
+
     def __repr__(self):
         s = "BoltArray\n"
         s += "mode: %s\n" % self.mode
@@ -1189,9 +1728,32 @@ class BoltArrayGPU(BoltArray):
             s += "streaming: %r\n" % (self._stream,)
         elif self.deferred:
             s += "deferred: %d-op map chain\n" % len(self._chain[1])
+        elif self._spending is not None:
+            s += "pending: lazy %s() terminal (its group is not resolved " \
+                 "yet)\n" % self._spending.name
         elif self._fpending is not None:
             s += "pending: deferred filter (predicate not yet run)\n"
         return s
+
+
+# np.asarray(b) above this many bytes warns once a process: a silent copy
+# of a large device array to the host is the easiest way to lose the card
+IMPLICIT_GATHER_WARN_BYTES = 64 << 20
+_gather_warned = []
+
+
+def implicit_gather_warning(nbytes):
+    """Warn, once a process, when numpy implicitly copies ``nbytes`` of a
+    device array to the host (reference:
+    ``npdispatch.implicit_gather_warning``)."""
+    if _gather_warned or nbytes < IMPLICIT_GATHER_WARN_BYTES:
+        return
+    _gather_warned.append(True)
+    warnings.warn(
+        "a %.0f MB device array is being implicitly copied to the host "
+        "(e.g. np.asarray(b)); use bolt methods to stay on the device, or "
+        "call .toarray() to make the transfer explicit"
+        % (nbytes / float(1 << 20)), stacklevel=3)
 
 
 def _upload(a, device):

@@ -29,8 +29,9 @@ name       wire      ratio*  contract
 
 The wire and sidecar bits equal the reference's: int8, delta-f32 and dict
 keep its numpy encoders, f16 casts with numpy as it does, and bf16 casts
-with torch on the host (round to nearest even, as ``ml_dtypes`` does; a
-NaN's bits may differ, see ROADMAP C).  The delta wire travels as int32,
+with torch on the host (round to nearest even, as ``ml_dtypes`` does, and
+a NaN written as ``ml_dtypes`` writes it, ``sign | 0x7FC0``: see
+``_cast_bf16``).  The delta wire travels as int32,
 the same bits as the reference's uint32: torch has no uint32 cumsum, so
 decode sums in int64 and folds the sum back to 32 bits.
 

@@ -29,8 +29,8 @@ dtype, as torch rounds each op; a comparison with a number compares with
 the number rounded to the record dtype, as torch does.
 """
 
-from collections import namedtuple
-from functools import lru_cache
+import threading
+from collections import OrderedDict, namedtuple
 
 import torch
 
@@ -358,7 +358,6 @@ def _trace(func, vshape, dtype):
         torch.empty(vshape, dtype=dtype, device="meta"))
 
 
-@lru_cache(maxsize=256)
 def _compile(funcs, vshape, dtype):
     if dtype not in FLOAT_DTYPES or not all(callable(f) for f in funcs):
         return None
@@ -377,13 +376,41 @@ def _compile(funcs, vshape, dtype):
         return None
 
 
+# compiled programs (None for a chain that does not qualify) by (funcs,
+# vshape, dtype), least recently used first
+_PROGRAMS = OrderedDict()
+_PROGRAMS_MAX = 256
+_LOCK = threading.Lock()
+
+
+def _key(funcs, vshape, dtype):
+    return tuple(funcs), tuple(int(d) for d in vshape), dtype
+
+
 def compile(funcs, vshape, dtype):
     """The :class:`Program` of the chain ``funcs`` (a sequence of
     per-record callables, applied in order) on records of shape ``vshape``
     and torch ``dtype``, or ``None`` when the chain does not qualify.  An
     empty chain is the empty program (the identity).  Cached by the funcs
     themselves, ``vshape`` and ``dtype``."""
-    return _compile(tuple(funcs), tuple(int(d) for d in vshape), dtype)
+    key = _key(funcs, vshape, dtype)
+    with _LOCK:
+        if key in _PROGRAMS:
+            _PROGRAMS.move_to_end(key)
+            return _PROGRAMS[key]
+    program = _compile(*key)
+    with _LOCK:
+        _PROGRAMS[key] = program
+        if len(_PROGRAMS) > _PROGRAMS_MAX:
+            _PROGRAMS.popitem(last=False)
+    return program
+
+
+def compiled(funcs, vshape, dtype):
+    """Whether :func:`compile` of these arguments comes from its cache,
+    with no trace (a caller can queue device work before a trace, so the
+    trace's host time overlaps it)."""
+    return _key(funcs, vshape, dtype) in _PROGRAMS
 
 
 def _rounding(dtype):

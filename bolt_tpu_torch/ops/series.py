@@ -16,11 +16,12 @@ precomputed Vandermonde ``A`` and its pseudo-inverse (``v - A @ (pinv(A)
 them with TF32 off (precision ``"highest"``, as the reference pins).
 """
 
-from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from bolt_tpu_torch._precision import f32_matmul
 
 
 def _value_axis(b, axis):
@@ -76,23 +77,6 @@ def detrend(b, order=1, axis=0):
     return _apply_map(b, _detrend_fn(length, order, ax))
 
 
-@contextmanager
-def _highest_matmul():
-    """Run the block with torch's float32 matmul precision at
-    ``"highest"`` (TF32 off) and restore the caller's setting after.  The
-    setting is process-wide, not thread-local: another thread's matmuls
-    see it while the block runs."""
-    prev = torch.get_float32_matmul_precision()
-    if prev == "highest":
-        yield
-        return
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 @lru_cache(maxsize=256)
 def _detrend_fn(length, order, ax):
     # residual = v - A @ (pinv(A) @ v): two THIN matmuls (L x (order+1)),
@@ -116,7 +100,7 @@ def _detrend_fn(length, order, ax):
         # pinned to "highest" whatever the precision scope, as the
         # reference pins it: the fit matrices are f32/f64 host constants,
         # and a TF32 pass would dominate the residual
-        with _highest_matmul():
+        with f32_matmul("highest"):
             fit = torch.matmul(torch.matmul(moved, p_.T), a_.T)
         return torch.movedim(moved - fit, -1, ax)
 

@@ -28,7 +28,9 @@ result):
    computed on the card; then config 4 at the same width:
    ``map(v + 1).filter(v.mean() > 1)`` with ``sum()`` and ``mean()``
    (one masked ``fused_map_reduce`` launch each) against f64 references
-   of the same mask, and an all-False filter (shape ``(0, ...)``, a zero
+   of the same mask, the port's blocked mask held against the predicate
+   over the whole ``x + 1`` (equal, or apart only within rounding of the
+   bound), and an all-False filter (shape ``(0, ...)``, a zero
    ``sum()``, ``max()`` raising ``ValueError``);
 4. the imaging path at the full width of ``fam_halo_gaussian``
    (``scripts/perf_regress.py``), ``(64, 2048, 4096)`` f32 (2.15 GB) built
@@ -69,10 +71,23 @@ result):
    ``int8`` ``sum()`` armed (``BOLT_CODEC_KERNEL=1``, one
    ``fused_decode_sum`` launch a slab) and unarmed, both within the int8
    step bound; the lossy codec's refusal of ``min()``; each streamed run
-   under 2 GB of peak device memory.
+   under 2 GB of peak device memory;
+7. the array surface and the stat groups: at the north-star (rebuilt from
+   phase 3's seed) ``(np.exp(-(b ** 2)) * 0.5).sum()`` through one
+   ``fused_map_reduce`` launch against f64 column sums of the chain's f32
+   values; ``bolt.compute`` of its seven stat terminals, each equal to its
+   standalone terminal bit for bit, timed against the sum of those
+   terminals, with at most one mapped temporary (10.49 GB) plus 1 GB of
+   peak growth; ``b.stats("sum", "std", "ptp")``; ``(b > 0).sum()``
+   exactly; ``(b == b).all()``; config 4's ``filter(...).sum()``/``mean()``
+   under 1 GB of peak growth (the blocked mask); then at config 1
+   ``np.asarray`` beside ``toarray``, ``median``/``quantile``,
+   ``argmax``/``argmin``, ``sort``/``argsort`` along the last axis,
+   ``cumsum``, ``take``, ``nonzero``, ``searchsorted``, ``repeat``,
+   ``diagonal``/``trace`` and ``b @ w``, each against numpy on the host.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4 and phase 6) and read just after it: each path must have launched every
+4, phase 6 and phase 7) and read just after it: each path must have launched every
 kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
@@ -279,13 +294,14 @@ def north_star_map_reduce(bolt, ops, K, torch, b, x, ref, report):
         return v + 1
 
     before = K.LAUNCHES["fused_map_reduce"]
-    s, wall, grow = measured(torch, lambda: b.map(plus1).sum())
+    # a stat terminal is lazy: cache() resolves it inside the wall
+    s, wall, grow = measured(torch, lambda: b.map(plus1).sum().cache())
     check(K.LAUNCHES["fused_map_reduce"] == before + 1,
           "north-star map(v+1).sum() launched fused_map_reduce %d times"
           % (K.LAUNCHES["fused_map_reduce"] - before))
     # the same callable again: its program comes from the compiler's cache,
     # so this wall has no trace in it
-    _, cached_wall, _ = measured(torch, lambda: b.map(plus1).sum())
+    _, cached_wall, _ = measured(torch, lambda: b.map(plus1).sum().cache())
     check(s.shape == NORTH_STAR[1:] and s.split == 0, "map-sum shape")
     err = sum_close(s.totorch().reshape(-1), ref, n,
                     "north-star map(v+1).sum()")
@@ -336,17 +352,41 @@ def north_star_map_reduce(bolt, ops, K, torch, b, x, ref, report):
     return err
 
 
+def config4_mask(torch, x, f):
+    """Config 4's mask, ``(x + 1).mean() > 1`` per record, held against
+    the predicate over the whole ``x + 1`` at once (how the port took it
+    before the filter ran over blocks of records): the blocked mask of the
+    pending filter ``f`` must equal it, or differ only at records whose
+    f64 mean lies within rounding of the bound.  Returns the blocked mask
+    (what the port's terminals keep) and the number of records that
+    differ."""
+    from bolt_tpu_torch.gpu.array import _filter_blocks, _pred_mask
+    fp = f._fpending
+    whole = _pred_mask(fp[2], x + 1)
+    blocked = torch.cat([_pred_mask(fp[2], recs) for _, _, recs in
+                         _filter_blocks(fp, torch.float32)])
+    differ = (whole != blocked).nonzero().flatten().tolist()
+    xv = x.view(x.shape[0], -1)
+    for i in differ:
+        d = xv[i].double() + 1
+        gap = abs(float(d.mean()) - 1)
+        tol = 4 * math.sqrt(d.numel()) * 2.0 ** -24 * float(d.abs().mean())
+        check(gap <= tol, "config 4: record %d's blocked and whole masks "
+              "differ %.3g from the bound (rounding %.3g)" % (i, gap, tol))
+    return blocked, len(differ)
+
+
 def config4_north_star(bolt, K, torch, b, x, report):
     """Config 4 at the north-star: ``map(v + 1).filter(v.mean() > 1)`` with
     ``sum()`` and ``mean()`` through one masked ``fused_map_reduce`` launch
     each, against f64 references of the same mask; an all-False filter."""
-    from bolt_tpu_torch.gpu.array import _pred_mask
     n = NORTH_STAR[0]
 
     def pred(v):
         return v.mean() > 1
 
-    mask = _pred_mask(pred, x + 1)
+    mask, differ = config4_mask(torch, x, b.map(lambda v: v + 1).filter(
+        pred))
     count = int(mask.sum())
     check(0 < count < n, "config 4 survivors: %d of %d" % (count, n))
     xv = x.view(n, -1)
@@ -361,7 +401,7 @@ def config4_north_star(bolt, K, torch, b, x, report):
     for name in ("sum", "mean"):
         before = K.LAUNCHES["fused_map_reduce"]
         got, wall, grow = measured(torch, lambda: getattr(
-            b.map(lambda v: v + 1).filter(pred), name)())
+            b.map(lambda v: v + 1).filter(pred), name)().cache())
         check(K.LAUNCHES["fused_map_reduce"] == before + 1,
               "config 4 filter().%s() launched fused_map_reduce %d times"
               % (name, K.LAUNCHES["fused_map_reduce"] - before))
@@ -390,7 +430,8 @@ def config4_north_star(bolt, K, torch, b, x, report):
         check(False, "all-False filter().max() did not raise ValueError")
     check(b.filter(never).shape == (0,) + NORTH_STAR[1:],
           "all-False filter shape")
-    report["config4_north_star"] = {"survivors": count, "runs": out}
+    report["config4_north_star"] = {"survivors": count, "runs": out,
+                                    "mask_records_blocked_vs_whole": differ}
     log("config 4 at the north-star: %d of %d records survive; %s"
         % (count, n, json.dumps(out)))
 
@@ -996,6 +1037,279 @@ def stream_phase(bolt, K, torch, np, dev, report):
     return launches
 
 
+def surface_refs(torch, xv, pred_mask, chunk=4096):
+    """Phase 7's references over the (n, C) north-star tensor ``xv``, in
+    column chunks on the card: of the chain ``c = exp(-(v ** 2)) * 0.5``
+    (its f32 values computed as the chain computes them, then summed in
+    f64; min and max exact), of the raw values, the count of ``v > 0``,
+    and of ``v + 1`` over the records kept by ``pred_mask``."""
+    keys = ("c_sum", "c_mean", "c_var", "c_min", "c_max", "x_sum", "x_abs",
+            "x_std", "x_min", "x_max", "pos", "f_sum", "f_abs")
+    parts = {k: [] for k in keys}
+    for j in range(0, xv.shape[1], chunk):
+        xc = xv[:, j:j + chunk]
+        c = (torch.exp(-(xc ** 2)) * 0.5)
+        d = c.double()
+        parts["c_sum"].append(d.sum(0))
+        parts["c_mean"].append(d.mean(0))
+        parts["c_var"].append(d.var(0, correction=0))
+        parts["c_min"].append(c.amin(0))
+        parts["c_max"].append(c.amax(0))
+        d = xc.double()
+        parts["x_sum"].append(d.sum(0))
+        parts["x_abs"].append(d.abs().sum(0))
+        parts["x_std"].append(d.std(0, correction=0))
+        parts["x_min"].append(xc.amin(0))
+        parts["x_max"].append(xc.amax(0))
+        parts["pos"].append((xc > 0).sum(0))
+        f = xc[pred_mask].double() + 1
+        parts["f_sum"].append(f.sum(0))
+        parts["f_abs"].append(f.abs().sum(0))
+        del c, d, f
+    return {k: torch.cat(v, 0) for k, v in parts.items()}
+
+
+def surface_north_star(bolt, K, torch, np):
+    """Phase 7 at the north-star: the ufunc chain's sum through
+    ``fused_map_reduce``, the seven-member stat group against its
+    standalone terminals (bit for bit, walls, peak growth), the fluent
+    ``stats``, a comparison's count and ``==``, and config 4's filter
+    under the blocked mask (peak growth under 1 GB)."""
+    from bolt_tpu_torch import engine
+    n = NORTH_STAR[0]
+    out = {}
+    b = bolt.randn(NORTH_STAR, mode="gpu", dtype=np.float32, seed=0)
+    x = b.totorch()
+    xv = x.view(n, -1)
+
+    def pred(v):
+        return v.mean() > 1
+
+    mask, differ = config4_mask(torch, x, b.map(lambda v: v + 1).filter(
+        pred))
+    count = int(mask.sum())
+    ref = surface_refs(torch, xv, mask)
+    tol = 4 * math.sqrt(n) * 2.0 ** -24
+
+    def chain():
+        return np.exp(-(b ** 2)) * 0.5
+
+    # the ufunc chain's sum: one fused_map_reduce launch from the base
+    c = chain()
+    check(c.deferred and len(c._chain[1]) == 4, "the ufunc chain is not one "
+          "deferred chain of four entries")
+    before = K.LAUNCHES["fused_map_reduce"]
+    s, wall, grow = measured(torch, lambda: c.sum().cache())
+    check(K.LAUNCHES["fused_map_reduce"] == before + 1,
+          "np.exp(-(b ** 2)) * 0.5).sum() launched fused_map_reduce %d "
+          "times" % (K.LAUNCHES["fused_map_reduce"] - before))
+    err = (s.totorch().reshape(-1).double() - ref["c_sum"]).abs()
+    check(bool((err <= tol * ref["c_sum"]).all()), "ufunc chain sum: max "
+          "abs err %.3g" % float(err.max()))
+    out["chain_sum"] = {"wall_s": wall, "peak_growth_gb": grow / 1e9,
+                        "max_abs_err": float(err.max())}
+    del s, c
+
+    # the group against the sum of its standalone terminals
+    names = ("sum", "mean", "var", "std", "min", "max", "ptp")
+    c = chain()
+    handles = [getattr(c, name)() for name in names]
+    g0 = engine.counters()["fused_stat_groups"]
+    before = K.LAUNCHES["fused_map_reduce"]
+    _, gwall, ggrow = measured(torch, lambda: bolt.compute(*handles))
+    check(engine.counters()["fused_stat_groups"] == g0 + 1,
+          "bolt.compute of seven members counted %d groups"
+          % (engine.counters()["fused_stat_groups"] - g0))
+    check(K.LAUNCHES["fused_map_reduce"] == before + 1,
+          "the group's sum did not launch fused_map_reduce once")
+    check(ggrow <= x.numel() * 4 + 1e9, "the group grew the peak by %.3f GB"
+          % (ggrow / 1e9))
+    walls, grows = {}, {}
+    for name, h in zip(names, handles):
+        alone, walls[name], grows[name] = measured(
+            torch, lambda: getattr(chain(), name)().cache())
+        check(torch.equal(h.totorch(), alone.totorch()),
+              "the group's %s differs from its standalone terminal" % name)
+        del alone
+    got = {name: h.totorch().reshape(-1) for name, h in zip(names, handles)}
+    errs = {"sum": float((got["sum"].double() - ref["c_sum"]).abs().max())}
+    check(bool(((got["sum"].double() - ref["c_sum"]).abs()
+                <= tol * ref["c_sum"]).all()), "group sum")
+    errs["mean"] = close(got["mean"], ref["c_mean"], 1e-5, 1e-7,
+                         "group mean")
+    errs["var"] = close(got["var"], ref["c_var"], 1e-4, 1e-7, "group var")
+    errs["std"] = close(got["std"], ref["c_var"].sqrt(), 1e-4, 1e-7,
+                        "group std")
+    check(torch.equal(got["min"], ref["c_min"]) and torch.equal(
+        got["max"], ref["c_max"]) and torch.equal(
+        got["ptp"], ref["c_max"] - ref["c_min"]), "group min/max/ptp")
+    del handles, got
+    out["group"] = {"wall_s": gwall, "peak_growth_gb": ggrow / 1e9,
+                    "standalone_walls_s": walls,
+                    "standalone_sum_s": sum(walls.values()),
+                    "standalone_peak_growth_gb": max(grows.values()) / 1e9,
+                    "max_abs_err": errs}
+
+    # the fluent form over the raw values
+    st, swall, _ = measured(torch, lambda: b.stats("sum", "std", "ptp"))
+    check(list(st) == ["sum", "std", "ptp"], "fluent stats keys")
+    d = (st["sum"].totorch().reshape(-1).double() - ref["x_sum"]).abs()
+    check(bool((d <= tol * ref["x_abs"]).all()), "fluent sum")
+    close(st["std"].totorch().reshape(-1), ref["x_std"], 1e-4, 1e-6,
+          "fluent std")
+    check(torch.equal(st["ptp"].totorch().reshape(-1),
+                      ref["x_max"] - ref["x_min"]), "fluent ptp")
+    del st
+    # a comparison's count, exact, and b == b
+    pos, pwall, _ = measured(torch, lambda: (b > 0).sum().cache())
+    check(torch.equal(pos.totorch().reshape(-1), ref["pos"]),
+          "(b > 0).sum() against the count")
+    eq, ewall, _ = measured(torch, lambda: (b == b).all().cache())
+    check(bool(eq.totorch().all()), "(b == b).all()")
+    del pos, eq
+    out["fluent_wall_s"], out["count_wall_s"], out["eq_all_wall_s"] = \
+        swall, pwall, ewall
+
+    # config 4 under the blocked mask: no mapped temporary of the chain
+    runs = {}
+    for name in ("sum", "mean"):
+        before = K.LAUNCHES["fused_map_reduce"]
+        r, wall, grow = measured(torch, lambda: getattr(
+            b.map(lambda v: v + 1).filter(pred), name)().cache())
+        check(K.LAUNCHES["fused_map_reduce"] == before + 1,
+              "config 4 filter().%s() did not launch fused_map_reduce once"
+              % name)
+        check(grow < FUSED_SUM_PEAK_BYTES, "config 4 filter().%s() grew the "
+              "peak device memory by %.3f GB" % (name, grow / 1e9))
+        g = r.totorch().reshape(-1).double() * (count if name == "mean"
+                                                 else 1)
+        d = (g - ref["f_sum"]).abs()
+        check(bool((d <= 4 * math.sqrt(count) * 2.0 ** -24 * ref[
+            "f_abs"]).all()), "config 4 filter().%s(): max abs err %.3g"
+            % (name, float(d.max())))
+        runs[name] = {"wall_s": wall, "peak_growth_gb": grow / 1e9}
+        del r
+    out["config4"] = {"survivors": count, "runs": runs,
+                      "mask_records_blocked_vs_whole": differ}
+    del b, x, xv, ref, mask
+    return out
+
+
+def surface_config1(bolt, torch, np):
+    """Phase 7 at config 1: ``np.asarray`` beside ``toarray``, quantiles,
+    arg-reductions, sorts, ``cumsum``, gathers, ``diagonal``/``trace`` and
+    ``@``, each held against numpy on the host."""
+    out = {}
+    b = bolt.randn(CONFIG1, mode="gpu", dtype=np.float32, seed=1)
+
+    def host(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    xh, out["toarray_s"] = host(b.toarray)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        a, out["asarray_s"] = host(lambda: np.asarray(b))
+    check(a.dtype == b.dtype and np.array_equal(a, xh),
+          "np.asarray(b) against toarray()")
+    check(len(seen) <= 1, "np.asarray warned %d times" % len(seen))
+    del a
+    # quantiles over the key axis: 819200 slices of 200 (1.6e8 values)
+    med, out["median_s"] = host(lambda: b.median().toarray())
+    np.testing.assert_allclose(med, np.median(xh, axis=0), rtol=1e-6,
+                               atol=1e-6)
+    qs, out["quantile_s"] = host(lambda: b.quantile([0.1, 0.9]).toarray())
+    np.testing.assert_allclose(qs, np.quantile(xh, [0.1, 0.9], axis=0),
+                               rtol=1e-5, atol=1e-6)
+    del med, qs
+    for name in ("argmax", "argmin"):
+        r, out[name + "_s"] = host(lambda: getattr(b, name)(axis=0)
+                                   .toarray())
+        check(np.array_equal(r, getattr(np, name)(xh, axis=0)),
+              "%s over the key axis" % name)
+    # sorts along the last axis: the first records against numpy, every
+    # row through the gather of its indices
+    srt = b.astype(np.float32)
+    _, out["sort_s"] = host(lambda: srt.sort(axis=-1))
+    s = srt.totorch()
+    check(np.array_equal(s[:8].cpu().numpy(), np.sort(xh[:8], axis=-1)),
+          "sort along the last axis")
+    idx, out["argsort_s"] = host(lambda: b.argsort(axis=-1).totorch())
+    check(torch.equal(torch.gather(b.totorch(), -1, idx), s)
+          and np.array_equal(idx[:8].cpu().numpy(),
+                             np.argsort(xh[:8], axis=-1, kind="stable")),
+          "argsort along the last axis")
+    del srt, s, idx
+    cs, out["cumsum_s"] = host(lambda: b.cumsum(axis=3).toarray())
+    want = np.cumsum(xh.astype(np.float64), axis=3)
+    np.testing.assert_allclose(cs, want, rtol=1e-5, atol=1e-4)
+    del cs, want
+    picks = [0, CONFIG1[0] // 3, CONFIG1[0] - 1, -1]
+    tk, out["take_s"] = host(lambda: b.take(picks, axis=0).toarray())
+    check(np.array_equal(tk, xh.take(picks, axis=0)), "take")
+    nz, out["nonzero_s"] = host(lambda: (b > 2).nonzero())
+    check(all(np.array_equal(p, q) for p, q in zip(nz, np.nonzero(
+        xh > 2))), "nonzero of b > 2")
+    out["nonzero_count"] = int(nz[0].size)
+    del nz, tk
+    row = b[0].ravel()
+    row.sort()
+    v = np.linspace(-3, 3, 1001)
+    ss, out["searchsorted_s"] = host(lambda: row.searchsorted(v))
+    check(np.array_equal(ss, np.searchsorted(np.sort(xh[0].ravel()), v)),
+          "searchsorted")
+    rp, out["repeat_s"] = host(lambda: b[:4].repeat(2, axis=1).toarray())
+    check(np.array_equal(rp, xh[:4].repeat(2, axis=1)), "repeat")
+    dg, out["diagonal_s"] = host(lambda: b.diagonal(0, 2, 3).toarray())
+    check(np.array_equal(dg, xh.diagonal(0, 2, 3)), "diagonal")
+    tr, out["trace_s"] = host(lambda: b.trace(0, 2, 3).toarray())
+    np.testing.assert_allclose(tr, xh.astype(np.float64).trace(0, 2, 3),
+                               rtol=1e-5, atol=1e-4)
+    del row, rp, dg, tr
+    # b @ w with TF32 off: f32 products accumulated in f32, each element
+    # within 64 * 2^-24 of sum |x||w| (a few times the rounding of 64 terms)
+    w = np.random.default_rng(3).standard_normal((64, 64)).astype(np.float32)
+    mm, out["matmul_s"] = host(lambda: (b @ w).totorch())
+    got = mm[:4].double().cpu().numpy()
+    x64 = xh[:4].astype(np.float64)
+    err = np.abs(got - x64 @ w.astype(np.float64))
+    check(bool((err <= 64 * 2.0 ** -24 * (np.abs(x64) @ np.abs(
+        w.astype(np.float64))) + 1e-6).all()), "b @ w: max abs err %.3g"
+        % err.max())
+    out["matmul_max_abs_err"] = float(err.max())
+    del b, xh, mm
+    return out
+
+
+def surface_phase(bolt, K, torch, np, report):
+    """Phase 7, the array surface and the stat groups; returns the path's
+    launches."""
+    t0 = time.perf_counter()
+    K.reset_launches()
+    report["surface_north_star"] = surface_north_star(bolt, K, torch, np)
+    report["surface_config1"] = surface_config1(bolt, torch, np)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches["fused_map_reduce"] > 0,
+          "the surface phase never launched fused_map_reduce")
+    report["surface_launches"] = launches
+    report["phases"]["surface_s"] = time.perf_counter() - t0
+    ns = report["surface_north_star"]
+    log("surface phase ok in %.1f s: group %.4f s against its standalone "
+        "terminals %.4f s (peak growth %.3f GB); config 4 peak growth %s GB;"
+        " np.asarray %.3f s against toarray %.3f s; launches %s"
+        % (report["phases"]["surface_s"], ns["group"]["wall_s"],
+           ns["group"]["standalone_sum_s"], ns["group"]["peak_growth_gb"],
+           json.dumps({k: v["peak_growth_gb"]
+                       for k, v in ns["config4"]["runs"].items()}),
+           report["surface_config1"]["asarray_s"],
+           report["surface_config1"]["toarray_s"], json.dumps(launches)))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1334,6 +1648,9 @@ def main():
 
     # ---- phase 6: the streamed north-star --------------------------------
     stream_launches = stream_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 7: the array surface and the stat groups -------------------
+    surface_phase(bolt, K, torch, np, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment

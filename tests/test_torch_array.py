@@ -568,3 +568,68 @@ def test_promotion_table_matches_jnp(kind):
     for name in ("mean", "var", "std", "sum", "prod", "min", "max"):
         want = getattr(jnp, name)(a).dtype
         assert dtypes.stat_dtype(name, tdt(kind)) == tdt(str(want)), name
+
+
+# ---------------------------------------------------------------------------
+# == and the numpy protocol (the port's open faults C1 and C2): == is
+# elementwise, the array is unhashable, and numpy reads it as its values
+# ---------------------------------------------------------------------------
+
+def test_eq_ne_are_elementwise_like_the_reference(mesh):
+    x = np.round(_x() * 2)
+    t, g = ref.array(x, mesh), bolt.array(x, CPU)
+    y = np.round(_x(seed=4) * 2)
+    for f in (lambda b: b == 1, lambda b: b == b, lambda b: b != y,
+              lambda b: b == y, lambda b: 1 != b):
+        got, want = f(g), f(t)
+        assert isinstance(got, bolt.BoltArrayGPU)
+        assert got.dtype == want.dtype == np.bool_
+        assert np.array_equal(got.toarray(), want.toarray())
+    assert (g == g).toarray().all()
+    assert (g == None) is False and (g != None) is True  # noqa: E711
+
+
+def test_array_is_unhashable():
+    b = bolt.array(_x(), CPU)
+    with pytest.raises(TypeError):
+        hash(b)
+    with pytest.raises(TypeError):
+        {b}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.int32,
+                                   np.bool_])
+def test_numpy_reads_the_values(dtype):
+    x = _x((20, 5, 4))
+    x = (x > 0) if dtype == np.bool_ else x.astype(dtype)
+    b = bolt.array(x, CPU).map(lambda v: v)
+    a = np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert np.array_equal(a, b.toarray())
+    assert np.asarray(b, dtype=np.float64).dtype == np.float64
+    assert np.allclose(b, x)
+    assert np.array(b).dtype == b.dtype
+
+
+def test_array_protocol_takes_numpy2_copy_keyword():
+    import warnings
+    b = bolt.array(_x(), CPU)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        assert np.array_equal(b.__array__(copy=True), _x())
+        assert np.array_equal(np.asarray(b, copy=True), _x())
+    with pytest.raises(ValueError):
+        b.__array__(copy=False)
+
+
+def test_implicit_copy_to_host_warns_once(monkeypatch):
+    from bolt_tpu_torch.gpu import array as garray
+    monkeypatch.setattr(garray, "IMPLICIT_GATHER_WARN_BYTES", 1000)
+    monkeypatch.setattr(garray, "_gather_warned", [])
+    b = bolt.array(_x(), CPU)
+    with pytest.warns(UserWarning, match="implicitly copied"):
+        np.asarray(b)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        np.asarray(b)                    # once a process

@@ -331,9 +331,10 @@ def test_fused_map_reduce_launch_failure_raises(monkeypatch):
     program = M.compile((lambda v: v + 1,), (16,), torch.float32)
     for call in (lambda: K.fused_map_reduce_cols(x, program),
                  lambda: K.fused_map_reduce(x, lambda v: v + 1),
-                 lambda: bolt.ones((8, 16), dev).map(lambda v: v + 1).sum(),
+                 lambda: bolt.ones((8, 16), dev).map(lambda v: v + 1).sum()
+                 .toarray(),
                  lambda: bolt.ones((8, 16), dev).filter(
-                     lambda v: v.sum() > 0).sum()):
+                     lambda v: v.sum() > 0).sum().toarray()):
         with pytest.raises(RuntimeError, match="fused_map_reduce launch "
                                                "failed: CUDA error 98"):
             call()
@@ -494,3 +495,126 @@ def test_fused_decode_sum_plans_on_card():
         torch.cuda.synchronize()
         assert K.LAUNCHES["fused_decode_sum"] == before + 1
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the array surface and the fused stat groups on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_group_members_equal_standalone_terminals_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    b = bolt.randn((256, 16, 64), dev, dtype=np.float32, seed=21)
+    names = ("sum", "mean", "var", "std", "min", "max", "ptp")
+
+    def chain():
+        return np.exp(-(b ** 2)) * 0.5
+
+    c = chain()
+    group = bolt.compute(*(getattr(c, n)() for n in names))
+    for name, got in zip(names, group):
+        want = getattr(chain(), name)().totorch()
+        assert torch.equal(got.totorch(), want), name
+    out = b.stats("sum", "std", "ptp")
+    for name in out:
+        assert torch.equal(out[name].totorch(),
+                           getattr(b, name)().totorch()), name
+
+
+@pytest.mark.gpu
+def test_blocked_chain_stats_on_card(monkeypatch):
+    # a chain longer than one block folds its blocks' partials: members
+    # equal their standalone terminals bit for bit, and the values equal
+    # the whole chain's (min/max exactly, the moments within f32 rounding)
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch.gpu import array as garray
+    dev = _cuda()
+    b = bolt.randn((97, 16, 64), dev, dtype=np.float32, seed=26)
+    names = ("mean", "var", "std", "min", "max", "ptp")
+
+    def chain():
+        return np.exp(-(b ** 2)) * 0.5
+
+    whole = [getattr(chain(), n)().totorch() for n in names]
+    monkeypatch.setattr(garray, "_BLOCK_BYTES", 7 * 16 * 64 * 4)
+    group = bolt.compute(*(getattr(chain(), n)() for n in names))
+    for name, got, want in zip(names, group, whole):
+        got = got.totorch()
+        assert torch.equal(got, getattr(chain(), name)().totorch()), name
+        if name in ("min", "max", "ptp"):
+            assert torch.equal(got, want), name
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_ufunc_chain_sum_launches_fused_map_reduce_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    b = bolt.randn((128, 8, 64), dev, dtype=np.float32, seed=22)
+    x = b.toarray().astype(np.float64)
+    K.reset_launches()
+    s = (np.exp(-(b ** 2)) * 0.5).sum().toarray()
+    assert K.LAUNCHES["fused_map_reduce"] == 1
+    np.testing.assert_allclose(s, (np.exp(-(x ** 2)) * 0.5).sum(0),
+                               rtol=1e-5, atol=1e-5)
+    cnt = (b > 0).sum().toarray()
+    assert np.array_equal(cnt, (x > 0).sum(0))
+    assert bool((b == b).all().toarray().all())
+
+
+@pytest.mark.gpu
+def test_quantile_above_2_24_elements_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    b = bolt.randn((64, 1 << 19), dev, dtype=np.float32, seed=23)
+    assert b.size > 1 << 24
+    x = b.toarray()
+    np.testing.assert_allclose(b.median().toarray(), np.median(x, axis=0),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(b.quantile([0.1, 0.9]).toarray(),
+                               np.quantile(x, [0.1, 0.9], axis=0),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_eq_array_protocol_and_hash_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    b = bolt.randn((16, 5, 4), dev, dtype=np.float32, seed=24)
+    x = b.toarray()
+    eq = b == b
+    assert eq.dtype == np.bool_ and eq.totorch().is_cuda
+    assert bool(eq.toarray().all()) and not (b != b).toarray().any()
+    assert np.array_equal((b == 1).toarray(), x == 1)
+    assert (b == None) is False                       # noqa: E711
+    with pytest.raises(TypeError):
+        hash(b)
+    a = np.asarray(b)
+    assert a.dtype == b.dtype and np.array_equal(a, x)
+    assert np.allclose(b, x)
+
+
+@pytest.mark.gpu
+def test_blocked_filter_mask_equals_whole_mask_on_card(monkeypatch):
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch.gpu import array as garray
+    dev = _cuda()
+    b = bolt.randn((97, 8, 32), dev, dtype=np.float32, seed=25)
+
+    def f():
+        return b.map(lambda v: v + 1).filter(lambda v: v.mean() > 1)
+
+    whole_mask = garray._pred_mask(lambda v: v.mean() > 1,
+                                   b.totorch() + 1)
+    whole = (f().toarray(), f().sum().totorch(), f().var().totorch())
+    monkeypatch.setattr(garray, "_BLOCK_BYTES", 5 * 8 * 32 * 4)
+    fp = f()._fpending
+    blocked = torch.cat([garray._pred_mask(fp[2], recs) for _, _, recs in
+                         garray._filter_blocks(fp, torch.float32)])
+    assert torch.equal(blocked, whole_mask)
+    assert np.array_equal(f().toarray(), whole[0])
+    assert torch.equal(f().sum().totorch(), whole[1])
+    torch.testing.assert_close(f().var().totorch(), whole[2], rtol=1e-5,
+                               atol=1e-6)

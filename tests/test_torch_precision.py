@@ -67,16 +67,19 @@ def test_package_exports_the_scope():
 
 
 def test_float32_matmul_scope_restores_the_setting():
-    # detrend's pin sets "highest" for its block and restores the
-    # caller's setting after, also when the block raises
-    from bolt_tpu_torch.ops.series import _highest_matmul
+    # detrend's pin (and @'s precision mode) sets torch's float32 matmul
+    # precision for its block and restores the caller's setting after, also
+    # when the block raises
+    from bolt_tpu_torch._precision import f32_matmul
     prev = torch.get_float32_matmul_precision()
     try:
         torch.set_float32_matmul_precision("medium")
-        with _highest_matmul():
+        with f32_matmul("highest"):
             assert torch.get_float32_matmul_precision() == "highest"
         assert torch.get_float32_matmul_precision() == "medium"
-        with pytest.raises(RuntimeError), _highest_matmul():
+        with f32_matmul("high"):
+            assert torch.get_float32_matmul_precision() == "high"
+        with pytest.raises(RuntimeError), f32_matmul("highest"):
             raise RuntimeError
         assert torch.get_float32_matmul_precision() == "medium"
     finally:

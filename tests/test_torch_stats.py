@@ -110,8 +110,12 @@ def test_stats_errors_and_legacy_form(mesh):
     b = bolt.array(x, CPU)
     with pytest.raises(ValueError):
         b.stats(axis=(9,))
-    with pytest.raises(NotImplementedError):
-        b.stats("sum", "var")          # fluent multi-stat: ROADMAP A3
+    # the fluent form is the fused stat group: the reference's dict
+    got = b.stats("sum", "var")
+    want = ref.array(x, mesh).stats("sum", "var")
+    assert list(got) == list(want) == ["sum", "var"]
+    for name in got:
+        _close(got[name].toarray(), want[name].toarray())
     t = ref.array(x, mesh).stats(("mean",), (0,))
     g = b.stats(("mean",), (0,))
     assert g.requested == t.requested == ("mean",)
