@@ -10,6 +10,11 @@ two backends:
   ``swap`` as a permute, and ``fromcallback``/``fromiter`` streams that
   reduce arrays larger than device memory (``bolt_tpu_torch.stream``).
 
+Every terminal builds its program once through the dispatch engine
+(``bolt_tpu_torch.engine``: the program cache, its counters, donation
+and the dispatch order); ``bolt_tpu_torch.profile`` times and
+instruments it and ``bolt_tpu_torch.obs`` traces it.
+
 >>> import torch, bolt_tpu_torch as bolt
 >>> b = bolt.ones((8, 100, 50), context=torch.device("cuda"))
 >>> b.map(lambda x: x + 1).sum().toarray()
@@ -27,9 +32,10 @@ from bolt_tpu_torch.gpu.array import BoltArrayGPU
 from bolt_tpu_torch.gpu.multistat import compute
 from bolt_tpu_torch.local.array import BoltArrayLocal
 from bolt_tpu_torch.utils import allclose
-from bolt_tpu_torch import stream  # noqa: E402  (bolt_tpu_torch.stream)
+from bolt_tpu_torch import engine, obs, profile, stream  # noqa: E402
 
 __all__ = ["array", "ones", "zeros", "full", "rand", "randn",
-           "concatenate", "fromcallback", "fromiter", "stream", "allclose",
-           "precision", "accumulate", "compute", "BoltArray", "BoltArrayLocal", "BoltArrayGPU",
+           "concatenate", "fromcallback", "fromiter", "stream", "engine",
+           "profile", "obs", "allclose", "precision", "accumulate",
+           "compute", "BoltArray", "BoltArrayLocal", "BoltArrayGPU",
            "HostFallbackWarning", "__version__"]

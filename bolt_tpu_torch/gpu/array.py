@@ -24,7 +24,28 @@ masked filter terminals    ``fused_map_reduce`` with a record mask
 ndarray methods            torch sorts, gathers, scans
                            (``gpu/methods.py``)
 fused multi-stat program   a stat group (``gpu/multistat.py``)
+XLA executable cache       the engine's program cache
+                           (``bolt_tpu_torch/engine.py``)
+buffer donation            the result written into the base's own
+                           storage, or the base dropped once read
 =========================  =======================================
+
+**Programs.**  Each terminal builds its program once per key through the
+engine (``_cached_jit``: op family, user funcs, shapes, dtype, split,
+device, donation) and calls the cached program afterwards; shape
+inference of ``map``/``filter``/``reduce`` is cached per (callable,
+record shape, dtype) in ``_EVAL_CACHE``, as the reference caches its
+``eval_shape``.
+
+**Donation.**  A terminal consuming a deferred chain (materialisation,
+``reduce``, the stat terminals, the filter terminals, ``chunk().map()``,
+``stacked().map()``) takes the chain's base when the chain is its sole
+owner and it is at least ``engine.donation_min_bytes()`` (64 MB by
+default) — see :func:`_chain_donate_ok`.  Where the output has the
+base's record shape and dtype, it is written into the base's own storage
+block by block (block *i* reads only records of block *i*); otherwise the
+base is dropped once read.  A consumed array raises on any later read,
+naming the terminal.
 
 **Laziness.**  As in the reference, a traceable ``map`` is deferred: the
 array records a chain of per-record functions over its parent.  A
@@ -62,14 +83,20 @@ reroutes through the local NumPy oracle with a
 the callable is a bug in it and surfaces.
 """
 
+import sys
 import warnings
+import weakref
+from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
 import torch
 from torch.func import vmap
 
+from bolt_tpu_torch import _lockdep
+from bolt_tpu_torch import engine as _engine
 from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
+from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.gpu import dtypes, ufuncs
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
 from bolt_tpu_torch.gpu.methods import ArrayMethods
@@ -128,10 +155,59 @@ def _meta(shape, dtype):
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
+_LRU_MAX = 512
+_LRU_LOCK = _lockdep.rlock("gpu.lru")
+
+
+def _lru_get(cache, key, build):
+    """The bounded LRU of the shape-inference cache: ``build`` runs under
+    the lock (meta-tensor work, never a device program).  A ``build``
+    that raises stores nothing, so the error repeats on the next call."""
+    with _LRU_LOCK:
+        out = cache.get(key)
+        if out is None:
+            out = build()
+            cache[key] = out
+            if len(cache) > _LRU_MAX:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+        return out
+
+
+# shape-inference results, keyed on (op, func identity, record shape,
+# dtype) as the reference keys its eval_shape cache: a vmapped call on a
+# meta tensor costs a few hundred microseconds of host time per call
+_EVAL_CACHE = OrderedDict()
+
+
+def _cached_eval_shape(key, thunk):
+    return _lru_get(_EVAL_CACHE, key, thunk)
+
+
+def _cached_jit(key, builder):
+    """Keyed program dispatch through the engine: built at most once per
+    key, counted and shared across every op family
+    (``bolt_tpu_torch.profile.instrument`` patches this name per module
+    to count calls and builds)."""
+    return _engine.get(key, builder)
+
+
 def _infer_map(func, vshape, dtype, split=None):
     """Per-record output ``(shape, dtype)`` of ``func``, from a vmapped call
     on a one-record meta tensor (``split`` set: a ``with_keys`` func,
-    called with ``split`` int32 key scalars)."""
+    called with ``split`` int32 key scalars); cached per (func, record
+    shape, dtype, split)."""
+    vshape = tuple(vshape)
+    if split is None:
+        return _cached_eval_shape(("map", func, vshape, str(dtype)),
+                                  lambda: _infer_record(func, vshape, dtype))
+    return _cached_eval_shape(("map-wk", func, split, vshape, str(dtype)),
+                              lambda: _infer_record(func, vshape, dtype,
+                                                    split))
+
+
+def _infer_record(func, vshape, dtype, split=None):
     x = _meta((1,) + tuple(vshape), dtype)
     if split is None:
         out = vmap(func)(x)
@@ -142,6 +218,141 @@ def _infer_map(func, vshape, dtype, split=None):
         raise TypeError("map function must return a tensor, got %s"
                         % type(out).__name__)
     return tuple(out.shape[1:]), out.dtype
+
+
+def _infer_pred(func, vshape, dtype):
+    """The shape of the predicate ``func``'s value on one record (cached
+    per (func, record shape, dtype))."""
+    def run():
+        out = vmap(lambda v: _as_tensor(func(v), "meta"))(
+            _meta((1,) + vshape, dtype))
+        return tuple(out.shape[1:])
+    return _cached_eval_shape(("filter", func, vshape, str(dtype)), run)
+
+
+def _check_reducer(func, vshape, dtype):
+    """Trace the binary reducer ``func`` once on meta records (cached per
+    (func, record shape, dtype)): raises what ``vmap`` raises."""
+    def run():
+        rec = _meta((1,) + tuple(vshape), dtype)
+        vmap(func)(rec, rec)
+        return True
+    return _cached_eval_shape(("reduce", func, tuple(vshape), str(dtype)),
+                              run)
+
+
+# ---------------------------------------------------------------------
+# donation: who owns a chain's base
+# ---------------------------------------------------------------------
+
+class _Shared(tuple):
+    """A deferred chain ``(base, funcs)`` or a pending filter tuple,
+    with weak references to the wrappers holding it: ``_clone`` shares
+    one tuple between wrappers, and a tuple held by more than one live
+    wrapper is never donated."""
+
+    def __new__(cls, items, owner):
+        t = super().__new__(cls, items)
+        t.owners = [weakref.ref(owner)]
+        return t
+
+    def share(self, owner):
+        self.owners = [r for r in self.owners if r() is not None]
+        self.owners.append(weakref.ref(owner))
+
+
+def _sharers(shared):
+    """Live wrappers holding ``shared`` as their chain or filter."""
+    n = 0
+    for r in shared.owners:
+        w = r()
+        if w is not None and (w._chain is shared or w._fpending is shared):
+            n += 1
+    return n
+
+
+def _py_refs(shared):
+    """Python references to ``shared``'s base, as this function sees
+    them."""
+    return sys.getrefcount(shared[0])
+
+
+def _storage_refs(t):
+    """Holders of ``t``'s storage (tensors and views), or ``None`` where
+    torch does not say."""
+    use_count = getattr(torch._C, "_storage_Use_Count", None)
+    if use_count is None:
+        return None
+    return use_count(t.untyped_storage()._cdata)
+
+
+# the counts of a base that nothing but its chain holds, measured once on
+# this interpreter and torch through the same two functions: sole
+# ownership compares with these, never with a number fixed in advance
+_LONE_PY = _py_refs((torch.empty(1),))
+_LONE_STORAGE = _storage_refs(torch.empty(1))
+
+
+def _chain_donate_ok(shared):
+    """True when a terminal consuming the deferred chain or pending
+    filter ``shared`` (``(base, funcs, ...)``) may take its base: donation
+    is on, the base is at least ``engine.donation_min_bytes()``, exactly
+    one live wrapper holds the tuple (a ``_clone`` shares it), no other
+    Python object holds the base (a live parent array, a stat group, the
+    caller's tensor), the base is no view (its storage would belong to a
+    tensor someone else holds) and no view of it exists.  Each count is
+    taken explicitly; a caller must not bind its own local to the base
+    before asking (that reference refuses the donation: it fails safe).
+    A donation that would be wrong is refused, and then nothing changes.
+    """
+    floor = _engine.donation_min_bytes()
+    if floor is None or not isinstance(shared, _Shared) or \
+            _LONE_STORAGE is None:
+        return False
+    if shared[0].numel() * shared[0].element_size() < floor:
+        return False
+    if _py_refs(shared) != _LONE_PY or _sharers(shared) != 1:
+        return False
+    return shared[0]._base is None and \
+        _storage_refs(shared[0]) == _LONE_STORAGE
+
+
+def _aliases(t, base):
+    """True when ``t`` shares ``base``'s storage."""
+    return t.untyped_storage().data_ptr() == base.untyped_storage().data_ptr()
+
+
+def _map_blocks(base, funcs, split, body, per, inplace):
+    """The chain ``funcs`` and then ``body`` (``None``: nothing) applied
+    to ``base`` block by block of ``per`` records (flattened: ``body``
+    sees ``split`` 1), each block's result written in record order into
+    one output tensor of ``(*keys, *block result record)``.  With
+    ``inplace`` (a donated base) the output is the base's own storage
+    when the result keeps the base's record shape and dtype and the base
+    is contiguous: block *i* reads only records of block *i*, so no
+    record is overwritten before it is read.  Needs at least one
+    record."""
+    n = prod(base.shape[:split])
+    kshape = tuple(base.shape[:split])
+    out = dst = None
+    for s, e, recs in _chain_blocks(base, funcs, split, per):
+        if body is not None:
+            recs = body(recs)
+        if out is None:
+            rshape = tuple(recs.shape[1:])
+            if inplace and rshape == tuple(base.shape[split:]) and \
+                    recs.dtype == base.dtype and base.is_contiguous():
+                out = base
+            else:
+                out = torch.empty(kshape + rshape, dtype=recs.dtype,
+                                  device=base.device)
+            dst = out.view((n,) + rshape)
+        if out is base and _aliases(recs, base):
+            recs = recs.clone()     # a view of the block: copy before
+            #                         writing over the records it reads
+        dst[s:e] = recs
+        del recs        # free the block before the next one is mapped
+    return out
 
 
 class _WithKeysFunc:
@@ -289,12 +500,10 @@ def _block_records(rec_bytes):
     return max(1, _BLOCK_BYTES // max(1, rec_bytes))
 
 
-def _chain_blocks(base, funcs, split, rec_bytes):
-    """``(start, stop, records)`` for each block of about ``_BLOCK_BYTES``
-    (``rec_bytes`` a record): the chain applied to the base's flattened
-    records ``start:stop``."""
+def _chain_blocks(base, funcs, split, per):
+    """``(start, stop, records)`` for each block of ``per`` records: the
+    chain applied to the base's flattened records ``start:stop``."""
     n = prod(base.shape[:split])
-    per = _block_records(rec_bytes)
     kshape = tuple(base.shape[:split])
     flat = base.reshape((n,) + tuple(base.shape[split:]))
     for s in range(0, n, per):
@@ -312,7 +521,7 @@ def _filter_blocks(fp, dtype):
                                 device=base.device)
         return
     yield from _chain_blocks(base, funcs, split,
-                             prod(vshape) * dtype.itemsize)
+                             _block_records(prod(vshape) * dtype.itemsize))
 
 
 def _filter_values(fp, dtype):
@@ -479,24 +688,24 @@ def _chain_rec_bytes(base, split, shape, dtype):
                prod(base.shape[split:]) * base.element_size())
 
 
-def _chain_values(base, funcs, split, shape, dtype):
+def _chain_values(base, funcs, split, shape, dtype, inplace=False):
     """The chain ``funcs`` applied to ``base``: the mapped tensor of
     ``shape`` and numpy ``dtype``.  A chain longer than one block (see
     ``_BLOCK_BYTES``) is written block by block of records into one
-    tensor, so a chain of several ops holds one mapped tensor, not two."""
+    tensor, so a chain of several ops holds one mapped tensor, not two;
+    ``inplace`` (a donated base) lets that tensor be the base itself
+    (:func:`_map_blocks`)."""
     if not funcs:
         return base
     n = prod(shape[:split])
-    rec = _chain_rec_bytes(base, split, shape, dtype)
-    if 0 < n <= _block_records(rec):
-        (_, _, recs), = _chain_blocks(base, funcs, split, rec)
+    per = _block_records(_chain_rec_bytes(base, split, shape, dtype))
+    if n == 0:
+        return torch.empty(shape, dtype=torch_dtype(dtype),
+                           device=base.device)
+    if n <= per and not inplace:
+        (_, _, recs), = _chain_blocks(base, funcs, split, per)
         return recs.reshape(shape)
-    out = torch.empty(shape, dtype=torch_dtype(dtype), device=base.device)
-    dst = out.view((n,) + tuple(shape[split:]))
-    for s, e, recs in _chain_blocks(base, funcs, split, rec):
-        dst[s:e] = recs
-        del recs        # free the block before the next one is mapped
-    return out
+    return _map_blocks(base, funcs, split, None, per, inplace)
 
 
 def _wide(dtype):
@@ -592,7 +801,8 @@ def _chain_stats(base, funcs, split, shape, dtype, slots):
     mapped = torch.empty(shape, dtype=torch_dtype(dtype),
                          device=base.device) if rest else None
     accs, parts = {}, {i: [] for i in joined}
-    for s, e, recs in _chain_blocks(base, funcs, split, rec):
+    for s, e, recs in _chain_blocks(base, funcs, split,
+                                    _block_records(rec)):
         if rest:
             mapped.view((n,) + tuple(shape[split:]))[s:e] = recs
         for i in folded:
@@ -642,6 +852,26 @@ def _chain_stat(base, funcs, split, shape, dtype, name, axes, keepdims,
                         [(name, axes, keepdims, ddof)])[0]
 
 
+def _stat_program(name, funcs, base, split, shape, dtype, axes, keepdims,
+                  ddof, donate, device):
+    """The engine's program of the stat terminal ``name`` over ``axes``
+    of the chain ``funcs`` over ``base`` (mapped values of ``shape`` and
+    numpy ``dtype``): :func:`_chain_stat`, with a compiled chain's
+    expression program traced at the build."""
+    def build():
+        if name == "sum" and funcs:
+            mapexpr.compile(funcs, tuple(base.shape[split:]), base.dtype)
+
+        def run(data):
+            return _chain_stat(data, funcs, split, shape, dtype, name, axes,
+                               keepdims, ddof)
+        return run
+
+    return _cached_jit(("stat", name, funcs, tuple(base.shape),
+                        str(base.dtype), split, axes, keepdims, ddof, donate,
+                        device), build)
+
+
 def stat_axes(shape, split, axis):
     """The validated axes of a stat terminal over an array of ``shape``
     with ``split`` key axes (default: the key axes, or every axis without
@@ -684,6 +914,48 @@ def _real(v):
 
 def _imag(v):
     return torch.imag(v) if v.is_complex() else torch.zeros_like(v)
+
+
+def _masked_tree(fp, dtype, func, keepdims):
+    """The pairwise tree of ``reduce(func)`` over the pending filter
+    ``fp`` (records of torch ``dtype``) with a validity bit per slot:
+    combining a valid with an invalid slot keeps the valid operand, so
+    dropped records (NaN too) never reach the result.  No survivor raises
+    the empty-reduce ``TypeError``."""
+    vshape = fp[4]
+    x, valid = _filter_values(fp, dtype)
+    vfunc = vmap(func)
+
+    def bc(m, like):
+        return m.reshape(m.shape + (1,) * (like.ndim - 1))
+
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        a, b = x[:half], x[half:2 * half]
+        va, vb = valid[:half], valid[half:2 * half]
+        comb = vfunc(a, b)
+        if comb.shape != a.shape:
+            raise ValueError("reduce produced shape %s, expected value "
+                             "shape %s" % (tuple(comb.shape[1:]), vshape))
+        # both valid: combined; one valid: that operand (the combined
+        # slot may be garbage and is discarded)
+        sel = torch.where(bc(va & vb, comb), comb,
+                          torch.where(bc(va, comb), a, b))
+        vsel = va | vb
+        rem, vrem = x[2 * half:], valid[2 * half:]
+        if rem.shape[0]:
+            x = torch.cat([sel, rem], dim=0)
+            valid = torch.cat([vsel, vrem], dim=0)
+        else:
+            x, valid = sel, vsel
+    if not bool(valid[0]):
+        # every record was filtered out: the contract of reducing an
+        # (0, ...)-shaped resolved result
+        raise TypeError("reduce of an empty array with no initial value")
+    out = x[0]
+    if keepdims:
+        out = out.reshape((1,) + vshape)
+    return out
 
 
 # the reductions a pending filter folds its mask into (reference:
@@ -729,7 +1001,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
     @classmethod
     def _deferred(cls, base, funcs, split, device, shape, dtype):
         b = cls(None, split, device)
-        b._chain = (base, tuple(funcs))
+        b._chain = _Shared((base, tuple(funcs)), b)
         b._shape = tuple(shape)
         b._dtype = np.dtype(dtype)
         return b
@@ -817,11 +1089,16 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         ``BoltArrayTPU._clone``): the identity filter returns it, so a
         result never aliases its input wrapper."""
         b = BoltArrayGPU(self._concrete, self._split, self._device)
+        # the chain and the pending filter are shared, and counted as
+        # shared: neither wrapper's terminal may donate their base
         b._chain = self._chain
+        b._fpending = self._fpending
+        for shared in (b._chain, b._fpending):
+            if isinstance(shared, _Shared):
+                shared.share(b)
         # a stream source is shared: either wrapper materialising adopts
         # its own concrete tensor
         b._stream = self._stream
-        b._fpending = self._fpending
         # a pending stat is shared: either wrapper's first read resolves
         # the group once and both adopt the same result
         b._spending = self._spending
@@ -831,11 +1108,31 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         b._donated = self._donated
         return b
 
+    def _consume_donated(self, op="a donating pipeline terminal",
+                         granted=True):
+        """Mark this array consumed by the donating operation ``op``: its
+        chain's base was taken, so the chain can never run again — reads
+        now raise :meth:`_guard_donated`, naming ``op``.  ``granted=False``
+        records a consumption the caller asked for (``swap(donate=True)``)
+        without counting it as a policy grant."""
+        self._chain = None
+        self._concrete = None
+        self._fpending = None
+        self._donated = op
+        if granted:
+            _engine.donation_granted()
+
     def _guard_donated(self):
+        """THE donation gate: every read of this array's device state
+        goes through here; a consumed array raises, naming the
+        terminal that consumed it."""
         if self._donated:
+            _obs.event("array.donated_read", op=self._donated)
             raise RuntimeError(
                 "this array's device buffer was donated to %s and can no "
-                "longer be read" % self._donated)
+                "longer be read (donating terminals consume a sole-owned "
+                "array; scope bolt_tpu_torch.engine.donation(None) to keep "
+                "sources readable)" % self._donated)
 
     @property
     def _data(self):
@@ -856,10 +1153,33 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             self._split = out._split
             return data
         if self._concrete is None:
-            base, funcs = self._chain
-            self._concrete = _chain_apply(funcs, self._split, base)
-            self._chain = None
+            self._materialise()
         return self._concrete
+
+    def _materialise(self):
+        """The chain-materialising terminal: one engine program applying
+        the chain block by block.  A donated base takes the result in its
+        own storage when the record shape and dtype are unchanged; else
+        the base is dropped once read."""
+        _engine.strict_guard(self, "map-chain materialisation")
+        donate = _chain_donate_ok(self._chain)    # before binding the base
+        base, funcs = self._chain
+        split, shape, dtype = self._split, self._shape, self._dtype
+
+        def build():
+            def run(data):
+                return _chain_values(data, funcs, split, shape, dtype,
+                                     donate)
+            return run
+
+        fn = _cached_jit(("chain", funcs, tuple(base.shape), str(base.dtype),
+                          split, donate, self._device), build)
+        with _obs.span("array.chain", funcs=len(funcs), donate=donate,
+                       bytes=base.numel() * base.element_size()):
+            self._concrete = fn(base)
+        self._chain = None
+        if donate:
+            _engine.donation_granted()
 
     def _resolve_spending(self):
         """Adopt the result of this array's lazy stat terminal, resolving
@@ -978,41 +1298,57 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         vshape = tuple(aligned.shape[split:])
         n = prod(aligned.shape[:split])
         try:
-            out = vmap(lambda v: _as_tensor(func(v), "meta"))(
-                _meta((1,) + vshape, torch_dtype(aligned.dtype)))
+            pshape = _infer_pred(func, vshape, torch_dtype(aligned.dtype))
         except (RuntimeError, TypeError) as exc:
             if not _is_trace_error(exc):
                 raise
             _warn_fallback("filter", func, exc)
             local = aligned.tolocal().filter(func, axis=tuple(range(split)))
             return self._wrap(_upload(np.asarray(local), self._device), 1)
-        if prod(tuple(out.shape[1:])) != 1:
+        if prod(pshape) != 1:
             raise ValueError(
                 "filter predicate must return a scalar truth value per "
                 "record; got shape %s for value shape %s"
-                % (tuple(out.shape[1:]), vshape))
+                % (pshape, vshape))
         if aligned.deferred:
             base, funcs = aligned._chain
         else:
             base, funcs = aligned._data, ()
         out = BoltArrayGPU(None, 1, self._device)
-        out._fpending = (base, funcs, func, split, vshape, n)
+        out._fpending = _Shared((base, funcs, func, split, vshape, n), out)
         out._dtype = aligned.dtype
         return out
 
     def _resolve_filter(self):
         """Run the pending filter block by block (the chain and the
         predicate under ``vmap`` over about ``_BLOCK_BYTES`` of
-        mapped records), gathering each block's survivor rows."""
+        mapped records), gathering each block's survivor rows.  A donated
+        base is dropped once the survivors are gathered."""
         self._guard_donated()
-        fp = self._fpending
-        pred = fp[2]
-        parts = [recs[_pred_mask(pred, recs)] if recs.shape[0] else recs
-                 for _, _, recs in _filter_blocks(fp, torch_dtype(
-                     self._dtype))]
-        self._concrete = torch.cat(parts) if len(parts) > 1 else parts[0]
+        _engine.strict_guard(self, "filter() compaction")
+        donate = _chain_donate_ok(self._fpending)   # [0] is the base
+        geom = tuple(self._fpending[1:])
+        dtype = torch_dtype(self._dtype)
+
+        def build():
+            def run(data):
+                fp = (data,) + geom
+                parts = [recs[_pred_mask(fp[2], recs)] if recs.shape[0]
+                         else recs for _, _, recs in _filter_blocks(fp,
+                                                                    dtype)]
+                return torch.cat(parts) if len(parts) > 1 else parts[0]
+            return run
+
+        base = self._fpending[0]
+        fn = _cached_jit(("filter-fused", geom[1], geom[0],
+                          tuple(base.shape), str(base.dtype), geom[2],
+                          donate, self._device), build)
+        with _obs.span("array.filter", funcs=len(geom[0]), donate=donate):
+            self._concrete = fn(base)
         self._shape = tuple(self._concrete.shape)
         self._fpending = None
+        if donate:
+            _engine.donation_granted()
 
     def _fused_filter_stat(self, axis, name, keepdims, ddof):
         """Single-pass ``filter(...).sum()``-family terminal (reference:
@@ -1025,8 +1361,28 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         if axes is NotImplemented:
             return NotImplemented
         self._guard_donated()
-        (out,) = _filter_stats(self._fpending, self.dtype,
-                               [(name, axes, keepdims, ddof)])
+        donate = _chain_donate_ok(self._fpending)   # [0] is the base
+        geom = tuple(self._fpending[1:])
+        dtype = self.dtype
+        slots = ((name, axes, keepdims, ddof),)
+
+        def build():
+            def run(data):
+                return _filter_stats((data,) + geom, dtype, slots)[0]
+            return run
+
+        base = self._fpending[0]
+        fn = _cached_jit(("filter-stat", name, geom[1], geom[0],
+                          tuple(base.shape), str(base.dtype), geom[2], axes,
+                          keepdims, ddof, donate, self._device), build)
+        try:
+            out = fn(base)
+        finally:
+            if donate:
+                # the terminal read the base: a zero-size raise leaves this
+                # array guarded, not pointing at a dropped base
+                del base
+                self._consume_donated("filter().%s()" % name)
         return self._wrap(out, 1 if keepdims else 0)
 
     def _fused_filter_reduce(self, func, axis, keepdims):
@@ -1039,49 +1395,37 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         key axis or for a reducer ``vmap`` cannot batch."""
         if tuple(sorted(tupleize(axis))) != (0,):
             return NotImplemented
-        base, funcs, pred, split, vshape, n = self._fpending
+        vshape, n = self._fpending[4], self._fpending[5]
         if n == 0:
             raise TypeError("reduce of an empty array with no initial value")
         try:
-            rec = _meta((1,) + vshape, torch_dtype(self.dtype))
-            vmap(func)(rec, rec)
+            _check_reducer(func, vshape, torch_dtype(self.dtype))
         except (RuntimeError, TypeError) as exc:
             if not _is_trace_error(exc):
                 raise
             return NotImplemented        # the host fallback path resolves
         self._guard_donated()
-        x, valid = _filter_values(self._fpending, torch_dtype(self.dtype))
-        vfunc = vmap(func)
+        donate = _chain_donate_ok(self._fpending)   # [0] is the base
+        geom = tuple(self._fpending[1:])
+        dtype = torch_dtype(self.dtype)
 
-        def bc(m, like):
-            return m.reshape(m.shape + (1,) * (like.ndim - 1))
+        def build():
+            def run(data):
+                return _masked_tree((data,) + geom, dtype, func, keepdims)
+            return run
 
-        while x.shape[0] > 1:
-            half = x.shape[0] // 2
-            a, b = x[:half], x[half:2 * half]
-            va, vb = valid[:half], valid[half:2 * half]
-            comb = vfunc(a, b)
-            if comb.shape != a.shape:
-                raise ValueError("reduce produced shape %s, expected value "
-                                 "shape %s" % (tuple(comb.shape[1:]), vshape))
-            # both valid: combined; one valid: that operand (the combined
-            # slot may be garbage and is discarded)
-            sel = torch.where(bc(va & vb, comb), comb,
-                              torch.where(bc(va, comb), a, b))
-            vsel = va | vb
-            rem, vrem = x[2 * half:], valid[2 * half:]
-            if rem.shape[0]:
-                x = torch.cat([sel, rem], dim=0)
-                valid = torch.cat([vsel, vrem], dim=0)
-            else:
-                x, valid = sel, vsel
-        if not bool(valid[0]):
-            # every record was filtered out: the contract of reducing an
-            # (0, ...)-shaped resolved result
-            raise TypeError("reduce of an empty array with no initial value")
-        out = x[0]
-        if keepdims:
-            out = out.reshape((1,) + vshape)
+        base = self._fpending[0]
+        fn = _cached_jit(("filter-reduce", func, geom[1], geom[0],
+                          tuple(base.shape), str(base.dtype), geom[2],
+                          keepdims, donate, self._device), build)
+        try:
+            out = fn(base)
+        finally:
+            if donate:
+                # before the zero-survivor raise: the base was read, so
+                # this array must carry the guard
+                del base
+                self._consume_donated("filter().reduce()")
         return self._wrap(out, 1 if keepdims else 0)
 
     def reduce(self, func, axis=(0,), keepdims=False):
@@ -1090,6 +1434,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         half the records, in the local oracle's order.  A deferred map
         chain on the input is applied first."""
         func = _traceable(func)
+        _engine.strict_guard(self, "reduce()")
         if self._fpending is not None:
             # a pending filter feeding the reduce: fold the predicate into
             # the pairwise tree (NotImplemented geometries resolve)
@@ -1107,8 +1452,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             raise TypeError("reduce of an empty array with no initial value")
         new_split = split if keepdims else 0
         try:
-            rec = _meta((1,) + tuple(vshape), torch_dtype(aligned.dtype))
-            vmap(func)(rec, rec)
+            _check_reducer(func, vshape, torch_dtype(aligned.dtype))
         except (RuntimeError, TypeError) as exc:
             if not _is_trace_error(exc):
                 raise
@@ -1122,9 +1466,29 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             out = stream.maybe_reduce(aligned, func, tuple(axes), keepdims)
             if out is not NotImplemented:
                 return out
-        out = _reduce_tree(aligned._mapped(), func, n, vshape)
-        if keepdims:
-            out = out.reshape((1,) * split + tuple(vshape))
+        aligned._guard_donated()
+        # donating terminal: a sole-owned chain's base is dropped once the
+        # tree has read it (checked before the base local exists)
+        donate = aligned.deferred and _chain_donate_ok(aligned._chain)
+        base, funcs = aligned._chain_parts()
+
+        def build():
+            def run(data):
+                out = _reduce_tree(_chain_apply(funcs, split, data), func,
+                                   n, vshape)
+                if keepdims:
+                    out = out.reshape((1,) * split + tuple(vshape))
+                return out
+            return run
+
+        fn = _cached_jit(("reduce", func, funcs, tuple(base.shape),
+                          str(base.dtype), split, keepdims, donate,
+                          self._device), build)
+        with _obs.span("array.reduce", funcs=len(funcs), donate=donate):
+            out = fn(base)
+        if donate:
+            del base
+            aligned._consume_donated("reduce()")
         return self._wrap(out, new_split)
 
     # ------------------------------------------------------------------
@@ -1132,6 +1496,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
     # ------------------------------------------------------------------
 
     def _stat(self, axis, name, keepdims=False, ddof=None):
+        _engine.strict_guard(self, "%s()" % name)
         # the lazy door (gpu/multistat.py): the stat defers as a pending
         # member of this source's group; validation stays here, at the
         # call.  NotImplemented takes the eager paths below (streams,
@@ -1156,10 +1521,19 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                 prod([self.shape[a] for a in axes]) == 0:
             raise ValueError("zero-size array to reduction operation %s "
                              "which has no identity" % name)
-        base, funcs = self._chain_parts()
         self._guard_donated()
-        out = _chain_stat(base, funcs, self._split, self.shape, self.dtype,
-                          name, axes, keepdims, ddof)
+        # donating terminal (checked before the base local exists)
+        donate = self.deferred and _chain_donate_ok(self._chain)
+        base, funcs = self._chain_parts()
+        fn = _stat_program(name, funcs, base, self._split, self.shape,
+                           self.dtype, axes, keepdims, ddof, donate,
+                           self._device)
+        with _obs.span("array.stat", op=name, funcs=len(funcs),
+                       donate=donate):
+            out = fn(base)
+        if donate:
+            del base
+            self._consume_donated("%s()" % name)
         return self._wrap(out, stat_split(self._split, axes, keepdims))
 
     def mean(self, axis=None, keepdims=False):
@@ -1491,12 +1865,29 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         new_split = len(keys_rest) + len(vaxes)
         if perm == list(range(self.ndim)) and new_split == split:
             return self
-        out = self._mapped().permute(perm).contiguous()
+        self._guard_donated()
+        base, funcs = self._chain_parts()
+
+        def build():
+            def run(data):
+                return _chain_apply(funcs, split, data).permute(
+                    perm).contiguous()
+            return run
+
+        fn = _cached_jit(("swap", funcs, tuple(base.shape), str(base.dtype),
+                          split, tuple(perm), self._device), build)
+        out = fn(base)
         if donate:
-            self._concrete = None
-            self._chain = None
-            self._donated = "swap(..., donate=True)"
+            del base
+            self._consume_donated("swap(..., donate=True)", granted=False)
         return self._wrap(out, new_split)
+
+    def stacked(self, size=1000):
+        """Batch flat key records into blocks of ``size`` (reference:
+        ``BoltArrayTPU.stacked``); returns a
+        :class:`~bolt_tpu_torch.gpu.stack.StackedArray` view."""
+        from bolt_tpu_torch.gpu.stack import StackedArray
+        return StackedArray.stack(self, size=size)
 
     def chunk(self, size="150", axis=None, padding=None):
         """Decompose the value axes into chunks; returns a

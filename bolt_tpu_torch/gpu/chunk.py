@@ -15,9 +15,19 @@ recursive concatenate as the reference.
 import torch
 from torch.func import vmap
 
-from bolt_tpu_torch.gpu.array import BoltArrayGPU, _traceable, torch_dtype
+from bolt_tpu_torch import engine as _engine
+from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _block_records,
+                                      _chain_apply, _chain_donate_ok,
+                                      _map_blocks, _traceable, torch_dtype)
+from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.utils import (check_value_shape, chunk_align, chunk_pad,
-                                  chunk_plan, iterexpand, tupleize)
+                                  chunk_plan, iterexpand, prod, tupleize)
+
+
+def _cached_jit(key, builder):
+    """Keyed program dispatch through the engine (patched per module by
+    ``bolt_tpu_torch.profile.instrument``)."""
+    return _engine.get(key, builder)
 
 
 def _axis_categories(v, c, p, g):
@@ -203,23 +213,53 @@ class ChunkedArray:
         it must preserve the block shape."""
         func = _traceable(func)
         b = self._barray
-        if value_shape is not None:
-            out = vmap(func)(torch.empty((1,) + self._plan, device="meta",
-                                         dtype=torch_dtype(b.dtype)))
-            check_value_shape(value_shape, tuple(out.shape[1:]))
-        split = b.split
+        _engine.strict_guard(b, "chunk().map()")
+        b._guard_donated()
+        # donating terminal (checked before the base local exists)
+        donate = b.deferred and _chain_donate_ok(b._chain)
+        split, plan, pad = b.split, self._plan, self._padding
         canon = None if dtype is None else torch_dtype(dtype)
-        data = b._mapped()
-        if self.uniform and not any(self._padding):
-            out = _uniform_map_body(data, func, split, self._plan, canon)
-            grid = self.grid
+        uniform = self.uniform and not any(pad)
+        grid = self.grid
+        vshape = tuple(b.shape[split:])
+        b_item = b.dtype.itemsize
+        if value_shape is not None:
+            blk = vmap(func)(torch.empty((1,) + plan, device="meta",
+                                         dtype=torch_dtype(b.dtype)))
+            check_value_shape(value_shape, tuple(blk.shape[1:]))
+        base, funcs = b._chain_parts()
+
+        def body(recs, split=1):
+            if uniform:
+                return _uniform_map_body(recs, func, split, plan, canon)
+            return _general_map_body(recs, func, split, plan, pad, canon)
+
+        def build():
+            def run(data):
+                if not donate or not prod(data.shape[:split]):
+                    return body(_chain_apply(funcs, split, data), split)
+                # a donated base is read block by block of records, and
+                # its storage takes the result where the shape allows
+                rec = max(prod(vshape) * b_item, prod(data.shape[split:])
+                          * data.element_size())
+                return _map_blocks(data, funcs, split, body,
+                                   _block_records(rec), True)
+            return run
+
+        path = "uniform" if uniform else "general"
+        fn = _cached_jit(("chunk-map-u" if uniform else "chunk-map-g", func,
+                          funcs, tuple(base.shape), str(base.dtype), split,
+                          plan, pad, canon, donate, b.device), build)
+        with _obs.span("chunk.map", path=path, donate=donate):
+            out = fn(base)
+        if donate:
+            del base
+            b._consume_donated("chunk().map()")
+        if uniform:
             new_plan = tuple(o // g for o, g in zip(out.shape[split:], grid))
             return ChunkedArray(BoltArrayGPU(out, split, b.device), new_plan,
-                                self._padding)
-        out = _general_map_body(data, func, split, self._plan,
-                                self._padding, canon)
-        return ChunkedArray(BoltArrayGPU(out, split, b.device), self._plan,
-                            self._padding)
+                                pad)
+        return ChunkedArray(BoltArrayGPU(out, split, b.device), plan, pad)
 
     def keys_to_values(self, axes, size=None):
         """Move key axes into the values (they land at the FRONT of the

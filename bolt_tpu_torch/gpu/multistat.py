@@ -26,20 +26,26 @@ standalone terminal bit for bit:
   over blocks once and folds that mask into every member
   (``gpu/array.py :: _filter_stats``).
 
+Each group resolves through one engine program (``_cached_jit``: family
+``"stat"`` for a lone member, ``"multi-stat"``, ``"filter-stat"`` and
+``"multi-filter-stat"`` otherwise).  A group whose source is sole-owned
+takes it as the reference's groups do: the first terminal's call consumes
+the source (later reads of it raise), siblings still join the group, and
+the group drops the base when it resolves.
+
 Left out until their modules come: stream groups (a streamed source's
 terminals stay the eager streamed terminals, which :func:`compute`
-passes through), donation inside a group, the strict check and the serve
-layer's batched claim.
+passes through) and the serve layer's batched claim.
 """
 
-import threading
 import weakref
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from bolt_tpu_torch import _precision, engine
+from bolt_tpu_torch import _lockdep, _precision, engine
+from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
 from bolt_tpu_torch.utils import prod
@@ -111,7 +117,7 @@ class _StatGroup:
     source: a 10 GB base is freed with the last array that needs it."""
 
     def __init__(self, kind, split, shape, dtype, base=None, funcs=(),
-                 fpending=None):
+                 fpending=None, device=None, donate=False):
         self.kind = kind
         self.split = split
         self.shape = tuple(shape)
@@ -119,9 +125,11 @@ class _StatGroup:
         self.base = base
         self.funcs = funcs
         self.fpending = fpending
+        self.device = device
+        self.donate = donate
         self.members = []
         self.dispatched = False
-        self.lock = threading.Lock()
+        self.lock = _lockdep.lock("multistat.group")
 
     def try_join(self, axis, name, keepdims, ddof):
         """A new member for ``name`` over ``axis``, or NotImplemented when
@@ -196,38 +204,30 @@ class _StatGroup:
             self.funcs = ()
 
     def _resolve_chain(self, members, mode):
-        from bolt_tpu_torch.gpu.array import (_chain_stat, _chain_stats,
-                                              _chain_sum, _chain_values)
+        from bolt_tpu_torch.gpu.array import _stat_program
         base, funcs, split = self.base, self.funcs, self.split
+        donate = self.donate
         if len(members) == 1 and mode is None:
-            # the standalone terminal itself
+            # the standalone terminal itself (the same engine entry)
             m = members[0]
-            m.result = _chain_stat(base, funcs, split, self.shape,
-                                   self.dtype, m.name, m.axes, m.keepdims,
-                                   m.ddof)
+            fn = _stat_program(m.name, funcs, base, split, self.shape,
+                               self.dtype, m.axes, m.keepdims, m.ddof,
+                               donate, self.device)
+            with _obs.span("array.stat", op=m.name, funcs=len(funcs),
+                           donate=donate):
+                m.result = fn(base)
             return
-        slots = sorted({s for m in members for s in _slot(m)}, key=repr)
-        out = {}
-        if mode is None:
-            # a compiled sum reads the base through fused_map_reduce; the
-            # other slots share one application of the chain
-            for slot in slots:
-                name, axes, keepdims, _ = slot
-                r = _chain_sum(base, funcs, split, axes) \
-                    if name == "sum" else None
-                if r is not None:
-                    out[slot] = r.reshape(_out_shape(self.shape, axes,
-                                                     keepdims))
-            rest = [s for s in slots if s not in out]
-            out.update(zip(rest, _chain_stats(base, funcs, split,
-                                              self.shape, self.dtype,
-                                              rest)))
-        else:
-            mapped = _chain_values(base, funcs, split, self.shape,
-                                   self.dtype)
-            for slot in slots:
-                out[slot] = _accumulated(mapped, *slot, mode, self.dtype)
-            del mapped
+        slots = tuple(sorted({s for m in members for s in _slot(m)},
+                             key=repr))
+        shape, dtype = self.shape, self.dtype
+        fn = _cached_jit(("multi-stat", slots, funcs, tuple(base.shape),
+                          str(base.dtype), split, donate, mode, self.device),
+                         lambda: _chain_group_program(funcs, split, shape,
+                                                      dtype, slots, mode))
+        with _obs.span("array.multi_stat", terminals=len(members),
+                       slots=len(slots), funcs=len(funcs), donate=donate,
+                       accumulate=mode or "exact"):
+            out = dict(zip(slots, fn(base)))
         if len(members) > 1:
             engine.record_fused_stats(len(members))
         for m in members:
@@ -239,13 +239,64 @@ class _StatGroup:
 
     def _resolve_fpending(self, members):
         from bolt_tpu_torch.gpu.array import _filter_stats
-        slots = sorted({s for m in members for s in _slot(m)}, key=repr)
-        out = dict(zip(slots, _filter_stats(self.fpending, self.dtype,
-                                            slots)))
+        slots = tuple(sorted({s for m in members for s in _slot(m)},
+                             key=repr))
+        base = self.fpending[0]
+        geom = tuple(self.fpending[1:])
+        dtype, donate = self.dtype, self.donate
+
+        def build():
+            def run(data):
+                return _filter_stats((data,) + geom, dtype, slots)
+            return run
+
+        lone = len(members) == 1
+        fn = _cached_jit(("filter-stat" if lone else "multi-filter-stat",
+                          slots, geom[1], geom[0], tuple(base.shape),
+                          str(base.dtype), geom[2], donate, self.device),
+                         build)
+        with _obs.span("array.multi_stat", terminals=len(members),
+                       slots=len(slots), filtered=True, donate=donate):
+            out = dict(zip(slots, fn(base)))
         if len(members) > 1:
             engine.record_fused_stats(len(members))
         for m in members:
             m.result = out[_slot(m)[0]]
+
+
+def _cached_jit(key, builder):
+    """Keyed program dispatch through the engine (patched per module by
+    ``bolt_tpu_torch.profile.instrument``)."""
+    return engine.get(key, builder)
+
+
+def _chain_group_program(funcs, split, shape, dtype, slots, mode):
+    """The program of a chain group's ``slots``: a compiled ``sum`` reads
+    the base through ``fused_map_reduce``, as its standalone terminal
+    does, and the other slots share one application of the chain; under
+    a reduced-precision ``mode`` every slot reduces one mapped tensor."""
+    from bolt_tpu_torch.gpu.array import (_chain_stats, _chain_sum,
+                                          _chain_values)
+
+    def run(base):
+        out = {}
+        if mode is None:
+            for slot in slots:
+                name, axes, keepdims, _ = slot
+                r = _chain_sum(base, funcs, split, axes) \
+                    if name == "sum" else None
+                if r is not None:
+                    out[slot] = r.reshape(_out_shape(shape, axes, keepdims))
+            rest = [s for s in slots if s not in out]
+            out.update(zip(rest, _chain_stats(base, funcs, split, shape,
+                                              dtype, rest)))
+        else:
+            mapped = _chain_values(base, funcs, split, shape, dtype)
+            for slot in slots:
+                out[slot] = _accumulated(mapped, *slot, mode, dtype)
+            del mapped
+        return tuple(out[s] for s in slots)
+    return run
 
 
 def _accumulated(mapped, name, axes, keepdims, ddof, mode, dtype):
@@ -279,30 +330,44 @@ def defer_stat(arr, axis, name, keepdims, ddof):
     source; NotImplemented when the terminal takes the eager path (a
     name that does not defer, a stream, a donated array, a geometry a
     group does not serve)."""
-    if name not in LAZY_NAMES or arr._stream is not None or arr._donated:
+    if name not in LAZY_NAMES or arr._stream is not None:
         return NotImplemented
     g = arr._stat_group
-    if g is not None and (g.dispatched
-                          or (g.kind == "fpending" and arr._fpending is None)
-                          or (g.kind == "chain" and g.funcs
-                              and arr._chain is None)):
+    if g is not None and (g.dispatched or (not arr._donated and (
+            (g.kind == "fpending" and arr._fpending is None)
+            or (g.kind == "chain" and g.funcs and arr._chain is None)))):
         # resolved, or the source materialised since the group formed:
         # new terminals reduce the concrete data, not the recorded chain
         g = arr._stat_group = None
     if g is not None:
+        # a source the group consumed still serves its siblings
         h = g.try_join(axis, name, keepdims, ddof)
         return NotImplemented if h is NotImplemented else _wrap(arr, h)
+    if arr._donated:
+        return NotImplemented            # the eager path raises the guard
+    from bolt_tpu_torch.gpu.array import _chain_donate_ok
     if arr._fpending is not None:
+        donate = _chain_donate_ok(arr._fpending)     # [0] is the base
         g = _StatGroup("fpending", 1, (), arr.dtype,
-                       fpending=arr._fpending)
+                       fpending=arr._fpending, device=arr.device,
+                       donate=donate)
     else:
+        # checked before the base local exists
+        donate = arr.deferred and _chain_donate_ok(arr._chain)
         base, funcs = arr._chain_parts()
         g = _StatGroup("chain", arr._split, arr.shape, arr.dtype,
-                       base=base, funcs=funcs)
+                       base=base, funcs=funcs, device=arr.device,
+                       donate=donate)
+        del base
     h = g.try_join(axis, name, keepdims, ddof)
     if h is NotImplemented:
         return h
     arr._stat_group = g
+    if g.donate:
+        # one donation serves every member: the first terminal consumes
+        # the source, siblings join this group
+        arr._consume_donated("%s()" % name if g.kind == "chain"
+                             else "filter().%s()" % name)
     return _wrap(arr, h)
 
 

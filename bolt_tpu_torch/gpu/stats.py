@@ -6,12 +6,20 @@ the Pallas ``fused_welford``) and Chan-combines them across the mesh with
 ``psum``/``pmax``/``pmin``.  On one card there is nothing to combine
 across devices: the moments of the whole array come from ONE call of the
 CUDA ``fused_welford`` kernel when the reduced axes lead, and from the
-two-pass torch body otherwise.
+two-pass torch body otherwise, as one engine program (family
+``"welford"``).
 """
 
+from bolt_tpu_torch import engine as _engine
 from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.statcounter import StatCounter
 from bolt_tpu_torch.utils import inshape, prod, tupleize
+
+
+def _cached_jit(key, builder):
+    """Keyed program dispatch through the engine (patched per module by
+    ``bolt_tpu_torch.profile.instrument``)."""
+    return _engine.get(key, builder)
 
 
 def _kernel_gate(axes, ndim, dtype):
@@ -55,7 +63,9 @@ def welford(barray, requested=("mean", "var", "std", "min", "max"),
     if len(axes) == 0:
         raise ValueError("at least one axis is required")
     n_total = prod(tuple(barray.shape[a] for a in axes))
-    mu, m2, mn, mx = (t.detach().cpu().numpy()
-                      for t in _moments(barray._data, axes))
+    x = barray._data
+    fn = _cached_jit(("welford", tuple(x.shape), str(x.dtype), axes,
+                      x.device), lambda: lambda data: _moments(data, axes))
+    mu, m2, mn, mx = (t.detach().cpu().numpy() for t in fn(x))
     return StatCounter.from_moments(n_total, mu, m2, minValue=mn,
                                     maxValue=mx, stats=requested)

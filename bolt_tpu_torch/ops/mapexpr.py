@@ -29,10 +29,13 @@ dtype, as torch rounds each op; a comparison with a number compares with
 the number rounded to the record dtype, as torch does.
 """
 
-import threading
 from collections import OrderedDict, namedtuple
 
 import torch
+
+from bolt_tpu_torch import _lockdep, engine
+from bolt_tpu_torch.obs import trace as _obs
+from bolt_tpu_torch.obs.trace import clock as _clock
 
 MAX_INSTRUCTIONS = 32
 MAX_REGISTERS = 8
@@ -377,10 +380,13 @@ def _compile(funcs, vshape, dtype):
 
 
 # compiled programs (None for a chain that does not qualify) by (funcs,
-# vshape, dtype), least recently used first
+# vshape, dtype), least recently used first.  The engine's builders
+# compile here, so a trace is accounted to the engine entry whose build
+# ran it; a lookup from outside any engine build or dispatch counts in
+# the engine's hits and misses itself (no program is counted twice)
 _PROGRAMS = OrderedDict()
 _PROGRAMS_MAX = 256
-_LOCK = threading.Lock()
+_LOCK = _lockdep.lock("mapexpr.programs")
 
 
 def _key(funcs, vshape, dtype):
@@ -394,11 +400,22 @@ def compile(funcs, vshape, dtype):
     empty chain is the empty program (the identity).  Cached by the funcs
     themselves, ``vshape`` and ``dtype``."""
     key = _key(funcs, vshape, dtype)
+    counted = not engine.in_program()
     with _LOCK:
         if key in _PROGRAMS:
             _PROGRAMS.move_to_end(key)
+            if counted:
+                engine._COUNTERS.add("hits")
             return _PROGRAMS[key]
-    program = _compile(*key)
+    sp = _obs.begin("engine.lower")
+    t0 = _clock()
+    try:
+        program = _compile(*key)
+    finally:
+        _obs.end(sp)
+    if counted:
+        engine._COUNTERS.update(misses=1, aot_compiles=1,
+                                lower_seconds=_clock() - t0)
     with _LOCK:
         _PROGRAMS[key] = program
         if len(_PROGRAMS) > _PROGRAMS_MAX:

@@ -44,7 +44,10 @@ original exception is re-raised; a pool thread that dies without
 delivering surfaces as a pointed ``RuntimeError``.
 
 Accounting lands in :mod:`bolt_tpu_torch.engine` (``transfer_*``,
-``stream_*``, ``codec_*``).  Not ported yet (ROADMAP A9): pods,
+``stream_*``, ``codec_*``), under the caller's engine tenant in the
+uploader threads too; with tracing armed (:mod:`bolt_tpu_torch.obs`) a
+run is a ``stream.run`` span, and the ingest spans its threads begin
+parent under it by explicit handoff.  Not ported yet (ROADMAP A9): pods,
 resume and checkpoints, in-run retries, the serving lease, streamed
 ``swap``/``chunk``/``stacked``/``filter`` stages and multi-stat groups.
 Any consumer other than a streamed terminal — ``filter`` too —
@@ -56,17 +59,17 @@ import contextlib
 import os
 import queue
 import threading
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from bolt_tpu_torch import _lockdep
 from bolt_tpu_torch import engine as _engine
+from bolt_tpu_torch.obs import trace as _obs
+from bolt_tpu_torch.obs.trace import clock as _clock
 from bolt_tpu_torch.utils import iter_record_blocks, prod, tupleize
-
-_clock = time.perf_counter
 
 # ---------------------------------------------------------------------
 # configuration: process defaults and thread-local scopes
@@ -226,23 +229,35 @@ def transfer(x, device):
     """Counted host->device copy of the host array or tensor ``x`` (a copy
     on the CPU too: the result never aliases ``x``); tallies
     ``transfer_bytes``/``transfer_seconds`` after the copy has landed."""
+    sp = _obs.begin("stream.transfer")
     t0 = _clock()
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(x))
-    out = t.to(device, copy=True)
-    if out.device.type == "cuda":
-        torch.cuda.current_stream(out.device).synchronize()
-    _engine.record_transfer(t.numel() * t.element_size(), _clock() - t0)
+    try:
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        out = t.to(device, copy=True)
+        if out.device.type == "cuda":
+            torch.cuda.current_stream(out.device).synchronize()
+        nbytes = t.numel() * t.element_size()
+        _engine.record_transfer(nbytes, _clock() - t0)
+        if sp is not None:
+            sp.set(bytes=nbytes)
+    finally:
+        _obs.end(sp)
     return out
 
 
 def _encode_slab(codec_obj, block, delta_ok):
     """Host-side slab encode on an uploader worker, counted in the
     ``codec_*`` counters."""
+    sp = _obs.begin("stream.encode", codec=codec_obj.name)
     t0 = _clock()
-    wire, side = codec_obj.encode(block, delta_ok)
-    _engine.record_codec(int(block.nbytes),
-                         wire.numel() * wire.element_size(), _clock() - t0)
+    try:
+        wire, side = codec_obj.encode(block, delta_ok)
+        _engine.record_codec(int(block.nbytes),
+                             wire.numel() * wire.element_size(),
+                             _clock() - t0)
+    finally:
+        _obs.end(sp)
     return wire, side
 
 
@@ -254,7 +269,7 @@ class _PinnedRing:
     __slots__ = ("_lock", "_free")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _lockdep.lock("stream.ring")
         self._free = deque()
 
     def take(self, nbytes):
@@ -290,6 +305,16 @@ def _upload(parts, device, ring, copy_stream):
     device memory the tensors view.  On the CPU the host tensors are the
     slab (no event, no buffer).  Counted once, at the parts' own bytes,
     after the copy landed."""
+    sp = _obs.begin("stream.transfer")
+    if sp is not None:
+        sp.set(bytes=sum(p.numel() * p.element_size() for p in parts))
+    try:
+        return _upload_parts(parts, device, ring, copy_stream)
+    finally:
+        _obs.end(sp)
+
+
+def _upload_parts(parts, device, ring, copy_stream):
     t0 = _clock()
     nbytes = sum(p.numel() * p.element_size() for p in parts)
     if device.type != "cuda":
@@ -567,7 +592,7 @@ def _finalise(terminal, ddof, moments):
 
 
 def _slab_partial(source, st, terminal, rfunc, codec_obj, use_kernel,
-                  delta_ok, parts):
+                  delta_ok, parts, slab=0):
     """The program each slab runs: decode (when a codec is armed), the map
     stages, the terminal's partial.  ``use_kernel`` routes an int8
     ``sum`` with no stages through ``fused_decode_sum``, whose CUDA kernel
@@ -578,12 +603,16 @@ def _slab_partial(source, st, terminal, rfunc, codec_obj, use_kernel,
         x = parts[0]
     else:
         wire, side = parts[0], parts[1:]
-        if use_kernel:
-            from bolt_tpu_torch.ops.kernels import fused_decode_sum
-            out = fused_decode_sum(wire, side[0], side[1])
-            if out is not None:
-                return out.to(raw_dtype)
-        x = codec_obj.decode(wire, side, raw_dtype, delta_ok)
+        dsp = _obs.begin("stream.decode", codec=codec_obj.name, slab=slab)
+        try:
+            if use_kernel:
+                from bolt_tpu_torch.ops.kernels import fused_decode_sum
+                out = fused_decode_sum(wire, side[0], side[1])
+                if out is not None:
+                    return out.to(raw_dtype)
+            x = codec_obj.decode(wire, side, raw_dtype, delta_ok)
+        finally:
+            _obs.end(dsp)
     for stage in source.stages:
         x = _stage_apply(stage, source.split, x)
     n = prod(tuple(x.shape[:source.split]))
@@ -633,7 +662,7 @@ class _Reseq:
     __slots__ = ("_cond", "_slots", "_next", "_exc", "_total", "_dead_err")
 
     def __init__(self):
-        self._cond = threading.Condition()
+        self._cond = _lockdep.condition("stream.reseq")
         self._slots = {}
         self._next = 0
         self._exc = None
@@ -763,7 +792,7 @@ def execute(arr, terminal, ddof=None, rfunc=None):
     permits = threading.Semaphore(nring)
     stop = threading.Event()
     rsq = _Reseq()
-    act_lock = threading.Lock()
+    act_lock = _lockdep.lock("stream.uploader_hw")
     act = {"n": 0, "hw": 0}
 
     def _act(delta):
@@ -783,6 +812,13 @@ def execute(arr, terminal, ddof=None, rfunc=None):
         return _upload(parts, device, ring, copy_stream)
 
     jobq = queue.Queue()
+    # the pool's threads count under the caller's tenant, and their spans
+    # parent under this run's span by explicit handoff
+    tenant_tag = _engine.current_tenant()
+    run_sp = _obs.begin("stream.run", terminal=terminal, depth=depth,
+                        uploaders=nwork, kind=source.kind,
+                        **({"codec": codec_obj.name}
+                           if codec_obj is not None else {}))
 
     def dispenser():
         """Callback sources: hand ``(slab_i, lo, hi)`` jobs to the pool in
@@ -801,22 +837,27 @@ def execute(arr, terminal, ddof=None, rfunc=None):
             for _ in range(nwork):
                 jobq.put(None)              # poison pills: the pool drains
 
-    def worker():
+    def worker(wid):
         try:
-            copy_stream = torch.cuda.Stream(device) if on_card else None
-            while True:
-                job = jobq.get()
-                if job is None or stop.is_set():
-                    return
-                i, lo, hi = job
-                _act(1)
-                t0 = _clock()
-                try:
-                    slab = _ingest(source.produce_slab(lo, hi), copy_stream)
-                finally:
-                    _act(-1)
-                rsq.put(i, (slab, _clock() - t0))
-                del slab            # the consumer owns it now
+            with _engine.tenant(tenant_tag):
+                copy_stream = torch.cuda.Stream(device) if on_card else None
+                while True:
+                    job = jobq.get()
+                    if job is None or stop.is_set():
+                        return
+                    i, lo, hi = job
+                    _act(1)
+                    sp = _obs.begin("stream.ingest", parent=run_sp, slab=i,
+                                    worker=wid)
+                    t0 = _clock()
+                    try:
+                        slab = _ingest(source.produce_slab(lo, hi),
+                                       copy_stream)
+                    finally:
+                        _act(-1)
+                        _obs.end(sp)
+                    rsq.put(i, (slab, _clock() - t0))
+                    del slab            # the consumer owns it now
         except BaseException as exc:        # noqa: BLE001
             rsq.fault(exc)
 
@@ -824,35 +865,44 @@ def execute(arr, terminal, ddof=None, rfunc=None):
         """Iterator sources: one produce+upload thread (the iterable is
         sequential)."""
         try:
-            copy_stream = torch.cuda.Stream(device) if on_card else None
-            it = source.slabs()
-            i = 0
-            while True:
-                if not _acquire(permits, stop):
-                    return
-                _act(1)
-                t0 = _clock()
-                try:
-                    try:
-                        _, _, block = next(it)
-                    except StopIteration:
-                        permits.release()
-                        break
-                    slab = _ingest(block, copy_stream)
-                    del block
-                finally:
-                    _act(-1)
-                rsq.put(i, (slab, _clock() - t0))
-                del slab
-                i += 1
-            rsq.finish(i)
+            with _engine.tenant(tenant_tag):
+                _prefetch()
         except BaseException as exc:        # noqa: BLE001
             rsq.fault(exc)
+
+    def _prefetch():
+        copy_stream = torch.cuda.Stream(device) if on_card else None
+        it = source.slabs()
+        i = 0
+        while True:
+            if not _acquire(permits, stop):
+                return
+            _act(1)
+            sp = _obs.begin("stream.ingest", parent=run_sp, slab=i,
+                            worker=0)
+            t0 = _clock()
+            try:
+                try:
+                    _, _, block = next(it)
+                except StopIteration:
+                    permits.release()
+                    _obs.cancel(sp)     # the probe saw the end of the source
+                    sp = None
+                    break
+                slab = _ingest(block, copy_stream)
+                del block
+            finally:
+                _act(-1)
+                _obs.end(sp)
+            rsq.put(i, (slab, _clock() - t0))
+            del slab
+            i += 1
+        rsq.finish(i)
 
     if source.kind == "callback":
         lead = threading.Thread(target=dispenser,
                                 name="bolt-stream-prefetch", daemon=True)
-        pool = [threading.Thread(target=worker,
+        pool = [threading.Thread(target=worker, args=(w,),
                                  name="bolt-stream-upload-%d" % w,
                                  daemon=True) for w in range(nwork)]
         threads = [lead] + pool
@@ -875,9 +925,13 @@ def execute(arr, terminal, ddof=None, rfunc=None):
         retired) and release its ring permits."""
         nonlocal compute, confirmed
         cov, ev = pending_sync.popleft()
+        ssp = _obs.begin("stream.sync", slabs=cov)
         t0 = _clock()
-        if ev is not None:
-            ev.synchronize()
+        try:
+            if ev is not None:
+                ev.synchronize()
+        finally:
+            _obs.end(ssp)
         compute += _clock() - t0
         confirmed += cov
         permits.release(cov)
@@ -893,73 +947,92 @@ def execute(arr, terminal, ddof=None, rfunc=None):
     for th in threads:
         th.start()
     try:
-        while True:
-            got = rsq.next(threads, workers=pool, idle=_retire)
-            if got is None:
-                break
-            _, ((parts, ev, buf), tsec) = got
-            del got
-            ingest += tsec
-            t0 = _clock()
-            if on_card:
-                compute_stream.wait_event(ev)
-                # the slab was allocated on its worker's copy stream:
-                # keep the allocator from reusing it before the compute
-                # stream is done with it
-                buf.record_stream(compute_stream)
-            part = _slab_partial(source, st, terminal, rfunc, codec_obj,
-                                 use_kernel, delta_ok, parts)
-            del parts, buf
-            if pend is None:
-                pend = part
-            else:
-                # the level-0 merge: the even slab's partial, then this one
-                fold.push(_combine(terminal, rfunc, pend, part))
-                pend = None
-                done = None
+        try:
+            while True:
+                got = rsq.next(threads, workers=pool, idle=_retire)
+                if got is None:
+                    break
+                _, ((parts, ev, buf), tsec) = got
+                del got
+                ingest += tsec
+                t0 = _clock()
                 if on_card:
-                    done = torch.cuda.Event()
-                    done.record(compute_stream)
-                pending_sync.append((2, done))
-            nslabs += 1
-            compute += _clock() - t0
-            dispatched += 1
-            inflight_hw = max(inflight_hw, dispatched - confirmed)
-            # the bounded in-flight window: release what has retired, and
-            # wait only on overflow
-            _retire()
-            while dispatched - confirmed > window and pending_sync:
-                _confirm_oldest()
-        if pend is not None:
-            fold.push(pend)     # an odd slab count's tail joins as a leaf
-            pend = None
+                    compute_stream.wait_event(ev)
+                    # the slab was allocated on its worker's copy stream:
+                    # keep the allocator from reusing it before the compute
+                    # stream is done with it
+                    buf.record_stream(compute_stream)
+                csp = _obs.begin("stream.compute", slab=nslabs,
+                                 **({"codec": codec_obj.name}
+                                    if codec_obj is not None else {}))
+                try:
+                    part = _slab_partial(source, st, terminal, rfunc, codec_obj,
+                                         use_kernel, delta_ok, parts, nslabs)
+                    del parts, buf
+                    if pend is None:
+                        pend = part
+                    else:
+                        # the level-0 merge: the even slab's partial, then
+                        # this one
+                        fold.push(_combine(terminal, rfunc, pend, part))
+                        pend = None
+                        done = None
+                        if on_card:
+                            done = torch.cuda.Event()
+                            done.record(compute_stream)
+                        pending_sync.append((2, done))
+                finally:
+                    _obs.end(csp)
+                nslabs += 1
+                compute += _clock() - t0
+                dispatched += 1
+                inflight_hw = max(inflight_hw, dispatched - confirmed)
+                # the bounded in-flight window: release what has retired, and
+                # wait only on overflow
+                _retire()
+                while dispatched - confirmed > window and pending_sync:
+                    _confirm_oldest()
+            if pend is not None:
+                fold.push(pend)     # an odd slab count's tail joins as a leaf
+                pend = None
+        finally:
+            stop.set()
+            # the consumer's own poison pills, in case the dispenser died
+            # before its finally could enqueue them
+            for _ in range(len(threads)):
+                jobq.put(None)
+            for th in threads:
+                th.join()
+            rsq.drain()
+            pending_sync.clear()
+        if nslabs == 0:
+            raise RuntimeError(
+                "stream produced no slabs (empty source?) — nothing to "
+                "reduce; the materialised path owns empty-input rules")
+        fsp = _obs.begin("stream.fold", final=True)
+        t0 = _clock()
+        try:
+            out = fold.result()
+            if terminal in ("mean", "var", "std"):
+                out = _finalise(terminal, ddof, out)
+            if on_card:
+                compute_stream.synchronize()    # the run's one final sync
+        finally:
+            _obs.end(fsp)
+        compute += _clock() - t0
+        wall = _clock() - t_start
+        overlap = max(0.0, ingest + compute - wall)
+        _engine.record_stream(nslabs, ingest, compute, wall, overlap, depth,
+                              uploaders=max(act["hw"], 1),
+                              inflight=max(inflight_hw, 1))
+        if run_sp is not None:
+            run_sp.set(slabs=nslabs, ingest_s=round(ingest, 6),
+                       compute_s=round(compute, 6), overlap_s=round(overlap, 6),
+                       concurrent_uploaders=max(act["hw"], 1),
+                       inflight_high_water=max(inflight_hw, 1))
+        return BoltArrayGPU(out, 0, device)
     finally:
-        stop.set()
-        # the consumer's own poison pills, in case the dispenser died
-        # before its finally could enqueue them
-        for _ in range(len(threads)):
-            jobq.put(None)
-        for th in threads:
-            th.join()
-        rsq.drain()
-        pending_sync.clear()
-    if nslabs == 0:
-        raise RuntimeError(
-            "stream produced no slabs (empty source?) — nothing to "
-            "reduce; the materialised path owns empty-input rules")
-    t0 = _clock()
-    out = fold.result()
-    if terminal in ("mean", "var", "std"):
-        out = _finalise(terminal, ddof, out)
-    if on_card:
-        compute_stream.synchronize()    # the run's one final sync
-    compute += _clock() - t0
-    wall = _clock() - t_start
-    _engine.record_stream(nslabs, ingest, compute, wall,
-                          max(0.0, ingest + compute - wall), depth,
-                          uploaders=max(act["hw"], 1),
-                          inflight=max(inflight_hw, 1))
-    return BoltArrayGPU(out, 0, device)
+        _obs.end(run_sp)
 
 
 # ---------------------------------------------------------------------
@@ -971,7 +1044,9 @@ def materialize(source):
     then every recorded stage replayed through the normal map path, so a
     materialised stream equals never having streamed.  Needs the whole
     array to fit on the device."""
-    return _replay_stages(_materialize_base(source), source.stages)
+    with _obs.span("stream.materialize", kind=source.kind,
+                   stages=len(source.stages)):
+        return _replay_stages(_materialize_base(source), source.stages)
 
 
 def _replay_stages(b, stages):

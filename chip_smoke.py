@@ -84,11 +84,33 @@ result):
    ``np.asarray`` beside ``toarray``, ``median``/``quantile``,
    ``argmax``/``argmin``, ``sort``/``argsort`` along the last axis,
    ``cumsum``, ``take``, ``nonzero``, ``searchsorted``, ``repeat``,
-   ``diagonal``/``trace`` and ``b @ w``, each against numpy on the host.
+   ``diagonal``/``trace`` and ``b @ w``, each against numpy on the host;
+8. the engine, donation, ``stacked`` and ``profile``: at the north-star
+   (phase 3's seed) ``map(v + 1).sum()`` three times with one callable
+   (a miss, then two hits with no new build, one ``fused_map_reduce``
+   launch each, equal to f64 column sums), ``profile.instrument()``'s
+   ``"stat"`` family (one build for one callable, three for three fresh
+   lambdas), the shape inference a cached call skips, ``stats()``
+   through the cache (one ``fused_welford`` launch) and ``profile.timeit``;
+   donation, each case under its own peak window: a sole-owned
+   ``randn(...).map(v + 1)``'s ``cache()`` written into its base's storage
+   (one grant, under 1 GB of growth, records against f64 references
+   regenerated from the seed), its ``stacked(1000).map(blk -
+   blk.mean(0))`` (one grant, in place, under two stack blocks of growth,
+   two whole blocks against f64, the source consumed), its ``mean()``
+   (one grant, the base freed when the terminal returns), and the
+   refusals of a ``_clone``d chain and of a live parent (no grant, both
+   readable and exact); ``stacked`` at config 1 with a block size that
+   divides the records and one that leaves a tail, bit for bit against
+   the local oracle; ``profile.memory_stats()``'s keys,
+   ``profile.trace`` writing under ``chiprun_out/``, and, with the tracer
+   armed, a map-sum and an 8-slab stream leaving no open span and a
+   Chrome export whose B/E pairs balance.  The lock witness is armed over
+   phases 3 and 6 and must record no violation.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4, phase 6 and phase 7) and read just after it: each path must have launched every
-kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
+4, phase 6, phase 7 and phase 8) and read just after it: each path must
+have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -1310,6 +1332,292 @@ def surface_phase(bolt, K, torch, np, report):
     return launches
 
 
+def donation_case(torch, label, fn):
+    """One donation case under its own peak window: ``fn()``'s result,
+    the grants it counted, its wall and the growth of peak device memory
+    over what was allocated before it."""
+    from bolt_tpu_torch import engine
+    n0 = engine.counters()["donations"]
+    out, wall, grow = measured(torch, fn)
+    grants = engine.counters()["donations"] - n0
+    log("donation %s: %d grant(s), %.4f s, peak growth %.4f GB"
+        % (label, grants, wall, grow / 1e9))
+    return out, grants, wall, grow
+
+
+def consumed(arr):
+    """True when reading ``arr`` raises the donation guard."""
+    try:
+        arr.toarray()
+    except RuntimeError as exc:
+        return "donated" in str(exc)
+    return False
+
+
+def engine_phase(bolt, K, torch, np, dev, report):
+    """Phase 8: the engine's program cache, donation, ``stacked`` and
+    ``profile``/``obs`` on the card; returns the path's launches."""
+    from bolt_tpu_torch import engine, obs, profile
+    from bolt_tpu_torch.gpu import array as garray
+    t0 = time.perf_counter()
+    n = NORTH_STAR[0]
+    out = {}
+    seed = 0                              # phase 3's seed
+
+    def randn():
+        return bolt.randn(NORTH_STAR, mode="gpu", dtype=np.float32,
+                          seed=seed)
+
+    def plus1(v):
+        return v + 1
+
+    # ---- the program cache at the north-star ------------------------------
+    K.reset_launches()
+    b = randn()
+    xv = b.totorch().view(n, -1)
+    ref = f64_column_refs(xv)
+    calls = []
+    for i in range(3):
+        c0 = engine.counters()
+        before = K.LAUNCHES["fused_map_reduce"]
+        s, wall, _ = measured(torch, lambda: b.map(plus1).sum().cache())
+        c1 = engine.counters()
+        check(K.LAUNCHES["fused_map_reduce"] == before + 1,
+              "cached map-sum call %d launched fused_map_reduce %d times"
+              % (i, K.LAUNCHES["fused_map_reduce"] - before))
+        calls.append({"wall_s": wall,
+                      "misses": c1["misses"] - c0["misses"],
+                      "hits": c1["hits"] - c0["hits"],
+                      "aot_compiles": c1["aot_compiles"] - c0["aot_compiles"]})
+        if i == 0:
+            first = s.totorch()
+        else:
+            check(torch.equal(s.totorch(), first), "cached map-sum call %d "
+                  "differs from the first" % i)
+        del s
+    check(calls[0]["misses"] >= 1, "the first map-sum did not miss")
+    check(all(c["misses"] == 0 and c["hits"] == 1 and c["aot_compiles"] == 0
+              for c in calls[1:]), "repeated map-sums did not hit the "
+          "cache: %s" % calls)
+    sum_close(first.reshape(-1), ref, n, "cached map-sum")
+    del first
+    def plus2(v):
+        return v + 2
+
+    with profile.instrument() as one:
+        for _ in range(3):
+            b.map(plus2).sum().cache()
+    with profile.instrument() as fresh:
+        for _ in range(3):
+            b.map(lambda v: v + 1).sum().cache()
+    check(one["stat"]["builds"] == 1 and one["stat"]["calls"] == 3,
+          "instrument, one f: %s" % one.get("stat"))
+    check(fresh["stat"]["builds"] == 3 and fresh["stat"]["calls"] == 3,
+          "instrument, fresh lambdas: %s" % fresh.get("stat"))
+    # the shape inference a cached call no longer pays
+    vshape, dt = NORTH_STAR[1:], torch.float32
+    tin = time.perf_counter()
+    for _ in range(20):
+        garray._infer_record(plus1, vshape, dt)
+    infer_ms = (time.perf_counter() - tin) / 20 * 1e3
+    tin = time.perf_counter()
+    for _ in range(20):
+        garray._infer_map(plus1, vshape, dt)
+    cached_infer_ms = (time.perf_counter() - tin) / 20 * 1e3
+    before = K.LAUNCHES["fused_welford"]
+    st = b.stats()
+    check(K.LAUNCHES["fused_welford"] == before + 1,
+          "stats() did not launch fused_welford through the cache")
+    close(torch.from_numpy(st.mean()).to(dev).reshape(-1), ref["mean"],
+          1e-5, 1e-6, "phase 8 stats mean")
+    _, timeit_s = profile.timeit(lambda: b.map(plus1).sum(), iters=5)
+    out["cache"] = {
+        "calls": calls, "cached_wall_s": min(c["wall_s"] for c in calls[1:]),
+        "phase3_cached_wall_s": report["map_sum"]["fused_cached_wall_s"],
+        "timeit_best_s": timeit_s, "instrument_one_f": one["stat"],
+        "instrument_fresh": fresh["stat"],
+        "shape_inference_ms": infer_ms,
+        "cached_shape_inference_ms": cached_infer_ms}
+    log("program cache: map-sum walls %s s (misses %s, hits %s), timeit "
+        "best %.4f s; shape inference %.3f ms uncached, %.4f ms cached"
+        % ([round(c["wall_s"], 5) for c in calls],
+           [c["misses"] for c in calls], [c["hits"] for c in calls],
+           timeit_s, infer_ms, cached_infer_ms))
+    del b, xv, st, ref
+    launches = dict(K.LAUNCHES)
+    check(launches["fused_map_reduce"] > 0 and launches["fused_welford"] > 0,
+          "phase 8 never launched fused_map_reduce or fused_welford")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- donation at the north-star ---------------------------------------
+    rec_bytes = 4 * math.prod(NORTH_STAR[1:])
+    block = garray._block_records(rec_bytes) * rec_bytes
+    recs = (0, 1, n // 3, n - 1)
+    don = {}
+    # materialisation: the result lands in the base's storage
+    dd = randn().map(plus1)
+    ptr = dd._chain[0].data_ptr()
+    _, grants, wall, grow = donation_case(torch, "cache()", dd.cache)
+    check(grants == 1 and dd.totorch().data_ptr() == ptr,
+          "a sole-owned chain's cache() was not donated in place")
+    check(grow < 1e9, "donated cache() grew the peak by %.3f GB"
+          % (grow / 1e9))
+    r = randn().totorch()
+    for k in recs:
+        close(dd.totorch()[k], r[k].double() + 1, 2.0 ** -23, 0,
+              "donated cache() record %d" % k)
+    don["cache"] = {"grants": grants, "wall_s": wall,
+                    "peak_growth_gb": grow / 1e9, "block_gb": block / 1e9}
+    del dd, r
+    # stacked(1000): one stack block is 1000 records (3.28 GB), so the
+    # groups are single blocks and the growth is about two of them
+    size = 1000
+    dd = randn().map(plus1)
+    ptr = dd._chain[0].data_ptr()
+    st_out, grants, wall, grow = donation_case(
+        torch, "stacked(%d).map()" % size,
+        lambda: dd.stacked(size).map(
+            lambda blk: blk - blk.mean(0, keepdim=True)).unstack())
+    group = max(size, garray._block_records(rec_bytes) // size * size)
+    check(grants == 1 and st_out.totorch().data_ptr() == ptr,
+          "stacked().map() was not donated in place")
+    check(grow < 2 * group * rec_bytes + (1 << 28), "donated stacked map "
+          "grew the peak by %.3f GB (group %.3f GB)"
+          % (grow / 1e9, group * rec_bytes / 1e9))
+    check(consumed(dd), "the stacked map's source is still readable")
+    r = randn().totorch().view(n, -1)
+    got = st_out.totorch().view(n, -1)
+    for lo in sorted({0, (n - 1) // size * size}):   # a block, the tail
+        hi = min(lo + size, n)
+        for j in range(0, r.shape[1], 1 << 16):
+            want = r[lo:hi, j:j + (1 << 16)].double() + 1
+            close(got[lo:hi, j:j + (1 << 16)],
+                  want - want.mean(0, keepdim=True), 1e-5, 1e-5,
+                  "stacked block at record %d" % lo)
+        del want
+    don["stacked"] = {"size": size, "grants": grants, "wall_s": wall,
+                      "peak_growth_gb": grow / 1e9,
+                      "group_gb": group * rec_bytes / 1e9}
+    del dd, st_out, r, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # a stat: the base is dropped once read
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    dd = randn().map(plus1)
+    m, grants, wall, grow = donation_case(
+        torch, "mean()", lambda: dd.mean().cache())
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - alloc0
+    check(grants == 1 and consumed(dd), "mean() was not donated")
+    check(left < 64 << 20, "the donated mean() left %.3f GB allocated"
+          % (left / 1e9))
+    r = randn().totorch().view(n, -1)
+    close(m.totorch().reshape(-1), f64_column_refs(r)["mean"] + 1, 1e-5,
+          1e-6, "donated mean()")
+    don["mean"] = {"grants": grants, "wall_s": wall,
+                   "peak_growth_gb": grow / 1e9, "left_gb": left / 1e9}
+    del dd, m, r
+    # refusals: a clone shares the chain, a live parent owns the base
+    dd = randn().map(plus1)
+    cl = dd._clone()
+    _, grants, _, _ = donation_case(torch, "clone refusal", dd.cache)
+    check(grants == 0, "a chain shared with a clone was donated")
+    r = randn().totorch()
+    for k in recs:
+        check(torch.equal(dd.totorch()[k], r[k] + 1) and torch.equal(
+            cl.totorch()[k], r[k] + 1), "clone refusal record %d" % k)
+    del dd, cl
+    p = randn()
+    e = p.map(plus1)
+    _, grants, _, _ = donation_case(torch, "live-parent refusal", e.cache)
+    check(grants == 0, "a chain whose parent is referenced was donated")
+    for k in recs:
+        check(torch.equal(p.totorch()[k], r[k]) and torch.equal(
+            e.totorch()[k], r[k] + 1), "live-parent refusal record %d" % k)
+    don["refusals"] = "clone and live parent: no grant, both readable"
+    out["donation"] = don
+    del p, e, r
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- stacked at config 1, against the local oracle ---------------------
+    for size in (50, 64):
+        got = bolt.ones(CONFIG1, mode="gpu", dtype=np.float32).map(
+            plus1).stacked(size).map(
+            lambda blk: blk * 3 - blk.mean(0)).unstack().toarray()
+        want = bolt.ones(CONFIG1, dtype=np.float32).map(
+            lambda v: v + 1).stacked(size).map(
+            lambda blk: blk * 3 - blk.mean(0)).unstack().toarray()
+        check(got.shape == want.shape and np.array_equal(got, want),
+              "config 1 stacked(%d) against the local oracle" % size)
+        del got, want
+    # ---- profile and obs on the card ---------------------------------------
+    ms = profile.memory_stats()
+    check(set(ms) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+          and all(isinstance(v, int) for v in ms.values()),
+          "memory_stats(): %s" % ms)
+    b = randn()
+    logdir = os.path.join(ROOT, "chiprun_out", "phase8_trace")
+    with profile.trace(logdir):
+        b.map(plus1).sum().cache()
+    traces = [f for f in os.listdir(logdir) if f.endswith(".json")]
+    check(traces, "profile.trace wrote no trace")
+    path = os.path.join(ROOT, "chiprun_out", "phase8_timeline.json")
+    rec = NORTH_STAR[1:]
+
+    def cb(index):
+        lo, hi = index[0].start, index[0].stop
+        return np.stack([np.random.default_rng(STREAM_SEED + r)
+                         .standard_normal(rec, dtype=np.float32)
+                         for r in range(lo, hi)])
+
+    short = (8 * SLAB_RECORDS,) + rec
+    with obs.timeline(path):
+        b.map(plus1).sum().cache()
+        ssum = bolt.fromcallback(cb, short, mode="gpu",
+                                 dtype=np.float32).sum().toarray()
+    check(obs.active_count() == 0, "spans left open")
+    pairs = chrome_pairs(path)
+    want = np.zeros(rec, np.float64)
+    for lo in range(0, short[0], SLAB_RECORDS):
+        want += cb((slice(lo, lo + SLAB_RECORDS),)).sum(0, dtype=np.float64)
+    np.testing.assert_allclose(ssum, want, rtol=1e-4, atol=1e-4)
+    out["obs"] = {"memory_stats": ms, "trace_files": traces,
+                  "chrome_pairs": pairs}
+    del b
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    report["engine_phase"] = out
+    log("engine phase ok in %.1f s: %s" % (out["phase_s"], json.dumps(
+        {k: out[k] for k in ("cache", "donation")})))
+    return launches
+
+
+def chrome_pairs(path):
+    """The B/E pairs of the Chrome export at ``path``, checked to balance
+    with stack discipline on every thread; returns their count."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    stacks, pairs = {}, 0
+    for e in evs:
+        if e.get("ph") == "B":
+            stacks.setdefault(e["tid"], []).append(e)
+        elif e.get("ph") == "E":
+            st = stacks.get(e["tid"])
+            check(bool(st), "E without an open B on tid %s" % e["tid"])
+            bev = st.pop()
+            check(bev["name"] == e["name"], "B %s closed by E %s"
+                  % (bev["name"], e["name"]))
+            pairs += 1
+    check(all(not st for st in stacks.values()), "unbalanced B events")
+    names = {e["name"] for e in evs}
+    check({"stream.run", "stream.ingest", "stream.compute",
+           "engine.dispatch"} <= names, "timeline spans: %s" % sorted(names))
+    return pairs
+
+
 def main():
     try:
         import torch
@@ -1328,7 +1636,7 @@ def main():
               "from the root of a checkout" % (ROOT, exc), file=sys.stderr)
         return 2
     import numpy as np
-    from bolt_tpu_torch import ops
+    from bolt_tpu_torch import _lockdep, ops
     from bolt_tpu_torch.ops import _build
     from bolt_tpu_torch.ops import kernels as K
     from bolt_tpu_torch.ops import mapexpr
@@ -1439,6 +1747,9 @@ def main():
     log("config1 phase ok in %.1f s" % report["phases"]["config1_s"])
 
     # ---- phase 3: main path, north-star (10.49 GB) -------------------------
+    # under the armed lock witness: phase 8 reads what it recorded
+    _lockdep.reset()
+    _lockdep.enable()
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     b = bolt.randn(NORTH_STAR, mode="gpu", dtype=np.float32, seed=0)
@@ -1497,6 +1808,7 @@ def main():
     log("main-path launches: %s" % json.dumps(launches))
     for name in ("fused_welford", "fused_stats", "fused_map_reduce"):
         check(launches[name] > 0, "main path never launched %s" % name)
+    _lockdep.disable()
 
     # ---- phase 4: the imaging path at full width -------------------------
     img_launches, bimg, taps, zimg = imaging_phase(bolt, ops, K, torch, np,
@@ -1647,10 +1959,21 @@ def main():
     report["phases"]["kernels_s"] = time.perf_counter() - t0
 
     # ---- phase 6: the streamed north-star --------------------------------
+    _lockdep.enable()
     stream_launches = stream_phase(bolt, K, torch, np, dev, report)
+    _lockdep.disable()
+    report["lockdep"] = {"violations": _lockdep.violations(),
+                         "acquires": _lockdep.stats()["acquires"]}
 
     # ---- phase 7: the array surface and the stat groups -------------------
     surface_phase(bolt, K, torch, np, report)
+
+    # ---- phase 8: the engine, donation, stacked, profile -------------------
+    check(not report["lockdep"]["violations"], "the lock witness, armed "
+          "over phases 3 and 6, recorded: %s" % report["lockdep"])
+    log("lock witness over phases 3 and 6: %d acquires, no violation"
+        % report["lockdep"]["acquires"])
+    engine_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment

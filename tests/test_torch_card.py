@@ -15,7 +15,17 @@ kernels sum in another order (f64 ``1e-10``, f32 ``1e-4``, f16/bf16
 atol=1e-3``) and ``fused_map_reduce`` (as the moment kernels; its mapped
 values equal the plain version's bit for bit for ``+ - * /`` and
 ``sqrt``, which a one-row column sum shows).
+
+The engine's tests on the card: a donated materialisation written into
+its base's own storage with a peak growth under two blocks, the clone and
+view refusals, the program cache's hits with one ``fused_map_reduce``
+launch a call, ``stacked`` with a ragged tail against the local oracle
+(``rtol=1e-5, atol=1e-6`` in f32), ``profile.memory_stats()``'s keys,
+``profile.debug_nans`` raising, and the persistent cache of the
+``nvcc``-built libraries (a build counts a miss, a reload a hit).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -618,3 +628,146 @@ def test_blocked_filter_mask_equals_whole_mask_on_card(monkeypatch):
     assert torch.equal(f().sum().totorch(), whole[1])
     torch.testing.assert_close(f().var().totorch(), whole[2], rtol=1e-5,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the engine, donation, stacked and profile on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_inplace_donation_on_card(monkeypatch):
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import engine
+    from bolt_tpu_torch.gpu import array as garray
+    dev = _cuda()
+    shape = (64, 256, 1024)                  # 64 MiB of f32
+    block = 8 * 256 * 1024 * 4               # 8 records a block
+    monkeypatch.setattr(garray, "_BLOCK_BYTES", block)
+    # one op a record: a block's result is the only temporary
+    with engine.donation(None):
+        want = bolt.randn(shape, dev, dtype=np.float32, seed=31).map(
+            lambda v: v + 1).cache().totorch().clone()
+    torch.cuda.synchronize()
+    with engine.donation(0):
+        d = bolt.randn(shape, dev, dtype=np.float32, seed=31).map(
+            lambda v: v + 1)
+        ptr = d._chain[0].data_ptr()
+        n0 = engine.counters()["donations"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        d.cache()
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated(dev) - before
+    assert engine.counters()["donations"] == n0 + 1
+    assert d.totorch().data_ptr() == ptr
+    assert growth < 2 * block, growth
+    assert torch.equal(d.totorch(), want)
+
+
+@pytest.mark.gpu
+def test_clone_and_view_refuse_donation_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import engine
+    dev = _cuda()
+    x = np.random.RandomState(32).randn(16, 64, 32).astype(np.float32)
+    with engine.donation(0):
+        n0 = engine.counters()["donations"]
+        b = bolt.array(x, dev).map(lambda v: v + 1)
+        c = b._clone()
+        b.cache()
+        v = bolt.array(x, dev).reshape(16, 2048).map(lambda r: r * 3)
+        v.sum().toarray()
+        v.cache()
+        assert engine.counters()["donations"] == n0
+        assert np.array_equal(c.toarray(), x + 1)
+        assert np.array_equal(b.toarray(), x + 1)
+        assert np.array_equal(v.toarray(), x.reshape(16, 2048) * 3)
+
+
+@pytest.mark.gpu
+def test_engine_hits_and_map_reduce_launches_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import engine, profile
+    dev = _cuda()
+    b = bolt.randn((256, 64, 64), dev, dtype=np.float32, seed=33)
+    f = lambda v: v * 0.5 + 1
+    K.reset_launches()
+    c0 = engine.counters()
+    with profile.instrument() as stats:
+        outs = [b.map(f).sum().toarray() for _ in range(3)]
+    c1 = engine.counters()
+    assert c1["misses"] - c0["misses"] == 1
+    assert c1["hits"] - c0["hits"] == 2
+    assert K.LAUNCHES["fused_map_reduce"] == 3
+    assert stats["stat"] == {"calls": 3, "builds": 1,
+                             "dispatch_s": stats["stat"]["dispatch_s"]}
+    x = b.toarray().astype(np.float64)
+    for o in outs:
+        np.testing.assert_allclose(o, (x * 0.5 + 1).sum(0), rtol=1e-5,
+                                   atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_stacked_ragged_tail_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    x = np.random.RandomState(34).randn(103, 16, 8).astype(np.float32)
+    f = lambda blk: blk - blk.mean(0, keepdim=True)
+    out = bolt.array(x, dev).stacked(10).map(f).unstack()
+    assert out.totorch().is_cuda and out.shape == x.shape
+    local = bolt.array(x).stacked(10).map(
+        lambda blk: blk - blk.mean(0, keepdims=True)).unstack().toarray()
+    np.testing.assert_allclose(out.toarray(), local, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_memory_stats_keys_on_card():
+    from bolt_tpu_torch import profile
+    dev = _cuda()
+    t = torch.empty(1 << 20, device=dev)
+    s = profile.memory_stats()
+    assert set(s) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert all(isinstance(v, int) for v in s.values())
+    assert s["bytes_in_use"] >= t.numel() * 4
+    assert s["peak_bytes_in_use"] >= s["bytes_in_use"]
+    assert s["bytes_limit"] >= s["peak_bytes_in_use"]
+
+
+@pytest.mark.gpu
+def test_debug_nans_raises_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import profile
+    dev = _cuda()
+    b = bolt.array(np.array([[1.0, -1.0], [4.0, 9.0]], np.float32), dev)
+    profile.debug_nans(True)
+    try:
+        with pytest.raises(FloatingPointError):
+            b.map(lambda v: torch.sqrt(v)).sum().toarray()
+    finally:
+        profile.debug_nans(False)
+
+
+@pytest.mark.gpu
+def test_persistent_cache_roundtrip_on_card(tmp_path):
+    # the port's persistent artifacts are the nvcc-built libraries: a
+    # build counts a miss; loading it again from the directory, with no
+    # nvcc, counts a hit (and a warm hit under warm_start)
+    from bolt_tpu_torch import engine
+    from bolt_tpu_torch.ops import _build
+    _cuda()
+    d = str(tmp_path / "kernel-cache")
+    try:
+        assert engine.persistent_cache(d) == d
+        m0 = engine.counters()["persistent_misses"]
+        _build.build(["codec.cu"])
+        assert engine.counters()["persistent_misses"] == m0 + 1
+        assert any(f.endswith(".so") for f in os.listdir(d))
+        c0 = engine.counters()
+        assert engine.warm_start(d) == d
+        c1 = engine.counters()
+        assert c1["persistent_hits"] - c0["persistent_hits"] >= 1
+        assert c1["persistent_warm_hits"] - c0["persistent_warm_hits"] >= 1
+        assert c1["persistent_misses"] == c0["persistent_misses"]
+    finally:
+        engine.persistent_cache(enable=False)

@@ -23,7 +23,11 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch._precision", "bolt_tpu_torch.precision",
            "bolt_tpu_torch.gpu.dtypes", "bolt_tpu_torch.stream",
            "bolt_tpu_torch.engine", "bolt_tpu_torch.gpu.codec",
-           "bolt_tpu_torch.ops.mapexpr", "bolt_tpu_torch.ops.kernels"]
+           "bolt_tpu_torch.ops.mapexpr", "bolt_tpu_torch.ops.kernels",
+           "bolt_tpu_torch.profile", "bolt_tpu_torch.obs",
+           "bolt_tpu_torch.obs.trace", "bolt_tpu_torch.obs.metrics",
+           "bolt_tpu_torch.obs.export", "bolt_tpu_torch._lockdep",
+           "bolt_tpu_torch.gpu.stack"]
 
 
 def _sources():

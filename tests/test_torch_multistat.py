@@ -6,12 +6,12 @@ The assertions of ``tests/test_multistat.py``'s chain, filter, fluent,
 ``tests/test_statcounter.py``, on the port, on the CPU: every member of a
 group equals its standalone terminal bit for bit, and the values equal
 ``bolt_tpu``'s on the same seeded inputs (``rtol=1e-10`` in f64).  The
-reference counts compiled programs and dispatches; the port has no program
-cache, so a group's one pass is counted here by the applications of its
-chain and by ``engine.counters()``'s ``fused_stat_groups``/
-``fused_stat_terminals``.  The stream, donation and ``check``/strict
-members wait for the stream groups, the engine's donation and the
-analysis layer (ROADMAP A9, A6, A11).
+reference counts compiled programs and dispatches; a group's one pass is
+counted here by the applications of its chain and by
+``engine.counters()``'s ``fused_stat_groups``/``fused_stat_terminals``.
+A group donates once (``test_group_donates_once_and_guards_source``).
+The stream and ``check``/strict members wait for the stream groups and
+the analysis layer (ROADMAP A9, A11).
 """
 
 import threading
@@ -319,6 +319,46 @@ def test_stats_statcounter_contract_unchanged():
     assert np.allclose(b.stats(("mean",), (1,)).mean(), x.mean(axis=1))
     with pytest.raises(TypeError, match="axis twice"):
         b.stats(("mean",), (1,), axis=(0,))
+
+
+def test_group_donates_once_and_guards_source(mesh):
+    x = _x(seed=15)
+    with engine.donation(0):
+        d = bolt.array(x, context=CPU).map(lambda v: v + 1)
+        n0 = engine.counters()["donations"]
+        s = d.sum()                           # consumes the sole owner
+        assert engine.counters()["donations"] == n0 + 1
+        v = d.var()                           # joins the SAME group
+        assert engine.counters()["donations"] == n0 + 1
+        su, va = bolt.compute(s, v)
+        np.testing.assert_allclose(su.toarray(), (x + 1).sum(axis=0),
+                                   rtol=1e-10)
+        np.testing.assert_allclose(va.toarray(), (x + 1).var(axis=0),
+                                   rtol=1e-10)
+        assert engine.counters()["donations"] == n0 + 1   # ONE donate
+        with pytest.raises(RuntimeError, match="donated"):
+            d.toarray()
+        # after the group dispatched, further terminals hit the guard
+        with pytest.raises(RuntimeError, match="donated"):
+            d.mean()
+        # the group dropped its base when it resolved
+        assert s._spending is None and v._spending is None
+    r = ref.array(x, mesh).map(lambda v: v + 1)
+    rs, rv = ref.compute(r.sum(), r.var())
+    np.testing.assert_allclose(su.toarray(), rs.toarray(), rtol=1e-10)
+    np.testing.assert_allclose(va.toarray(), rv.toarray(), rtol=1e-10)
+
+
+def test_donated_group_equals_undonated_bit_for_bit(monkeypatch):
+    monkeypatch.setattr(garray, "_BLOCK_BYTES", 3 * 6 * 4 * 8)
+    x = _x(seed=16)
+    with engine.donation(None):
+        m = bolt.array(x, context=CPU).map(lambda v: v * 1.5)
+        want = [h.toarray() for h in bolt.compute(m.sum(), m.var(), m.min())]
+    with engine.donation(0):
+        m = bolt.array(x, context=CPU).map(lambda v: v * 1.5)
+        got = [h.toarray() for h in bolt.compute(m.sum(), m.var(), m.min())]
+    assert all(_bits(g, w) for g, w in zip(got, want))
 
 
 def test_materialised_chain_source_starts_fresh_group():
