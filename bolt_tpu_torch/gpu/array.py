@@ -1680,6 +1680,17 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             return self._elementwise(b, name)
         return self._elementwise(a, name, reverse=True)
 
+    def __array_function__(self, func, types, args, kwargs):
+        """numpy's non-ufunc functions on this array (reference:
+        ``BoltArrayTPU.__array_function__``): ``np.sum(b)``,
+        ``np.histogram(b)``, ``np.cov(b)`` and the rest of
+        :mod:`bolt_tpu_torch.gpu.npdispatch`'s table run on the card with
+        numpy's semantics and return bolt arrays; any other function
+        copies the operands to the host and runs numpy (warning above
+        ``IMPLICIT_GATHER_WARN_BYTES``)."""
+        from bolt_tpu_torch.gpu import npdispatch
+        return npdispatch.dispatch(func, types, args, kwargs)
+
     def __add__(self, other):
         return self._elementwise(other, "add")
 

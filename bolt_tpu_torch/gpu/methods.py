@@ -38,8 +38,14 @@ def _check_sort_kind(kind):
 
 
 def _sortable(x):
-    """torch sorts no bool tensor: order bools as bytes."""
-    return x.to(torch.uint8) if x.dtype == torch.bool else x
+    """``x`` in a dtype torch sorts, flips and gathers on every device,
+    with the same order: bools as bytes, the narrow unsigned integers as
+    int64."""
+    if x.dtype == torch.bool:
+        return x.to(torch.uint8)
+    if x.dtype in (torch.uint16, torch.uint32):
+        return x.to(torch.int64)
+    return x
 
 
 def _dot(a, b):

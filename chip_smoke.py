@@ -106,10 +106,31 @@ result):
    ``profile.trace`` writing under ``chiprun_out/``, and, with the tracer
    armed, a map-sum and an 8-slab stream leaving no open span and a
    Chrome export whose B/E pairs balance.  The lock witness is armed over
-   phases 3 and 6 and must record no violation.
+   phases 3 and 6 and must record no violation;
+9. the ops library and the numpy surface, with a host fallback an
+   error: BASELINE config 5b at full width, ``(8, 4194304, 16)`` f32,
+   ``chunk(size=(1024,), axis=(0,)).map(ops.svdvals(blk)[None, :])``
+   taking the Jacobi route (true batch 32768), 512 chunks from both ends
+   of both axes against numpy f64 SVD (1e-4 of each chunk's largest
+   value), its wall beside config 5's ``torch.linalg.svdvals`` per chunk,
+   and its split: the batched Gram beside its bound, ``jacobi_eigh`` on
+   the ``(32768, 16, 16)`` Grams beside ``torch.linalg.eigvalsh``; ``pca``
+   (``k=4, center=True``), ``cov`` and ``corrcoef`` of ``(33554432, 16)``
+   f32 with feature scales 1..4, plain and through ``map(v * 2 + 1)``,
+   against f64 statistics built block by block on the card (singular
+   values to 1e-4, components to 1e-3 up to sign, peak growth under the
+   scores plus 1 GB); at config 1 ``histogram`` (64 bins; counts against
+   an independent count on the card), ``bincount`` and ``unique`` of an
+   integer view and ``topk``, against numpy; ``np.sum``, ``np.mean(axis=
+   0)``, ``np.histogram`` and ``np.cov`` with ``toarray``/``__array__``
+   made to raise; ``segment_reduce`` of ``(8192, 1024, 64)`` f32 into 256
+   segments, scatter and matmul for sum and mean and the scatter max,
+   against f64 sums built block by block on the card, with the walls
+   behind ``ops/group.py``'s auto constants.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4, phase 6, phase 7 and phase 8) and read just after it: each path must
+4, phase 6, phase 7 and phase 8; phase 9 runs no kernel of its own) and
+read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
@@ -151,6 +172,11 @@ SOURCE = {"fused_welford": "bolt_tpu_torch/ops/csrc/moments.cu",
           "fused_decode_sum": "bolt_tpu_torch/ops/csrc/codec.cu",
           "fused_map_reduce": "bolt_tpu_torch/ops/csrc/mapreduce.cu"}
 CONFIG1 = (200, 200, 64, 64)
+# phase 9's shapes: BASELINE config 5b (scripts/bench_all.py), the pca
+# family of scripts/perf_regress.py and ops/group.py's measured layout
+CONFIG5B = (8, 4194304, 16)
+PCA_SHAPE = (33554432, 16)
+SEGMENT_SHAPE = (8192, 1024, 64)
 NORTH_STAR = (3200, 200, 64, 64)
 # fam_halo_gaussian (scripts/perf_regress.py): gaussian(sigma=2.0,
 # axis=(0, 1), size="64") over a (64, 2048, 4096) f32 stack, seed 6
@@ -1618,6 +1644,385 @@ def chrome_pairs(path):
     return pairs
 
 
+def wall_s(torch, fn, reps):
+    """Mean synchronised wall seconds of ``fn()`` over ``reps`` runs after
+    one warm-up run (host dispatch included)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps
+
+
+def config5b_case(bolt, torch, np, out):
+    """Phase 9's BASELINE config 5b at full width: the per-chunk Gram-route
+    ``ops.svdvals`` over ``(8, 4194304, 16)`` f32, its route, a sample of
+    chunks against numpy f64, its wall beside config 5's library SVD, and
+    the split between the Gram and ``jacobi_eigh``."""
+    from bolt_tpu_torch import ops
+    from bolt_tpu_torch.ops import linalg
+    keys, rows, d = CONFIG5B
+    chunk = 1024
+    grid = rows // chunk
+    b = bolt.randn(CONFIG5B, mode="gpu", dtype=np.float32, seed=5)
+    x = b.totorch()
+    routes = []
+    use = linalg._use_jacobi
+
+    def recording(g):
+        routed = use(g)
+        routes.append((linalg._true_batch(g), routed))
+        return routed
+
+    def svd5b():
+        return b.chunk(size=(chunk,), axis=(0,)).map(
+            lambda blk: ops.svdvals(blk)[None, :]).unchunk().totorch()
+
+    def svd5():
+        return b.chunk(size=(chunk,), axis=(0,)).map(
+            lambda blk: torch.linalg.svdvals(blk)[None, :]).unchunk(
+        ).totorch()
+
+    linalg._use_jacobi = recording
+    try:
+        got = svd5b()
+    finally:
+        linalg._use_jacobi = use
+    check(tuple(got.shape) == (keys, grid, d), "config 5b shape %s"
+          % (tuple(got.shape),))
+    check((keys * grid, True) in routes and keys * grid * d >= 2048,
+          "config 5b did not take the Jacobi route: %s" % routes)
+    # 512 chunks across both ends of both axes against numpy f64
+    half = min(128, grid // 2)
+    ks, gs = (0, keys - 1), list(range(half)) + list(range(grid - half, grid))
+    worst = 0.0
+    for k in ks:
+        blocks = x[k].view(grid, chunk, d)[gs].double().cpu().numpy()
+        want = np.linalg.svd(blocks, compute_uv=False)
+        err = np.abs(got[k, gs].double().cpu().numpy() - want) \
+            / want[:, :1]
+        worst = max(worst, float(err.max()))
+    check(worst <= 1e-4, "config 5b against numpy f64: %.3g of s_max"
+          % worst)
+    out["config5b"] = {"sampled_chunks": len(ks) * len(gs),
+                       "max_rel_err": worst,
+                       "wall_s": wall_s(torch, svd5b, 3)}
+    t = time.perf_counter()
+    lib = svd5()
+    torch.cuda.synchronize()
+    out["config5_library_wall_s"] = time.perf_counter() - t
+    check(bool(torch.allclose(lib, got, rtol=0, atol=1e-4 * float(
+        got.max()))), "config 5 and 5b disagree")
+    del lib, got
+    # the split: the batched Gram (bound: the 2.15 GB read) and the
+    # eigensolver alone on the (32768, 16, 16) Grams
+    xb = x.view(keys * grid, chunk, d)
+    gram = torch.matmul(xb.transpose(1, 2), xb)
+    gram_ms = timed_ms(lambda: torch.matmul(xb.transpose(1, 2), xb), 5)
+    jac_ms = timed_ms(lambda: ops.jacobi_eigh(gram), 3)
+    try:
+        eig_ms = timed_ms(lambda: torch.linalg.eigvalsh(gram), 3)
+        out["eigvalsh_form"] = "one call on the (32768, 16, 16) batch"
+    except torch._C._LinAlgError as exc:
+        # the library refuses the whole batch: time it in slices of 4096
+        out["eigvalsh_error"] = str(exc).splitlines()[0][:200]
+        out["eigvalsh_form"] = "8 calls of 4096 (the whole batch refused)"
+        eig_ms = timed_ms(lambda: [torch.linalg.eigvalsh(gram[s:s + 4096])
+                                   for s in range(0, gram.shape[0], 4096)],
+                          3)
+    jac_wall = wall_s(torch, lambda: ops.jacobi_eigh(gram), 2)
+    # as config 5b runs it: under the chunk map's vmaps (keys, grid)
+    from torch.func import vmap
+    grams = gram.view(keys, grid, d, d)
+    out["jacobi_vmapped_ms"] = timed_ms(
+        lambda: vmap(vmap(ops.jacobi_eigh))(grams), 3)
+    _, dev_us, _ = device_us(lambda: ops.jacobi_eigh(gram))
+    w = ops.jacobi_eigh(gram)
+    wl = torch.cat([torch.linalg.eigvalsh(gram[s:s + 4096].double())
+                    for s in range(0, gram.shape[0], 4096)])
+    jerr = float(((w.double() - wl).abs() / wl.abs().amax(-1, keepdim=True)
+                  ).max())
+    check(jerr <= 1e-4, "jacobi_eigh against eigvalsh f64: %.3g" % jerr)
+    out["gram_ms"] = gram_ms
+    out["gram_bound_ms"] = x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    out["jacobi_ms"] = jac_ms
+    out["jacobi_wall_ms"] = jac_wall * 1e3
+    out["jacobi_device_ms"] = None if dev_us is None else dev_us / 1e3
+    out["jacobi_bound_ms"] = gram.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    out["eigvalsh_ms"] = eig_ms
+    out["jacobi_max_rel_err"] = jerr
+    del b, x, xb, gram, w, wl
+
+
+def pca_case(bolt, torch, np, out):
+    """Phase 9's ``pca`` (and ``cov``/``corrcoef``) of ``(33554432, 16)``
+    f32 with distinct feature scales, plain and through a chain, against
+    f64 statistics built block by block on the card."""
+    from bolt_tpu_torch import ops
+    n, d = PCA_SHAPE
+    b = bolt.randn(PCA_SHAPE, mode="gpu", dtype=np.float32, seed=9)
+    x = b.totorch()
+    # distinct variances 1..16: the components are well conditioned
+    x.mul_(torch.linspace(1.0, 4.0, d, device=x.device))
+
+    def f64_stats(shift, scale):
+        g = torch.zeros((d, d), dtype=torch.float64, device=x.device)
+        s1 = torch.zeros(d, dtype=torch.float64, device=x.device)
+        for s in range(0, n, 1 << 22):
+            xd = x[s:s + (1 << 22)].double() * scale + shift
+            g += xd.T @ xd
+            s1 += xd.sum(0)
+            del xd
+        mu = s1 / n
+        c = g - n * torch.outer(mu, mu)
+        ev, vec = torch.linalg.eigh(c)
+        return c / (n - 1), ev.flip(0).clamp(min=0).sqrt()[:4], \
+            vec.flip(1)[:, :4]
+
+    for label, arr, shift, scale in (
+            ("plain", b, 0.0, 1.0),
+            ("chain", b.map(lambda v: v * 2 + 1), 1.0, 2.0)):
+        res, wall, peak = measured(torch, lambda: ops.pca(arr, k=4,
+                                                          center=True))
+        steady = wall_s(torch, lambda: ops.pca(arr, k=4, center=True), 2)
+        scores, comps, sv = res
+        cref, svref, vref = f64_stats(shift, scale)
+        svref = svref.cpu().numpy()
+        rel = float(np.max(np.abs(sv - svref) / svref))
+        check(rel <= 1e-4, "pca %s singular values: %.3g" % (label, rel))
+        vref = vref.cpu().numpy()
+        cerr = 0.0
+        for i in range(4):
+            sgn = np.sign(np.dot(comps[:, i], vref[:, i])) or 1.0
+            cerr = max(cerr, float(np.abs(sgn * comps[:, i]
+                                          - vref[:, i]).max()))
+        check(cerr <= 1e-3, "pca %s components: %.3g" % (label, cerr))
+        check(tuple(scores.shape) == (n, 4), "pca scores shape")
+        check(peak <= n * 4 * 4 + 1e9, "pca %s peak growth %.3f GB"
+              % (label, peak / 1e9))
+        c, cwall, cpeak = measured(torch, lambda: ops.cov(arr))
+        cr = cref.cpu().numpy()
+        cerr2 = float(np.max(np.abs(c - cr)) / np.abs(cr).max())
+        check(cerr2 <= 1e-4, "cov %s: %.3g" % (label, cerr2))
+        r, rwall, _ = measured(torch, lambda: ops.corrcoef(arr))
+        sd = np.sqrt(np.diag(cr))
+        rerr = float(np.max(np.abs(r - cr / np.outer(sd, sd))))
+        check(rerr <= 1e-4, "corrcoef %s: %.3g" % (label, rerr))
+        out["pca_" + label] = {
+            "wall_s": wall, "steady_wall_s": steady,
+            "peak_growth_gb": peak / 1e9,
+            "sv_max_rel_err": rel, "component_max_err": cerr,
+            "cov_wall_s": cwall, "cov_peak_growth_gb": cpeak / 1e9,
+            "cov_max_rel_err": cerr2, "corrcoef_wall_s": rwall}
+        log("pca %s: %.4f s first call, %.4f s cached, peak growth %.3f "
+            "GB; cov %.4f s (%.3f GB); corrcoef %.4f s (%s)"
+            % (label, wall, steady, peak / 1e9, cwall, cpeak / 1e9, rwall,
+               out["card"]))
+        del scores, res
+    # fetch=False copies nothing to the host; count what still syncs
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ops.pca(b, k=4, center=True, fetch=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["pca_fetch_false_syncs"] = sum(
+        "synchroniz" in str(w.message) for w in caught)
+    return b
+
+
+def segment_case(bolt, torch, np, out):
+    """Phase 9's ``segment_reduce`` at ``(8192, 1024, 64)`` f32 with 256
+    segments: both forms of sum and mean, and the scatter max, against
+    f64 (and exact) references built block by block on the card; the
+    walls that set ``ops/group.py``'s auto constants."""
+    from bolt_tpu_torch import ops
+    from bolt_tpu_torch.ops import group
+    nseg = 256
+    b = bolt.randn(SEGMENT_SHAPE, mode="gpu", dtype=np.float32, seed=12)
+    x = b.totorch()
+    n = SEGMENT_SHAPE[0]
+    gen = torch.Generator(device=x.device).manual_seed(13)
+    lab = torch.randint(0, nseg, (n,), generator=gen, device=x.device)
+    flat = x.view(n, -1)
+    ref = torch.zeros((nseg, flat.shape[1]), dtype=torch.float64,
+                      device=x.device)
+    mag = torch.zeros_like(ref)
+    mx = torch.full((nseg, flat.shape[1]), -float("inf"), device=x.device)
+    for s in range(0, n, 512):
+        blk = flat[s:s + 512].double()
+        ref.index_add_(0, lab[s:s + 512], blk)
+        mag.index_add_(0, lab[s:s + 512], blk.abs())
+        li = lab[s:s + 512, None].expand(-1, flat.shape[1])
+        mx.scatter_reduce_(0, li, flat[s:s + 512], reduce="amax")
+        del blk
+    cnt = torch.bincount(lab, minlength=nseg).double()[:, None].clamp(min=1)
+    want = {"sum": (ref, mag), "mean": (ref / cnt, mag / cnt)}
+    runs = {}
+    for op in ("sum", "mean"):
+        for method in ("scatter", "matmul"):
+            got = ops.segment_reduce(b, lab, num_segments=nseg, op=op,
+                                     method=method).totorch().view(nseg, -1)
+            # an f32 sum of k terms: within k * 2^-24 of the sum of |x|
+            w, m = want[op]
+            err = float(((got.double() - w).abs() / (m + 1e-30)).max())
+            check(err <= 64 * 2.0 ** -24, "segment %s %s: %.3g of sum|x|"
+                  % (op, method, err))
+            runs["%s_%s" % (op, method)] = {"max_err_of_abs_sum": err}
+            del got
+    gm = ops.segment_reduce(b, lab, num_segments=nseg, op="max").totorch()
+    check(bool(torch.equal(gm.view(nseg, -1), mx)), "segment max")
+    data_bytes = x.numel() * 4
+    flops = 2.0 * nseg * x.numel()
+    for method in ("scatter", "matmul"):
+        t = wall_s(torch, lambda: ops.segment_reduce(
+            b, lab, num_segments=nseg, method=method).totorch(), 3)
+        runs["sum_" + method]["wall_s"] = t
+    for pr in ("high", "default"):
+        t = wall_s(torch, lambda: ops.segment_reduce(
+            b, lab, num_segments=nseg, method="matmul",
+            precision=pr).totorch(), 3)
+        runs["sum_matmul_" + pr] = {"wall_s": t}
+    runs["max_scatter"] = {"wall_s": wall_s(torch, lambda: ops.segment_reduce(
+        b, lab, num_segments=nseg, op="max").totorch(), 3)}
+    out["segment"] = {
+        "runs": runs,
+        "scatter_bytes_per_s": data_bytes / runs["sum_scatter"]["wall_s"],
+        "matmul_flops_per_s": {
+            "highest": flops / runs["sum_matmul"]["wall_s"],
+            "high": flops / runs["sum_matmul_high"]["wall_s"],
+            "default": flops / runs["sum_matmul_default"]["wall_s"]},
+        "auto_constants": {"matmul": group._MATMUL_RATE,
+                           "scatter": group._SCATTER_BYTES_PER_S}}
+    log("segment_reduce (8192, 1024, 64) f32, 256 segments: scatter %.4f s,"
+        " matmul %.4f s (high %.4f, default %.4f), max %.4f s (%s)"
+        % (runs["sum_scatter"]["wall_s"], runs["sum_matmul"]["wall_s"],
+           runs["sum_matmul_high"]["wall_s"],
+           runs["sum_matmul_default"]["wall_s"],
+           runs["max_scatter"]["wall_s"], out["card"]))
+    del b, x, flat, ref, mag, mx, want
+
+
+def config1_ops_case(bolt, torch, np, out):
+    """Phase 9's ``histogram``, ``bincount``, ``unique`` and ``topk`` at
+    config 1, each against numpy on the host."""
+    from bolt_tpu_torch import ops
+    b = bolt.randn(CONFIG1, mode="gpu", dtype=np.float32, seed=1)
+    xh = b.toarray()
+    walls = {}
+    t = time.perf_counter()
+    counts, edges = ops.histogram(b, bins=64)
+    walls["histogram_s"] = time.perf_counter() - t
+    _, en = np.histogram(xh, bins=64)
+    check(np.allclose(edges, en, rtol=0, atol=1e-6 * np.abs(en).max()),
+          "histogram edges")
+    # the counts against an independent count on the card: values below
+    # each edge, the last edge closing the last bin
+    x = b.totorch()
+    et = torch.from_numpy(edges).to(x.device)
+    below = torch.stack([(x < e).sum() for e in et])
+    want = torch.diff(below)
+    want[-1] += (x == et[-1]).sum()
+    check(np.array_equal(counts, want.cpu().numpy())
+          and int(counts.sum()) == xh.size, "histogram counts")
+    ib = b.map(lambda v: (v.abs() * 10).to(torch.int32))
+    xi = (np.abs(xh) * 10).astype(np.int32).reshape(-1)
+    bn = np.bincount(xi)
+    t = time.perf_counter()
+    bc = ops.bincount(ib)
+    walls["bincount_s"] = time.perf_counter() - t
+    check(np.array_equal(bc, bn), "bincount")
+    t = time.perf_counter()
+    u, c = ops.unique(ib, return_counts=True)
+    walls["unique_s"] = time.perf_counter() - t
+    # the uniques of non-negative integers are bincount's non-empty bins
+    check(np.array_equal(u, np.nonzero(bn)[0])
+          and np.array_equal(c, bn[bn > 0]), "unique")
+    t = time.perf_counter()
+    v, i = ops.topk(b, 5, axis=-1)
+    vh = v.totorch()[:2].cpu().numpy()
+    ih = i.totorch()[:2].cpu().numpy()
+    walls["topk_s"] = time.perf_counter() - t
+    sub = xh[:2]
+    want_i = np.argsort(-sub, axis=-1, kind="stable")[..., :5]
+    check(np.array_equal(ih, want_i) and np.array_equal(
+        vh, np.take_along_axis(sub, want_i, -1)), "topk")
+    del x, et, below, want, v, i
+    out["config1_ops"] = walls
+    log("config 1 ops: %s (%s)" % (json.dumps(walls), out["card"]))
+    return b, xh
+
+
+def numpy_surface_case(bolt, torch, np, b1, xh, bp, out):
+    """Phase 9's numpy surface: ``np.sum``, ``np.mean(axis=0)``,
+    ``np.histogram`` (config 1) and ``np.cov`` (the pca array) served on
+    the card, with ``toarray`` and ``__array__`` made to raise."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    saved = BoltArrayGPU.toarray, BoltArrayGPU.__array__
+
+    def gathered(*args, **kwargs):
+        raise AssertionError("a numpy call copied a device array")
+
+    BoltArrayGPU.toarray = BoltArrayGPU.__array__ = gathered
+    try:
+        t = time.perf_counter()
+        s = np.sum(b1).totorch()
+        m = np.mean(b1, axis=0).totorch()
+        counts, _ = np.histogram(b1, bins=64)
+        c = np.cov(bp, rowvar=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        BoltArrayGPU.toarray, BoltArrayGPU.__array__ = saved
+    check(abs(float(s) - float(xh.sum(dtype=np.float64)))
+          <= 1e-5 * float(np.abs(xh).sum(dtype=np.float64)), "np.sum")
+    check(np.allclose(m.cpu().numpy(), xh.mean(axis=0, dtype=np.float64),
+                      rtol=1e-5, atol=1e-6), "np.mean(axis=0)")
+    check(int(counts.sum()) == xh.size, "np.histogram")
+    check(c.shape == (PCA_SHAPE[1],) * 2 and np.all(np.isfinite(c)),
+          "np.cov")
+    out["numpy_surface_wall_s"] = wall
+
+
+def ops_phase(bolt, torch, np, report):
+    """Phase 9: the ops library and the numpy surface at full width, with
+    a host fallback anywhere an error."""
+    t0 = time.perf_counter()
+    out = {"card": report.get("card") or card_line()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", bolt.HostFallbackWarning)
+        config5b_case(bolt, torch, np, out)
+        torch.cuda.empty_cache()
+        bp = pca_case(bolt, torch, np, out)
+        b1, xh = config1_ops_case(bolt, torch, np, out)
+        numpy_surface_case(bolt, torch, np, b1, xh, bp, out)
+        del bp, b1, xh
+        torch.cuda.empty_cache()
+        segment_case(bolt, torch, np, out)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    report["ops_phase"] = out
+    c5 = out["config5b"]
+    log("config 5b (8, 4194304, 16) f32: %.4f s (config 5's library SVD "
+        "%.4f s); %d chunks within %.3g of s_max (%s)" % (
+            c5["wall_s"], out["config5_library_wall_s"],
+            c5["sampled_chunks"], c5["max_rel_err"], out["card"]))
+    log("config 5b split: Gram %.4f ms (bound %.4f), jacobi_eigh %.4f ms "
+        "under the chunk map's vmaps; alone %.4f ms (wall %.4f, device %s, "
+        "bound %.4f) against eigvalsh %.4f ms (%s) (%s)" % (
+            out["gram_ms"], out["gram_bound_ms"], out["jacobi_vmapped_ms"],
+            out["jacobi_ms"], out["jacobi_wall_ms"], out["jacobi_device_ms"],
+            out["jacobi_bound_ms"], out["eigvalsh_ms"], out["eigvalsh_form"],
+            out["card"]))
+    log("pca fetch=False: %d syncs; numpy surface %.4f s (%s)"
+        % (out["pca_fetch_false_syncs"], out["numpy_surface_wall_s"],
+           out["card"]))
+    log("ops phase ok in %.1f s" % out["phase_s"])
+
+
 def main():
     try:
         import torch
@@ -1974,6 +2379,9 @@ def main():
     log("lock witness over phases 3 and 6: %d acquires, no violation"
         % report["lockdep"]["acquires"])
     engine_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 9: the ops library and the numpy surface -------------------
+    ops_phase(bolt, torch, np, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment

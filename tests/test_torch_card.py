@@ -23,6 +23,12 @@ launch a call, ``stacked`` with a ragged tail against the local oracle
 (``rtol=1e-5, atol=1e-6`` in f32), ``profile.memory_stats()``'s keys,
 ``profile.debug_nans`` raising, and the persistent cache of the
 ``nvcc``-built libraries (a build counts a miss, a reload a hit).
+
+The ops library on the card (no kernel of its own): ``jacobi_eigh`` at
+n = 7, 16 and 64 in f32/f64 against numpy f64, ``svdvals`` at a batch that
+takes the Jacobi route and under the chunk map's nested ``vmap`` with no
+host fallback, ``segment_reduce``'s two forms against each other, and
+``topk``'s ties and NaNs and ``unique``'s NaN collapse.
 """
 
 import os
@@ -771,3 +777,116 @@ def test_persistent_cache_roundtrip_on_card(tmp_path):
         assert c1["persistent_misses"] == c0["persistent_misses"]
     finally:
         engine.persistent_cache(enable=False)
+
+
+# ---------------------------------------------------------------------
+# the ops library on the card (ops/linalg.py, ops/group.py): no kernel of
+# its own, torch ops on CUDA tensors; the oracles are numpy f64 on the
+# host (eigenvalues to 1e-4 of the largest in f32, 1e-10 in f64)
+# ---------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jacobi_eigh_on_card(n, dtype):
+    from bolt_tpu_torch.ops import jacobi_eigh
+    dev = _cuda()
+    rs = np.random.RandomState(n)
+    x = rs.randn(6, 3 * n, n)
+    g = np.einsum("bni,bnj->bij", x, x)
+    w, v = jacobi_eigh(torch.from_numpy(g).to(dev, dtype), vectors=True)
+    assert w.device.type == "cuda" and w.dtype == dtype
+    want = np.linalg.eigvalsh(g)
+    scale = np.abs(want).max(axis=-1, keepdims=True)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert np.max(np.abs(w.double().cpu().numpy() - want) / scale) < tol
+    vh = v.double().cpu().numpy()
+    wh = w.double().cpu().numpy()
+    assert np.max(np.abs(g @ vh - vh * wh[..., None, :]) / scale[..., None]) \
+        < 10 * tol
+
+
+@pytest.mark.gpu
+def test_jacobi_route_at_batch_on_card():
+    # a batch big enough for the Jacobi route: svdvals of (4096, 256, 16)
+    # f32 blocks through the Gram against numpy f64 on a sample
+    from bolt_tpu_torch.ops import linalg, svdvals
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((4096, 256, 16), generator=gen, device=dev)
+    assert linalg._use_jacobi(torch.zeros((4096, 16, 16), device=dev))
+    got = svdvals(x).cpu().numpy()
+    xs = x[::512].double().cpu().numpy()
+    want = np.stack([np.linalg.svd(m, compute_uv=False) for m in xs])
+    assert np.allclose(got[::512], want, rtol=0, atol=1e-4 * want[:, :1])
+
+
+@pytest.mark.gpu
+def test_svdvals_nested_vmap_on_card():
+    # config 5b's per-chunk form: svdvals under the chunk map's nested
+    # vmaps takes the Jacobi route on the card, with no host fallback
+    import warnings
+
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import ops
+    dev = _cuda()
+    b = bolt.randn((4, 8192, 16), context=dev, dtype=np.float32, seed=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", bolt.HostFallbackWarning)
+        out = b.chunk(size=(256,), axis=(0,)).map(
+            lambda blk: ops.svdvals(blk)[None, :]).unchunk()
+    assert out.shape == (4, 32, 16)
+    got = out.toarray()
+    x = b.toarray().astype(np.float64)
+    for k, i in ((0, 0), (3, 31), (2, 17)):
+        want = np.linalg.svd(x[k, 256 * i:256 * (i + 1)], compute_uv=False)
+        assert np.allclose(got[k, i], want, rtol=0, atol=1e-4 * want[0])
+
+
+@pytest.mark.gpu
+def test_segment_reduce_forms_agree_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch.ops import segment_reduce
+    dev = _cuda()
+    b = bolt.randn((2048, 16, 8), context=dev, dtype=np.float32, seed=4)
+    lab = torch.randint(0, 37, (2048,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    for op in ("sum", "mean"):
+        s = segment_reduce(b, lab, num_segments=40, op=op,
+                           method="scatter").totorch()
+        m = segment_reduce(b, lab, num_segments=40, op=op,
+                           method="matmul").totorch()
+        assert s.device.type == "cuda"
+        torch.testing.assert_close(m, s, rtol=1e-5, atol=1e-5)
+    mx = segment_reduce(b, lab, num_segments=40, op="max").toarray()
+    x, la = b.toarray(), lab.cpu().numpy()
+    assert np.array_equal(mx[3], x[la == 3].max(axis=0))
+    assert np.all(np.isneginf(mx[38]))                   # an empty group
+
+
+@pytest.mark.gpu
+def test_topk_ties_and_nan_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch.ops import topk
+    dev = _cuda()
+    x = np.array([[1.0, 3.0, 3.0, np.nan, 2.0, 3.0],
+                  [0.0, 0.0, 0.0, 0.0, 0.0, 0.0]])
+    v, i = topk(bolt.array(x, dev), 3)
+    assert np.array_equal(i.toarray(), [[3, 1, 2], [0, 1, 2]])
+    assert np.array_equal(v.toarray(), [[np.nan, 3.0, 3.0], [0, 0, 0]],
+                          equal_nan=True)
+    u = np.array([[5, 0, 5, 7]], dtype=np.uint32)
+    v, i = topk(bolt.array(u, dev), 2)
+    assert np.array_equal(v.toarray(), [[7, 5]])
+    assert np.array_equal(i.toarray(), [[3, 0]])
+
+
+@pytest.mark.gpu
+def test_unique_nan_collapse_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch.ops import unique
+    dev = _cuda()
+    x = np.array([[1.0, np.nan, 2.0], [np.nan, 1.0, np.nan]])
+    u, c = unique(bolt.array(x, dev), return_counts=True)
+    assert u.shape == (3,) and np.isnan(u[-1]) and list(u[:2]) == [1.0, 2.0]
+    assert list(c) == [2, 1, 3]

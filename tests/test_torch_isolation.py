@@ -27,7 +27,9 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.profile", "bolt_tpu_torch.obs",
            "bolt_tpu_torch.obs.trace", "bolt_tpu_torch.obs.metrics",
            "bolt_tpu_torch.obs.export", "bolt_tpu_torch._lockdep",
-           "bolt_tpu_torch.gpu.stack"]
+           "bolt_tpu_torch.gpu.stack", "bolt_tpu_torch.ops.linalg",
+           "bolt_tpu_torch.ops.group", "bolt_tpu_torch.ops.hist",
+           "bolt_tpu_torch.gpu.npdispatch"]
 
 
 def _sources():
