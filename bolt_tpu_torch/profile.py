@@ -124,8 +124,8 @@ def debug_nans(enable=True):
 
 # the modules that bind _cached_jit by name
 _MODULES = ("bolt_tpu_torch.gpu.array", "bolt_tpu_torch.gpu.chunk",
-            "bolt_tpu_torch.gpu.multistat", "bolt_tpu_torch.gpu.stack",
-            "bolt_tpu_torch.gpu.stats")
+            "bolt_tpu_torch.gpu.multistat", "bolt_tpu_torch.gpu.npdispatch",
+            "bolt_tpu_torch.gpu.stack", "bolt_tpu_torch.gpu.stats")
 
 
 @contextlib.contextmanager

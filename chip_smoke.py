@@ -126,10 +126,34 @@ result):
    made to raise; ``segment_reduce`` of ``(8192, 1024, 64)`` f32 into 256
    segments, scatter and matmul for sum and mean and the scatter max,
    against f64 sums built block by block on the card, with the walls
-   behind ``ops/group.py``'s auto constants.
+   behind ``ops/group.py``'s auto constants;
+10. the rest of the numpy surface (``gpu/npdispatch.py``), with
+   ``toarray``/``__array__`` made to raise and a host fallback an error,
+   each call's wall, peak growth and serving library call logged: at the
+   north-star under ``map(where(v > 2, nan, v))`` (about 2.3% NaN)
+   ``np.nansum``, ``np.nanmean(axis=0)``, ``np.nanstd(axis=0)`` and
+   ``np.nanmax``, folding block partials (the chain stays unmaterialised,
+   peak growth under 1 GB beside each result), against f64 column
+   references on the card (the sum within 1e-6 of the sum of |v|, mean
+   rtol 1e-5, std rtol 1e-4, max exact); at config 1 ``np.stack``,
+   ``np.pad`` (reflect), ``np.roll``, ``np.tile`` and ``np.broadcast_to``
+   exactly on three sampled records, ``np.einsum("ijkl,lm->ijkm", b, w)``
+   with a host ``(64, 64)`` ``w`` at ``"highest"`` (within ``64 * 2^-24``
+   of ``|x||w|`` against f64) and under a ``"default"`` scope (TF32:
+   ``2 * 2^-11 + 64 * 2^-24``), ``np.tensordot``, ``np.nanmedian``/
+   ``np.nanquantile`` over axis 0 (two columns against numpy, rtol 1e-6 /
+   1e-5), ``np.take_along_axis`` of ``np.argsort`` exactly, and
+   ``np.fft.rfft2`` with its ``irfft2`` round trip (1e-5 of the largest
+   value); config 5b's Gram stack ``(32768, 16, 16)`` through
+   ``np.linalg.eigvalsh`` (in slices: cuSOLVER's batched solver refuses
+   the whole stack), ``inv``, ``slogdet``, ``cholesky``, ``solve``, ``qr``
+   and ``svd`` against numpy f64 on 512 sampled matrices (1e-4 of the
+   largest value); the imaging width's ``np.fft.rfft`` along the last
+   axis and its ``irfft`` round trip (1e-5).
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4, phase 6, phase 7 and phase 8; phase 9 runs no kernel of its own) and
+4, phase 6, phase 7 and phase 8; phases 9 and 10 run no kernel of their
+own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
@@ -2023,6 +2047,294 @@ def ops_phase(bolt, torch, np, report):
     log("ops phase ok in %.1f s" % out["phase_s"])
 
 
+# ---------------------------------------------------------------------
+# phase 10: the rest of the numpy surface at full width
+# ---------------------------------------------------------------------
+
+def tail_call(torch, out, name, fn, library=None):
+    """``fn()`` (a numpy call on card arrays, its results read with
+    ``totorch``): the synchronised wall of its first call (the program's
+    build and the library's set-up included) and of a second one, and the
+    first call's peak growth, logged and kept under ``out["calls"][name]``
+    with the library call that served it."""
+    res, wall, grow = measured(torch, fn)
+    rbytes = sum(t.numel() * t.element_size()
+                 for t in (res if isinstance(res, tuple) else (res,)))
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t
+    out["calls"][name] = {"wall_s": wall, "cached_wall_s": again,
+                          "growth_gb": grow / 1e9, "result_gb": rbytes / 1e9,
+                          "library": library}
+    log("phase 10 %s: %.4f s first, %.4f s cached, peak growth %.3f GB "
+        "(result %.3f GB)%s (%s)"
+        % (name, wall, again, grow / 1e9, rbytes / 1e9,
+           "" if library is None else ", " + library, out["card"]))
+    return res
+
+
+def f64_nan_column_refs(x, chunk=4096):
+    """Column-wise count, sum, sum of |v|, mean, variance (ddof 0) and max
+    of the numbers of an (n, C) tensor under the chain that puts NaN where
+    ``v > 2``, in f64 on the card, ``chunk`` columns at a time."""
+    import torch
+    parts = {k: [] for k in ("sum", "abs", "mean", "var", "max")}
+    for j in range(0, x.shape[1], chunk):
+        d = x[:, j:j + chunk].double()
+        keep = d <= 2
+        cnt = keep.sum(0)
+        z = torch.where(keep, d, 0.0)
+        s = z.sum(0)
+        mean = s / cnt
+        parts["sum"].append(s)
+        parts["abs"].append(z.abs().sum(0))
+        parts["mean"].append(mean)
+        parts["var"].append((torch.where(keep, d - mean, 0.0) ** 2).sum(0)
+                            / cnt)
+        parts["max"].append(torch.where(keep, d, -math.inf).amax(0))
+        del d, keep, z
+    return {k: torch.cat(v, 0) for k, v in parts.items()}
+
+
+def tail_north_star(bolt, torch, np, out):
+    """The nan reductions of the north-star under a chain that puts NaN
+    where ``v > 2``: each folds block partials of the chain, so the
+    mapped 10.49 GB is never written (peak growth under 1 GB beside the
+    result), against f64 column references."""
+    b = bolt.randn(NORTH_STAR, mode="gpu", dtype=np.float32, seed=0)
+    x = b.totorch()
+    n = NORTH_STAR[0]
+    ref = f64_nan_column_refs(x.view(n, -1))
+    nan = float("nan")
+    chain = b.map(lambda v: torch.where(v > 2, nan, v))
+    s = tail_call(torch, out, "north-star nansum",
+                  lambda: np.nansum(chain).totorch())
+    m = tail_call(torch, out, "north-star nanmean(axis=0)",
+                  lambda: np.nanmean(chain, axis=0).totorch())
+    sd = tail_call(torch, out, "north-star nanstd(axis=0)",
+                   lambda: np.nanstd(chain, axis=0).totorch())
+    mx = tail_call(torch, out, "north-star nanmax",
+                   lambda: np.nanmax(chain).totorch())
+    check(chain.deferred, "the nan reductions materialised the chain")
+    for name in ("north-star nansum", "north-star nanmean(axis=0)",
+                 "north-star nanstd(axis=0)", "north-star nanmax"):
+        c = out["calls"][name]
+        check(c["growth_gb"] - c["result_gb"] < 1.0,
+              "%s grew %.3f GB" % (name, c["growth_gb"]))
+    tot = float(ref["sum"].sum())
+    check(abs(float(s) - tot) <= 1e-6 * float(ref["abs"].sum()),
+          "north-star nansum: %.6g against %.6g" % (float(s), tot))
+    out["nansum_err"] = abs(float(s) - tot)
+    out["nanmean_err"] = close(m.reshape(-1), ref["mean"], 1e-5, 1e-6,
+                               "north-star nanmean")
+    out["nanstd_err"] = close(sd.reshape(-1), ref["var"].sqrt(), 1e-4, 1e-5,
+                              "north-star nanstd")
+    check(float(mx) == float(ref["max"].max()), "north-star nanmax")
+    out["nan_share"] = 1 - float((x <= 2).sum()) / x.numel()
+    del b, x, chain, ref, s, m, sd, mx
+
+
+def tail_config1(bolt, torch, np, out):
+    """Config 1: the layout family, the contractions at both precision
+    modes, the order statistics and the 2-d FFT, each against numpy on
+    sampled records."""
+    b = bolt.randn(CONFIG1, mode="gpu", dtype=np.float32, seed=1)
+    x = b.totorch()
+    recs = [0, 57, 199]
+    xs = x[recs].cpu().numpy()
+
+    def same(t, want, what):
+        check(np.array_equal(t.cpu().numpy(), want), what)
+
+    t = tail_call(torch, out, "config1 stack", lambda: np.stack(
+        [b, b]).totorch())
+    same(t[:, recs], np.stack([xs, xs]), "np.stack")
+    pw = ((0, 0), (0, 0), (2, 2), (2, 2))
+    t = tail_call(torch, out, "config1 pad reflect", lambda: np.pad(
+        b, pw, mode="reflect").totorch())
+    same(t[recs], np.pad(xs, pw, mode="reflect"), "np.pad reflect")
+    t = tail_call(torch, out, "config1 roll", lambda: np.roll(
+        b, 3, axis=2).totorch())
+    same(t[recs], np.roll(xs, 3, axis=2), "np.roll")
+    t = tail_call(torch, out, "config1 tile", lambda: np.tile(
+        b, (1, 1, 1, 2)).totorch())
+    same(t[recs], np.tile(xs, (1, 1, 1, 2)), "np.tile")
+    t = tail_call(torch, out, "config1 broadcast_to", lambda: np.broadcast_to(
+        b, (2,) + CONFIG1).totorch())
+    same(t[1, recs], xs, "np.broadcast_to")
+    del t
+    w = np.random.RandomState(2).randn(64, 64).astype(np.float32)
+    want = np.einsum("ijkl,lm->ijkm", xs.astype(np.float64),
+                     w.astype(np.float64))
+    scale = np.einsum("ijkl,lm->ijkm", np.abs(xs).astype(np.float64),
+                      np.abs(w).astype(np.float64))
+    # an f32 sum of 64 products: within 64 * 2^-24 of sum |x||w|; TF32
+    # rounds each input to 10 mantissa bits: within 2 * 2^-11 + 64 * 2^-24
+    # (torch's "medium" float32 precision is TF32 in cuBLAS; on a CPU
+    # rehearsal oneDNN takes bf16, 7 bits)
+    bits = 10 if x.is_cuda else 7
+    hi = tail_call(torch, out, "config1 einsum highest", lambda: np.einsum(
+        "ijkl,lm->ijkm", b, w).totorch(), "torch.einsum (cuBLAS, f32)")
+    err_hi = float(np.max(np.abs(hi[recs].double().cpu().numpy() - want)
+                          / scale))
+    check(err_hi <= 64 * 2.0 ** -24, "einsum highest: %.3g" % err_hi)
+    with bolt.precision("default"):
+        lo = tail_call(torch, out, "config1 einsum default",
+                       lambda: np.einsum("ijkl,lm->ijkm", b, w).totorch(),
+                       "torch.einsum (cuBLAS, TF32)")
+    err_lo = float(np.max(np.abs(lo[recs].double().cpu().numpy() - want)
+                          / scale))
+    check(err_lo <= 2 * 2.0 ** -(bits + 1) + 64 * 2.0 ** -24,
+          "einsum default: %.3g" % err_lo)
+    td = tail_call(torch, out, "config1 tensordot", lambda: np.tensordot(
+        b, w, axes=([3], [0])).totorch(), "torch.tensordot (cuBLAS, f32)")
+    err_td = float(np.max(np.abs(td[recs].double().cpu().numpy() - want)
+                          / scale))
+    check(err_td <= 64 * 2.0 ** -24, "tensordot: %.3g" % err_td)
+    out["einsum_err"] = {"highest": err_hi, "default": err_lo,
+                         "tensordot": err_td}
+    del hi, lo, td
+    cols = x[:, :2].double().cpu().numpy()
+    med = tail_call(torch, out, "config1 nanmedian(axis=0)",
+                    lambda: np.nanmedian(b, axis=0).totorch())
+    check(np.allclose(med[:2].double().cpu().numpy(),
+                      np.median(cols, axis=0), rtol=1e-6, atol=1e-7),
+          "np.nanmedian")
+    q = tail_call(torch, out, "config1 nanquantile(axis=0)",
+                  lambda: np.nanquantile(b, [0.1, 0.9], axis=0).totorch())
+    check(np.allclose(q[:, :2].double().cpu().numpy(),
+                      np.quantile(cols, [0.1, 0.9], axis=0), rtol=1e-5,
+                      atol=1e-6), "np.nanquantile")
+    del med, q, cols
+    srt = tail_call(torch, out, "config1 take_along_axis(argsort)",
+                    lambda: np.take_along_axis(b, np.argsort(b, axis=-1),
+                                               axis=-1).totorch())
+    same(srt[recs], np.sort(xs, axis=-1), "np.take_along_axis")
+    del srt
+    f = np.fft.rfft2(xs.astype(np.float64))
+    spec = tail_call(torch, out, "config1 rfft2", lambda: np.fft.rfft2(
+        b).totorch(), "torch.fft.rfft2 (cuFFT)")
+    err_f = float(np.max(np.abs(spec[recs].cpu().numpy() - f))
+                  / np.max(np.abs(f)))
+    check(err_f <= 1e-5, "rfft2: %.3g of max|F|" % err_f)
+    bs = bolt.array(spec, x.device)
+    back = tail_call(torch, out, "config1 irfft2", lambda: np.fft.irfft2(
+        bs, s=(64, 64)).totorch(), "torch.fft.irfft2 (cuFFT)")
+    err_b = float((back - x).abs().max()) / float(x.abs().max())
+    check(err_b <= 1e-5, "irfft2 round trip: %.3g" % err_b)
+    out["fft2_err"] = {"rfft2": err_f, "roundtrip": err_b}
+    del b, x, spec, bs, back
+
+
+def tail_gram_linalg(bolt, torch, np, out):
+    """Config 5b's Gram stack, ``(32768, 16, 16)`` f32 (phase 9's data:
+    the Grams of its 1024-row chunks), through ``np.linalg``, against
+    numpy f64 on 512 sampled matrices."""
+    x = bolt.randn(CONFIG5B, mode="gpu", dtype=np.float32, seed=5).totorch()
+    xb = x.view(-1, 1024, CONFIG5B[2])
+    g = torch.matmul(xb.mT, xb)            # f32: main() turns TF32 off
+    del x, xb
+    b = bolt.array(g, g.device)
+    n = g.shape[0]
+    pick = torch.linspace(0, n - 1, 512, device=g.device).long()
+    a64 = g[pick].double().cpu().numpy()
+    rhs = np.random.RandomState(8).randn(n, 16, 1).astype(np.float32)
+    errs = {}
+
+    def rel(got, want):
+        return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+    def host(t):
+        return t[pick].double().cpu().numpy()
+
+    w = tail_call(torch, out, "gram eigvalsh", lambda: np.linalg.eigvalsh(
+        b).totorch(), "torch.linalg.eigvalsh (cuSOLVER syevBatched, "
+        "in slices of 16384)")
+    errs["eigvalsh"] = rel(host(w), np.linalg.eigvalsh(a64))
+    inv = tail_call(torch, out, "gram inv", lambda: np.linalg.inv(
+        b).totorch(), "torch.linalg.inv_ex")
+    errs["inv"] = rel(host(inv), np.linalg.inv(a64))
+    sl = tail_call(torch, out, "gram slogdet", lambda: tuple(
+        r.totorch() for r in np.linalg.slogdet(b)), "torch.linalg.slogdet")
+    esign, elog = np.linalg.slogdet(a64)
+    check(np.array_equal(host(sl[0]), esign), "slogdet sign")
+    errs["slogdet"] = rel(host(sl[1]), elog)
+    ch = tail_call(torch, out, "gram cholesky", lambda: np.linalg.cholesky(
+        b).totorch(), "torch.linalg.cholesky_ex")
+    errs["cholesky"] = rel(host(ch), np.linalg.cholesky(a64))
+    so = tail_call(torch, out, "gram solve", lambda: np.linalg.solve(
+        b, rhs).totorch(), "torch.linalg.solve_ex")
+    errs["solve"] = rel(host(so), np.linalg.solve(
+        a64, rhs[pick.cpu().numpy()].astype(np.float64)))
+    qr = tail_call(torch, out, "gram qr", lambda: tuple(
+        r.totorch() for r in np.linalg.qr(b)), "torch.geqrf and a batched "
+        "Householder product")
+    errs["qr"] = rel(np.matmul(host(qr[0]), host(qr[1])), a64)
+    errs["qr_r"] = rel(np.abs(host(qr[1])),
+                       np.abs(np.linalg.qr(a64, mode="r")))
+    sv = tail_call(torch, out, "gram svd", lambda: tuple(
+        r.totorch() for r in np.linalg.svd(b)), "torch.linalg.svd")
+    u, s, vh = (host(r) for r in sv)
+    errs["svd_s"] = rel(s, np.linalg.svd(a64, compute_uv=False))
+    errs["svd"] = rel(np.matmul(u * s[..., None, :], vh), a64)
+    for k, v in errs.items():
+        check(v <= 1e-4, "np.linalg %s: %.3g of the largest value" % (k, v))
+    out["gram_err"] = errs
+    log("phase 10 np.linalg on the Gram stack against numpy f64 on 512 "
+        "matrices: %s" % json.dumps(errs))
+    del g, b, w, inv, sl, ch, so, qr, sv
+
+
+def tail_imaging_fft(bolt, torch, np, out):
+    """The imaging width ``(64, 2048, 4096)`` f32: ``np.fft.rfft`` along the
+    last axis against numpy f64 on sampled rows, and the ``irfft`` round
+    trip."""
+    b = bolt.randn(IMAGING, mode="gpu", dtype=np.float32, seed=6)
+    x = b.totorch()
+    spec = tail_call(torch, out, "imaging rfft", lambda: np.fft.rfft(
+        b).totorch(), "torch.fft.rfft (cuFFT)")
+    rows = x[[0, 31, 63]][:, [0, 1000, 2047]]
+    f = np.fft.rfft(rows.double().cpu().numpy())
+    got = spec[[0, 31, 63]][:, [0, 1000, 2047]].cpu().numpy()
+    err_f = float(np.max(np.abs(got - f)) / np.max(np.abs(f)))
+    check(err_f <= 1e-5, "imaging rfft: %.3g of max|F|" % err_f)
+    bs = bolt.array(spec, x.device)
+    back = tail_call(torch, out, "imaging irfft", lambda: np.fft.irfft(
+        bs, n=IMAGING[2]).totorch(), "torch.fft.irfft (cuFFT)")
+    err_b = float((back - x).abs().max()) / float(x.abs().max())
+    check(err_b <= 1e-5, "imaging irfft round trip: %.3g" % err_b)
+    out["imaging_fft_err"] = {"rfft": err_f, "roundtrip": err_b}
+    del b, x, spec, bs, back
+
+
+def numpy_tail_phase(bolt, torch, np, report):
+    """Phase 10: the rest of the numpy surface at full width, with
+    ``toarray`` and ``__array__`` made to raise and a host fallback an
+    error; no kernel of its own."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    t0 = time.perf_counter()
+    out = {"card": report.get("card") or card_line(), "calls": {}}
+    saved = BoltArrayGPU.toarray, BoltArrayGPU.__array__
+
+    def gathered(*args, **kwargs):
+        raise AssertionError("a numpy call copied a card array to the host")
+
+    BoltArrayGPU.toarray = BoltArrayGPU.__array__ = gathered
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", bolt.HostFallbackWarning)
+            for case in (tail_north_star, tail_config1, tail_gram_linalg,
+                         tail_imaging_fft):
+                case(bolt, torch, np, out)
+                torch.cuda.empty_cache()
+    finally:
+        BoltArrayGPU.toarray, BoltArrayGPU.__array__ = saved
+    out["phase_s"] = time.perf_counter() - t0
+    report["numpy_tail_phase"] = out
+    log("numpy tail phase ok in %.1f s" % out["phase_s"])
+
+
 def main():
     try:
         import torch
@@ -2382,6 +2694,9 @@ def main():
 
     # ---- phase 9: the ops library and the numpy surface -------------------
     ops_phase(bolt, torch, np, report)
+
+    # ---- phase 10: the rest of the numpy surface ----------------------------
+    numpy_tail_phase(bolt, torch, np, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment

@@ -10,8 +10,8 @@ the same seeded inputs fed to ``bolt_tpu`` (8-device CPU mesh, x64).
 Expected values are numpy's on the host array (``allclose``, NaN equal;
 integer results exactly); each device case also equals the reference's
 result to the same tolerance.  The stacking, einsum, nan-family,
-``np.linalg``, ``np.fft`` and tail families are not in the port's table
-yet (``ROADMAP.md`` A8): they take the host fallback.
+``np.linalg``, ``np.fft`` and tail families are held in
+``tests/test_torch_npdispatch_tail.py``.
 """
 
 import warnings

@@ -890,3 +890,84 @@ def test_unique_nan_collapse_on_card():
     u, c = unique(bolt.array(x, dev), return_counts=True)
     assert u.shape == (3,) and np.isnan(u[-1]) and list(u[:2]) == [1.0, 2.0]
     assert list(c) == [2, 1, 3]
+
+
+def _spd_stack(dev, n, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(n, d, d, generator=g, device=dev)
+    return a @ a.mT + d * torch.eye(d, device=dev)
+
+
+@pytest.mark.gpu
+def test_linalg_numpy_surface_large_batch_on_card():
+    # config 5b's Gram-stack size: cuSOLVER's batched symmetric solver
+    # refuses 32768 matrices, so np.linalg.eigvalsh runs in slices; the
+    # results match numpy f64 on a sample
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    a = _spd_stack(dev, 32768, 16, 11)
+    b = bolt.array(a, dev)
+    w = np.linalg.eigvalsh(b).totorch()
+    inv = np.linalg.inv(b).totorch()
+    assert w.shape == (32768, 16) and inv.shape == (32768, 16, 16)
+    pick = torch.arange(0, 32768, 257, device=dev)
+    a64 = a[pick].double().cpu().numpy()
+    np.testing.assert_allclose(w[pick].double().cpu().numpy(),
+                               np.linalg.eigvalsh(a64), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(inv[pick].double().cpu().numpy(),
+                               np.linalg.inv(a64), rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_linalg_inv_of_a_singular_batch_neither_raises_nor_syncs():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    s = torch.zeros(64, 4, 4, device=dev)
+    s[:, 0, 0] = 1.0
+    b = bolt.array(s, dev)
+    np.linalg.inv(bolt.array(torch.eye(4, device=dev)[None], dev)).totorch()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = np.linalg.inv(b).totorch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+def test_einsum_precision_modes_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(64, 32, 256, generator=g, device=dev)
+    w = np.random.RandomState(4).randn(256, 128).astype(np.float32)
+    b = bolt.array(x, dev)
+    want = torch.einsum("ijk,kl->ijl", x.double(),
+                        torch.from_numpy(w).double().to(dev))
+    hi = np.einsum("ijk,kl->ijl", b, w).totorch()
+    with bolt.precision("default"):
+        lo = np.einsum("ijk,kl->ijl", b, w).totorch()
+    scale = float(want.abs().max())
+    err_hi = float((hi.double() - want).abs().max()) / scale
+    err_lo = float((lo.double() - want).abs().max()) / scale
+    # full f32 at "highest": within f32 rounding of a 256-term sum
+    assert err_hi <= 1e-5, err_hi
+    # TF32 (10-bit mantissa) under "default": not held to f32, only to
+    # its own format
+    assert err_lo <= 1e-2, err_lo
+
+
+@pytest.mark.gpu
+def test_fft_dtypes_on_card():
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    xi = (np.arange(4 * 64) % 9).astype(np.int32).reshape(4, 64)
+    gi = np.fft.rfft(bolt.array(xi, dev))
+    gf = np.fft.rfft(bolt.array(xi.astype(np.float32), dev))
+    assert gi.dtype == np.complex64 and gf.dtype == np.complex64
+    np.testing.assert_allclose(gi.toarray(), np.fft.rfft(xi), rtol=1e-5,
+                               atol=1e-4)
+    g64 = np.fft.rfft(bolt.array(xi.astype(np.float64), dev))
+    assert g64.dtype == np.complex128
