@@ -88,6 +88,8 @@ RANKS = {
     "ops.build": 58,           # ops/_build.py _LOCK
     # leaf caches / utility registries
     "gpu.lru": 60,             # gpu/array.py _LRU_LOCK (shape inference)
+    "chaos.registry": 68,      # _chaos.py _LOCK (hit() fires from
+    #                            under arbitrary locks; leaf by fiat)
     # observability: EVERY lock's critical section may count/trace
     "obs.trace": 70,           # obs/trace.py _LOCK
     "obs.registry": 72,        # obs/metrics.py Registry._lock (LEAF)

@@ -109,7 +109,9 @@ _SCHEMA = {
     "stream_upload_threads": 0,     # high-water concurrent uploaders
     "stream_inflight_high_water": 0,  # high-water slab partials
     #                                   dispatched but not yet confirmed
-    # 0 until the stream's retries and checkpoints are ported
+    # slab ingests, dispatches, re-buckets and spill writes retried in
+    # place (stream.retries); resumes and checkpoints: 0 until the
+    # stream's checkpoints are ported
     "stream_retries": 0,
     "stream_resumes": 0,
     "checkpoint_bytes": 0,
@@ -130,7 +132,9 @@ _SCHEMA = {
     "codec_encode_seconds": 0.0,
     "codec_bytes_raw": 0,
     "codec_bytes_wire": 0,
-    # 0 until the streamed shuffle is ported
+    # the streamed swap (stream.py's two-phase shuffle): bytes through
+    # the re-bucket programs, bucket bytes written to spill files, and
+    # phase 1's wall
     "shuffle_bytes": 0,
     "spill_bytes": 0,
     "shuffle_seconds": 0.0,
@@ -408,6 +412,23 @@ def record_codec(raw_bytes, wire_bytes, seconds):
     _COUNTERS.update(codec_bytes_raw=int(raw_bytes),
                      codec_bytes_wire=int(wire_bytes),
                      codec_encode_seconds=seconds)
+
+
+def record_shuffle(nbytes, seconds):
+    """Tally one streamed shuffle's phase 1: ``nbytes`` through the
+    re-bucket programs and the phase's wall, applied at once."""
+    _COUNTERS.update(shuffle_bytes=int(nbytes), shuffle_seconds=seconds)
+
+
+def record_spill(nbytes):
+    """Tally one spilled shuffle bucket's file bytes."""
+    _COUNTERS.update(spill_bytes=int(nbytes))
+
+
+def record_stream_retry():
+    """Tally one retried slab step (an ingest, a dispatch, a re-bucket or
+    a spill write re-attempted in place instead of failing the run)."""
+    _COUNTERS.add("stream_retries")
 
 
 def record_stream(chunks, ingest_s, compute_s, wall_s, overlap_s, depth,

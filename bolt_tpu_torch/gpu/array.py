@@ -72,9 +72,11 @@ way.
 
 **Streams.**  ``fromcallback``/``fromiter`` with an explicit dtype give
 an array over a lazy out-of-core source (``bolt_tpu_torch/stream.py``):
-``map`` records a per-record stage, ``sum``/``mean``/``var``/``std``/
-``min``/``max``/``reduce`` over the key axes stream it slab by slab, and
-any other consumer materialises it (the whole array must then fit).
+``map``, ``filter``, ``chunk().map()``, ``stacked().map()`` and ``swap``
+record stages, ``sum``/``mean``/``var``/``std``/``min``/``max``/
+``reduce`` over the key axes (several at once as one stat group) stream
+it slab by slab, and any other consumer materialises it (the whole array
+must then fit).
 
 **Host fallback.**  A callable ``torch.func.vmap`` cannot batch
 (data-dependent control flow, ``.item()``, numpy coercion of a tensor)
@@ -1009,14 +1011,14 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
     @classmethod
     def _streamed(cls, source):
         """Wrap a lazy :class:`bolt_tpu_torch.stream.StreamSource`:
-        shape and dtype come from its recorded stages, the streamed
-        terminals run the executor, anything else materialises through
-        ``_data``."""
+        shape and dtype come from its recorded stages (behind a filter
+        the shape is unknown until materialised), the streamed terminals
+        run the executor, anything else materialises through ``_data``."""
         from bolt_tpu_torch import stream
         st = stream.result_state(source)
         b = cls(None, st.split, source.device)
         b._stream = source
-        b._shape = tuple(st.shape)
+        b._shape = None if st.dynamic else tuple(st.shape)
         b._dtype = st.dtype
         return b
 
@@ -1026,6 +1028,10 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
 
     @property
     def shape(self):
+        if self._stream is not None and self._shape is None:
+            # a streamed filter: the survivor count is unknown until the
+            # source materialises
+            self._data
         if self._fpending is not None:
             self._resolve_filter()
         return self._shape
@@ -1134,6 +1140,23 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                 "array; scope bolt_tpu_torch.engine.donation(None) to keep "
                 "sources readable)" % self._donated)
 
+    def _adopt_resolved(self, res):
+        """Adopt ``res``, the result of resolving this stream's swap stages
+        (``stream.resolve_swaps``): still streaming over spilled buckets,
+        or concrete (resident), possibly a deferred chain or a pending
+        filter of the stages after the swap.  It IS this array's value,
+        so the identity moves onto it and later terminals see a swap-free
+        source."""
+        self._stream = res._stream
+        self._concrete = res._concrete
+        self._chain = None if res._chain is None else _Shared(
+            tuple(res._chain), self)
+        self._fpending = None if res._fpending is None else _Shared(
+            tuple(res._fpending), self)
+        self._split = res._split
+        self._shape = res._shape
+        self._dtype = res._dtype
+
     @property
     def _data(self):
         """The concrete tensor; materialises (and keeps) a deferred chain."""
@@ -1151,6 +1174,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             self._stream = None
             self._concrete = data
             self._split = out._split
+            self._shape = tuple(data.shape)
             return data
         if self._concrete is None:
             self._materialise()
@@ -1289,8 +1313,10 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         own pass instead (:meth:`_fused_filter_stat`,
         :meth:`_fused_filter_reduce`).  The predicate must give a scalar
         truth value per record; one ``vmap`` cannot batch takes the host
-        fallback with a :class:`HostFallbackWarning`.  A streamed source
-        materialises first, as for any other consumer."""
+        fallback with a :class:`HostFallbackWarning`.  On a streamed
+        source the predicate stays lazy, a trailing stage of the stream:
+        its ``sum``/``mean``/``var``/``std`` fold the mask slab by slab,
+        and any other consumer materialises it."""
         func = _traceable(func)
         axes = sorted(tupleize(axis))
         aligned = self._align(axes)
@@ -1310,6 +1336,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                 "filter predicate must return a scalar truth value per "
                 "record; got shape %s for value shape %s"
                 % (pshape, vshape))
+        if aligned._stream is not None:
+            from bolt_tpu_torch import stream
+            return stream.filter_stage(aligned, func)
         if aligned.deferred:
             base, funcs = aligned._chain
         else:
@@ -1876,6 +1905,15 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         new_split = len(keys_rest) + len(vaxes)
         if perm == list(range(self.ndim)) and new_split == split:
             return self
+        if self._stream is not None:
+            # a stream records the swap as a lazy stage, which the
+            # consuming terminal resolves by the two-phase shuffle;
+            # NotImplemented (behind a filter, under a lossy codec)
+            # materialises below
+            from bolt_tpu_torch import stream
+            out = stream.swap_stage(self, tuple(perm), new_split)
+            if out is not NotImplemented:
+                return out
         self._guard_donated()
         base, funcs = self._chain_parts()
 
@@ -2119,6 +2157,11 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             # don't run the filter just to print; show what is known
             s += "shape: (%s)\n" % ", ".join(
                 ["?"] + [str(d) for d in self._fpending[4]])
+        elif self._stream is not None and self._shape is None:
+            from bolt_tpu_torch import stream
+            s += "shape: (%s)\n" % ", ".join(
+                ["?"] + [str(d) for d in
+                         stream.result_state(self._stream).vshape])
         else:
             s += "shape: %s\n" % str(self.shape)
         s += "split: %d\n" % self._split

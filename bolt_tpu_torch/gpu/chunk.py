@@ -9,7 +9,9 @@ function over keys and grid; the general path (ragged tails, halo
 padding) groups blocks into at most four static clamp categories per
 chunked axis, cuts each category's padded blocks as ``unfold`` views,
 vmaps ``func`` over them, trims the halo and reassembles with the same
-recursive concatenate as the reference.
+recursive concatenate as the reference.  On a streamed source ``map``
+records a stage that the slab programs run through these same two bodies
+(``stream.chunked_map_stage``).
 """
 
 import torch
@@ -214,19 +216,26 @@ class ChunkedArray:
         func = _traceable(func)
         b = self._barray
         _engine.strict_guard(b, "chunk().map()")
+        split, plan, pad = b.split, self._plan, self._padding
+        if value_shape is not None:
+            blk = vmap(func)(torch.empty((1,) + plan, device="meta",
+                                         dtype=torch_dtype(b.dtype)))
+            check_value_shape(value_shape, tuple(blk.shape[1:]))
+        if b._stream is not None:
+            # a stream records the per-block map as a stage of its slab
+            # program (NotImplemented: it materialises below)
+            from bolt_tpu_torch import stream
+            out = stream.chunked_map_stage(self, func, dtype)
+            if out is not NotImplemented:
+                return out
         b._guard_donated()
         # donating terminal (checked before the base local exists)
         donate = b.deferred and _chain_donate_ok(b._chain)
-        split, plan, pad = b.split, self._plan, self._padding
         canon = None if dtype is None else torch_dtype(dtype)
         uniform = self.uniform and not any(pad)
         grid = self.grid
         vshape = tuple(b.shape[split:])
         b_item = b.dtype.itemsize
-        if value_shape is not None:
-            blk = vmap(func)(torch.empty((1,) + plan, device="meta",
-                                         dtype=torch_dtype(b.dtype)))
-            check_value_shape(value_shape, tuple(blk.shape[1:]))
         base, funcs = b._chain_parts()
 
         def body(recs, split=1):
@@ -321,6 +330,12 @@ class ChunkedArray:
 
     def reduce(self, func, axis=(0,), keepdims=False):
         return self._barray.reduce(func, axis=axis, keepdims=keepdims)
+
+    def filter(self, func, axis=(0,), sort=False):
+        """Filter records by a predicate; the result leaves the chunked
+        view (re-keyed flat, as the array method's).  On a stream the
+        predicate stays a lazy stage whose mask the terminals fold."""
+        return self._barray.filter(func, axis=axis, sort=sort)
 
     def __repr__(self):
         s = "ChunkedArray\n"

@@ -24,7 +24,14 @@ standalone terminal bit for bit:
   standalone does; ``ptp`` is its group's ``max - min`` pair;
 * an ``fpending`` group (a pending filter) runs the chain and predicate
   over blocks once and folds that mask into every member
-  (``gpu/array.py :: _filter_stats``).
+  (``gpu/array.py :: _filter_stats``);
+* a ``stream`` group (a lazy out-of-core source) streams the source once
+  for every member (``stream.execute(terminal="multi")``): one ingest
+  pass feeds a tuple of components, the ``(n, mu, M2)`` moments shared
+  by every mean/var/std member; a lone ``sum``/``mean``/``var``/``std``/
+  ``min``/``max`` member runs its standalone streamed terminal.
+  ``prod``/``all``/``any`` have no streamed fold and materialise, as do
+  ``min``/``max``/``ptp`` under a streamed filter.
 
 Each group resolves through one engine program (``_cached_jit``: family
 ``"stat"`` for a lone member, ``"multi-stat"``, ``"filter-stat"`` and
@@ -33,9 +40,8 @@ takes it as the reference's groups do: the first terminal's call consumes
 the source (later reads of it raise), siblings still join the group, and
 the group drops the base when it resolves.
 
-Left out until their modules come: stream groups (a streamed source's
-terminals stay the eager streamed terminals, which :func:`compute`
-passes through) and the serve layer's batched claim.
+Left out until its module comes: the serve layer's batched claim
+(ROADMAP A10).
 """
 
 import weakref
@@ -48,7 +54,7 @@ from bolt_tpu_torch import _lockdep, _precision, engine
 from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
-from bolt_tpu_torch.utils import prod
+from bolt_tpu_torch.utils import prod, tupleize
 
 # the terminals that defer (everything _stat serves)
 LAZY_NAMES = ("sum", "mean", "var", "std", "min", "max", "prod", "all",
@@ -57,6 +63,10 @@ LAZY_NAMES = ("sum", "mean", "var", "std", "min", "max", "prod", "all",
 # a pending filter's lazy terminals: min/max keep their zero-size error
 # at the call, ptp resolves the filter
 _FPENDING_LAZY = ("sum", "prod", "any", "all", "mean", "var", "std")
+
+# a stream group's terminals: the components its slab program folds
+# (prod/all/any have no streamed fold and materialise)
+_STREAM_LAZY = ("sum", "mean", "var", "std", "min", "max", "ptp")
 
 # the terminals a reduced-precision accumulation applies to: the float
 # modes (bf16, f32) take the additive family of float pipelines, int8 the
@@ -109,16 +119,18 @@ class _StatGroup:
     """Pending stat terminals sharing one source.
 
     ``kind``: ``"chain"`` (``base``, ``funcs``, ``split``, the mapped
-    ``shape`` and numpy ``dtype``) or ``"fpending"`` (the pending filter
-    ``fpending`` whose records have numpy ``dtype``).
+    ``shape`` and numpy ``dtype``), ``"fpending"`` (the pending filter
+    ``fpending`` whose records have numpy ``dtype``) or ``"stream"`` (the
+    stream ``source``).
 
     The group holds its members weakly (a member holds its group), so no
     reference cycle keeps a source alive, and a resolved group drops its
     source: a 10 GB base is freed with the last array that needs it."""
 
     def __init__(self, kind, split, shape, dtype, base=None, funcs=(),
-                 fpending=None, device=None, donate=False):
+                 fpending=None, device=None, donate=False, source=None):
         self.kind = kind
+        self.source = source
         self.split = split
         self.shape = tuple(shape)
         self.dtype = np.dtype(dtype)
@@ -135,7 +147,9 @@ class _StatGroup:
         """A new member for ``name`` over ``axis``, or NotImplemented when
         the spec cannot ride this group (the caller takes the eager
         path), or when the group resolved meanwhile."""
-        if self.kind == "fpending":
+        if self.kind == "stream":
+            h = self._stream_member(name, axis, keepdims, ddof)
+        elif self.kind == "fpending":
             h = self._fpending_member(name, axis, keepdims, ddof)
         else:
             h = self._chain_member(name, axis, keepdims, ddof)
@@ -170,6 +184,23 @@ class _StatGroup:
         return self._member(name, axes, keepdims, ddof,
                             (n,) + tuple(vshape), 1 if keepdims else 0)
 
+    def _stream_member(self, name, axis, keepdims, ddof):
+        from bolt_tpu_torch import stream
+        st = stream.result_state(self.source)
+        if name not in _STREAM_LAZY or keepdims or st.n == 0:
+            return NotImplemented
+        if axis is not None and tuple(sorted(tupleize(axis))) \
+                != tuple(range(st.split)):
+            return NotImplemented
+        if st.pred is not None and name in ("min", "max", "ptp"):
+            # no survivor needs the materialised error contract
+            return NotImplemented
+        if name in ("mean", "var", "std") and np.issubdtype(
+                st.dtype, np.complexfloating):
+            return NotImplemented
+        return self._member(name, tuple(range(st.split)), False, ddof,
+                            (st.n,) + tuple(st.vshape), 0)
+
     def _member(self, name, axes, keepdims, ddof, shape, new_split):
         from bolt_tpu_torch.gpu.array import numpy_dtype
         dtype = numpy_dtype(dtypes.stat_dtype(name, torch_dtype(self.dtype)))
@@ -189,18 +220,21 @@ class _StatGroup:
                 if accumulate is not None:
                     raise ValueError(
                         "accumulate=%r applies to in-memory fused "
-                        "reductions only; this group filters and runs "
-                        "exact" % (accumulate,))
+                        "reductions only; this group %s and runs exact"
+                        % (accumulate, "streams" if self.kind == "stream"
+                           else "filters"))
                 mode = None                  # an ambient scope: exact
             members = [m for m in (r() for r in self.members)
                        if m is not None]
             if self.kind == "chain":
                 self._resolve_chain(members, mode)
+            elif self.kind == "stream":
+                self._resolve_stream(members)
             else:
                 self._resolve_fpending(members)
             self.dispatched = True
             self.members = []
-            self.base = self.fpending = None
+            self.base = self.fpending = self.source = None
             self.funcs = ()
 
     def _resolve_chain(self, members, mode):
@@ -236,6 +270,24 @@ class _StatGroup:
                 m.result = mx - mn
             else:
                 m.result = out[_slot(m)[0]]
+
+    def _resolve_stream(self, members):
+        """One streamed pass for every member: a lone member through its
+        standalone streamed terminal, a group through the executor's
+        multi-stat fold."""
+        from bolt_tpu_torch import stream
+        if len(members) == 1 and members[0].name in stream._STAT_NAMES:
+            m = members[0]
+            m.result = stream.execute(None, m.name, ddof=m.ddof,
+                                      source=self.source)._data
+            return
+        outs = stream.execute(None, "multi", source=self.source,
+                              specs=tuple((m.name, m.ddof)
+                                          for m in members))
+        if len(members) > 1:
+            engine.record_fused_stats(len(members))
+        for m, out in zip(members, outs):
+            m.result = out
 
     def _resolve_fpending(self, members):
         from bolt_tpu_torch.gpu.array import _filter_stats
@@ -328,13 +380,15 @@ def defer_stat(arr, axis, name, keepdims, ddof):
     """The lazy door of ``BoltArrayGPU._stat``: a pending result array of
     ``arr``'s ``name`` terminal, joined to (or starting) the group of its
     source; NotImplemented when the terminal takes the eager path (a
-    name that does not defer, a stream, a donated array, a geometry a
-    group does not serve)."""
-    if name not in LAZY_NAMES or arr._stream is not None:
+    name that does not defer, a donated array, a geometry a group does
+    not serve).  A stream's pending swap resolves before its group
+    forms."""
+    if name not in LAZY_NAMES:
         return NotImplemented
     g = arr._stat_group
     if g is not None and (g.dispatched or (not arr._donated and (
-            (g.kind == "fpending" and arr._fpending is None)
+            (g.kind == "stream" and arr._stream is None)
+            or (g.kind == "fpending" and arr._fpending is None)
             or (g.kind == "chain" and g.funcs and arr._chain is None)))):
         # resolved, or the source materialised since the group formed:
         # new terminals reduce the concrete data, not the recorded chain
@@ -346,7 +400,15 @@ def defer_stat(arr, axis, name, keepdims, ddof):
     if arr._donated:
         return NotImplemented            # the eager path raises the guard
     from bolt_tpu_torch.gpu.array import _chain_donate_ok
-    if arr._fpending is not None:
+    if arr._stream is not None:
+        from bolt_tpu_torch import stream
+        if stream.has_swap(arr._stream):
+            stream._swap_resolved(arr)
+    if arr._stream is not None:
+        st = stream.result_state(arr._stream)
+        g = _StatGroup("stream", st.split, (), st.dtype,
+                       device=arr.device, source=arr._stream)
+    elif arr._fpending is not None:
         donate = _chain_donate_ok(arr._fpending)     # [0] is the base
         g = _StatGroup("fpending", 1, (), arr.dtype,
                        fpending=arr._fpending, device=arr.device,
@@ -419,10 +481,11 @@ def fluent_stats(arr, names, axis=None, accumulate=None):
         if n not in LAZY_NAMES:
             raise ValueError("unknown statistic %r; choose from %s"
                              % (n, ", ".join(LAZY_NAMES)))
-    if arr._stream is not None and len(names) > 1:
-        # streamed terminals are single passes until the stream groups
-        # come (ROADMAP A9): materialise once, so a one-shot source
-        # serves every name
+    if arr._stream is not None and any(n not in _STREAM_LAZY
+                                       for n in names):
+        # a name with no streamed fold (prod/all/any) would materialise
+        # the source in the middle of the list, consuming a one-shot
+        # iterator under its streamed siblings: materialise once, first
         arr.cache()
     handles = [getattr(arr, n)(axis=axis) for n in names]
     compute(*handles, accumulate=accumulate)

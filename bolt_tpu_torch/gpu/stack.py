@@ -12,7 +12,10 @@ records (at least one block), ``func`` once more on the ragged tail, so
 ``stacked(1000).map(f)`` over an array of many GB never holds the whole
 mapped chain and the whole output at once.  ``func`` runs once per group
 and once on the tail: at most twice when the array fits one group,
-whatever the block count.
+whatever the block count.  On a streamed source whose slabs hold whole
+blocks, ``map`` records a stage that each slab runs through
+:func:`_stack_map_body` (``stream.stacked_map_stage``); any other stream
+materialises first.
 """
 
 import torch
@@ -124,11 +127,6 @@ class StackedArray:
         func = _traceable(func)
         b = self._barray
         _engine.strict_guard(b, "stacked().map()")
-        if b._stream is not None:
-            raise NotImplementedError(
-                "stacked().map() on a streamed source is not ported yet "
-                "(ROADMAP A9: the streamed stacked stage); materialise "
-                "the stream first with .cache()")
         canon = None if dtype is None else torch_dtype(dtype)
         split = b.split
         vshape = tuple(b.shape[split:])
@@ -139,6 +137,14 @@ class StackedArray:
             ob = func(_meta((min(size, n) or size,) + vshape,
                             torch_dtype(b.dtype)))
             check_value_shape(value_shape, tuple(ob.shape[1:]))
+        if b._stream is not None:
+            # a stream records the block-batched map as a stage of its
+            # slab program when its slabs hold whole blocks
+            # (NotImplemented: it materialises below)
+            from bolt_tpu_torch import stream
+            out = stream.stacked_map_stage(self, func, dtype)
+            if out is not NotImplemented:
+                return out
         b._guard_donated()
         # donating terminal (checked before the base local exists)
         donate = b.deferred and _chain_donate_ok(b._chain)

@@ -4,10 +4,15 @@ host->device pipeline.
 Port of the single-process part of ``bolt_tpu/stream.py``.  A lazy
 :class:`StreamSource` (``fromcallback``/``fromiter`` with an explicit
 dtype) describes host-resident data as record *slabs* (consecutive blocks
-along the first key axis) plus a chain of per-record ``map`` stages, and
-:func:`execute` runs a reduction terminal (``sum``, ``mean``, ``var``,
-``std``, ``min``, ``max``, ``reduce``) over it without the whole array
-ever living on the device:
+along the first key axis) plus a chain of device-side stages, applied to
+every slab: per-record ``("map", func)``, chunked maps ``("chunk", func,
+plan, pad, dtype)``, block-batched maps ``("stack", func, size, dtype)``,
+a trailing ``("filter", pred)`` whose mask the terminals fold, and a
+``("swap", perm, split)`` re-keying that the two-phase shuffle resolves
+before any slab program runs.  :func:`execute` runs a reduction terminal
+(``sum``, ``mean``, ``var``, ``std``, ``min``, ``max``, ``reduce``, or a
+``"multi"`` group of several) over it without the whole array ever
+living on the device:
 
 * an **uploader pool** (default ``min(devices, 4)``, which is 1 on one
   card; ``BOLT_STREAM_UPLOAD_THREADS`` or the :func:`uploaders` scope)
@@ -19,11 +24,13 @@ ever living on the device:
   event; a pinned buffer is reused only after its copy's event completed.
   Sequential ``fromiter`` sources keep one produce+upload thread;
 * a **re-sequencer** (:class:`_Reseq`) hands completed slabs to the
-  consumer strictly in slab order; the consumer makes the compute stream
+  consumer strictly in slab order, and fences a late duplicate of a
+  slab already queued or folded; the consumer makes the compute stream
   wait on the slab's event (and records the slab's memory on the compute
   stream, so the caching allocator cannot hand it out while a kernel
-  still reads it) and runs the slab program: decode, the map stages, the
-  terminal's partial;
+  still reads it) and runs the slab program: decode, the stages, the
+  terminal's partial (masked by a trailing filter's predicate: a
+  dropped record, NaN included, is an inert zero);
 * **ring permits** bound the slabs alive at once at ``prefetch depth +
   pool size``; slab programs dispatch asynchronously into a bounded
   in-flight window, a deque of CUDA events: the permits of slabs the
@@ -34,23 +41,42 @@ ever living on the device:
   odd slab's partial with the preceding even slab's (:func:`_combine`),
   then a binary-counter tree (:class:`_PairFold`), so a lossless codec
   stays bit-identical to an uncompressed stream and power-of-two slab
-  counts keep the Chan denominators exact.
+  counts keep the Chan denominators exact.  A multi-stat group folds a
+  tuple of components (``sum``, the ``(n, mu, M2)`` moments, ``min``,
+  ``max``) from ONE read of each slab, each component with its
+  standalone arithmetic, so every member equals its standalone streamed
+  terminal bit for bit.
+
+A ``swap`` on a stream is a lazy stage; the terminal that consumes it
+resolves it through the two-phase shuffle
+(:mod:`bolt_tpu_torch.parallel.shuffle`): phase 1 streams the input
+slabs through the same pool and permutes each on the device, phase 2
+either copies them into the swapped array (resident) or spills buckets
+of it to files (:mod:`bolt_tpu_torch.checkpoint`) that a fresh source
+streams again (:func:`spill`).
 
 Pinned memory and CUDA streams are used only when the source's device is
 CUDA; with ``context=torch.device("cpu")`` the same executor runs with
-plain host tensors.  A source callback or worker that raises aborts the
-run: every pool thread is joined, the queued slabs are released and the
-original exception is re-raised; a pool thread that dies without
-delivering surfaces as a pointed ``RuntimeError``.
+plain host tensors.  Fault model: a source callback or worker that
+raises aborts the run (every pool thread joined, queued slabs released,
+the original exception re-raised); a pool thread that dies without
+delivering surfaces as a pointed ``RuntimeError``; under
+:func:`retries` (``BOLT_STREAM_RETRIES``) a failed ingest, dispatch,
+re-bucket or spill write re-runs in place up to *n* times, and the
+final error chains every attempt back to the original.  The named seams
+of :mod:`bolt_tpu_torch._chaos` (``stream.encode``, ``stream.upload``,
+``stream.dispatch``, ``stream.fold``, ``stream.shuffle``,
+``stream.spill``) trip faults there deterministically.
 
 Accounting lands in :mod:`bolt_tpu_torch.engine` (``transfer_*``,
-``stream_*``, ``codec_*``), under the caller's engine tenant in the
-uploader threads too; with tracing armed (:mod:`bolt_tpu_torch.obs`) a
-run is a ``stream.run`` span, and the ingest spans its threads begin
-parent under it by explicit handoff.  Not ported yet (ROADMAP A9): pods,
-resume and checkpoints, in-run retries, the serving lease, streamed
-``swap``/``chunk``/``stacked``/``filter`` stages and multi-stat groups.
-Any consumer other than a streamed terminal — ``filter`` too —
+``stream_*``, ``codec_*``, ``shuffle_*``, ``spill_bytes``), under the
+caller's engine tenant in the uploader threads too; with tracing armed
+(:mod:`bolt_tpu_torch.obs`) a run is a ``stream.run`` span (a shuffle a
+``stream.shuffle`` span), and the ingest spans its threads begin parent
+under it by explicit handoff.  Not ported yet: resume and checkpoints
+(``resumable``, ROADMAP A9), pods (A12) and the serving lease (A10).
+Any other consumer — a filtered stream's shape, ``prod``/``all``/``any``,
+``min``/``max`` under a filter, an axis other than all the key axes —
 materialises the source (:func:`materialize`), which needs the whole
 array to fit.
 """
@@ -65,6 +91,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from bolt_tpu_torch import _chaos
 from bolt_tpu_torch import _lockdep
 from bolt_tpu_torch import engine as _engine
 from bolt_tpu_torch.obs import trace as _obs
@@ -88,6 +115,14 @@ _SLAB_BYTES = int(os.environ.get("BOLT_STREAM_SLAB_BYTES", str(64 << 20)))
 # the process default codec NAME the codec() scopes override (None =
 # uncompressed), validated lazily against the registry
 _CODEC = os.environ.get("BOLT_STREAM_CODEC") or None
+
+# in-run retry budget per slab step: 0 = fail-fast, n = a failed step
+# re-runs in place up to n times before failing the run
+_RETRIES = max(0, int(os.environ.get("BOLT_STREAM_RETRIES", "0")))
+
+# the process default spill directory of a streamed swap whose output
+# exceeds its resident budget (None: such a swap refuses)
+_SPILL_DIR = os.environ.get("BOLT_STREAM_SPILL_DIR") or None
 
 # the scopes are thread-local: a stream on another thread keeps its own
 _SCOPE_TLS = threading.local()
@@ -146,7 +181,7 @@ def uploaders(n):
     """Scope the uploader-pool size (``0`` = auto; thread-local)::
 
         with bolt_tpu_torch.stream.uploaders(4):
-            src.map(f).sum()
+            src.map(f).sum().toarray()
     """
     st = _scope_stack("uploaders")
     st.append(max(0, int(n)))
@@ -154,6 +189,74 @@ def uploaders(n):
         yield
     finally:
         st.pop()
+
+
+def retry_limit():
+    """The calling thread's per-slab retry budget (innermost
+    :func:`retries` scope, else the process default; 0 = fail-fast)."""
+    st = _scope_stack("retries")
+    return st[-1] if st else _RETRIES
+
+
+def set_retries(n):
+    """Set the process-wide default per-slab retry budget."""
+    global _RETRIES
+    _RETRIES = max(0, int(n))
+
+
+@contextlib.contextmanager
+def retries(n):
+    """Scope the per-slab retry budget (thread-local)::
+
+        with bolt_tpu_torch.stream.retries(2):
+            flaky_src.map(f).sum().toarray()   # each slab survives 2
+                                               # failures
+    """
+    st = _scope_stack("retries")
+    st.append(max(0, int(n)))
+    try:
+        yield
+    finally:
+        st.pop()
+
+
+@contextlib.contextmanager
+def spill(dir=None, budget=None):
+    """Scope the out-of-core shuffle's spill policy (thread-local)::
+
+        with bolt_tpu_torch.stream.spill("/scratch/shuffle", budget=1 << 30):
+            big.swap((0,), (0,)).sum().toarray()   # a swapped output over
+                                                   # 1 GiB spills to files
+
+    ``dir`` is where bucket files land (``None`` keeps the
+    ``BOLT_STREAM_SPILL_DIR`` default); ``budget`` caps the resident
+    working set in bytes (``None``: unbounded)."""
+    st = _scope_stack("spill")
+    st.append((os.fspath(dir) if dir is not None else None,
+               int(budget) if budget is not None else None))
+    try:
+        yield
+    finally:
+        st.pop()
+
+
+def spill_scope():
+    """The calling thread's innermost :func:`spill` scope as ``(dir,
+    budget)``: the directory falls back to ``BOLT_STREAM_SPILL_DIR``, the
+    budget is ``None`` when unset."""
+    st = _scope_stack("spill")
+    if st:
+        d, b = st[-1]
+        return (d if d is not None else _SPILL_DIR), b
+    return _SPILL_DIR, None
+
+
+def swap_budget():
+    """The resident ceiling a streamed-swap resolution plans against: the
+    innermost :func:`spill` scope's ``budget``, else ``None`` (unbounded).
+    The reference also reads the serving arbiter's budget here; the port
+    has no serving layer yet (ROADMAP A10)."""
+    return spill_scope()[1]
 
 
 def _codec_registry():
@@ -183,7 +286,7 @@ def codec(name):
     """Scope codec-encoded ingest for streamed runs (thread-local)::
 
         with bolt_tpu_torch.stream.codec("bf16"):
-            src.map(f).sum()     # slabs ship at half the bytes
+            src.map(f).sum().toarray()     # slabs ship at half the bytes
 
     ``codec(None)`` restores uncompressed ingest inside the scope.  The
     lossless ``"delta-f32"`` is bit-identical to uncompressed streaming;
@@ -248,7 +351,8 @@ def transfer(x, device):
 
 def _encode_slab(codec_obj, block, delta_ok):
     """Host-side slab encode on an uploader worker, counted in the
-    ``codec_*`` counters."""
+    ``codec_*`` counters (the ``stream.encode`` chaos seam)."""
+    _chaos.hit("stream.encode")
     sp = _obs.begin("stream.encode", codec=codec_obj.name)
     t0 = _clock()
     try:
@@ -304,7 +408,8 @@ def _upload(parts, device, ring, copy_stream):
     ``copy_stream``; ``event`` marks the copy's end and ``buffer`` is the
     device memory the tensors view.  On the CPU the host tensors are the
     slab (no event, no buffer).  Counted once, at the parts' own bytes,
-    after the copy landed."""
+    after the copy landed.  The ``stream.upload`` chaos seam."""
+    _chaos.hit("stream.upload")
     sp = _obs.begin("stream.transfer")
     if sp is not None:
         sp.set(bytes=sum(p.numel() * p.element_size() for p in parts))
@@ -349,8 +454,8 @@ class StreamSource:
     ``kind='callback'`` sources produce any record range on demand
     (``fn(index_slices) -> block``) and can be streamed repeatedly;
     ``kind='iter'`` sources yield consecutive blocks, once per ``iter()``
-    of the underlying iterable.  ``stages`` is the per-record chain,
-    ``("map", func)`` each, applied to every slab on the device."""
+    of the underlying iterable.  ``stages`` is the device-side chain
+    applied to every slab (its stage kinds: the module docstring)."""
 
     __slots__ = ("kind", "produce", "blocks", "shape", "split", "dtype",
                  "device", "slab", "stages", "codec", "_state", "_consumed")
@@ -455,48 +560,210 @@ def _slab_records(shape, dtype, chunks):
 # ---------------------------------------------------------------------
 
 def _stage_apply(stage, split, x):
-    """Apply one stage to the slab tensor ``x``: the materialised path's
-    own map chain, so streamed and materialised results cannot drift."""
-    if stage[0] == "map":
+    """Apply one stage to the slab tensor ``x``: the materialised paths'
+    own bodies (the map chain, ``gpu/chunk.py``'s uniform and general
+    bodies, ``gpu/stack.py``'s block-batched body), so streamed and
+    materialised results cannot drift.  A trailing filter is folded as a
+    mask by the terminals, never applied here."""
+    kind = stage[0]
+    if kind == "map":
         from bolt_tpu_torch.gpu.array import _chain_apply
         return _chain_apply((stage[1],), split, x)
-    raise ValueError("unknown stream stage %r" % (stage[0],))
+    if kind == "chunk":
+        from bolt_tpu_torch.gpu.chunk import (_general_map_body,
+                                              _uniform_map_body)
+        _, func, plan, pad, dtype = stage
+        canon = _canon(dtype)
+        vshape = x.shape[split:]
+        if not any(pad) and all(v % c == 0 for v, c in zip(vshape, plan)):
+            return _uniform_map_body(x, func, split, plan, canon)
+        return _general_map_body(x, func, split, plan, pad, canon)
+    if kind == "stack":
+        from bolt_tpu_torch.gpu.stack import _stack_map_body
+        _, func, size, dtype = stage
+        return _stack_map_body(x, func, split, size, _canon(dtype))
+    if kind == "swap":
+        # the transpose crosses slab boundaries: resolve_swaps runs first
+        raise RuntimeError(
+            "internal: a 'swap' stage reached slab execution without "
+            "being resolved — resolve_swaps must run first")
+    raise ValueError("unknown stream stage %r" % (kind,))
+
+
+def _canon(dtype):
+    if dtype is None:
+        return None
+    from bolt_tpu_torch.gpu.dtypes import torch_dtype
+    return torch_dtype(dtype)
 
 
 class _ResultState:
-    """What the stage chain produces: the result shape and numpy dtype,
-    its split, and the record count ``n`` and value shape the terminals
-    fold over."""
+    """What the stage chain produces: the result shape (``None`` behind a
+    filter, whose survivor count is unknown) and numpy dtype, its split,
+    the record count ``n`` the terminals fold over (before a filter: a
+    bound), the value shape, and the filter predicate ``pred``."""
 
-    __slots__ = ("shape", "dtype", "split", "n", "vshape")
+    __slots__ = ("shape", "dtype", "split", "dynamic", "n", "vshape",
+                 "pred")
 
-    def __init__(self, shape, dtype, split):
+    def __init__(self, shape, dtype, split, dynamic, n, vshape, pred):
         self.shape = shape
         self.dtype = dtype
         self.split = split
-        self.n = prod(shape[:split])
-        self.vshape = tuple(shape[split:])
+        self.dynamic = dynamic
+        self.n = n
+        self.vshape = vshape
+        self.pred = pred
 
 
 def result_state(source):
-    """Walk the stage chain on a one-record meta tensor (cached on the
-    source)."""
+    """Walk the stage chain on a meta tensor of the source's shape (no
+    memory, no data; cached on the source)."""
     if source._state is None:
         from bolt_tpu_torch.gpu.array import numpy_dtype, torch_dtype
-        x = torch.empty((1,) + source.shape[1:],
-                        dtype=torch_dtype(source.dtype), device="meta")
+        x = torch.empty(source.shape, dtype=torch_dtype(source.dtype),
+                        device="meta")
+        split = source.split
+        pred = None
         for stage in source.stages:
-            x = _stage_apply(stage, source.split, x)
-        shape = (source.shape[0],) + tuple(x.shape[1:])
-        source._state = _ResultState(shape, numpy_dtype(x.dtype),
-                                     source.split)
+            if stage[0] == "filter":
+                pred = stage[1]         # a filter is always the last stage
+                break
+            if stage[0] == "swap":
+                x = x.permute(stage[1])
+                split = stage[2]        # the swap redraws the key cut
+            else:
+                x = _stage_apply(stage, split, x)
+        shape = tuple(x.shape)
+        n = prod(shape[:split])
+        vshape = shape[split:]
+        dtype = numpy_dtype(x.dtype)
+        if pred is None:
+            source._state = _ResultState(shape, dtype, split, False, n,
+                                         vshape, None)
+        else:
+            source._state = _ResultState(None, dtype, 1, True, n, vshape,
+                                         pred)
     return source._state
+
+
+def _probe_stage(src, stage):
+    """``src`` one stage longer, its result walked now; ``None`` when the
+    stage's callable cannot be traced on a meta tensor (the caller then
+    materialises, where the error surfaces)."""
+    from bolt_tpu_torch.gpu.array import _is_trace_error
+    out = src.with_stage(stage)
+    try:
+        result_state(out)
+    except (RuntimeError, TypeError) as exc:
+        if not _is_trace_error(exc):
+            raise
+        return None
+    return out
 
 
 def map_stage(arr, func):
     """Record a per-record map on a stream-backed array (lazy)."""
     from bolt_tpu_torch.gpu.array import BoltArrayGPU
     return BoltArrayGPU._streamed(arr._stream.with_stage(("map", func)))
+
+
+def filter_stage(arr, pred):
+    """Record a trailing filter predicate (lazy; the result's record
+    count is unknown until a consumer other than a streamed terminal
+    materialises it)."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    return BoltArrayGPU._streamed(arr._stream.with_stage(("filter", pred)))
+
+
+def chunked_map_stage(view, func, dtype):
+    """Record a chunked per-block map on a streaming chunked view; the new
+    view, or ``NotImplemented`` when the stage cannot stream (the caller
+    materialises)."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.gpu.chunk import ChunkedArray
+    src = view._barray._stream
+    st = result_state(src)
+    if st.dynamic:
+        return NotImplemented
+    plan, pad = tuple(view._plan), tuple(view._padding)
+    out = _probe_stage(src, ("chunk", func, plan, pad, dtype))
+    if out is None:
+        return NotImplemented
+    vshape = st.vshape
+    if not any(pad) and all(v % c == 0 for v, c in zip(vshape, plan)):
+        grid = tuple(v // c for v, c in zip(vshape, plan))
+        nst = result_state(out)
+        new_plan = tuple(o // g for o, g in zip(nst.vshape, grid))
+    else:
+        new_plan = plan             # the general path keeps the blocks
+    return ChunkedArray(BoltArrayGPU._streamed(out), new_plan, pad)
+
+
+def stacked_map_stage(view, func, dtype):
+    """Record a block-batched map on a streaming stacked view.
+
+    Streams only when every slab holds a whole number of blocks
+    (``records_per_slab % size == 0``): a stacked ``func`` mixes records
+    within its block, so slab boundaries must fall on block boundaries.
+    Misaligned geometries, iterator sources (their block sizes are not
+    known ahead) and a pending swap materialise (``NotImplemented``)."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.gpu.stack import StackedArray
+    src = view._barray._stream
+    st = result_state(src)
+    size = int(view._size)
+    if st.dynamic or src.kind != "callback" or has_swap(src):
+        return NotImplemented
+    if (src.slab * prod(st.shape[1:st.split])) % size != 0:
+        return NotImplemented
+    out = _probe_stage(src, ("stack", func, size, dtype))
+    if out is None:
+        return NotImplemented
+    return StackedArray(BoltArrayGPU._streamed(out), size)
+
+
+def swap_stage(arr, perm, new_split):
+    """Record a ``swap`` on a stream-backed array, lazily: the terminal
+    that consumes it resolves it through the two-phase shuffle
+    (:func:`resolve_swaps`).  ``NotImplemented`` (the caller materialises)
+    behind a filter (the record count is unknown) and under a lossy codec
+    (phase 1 decodes once, and a later lossy terminal would quantise
+    again)."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    src = arr._stream
+    if result_state(src).dynamic:
+        return NotImplemented
+    codec_obj = resolve_codec(src)
+    if codec_obj is not None and not codec_obj.lossless:
+        return NotImplemented
+    return BoltArrayGPU._streamed(src.with_stage(
+        ("swap", tuple(int(p) for p in perm), int(new_split))))
+
+
+def has_swap(source):
+    """Whether ``source`` carries an unresolved ``swap`` stage."""
+    return any(s[0] == "swap" for s in source.stages)
+
+
+def resolve_swaps(source):
+    """Resolve every pending ``swap`` of ``source`` through the two-phase
+    shuffle; a ``BoltArrayGPU``, concrete when the last resolution was
+    resident (the stages after the swap replayed by the materialised
+    paths), stream-backed over the spilled bucket files when it spilled
+    (the stages after the swap ride the new source)."""
+    b = _resolve_one_swap(source)
+    while b._stream is not None and has_swap(b._stream):
+        b = _resolve_one_swap(b._stream)
+    return b
+
+
+def _swap_resolved(arr):
+    """Resolve ``arr``'s pending swaps in place (``arr`` adopts the
+    result); the swap-free source to keep streaming, or ``None`` when
+    the result is concrete."""
+    arr._adopt_resolved(resolve_swaps(arr._stream))
+    return arr._stream
 
 
 # ---------------------------------------------------------------------
@@ -508,15 +775,22 @@ _STAT_NAMES = ("sum", "mean", "var", "std", "min", "max")
 
 def maybe_stat(arr, axis, name, keepdims, ddof):
     """Stream a statistic over all key axes; ``NotImplemented`` for any
-    other geometry."""
+    other geometry, and for ``min``/``max`` under a filter (no survivor
+    needs the materialised error)."""
     src = arr._stream
     if src is None or keepdims or name not in _STAT_NAMES:
         return NotImplemented
+    if has_swap(src):
+        src = _swap_resolved(arr)
+        if src is None:
+            return NotImplemented
     st = result_state(src)
     if st.n == 0:
         return NotImplemented           # the materialised path's rules
     if axis is not None and tuple(sorted(tupleize(axis))) \
             != tuple(range(st.split)):
+        return NotImplemented
+    if st.pred is not None and name in ("min", "max"):
         return NotImplemented
     if name in ("mean", "var", "std") and np.issubdtype(
             st.dtype, np.complexfloating):
@@ -526,12 +800,17 @@ def maybe_stat(arr, axis, name, keepdims, ddof):
 
 def maybe_reduce(arr, func, axes, keepdims):
     """Stream a ``reduce(func)`` over all key axes (``func`` already
-    checked to batch under ``vmap``)."""
+    checked to batch under ``vmap``); a filter materialises."""
     src = arr._stream
     if src is None or keepdims:
         return NotImplemented
+    if has_swap(src):
+        src = _swap_resolved(arr)
+        if src is None:
+            return NotImplemented
     st = result_state(src)
-    if st.n == 0 or tuple(axes) != tuple(range(st.split)):
+    if st.pred is not None or st.n == 0 \
+            or tuple(axes) != tuple(range(st.split)):
         return NotImplemented
     return execute(arr, "reduce", rfunc=func)
 
@@ -540,10 +819,38 @@ def maybe_reduce(arr, func, axes, keepdims):
 # per-slab partials and their merges
 # ---------------------------------------------------------------------
 
-def _combine(terminal, rfunc, a, b):
+# multi-stat accumulator components and the merge each rides ("moments"
+# is the (n, mu, M2) triple every mean/var/std member shares)
+_COMP_MERGE = {"sum": "sum", "min": "min", "max": "max",
+               "moments": "moments"}
+
+
+def _multi_comps(specs):
+    """The component tuple of a multi-stat spec list: one moments triple
+    serves every mean/var/std member, min and max serve their members
+    and both halves of a ``ptp``."""
+    names = [name for name, _ in specs]
+    comps = []
+    if "sum" in names:
+        comps.append("sum")
+    if any(n in ("mean", "var", "std") for n in names):
+        comps.append("moments")
+    if "min" in names or "ptp" in names:
+        comps.append("min")
+    if "max" in names or "ptp" in names:
+        comps.append("max")
+    return tuple(comps)
+
+
+def _combine(terminal, rfunc, a, b, comps=None):
     """The one partial-merge arithmetic, of the level-0 fold and of the
     tree above it.  ``a`` is the EARLIER partial; moments partials are
-    ``(n, mu, M2)`` triples merged by Chan's parallel recurrence."""
+    ``(n, mu, M2)`` triples merged by Chan's parallel recurrence (a
+    filtered slab may keep no record: its count is 0); a ``"multi"``
+    partial is a tuple of ``comps``, each merged by this function."""
+    if terminal == "multi":
+        return tuple(_combine(_COMP_MERGE[c], rfunc, x, y)
+                     for c, x, y in zip(comps, a, b))
     if terminal == "sum":
         return torch.add(a, b)
     if terminal == "min":
@@ -555,49 +862,84 @@ def _combine(terminal, rfunc, a, b):
     n1, mu1, m21 = a
     n2, mu2, m22 = b
     n = n1 + n2
+    safe = torch.where(n > 0, n, torch.ones((), dtype=n.dtype,
+                                            device=n.device))
     delta = mu2 - mu1
-    mu = mu1 + delta * (n2 / n)
-    m2 = m21 + m22 + delta * delta * (n1 * n2 / n)
+    mu = mu1 + delta * (n2 / safe)
+    m2 = m21 + m22 + delta * delta * (n1 * n2 / safe)
     return n, mu, m2
 
 
-def _terminal_partial(terminal, flat, vshape, n, rfunc, dtype):
+def _terminal_partial(terminal, flat, mfull, vshape, n, rfunc, dtype):
     """One slab's partial of ``terminal`` over its ``n`` flattened records
-    ``flat`` (source numpy ``dtype`` after the stages): the materialised
+    ``flat`` (numpy ``dtype`` after the stages): the materialised
     terminals' own arithmetic for sum/min/max/reduce, the statcounter
-    triple ``(n, mu, M2)`` for mean/var/std."""
+    triple ``(n, mu, M2)`` for ``"moments"``.  ``mfull`` is a filter's
+    mask broadcast over the values (or ``None``): a dropped record is an
+    inert zero of the sum and the moments, as in the materialised masked
+    terminals."""
     from bolt_tpu_torch.gpu import dtypes
     from bolt_tpu_torch.gpu.array import _reduce_stat, _reduce_tree
-    if terminal in ("sum", "min", "max"):
+    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+    if terminal == "sum":
+        v = flat if mfull is None else torch.where(mfull, flat, zero)
+        return _reduce_stat(v, "sum", (0,), False, None, dtype)
+    if terminal in ("min", "max"):
         return _reduce_stat(flat, terminal, (0,), False, None, dtype)
     if terminal == "reduce":
         return _reduce_tree(flat, rfunc, n, vshape)
     out_dt = dtypes.stat_dtype("mean", flat.dtype)
-    cnt = torch.tensor(n, dtype=out_dt, device=flat.device)
-    xf = flat.to(out_dt)
-    mu = xf.sum(dim=0) / cnt
-    dev = xf - mu
+    if mfull is None:
+        cnt = torch.tensor(n, dtype=out_dt, device=flat.device)
+        xf = flat.to(out_dt)
+        mu = xf.sum(dim=0) / cnt
+        dev = xf - mu
+    else:
+        cnt = mfull.reshape(n).to(out_dt).sum()
+        xf = torch.where(mfull, flat, zero).to(out_dt)
+        safe = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
+        mu = xf.sum(dim=0) / safe
+        dev = torch.where(mfull, xf - mu, torch.zeros_like(mu))
     return cnt, mu, (dev * dev).sum(dim=0)
 
 
 def _finalise(terminal, ddof, moments):
-    """The moments triple as the requested statistic."""
+    """The moments triple as the requested statistic (NaN where no
+    record was kept)."""
     n, mu, m2 = moments
+    nan = torch.full((), float("nan"), dtype=mu.dtype, device=mu.device)
     if terminal == "mean":
-        return mu
+        return torch.where(n > 0, mu, nan)
     dd = torch.tensor(0.0 if ddof is None else ddof, dtype=n.dtype,
                       device=n.device)
-    var = m2 / (n - dd)
+    var = torch.where(n > 0, m2 / (n - dd), nan)
     return torch.sqrt(var) if terminal == "std" else var
 
 
+def _finalise_multi(folded, comps, specs):
+    """Each member of a multi-stat group from the folded components,
+    finalised as its standalone streamed terminal is (``ptp`` is the
+    max − min of the shared extrema)."""
+    by = dict(zip(comps, folded))
+    outs = []
+    for name, ddof in specs:
+        if name in ("sum", "min", "max"):
+            outs.append(by[name])
+        elif name == "ptp":
+            outs.append(by["max"] - by["min"])
+        else:
+            outs.append(_finalise(name, ddof, by["moments"]))
+    return outs
+
+
 def _slab_partial(source, st, terminal, rfunc, codec_obj, use_kernel,
-                  delta_ok, parts, slab=0):
-    """The program each slab runs: decode (when a codec is armed), the map
-    stages, the terminal's partial.  ``use_kernel`` routes an int8
-    ``sum`` with no stages through ``fused_decode_sum``, whose CUDA kernel
-    launches on a card tensor or raises."""
-    from bolt_tpu_torch.gpu.array import torch_dtype
+                  delta_ok, parts, comps=None, slab=0):
+    """The program each slab runs: decode (when a codec is armed), the
+    stages, the terminal's partial (masked by a trailing filter).
+    ``use_kernel`` routes an int8 ``sum`` with no stages through
+    ``fused_decode_sum``, whose CUDA kernel launches on a card tensor or
+    raises."""
+    from bolt_tpu_torch.gpu.array import _pred_mask, torch_dtype
     raw_dtype = torch_dtype(source.dtype)
     if codec_obj is None:
         x = parts[0]
@@ -613,11 +955,21 @@ def _slab_partial(source, st, terminal, rfunc, codec_obj, use_kernel,
             x = codec_obj.decode(wire, side, raw_dtype, delta_ok)
         finally:
             _obs.end(dsp)
-    for stage in source.stages:
+    stages = source.stages[:-1] if st.pred is not None else source.stages
+    for stage in stages:
         x = _stage_apply(stage, source.split, x)
     n = prod(tuple(x.shape[:source.split]))
     flat = x.reshape((n,) + st.vshape)
-    return _terminal_partial(terminal, flat, st.vshape, n, rfunc, st.dtype)
+    mfull = None
+    if st.pred is not None:
+        mfull = _pred_mask(st.pred, flat).reshape(
+            (n,) + (1,) * len(st.vshape))
+    if terminal == "multi":
+        return tuple(_terminal_partial(c, flat, mfull, st.vshape, n, None,
+                                       st.dtype) for c in comps)
+    return _terminal_partial(
+        terminal if terminal in ("sum", "min", "max", "reduce")
+        else "moments", flat, mfull, st.vshape, n, rfunc, st.dtype)
 
 
 class _PairFold:
@@ -659,7 +1011,8 @@ class _Reseq:
     re-raised in the consumer, and a liveness poll turns pool threads that
     died without delivering into a pointed error."""
 
-    __slots__ = ("_cond", "_slots", "_next", "_exc", "_total", "_dead_err")
+    __slots__ = ("_cond", "_slots", "_next", "_exc", "_total", "_fenced",
+                 "_dead_err")
 
     def __init__(self):
         self._cond = _lockdep.condition("stream.reseq")
@@ -667,12 +1020,27 @@ class _Reseq:
         self._next = 0
         self._exc = None
         self._total = None
+        self._fenced = 0
         self._dead_err = None
 
     def put(self, i, item):
+        """Insert slab ``i``; False (dropping ``item``) for an index
+        already handed to the consumer or already queued — the retry
+        fence: a late duplicate of a slab's earlier attempt never folds
+        twice."""
         with self._cond:
+            if i < self._next or i in self._slots:
+                self._fenced += 1
+                return False
             self._slots[i] = item
             self._cond.notify_all()
+            return True
+
+    @property
+    def fenced(self):
+        """Duplicate deliveries the fence dropped."""
+        with self._cond:
+            return self._fenced
 
     def fault(self, exc):
         """Record the FIRST failure (later ones are consequences)."""
@@ -751,172 +1119,314 @@ def _acquire(sem, stop):
 
 
 # ---------------------------------------------------------------------
+# the ingest half: the uploader pool, shared by execute and the shuffle
+# ---------------------------------------------------------------------
+
+class _Ingest:
+    """One pass's ingest: a dispenser and ``nwork`` uploader workers for a
+    callback source (its ``jobs``, ``(slab, lo, hi)`` each, in order), or
+    one produce+upload thread for an iterator source, delivering
+    ``(slab_parts, seconds, slab, lo, hi)`` through the re-sequencer;
+    ``slab_parts`` is what :func:`_upload` returns.  At most ``depth +
+    nwork`` slabs hold a ring permit; the consumer releases them
+    (:meth:`release`).  A failed produce/encode/upload re-runs in place
+    under the run's retry budget (:meth:`retry`)."""
+
+    def __init__(self, source, codec_obj, delta_ok, depth, nwork, run_sp,
+                 jobs=None, prefix="bolt-stream"):
+        self.source = source
+        self.device = source.device
+        self.codec_obj = codec_obj
+        self.delta_ok = delta_ok
+        self.depth = depth
+        self.nwork = nwork
+        self.nretry = retry_limit()     # scopes are per-thread: read here
+        self.run_sp = run_sp
+        self.jobs = jobs
+        self.on_card = self.device.type == "cuda"
+        self.ring = _PinnedRing() if self.on_card else None
+        self.permits = threading.Semaphore(depth + nwork)
+        self.stop = threading.Event()
+        self.rsq = _Reseq()
+        self.jobq = queue.Queue()
+        self._act_lock = _lockdep.lock("stream.uploader_hw")
+        self._act = 0
+        self.act_hw = 0
+        # the pool's threads count under the caller's tenant, and their
+        # spans parent under this run's span by explicit handoff
+        self.tenant = _engine.current_tenant()
+        if source.kind == "callback":
+            lead = threading.Thread(target=self._dispenser,
+                                    name="%s-prefetch" % prefix,
+                                    daemon=True)
+            self.pool = [threading.Thread(target=self._worker, args=(w,),
+                                          name="%s-upload-%d" % (prefix, w),
+                                          daemon=True)
+                         for w in range(nwork)]
+            self.threads = [lead] + self.pool
+        else:
+            lead = threading.Thread(target=self._prefetch,
+                                    name="%s-prefetch" % prefix,
+                                    daemon=True)
+            self.pool = [lead]
+            self.threads = [lead]
+
+    def _busy(self, delta):
+        """Count ``delta`` uploaders in or out of an ingest (the run's
+        concurrent-uploader high-water)."""
+        with self._act_lock:
+            self._act += delta
+            self.act_hw = max(self.act_hw, self._act)
+
+    def retry(self, slab, attempt, prev, exc, what="slab"):
+        """One failed attempt at ``slab``: burn a retry (counted, chained)
+        or raise the run's final error (``utils.chain_retry_step``: the
+        ORIGINAL exception at budget 0)."""
+        from bolt_tpu_torch.utils import chain_retry_step
+        allowed = attempt < self.nretry and not self.stop.is_set()
+        if allowed:
+            _engine.record_stream_retry()
+            _obs.event("stream.retry", slab=slab, attempt=attempt + 1,
+                       error=type(exc).__name__)
+        return chain_retry_step(exc, prev, attempt, allowed,
+                                "%s %d" % (what, slab),
+                                "stream.retries / BOLT_STREAM_RETRIES")
+
+    def _ingest(self, block, copy_stream):
+        """Encode (with a codec armed) and upload one host block."""
+        if self.codec_obj is None:
+            parts = (torch.from_numpy(np.ascontiguousarray(block)),)
+        else:
+            wire, side = _encode_slab(self.codec_obj, block, self.delta_ok)
+            parts = (wire,) + tuple(torch.as_tensor(np.asarray(s))
+                                    for s in side)
+        return _upload(parts, self.device, self.ring, copy_stream)
+
+    def _dispenser(self):
+        """Hand ``(j, slab, lo, hi)`` jobs to the pool in order, one ring
+        permit each."""
+        try:
+            for j, (g, lo, hi) in enumerate(self.jobs):
+                if not _acquire(self.permits, self.stop):
+                    return
+                self.jobq.put((j, g, lo, hi))
+            self.rsq.finish(len(self.jobs))
+        except BaseException as exc:        # noqa: BLE001 — re-raised in
+            self.rsq.fault(exc)             # the consumer thread
+        finally:
+            for _ in range(self.nwork):
+                self.jobq.put(None)         # poison pills: the pool drains
+
+    def _worker(self, wid):
+        try:
+            with _engine.tenant(self.tenant):
+                copy_stream = torch.cuda.Stream(self.device) \
+                    if self.on_card else None
+                while True:
+                    job = self.jobq.get()
+                    if job is None or self.stop.is_set():
+                        return
+                    j, g, lo, hi = job
+                    attempt, prev = 0, None
+                    t0 = _clock()
+                    while True:
+                        self._busy(1)
+                        sp = _obs.begin("stream.ingest", parent=self.run_sp,
+                                        slab=g, worker=wid, attempt=attempt)
+                        try:
+                            slab = self._ingest(
+                                self.source.produce_slab(lo, hi),
+                                copy_stream)
+                        except Exception as exc:
+                            _obs.end(sp, error=type(exc).__name__)
+                            self._busy(-1)
+                            # retried in place: the job keeps its permit,
+                            # and the re-sequencer fences a duplicate
+                            prev = self.retry(g, attempt, prev, exc)
+                            attempt += 1
+                            continue
+                        _obs.end(sp)
+                        self._busy(-1)
+                        break
+                    self.rsq.put(j, (slab, _clock() - t0, g, lo, hi))
+                    del slab            # the consumer owns it now
+        except BaseException as exc:        # noqa: BLE001
+            self.rsq.fault(exc)
+
+    def _prefetch(self):
+        """Iterator sources: one produce+upload thread (the iterable is
+        sequential); the block is in hand, so a retry re-runs its encode
+        and upload."""
+        try:
+            with _engine.tenant(self.tenant):
+                copy_stream = torch.cuda.Stream(self.device) \
+                    if self.on_card else None
+                it = self.source.slabs()
+                i = 0
+                while True:
+                    if not _acquire(self.permits, self.stop):
+                        return
+                    self._busy(1)
+                    sp = _obs.begin("stream.ingest", parent=self.run_sp,
+                                    slab=i, worker=0)
+                    t0 = _clock()
+                    try:
+                        try:
+                            lo, hi, block = next(it)
+                        except StopIteration:
+                            self.permits.release()
+                            _obs.cancel(sp)     # the probe saw the end
+                            sp = None
+                            break
+                        attempt, prev = 0, None
+                        while True:
+                            try:
+                                slab = self._ingest(block, copy_stream)
+                                break
+                            except Exception as exc:
+                                prev = self.retry(i, attempt, prev, exc)
+                                attempt += 1
+                        del block
+                    finally:
+                        self._busy(-1)
+                        _obs.end(sp)
+                    self.rsq.put(i, (slab, _clock() - t0, i, lo, hi))
+                    del slab
+                    i += 1
+                self.rsq.finish(i)
+        except BaseException as exc:        # noqa: BLE001
+            self.rsq.fault(exc)
+
+    def start(self):
+        global _LAST_POOL
+        _LAST_POOL = tuple(self.threads)
+        for th in self.threads:
+            th.start()
+
+    def next(self, idle=None):
+        """The next delivered slab in order, or ``None`` at the end."""
+        return self.rsq.next(self.threads, workers=self.pool, idle=idle)
+
+    def release(self, k=1):
+        self.permits.release(k)
+
+    def close(self):
+        """Stop the pass: every thread joined, queued slabs released."""
+        self.stop.set()
+        # the consumer's own poison pills, in case the dispenser died
+        # before its finally could enqueue them
+        for _ in range(len(self.threads)):
+            self.jobq.put(None)
+        for th in self.threads:
+            th.join()
+        self.rsq.drain()
+
+
+def _retried(ing, slab, what, fn):
+    """``fn()`` on the consumer, re-run in place under ``ing``'s retry
+    budget."""
+    attempt, prev = 0, None
+    while True:
+        try:
+            return fn()
+        except Exception as exc:
+            prev = ing.retry(slab, attempt, prev, exc, what)
+            attempt += 1
+
+
+def _wait_slab(ing, slab_parts, compute_stream):
+    """The compute stream waits for a delivered slab's copy; the slab's
+    memory is recorded on it, so the allocator cannot reuse it while a
+    kernel still reads it."""
+    parts, ev, buf = slab_parts
+    if ing.on_card:
+        compute_stream.wait_event(ev)
+        buf.record_stream(compute_stream)
+    return parts
+
+
+# ---------------------------------------------------------------------
 # the executor
 # ---------------------------------------------------------------------
 
-def execute(arr, terminal, ddof=None, rfunc=None):
-    """Run the streamed reduction ``terminal`` over ``arr``'s source
-    through the pipeline of the module docstring; returns a value-shaped
-    ``BoltArrayGPU`` (``split=0``)."""
-    global _LAST_POOL
+def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
+    """Run the streamed reduction ``terminal`` over ``arr``'s source (or
+    ``source``) through the pipeline of the module docstring; a
+    value-shaped ``BoltArrayGPU`` (``split=0``).  ``terminal="multi"``
+    streams a multi-stat group: ``specs`` is its ordered ``(name, ddof)``
+    member list, each slab is read once for every member, and the result
+    is a list of tensors, one per member, each finalised as its
+    standalone streamed terminal is."""
     from bolt_tpu_torch.gpu.array import BoltArrayGPU
-    source = arr._stream
+    if source is None:
+        source = arr._stream
+    if has_swap(source):
+        raise RuntimeError(
+            "internal: execute() received a source with an unresolved "
+            "swap stage — the terminal doors resolve swaps first "
+            "(stream.resolve_swaps)")
+    comps = _multi_comps(specs) if terminal == "multi" else None
     device = source.device
     st = result_state(source)
     depth = prefetch_depth()
     nwork = pool_size(source)
     codec_obj = resolve_codec(source)
-    if codec_obj is not None and not codec_obj.lossless \
-            and terminal in ("min", "max"):
+    if codec_obj is not None and not codec_obj.lossless and (
+            terminal in ("min", "max") or terminal == "multi"
+            and any(c in ("min", "max") for c in comps)):
+        names = [n for n, _ in specs] if specs else [terminal]
         raise ValueError(
             "lossy codec %r refused for the order-statistic "
             "terminal(s) %s: min/max/ptp are exact by contract and "
             "a quantised extremum is never the answer the caller "
             "meant.  Use the lossless 'delta-f32' codec, or stream "
-            "this terminal uncompressed" % (codec_obj.name, [terminal]))
+            "this terminal uncompressed" % (codec_obj.name, names))
     delta_ok = source.split < len(source.shape)
     # the reference's conditions for the decode-and-reduce kernel, read
-    # once per run
+    # once per run: no stage and no filter
     use_kernel = (codec_obj is not None and codec_obj.name == "int8"
                   and terminal == "sum" and not source.stages
                   and source.split == 1
                   and _codec_registry().kernel_enabled())
-    on_card = device.type == "cuda"
-    ring = _PinnedRing() if on_card else None
-    compute_stream = torch.cuda.current_stream(device) if on_card else None
-
-    # ring permits: at most depth + pool-size slabs alive at once; one is
-    # always left for the dispenser, so the in-flight window is one less
-    nring = depth + nwork
-    window = nring - 1
-    permits = threading.Semaphore(nring)
-    stop = threading.Event()
-    rsq = _Reseq()
-    act_lock = _lockdep.lock("stream.uploader_hw")
-    act = {"n": 0, "hw": 0}
-
-    def _act(delta):
-        with act_lock:
-            act["n"] += delta
-            act["hw"] = max(act["hw"], act["n"])
-
-    def _ingest(block, copy_stream):
-        """Encode (with a codec armed) and upload one host block; returns
-        the slab as :func:`_upload` gives it."""
-        if codec_obj is None:
-            parts = (torch.from_numpy(np.ascontiguousarray(block)),)
-        else:
-            wire, side = _encode_slab(codec_obj, block, delta_ok)
-            parts = (wire,) + tuple(torch.as_tensor(np.asarray(s))
-                                    for s in side)
-        return _upload(parts, device, ring, copy_stream)
-
-    jobq = queue.Queue()
-    # the pool's threads count under the caller's tenant, and their spans
-    # parent under this run's span by explicit handoff
-    tenant_tag = _engine.current_tenant()
     run_sp = _obs.begin("stream.run", terminal=terminal, depth=depth,
                         uploaders=nwork, kind=source.kind,
                         **({"codec": codec_obj.name}
                            if codec_obj is not None else {}))
+    try:
+        ing = _Ingest(source, codec_obj, delta_ok, depth, nwork, run_sp,
+                      jobs=[(g, lo, hi) for g, (lo, hi)
+                            in enumerate(source.slab_ranges())]
+                      if source.kind == "callback" else None)
+        out, nslabs, ingest, compute, overlap, inflight_hw = _consume(
+            ing, source, st, terminal, ddof, rfunc, comps, specs,
+            codec_obj, use_kernel, delta_ok)
+        if run_sp is not None:
+            run_sp.set(slabs=nslabs, ingest_s=round(ingest, 6),
+                       compute_s=round(compute, 6), overlap_s=round(overlap, 6),
+                       concurrent_uploaders=max(ing.act_hw, 1),
+                       inflight_high_water=max(inflight_hw, 1))
+        if terminal == "multi":
+            return out
+        return BoltArrayGPU(out, 0, device)
+    finally:
+        _obs.end(run_sp)
 
-    def dispenser():
-        """Callback sources: hand ``(slab_i, lo, hi)`` jobs to the pool in
-        slab order, one ring permit each."""
-        try:
-            i = 0
-            for lo, hi in source.slab_ranges():
-                if not _acquire(permits, stop):
-                    return
-                jobq.put((i, lo, hi))
-                i += 1
-            rsq.finish(i)
-        except BaseException as exc:        # noqa: BLE001 — re-raised in
-            rsq.fault(exc)                  # the consumer thread
-        finally:
-            for _ in range(nwork):
-                jobq.put(None)              # poison pills: the pool drains
 
-    def worker(wid):
-        try:
-            with _engine.tenant(tenant_tag):
-                copy_stream = torch.cuda.Stream(device) if on_card else None
-                while True:
-                    job = jobq.get()
-                    if job is None or stop.is_set():
-                        return
-                    i, lo, hi = job
-                    _act(1)
-                    sp = _obs.begin("stream.ingest", parent=run_sp, slab=i,
-                                    worker=wid)
-                    t0 = _clock()
-                    try:
-                        slab = _ingest(source.produce_slab(lo, hi),
-                                       copy_stream)
-                    finally:
-                        _act(-1)
-                        _obs.end(sp)
-                    rsq.put(i, (slab, _clock() - t0))
-                    del slab            # the consumer owns it now
-        except BaseException as exc:        # noqa: BLE001
-            rsq.fault(exc)
-
-    def prefetch():
-        """Iterator sources: one produce+upload thread (the iterable is
-        sequential)."""
-        try:
-            with _engine.tenant(tenant_tag):
-                _prefetch()
-        except BaseException as exc:        # noqa: BLE001
-            rsq.fault(exc)
-
-    def _prefetch():
-        copy_stream = torch.cuda.Stream(device) if on_card else None
-        it = source.slabs()
-        i = 0
-        while True:
-            if not _acquire(permits, stop):
-                return
-            _act(1)
-            sp = _obs.begin("stream.ingest", parent=run_sp, slab=i,
-                            worker=0)
-            t0 = _clock()
-            try:
-                try:
-                    _, _, block = next(it)
-                except StopIteration:
-                    permits.release()
-                    _obs.cancel(sp)     # the probe saw the end of the source
-                    sp = None
-                    break
-                slab = _ingest(block, copy_stream)
-                del block
-            finally:
-                _act(-1)
-                _obs.end(sp)
-            rsq.put(i, (slab, _clock() - t0))
-            del slab
-            i += 1
-        rsq.finish(i)
-
-    if source.kind == "callback":
-        lead = threading.Thread(target=dispenser,
-                                name="bolt-stream-prefetch", daemon=True)
-        pool = [threading.Thread(target=worker, args=(w,),
-                                 name="bolt-stream-upload-%d" % w,
-                                 daemon=True) for w in range(nwork)]
-        threads = [lead] + pool
-    else:
-        lead = threading.Thread(target=prefetch,
-                                name="bolt-stream-prefetch", daemon=True)
-        pool = [lead]
-        threads = [lead]
-    _LAST_POOL = tuple(threads)
+def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
+             codec_obj, use_kernel, delta_ok):
+    """The consumer half of :func:`execute`: dispatch each delivered slab
+    in order into the bounded in-flight window, fold, finalise."""
+    on_card = ing.on_card
+    compute_stream = torch.cuda.current_stream(ing.device) \
+        if on_card else None
+    # one permit is always left for the dispenser, so the in-flight window
+    # is one less than the ring
+    window = ing.depth + ing.nwork - 1
 
     t_start = _clock()
     ingest = compute = 0.0
     nslabs = dispatched = confirmed = inflight_hw = 0
-    fold = _PairFold(lambda a, b: _combine(terminal, rfunc, a, b))
+    fold = _PairFold(lambda a, b: _combine(terminal, rfunc, a, b, comps))
     pend = None                 # the even slab's partial awaiting its pair
     pending_sync = deque()      # (slabs covered, event) not yet confirmed
 
@@ -934,7 +1444,7 @@ def execute(arr, terminal, ddof=None, rfunc=None):
             _obs.end(ssp)
         compute += _clock() - t0
         confirmed += cov
-        permits.release(cov)
+        ing.release(cov)
 
     def _retire():
         """Release the permits of every pair partial the device has
@@ -944,95 +1454,83 @@ def execute(arr, terminal, ddof=None, rfunc=None):
                                 or pending_sync[0][1].query()):
             _confirm_oldest()
 
-    for th in threads:
-        th.start()
+    def _dispatch(parts):
+        _chaos.hit("stream.dispatch")
+        return _slab_partial(source, st, terminal, rfunc, codec_obj,
+                             use_kernel, delta_ok, parts, comps, nslabs)
+
+    ing.start()
     try:
-        try:
-            while True:
-                got = rsq.next(threads, workers=pool, idle=_retire)
-                if got is None:
-                    break
-                _, ((parts, ev, buf), tsec) = got
-                del got
-                ingest += tsec
-                t0 = _clock()
-                if on_card:
-                    compute_stream.wait_event(ev)
-                    # the slab was allocated on its worker's copy stream:
-                    # keep the allocator from reusing it before the compute
-                    # stream is done with it
-                    buf.record_stream(compute_stream)
-                csp = _obs.begin("stream.compute", slab=nslabs,
-                                 **({"codec": codec_obj.name}
-                                    if codec_obj is not None else {}))
-                try:
-                    part = _slab_partial(source, st, terminal, rfunc, codec_obj,
-                                         use_kernel, delta_ok, parts, nslabs)
-                    del parts, buf
-                    if pend is None:
-                        pend = part
-                    else:
-                        # the level-0 merge: the even slab's partial, then
-                        # this one
-                        fold.push(_combine(terminal, rfunc, pend, part))
-                        pend = None
-                        done = None
-                        if on_card:
-                            done = torch.cuda.Event()
-                            done.record(compute_stream)
-                        pending_sync.append((2, done))
-                finally:
-                    _obs.end(csp)
-                nslabs += 1
-                compute += _clock() - t0
-                dispatched += 1
-                inflight_hw = max(inflight_hw, dispatched - confirmed)
-                # the bounded in-flight window: release what has retired, and
-                # wait only on overflow
-                _retire()
-                while dispatched - confirmed > window and pending_sync:
-                    _confirm_oldest()
-            if pend is not None:
-                fold.push(pend)     # an odd slab count's tail joins as a leaf
-                pend = None
-        finally:
-            stop.set()
-            # the consumer's own poison pills, in case the dispenser died
-            # before its finally could enqueue them
-            for _ in range(len(threads)):
-                jobq.put(None)
-            for th in threads:
-                th.join()
-            rsq.drain()
-            pending_sync.clear()
-        if nslabs == 0:
-            raise RuntimeError(
-                "stream produced no slabs (empty source?) — nothing to "
-                "reduce; the materialised path owns empty-input rules")
-        fsp = _obs.begin("stream.fold", final=True)
-        t0 = _clock()
-        try:
-            out = fold.result()
-            if terminal in ("mean", "var", "std"):
-                out = _finalise(terminal, ddof, out)
-            if on_card:
-                compute_stream.synchronize()    # the run's one final sync
-        finally:
-            _obs.end(fsp)
-        compute += _clock() - t0
-        wall = _clock() - t_start
-        overlap = max(0.0, ingest + compute - wall)
-        _engine.record_stream(nslabs, ingest, compute, wall, overlap, depth,
-                              uploaders=max(act["hw"], 1),
-                              inflight=max(inflight_hw, 1))
-        if run_sp is not None:
-            run_sp.set(slabs=nslabs, ingest_s=round(ingest, 6),
-                       compute_s=round(compute, 6), overlap_s=round(overlap, 6),
-                       concurrent_uploaders=max(act["hw"], 1),
-                       inflight_high_water=max(inflight_hw, 1))
-        return BoltArrayGPU(out, 0, device)
+        while True:
+            got = ing.next(idle=_retire)
+            if got is None:
+                break
+            _, (slab_parts, tsec, g, _, _) = got
+            del got
+            ingest += tsec
+            t0 = _clock()
+            parts = _wait_slab(ing, slab_parts, compute_stream)
+            del slab_parts
+            csp = _obs.begin("stream.compute", slab=nslabs,
+                             **({"codec": codec_obj.name}
+                                if codec_obj is not None else {}))
+            try:
+                part = _retried(ing, g, "slab dispatch",
+                                lambda: _dispatch(parts))
+                del parts
+                if pend is None:
+                    pend = part
+                else:
+                    # the level-0 merge: the even slab's partial, then
+                    # this one
+                    fold.push(_combine(terminal, rfunc, pend, part, comps))
+                    pend = None
+                    done = None
+                    if on_card:
+                        done = torch.cuda.Event()
+                        done.record(compute_stream)
+                    pending_sync.append((2, done))
+            finally:
+                _obs.end(csp)
+            nslabs += 1
+            compute += _clock() - t0
+            dispatched += 1
+            inflight_hw = max(inflight_hw, dispatched - confirmed)
+            # the bounded in-flight window: release what has retired, and
+            # wait only on overflow
+            _retire()
+            while dispatched - confirmed > window and pending_sync:
+                _confirm_oldest()
+        if pend is not None:
+            fold.push(pend)     # an odd slab count's tail joins as a leaf
+            pend = None
     finally:
-        _obs.end(run_sp)
+        ing.close()
+        pending_sync.clear()
+    if nslabs == 0:
+        raise RuntimeError(
+            "stream produced no slabs (empty source?) — nothing to "
+            "reduce; the materialised path owns empty-input rules")
+    _chaos.hit("stream.fold")
+    fsp = _obs.begin("stream.fold", final=True)
+    t0 = _clock()
+    try:
+        out = fold.result()
+        if terminal == "multi":
+            out = _finalise_multi(out, comps, specs)
+        elif terminal in ("mean", "var", "std"):
+            out = _finalise(terminal, ddof, out)
+        if on_card:
+            compute_stream.synchronize()    # the run's one final sync
+    finally:
+        _obs.end(fsp)
+    compute += _clock() - t0
+    wall = _clock() - t_start
+    overlap = max(0.0, ingest + compute - wall)
+    _engine.record_stream(nslabs, ingest, compute, wall, overlap,
+                          ing.depth, uploaders=max(ing.act_hw, 1),
+                          inflight=max(inflight_hw, 1))
+    return out, nslabs, ingest, compute, overlap, inflight_hw
 
 
 # ---------------------------------------------------------------------
@@ -1040,20 +1538,49 @@ def execute(arr, terminal, ddof=None, rfunc=None):
 # ---------------------------------------------------------------------
 
 def materialize(source):
-    """The CONCRETE array ``source`` describes: the base uploaded whole,
-    then every recorded stage replayed through the normal map path, so a
-    materialised stream equals never having streamed.  Needs the whole
-    array to fit on the device."""
+    """The CONCRETE array ``source`` describes: a pending swap resolved
+    by the shuffle, the base uploaded whole, then every recorded stage
+    replayed through the materialised paths, so a materialised stream
+    equals never having streamed.  Needs the whole array to fit on the
+    device."""
     with _obs.span("stream.materialize", kind=source.kind,
                    stages=len(source.stages)):
+        if has_swap(source):
+            b = resolve_swaps(source)
+            if b._stream is None:
+                return b
+            source = b._stream
         return _replay_stages(_materialize_base(source), source.stages)
 
 
 def _replay_stages(b, stages):
+    """Replay recorded stages on a concrete array through the materialised
+    paths: the one replay of materialisation and of a resident shuffle's
+    stages after its swap."""
     for stage in stages:
-        if stage[0] != "map":
-            raise ValueError("unknown stream stage %r" % (stage[0],))
-        b = b.map(stage[1], axis=tuple(range(b.split)))
+        kind = stage[0]
+        if kind == "map":
+            b = b.map(stage[1], axis=tuple(range(b.split)))
+        elif kind == "chunk":
+            from bolt_tpu_torch.gpu.chunk import ChunkedArray
+            _, func, plan, pad, dtype = stage
+            b = ChunkedArray(b, plan, pad).map(func, dtype=dtype).unchunk()
+        elif kind == "stack":
+            from bolt_tpu_torch.gpu.stack import StackedArray
+            _, func, size, dtype = stage
+            b = StackedArray(b, size).map(func, dtype=dtype).unstack()
+        elif kind == "filter":
+            b = b.filter(stage[1], axis=tuple(range(b.split)))
+        elif kind == "swap":
+            # the (kaxes, vaxes) the permutation was built from
+            # (gpu/array.py :: _do_swap, inverted)
+            _, perm, new_split = stage
+            split = b.split
+            kaxes = [p for p in perm[new_split:] if p < split]
+            vaxes = [p - split for p in perm[:new_split] if p >= split]
+            b = b._do_swap(kaxes, vaxes)
+        else:
+            raise ValueError("unknown stream stage %r" % (kind,))
     return b
 
 
@@ -1085,3 +1612,204 @@ def _materialize_base(source):
     _engine.record_transfer(data.numel() * data.element_size(),
                             _clock() - t0)
     return BoltArrayGPU(data, source.split, source.device)
+
+
+# ---------------------------------------------------------------------
+# the two-phase shuffle: streamed swap resolution
+# ---------------------------------------------------------------------
+
+def _stage_token(stage):
+    """One stage's fingerprint element: the kind, every callable by its
+    bytecode token (``utils.code_token``), every plain value by repr."""
+    from bolt_tpu_torch.utils import code_token
+    return "/".join(code_token(x) if callable(x) else repr(x)
+                    for x in stage)
+
+
+def _shuffle_fingerprint(source, pre_stages, perm, new_split, out_block):
+    """Identity of one streamed-swap resolution for spill-manifest
+    matching: geometry, slab plan, the pre-swap stages (callables by
+    bytecode) and the permutation, so a run never adopts buckets cut by
+    another pipeline.  Data captured in a closure is not part of it:
+    pointing an identical loader at other bytes of the same geometry is
+    the caller's contract, as with any resume format."""
+    from bolt_tpu_torch.utils import code_token
+    stages = "|".join(_stage_token(s) for s in pre_stages)
+    return ("bolt-stream-spill-v1",
+            "x".join(str(s) for s in source.shape), int(source.split),
+            str(source.dtype), int(source.slab), str(source.kind),
+            code_token(source.produce) if source.produce is not None
+            else "", stages, repr(tuple(perm)), int(new_split),
+            int(out_block))
+
+
+def _resolve_one_swap(source):
+    """Resolve the FIRST recorded swap of ``source`` by the two-phase
+    shuffle (:mod:`bolt_tpu_torch.parallel.shuffle`): phase 1 streams the
+    input slabs through the uploader pool and one re-bucket program each;
+    phase 2 copies the permuted slabs into the swapped array (RESIDENT:
+    the stages after the swap replayed concretely) or spills buckets of
+    them to files and returns a fresh stream over the files carrying the
+    stages after the swap (SPILLED).  Bit-identical to the materialised
+    swap either way."""
+    from bolt_tpu_torch import checkpoint as _ckptlib
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU, torch_dtype
+    from bolt_tpu_torch.parallel import shuffle as _shuffle
+
+    cut = next(k for k, s in enumerate(source.stages) if s[0] == "swap")
+    pre = source.stages[:cut]
+    _, perm, new_split = source.stages[cut]
+    post = source.stages[cut + 1:]
+    base = StreamSource(source.kind, source.produce, source.blocks,
+                        source.shape, source.split, source.dtype,
+                        source.device, source.slab, pre, codec=source.codec)
+    base._consumed = source._consumed
+    st = result_state(base)
+    device = source.device
+    spill_dir = spill_scope()[0]
+    plan = _shuffle.plan_shuffle(st.shape, st.dtype, st.split, perm,
+                                 new_split, base.slab, swap_budget(),
+                                 spill_dir)
+    if not plan.resident and spill_dir is None:
+        raise RuntimeError(
+            "streamed swap: the re-keyed working set (%.1f MiB) exceeds "
+            "the resident budget (%.1f MiB) and no spill directory is "
+            "configured — wrap the run in bolt_tpu_torch.stream.spill(dir)"
+            " (or raise the budget)"
+            % (plan.total_bytes / 2**20, (plan.budget or 0) / 2**20))
+    codec_obj = resolve_codec(base)     # lossless or None (swap_stage)
+    delta_ok = source.split < len(source.shape)
+    fp = _shuffle_fingerprint(base, pre, perm, new_split, plan.out_block)
+    # spill resume: slabs whose every bucket landed are skipped (their
+    # files are complete: atomic renames, the slab marked after them)
+    done = set()
+    if not plan.resident and base.kind == "callback":
+        done = _ckptlib.spill_manifest(spill_dir, fp)
+        if done:
+            _obs.event("stream.spill_resume", slabs=len(done))
+    jobs = None
+    if base.kind == "callback":
+        jobs = [(g, lo, hi) for g, (lo, hi)
+                in enumerate(base.slab_ranges()) if g not in done]
+    run_sp = _obs.begin("stream.shuffle", resident=plan.resident,
+                        slabs=plan.nslabs, buckets=plan.nbuckets,
+                        out_block=plan.out_block)
+    t_start = _clock()
+    moved = 0
+    nslabs = len(done)
+    out = None
+    try:
+        if plan.resident:
+            out = torch.empty(plan.out_shape, dtype=torch_dtype(plan.dtype),
+                              device=device)
+        ing = _Ingest(base, codec_obj, delta_ok, prefetch_depth(),
+                      pool_size(base), run_sp, jobs=jobs,
+                      prefix="bolt-shuffle")
+        on_card = ing.on_card
+        compute_stream = torch.cuda.current_stream(device) \
+            if on_card else None
+        window = ing.depth + ing.nwork - 1
+        pending = deque()       # events of resident copies in flight
+
+        def _retire():
+            while pending and pending[0].query():
+                pending.popleft()
+                ing.release()
+
+        def _rebucket(parts):
+            _chaos.hit("stream.shuffle")
+            prog = _shuffle.rebucket_program(plan, pre, codec_obj,
+                                             source.dtype,
+                                             tuple(parts[0].shape),
+                                             delta_ok, device)
+            return prog(parts)
+
+        def _spill_bucket(g, bkt, block, row0):
+            _chaos.hit("stream.spill")
+            ssp = _obs.begin("stream.spill", slab=g, bucket=bkt)
+            try:
+                nb = _ckptlib.spill_save(spill_dir, fp, g, bkt, block, row0)
+            finally:
+                _obs.end(ssp)
+            _engine.record_spill(nb)
+
+        ing.start()
+        try:
+            while True:
+                got = ing.next(idle=_retire)
+                if got is None:
+                    break
+                _, (slab_parts, _, g, lo, hi) = got
+                del got
+                parts = _wait_slab(ing, slab_parts, compute_stream)
+                del slab_parts
+                csp = _obs.begin("stream.compute", slab=g, shuffle=True)
+                try:
+                    part = _retried(ing, g, "shuffle dispatch",
+                                    lambda: _rebucket(parts))
+                finally:
+                    _obs.end(csp)
+                del parts
+                moved += part.numel() * part.element_size()
+                nslabs += 1
+                if plan.resident:
+                    _shuffle.concat_program(plan, tuple(part.shape),
+                                            device)(out, part, lo)
+                    del part
+                    if on_card:
+                        ev = torch.cuda.Event()
+                        ev.record(compute_stream)
+                        pending.append(ev)
+                        _retire()
+                        while len(pending) > window:
+                            pending.popleft().synchronize()
+                            ing.release()
+                    else:
+                        ing.release()
+                    continue
+                for bkt in range(plan.nbuckets):
+                    b0 = bkt * plan.out_block
+                    block = part[b0:b0 + plan.out_block].cpu().numpy()
+                    _retried(ing, g, "spill slab",
+                             lambda: _spill_bucket(g, bkt, block, b0))
+                del part, block
+                _ckptlib.spill_slab_done(spill_dir, fp, g)
+                ing.release()
+            if on_card:
+                compute_stream.synchronize()
+        finally:
+            ing.close()
+            pending.clear()
+    finally:
+        _engine.record_shuffle(moved, _clock() - t_start)
+        if run_sp is not None:
+            run_sp.set(bytes=moved)
+        _obs.end(run_sp)
+    if nslabs == 0:
+        raise RuntimeError(
+            "streamed swap produced no slabs (empty source?) — the "
+            "materialised path owns empty-input rules")
+
+    if plan.resident:
+        return _replay_stages(BoltArrayGPU(out, new_split, device), post)
+
+    # SPILLED: phase 2 is a fresh callback source over the bucket files,
+    # streaming through the same executor as any other source, with the
+    # stages after the swap riding it lazily
+    out_shape, out_block, j0 = plan.out_shape, plan.out_block, plan.j0
+    out_n = out_shape[0]
+
+    def produce(index):
+        lo, hi, _ = index[0].indices(out_n)
+        chunks = []
+        for bkt in range(lo // out_block, -(-hi // out_block)):
+            pieces = [_ckptlib.spill_load(spill_dir, fp, g, bkt)
+                      for g in range(nslabs)]
+            chunks.append(np.concatenate([p[0] for p in pieces], axis=j0))
+        full = np.concatenate(chunks, axis=0)
+        row0 = (lo // out_block) * out_block
+        return full[lo - row0:hi - row0][(slice(None),) + tuple(index[1:])]
+
+    src2 = StreamSource("callback", produce, None, out_shape, new_split,
+                        st.dtype, device, out_block, post)
+    return BoltArrayGPU._streamed(src2)

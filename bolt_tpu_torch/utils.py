@@ -376,3 +376,49 @@ def chunk_pad(plan, axes, padding, vshape):
                     % (p, plan[a], a))
             pad[a] = int(p)
     return pad
+
+
+def code_token(func):
+    """A process-stable identity token for a user callable: its name plus
+    a digest of its bytecode and constants (nested code objects
+    recursed), so two lambdas with different bodies get different tokens
+    (``__name__`` calls every lambda ``<lambda>``).  Callables without
+    bytecode (ufuncs, builtins, callable objects) fall back to their
+    name.  Data captured in a closure is not part of the token
+    (reference: ``bolt_tpu/utils.py :: code_token``)."""
+    import hashlib
+    code = getattr(func, "__code__", None)
+    name = getattr(func, "__name__", None) or type(func).__name__
+    if code is None:
+        return name
+
+    def feed(h, c):
+        h.update(c.co_code)
+        for const in c.co_consts:
+            if hasattr(const, "co_code"):
+                feed(h, const)
+            else:
+                h.update(repr(const).encode())
+
+    h = hashlib.sha1()
+    feed(h, code)
+    return "%s#%s" % (name, h.hexdigest()[:12])
+
+
+def chain_retry_step(exc, prev, attempt, allowed, what, knob):
+    """The one retry-chaining policy of the streaming executor: chain this
+    attempt's ``exc`` to the one before (back to the original failure)
+    and either hand it back as the next attempt's ``prev`` (another
+    attempt is ``allowed``) or raise: a pointed chained error when
+    retries were consumed, the ORIGINAL exception untouched at budget 0
+    (reference: ``bolt_tpu/utils.py :: chain_retry_step``)."""
+    if prev is not None and exc.__cause__ is None and exc is not prev:
+        exc.__cause__ = prev
+    if allowed:
+        return exc
+    if attempt:
+        raise RuntimeError(
+            "%s failed after %d retries (%s); the final attempt's "
+            "error is chained below, each attempt chained to the one "
+            "before" % (what, attempt, knob)) from exc
+    raise exc

@@ -149,11 +149,36 @@ result):
    the whole stack), ``inv``, ``slogdet``, ``cholesky``, ``solve``, ``qr``
    and ``svd`` against numpy f64 on 512 sampled matrices (1e-4 of the
    largest value); the imaging width's ``np.fft.rfft`` along the last
-   axis and its ``irfft`` round trip (1e-5).
+   axis and its ``irfft`` round trip (1e-5);
+11. the streamed stages, stream groups, the shuffle and retries, under
+   ``stream.uploaders(4)``: at the streamed north-star of phase 6 (f64
+   references and the materialised swap taken once from a copy
+   materialised on the card, then freed) ``swap((0,), (0,))`` resolved
+   resident by the two-phase shuffle, bit for bit against the
+   materialised swap, its peak growth under its 10.49 GB result plus
+   2 GB; config 4's ``map(v + 1).filter(v.mean() > 1)`` streamed through
+   ``sum()`` and ``mean()`` (the f32 slab mask held against the f64 one
+   within rounding; the sum within ``4 sqrt(kept) 2^-24 sum|v + 1|``,
+   the mean ``rtol=1e-5, atol=1e-6``); the group of ``sum``/``mean``/
+   ``var``/``min``/``max`` in one ingest pass (160 slabs), each member
+   bit for bit against its standalone streamed terminal, its wall beside
+   the sum of theirs; ``chunk((50, 32, 32)).map(c * 2).sum()`` and
+   ``stacked(20).map(blk - blk.mean(0)).sum()`` against f64 (``8
+   sqrt(n) 2^-24 sum|v|``); each north-star run under 2 GB of device
+   memory.  At BASELINE config 1 with integer-valued records (sums exact
+   in any order): ``swap`` resident and under ``stream.spill(build/...,
+   budget=2^28)``, the sum over the spilled buckets bit for bit against
+   the resident swap's (and the data), ``spill_bytes`` above 0 and no
+   ``bolt-spill-*`` after ``spill_clear``; a ``sum`` with an injected
+   ``stream.upload`` fault under ``stream.retries(1)`` bit for bit against
+   the clean one with one retry; the armed int8 ``sum`` launching
+   ``fused_decode_sum`` once a slab and, under a filter, not at all.
+   One log line a run: wall, peak device memory, slabs, shuffle and
+   spill bytes.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4, phase 6, phase 7 and phase 8; phases 9 and 10 run no kernel of their
-own) and
+4, phase 6, phase 7, phase 8 and phase 11; phases 9 and 10 run no kernel
+of their own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
@@ -217,6 +242,8 @@ STREAM_SEED = 7
 STREAM_PEAK_BYTES = 2e9
 # peak device memory growth allowed to the north-star map(v + 1).sum()
 FUSED_SUM_PEAK_BYTES = 1e9
+# phase 11's resident ceiling for config 1's swap (0.66 GB): it spills
+SPILL_BUDGET = 1 << 28
 
 
 def check(cond, what):
@@ -951,15 +978,7 @@ def stream_phase(bolt, K, torch, np, dev, report):
     from bolt_tpu_torch import engine, stream
     from bolt_tpu_torch._precision import codec_bound
     t0 = time.perf_counter()
-    rec = NORTH_STAR[1:]
-
-    def cb(index):
-        lo, hi = index[0].start, index[0].stop
-        out = np.empty((hi - lo,) + rec, np.float32)
-        for r in range(lo, hi):
-            out[r - lo] = np.random.default_rng(STREAM_SEED + r) \
-                .standard_normal(rec, dtype=np.float32)
-        return out
+    cb = seeded_records(np, NORTH_STAR[1:])
 
     def source(codec=None):
         return bolt.fromcallback(cb, NORTH_STAR, mode="gpu",
@@ -1090,7 +1109,7 @@ def stream_phase(bolt, K, torch, np, dev, report):
         check(d <= bound, "armed and unarmed int8 sums differ by %.3g" % d)
         errs["int8_armed_vs_decode"] = d
         try:
-            source("bf16").min()
+            source("bf16").min().totorch()   # refused at the read
         except ValueError as exc:
             check("order-statistic" in str(exc), "lossy min() refusal text")
         else:
@@ -2335,6 +2354,310 @@ def numpy_tail_phase(bolt, torch, np, report):
     log("numpy tail phase ok in %.1f s" % out["phase_s"])
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the streamed stages, stream groups, the shuffle and retries
+# ---------------------------------------------------------------------------
+
+def seeded_records(np, rec, integers=False):
+    """A ``fromcallback`` callback drawing each record from
+    ``np.random.default_rng(STREAM_SEED + record)``: standard normals, or
+    integers in [-8, 8] (sums of those are exact in f32 in any order)."""
+    def cb(index):
+        lo, hi = index[0].start, index[0].stop
+        out = np.empty((hi - lo,) + rec, np.float32)
+        for r in range(lo, hi):
+            g = np.random.default_rng(STREAM_SEED + r)
+            out[r - lo] = g.integers(-8, 9, rec) if integers else \
+                g.standard_normal(rec, dtype=np.float32)
+        return out
+    return cb
+
+
+def stage_refs(torch, x, mask, chunk=4096):
+    """f64 column references of the north-star ``x`` (n, C) on the card,
+    ``chunk`` columns at a time: the sum, |v| sum, mean, var, min and max
+    of ``v``; the sum, |v| sum and mean of ``v + 1`` over the records
+    ``mask`` keeps; and the sum of each 20-record block minus its mean."""
+    n = x.shape[0]
+    keep = mask.double()[:, None]
+    kept = float(mask.sum())
+    parts = {k: [] for k in ("sum", "abs", "mean", "var", "min", "max",
+                             "fsum", "fabs", "fmean", "stack")}
+    for j in range(0, x.shape[1], chunk):
+        d = x[:, j:j + chunk].double()
+        parts["sum"].append(d.sum(0))
+        parts["abs"].append(d.abs().sum(0))
+        parts["mean"].append(d.mean(0))
+        parts["var"].append(d.var(0, correction=0))
+        parts["min"].append(d.amin(0))
+        parts["max"].append(d.amax(0))
+        f = (d + 1) * keep
+        parts["fsum"].append(f.sum(0))
+        parts["fabs"].append(f.abs().sum(0))
+        parts["fmean"].append(f.sum(0) / kept)
+        blk = d.view(n // SLAB_RECORDS, SLAB_RECORDS, -1)
+        parts["stack"].append((blk - blk.mean(1, keepdim=True)).sum((0, 1)))
+        del d, f, blk
+    return {k: torch.cat(v, 0) for k, v in parts.items()}
+
+
+def stages_phase(bolt, K, torch, np, dev, report):
+    """Phase 11: the streamed stages at the north-star and at config 1;
+    returns the path's launches."""
+    from bolt_tpu_torch import _chaos, checkpoint, engine, stream
+    from bolt_tpu_torch.gpu.array import _pred_mask
+    from bolt_tpu_torch.parallel import shuffle
+    t0 = time.perf_counter()
+    n = NORTH_STAR[0]
+    nslabs = -(-n // SLAB_RECORDS)
+    cb = seeded_records(np, NORTH_STAR[1:])
+    pred = lambda v: v.mean() > 1           # noqa: E731  (config 4's)
+
+    def source():
+        return bolt.fromcallback(cb, NORTH_STAR, mode="gpu",
+                                 dtype=np.float32)
+
+    runs = {}
+    out = {"runs": runs}
+
+    def run(label, fn, slabs, growth_gb=None, profiled=False):
+        """One run: its result tensor, wall, peak device memory (and what
+        was resident before it), slabs and shuffle/spill bytes, logged on
+        one line; ``profiled`` also takes the device's busy time (kernels
+        and copies on any stream) from ``torch.profiler``.  Checked: the
+        slab count, and the peak under 2 GB, or its growth under
+        ``growth_gb`` where that is given."""
+        c0 = engine.counters()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res, kern_us, copy_us = device_us(fn) if profiled else \
+            (fn(), None, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        d = {k: v - c0[k] for k, v in engine.counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        runs[label] = {"wall_s": wall, "peak_gb": peak / 1e9,
+                       "resident_before_gb": base / 1e9,
+                       "slabs": d["stream_chunks"],
+                       "shuffle_bytes": d["shuffle_bytes"],
+                       "shuffle_s": d["shuffle_seconds"],
+                       "spill_bytes": d["spill_bytes"],
+                       "retries": d["stream_retries"],
+                       "device_kernel_s": kern_us and kern_us / 1e6,
+                       "device_copy_s": copy_us and copy_us / 1e6}
+        if profiled:
+            log("phase 11 %-14s device busy (profiled, kernels + copies on "
+                "any stream): kernels %s s, copies %s s of %.3f s wall"
+                % (label, runs[label]["device_kernel_s"],
+                   runs[label]["device_copy_s"], wall))
+        log("phase 11 %-14s wall %.3f s, peak %.3f GB (%.3f GB resident "
+            "before), %d slabs, shuffle %.3f GB in %.3f s, spill %.3f GB"
+            % (label, wall, peak / 1e9, base / 1e9, d["stream_chunks"],
+               d["shuffle_bytes"] / 1e9, d["shuffle_seconds"],
+               d["spill_bytes"] / 1e9))
+        check(d["stream_chunks"] == slabs, "phase 11 %s streamed %d slabs, "
+              "not %d" % (label, d["stream_chunks"], slabs))
+        check(peak < STREAM_PEAK_BYTES if growth_gb is None
+              else peak - base < growth_gb * 1e9,
+              "phase 11 %s peak device memory %.3f GB (%.3f GB before)"
+              % (label, peak / 1e9, base / 1e9))
+        return res
+
+    with stream.uploaders(4):
+        # the f64 references and the materialised swap, from one copy of
+        # the source materialised on the card (then freed)
+        t = time.perf_counter()
+        mat = source()
+        x = mat.totorch()
+        xv = x.view(n, -1)
+        mask = torch.cat([_pred_mask(pred, x[s:s + SLAB_RECORDS] + 1)
+                          for s in range(0, n, SLAB_RECORDS)])
+        m64 = (xv.double() + 1).mean(1) > 1
+        for i in (mask != m64).nonzero().flatten().tolist():
+            d64 = xv[i].double() + 1
+            tol = 4 * math.sqrt(d64.numel()) * 2.0 ** -24 * float(
+                d64.abs().mean())
+            check(abs(float(d64.mean()) - 1) <= tol, "phase 11: record %d's "
+                  "f32 mask differs from the f64 one beyond rounding" % i)
+        ref = stage_refs(torch, xv, mask)
+        kept = int(mask.sum())
+        want_swap = mat.swap((0,), (0,)).totorch()
+        del mat, x, xv
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["materialise_s"] = time.perf_counter() - t
+        log("phase 11 source materialised, f64 references and the "
+            "materialised swap taken in %.1f s; %d of %d records pass "
+            "config 4's filter" % (out["materialise_s"], kept, n))
+
+        K.reset_launches()
+        # the resident swap: phase 1 streams every slab into the swapped
+        # output, bit for bit against the materialised swap
+        sw = source().swap((0,), (0,))
+        check(sw.streaming and sw.shape == (NORTH_STAR[1], n)
+              + NORTH_STAR[2:],
+              "swap on a stream is a lazy stage")
+        got = run("swap_resident", lambda: sw.totorch(), 0,
+                  growth_gb=want_swap.numel() * 4 / 1e9 + 2.0)
+        check(torch.equal(got, want_swap), "the resident streamed swap is "
+              "not bit-identical to the materialised swap")
+        out["swap_resident_shuffle_s"] = runs["swap_resident"]["shuffle_s"]
+        check(runs["swap_resident"]["shuffle_bytes"] == got.numel() * 4,
+              "the resident swap moved %d bytes"
+              % runs["swap_resident"]["shuffle_bytes"])
+        del got, want_swap, sw
+        torch.cuda.empty_cache()
+
+        # config 4's filter, streamed: the mask folds into each slab
+        f = source().map(lambda v: v + 1).filter(pred)
+        fsum = run("filter_sum", lambda: f.sum().totorch().reshape(-1),
+                   nslabs, profiled=True)
+        check(f.streaming, "the filtered stream materialised")
+        err = (fsum.double() - ref["fsum"]).abs()
+        tol = 4 * math.sqrt(kept) * 2.0 ** -24 * ref["fabs"]
+        check(bool((err <= tol).all()), "phase 11 filter sum: max abs err "
+              "%.3g" % float(err.max()))
+        errs = {"filter_sum": float(err.max())}
+        fmean = run("filter_mean", lambda: source().map(lambda v: v + 1)
+                    .filter(pred).mean().totorch().reshape(-1), nslabs)
+        errs["filter_mean"] = close(fmean, ref["fmean"], 1e-5, 1e-6,
+                                    "phase 11 filter mean")
+
+        # the five-member group: one ingest pass, each member bit for bit
+        # against its standalone streamed terminal
+        names = ("sum", "mean", "var", "min", "max")
+
+        def group():
+            s = source()
+            return [r.totorch().reshape(-1) for r in bolt.compute(
+                *[getattr(s, m)() for m in names])]
+
+        members = run("group", group, nslabs)
+        alone = [run(m, lambda m=m: getattr(source(), m)().totorch()
+                     .reshape(-1), nslabs) for m in names]
+        for m, g, a in zip(names, members, alone):
+            check(torch.equal(g, a), "group member %s is not bit-identical "
+                  "to its standalone streamed terminal" % m)
+        gsum, gmean, gvar, gmin, gmax = members
+        err = (gsum.double() - ref["sum"]).abs()
+        check(bool((err <= 4 * math.sqrt(n) * 2.0 ** -24 * ref["abs"])
+                   .all()), "phase 11 group sum: max abs err %.3g"
+              % float(err.max()))
+        errs["group_sum"] = float(err.max())
+        errs["group_mean"] = close(gmean, ref["mean"], 1e-5, 1e-6,
+                                   "phase 11 group mean")
+        errs["group_var"] = close(gvar, ref["var"], 1e-4, 1e-5,
+                                  "phase 11 group var")
+        check(torch.equal(gmin.double(), ref["min"]) and torch.equal(
+            gmax.double(), ref["max"]), "phase 11 group min/max not exact")
+        out["group_s"] = runs["group"]["wall_s"]
+        out["standalone_s"] = sum(runs[m]["wall_s"] for m in names)
+        log("phase 11 group of %d: %.3f s against %.3f s for its standalone "
+            "terminals (%.2fx)" % (len(names), out["group_s"],
+                                   out["standalone_s"],
+                                   out["standalone_s"] / out["group_s"]))
+
+        # the chunked and the stacked stages
+        csum = run("chunk", lambda: source().chunk((50, 32, 32)).map(
+            lambda c: c * 2).sum().totorch().reshape(-1), nslabs)
+        err = (csum.double() - 2 * ref["sum"]).abs()
+        check(bool((err <= 8 * math.sqrt(n) * 2.0 ** -24 * ref["abs"])
+                   .all()), "phase 11 chunk sum: max abs err %.3g"
+              % float(err.max()))
+        errs["chunk"] = float(err.max())
+        # doubling is exact and the slab sums run in the same order
+        check(torch.equal(csum, 2 * gsum), "the chunked map's sum is not "
+              "twice the streamed sum bit for bit")
+        ssum = run("stacked", lambda: source().stacked(SLAB_RECORDS).map(
+            lambda blk: blk - blk.mean(0)).unstack().sum().totorch()
+            .reshape(-1), nslabs)
+        err = (ssum.double() - ref["stack"]).abs()
+        check(bool((err <= 8 * math.sqrt(n) * 2.0 ** -24 * ref["abs"])
+                   .all()), "phase 11 stacked sum: max abs err %.3g"
+              % float(err.max()))
+        errs["stacked"] = float(err.max())
+        del members, alone, gsum, gmean, gvar, gmin, gmax, fsum, fmean
+        del csum, ssum, ref, mask, m64
+
+        # BASELINE config 1 with integer-valued records: the spilled swap
+        # (its sum over the bucket files equal to the resident one's),
+        # retries and the decode-and-reduce kernel's gate
+        cb1 = seeded_records(np, CONFIG1[1:], integers=True)
+        n1 = CONFIG1[0]
+        s1 = -(-n1 // SLAB_RECORDS)
+
+        def source1(codec=None):
+            return bolt.fromcallback(cb1, CONFIG1, mode="gpu",
+                                     dtype=np.float32, chunks=SLAB_RECORDS,
+                                     codec=codec)
+
+        resident = source1().swap((0,), (0,))
+        rsum = run("swap_c1_resident", lambda: resident.sum().totorch(), 0,
+                   growth_gb=4 * math.prod(CONFIG1) / 1e9 + 2.0)
+        check(not resident.streaming, "the config-1 swap did not resolve "
+              "resident")
+        spill_dir = os.path.join(ROOT, "build", "phase11_spill")
+        os.makedirs(spill_dir, exist_ok=True)
+        checkpoint.spill_clear(spill_dir)
+        with stream.spill(spill_dir, budget=SPILL_BUDGET):
+            spilled = source1().swap((0,), (0,))
+            plan = shuffle.plan_shuffle(
+                CONFIG1, np.float32, 1, (1, 0, 2, 3), 1, SLAB_RECORDS,
+                SPILL_BUDGET, spill_dir)
+            check(not plan.resident, "config 1's swap plan is resident")
+            ssum = run("swap_c1_spill", lambda: spilled.sum().totorch(),
+                       plan.nbuckets)
+            check(spilled.streaming, "the spilled swap's sum materialised")
+            check(torch.equal(ssum, rsum), "the sum over the spilled "
+                  "buckets differs from the resident swap's")
+            check(torch.equal(spilled.totorch(), resident.totorch()),
+                  "the spilled swap's data differs from the resident one")
+        check(runs["swap_c1_spill"]["spill_bytes"] > 0, "nothing spilled")
+        out["spill_bytes"] = runs["swap_c1_spill"]["spill_bytes"]
+        out["spill_shuffle_s"] = runs["swap_c1_spill"]["shuffle_s"]
+        checkpoint.spill_clear(spill_dir)
+        check(not checkpoint.spill_pending(spill_dir), "spill_clear left "
+              "bolt-spill-* behind")
+        del resident, spilled, rsum, ssum
+
+        clean = run("sum_c1", lambda: source1().sum().totorch(), s1)
+        _chaos.inject("stream.upload", nth=3)
+        try:
+            with stream.retries(1):
+                retried = run("sum_c1_retried",
+                              lambda: source1().sum().totorch(), s1)
+        finally:
+            _chaos.clear()
+        check(runs["sum_c1_retried"]["retries"] == 1, "the upload fault "
+              "was retried %d times" % runs["sum_c1_retried"]["retries"])
+        check(torch.equal(clean.view(torch.int32),
+                          retried.view(torch.int32)),
+              "the retried sum is not bit-identical to the clean one")
+
+        os.environ["BOLT_CODEC_KERNEL"] = "1"
+        try:
+            run("int8_c1_armed", lambda: source1("int8").sum().totorch(), s1)
+            check(K.LAUNCHES["fused_decode_sum"] == s1, "the armed int8 "
+                  "sum launched fused_decode_sum %d times for %d slabs"
+                  % (K.LAUNCHES["fused_decode_sum"], s1))
+            run("int8_c1_filter", lambda: source1("int8").filter(
+                lambda v: v.mean() > 0).sum().totorch(), s1)
+            check(K.LAUNCHES["fused_decode_sum"] == s1, "an armed int8 "
+                  "sum under a filter launched fused_decode_sum")
+        finally:
+            os.environ.pop("BOLT_CODEC_KERNEL", None)
+    launches = dict(K.LAUNCHES)
+    out.update(errors=errs, launches=launches, kept=kept)
+    report["stages_phase"] = out
+    report["phases"]["stages_s"] = time.perf_counter() - t0
+    log("stages phase ok in %.1f s: %s" % (report["phases"]["stages_s"],
+                                            json.dumps(errs)))
+    log("phase 11 launches: %s" % json.dumps(launches))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2697,6 +3020,9 @@ def main():
 
     # ---- phase 10: the rest of the numpy surface ----------------------------
     numpy_tail_phase(bolt, torch, np, report)
+
+    # ---- phase 11: the streamed stages, groups, shuffle and retries --------
+    stages_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment

@@ -29,6 +29,14 @@ n = 7, 16 and 64 in f32/f64 against numpy f64, ``svdvals`` at a batch that
 takes the Jacobi route and under the chunk map's nested ``vmap`` with no
 host fallback, ``segment_reduce``'s two forms against each other, and
 ``topk``'s ties and NaNs and ``unique``'s NaN collapse.
+
+The streamed stages on the card: a filter, a chunked and a stacked map
+and a five-member stat group over a small stream (integer-valued f32, so
+sums are exact under any fold order: bit for bit against numpy; each
+group member bit for bit against its standalone streamed terminal), a
+resident and a spilled swap bit for bit against the materialised swap,
+and an injected upload fault retried on the card's copy streams with the
+same bits as the run with no fault.
 """
 
 import os
@@ -200,6 +208,7 @@ def test_stream_on_card(codec, monkeypatch):
         mean = bolt.fromcallback(lambda idx: x[idx], x.shape, dev,
                                  dtype=np.float32, chunks=8,
                                  codec=codec).map(lambda v: v * 2).mean()
+        mean = mean.toarray()           # read inside the uploaders scope
     want = x.astype(np.float64).sum(axis=0)
     if codec == "int8":
         assert K.LAUNCHES["fused_decode_sum"] == 8      # once a slab
@@ -209,8 +218,7 @@ def test_stream_on_card(codec, monkeypatch):
         assert K.LAUNCHES["fused_decode_sum"] == 0
         rtol = 1e-2 if codec == "bf16" else 1e-5
         np.testing.assert_allclose(got, want, rtol=rtol)
-        np.testing.assert_allclose(mean.toarray(), 2 * x.mean(axis=0),
-                                   rtol=rtol)
+        np.testing.assert_allclose(mean, 2 * x.mean(axis=0), rtol=rtol)
 
 
 def _mr_programs():
@@ -971,3 +979,103 @@ def test_fft_dtypes_on_card():
                                atol=1e-4)
     g64 = np.fft.rfft(bolt.array(xi.astype(np.float64), dev))
     assert g64.dtype == np.complex128
+
+
+def _int_stream_data(shape=(64, 16, 36), seed=11):
+    """Integer-valued f32: sums are exact in any order."""
+    return np.random.RandomState(seed).randint(-8, 9, size=shape).astype(
+        np.float32)
+
+
+@pytest.mark.gpu
+def test_streamed_stages_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import engine, stream
+    dev = _cuda()
+    x = _int_stream_data()
+
+    def src():
+        return bolt.fromcallback(lambda idx: x[idx], x.shape, dev,
+                                 dtype=np.float32, chunks=8)
+
+    with stream.uploaders(4):
+        f = src().map(lambda v: v + 1).filter(lambda v: v.mean() > 1)
+        assert f.streaming
+        keep = (x + 1)[(x + 1).reshape(64, -1).mean(1) > 1]
+        assert np.array_equal(f.sum().toarray(), keep.sum(0))
+        np.testing.assert_allclose(
+            src().map(lambda v: v + 1).filter(lambda v: v.mean() > 1)
+            .mean().toarray(), keep.mean(0), rtol=1e-6, atol=1e-6)
+        ch = src().chunk((4, 12)).map(lambda c: c * 2)
+        assert ch.unchunk().streaming
+        assert np.array_equal(ch.sum().toarray(), 2 * x.sum(0))
+        st = src().stacked(8).map(lambda blk: blk - blk.min(0)[0]).unstack()
+        assert st.streaming
+        blocks = x.reshape(8, 8, 16, 36)
+        assert np.array_equal(st.sum().toarray(),
+                              (blocks - blocks.min(1, keepdims=True))
+                              .reshape(x.shape).sum(0))
+        s = src()
+        c0 = engine.counters()["stream_chunks"]
+        names = ("sum", "mean", "var", "min", "max")
+        group = bolt.compute(*[getattr(s, n)() for n in names])
+        group = [g.toarray() for g in group]
+        assert engine.counters()["stream_chunks"] - c0 == 8   # one pass
+        for name, got in zip(names, group):
+            alone = getattr(src(), name)().toarray()
+            assert np.array_equal(got, alone), name
+        assert np.array_equal(group[0], x.sum(0))
+
+
+@pytest.mark.gpu
+def test_streamed_swap_resident_and_spilled_on_card(tmp_path):
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import checkpoint, engine, stream
+    dev = _cuda()
+    x = _int_stream_data((40, 12, 20))
+    want = bolt.array(x, context=dev).swap((0,), (0,)).toarray()
+    assert np.array_equal(want, np.transpose(x, (1, 0, 2)))
+
+    def src():
+        return bolt.fromcallback(lambda idx: x[idx], x.shape, dev,
+                                 dtype=np.float32, chunks=8)
+
+    with stream.uploaders(2):
+        res = src().swap((0,), (0,))
+        assert res.streaming
+        assert np.array_equal(res.toarray(), want)
+        c0 = engine.counters()
+        with stream.spill(dir=str(tmp_path), budget=1):
+            sp = src().swap((0,), (0,))
+            total = sp.sum().toarray()
+            assert sp.streaming             # phase 2 streams the buckets
+            assert np.array_equal(sp.toarray(), want)
+        assert engine.counters()["spill_bytes"] > c0["spill_bytes"]
+        assert np.array_equal(total, want.sum(0))
+    checkpoint.spill_clear(str(tmp_path))
+    assert not checkpoint.spill_pending(str(tmp_path))
+
+
+@pytest.mark.gpu
+def test_upload_fault_retried_on_card():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import _chaos, engine, stream
+    dev = _cuda()
+    x = np.random.RandomState(12).rand(64, 16, 36).astype(np.float32)
+
+    def run():
+        with stream.uploaders(4):
+            return bolt.fromcallback(lambda idx: x[idx], x.shape, dev,
+                                     dtype=np.float32, chunks=8).sum() \
+                .toarray()
+
+    clean = run()
+    _chaos.inject("stream.upload", nth=3)
+    try:
+        c0 = engine.counters()["stream_retries"]
+        with stream.retries(1):
+            got = run()
+    finally:
+        _chaos.clear()
+    assert engine.counters()["stream_retries"] - c0 == 1
+    assert np.array_equal(got.view(np.int32), clean.view(np.int32))

@@ -381,11 +381,23 @@ def test_filter_stat_of_a_chain_that_does_not_compile(mesh, monkeypatch,
 
 
 def test_streamed_source_filter_materialises():
+    # a streamed filter stays a lazy stage (this test's name is from
+    # before it was ported): its sum folds the mask slab by slab, with a
+    # dropped NaN record an inert zero; its shape or data materialise
     x = _x((12, 3, 4), seed=25).astype(np.float32)
+    x[5] = np.nan                             # dropped: sum() is NaN-free
+    pred = lambda v: v.sum() > 0              # noqa: E731
+    keep = x[np.nan_to_num(x.reshape(12, -1).sum(1), nan=-1.0) > 0]
     src = bolt.fromcallback(lambda idx: x[idx], x.shape, CPU,
                             dtype=np.float32, chunks=4)
-    out = src.filter(lambda v: v.sum() > 0)
-    assert np.array_equal(out.toarray(), x[x.reshape(12, -1).sum(1) > 0])
+    out = src.filter(pred)
+    assert out.streaming and out.pending is False
+    got = out.sum().toarray()
+    assert out.streaming                      # the sum streamed
+    np.testing.assert_allclose(got, keep.sum(0), rtol=1e-5, atol=1e-5)
+    assert not np.isnan(got).any()
+    assert np.array_equal(out.toarray(), keep)
+    assert not out.streaming                  # materialised by toarray
 
 
 # ---------------------------------------------------------------------------

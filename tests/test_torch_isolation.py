@@ -29,7 +29,8 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.obs.export", "bolt_tpu_torch._lockdep",
            "bolt_tpu_torch.gpu.stack", "bolt_tpu_torch.ops.linalg",
            "bolt_tpu_torch.ops.group", "bolt_tpu_torch.ops.hist",
-           "bolt_tpu_torch.gpu.npdispatch"]
+           "bolt_tpu_torch.gpu.npdispatch", "bolt_tpu_torch._chaos",
+           "bolt_tpu_torch.checkpoint", "bolt_tpu_torch.parallel.shuffle"]
 
 
 def _sources():
@@ -65,6 +66,14 @@ def test_imports_with_jax_blocked():
               "torch.device('cpu'), dtype=np.float32, chunks=2, "
               "codec='delta-f32').sum().toarray()\n"
             + "assert np.array_equal(t, x.sum(0))\n"
+            + "s = bolt_tpu_torch.fromcallback(lambda i: x[i], x.shape, "
+              "torch.device('cpu'), dtype=np.float32, chunks=2)\n"
+            + "assert np.array_equal(s.swap((0,), (0,)).toarray(), x.T)\n"
+            + "f = bolt_tpu_torch.fromcallback(lambda i: x[i], x.shape, "
+              "torch.device('cpu'), dtype=np.float32, chunks=2).filter("
+              "lambda v: v.sum() > 20)\n"
+            + "assert f.streaming and np.array_equal(f.sum().toarray(), "
+              "x[x.sum(1) > 20].sum(0))\n"
             + "assert not any(m == 'bolt_tpu' or m.startswith('bolt_tpu.')"
               " for m in sys.modules), 'reference package imported'\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -195,10 +195,24 @@ def test_grouped_blocks_equal_one_group(monkeypatch, records, mesh):
         .toarray())
 
 
-def test_streamed_source_refuses_until_ported():
-    x = np.arange(24.0).reshape(6, 4)
-    s = bolt.fromcallback(lambda i: x[i], x.shape, CPU, dtype=np.float64,
-                          chunks=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        s.stacked(2).map(lambda blk: blk * 2)
-    assert s.streaming                        # nothing materialised
+def test_streamed_source_refuses_until_ported(mesh):
+    # the streamed stacked stage (this test's name is from before it was
+    # ported): a slab of whole blocks streams, bit for bit against the
+    # reference's streamed stage; a misaligned slab materialises, with
+    # the same result
+    x = np.arange(48.0).reshape(12, 4)
+    zblock = lambda blk: blk - blk.mean(0)        # noqa: E731
+    want = ref.fromcallback(lambda i: x[i], x.shape, mesh, dtype=np.float64,
+                            chunks=4).stacked(2).map(zblock).unstack().sum()
+    for chunks, streams in ((4, True), (3, False)):
+        s = bolt.fromcallback(lambda i: x[i], x.shape, CPU,
+                              dtype=np.float64, chunks=chunks)
+        out = s.stacked(2).map(zblock).unstack() if chunks == 4 else \
+            s.stacked(4).map(zblock).unstack()
+        assert out.streaming is streams
+        assert s.streaming is streams         # misaligned: s materialised
+        if streams:
+            _same(out.sum().toarray(), want.toarray())
+        else:
+            assert np.array_equal(out.toarray(), bolt.array(x, CPU).stacked(
+                4).map(zblock).unstack().toarray())

@@ -278,7 +278,9 @@ def test_stream_is_lazy_until_a_terminal():
     assert calls == [] and mapped.streaming
     assert mapped.shape == SHAPE and mapped.dtype == np.float64
     assert "streaming" in repr(mapped)
-    mapped.sum()
+    total = mapped.sum()
+    assert calls == []              # the terminal is lazy too
+    total.cache()
     assert len(calls) == 4          # one call a slab
 
 
@@ -290,7 +292,9 @@ def test_materialisation_equals_local_oracle():
     assert np.array_equal(src.toarray(), want)
     assert not src.streaming        # adopted: a second read is resident
     assert np.array_equal(src.toarray(), want)
-    # swap, stats and chunk materialise first; only the residency differs
+    # a swap and a chunk().map() stay lazy stages of the stream until
+    # toarray() resolves them (the swap by the two-phase shuffle); the
+    # StatCounter form of stats() materialises the source first
     assert np.array_equal(_mine(data, 4).swap((0,), (0,)).toarray(),
                           np.transpose(data, (1, 0, 2)))
     st = _mine(data, 4).stats()
@@ -474,7 +478,7 @@ def test_armed_route_raises_when_the_kernel_fails(monkeypatch):
     monkeypatch.setattr(K, "fused_decode_sum", broken)
     monkeypatch.setenv("BOLT_CODEC_KERNEL", "1")
     with pytest.raises(RuntimeError, match="CUDA error 98"):
-        _mine(x, 8, codec="int8").sum()
+        _mine(x, 8, codec="int8").sum().cache()
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +489,7 @@ def test_counters_track_the_run():
     data = _intdata((40, V0, V1))
     c0 = engine.counters()
     with stream.uploaders(4), stream.prefetch(3):
-        _mine(data, 4).sum()
+        _mine(data, 4).sum().cache()
     c1 = engine.counters()
     assert c1["stream_chunks"] - c0["stream_chunks"] == 10
     assert c1["transfer_bytes"] - c0["transfer_bytes"] == data.nbytes
@@ -509,9 +513,9 @@ def test_pool_uploads_concurrently():
         return data[idx]
 
     with stream.uploaders(4):
-        got = bolt.fromcallback(fn, data.shape, CPU, dtype=np.float64,
-                                chunks=4).sum()
-    assert np.array_equal(_a(got), data.sum(axis=0))
+        got = _a(bolt.fromcallback(fn, data.shape, CPU, dtype=np.float64,
+                                   chunks=4).sum())
+    assert np.array_equal(got, data.sum(axis=0))
     assert engine.counters()["stream_upload_threads"] >= 4
 
 
@@ -551,7 +555,7 @@ def test_worker_failure_surfaces_original_and_joins_pool(nwork):
     with stream.uploaders(nwork):
         with pytest.raises(Boom, match="record 20"):
             bolt.fromcallback(fn, data.shape, CPU, dtype=np.float64,
-                              chunks=4).sum()
+                              chunks=4).sum().cache()
     assert len(stream._LAST_POOL) == nwork + 1
     assert not any(t.is_alive() for t in stream._LAST_POOL)
 
@@ -562,7 +566,7 @@ def test_iterator_failure_surfaces_original():
         raise KeyError("cursor lost")
 
     with pytest.raises(KeyError, match="cursor lost"):
-        bolt.fromiter(gen(), SHAPE, CPU, dtype=np.float64).sum()
+        bolt.fromiter(gen(), SHAPE, CPU, dtype=np.float64).sum().cache()
     assert not any(t.is_alive() for t in stream._LAST_POOL)
 
 
