@@ -22,7 +22,8 @@ instruments it and ``bolt_tpu_torch.obs`` traces it.
 This package imports torch and numpy only: never jax, never ``bolt_tpu``.
 """
 
-__version__ = "0.1.0"
+# the bolt-tpu distribution's version (pyproject.toml), which ships the port
+__version__ = "0.5.0"
 
 from bolt_tpu_torch._precision import accumulate, precision
 from bolt_tpu_torch.base import BoltArray, HostFallbackWarning
@@ -39,3 +40,16 @@ __all__ = ["array", "ones", "zeros", "full", "rand", "randn",
            "profile", "obs", "allclose", "precision", "accumulate",
            "compute", "BoltArray", "BoltArrayLocal", "BoltArrayGPU",
            "HostFallbackWarning", "__version__"]
+
+# the submodules ``bolt_tpu_torch.<name>`` reaches on first access, as the
+# reference's (its ``analysis`` and ``serve`` are not ported yet)
+_SUBMODULES = ("checkpoint", "engine", "obs", "profile", "parallel", "ops",
+               "statcounter", "stream", "utils")
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        import importlib
+        return importlib.import_module("bolt_tpu_torch." + name)
+    raise AttributeError("module 'bolt_tpu_torch' has no attribute %r"
+                         % (name,))

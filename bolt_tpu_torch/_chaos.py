@@ -5,8 +5,12 @@ call ``hit(point)`` at named seams — ``"stream.encode"`` (a slab's codec
 encode on an uploader worker), ``"stream.upload"`` (the top of the
 upload), ``"stream.dispatch"`` (the consumer, before each slab program),
 ``"stream.fold"`` (the final fold), ``"stream.shuffle"`` (before each
-re-bucket of a streamed swap) and ``"stream.spill"`` (before each spilled
-bucket write) — and this registry trips a chosen one deterministically:
+re-bucket of a streamed swap), ``"stream.spill"`` (before each spilled
+bucket write), ``"stream.checkpoint"`` (a stream checkpoint write's
+entry), ``"checkpoint.meta"`` (between its state rename and its meta
+rename) and ``"checkpoint.corrupt"`` (a tripped fault flips bytes of the
+state file just written) — and this registry trips a chosen one
+deterministically:
 
 >>> from bolt_tpu_torch import _chaos as chaos
 >>> chaos.inject("stream.upload", nth=3)          # 3rd upload raises
@@ -65,6 +69,9 @@ SEAMS = (
     "stream.fold",            # the final pairwise fold
     "stream.shuffle",         # before each shuffle re-bucket dispatch
     "stream.spill",           # before each spilled-bucket write
+    "stream.checkpoint",      # a stream checkpoint write's entry
+    "checkpoint.meta",        # between the state rename and the meta's
+    "checkpoint.corrupt",     # flips bytes of the state just written
 )
 
 

@@ -1,24 +1,47 @@
-"""Checkpoint files: the shuffle spill layer.
+"""Checkpoint files: bolt arrays, streamed runs, and the shuffle spill.
 
-Port of the spill half of ``bolt_tpu/checkpoint.py``.  When a streamed
-``swap`` plans a working set larger than its resident budget
-(``stream.spill``), phase 1 of the shuffle writes each re-keyed bucket
-to disk and phase 2 streams the buckets back as a fresh source.  Each
-file is written atomically (a temporary file, then a rename) and
-describes itself: its codec, dtype, shape and global row offset ride
-inside.  The working directory is named by a digest of the run's
-fingerprint, so a run only ever adopts its own spill: another
-pipeline's leftovers hash to another directory.
+Port of ``bolt_tpu/checkpoint.py``, single process only, in three parts:
 
-Integer and bool buckets are dictionary-coded (``gpu/codec.py``'s
-``"dict"``: uint8 indices and a 256-entry dictionary) when the bucket
-has at most 256 distinct values, and stored raw otherwise; the choice is
-recorded in the file, so decoding never guesses.  Completion is tracked
-per input slab in a manifest, marked only after every bucket of the
-slab landed.
+* **arrays** (:func:`save`/:func:`load`): the reference's one-process
+  ``"format": "npy"`` layout, ``bolt_meta.json`` (split, shape, dtype,
+  format) beside ``array.npy`` written atomically (a temporary file, then
+  a rename).  The reference writes orbax's sharded format when orbax is
+  installed; orbax imports jax, so the port reads and writes ``npy``
+  only and refuses an orbax directory pointedly.  numpy has no
+  bfloat16, and the port's arrays hold numpy dtypes, so a reference
+  checkpoint of a bfloat16 array (its 2-byte patterns, ``V2``) is
+  refused pointedly;
 
-The array ``save``/``load`` and the stream checkpoints
-(``stream_save``/``stream_load``) are not ported yet (ROADMAP A9).
+  >>> from bolt_tpu_torch import checkpoint
+  >>> checkpoint.save("/tmp/ckpt", b)
+  >>> b2 = checkpoint.load("/tmp/ckpt", context=torch.device("cuda", 0))
+
+* **streamed runs** (:func:`stream_save`/:func:`stream_load`/
+  :func:`stream_clear`/:func:`stream_pending`): a run's retired-slab
+  watermark and its folded partial (the pairwise-tree levels and the
+  unpaired pair partial: sum/reduce tensors, ``(n, mu, M2)`` moment
+  triples, multi-stat component tuples), so a killed run restarted over
+  the same source resumes from its last retired slab with a result equal
+  to the uninterrupted run's bit for bit (``bolt_tpu_torch.stream`` owns
+  the resume).  A bfloat16 leaf is stored as its 2-byte patterns
+  (``V2``, as the reference's ``np.save`` of one writes it) and its node
+  says so, so it round-trips bit for bit.  The state file is written
+  and renamed first and the meta second; the meta carries a digest of
+  the state and the state carries the watermark, so a torn pair or a
+  rotten file is refused, never adopted.  Pod checkpoints (one shard
+  file per process) wait for multi-GPU support (ROADMAP A12);
+* **the shuffle spill**: when a streamed ``swap`` plans a working set
+  larger than its resident budget (``stream.spill``), phase 1 of the
+  shuffle writes each re-keyed bucket to disk and phase 2 streams the
+  buckets back as a fresh source.  Each file is written atomically and
+  describes itself: its codec, dtype, shape and global row offset ride
+  inside.  The working directory is named by a digest of the run's
+  fingerprint, so a run only ever adopts its own spill.  Integer and
+  bool buckets are dictionary-coded (``gpu/codec.py``'s ``"dict"``) when
+  they have at most 256 distinct values, and stored raw otherwise; the
+  choice is recorded in the file.  Completion is tracked per input slab
+  in a manifest, marked only after every bucket of the slab landed.
+
 Standard library, numpy and torch only.
 """
 
@@ -30,15 +53,322 @@ import shutil
 
 import numpy as np
 
+from bolt_tpu_torch import _chaos
+
 # one process on one card: the file names keep the reference's
 # per-process suffix
 _PROCESS = 0
 
+_POD = ("pod checkpoints (one shard file per process) are not ported "
+        "yet: multi-GPU runs come with ROADMAP A12")
+
 
 class CheckpointCorruptError(RuntimeError):
-    """A checkpoint or spill file is missing where its manifest says it
-    was written, or unreadable (truncation, a torn storage layer): the
-    message names the file; clear the directory and run again."""
+    """A checkpoint or spill file is unreadable or fails its digest (bit
+    rot, truncation, a torn storage layer), or a spill file is missing
+    where its manifest says it was written: the message names the file;
+    delete it (or the directory) to start the run from scratch."""
+
+
+# ---------------------------------------------------------------------
+# arrays
+# ---------------------------------------------------------------------
+
+def _npy_path(path):
+    return os.path.join(path, "array.npy")
+
+
+def _meta_path(path):
+    return os.path.join(path, "bolt_meta.json")
+
+
+def _host(t):
+    """A tensor as a host numpy array; a bfloat16 one as its 2-byte
+    patterns (``V2``: numpy has no bfloat16)."""
+    import torch
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return np.ascontiguousarray(t.view(torch.int16).cpu().numpy()
+                                    ).view("V2")
+    return np.ascontiguousarray(t.cpu().numpy())
+
+
+def _tensor(a, dtype):
+    """A host array read back as a CPU tensor of numpy-or-bfloat16
+    ``dtype`` (the name :func:`_host` wrote beside it)."""
+    import torch
+    if str(dtype) == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(
+        a.astype(np.dtype(dtype), copy=False)))
+
+
+def save(path, barray, force=True):
+    """Write a ``mode='gpu'`` bolt array (its data and its split, shape
+    and dtype) under the directory ``path`` in the ``npy`` format: the
+    array copied to the host once and written atomically, the meta
+    after it.  A deferred chain is materialised first.  ``force`` is the
+    reference's overwrite flag; the atomic rename always replaces."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    if not isinstance(barray, BoltArrayGPU):
+        raise TypeError("checkpoint.save expects a mode='gpu' array; "
+                        "got %r" % type(barray).__name__)
+    os.makedirs(path, exist_ok=True)
+    host = _host(barray._data)
+    tmp = _npy_path(path) + ".tmp"
+    with open(tmp, "wb") as f:       # np.save(path) would append ".npy"
+        np.save(f, host)
+    os.replace(tmp, _npy_path(path))
+    meta = {"split": barray.split, "shape": list(barray.shape),
+            "dtype": str(barray.dtype), "format": "npy"}
+    tmp = _meta_path(path) + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, _meta_path(path))
+
+
+def load(path, context=None):
+    """Restore an array :func:`save` wrote (or the reference's ``npy``
+    format) onto ``context``'s device (default ``cuda:0``), through the
+    counted transfer.  An orbax directory raises: the port reads the
+    ``npy`` format only."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.gpu.construct import resolve_device
+    from bolt_tpu_torch.stream import transfer
+    with open(_meta_path(path)) as f:
+        meta = json.load(f)
+    if meta.get("format", "npy") != "npy" or not os.path.exists(
+            _npy_path(path)):
+        raise ValueError(
+            "checkpoint %r is in the %r format; bolt_tpu_torch reads the "
+            "single-process 'npy' format only (the reference writes it "
+            "when orbax is not importable)" % (path, meta.get("format")))
+    if meta["dtype"] == "bfloat16":
+        raise TypeError(
+            "checkpoint %r holds a bfloat16 array; bolt_tpu_torch's arrays "
+            "hold numpy dtypes, which have no bfloat16 (its bits are "
+            "np.load(...).view(np.uint16))" % path)
+    device = resolve_device(context)
+    host = _tensor(np.load(_npy_path(path)), meta["dtype"])
+    if tuple(host.shape) != tuple(meta["shape"]):
+        raise CheckpointCorruptError(
+            "checkpoint array %r has shape %s, its meta says %s"
+            % (_npy_path(path), tuple(host.shape), tuple(meta["shape"])))
+    return BoltArrayGPU(transfer(host, device), int(meta["split"]), device)
+
+
+# ---------------------------------------------------------------------
+# streamed runs
+# ---------------------------------------------------------------------
+#
+# On disk: <dir>/stream_state.npz (the partial's leaves and the
+# watermark) and <dir>/stream_meta.json (fingerprint, watermark, leaf
+# structure, digest).  The meta is the checkpoint's existence: the state
+# is replaced first and the meta second, both by an atomic rename, so a
+# kill -9 at any instant leaves the previous checkpoint or the new one,
+# never a meta naming torn state.
+
+_STATE_NAME = "stream_state.npz"
+_SMETA_NAME = "stream_meta.json"
+
+
+def _state_path(path):
+    return os.path.join(path, _STATE_NAME)
+
+
+def _smeta_path(path):
+    return os.path.join(path, _SMETA_NAME)
+
+
+def _encode(obj, leaves):
+    """The structure of one fold-state node: ``None`` passes through,
+    lists and tuples recurse (tagged, so decoding rebuilds the same
+    container), a tensor or array lands in ``leaves`` as a host array
+    (a bfloat16 leaf as its bits, its node saying so)."""
+    import torch
+    if obj is None:
+        return None
+    if isinstance(obj, list):
+        return {"l": [_encode(x, leaves) for x in obj]}
+    if isinstance(obj, tuple):
+        return {"t": [_encode(x, leaves) for x in obj]}
+    if isinstance(obj, torch.Tensor):
+        leaves.append(_host(obj))
+        node = {"a": len(leaves) - 1}
+        if obj.dtype == torch.bfloat16:
+            node["dtype"] = "bfloat16"
+        return node
+    leaves.append(np.asarray(obj))
+    return {"a": len(leaves) - 1}
+
+
+def _decode(node, leaves):
+    """The fold state :func:`_encode` described, its leaves CPU tensors
+    in their dtypes."""
+    if node is None:
+        return None
+    if "l" in node:
+        return [_decode(x, leaves) for x in node["l"]]
+    if "t" in node:
+        return tuple(_decode(x, leaves) for x in node["t"])
+    a = leaves[node["a"]]
+    return _tensor(a, node.get("dtype", a.dtype))
+
+
+def _state_digest(slabs, records, leaves):
+    """Content hash of one checkpoint's state: the watermark and every
+    leaf's shape, dtype and bytes.  :func:`stream_save` records it in the
+    meta and :func:`stream_load` checks it."""
+    h = hashlib.sha256()
+    h.update(np.asarray([int(slabs), int(records)],
+                        dtype=np.int64).tobytes())
+    for leaf in leaves:
+        arr = np.ascontiguousarray(leaf)
+        h.update(repr((arr.shape, str(arr.dtype))).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def stream_save(path, fingerprint, slabs, records, state,
+                multiprocess=False, codec=None):
+    """Write one streamed-run checkpoint: ``slabs`` retired slabs covering
+    ``records`` records, ``state`` the executor's folded partial
+    (``(levels, pend)``; tensors on any device are copied to the host
+    here).  ``fingerprint`` names the logical run; :func:`stream_load`
+    ignores a checkpoint of another one.  ``codec`` records the run's
+    ingest codec in the meta (the fingerprint holds it too).  Returns
+    the state's byte count (the ``checkpoint_bytes`` tally).
+
+    The seams of :mod:`bolt_tpu_torch._chaos`: ``stream.checkpoint`` on
+    entry, ``checkpoint.corrupt`` (a tripped fault flips four bytes of
+    the state file just written) and ``checkpoint.meta`` between the
+    state's rename and the meta's."""
+    if multiprocess:
+        raise NotImplementedError(_POD)
+    _chaos.hit("stream.checkpoint")
+    os.makedirs(path, exist_ok=True)
+    leaves = []
+    structure = _encode(state, leaves)
+    arrays = {"leaf_%d" % i: leaf for i, leaf in enumerate(leaves)}
+    # the watermark rides in the state file too: a kill between the two
+    # renames leaves the old meta beside the new state, and stream_load
+    # refuses that pair instead of folding slabs twice
+    arrays["watermark"] = np.asarray([int(slabs), int(records)],
+                                     dtype=np.int64)
+    spath = _state_path(path)
+    tmp = spath + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, spath)
+    try:
+        _chaos.hit("checkpoint.corrupt")
+    except _chaos.ChaosError:
+        with open(spath, "r+b") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() // 2))
+            f.write(b"\xde\xad\xbe\xef")
+    meta = {"fingerprint": list(fingerprint), "slabs": int(slabs),
+            "records": int(records), "structure": structure,
+            "leaves": len(leaves), "nproc": 1,
+            "digest": _state_digest(slabs, records, leaves)}
+    if codec is not None:
+        meta["codec"] = str(codec)
+    _chaos.hit("checkpoint.meta")
+    tmp = _smeta_path(path) + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, _smeta_path(path))
+    return sum(int(leaf.nbytes) for leaf in leaves)
+
+
+def _read_meta(path):
+    try:
+        with open(_smeta_path(path)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def stream_load(path, fingerprint, multiprocess=False):
+    """The checkpoint :func:`stream_save` wrote, as ``(slabs, records,
+    state)`` with CPU tensor leaves, or ``None`` when there is none, its
+    fingerprint names another run (an edited pipeline, another codec, a
+    reference checkpoint), or its meta and state come from different
+    writes (a kill between the two renames).  A state file that exists
+    but cannot be read, or fails the meta's digest, raises
+    :class:`CheckpointCorruptError`."""
+    if multiprocess:
+        raise NotImplementedError(_POD)
+    meta = _read_meta(path)           # None when missing or malformed
+    if meta is None:
+        return None
+    if list(meta.get("fingerprint", ())) != list(fingerprint):
+        return None
+    if int(meta.get("nproc", 1)) != 1:
+        raise NotImplementedError(_POD)
+    spath = _state_path(path)
+    corrupt = (
+        "stream checkpoint state file %r is corrupt (%%s); refusing to "
+        "seed the fold with it — delete the file (or the whole "
+        "checkpoint directory) to restart the run from scratch" % spath)
+    try:
+        z = np.load(spath)
+    except FileNotFoundError:
+        return None
+    except Exception as exc:        # noqa: BLE001 — an existing state file
+        # that does not open is rot or truncation (writes are atomic)
+        raise CheckpointCorruptError(
+            corrupt % ("unreadable npz: %s" % exc)) from exc
+    try:
+        try:
+            wm = z["watermark"]
+        except Exception as exc:    # noqa: BLE001
+            raise CheckpointCorruptError(
+                corrupt % ("watermark unreadable: %s" % exc)) from exc
+        if int(wm[0]) != int(meta["slabs"]) \
+                or int(wm[1]) != int(meta["records"]):
+            return None             # meta and state of different writes
+        try:
+            leaves = [np.asarray(z["leaf_%d" % i])
+                      for i in range(int(meta["leaves"]))]
+        except Exception as exc:    # noqa: BLE001 — same write as the
+            # watermark that matched: an unreadable leaf is corruption
+            raise CheckpointCorruptError(
+                corrupt % ("leaf unreadable: %s" % exc)) from exc
+    finally:
+        z.close()
+    want = meta.get("digest")
+    if want is not None and _state_digest(
+            meta["slabs"], meta["records"], leaves) != want:
+        raise CheckpointCorruptError(
+            corrupt % "content digest mismatch vs the meta record")
+    return (int(meta["slabs"]), int(meta["records"]),
+            _decode(meta["structure"], leaves))
+
+
+def stream_clear(path, multiprocess=False):
+    """Remove a directory's stream checkpoint (a finished run leaves none
+    behind): the meta first, then the state, the reverse of the write
+    order, so an interrupted clear never leaves a meta naming a missing
+    state."""
+    if multiprocess:
+        raise NotImplementedError(_POD)
+    for p in (_smeta_path(path), _state_path(path)):
+        try:
+            os.remove(p)
+        except FileNotFoundError:
+            pass
+
+
+def stream_pending(path):
+    """Does ``path`` hold a resumable stream checkpoint?"""
+    return os.path.exists(_smeta_path(path))
+
+
+# ---------------------------------------------------------------------
+# the shuffle spill
+# ---------------------------------------------------------------------
 
 
 def _spill_root(path, fingerprint):

@@ -110,8 +110,9 @@ _SCHEMA = {
     "stream_inflight_high_water": 0,  # high-water slab partials
     #                                   dispatched but not yet confirmed
     # slab ingests, dispatches, re-buckets and spill writes retried in
-    # place (stream.retries); resumes and checkpoints: 0 until the
-    # stream's checkpoints are ported
+    # place (stream.retries); streamed runs (and spilled shuffles)
+    # resumed from a checkpoint, and the stream checkpoints written
+    # (stream.resumable: state bytes and write seconds)
     "stream_retries": 0,
     "stream_resumes": 0,
     "checkpoint_bytes": 0,
@@ -423,6 +424,19 @@ def record_shuffle(nbytes, seconds):
 def record_spill(nbytes):
     """Tally one spilled shuffle bucket's file bytes."""
     _COUNTERS.update(spill_bytes=int(nbytes))
+
+
+def record_stream_resume():
+    """Tally one streamed run (or spilled shuffle) resumed from a
+    checkpoint."""
+    _COUNTERS.add("stream_resumes")
+
+
+def record_checkpoint(nbytes, seconds):
+    """Tally one stream-checkpoint write (the timeline carries it as the
+    ``stream.checkpoint`` span)."""
+    _COUNTERS.update(checkpoint_bytes=int(nbytes),
+                     checkpoint_seconds=seconds)
 
 
 def record_stream_retry():

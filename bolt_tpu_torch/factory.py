@@ -88,32 +88,36 @@ def rand(shape, context=None, axis=(0,), mode=None, dtype=None, seed=0):
 
 
 def fromcallback(fn, shape, context=None, axis=(0,), mode=None, dtype=None,
-                 chunks=None, codec=None):
+                 chunks=None, checkpoint=None, codec=None):
     """Build a bolt array by calling ``fn(index_slices) -> block`` per
     record range (reference: ``bolt_tpu/factory.py :: fromcallback``).
     ``mode='gpu'`` with an explicit ``dtype``: a LAZY stream whose
     reduction terminals run slab by slab through the out-of-core executor
     (``bolt_tpu_torch.stream``; ``chunks`` records a slab, ``codec=`` an
-    ingest codec); other consumers materialise it.  Local mode: one call
-    for the whole array."""
+    ingest codec, ``checkpoint=dir`` makes every streamed run over it
+    resumable, see ``stream.resumable``); other consumers materialise
+    it.  Local mode: one call for the whole array."""
     cls = _lookup(context=context, mode=mode)
     if cls is ConstructLocal:
         return ConstructLocal.fromcallback(fn, shape, axis=axis, dtype=dtype)
     return ConstructGPU.fromcallback(fn, shape, context=context, axis=axis,
-                                     dtype=dtype, chunks=chunks, codec=codec)
+                                     dtype=dtype, chunks=chunks,
+                                     checkpoint=checkpoint, codec=codec)
 
 
 def fromiter(blocks, shape, context=None, axis=(0,), mode=None, dtype=None,
-             codec=None):
+             checkpoint=None, codec=None):
     """Build a bolt array from an ITERABLE of consecutive record blocks
     (key-axes-first layout along the first key axis); ``dtype`` is
-    required.  ``mode='gpu'``: a lazy stream like :func:`fromcallback`'s;
+    required.  ``mode='gpu'``: a lazy stream like :func:`fromcallback`'s
+    (a resumable one re-iterates ``blocks``, so it must be re-iterable);
     local mode assembles the blocks on the host."""
     cls = _lookup(context=context, mode=mode)
     if cls is ConstructLocal:
         return ConstructLocal.fromiter(blocks, shape, axis=axis, dtype=dtype)
     return ConstructGPU.fromiter(blocks, shape, context=context, axis=axis,
-                                 dtype=dtype, codec=codec)
+                                 dtype=dtype, checkpoint=checkpoint,
+                                 codec=codec)
 
 
 def concatenate(arrays, axis=0, context=None, mode=None):

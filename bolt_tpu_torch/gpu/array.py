@@ -116,11 +116,14 @@ def numpy_dtype(dtype):
 
 
 def _traceable(func):
-    """Translate a NumPy ufunc to its torch twin (``np.add`` → ``torch.add``,
-    ``np.maximum`` → ``torch.maximum``) so reference user code
-    (``b.reduce(np.maximum)``) runs on the card; other callables pass
-    through."""
+    """Translate a NumPy ufunc to its torch twin (``np.add`` → ``torch.add``)
+    so reference user code (``b.reduce(np.maximum)``) runs on the card;
+    the orderings (``np.maximum``, ``np.minimum``, ``np.fmax``,
+    ``np.fmin``) to ``gpu/ufuncs.py``'s, which order complex numbers and
+    the unsigned carriers as numpy does.  Other callables pass through."""
     if isinstance(func, np.ufunc):
+        if func.__name__ in ufuncs.ORDERING_FNS:
+            return ufuncs.ORDERING_FNS[func.__name__]
         tf = getattr(torch, func.__name__, None)
         if tf is not None:
             return tf
@@ -140,6 +143,21 @@ _TRACE_MESSAGES = ("vmap: It looks like you're",
 def _is_trace_error(exc):
     return isinstance(exc, (RuntimeError, TypeError)) and \
         str(exc).startswith(_TRACE_MESSAGES)
+
+
+def _raise_callable_bug(op, func, exc, vshape):
+    """Raise the error of a bug in the user callable ``func`` that shape
+    inference on a ``vshape`` record met: torch's ``RuntimeError`` (a bad
+    reshape, mismatched shapes) as the reference's ``TypeError``, chained
+    to it, with a message that names the record's shape and not vmap's
+    batched one; any other error as it is."""
+    if not isinstance(exc, RuntimeError):
+        raise exc
+    raise TypeError(
+        "%s: the callable %r fails on a record of shape %s (%s; torch's "
+        "error is chained below)" % (op, getattr(func, "__name__", func),
+                                     tuple(vshape), type(exc).__name__)
+    ) from exc
 
 
 def _warn_fallback(op, func, exc):
@@ -368,6 +386,23 @@ class _WithKeysFunc:
         self.func = func
 
 
+def _user_call(call, args):
+    """``call(*args)`` of a user callable.  Where torch has no kernel for
+    an unsigned argument's dtype, ``call`` runs again on the arguments'
+    carriers (``gpu/dtypes.py``), and its result takes back the dtype
+    ``call`` gives on meta tensors of the arguments' own dtypes."""
+    try:
+        return call(*args)
+    except NotImplementedError as exc:
+        if not dtypes.missing_unsigned_kernel(exc, args):
+            raise
+    want = call(*[a.to("meta") if isinstance(a, torch.Tensor) else a
+                  for a in args]).dtype
+    out = call(*[dtypes.carry(a) if isinstance(a, torch.Tensor) else a
+                 for a in args])
+    return dtypes.uncarry(out, want)
+
+
 def _chain_apply(funcs, split, data, kshape=None, start=0):
     """Apply a deferred map chain: each func nested-vmapped over the
     ``split`` leading key axes, in order; ``with_keys`` entries vmap over
@@ -388,13 +423,13 @@ def _chain_apply(funcs, split, data, kshape=None, start=0):
             def one(v, *k, _f=func.func):
                 return _f((tuple(k), v))
 
-            res = vmap(one)(flat, *keys)
+            res = _user_call(vmap(one), (flat, *keys))
             out = res.reshape(ks + tuple(res.shape[1:]))
             continue
         f = func
         for _ in range(split):
             f = vmap(f)
-        out = f(out)
+        out = _user_call(f, (out,))
     return out
 
 
@@ -407,7 +442,7 @@ def _reduce_tree(data, func, n, vshape):
     vfunc = vmap(func)
     while x.shape[0] > 1:
         half = x.shape[0] // 2
-        combined = vfunc(x[:half], x[half:2 * half])
+        combined = _user_call(vfunc, (x[:half], x[half:2 * half]))
         rem = x[2 * half:]
         x = torch.cat([combined, rem], dim=0) if rem.shape[0] else combined
     out = x[0]
@@ -426,16 +461,35 @@ def _reduce_stat(x, name, axes, keepdims, ddof, dtype):
         x, axes = x.unsqueeze(0), (0,)
         keepdims = False
     dims = tuple(axes)
-    # torch has no uint64 sum or product: accumulate in int64, which wraps
-    # modulo 2**64 alike, and cast at the end
-    acc_dt = torch.int64 if out_dt == torch.uint64 else out_dt
+    # the unsigned dtypes torch leaves out reduce in their carriers
+    # (gpu/dtypes.py): sums and products wrap modulo 2**bits alike, and
+    # the extrema of uint64 order its sign-flipped bits
+    acc_dt = dtypes.carrier(out_dt)
+    if name in ("max", "min", "ptp") and x.is_complex():
+        raise TypeError("%s of a complex array is not supported (the "
+                        "reference refuses it too); order by np.sort or "
+                        "reduce(np.maximum), which take numpy's order"
+                        % name)
+    if name in ("max", "min", "ptp") and dtypes.carried(x.dtype):
+        c = dtypes.carry(x, ordered=True)
+        hi = dtypes.uncarry(torch.amax(c, dim=dims, keepdim=keepdims),
+                            x.dtype, ordered=True)
+        lo = dtypes.uncarry(torch.amin(c, dim=dims, keepdim=keepdims),
+                            x.dtype, ordered=True)
+        if name != "ptp":
+            return hi if name == "max" else lo
+        return dtypes.uncarry(dtypes.carry(hi) - dtypes.carry(lo), x.dtype)
+    if name in ("sum", "prod"):
+        x = dtypes.carry(x)
     if name == "sum":
         out = torch.sum(x, dim=dims, keepdim=keepdims, dtype=acc_dt)
     elif name == "mean":
         out = torch.mean(x.to(out_dt), dim=dims, keepdim=keepdims)
     elif name in ("var", "std"):
+        # a complex array's variance is real: torch's var of the complex
+        # values, not of their real parts
         op = torch.var if name == "var" else torch.std
-        out = op(x.to(out_dt), dim=dims, keepdim=keepdims,
+        out = op(x.to(dtypes.inexact(x.dtype)), dim=dims, keepdim=keepdims,
                  correction=0 if ddof is None else ddof)
     elif name == "max":
         out = torch.amax(x, dim=dims, keepdim=keepdims)
@@ -466,8 +520,8 @@ def _pred_mask(pred, flat):
     """The filter predicate as a bool mask over the flattened records —
     the reference's ONE coercion rule (``asarray(..., bool).reshape(())``
     per record), shared by the resolution and the fused terminals."""
-    return vmap(lambda v: _as_tensor(pred(v), flat.device).to(
-        torch.bool).reshape(()))(flat).contiguous()
+    return _user_call(vmap(lambda v: _as_tensor(pred(v), flat.device).to(
+        torch.bool).reshape(())), (flat,)).contiguous()
 
 
 def _identity(name, dtype):
@@ -491,10 +545,23 @@ def _identity(name, dtype):
 # a byte (tools/block_probe.py)
 _BLOCK_BYTES = 768 << 20
 
+def _carried_pair(fn, ordered=False):
+    """The binary ``fn`` computed in the carrier of its operands' dtype
+    (``gpu/dtypes.py``) where torch leaves that dtype out."""
+    def f(a, b):
+        if not dtypes.carried(a.dtype):
+            return fn(a, b)
+        return dtypes.uncarry(fn(dtypes.carry(a, ordered),
+                                 dtypes.carry(b, ordered)), a.dtype, ordered)
+    return f
+
+
 # how the partials of one block's masked reduction join the others'
-_COMBINE = {"sum": torch.add, "prod": torch.mul, "any": torch.logical_or,
-            "all": torch.logical_and, "max": torch.maximum,
-            "min": torch.minimum}
+_COMBINE = {"sum": _carried_pair(torch.add),
+            "prod": _carried_pair(torch.mul), "any": torch.logical_or,
+            "all": torch.logical_and,
+            "max": _carried_pair(torch.maximum, ordered=True),
+            "min": _carried_pair(torch.minimum, ordered=True)}
 
 
 def _block_records(rec_bytes):
@@ -712,10 +779,11 @@ def _chain_values(base, funcs, split, shape, dtype, inplace=False):
 
 def _wide(dtype):
     """The dtype a block partial accumulates in: f32 for the half
-    floats, int64 for uint64 (torch has no uint64 sum), else ``dtype``."""
+    floats, the carrier of an unsigned dtype torch leaves out, else
+    ``dtype``."""
     if dtype in (torch.float16, torch.bfloat16):
         return torch.float32
-    return torch.int64 if dtype == torch.uint64 else dtype
+    return dtypes.carrier(dtype)
 
 
 def _block_partial(recs, name, dims, dtype):
@@ -728,13 +796,14 @@ def _block_partial(recs, name, dims, dtype):
         return _reduce_stat(recs, name, dims, False, None, dtype)
     acc = _wide(out_dt)
     if name == "sum":
-        return torch.sum(recs, dim=dims, dtype=acc)
+        return torch.sum(dtypes.carry(recs), dim=dims, dtype=acc)
     if name == "prod":
-        out = recs
+        out = dtypes.carry(recs)
         for d in sorted(dims, reverse=True):
             out = torch.prod(out, dim=d, dtype=acc)
         return out
-    x = recs.to(out_dt).to(acc)
+    x = recs.to(dtypes.inexact(recs.dtype))
+    x = x.to(_wide(x.dtype))
     count = prod([recs.shape[d] for d in dims])
     if name == "mean":
         return count, torch.sum(x, dim=dims)
@@ -849,7 +918,7 @@ def _chain_stat(base, funcs, split, shape, dtype, name, axes, keepdims,
         mx, mn = _chain_stats(base, funcs, split, shape, dtype,
                               [("max", axes, keepdims, None),
                                ("min", axes, keepdims, None)])
-        return mx - mn
+        return ufuncs.binary("subtract", mx, mn)
     return _chain_stats(base, funcs, split, shape, dtype,
                         [(name, axes, keepdims, ddof)])[0]
 
@@ -1266,7 +1335,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                 split if with_keys else None)
         except (RuntimeError, TypeError) as exc:
             if not _is_trace_error(exc):
-                raise
+                _raise_callable_bug("map", func, exc, vshape)
             _warn_fallback("map", func, exc)
             local = aligned.tolocal().map(
                 func, axis=tuple(range(split)), value_shape=value_shape,
@@ -1327,7 +1396,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             pshape = _infer_pred(func, vshape, torch_dtype(aligned.dtype))
         except (RuntimeError, TypeError) as exc:
             if not _is_trace_error(exc):
-                raise
+                _raise_callable_bug("filter", func, exc, vshape)
             _warn_fallback("filter", func, exc)
             local = aligned.tolocal().filter(func, axis=tuple(range(split)))
             return self._wrap(_upload(np.asarray(local), self._device), 1)
@@ -1431,7 +1500,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             _check_reducer(func, vshape, torch_dtype(self.dtype))
         except (RuntimeError, TypeError) as exc:
             if not _is_trace_error(exc):
-                raise
+                _raise_callable_bug("reduce", func, exc, vshape)
             return NotImplemented        # the host fallback path resolves
         self._guard_donated()
         donate = _chain_donate_ok(self._fpending)   # [0] is the base
@@ -1484,7 +1553,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             _check_reducer(func, vshape, torch_dtype(aligned.dtype))
         except (RuntimeError, TypeError) as exc:
             if not _is_trace_error(exc):
-                raise
+                _raise_callable_bug("reduce", func, exc, vshape)
             _warn_fallback("reduce", func, exc)
             out = aligned.tolocal().reduce(
                 func, axis=tuple(range(split)), keepdims=keepdims)

@@ -144,7 +144,7 @@ class ConstructGPU:
 
     @staticmethod
     def fromcallback(fn, shape, context=None, axis=(0,), dtype=None,
-                     chunks=None, codec=None):
+                     chunks=None, checkpoint=None, codec=None):
         """Build an array by calling ``fn(index)`` per record range, with
         ``index`` a tuple of per-axis slices of the KEY-AXES-FIRST
         ``shape`` (reference: ``ConstructTPU.fromcallback``).
@@ -155,7 +155,8 @@ class ConstructGPU:
         (``chunks`` records a slab, default a ``BOLT_STREAM_SLAB_BYTES``
         budget of 64 MiB), any other consumer materialises it.
         ``codec=`` names an ingest codec (``bolt_tpu_torch.gpu.codec``)
-        for the streamed runs.  ``dtype=None`` keeps whatever the callback
+        for the streamed runs; ``checkpoint=dir`` makes them resumable
+        (``bolt_tpu_torch.stream.resumable``).  ``dtype=None`` keeps whatever the callback
         produces and uploads at once, from one call over the whole
         array."""
         from bolt_tpu_torch.gpu.array import BoltArrayGPU
@@ -165,7 +166,9 @@ class ConstructGPU:
         if explicit:
             from bolt_tpu_torch.stream import StreamSource
             src = StreamSource.from_callback(fn, shape, split, dtype, device,
-                                             chunks=chunks, codec=codec)
+                                             chunks=chunks,
+                                             checkpoint=checkpoint,
+                                             codec=codec)
             return BoltArrayGPU._streamed(src)
         from bolt_tpu_torch.stream import transfer
         index = tuple(slice(0, n) for n in shape)
@@ -178,7 +181,7 @@ class ConstructGPU:
 
     @staticmethod
     def fromiter(blocks, shape, context=None, axis=(0,), dtype=None,
-                 codec=None):
+                 checkpoint=None, codec=None):
         """A lazy stream over an ITERABLE of consecutive record blocks
         (key-axes-first layout, concatenated along the first key axis;
         together they must cover ``shape``), the sequential twin of
@@ -194,7 +197,7 @@ class ConstructGPU:
         device, shape, split, _ = ConstructGPU._device_build_spec(
             shape, context, axis, dtype)
         src = StreamSource.from_iter(blocks, shape, split, dtype, device,
-                                     codec=codec)
+                                     checkpoint=checkpoint, codec=codec)
         return BoltArrayGPU._streamed(src)
 
     @staticmethod

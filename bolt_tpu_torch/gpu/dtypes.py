@@ -16,6 +16,26 @@ port takes, with no jax import:
 
 So ``int32 * 2.5`` is float64 (weak float), but ``int32 / 2`` and
 ``int32 + np.float32(1.5)`` are float32, and the mean of int32 is float32.
+``var``/``std`` of a complex array are real (float32 for complex64).
+
+torch leaves out most kernels of ``uint16``, ``uint32`` and ``uint64``
+(``add``, the comparisons, ``amax``, ``cumsum``, ...).  Those dtypes
+compute in a signed CARRIER (:func:`carry`) and hand the reference's
+dtype back (:func:`uncarry`): ``uint16`` widens to int32 and ``uint32``
+to int64 by value; ``uint64`` is read as int64 bits, which wrap alike
+for ``+``, ``-`` and ``*``, and for an ordering (comparisons,
+``min``/``max``, sorts, ``argmax``, ``clip``) its sign bit is flipped
+so that the signed order is the unsigned one.
+
+Inside a user callable the rules are torch's, not jnp's (a callable
+is torch code): an ``int32`` record minus ``0.25`` is float32 there,
+where the reference gives float64, and ``Tensor.mean()`` refuses an
+integer record, so ``filter(lambda v: v.mean() > 0)`` raises on an
+integer array.  A callable on unsigned records runs on the records'
+own dtype; where torch has no kernel for it, it runs again on their
+carriers and its result takes the dtype torch infers for the own
+dtype.  In that carrier a ``uint64`` record of 2**63 or more reads as
+negative, so an ordering or a division inside the callable sees it so.
 """
 
 from functools import lru_cache
@@ -127,9 +147,12 @@ def true_divide(a, b):
 
 def stat_dtype(name, dtype):
     """jnp's output dtype of the statistic ``name`` of a ``dtype`` array:
-    ``mean``/``var``/``std`` widen integers (``inexact``), ``sum``/``prod``
+    ``mean`` widens integers (``inexact``), ``var``/``std`` too and give a
+    complex array its real dtype, ``sum``/``prod``
     take bool and signed integers to int64 and unsigned to uint64,
     ``all``/``any`` give bool, ``min``/``max``/``ptp`` keep ``dtype``."""
+    if name in ("var", "std") and dtype.is_complex:
+        return dtype.to_real()
     if name in ("mean", "var", "std"):
         return inexact(dtype)
     if name in ("sum", "prod"):
@@ -143,3 +166,55 @@ def stat_dtype(name, dtype):
     if name in ("all", "any"):
         return torch.bool
     return dtype
+
+
+# the unsigned dtypes torch leaves most kernels out of, and the signed
+# dtype each computes in
+_CARRIER = {torch.uint16: torch.int32, torch.uint32: torch.int64,
+            torch.uint64: torch.int64}
+_SIGN_BIT = -(1 << 63)
+
+
+def carrier(dtype):
+    """The dtype ``dtype`` computes in: its carrier when torch leaves its
+    kernels out, else ``dtype``."""
+    return _CARRIER.get(dtype, dtype)
+
+
+def carried(dtype):
+    """Whether ``dtype`` computes in a carrier."""
+    return dtype in _CARRIER
+
+
+def carry(t, ordered=False):
+    """The tensor ``t`` in its carrier (``t`` itself for other dtypes; a
+    bool as uint8 when ``ordered``, for the sorts).  ``uint64`` is read as
+    int64 bits; ``ordered`` flips their sign bit, for an operation that
+    only orders (the carrier's arithmetic is then not ``t``'s)."""
+    dt = t.dtype
+    if dt == torch.uint64:
+        # a conversion, not a view: it wraps modulo 2**64 alike, and
+        # vmap batches it on every torch version
+        bits = t.to(torch.int64)
+        return bits ^ _SIGN_BIT if ordered else bits
+    if dt in _CARRIER:
+        return t.to(_CARRIER[dt])
+    if ordered and dt == torch.bool:
+        return t.to(torch.uint8)
+    return t
+
+
+def uncarry(t, dtype, ordered=False):
+    """A carrier's result ``t`` back in ``dtype`` (modulo 2**bits for the
+    unsigned dtypes; ``ordered`` as given to :func:`carry`)."""
+    if dtype == torch.uint64 and t.dtype == torch.int64:
+        return (t ^ _SIGN_BIT if ordered else t).to(torch.uint64)
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def missing_unsigned_kernel(exc, tensors):
+    """Whether ``exc`` is torch refusing an unsigned dtype of ``tensors``
+    it has no kernel for."""
+    return isinstance(exc, NotImplementedError) and "UInt" in str(exc) \
+        and any(isinstance(t, torch.Tensor) and t.dtype in _CARRIER
+                for t in tensors)

@@ -39,13 +39,27 @@ def _check_sort_kind(kind):
 
 def _sortable(x):
     """``x`` in a dtype torch sorts, flips and gathers on every device,
-    with the same order: bools as bytes, the narrow unsigned integers as
-    int64."""
-    if x.dtype == torch.bool:
-        return x.to(torch.uint8)
-    if x.dtype in (torch.uint16, torch.uint32):
-        return x.to(torch.int64)
-    return x
+    with the same order: bools as bytes, the unsigned integers torch
+    leaves out in their ordered carriers (``gpu/dtypes.py :: carry``);
+    :func:`_unsortable` takes sorted values back."""
+    return dtypes.carry(x, ordered=True)
+
+
+def _unsortable(s, dtype):
+    """Values taken from :func:`_sortable`'s tensor, back in ``dtype``."""
+    return dtypes.uncarry(s, dtype, ordered=True)
+
+
+def _argsort(x, dim):
+    """The stable ascending order of ``x`` along ``dim``; complex numbers
+    in numpy's order, by the real part and ties by the imaginary part
+    (two stable sorts: torch sorts no complex tensor)."""
+    if not x.is_complex():
+        return torch.argsort(_sortable(x), dim=dim, stable=True)
+    i = torch.argsort(x.imag, dim=dim, stable=True)
+    j = torch.argsort(torch.take_along_dim(x.real, i, dim), dim=dim,
+                      stable=True)
+    return torch.take_along_dim(i, j, dim)
 
 
 def _dot(a, b):
@@ -157,6 +171,10 @@ class ArrayMethods:
         if axis is not None:
             axis = self._one_axis(axis)
         x = _sortable(self._mapped())
+        if x.is_complex():
+            raise TypeError("%s of a complex array is not supported (the "
+                            "reference refuses it too); np.argsort takes "
+                            "numpy's order" % fn.__name__)
         if axis is None:
             out = fn(x.reshape(-1))
             if keepdims:
@@ -183,10 +201,14 @@ class ArrayMethods:
             axis = self._one_axis(axis)
         x = self._mapped()
         dt = torch.int64 if x.dtype == torch.bool else x.dtype
+        # an unsigned dtype torch leaves out scans in its carrier, which
+        # wraps alike
+        c, cdt = dtypes.carry(x), dtypes.carrier(dt)
         if axis is None:
-            return self._wrap(fn(x.reshape(-1), dim=0, dtype=dt),
-                              1 if split else 0)
-        return self._wrap(fn(x, dim=axis, dtype=dt), split)
+            out, split = fn(c.reshape(-1), dim=0, dtype=cdt), 1 if split else 0
+        else:
+            out = fn(c, dim=axis, dtype=cdt)
+        return self._wrap(dtypes.uncarry(out, dt), split)
 
     # ------------------------------------------------------------------
     # sorts and gathers
@@ -200,11 +222,10 @@ class ArrayMethods:
         split = self._split
         if axis is not None:
             axis = self._one_axis(axis)
-        x = _sortable(self._mapped())
+        x = self._mapped()
         if axis is None:
-            return self._wrap(torch.argsort(x.reshape(-1), stable=True),
-                              1 if split else 0)
-        return self._wrap(torch.argsort(x, dim=axis, stable=True), split)
+            return self._wrap(_argsort(x.reshape(-1), 0), 1 if split else 0)
+        return self._wrap(_argsort(x, axis), split)
 
     def sort(self, axis=-1, kind=None):
         """Sort along ``axis`` in place and return ``None``, ndarray's
@@ -213,8 +234,12 @@ class ArrayMethods:
         _check_sort_kind(kind)
         axis = self._one_axis(axis)
         x = self._mapped()
-        out = torch.sort(_sortable(x), dim=axis, stable=True).values
-        self._concrete = out.to(x.dtype)
+        if x.is_complex():
+            out = torch.take_along_dim(x, _argsort(x, axis), axis)
+        else:
+            out = _unsortable(torch.sort(_sortable(x), dim=axis,
+                                         stable=True).values, x.dtype)
+        self._concrete = out
         self._chain = None
         self._stat_group = None
         self._shape = tuple(out.shape)

@@ -52,7 +52,7 @@ import torch
 
 from bolt_tpu_torch import _lockdep, _precision, engine
 from bolt_tpu_torch.obs import trace as _obs
-from bolt_tpu_torch.gpu import dtypes
+from bolt_tpu_torch.gpu import dtypes, ufuncs
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
 from bolt_tpu_torch.utils import prod, tupleize
 
@@ -267,7 +267,7 @@ class _StatGroup:
         for m in members:
             if m.name == "ptp":
                 mx, mn = (out[s] for s in _slot(m))
-                m.result = mx - mn
+                m.result = ufuncs.binary("subtract", mx, mn)
             else:
                 m.result = out[_slot(m)[0]]
 

@@ -31,6 +31,7 @@ from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _cached_jit,
                                       _chain_apply, _chain_blocks,
                                       _chain_rec_bytes, _is_trace_error,
+                                      _raise_callable_bug,
                                       _reduce_stat, _traceable,
                                       _warn_fallback, _wide, numpy_dtype)
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
@@ -2346,7 +2347,8 @@ def _apply_along_axis(func1d, axis, arr, *args, **kwargs):
                               dtype=torch_dtype(arr.dtype), device="meta"))
     except (RuntimeError, TypeError) as exc:
         if not _is_trace_error(exc):
-            raise
+            _raise_callable_bug("apply_along_axis", func1d, exc,
+                                (arr.shape[ax],))
         _warn_fallback("apply_along_axis", func1d, exc)
         raise _Fallback("non-traceable func1d") from None
     # keys before the applied axis survive; the func1d output dims land AT

@@ -45,7 +45,9 @@ def _moments(x, axes):
     xf = x.to(dtypes.inexact(x.dtype))
     mu = xf.mean(dim=axes)
     m2 = ((xf - xf.mean(dim=axes, keepdim=True)) ** 2).sum(dim=axes)
-    return mu, m2, x.amin(dim=axes), x.amax(dim=axes)
+    c = dtypes.carry(x, ordered=True)    # an unsigned dtype torch leaves out
+    return (mu, m2, dtypes.uncarry(c.amin(dim=axes), x.dtype, ordered=True),
+            dtypes.uncarry(c.amax(dim=axes), x.dtype, ordered=True))
 
 
 def welford(barray, requested=("mean", "var", "std", "min", "max"),

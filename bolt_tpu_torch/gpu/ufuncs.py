@@ -27,6 +27,11 @@ negative integer scalar raises ``TypeError`` as jnp does; ``sign`` keeps
 NaN.  A ufunc with no torch twin (``cbrt``, ``spacing``, ``frexp``, ...)
 returns ``NotImplemented``, so numpy raises ``TypeError``.
 
+``uint16``, ``uint32`` and ``uint64`` compute in their signed carriers
+(``gpu/dtypes.py :: carry``): the orderings of ``uint64`` on its
+sign-flipped bits, its ``//``, ``%``, ``fmod`` and ``>>`` as unsigned
+64-bit arithmetic of the int64 bits (:func:`_u64_divmod`).
+
 A scalar operand joins the caller's deferred map chain (see
 ``BoltArrayGPU._elementwise``): :func:`scalar_fn` and :func:`unary_fn`
 return one cached callable per (op, operand, dtype), so a repeated
@@ -72,7 +77,9 @@ def _round_away(d):
     return torch.where((d - t).abs() >= 0.5, t + torch.sign(d), t)
 
 
-def _floor_divide(x, y):
+def _floor_divide(x, y, unsigned=False):
+    """``x // y``; ``unsigned``: the operands are an unsigned dtype's
+    non-negative carriers."""
     if _is_float(x.dtype):
         mod = torch.fmod(x, y)
         div = (x - mod) / y
@@ -80,7 +87,7 @@ def _floor_divide(x, y):
         return _round_away(torch.where(fix, div - 1, div))
     zero = y == 0
     safe = torch.where(zero, torch.ones_like(y), y)
-    if x.dtype in _UINTS:
+    if unsigned or x.dtype in _UINTS:
         q = torch.div(x, safe, rounding_mode="trunc")
         return torch.where(zero, torch.full_like(q, -1), q)
     q = torch.div(x, safe, rounding_mode="trunc")
@@ -110,6 +117,109 @@ def _fmod(x, y, keep=False):
     safe = torch.where(zero, torch.ones_like(y), y)
     return torch.where(zero, x if keep else torch.zeros_like(x),
                        torch.fmod(x, safe))
+
+
+_LOW63 = (1 << 63) - 1
+
+
+def _u64_below(a, b):
+    """``a < b`` of two uint64 values held as int64 bits."""
+    return (a ^ dtypes._SIGN_BIT) < (b ^ dtypes._SIGN_BIT)
+
+
+def _u64_divmod(x, y):
+    """``(x // y, x % y)`` of uint64 values held as int64 bits, with jnp's
+    all-ones quotient and zero remainder for a zero divisor.  A divisor
+    below 2**63 divides ``x >> 1`` (non-negative) and corrects the
+    doubled quotient once; a larger one goes at most once."""
+    zero = y == 0
+    d = torch.where(zero, torch.ones_like(y), y)
+    big = d < 0
+    half = torch.bitwise_and(x >> 1, _LOW63)
+    q = torch.div(half, torch.where(big, torch.ones_like(d), d),
+                  rounding_mode="trunc") * 2
+    q = torch.where(_u64_below(x - q * d, d), q, q + 1)
+    q = torch.where(big, (~_u64_below(x, d)).to(x.dtype), q)
+    r = x - q * d
+    return (torch.where(zero, torch.full_like(q, -1), q),
+            torch.where(zero, torch.zeros_like(r), r))
+
+
+def _u64_right_shift(x, s):
+    """The logical ``x >> s`` of uint64 values held as int64 bits."""
+    half = torch.bitwise_and(x >> 1, _LOW63)
+    return torch.where(s > 0, half >> torch.clamp(s - 1, min=0), x)
+
+
+# uint64 ufuncs whose int64-bits form differs from their signed one
+_U64 = {
+    "floor_divide": lambda x, y: _u64_divmod(x, y)[0],
+    "remainder": lambda x, y: _u64_divmod(x, y)[1],
+    "fmod": lambda x, y: _u64_divmod(x, y)[1],
+    "right_shift": _u64_right_shift,
+    "absolute": lambda v: v,
+    "sign": lambda v: (v != 0).to(v.dtype),
+}
+_U64["mod"] = _U64["remainder"]
+# ufuncs that only order their operands: uint64 takes sign-flipped bits
+_ORDERING = frozenset(("greater", "greater_equal", "less", "less_equal",
+                       "maximum", "minimum", "fmax", "fmin"))
+
+
+def _lex(strict, weak):
+    """A comparison in numpy's order of complex numbers: by the real part,
+    ties by the imaginary part (``strict`` on the real parts, ``weak`` on
+    the imaginary ones)."""
+    def f(a, b):
+        return strict(a.real, b.real) | ((a.real == b.real)
+                                         & weak(a.imag, b.imag))
+    return f
+
+
+def _pick(keep, nan):
+    """``maximum``-like: ``a`` where ``keep(a, b)`` or ``nan(a, b)``,
+    else ``b``."""
+    def f(a, b):
+        return torch.where(keep(a, b) | nan(a, b), a, b)
+    return f
+
+
+_CGT = _lex(operator.gt, operator.gt)
+_CGE = _lex(operator.gt, operator.ge)
+_CLT = _lex(operator.lt, operator.lt)
+_CLE = _lex(operator.lt, operator.le)
+# the orderings of complex operands, in numpy's order; maximum/minimum
+# propagate a NaN of either operand, fmax/fmin ignore one
+_COMPLEX = {
+    "greater": _CGT, "greater_equal": _CGE, "less": _CLT, "less_equal": _CLE,
+    "maximum": _pick(_CGE, lambda a, b: torch.isnan(a)),
+    "minimum": _pick(_CLE, lambda a, b: torch.isnan(a)),
+    "fmax": _pick(_CGE, lambda a, b: torch.isnan(b)),
+    "fmin": _pick(_CLE, lambda a, b: torch.isnan(b)),
+}
+
+
+def _carried(name, fn, cdt, xs, device):
+    """Ufunc ``name`` (computation ``fn``) of the operands ``xs`` of the
+    unsigned computation dtype ``cdt``, in its carrier (a number stays a
+    number where the op takes one and does not order, else it becomes a
+    0-d tensor of ``cdt`` first); the result back in ``cdt`` (a bool
+    unchanged)."""
+    ordered = cdt == torch.uint64 and name in _ORDERING
+    number = name in _TAKES_NUMBER and not ordered
+    cs = [dtypes.carry(x.to(cdt), ordered) if isinstance(x, torch.Tensor)
+          else _number(x) if number
+          else dtypes.carry(torch.tensor(_number(x), dtype=cdt,
+                                         device=device), ordered)
+          for x in xs]
+    if cdt == torch.uint64 and name in _U64:
+        out = _U64[name](*cs)
+    elif name == "floor_divide":
+        out = _floor_divide(*cs, unsigned=True)
+    else:
+        out = fn(*cs)
+    return out if out.dtype == torch.bool else dtypes.uncarry(out, cdt,
+                                                                ordered)
 
 
 def _int_power(x, y):
@@ -274,7 +384,10 @@ def unary(name, v):
     """Unary ufunc ``name`` of the tensor ``v``."""
     fn, _ = _UNARY[name]
     out_dt, cdt = unary_dtype(name, v.dtype)
-    out = fn(v.to(cdt))
+    if dtypes.carried(cdt):
+        out = _carried(name, fn, cdt, (v,), v.device)
+    else:
+        out = fn(v.to(cdt))
     return out if out.dtype == out_dt else out.to(out_dt)
 
 
@@ -299,12 +412,31 @@ def binary(name, a, b):
             return x
         return torch.scalar_tensor(x, dtype=cdt, device=like.device)
 
-    if name == "fmod" and dtypes.promote(da, db) == torch.bool:
+    if dtypes.carried(cdt):
+        out = _carried(name, fn, cdt, (a, b), like.device)
+    elif cdt.is_complex and name in _COMPLEX:
+        out = _COMPLEX[name](*(torch.as_tensor(operand(x), dtype=cdt,
+                                               device=like.device)
+                               for x in (a, b)))
+    elif name == "fmod" and dtypes.promote(da, db) == torch.bool:
         out = _fmod(operand(a), operand(b), keep=True)
     else:
         # a number on the left takes the reflected Python operator
         out = fn(operand(a), operand(b))
     return out if out.dtype == out_dt else out.to(out_dt)
+
+
+def _ordering_fn(name):
+    def fn(a, b):
+        return binary(name, a, b)
+    fn.__name__ = name
+    return fn
+
+
+# the per-record orderings ``reduce(np.maximum)`` and its kin call
+# (``gpu/array.py :: _traceable``): one callable per ufunc
+ORDERING_FNS = {n: _ordering_fn(n) for n in ("maximum", "minimum", "fmax",
+                                             "fmin")}
 
 
 def _bits(x):

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from bolt_tpu_torch import _precision
-from bolt_tpu_torch.gpu.methods import _sortable
+from bolt_tpu_torch.gpu.methods import _sortable, _unsortable
 from bolt_tpu_torch.utils import prod
 
 _OPS = ("sum", "mean", "max", "min")
@@ -297,7 +297,7 @@ def _topk_desc(moved, k):
     x = _sortable(moved)
     idx_rev = torch.argsort(x.flip(-1), dim=-1, stable=True)
     idx = (n - 1 - idx_rev).flip(-1)[..., :k]
-    return torch.take_along_dim(x, idx, dim=-1).to(moved.dtype), idx
+    return _unsortable(torch.take_along_dim(x, idx, dim=-1), moved.dtype), idx
 
 
 def _np_topk_desc(moved, k):
@@ -414,8 +414,9 @@ def _sort_mask(flat):
     neq = s[1:] != s[:-1]
     if s.dtype.is_floating_point:
         neq &= ~(torch.isnan(s[1:]) & torch.isnan(s[:-1]))
-    return s, torch.cat([torch.ones(1, dtype=torch.bool, device=s.device),
-                         neq])
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=s.device),
+                       neq])
+    return _unsortable(s, flat.dtype), first
 
 
 def _gather_uniques(s, mask, return_counts, dtype):

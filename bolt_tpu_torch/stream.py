@@ -66,15 +66,26 @@ re-bucket or spill write re-runs in place up to *n* times, and the
 final error chains every attempt back to the original.  The named seams
 of :mod:`bolt_tpu_torch._chaos` (``stream.encode``, ``stream.upload``,
 ``stream.dispatch``, ``stream.fold``, ``stream.shuffle``,
-``stream.spill``) trip faults there deterministically.
+``stream.spill``, ``stream.checkpoint``) trip faults there
+deterministically.
+
+Resume: under :func:`resumable` (or a source's own ``checkpoint=dir``) a
+run writes its retired-slab watermark and folded partial every ``every``
+retired slabs (:mod:`bolt_tpu_torch.checkpoint`), and once more, best
+effort, when it fails.  A run over the same source finds the checkpoint
+by the run's fingerprint (:func:`_run_fingerprint`), skips the retired
+slabs, restores the fold where it stood and ends with the uninterrupted
+run's result bit for bit; success removes the checkpoint.
 
 Accounting lands in :mod:`bolt_tpu_torch.engine` (``transfer_*``,
-``stream_*``, ``codec_*``, ``shuffle_*``, ``spill_bytes``), under the
-caller's engine tenant in the uploader threads too; with tracing armed
-(:mod:`bolt_tpu_torch.obs`) a run is a ``stream.run`` span (a shuffle a
-``stream.shuffle`` span), and the ingest spans its threads begin parent
-under it by explicit handoff.  Not ported yet: resume and checkpoints
-(``resumable``, ROADMAP A9), pods (A12) and the serving lease (A10).
+``stream_*``, ``codec_*``, ``shuffle_*``, ``spill_bytes``,
+``checkpoint_*``), under the caller's engine tenant in the uploader
+threads too; with tracing armed (:mod:`bolt_tpu_torch.obs`) a run is a
+``stream.run`` span (a shuffle a ``stream.shuffle`` span, a checkpoint
+write a ``stream.checkpoint`` span, a resume a ``stream.resume`` event),
+and the ingest spans its threads begin parent under it by explicit
+handoff.  Not ported yet: pods (ROADMAP A12) and the serving lease
+(A10).
 Any other consumer — a filtered stream's shape, ``prod``/``all``/``any``,
 ``min``/``max`` under a filter, an axis other than all the key axes —
 materialises the source (:func:`materialize`), which needs the whole
@@ -119,6 +130,11 @@ _CODEC = os.environ.get("BOLT_STREAM_CODEC") or None
 # in-run retry budget per slab step: 0 = fail-fast, n = a failed step
 # re-runs in place up to n times before failing the run
 _RETRIES = max(0, int(os.environ.get("BOLT_STREAM_RETRIES", "0")))
+
+# checkpoint cadence under resumable(): the fold state is written every k
+# retired slabs; each write drains the in-flight window and copies the
+# value-shaped partials to the host
+_CKPT_EVERY = max(1, int(os.environ.get("BOLT_CHECKPOINT_EVERY", "2")))
 
 # the process default spill directory of a streamed swap whose output
 # exceeds its resident budget (None: such a swap refuses)
@@ -257,6 +273,34 @@ def swap_budget():
     The reference also reads the serving arbiter's budget here; the port
     has no serving layer yet (ROADMAP A10)."""
     return spill_scope()[1]
+
+
+def checkpoint_scope():
+    """The calling thread's innermost :func:`resumable` scope as ``(dir,
+    every)``, or ``None`` when streaming is not resumable."""
+    st = _scope_stack("ckpt")
+    return st[-1] if st else None
+
+
+@contextlib.contextmanager
+def resumable(dir, every=None):
+    """Scope slab-level checkpointing for streamed runs (thread-local)::
+
+        with bolt_tpu_torch.stream.resumable("/ckpt/run17"):
+            src.map(f).sum().toarray()   # killed?  the same call resumes
+                                         # from the last retired slab
+
+    ``every`` is the cadence in retired slabs (default
+    ``BOLT_CHECKPOINT_EVERY``, 2).  A source's own ``checkpoint=dir``
+    (``fromcallback``/``fromiter``) wins over the scope.  A one-shot
+    iterator cannot be resumed: it dies with the process."""
+    st = _scope_stack("ckpt")
+    st.append((os.fspath(dir),
+               max(1, int(every)) if every is not None else _CKPT_EVERY))
+    try:
+        yield
+    finally:
+        st.pop()
 
 
 def _codec_registry():
@@ -458,10 +502,11 @@ class StreamSource:
     applied to every slab (its stage kinds: the module docstring)."""
 
     __slots__ = ("kind", "produce", "blocks", "shape", "split", "dtype",
-                 "device", "slab", "stages", "codec", "_state", "_consumed")
+                 "device", "slab", "stages", "ckpt", "codec", "_state",
+                 "_consumed")
 
     def __init__(self, kind, produce, blocks, shape, split, dtype, device,
-                 slab, stages=(), codec=None):
+                 slab, stages=(), ckpt=None, codec=None):
         self.kind = kind
         self.produce = produce          # callback: fn(index_slices)
         self.blocks = blocks            # iter: the iterable of blocks
@@ -471,6 +516,7 @@ class StreamSource:
         self.device = device
         self.slab = int(slab)
         self.stages = tuple(stages)
+        self.ckpt = ckpt                # resumable checkpoint dir, or None
         self.codec = codec              # ingest codec NAME, or None
         self._state = None
         # a one-shot iterator streams once; the cell is shared by the
@@ -479,27 +525,29 @@ class StreamSource:
 
     @classmethod
     def from_callback(cls, fn, shape, split, dtype, device, chunks=None,
-                      codec=None):
+                      checkpoint=None, codec=None):
         if codec is not None:
             _codec_registry().get(codec)    # pointed at construction
         slab = _slab_records(shape, dtype, chunks)
         return cls("callback", fn, None, shape, split, dtype, device, slab,
-                   codec=codec)
+                   ckpt=_ckpt_dir(checkpoint), codec=codec)
 
     @classmethod
-    def from_iter(cls, blocks, shape, split, dtype, device, codec=None):
+    def from_iter(cls, blocks, shape, split, dtype, device, checkpoint=None,
+                  codec=None):
         if codec is not None:
             _codec_registry().get(codec)
         # slab sizes are whatever the iterator yields
         slab = _slab_records(shape, dtype, None)
         return cls("iter", None, blocks, shape, split, dtype, device, slab,
-                   codec=codec)
+                   ckpt=_ckpt_dir(checkpoint), codec=codec)
 
     def with_stage(self, stage):
         """A new source sharing the host side, one stage longer."""
         out = StreamSource(self.kind, self.produce, self.blocks, self.shape,
                            self.split, self.dtype, self.device, self.slab,
-                           self.stages + (stage,), codec=self.codec)
+                           self.stages + (stage,), ckpt=self.ckpt,
+                           codec=self.codec)
         out._consumed = self._consumed
         return out
 
@@ -541,6 +589,10 @@ class StreamSource:
         return ("StreamSource(%s, shape=%s, split=%d, dtype=%s, slab=%d, "
                 "stages=%d)" % (self.kind, self.shape, self.split,
                                 self.dtype, self.slab, len(self.stages)))
+
+
+def _ckpt_dir(checkpoint):
+    return os.fspath(checkpoint) if checkpoint is not None else None
 
 
 def _slab_records(shape, dtype, chunks):
@@ -651,13 +703,15 @@ def _probe_stage(src, stage):
     """``src`` one stage longer, its result walked now; ``None`` when the
     stage's callable cannot be traced on a meta tensor (the caller then
     materialises, where the error surfaces)."""
-    from bolt_tpu_torch.gpu.array import _is_trace_error
+    from bolt_tpu_torch.gpu.array import (_is_trace_error,
+                                          _raise_callable_bug)
     out = src.with_stage(stage)
     try:
         result_state(out)
     except (RuntimeError, TypeError) as exc:
         if not _is_trace_error(exc):
-            raise
+            _raise_callable_bug(stage[0], stage[1], exc,
+                                result_state(src).vshape)
         return None
     return out
 
@@ -848,17 +902,17 @@ def _combine(terminal, rfunc, a, b, comps=None):
     ``(n, mu, M2)`` triples merged by Chan's parallel recurrence (a
     filtered slab may keep no record: its count is 0); a ``"multi"``
     partial is a tuple of ``comps``, each merged by this function."""
+    from bolt_tpu_torch.gpu.array import _COMBINE
     if terminal == "multi":
         return tuple(_combine(_COMP_MERGE[c], rfunc, x, y)
                      for c, x, y in zip(comps, a, b))
-    if terminal == "sum":
-        return torch.add(a, b)
-    if terminal == "min":
-        return torch.minimum(a, b)
-    if terminal == "max":
-        return torch.maximum(a, b)
+    if terminal in ("sum", "min", "max"):
+        # the materialised folds: an unsigned dtype torch leaves out
+        # merges in its carrier
+        return _COMBINE[terminal](a, b)
     if terminal == "reduce":
-        return rfunc(a, b)
+        from bolt_tpu_torch.gpu.array import _user_call
+        return _user_call(rfunc, (a, b))
     n1, mu1, m21 = a
     n2, mu2, m22 = b
     n = n1 + n2
@@ -920,13 +974,14 @@ def _finalise_multi(folded, comps, specs):
     """Each member of a multi-stat group from the folded components,
     finalised as its standalone streamed terminal is (``ptp`` is the
     max − min of the shared extrema)."""
+    from bolt_tpu_torch.gpu import ufuncs
     by = dict(zip(comps, folded))
     outs = []
     for name, ddof in specs:
         if name in ("sum", "min", "max"):
             outs.append(by[name])
         elif name == "ptp":
-            outs.append(by["max"] - by["min"])
+            outs.append(ufuncs.binary("subtract", by["max"], by["min"]))
         else:
             outs.append(_finalise(name, ddof, by["moments"]))
     return outs
@@ -1130,10 +1185,13 @@ class _Ingest:
     ``slab_parts`` is what :func:`_upload` returns.  At most ``depth +
     nwork`` slabs hold a ring permit; the consumer releases them
     (:meth:`release`).  A failed produce/encode/upload re-runs in place
-    under the run's retry budget (:meth:`retry`)."""
+    under the run's retry budget (:meth:`retry`).  ``skip`` is a resumed
+    iterator run's ``(slabs, records)`` watermark: its thread drains that
+    prefix first and refuses an iterator whose blocks no longer cut
+    there."""
 
     def __init__(self, source, codec_obj, delta_ok, depth, nwork, run_sp,
-                 jobs=None, prefix="bolt-stream"):
+                 jobs=None, prefix="bolt-stream", skip=(0, 0)):
         self.source = source
         self.device = source.device
         self.codec_obj = codec_obj
@@ -1143,6 +1201,7 @@ class _Ingest:
         self.nretry = retry_limit()     # scopes are per-thread: read here
         self.run_sp = run_sp
         self.jobs = jobs
+        self.skip = skip
         self.on_card = self.device.type == "cuda"
         self.ring = _PinnedRing() if self.on_card else None
         self.permits = threading.Semaphore(depth + nwork)
@@ -1253,6 +1312,28 @@ class _Ingest:
         except BaseException as exc:        # noqa: BLE001
             self.rsq.fault(exc)
 
+    def _drain_prefix(self, it):
+        """A resumed iterator run: skip the retired slabs, checking that
+        the blocks still cut at the checkpointed record (a drifted
+        iterator would fold wrong records, so it is refused)."""
+        slabs, records = self.skip
+        hi = 0
+        for k in range(slabs):
+            try:
+                _, hi, block = next(it)
+            except StopIteration:
+                raise RuntimeError(
+                    "resume checkpoint covers %d slabs but this iterator "
+                    "ended after %d; the source is not the one the "
+                    "checkpoint was cut from" % (slabs, k)) from None
+            del block
+        if hi != records:
+            raise RuntimeError(
+                "resume checkpoint was cut at record %d but this "
+                "iterator's first %d slab(s) cover %d records — the block "
+                "layout drifted; delete the checkpoint or restore the "
+                "original source" % (records, slabs, hi))
+
     def _prefetch(self):
         """Iterator sources: one produce+upload thread (the iterable is
         sequential); the block is in hand, so a retry re-runs its encode
@@ -1262,13 +1343,16 @@ class _Ingest:
                 copy_stream = torch.cuda.Stream(self.device) \
                     if self.on_card else None
                 it = self.source.slabs()
+                if self.skip[0]:
+                    self._drain_prefix(it)
                 i = 0
                 while True:
                     if not _acquire(self.permits, self.stop):
                         return
                     self._busy(1)
+                    g = self.skip[0] + i
                     sp = _obs.begin("stream.ingest", parent=self.run_sp,
-                                    slab=i, worker=0)
+                                    slab=g, worker=0)
                     t0 = _clock()
                     try:
                         try:
@@ -1284,13 +1368,13 @@ class _Ingest:
                                 slab = self._ingest(block, copy_stream)
                                 break
                             except Exception as exc:
-                                prev = self.retry(i, attempt, prev, exc)
+                                prev = self.retry(g, attempt, prev, exc)
                                 attempt += 1
                         del block
                     finally:
                         self._busy(-1)
                         _obs.end(sp)
-                    self.rsq.put(i, (slab, _clock() - t0, i, lo, hi))
+                    self.rsq.put(i, (slab, _clock() - t0, g, lo, hi))
                     del slab
                     i += 1
                 self.rsq.finish(i)
@@ -1388,6 +1472,7 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
                   and terminal == "sum" and not source.stages
                   and source.split == 1
                   and _codec_registry().kernel_enabled())
+    ck = _Resume.open(source, terminal, ddof, rfunc, specs, codec_obj)
     run_sp = _obs.begin("stream.run", terminal=terminal, depth=depth,
                         uploaders=nwork, kind=source.kind,
                         **({"codec": codec_obj.name}
@@ -1395,11 +1480,13 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
     try:
         ing = _Ingest(source, codec_obj, delta_ok, depth, nwork, run_sp,
                       jobs=[(g, lo, hi) for g, (lo, hi)
-                            in enumerate(source.slab_ranges())]
-                      if source.kind == "callback" else None)
+                            in enumerate(source.slab_ranges())
+                            if g >= ck.start]
+                      if source.kind == "callback" else None,
+                      skip=(ck.start, ck.records))
         out, nslabs, ingest, compute, overlap, inflight_hw = _consume(
             ing, source, st, terminal, ddof, rfunc, comps, specs,
-            codec_obj, use_kernel, delta_ok)
+            codec_obj, use_kernel, delta_ok, ck)
         if run_sp is not None:
             run_sp.set(slabs=nslabs, ingest_s=round(ingest, 6),
                        compute_s=round(compute, 6), overlap_s=round(overlap, 6),
@@ -1412,10 +1499,81 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
         _obs.end(run_sp)
 
 
+class _Resume:
+    """One run's checkpoint plan (:func:`resumable`, or the source's own
+    ``checkpoint=``): the directory and cadence, the run's fingerprint,
+    and what a matching checkpoint restores: ``start`` retired slabs
+    covering ``records`` records and the fold ``state`` (``(levels,
+    pend)``, CPU tensors).  ``dir`` is ``None`` when the run is not
+    resumable."""
+
+    __slots__ = ("dir", "every", "fp", "codec", "start", "records",
+                 "state")
+
+    def __init__(self, dir=None, every=None, fp=None, codec=None):
+        self.dir, self.every, self.fp, self.codec = dir, every, fp, codec
+        self.start = self.records = 0
+        self.state = None
+
+    @classmethod
+    def open(cls, source, terminal, ddof, rfunc, specs, codec_obj):
+        """The plan of a run over ``source``, with the checkpoint a killed
+        run of the same pipeline left loaded (and counted as a resume)."""
+        scope = checkpoint_scope()
+        if source.ckpt is not None:
+            ck = cls(source.ckpt, scope[1] if scope else _CKPT_EVERY)
+        elif scope is not None:
+            ck = cls(*scope)
+        else:
+            return cls()
+        from bolt_tpu_torch import checkpoint as _ckptlib
+        ck.codec = codec_obj.name if codec_obj is not None else None
+        ck.fp = _run_fingerprint(source, terminal, ddof, rfunc, specs,
+                                 ck.codec)
+        got = _ckptlib.stream_load(ck.dir, ck.fp)
+        if got is not None:
+            ck.start, ck.records, ck.state = got
+            _engine.record_stream_resume()
+            _obs.event("stream.resume", slabs=ck.start, records=ck.records)
+        return ck
+
+    def write(self, slabs, records, levels, pend):
+        """Write the fold state of ``slabs`` retired slabs (the caller has
+        drained the in-flight window)."""
+        from bolt_tpu_torch import checkpoint as _ckptlib
+        csp = _obs.begin("stream.checkpoint", slabs=slabs)
+        t0 = _clock()
+        try:
+            nb = _ckptlib.stream_save(self.dir, self.fp, slabs, records,
+                                      (list(levels), pend),
+                                      codec=self.codec)
+            _engine.record_checkpoint(nb, _clock() - t0)
+            if csp is not None:
+                csp.set(bytes=nb)
+        finally:
+            _obs.end(csp)
+
+    def clear(self):
+        from bolt_tpu_torch import checkpoint as _ckptlib
+        _ckptlib.stream_clear(self.dir)
+
+
+def _on_device(tree, device):
+    """A restored fold state's tensors on the run's device."""
+    if tree is None:
+        return None
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_device(x, device) for x in tree)
+    return tree.to(device)
+
+
 def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
-             codec_obj, use_kernel, delta_ok):
+             codec_obj, use_kernel, delta_ok, ck):
     """The consumer half of :func:`execute`: dispatch each delivered slab
-    in order into the bounded in-flight window, fold, finalise."""
+    in order into the bounded in-flight window, fold, finalise; under a
+    checkpoint plan ``ck``, restore the fold a resumed run left, write it
+    every ``ck.every`` retired slabs and on failure, and clear it on
+    success."""
     on_card = ing.on_card
     compute_stream = torch.cuda.current_stream(ing.device) \
         if on_card else None
@@ -1429,6 +1587,15 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
     fold = _PairFold(lambda a, b: _combine(terminal, rfunc, a, b, comps))
     pend = None                 # the even slab's partial awaiting its pair
     pending_sync = deque()      # (slabs covered, event) not yet confirmed
+    done_records = ck.records   # records the folded slabs cover
+    if ck.state is not None:
+        # the fold exactly where the killed run left it: the tree's levels
+        # and the unpaired partial, so the pairing and the tree order of
+        # the slabs to come are the uninterrupted run's
+        levels, pend = _on_device(ck.state, ing.device)
+        fold.levels = list(levels)
+        ck.state = None
+    total = len(ing.jobs) if ing.jobs is not None else None
 
     def _confirm_oldest():
         """Wait for the OLDEST unconfirmed pair partial (normally long
@@ -1457,7 +1624,16 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
     def _dispatch(parts):
         _chaos.hit("stream.dispatch")
         return _slab_partial(source, st, terminal, rfunc, codec_obj,
-                             use_kernel, delta_ok, parts, comps, nslabs)
+                             use_kernel, delta_ok, parts, comps,
+                             ck.start + nslabs)
+
+    def _checkpoint():
+        """Write the watermark and fold state: every slab counted in
+        ``nslabs`` has its partial in the fold, and the in-flight window
+        is drained first, so the state holds exactly those slabs."""
+        while pending_sync:
+            _confirm_oldest()
+        ck.write(ck.start + nslabs, done_records, fold.levels, pend)
 
     ing.start()
     try:
@@ -1465,7 +1641,7 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
             got = ing.next(idle=_retire)
             if got is None:
                 break
-            _, (slab_parts, tsec, g, _, _) = got
+            _, (slab_parts, tsec, g, _, hi) = got
             del got
             ingest += tsec
             t0 = _clock()
@@ -1492,7 +1668,10 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
                     pending_sync.append((2, done))
             finally:
                 _obs.end(csp)
+            # counted only once the slab's partial is in the fold: the
+            # watermark of a checkpoint never runs ahead of its state
             nslabs += 1
+            done_records = hi
             compute += _clock() - t0
             dispatched += 1
             inflight_hw = max(inflight_hw, dispatched - confirmed)
@@ -1501,29 +1680,46 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
             _retire()
             while dispatched - confirmed > window and pending_sync:
                 _confirm_oldest()
+            # resumable: every ck.every retired slabs, but not after the
+            # last slab of a known-size stream (the run clears it next)
+            if ck.dir is not None and nslabs % ck.every == 0 \
+                    and not (total is not None and nslabs >= total):
+                _checkpoint()
         if pend is not None:
             fold.push(pend)     # an odd slab count's tail joins as a leaf
             pend = None
+        if ck.start + nslabs == 0:
+            raise RuntimeError(
+                "stream produced no slabs (empty source?) — nothing to "
+                "reduce; the materialised path owns empty-input rules")
+        _chaos.hit("stream.fold")
+        fsp = _obs.begin("stream.fold", final=True)
+        t0 = _clock()
+        try:
+            out = fold.result()
+            if terminal == "multi":
+                out = _finalise_multi(out, comps, specs)
+            elif terminal in ("mean", "var", "std"):
+                out = _finalise(terminal, ddof, out)
+            if on_card:
+                compute_stream.synchronize()    # the run's one final sync
+        finally:
+            _obs.end(fsp)
+    except BaseException:
+        # the run is failing: write the retired-slab watermark first, so
+        # the next run resumes from here and not from the last periodic
+        # checkpoint — best effort, never masking the original error
+        if ck.dir is not None and nslabs:
+            try:
+                _checkpoint()
+            except Exception:       # noqa: BLE001 — the original failure
+                pass                # is the story
+        raise
     finally:
         ing.close()
         pending_sync.clear()
-    if nslabs == 0:
-        raise RuntimeError(
-            "stream produced no slabs (empty source?) — nothing to "
-            "reduce; the materialised path owns empty-input rules")
-    _chaos.hit("stream.fold")
-    fsp = _obs.begin("stream.fold", final=True)
-    t0 = _clock()
-    try:
-        out = fold.result()
-        if terminal == "multi":
-            out = _finalise_multi(out, comps, specs)
-        elif terminal in ("mean", "var", "std"):
-            out = _finalise(terminal, ddof, out)
-        if on_card:
-            compute_stream.synchronize()    # the run's one final sync
-    finally:
-        _obs.end(fsp)
+    if ck.dir is not None:
+        ck.clear()                  # success leaves no checkpoint behind
     compute += _clock() - t0
     wall = _clock() - t_start
     overlap = max(0.0, ingest + compute - wall)
@@ -1626,6 +1822,29 @@ def _stage_token(stage):
                     for x in stage)
 
 
+def _run_fingerprint(source, terminal, ddof, rfunc, specs, codec=None):
+    """Identity of one logical streamed run for checkpoint matching: the
+    source's geometry and slab plan, the stage chain, the terminal (with
+    ``ddof``, ``rfunc`` and a group's members) and the ingest codec, every
+    user callable (stages, the filter predicate, ``rfunc``, a callback
+    source's ``produce``) by its bytecode token (``utils.code_token``).
+    An edited pipeline or another codec is another run, whose checkpoint
+    is ignored, and the port's own version tag keeps a reference
+    checkpoint in the same directory from being adopted.  Data captured
+    in a closure is not part of it: pointing an identical loader at other
+    bytes of the same geometry is the caller's contract."""
+    from bolt_tpu_torch.utils import code_token
+    stages = "|".join(_stage_token(s) for s in source.stages)
+    members = "|".join("%s:%s" % (n, d) for n, d in specs) if specs else ""
+    return ("bolt-torch-stream-ckpt-v1", str(terminal), str(ddof),
+            code_token(rfunc) if rfunc is not None else "",
+            "x".join(str(s) for s in source.shape),
+            int(source.split), str(source.dtype), int(source.slab),
+            str(source.kind),
+            code_token(source.produce) if source.produce is not None
+            else "", stages, members, str(codec or ""))
+
+
 def _shuffle_fingerprint(source, pre_stages, perm, new_split, out_block):
     """Identity of one streamed-swap resolution for spill-manifest
     matching: geometry, slab plan, the pre-swap stages (callables by
@@ -1662,7 +1881,8 @@ def _resolve_one_swap(source):
     post = source.stages[cut + 1:]
     base = StreamSource(source.kind, source.produce, source.blocks,
                         source.shape, source.split, source.dtype,
-                        source.device, source.slab, pre, codec=source.codec)
+                        source.device, source.slab, pre, ckpt=source.ckpt,
+                        codec=source.codec)
     base._consumed = source._consumed
     st = result_state(base)
     device = source.device
@@ -1686,6 +1906,7 @@ def _resolve_one_swap(source):
     if not plan.resident and base.kind == "callback":
         done = _ckptlib.spill_manifest(spill_dir, fp)
         if done:
+            _engine.record_stream_resume()
             _obs.event("stream.spill_resume", slabs=len(done))
     jobs = None
     if base.kind == "callback":
@@ -1811,5 +2032,5 @@ def _resolve_one_swap(source):
         return full[lo - row0:hi - row0][(slice(None),) + tuple(index[1:])]
 
     src2 = StreamSource("callback", produce, None, out_shape, new_split,
-                        st.dtype, device, out_block, post)
+                        st.dtype, device, out_block, post, ckpt=source.ckpt)
     return BoltArrayGPU._streamed(src2)

@@ -29,6 +29,15 @@ def tupleize(arg):
     return (arg,)
 
 
+def listify(arg):
+    """Like :func:`tupleize` but returns a list.
+
+    Reference: ``bolt/utils.py :: listify``.
+    """
+    t = tupleize(arg)
+    return None if t is None else list(t)
+
+
 def argpack(args):
     """Normalise ``*args``-style shape/axis arguments.
 
@@ -185,6 +194,29 @@ def allclose(a, b, rtol=1e-5, atol=1e-8):
 def prod(shape):
     """Integer product of a shape tuple (1 for the empty shape)."""
     return int(np.prod(tupleize(shape) or (1,), dtype=np.int64))
+
+
+def get_kv_axes(shape, axes):
+    """Split the axis indices of ``shape`` into (key axes, value axes),
+    key axes being those named in ``axes``.
+
+    Reference: ``bolt/spark/utils.py :: get_kv_axes``.
+    """
+    axes = sorted(tupleize(axes))
+    inshape(shape, axes)
+    kaxes = tuple(axes)
+    vaxes = tuple(i for i in range(len(shape)) if i not in axes)
+    return kaxes, vaxes
+
+
+def get_kv_shape(shape, axes):
+    """Split ``shape`` into (key shape, value shape) for the key axes
+    ``axes``.
+
+    Reference: ``bolt/spark/utils.py :: get_kv_shape``.
+    """
+    kaxes, vaxes = get_kv_axes(shape, axes)
+    return (tuple(shape[a] for a in kaxes), tuple(shape[a] for a in vaxes))
 
 
 def chunk_axes(vshape, axis):

@@ -174,14 +174,37 @@ result):
    the clean one with one retry; the armed int8 ``sum`` launching
    ``fused_decode_sum`` once a slab and, under a filter, not at all.
    One log line a run: wall, peak device memory, slabs, shuffle and
-   spill bytes.
+   spill bytes;
+12. resume, checkpoints and unsigned records, under
+   ``stream.uploaders(4)``: phase 6's ``map(v + 1).sum()`` under
+   ``stream.resumable(build/..., every=2)``, killed by an injected
+   ``stream.upload`` fault at its 80th upload and run again, resumed (one
+   resume, fewer than 160 slabs, no checkpoint left), bit for bit against
+   phase 6's sum, and once clean (its wall beside phase 6's); phase 11's
+   group of five killed and resumed (``every=8``), each member bit for
+   bit against phase 11's; config 1's armed int8 ``sum`` killed and
+   resumed bit for bit against phase 11's, ``fused_decode_sum`` once for
+   each slab streamed after the resume; a child process running config
+   1's streamed sum under ``BOLT_CHAOS="stream.upload:6:kill"`` (it must
+   die with a checkpoint pending) and a second child resuming it, bit for
+   bit against phase 11's sum; config 1 through ``checkpoint.save``/
+   ``load`` bit for bit (write and read rates logged), and
+   ``map(v + 1).sum()`` and ``stats()`` of the loaded array launching
+   ``fused_map_reduce`` and ``fused_welford`` and equal to the saved
+   array's; config 1's records shifted to [0, 16] as ``uint16`` through
+   ``+ 1``, ``>``, ``//``, ``map(v + 1).sum()``, ``min``, ``max``,
+   ``stats()``, ``reduce(np.add)``, ``reduce(np.maximum)``, ``cumsum``,
+   ``clip``, ``compute(sum, mean, max)`` and a streamed ``sum``/``max``,
+   each equal to numpy in values and the reference's dtype.  One log line
+   a run: wall, slabs, resumes, checkpoint bytes and seconds, peak.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4, phase 6, phase 7, phase 8 and phase 11; phases 9 and 10 run no kernel
-of their own) and
+4, phase 6, phase 7, phase 8, phase 11 and phase 12; phases 9 and 10 run
+no kernel of their own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
-object and ``{"ok": true, "device": {...}}``.  A fuller report goes to
+object (each row's ``phase12_launches`` is its launches in phase 12) and
+``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -244,6 +267,9 @@ STREAM_PEAK_BYTES = 2e9
 FUSED_SUM_PEAK_BYTES = 1e9
 # phase 11's resident ceiling for config 1's swap (0.66 GB): it spills
 SPILL_BUDGET = 1 << 28
+# results of phases 6 and 11 that phase 12's resumed runs must equal bit
+# for bit (value-shaped tensors on the card)
+KEEP = {}
 
 
 def check(cond, what):
@@ -1065,6 +1091,7 @@ def stream_phase(bolt, K, torch, np, dev, report):
         errs = {}
         s1 = run("map_sum", lambda: source().map(lambda v: v + 1).sum())
         errs["map_sum"] = sum_close(s1, ref, n, "streamed map(v+1).sum()")
+        KEEP["ns_map_sum"] = s1
         errs["mean"] = close(run("mean", lambda: source().mean()),
                              ref["mean"], 1e-5, 1e-6, "streamed mean()")
         errs["var"] = close(run("var", lambda: source().var()),
@@ -2552,6 +2579,7 @@ def stages_phase(bolt, K, torch, np, dev, report):
                                   "phase 11 group var")
         check(torch.equal(gmin.double(), ref["min"]) and torch.equal(
             gmax.double(), ref["max"]), "phase 11 group min/max not exact")
+        KEEP["group"] = dict(zip(names, members))
         out["group_s"] = runs["group"]["wall_s"]
         out["standalone_s"] = sum(runs[m]["wall_s"] for m in names)
         log("phase 11 group of %d: %.3f s against %.3f s for its standalone "
@@ -2623,6 +2651,7 @@ def stages_phase(bolt, K, torch, np, dev, report):
         del resident, spilled, rsum, ssum
 
         clean = run("sum_c1", lambda: source1().sum().totorch(), s1)
+        KEEP["c1_sum"] = clean
         _chaos.inject("stream.upload", nth=3)
         try:
             with stream.retries(1):
@@ -2638,7 +2667,8 @@ def stages_phase(bolt, K, torch, np, dev, report):
 
         os.environ["BOLT_CODEC_KERNEL"] = "1"
         try:
-            run("int8_c1_armed", lambda: source1("int8").sum().totorch(), s1)
+            KEEP["c1_int8"] = run("int8_c1_armed", lambda: source1(
+                "int8").sum().totorch(), s1)
             check(K.LAUNCHES["fused_decode_sum"] == s1, "the armed int8 "
                   "sum launched fused_decode_sum %d times for %d slabs"
                   % (K.LAUNCHES["fused_decode_sum"], s1))
@@ -2655,6 +2685,329 @@ def stages_phase(bolt, K, torch, np, dev, report):
     log("stages phase ok in %.1f s: %s" % (report["phases"]["stages_s"],
                                             json.dumps(errs)))
     log("phase 11 launches: %s" % json.dumps(launches))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: resumable streams, array checkpoints and unsigned records
+# ---------------------------------------------------------------------------
+
+# the cadence of phase 12's group checkpoints: six value-shaped tensors a
+# tree level (sum, the moment triple, min, max) make a write several times
+# the sum's, so the group writes every 8 retired slabs
+GROUP_EVERY = 8
+
+
+def resume_child(ckdir, out):
+    """The kill -9 check's child: config 1's streamed ``sum`` (integer-
+    valued records) on the card under ``stream.resumable(ckdir)``, one
+    uploader; ``BOLT_CHAOS`` in its environment arms the fault.  Saves
+    the sum to ``out`` and prints the run's counters as one JSON line."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import engine, stream
+    cb = seeded_records(np, CONFIG1[1:], integers=True)
+    c0 = engine.counters()
+    with stream.uploaders(1), stream.resumable(ckdir):
+        s = bolt.fromcallback(cb, CONFIG1, mode="gpu", dtype=np.float32,
+                              chunks=SLAB_RECORDS).sum().totorch()
+    c1 = engine.counters()
+    np.save(out, s.cpu().numpy())
+    print(json.dumps({k: c1[k] - c0[k] for k in (
+        "stream_resumes", "stream_chunks", "checkpoint_bytes")}))
+    return 0
+
+
+def child_run(ckdir, out, chaos=None):
+    """:func:`resume_child` in a fresh process (``chaos``: its
+    ``BOLT_CHAOS``); its ``CompletedProcess``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BOLT_CHAOS", "BOLT_CODEC_KERNEL")}
+    if chaos is not None:
+        env["BOLT_CHAOS"] = chaos
+    return subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.resume_child(sys.argv[1], sys.argv[2]))",
+         ckdir, out], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+
+
+def unsigned_cases(bolt, torch, np, dev, xh, out):
+    """C5's calls on ``uint16`` records on the card against numpy: each
+    result's dtype equal to the reference's and its values to numpy's."""
+    b = bolt.array(xh, context=dev)
+    walls = {}
+
+    def case(label, got, want, dtype=None, exact=True):
+        t = time.perf_counter()
+        g = got()
+        g = g if isinstance(g, np.ndarray) else np.asarray(g.toarray())
+        walls[label] = time.perf_counter() - t
+        w = want()
+        check(g.dtype == np.dtype(dtype or w.dtype), "uint16 %s: dtype %s, "
+              "not %s" % (label, g.dtype, dtype or w.dtype))
+        ok = np.array_equal(g, w) if exact else np.allclose(
+            g, w, rtol=1e-6, atol=1e-6)
+        check(ok, "uint16 %s differs from numpy" % label)
+
+    case("b + 1", lambda: b + 1, lambda: xh + 1)
+    case("b > 3", lambda: b > 3, lambda: xh > 3)
+    case("b // 2", lambda: b // 2, lambda: xh // 2)
+    case("map(v + 1).sum()", lambda: b.map(lambda v: v + 1).sum(),
+         lambda: (xh + 1).sum(0))
+    case("min", lambda: b.min(), lambda: xh.min(0))
+    case("max", lambda: b.max(), lambda: xh.max(0))
+    st = b.stats()
+    case("stats() min/max", lambda: np.stack([st.min(), st.max()]),
+         lambda: np.stack([xh.min(0), xh.max(0)]))
+    case("stats() mean", lambda: np.asarray(st.mean(), np.float64),
+         lambda: xh.mean(0), exact=False)
+    case("reduce(np.add)", lambda: b.reduce(np.add), lambda: xh.sum(0),
+         dtype=np.uint16)
+    case("reduce(np.maximum)", lambda: b.reduce(np.maximum),
+         lambda: xh.max(0))
+    case("cumsum(axis=0)", lambda: b.cumsum(axis=0),
+         lambda: np.cumsum(xh, 0), dtype=np.uint16)
+    case("clip(2, 9)", lambda: b.clip(2, 9), lambda: np.clip(xh, 2, 9))
+    g = bolt.compute(b.sum(), b.mean(), b.max())
+    case("compute sum", lambda: g[0], lambda: xh.sum(0))
+    case("compute mean", lambda: g[1], lambda: xh.mean(0), dtype=np.float32,
+         exact=False)
+    case("compute max", lambda: g[2], lambda: xh.max(0))
+    src = bolt.fromcallback(lambda idx: xh[idx], xh.shape, context=dev,
+                            dtype=np.uint16, chunks=SLAB_RECORDS)
+    case("streamed sum", lambda: src.sum(), lambda: xh.sum(0))
+    case("streamed max", lambda: src.max(), lambda: xh.max(0))
+    out["unsigned_walls_s"] = walls
+    log("phase 12 uint16 calls on the card, each equal to numpy: %s"
+        % json.dumps({k: round(v, 4) for k, v in walls.items()}))
+
+
+def resume_phase(bolt, K, torch, np, dev, report):
+    """Phase 12: resumed streams bit for bit against phases 6 and 11, the
+    kill -9 resume, the array checkpoint and unsigned records at full
+    width; returns the phase's launches."""
+    import shutil
+    from bolt_tpu_torch import _chaos, checkpoint, engine, stream
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "phase12")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n = NORTH_STAR[0]
+    nslabs = -(-n // SLAB_RECORDS)
+    n1 = CONFIG1[0]
+    s1 = -(-n1 // SLAB_RECORDS)
+    cb = seeded_records(np, NORTH_STAR[1:])
+    cb1 = seeded_records(np, CONFIG1[1:], integers=True)
+
+    def source():
+        return bolt.fromcallback(cb, NORTH_STAR, mode="gpu",
+                                 dtype=np.float32)
+
+    def source1(codec=None):
+        return bolt.fromcallback(cb1, CONFIG1, mode="gpu", dtype=np.float32,
+                                 chunks=SLAB_RECORDS, codec=codec)
+
+    runs = {}
+    out = {"runs": runs}
+
+    def run(label, fn, fault=None):
+        """One run: its result, wall, slabs, resumes, checkpoint bytes and
+        seconds, and peak device memory, logged on one line.  ``fault``
+        (``(seam, nth)``) is armed for the run, which must raise it."""
+        c0 = engine.counters()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = None
+        if fault is None:
+            res = fn()
+        else:
+            _chaos.inject(fault[0], nth=fault[1])
+            try:
+                fn()
+            except _chaos.ChaosError:
+                pass
+            else:
+                check(False, "phase 12 %s: the injected fault did not "
+                      "abort the run" % label)
+            finally:
+                _chaos.clear()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        d = {k: v - c0[k] for k, v in engine.counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        runs[label] = {"wall_s": wall, "slabs": d["stream_chunks"],
+                       "resumes": d["stream_resumes"],
+                       "checkpoint_bytes": d["checkpoint_bytes"],
+                       "checkpoint_s": d["checkpoint_seconds"],
+                       "peak_gb": peak / 1e9,
+                       "resident_before_gb": base / 1e9}
+        log("phase 12 %-18s wall %.3f s, %d slabs, %d resumes, checkpoints "
+            "%.3f GB in %.3f s, peak %.3f GB (%.3f GB resident before)"
+            % (label, wall, d["stream_chunks"], d["stream_resumes"],
+               d["checkpoint_bytes"] / 1e9, d["checkpoint_seconds"],
+               peak / 1e9, base / 1e9))
+        check(peak < STREAM_PEAK_BYTES, "phase 12 %s peak device memory "
+              "%.3f GB" % (label, peak / 1e9))
+        return res
+
+    def resumed(label, total):
+        r = runs[label]
+        check(r["resumes"] == 1 and 0 < r["slabs"] < total,
+              "phase 12 %s: %d resumes, %d of %d slabs streamed"
+              % (label, r["resumes"], r["slabs"], total))
+
+    def same(got, want, what):
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              "phase 12 %s is not bit-identical to the uninterrupted run"
+              % what)
+
+    K.reset_launches()
+    with stream.uploaders(4):
+        # the streamed north-star's map(v + 1).sum(), killed at its 80th
+        # upload (of 160) and resumed, against phase 6's uninterrupted sum
+        ck = os.path.join(root, "north_star")
+
+        def mapsum():
+            return source().map(lambda v: v + 1).sum().totorch().reshape(-1)
+
+        with stream.resumable(ck, every=2):
+            run("ns_faulted", mapsum, fault=("stream.upload", nslabs // 2))
+            check(checkpoint.stream_pending(ck), "the faulted north-star "
+                  "run left no checkpoint")
+            same(run("ns_resumed", mapsum), KEEP["ns_map_sum"],
+                 "resumed north-star map(v + 1).sum()")
+            resumed("ns_resumed", nslabs)
+            check(not checkpoint.stream_pending(ck), "the resumed run left "
+                  "its checkpoint behind")
+            same(run("ns_clean_resumable", mapsum), KEEP["ns_map_sum"],
+                 "clean resumable north-star map(v + 1).sum()")
+        check(runs["ns_clean_resumable"]["slabs"] == nslabs
+              and runs["ns_clean_resumable"]["checkpoint_bytes"] > 0,
+              "the clean resumable run wrote no checkpoint")
+        out["ns_unresumable_wall_s"] = \
+            report["stream"]["runs"]["map_sum"]["wall_s"]
+        log("phase 12 clean resumable map(v + 1).sum() %.3f s against "
+            "phase 6's unresumable %.3f s"
+            % (runs["ns_clean_resumable"]["wall_s"],
+               out["ns_unresumable_wall_s"]))
+
+        # phase 11's group of five, killed and resumed, each member bit
+        # for bit against phase 11's
+        names = ("sum", "mean", "var", "min", "max")
+
+        def group():
+            s = source()
+            return [r.totorch().reshape(-1) for r in bolt.compute(
+                *[getattr(s, m)() for m in names])]
+
+        ckg = os.path.join(root, "group")
+        with stream.resumable(ckg, every=GROUP_EVERY):
+            run("group_faulted", group, fault=("stream.upload", nslabs // 2))
+            members = run("group_resumed", group)
+        resumed("group_resumed", nslabs)
+        for m, g in zip(names, members):
+            same(g, KEEP["group"][m], "resumed group member %s" % m)
+        check(not checkpoint.stream_pending(ckg), "the group's checkpoint "
+              "was left behind")
+        del members
+
+        # config 1's armed int8 sum, resumed: fused_decode_sum once for
+        # each slab streamed after the resume
+        ck1 = os.path.join(root, "int8")
+        os.environ["BOLT_CODEC_KERNEL"] = "1"
+        try:
+            with stream.resumable(ck1):
+                run("int8_faulted", lambda: source1("int8").sum().totorch(),
+                    fault=("stream.upload", s1 * 4 // 5))
+                before = K.LAUNCHES["fused_decode_sum"]
+                got = run("int8_resumed",
+                          lambda: source1("int8").sum().totorch())
+                launched = K.LAUNCHES["fused_decode_sum"] - before
+        finally:
+            os.environ.pop("BOLT_CODEC_KERNEL", None)
+        same(got, KEEP["c1_int8"], "resumed armed int8 sum")
+        resumed("int8_resumed", s1)
+        check(launched == runs["int8_resumed"]["slabs"], "the resumed int8 "
+              "sum launched fused_decode_sum %d times for %d slabs"
+              % (launched, runs["int8_resumed"]["slabs"]))
+        out["int8_resumed_launches"] = launched
+
+    # kill -9: a child killed at its 6th upload, then a second child that
+    # resumes its checkpoint
+    ckk = os.path.join(root, "kill")
+    outp = os.path.join(root, "kill_sum.npy")
+    t = time.perf_counter()
+    p = child_run(ckk, outp, chaos="stream.upload:6:kill")
+    out["kill_child_s"] = time.perf_counter() - t
+    killed_rc = p.returncode
+    check(killed_rc != 0, "the killed child exited %d" % killed_rc)
+    check(checkpoint.stream_pending(ckk), "the killed child left no "
+          "checkpoint (rc %d): %s" % (p.returncode, p.stderr[-2000:]))
+    t = time.perf_counter()
+    p = child_run(ckk, outp)
+    out["resume_child_s"] = time.perf_counter() - t
+    check(p.returncode == 0, "the resuming child failed: %s"
+          % p.stderr[-4000:])
+    kc = json.loads(p.stdout.strip().splitlines()[-1])
+    same(torch.from_numpy(np.load(outp)).to(dev), KEEP["c1_sum"],
+         "kill -9 resumed sum")
+    check(kc["stream_resumes"] == 1 and kc["stream_chunks"] < s1,
+          "the resuming child: %s" % kc)
+    check(not checkpoint.stream_pending(ckk), "the kill checkpoint was "
+          "left behind")
+    out["kill_resume"] = dict(kc, killed_rc=killed_rc)
+    log("phase 12 kill -9: the child died (rc %s) in %.1f s; the resuming "
+        "child streamed %d of %d slabs in %.1f s, bit for bit"
+        % (out["kill_resume"]["killed_rc"], out["kill_child_s"],
+           kc["stream_chunks"], s1, out["resume_child_s"]))
+
+    # the array checkpoint: config 1 through save/load, and B1 and B3 on
+    # the loaded array
+    b = bolt.fromcallback(cb1, CONFIG1, mode="gpu")
+    nbytes = b.totorch().numel() * 4
+    cka = os.path.join(root, "array")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    checkpoint.save(cka, b)
+    out["save_gb_s"] = nbytes / (time.perf_counter() - t) / 1e9
+    t = time.perf_counter()
+    lb = checkpoint.load(cka, context=dev)
+    torch.cuda.synchronize()
+    out["load_gb_s"] = nbytes / (time.perf_counter() - t) / 1e9
+    check(lb.split == b.split and lb.shape == b.shape
+          and lb.dtype == b.dtype and torch.equal(lb.totorch(), b.totorch()),
+          "the loaded config-1 array is not the saved one bit for bit")
+    log("phase 12 checkpoint.save %.3f GB/s, load %.3f GB/s (%.3f GB)"
+        % (out["save_gb_s"], out["load_gb_s"], nbytes / 1e9))
+    before = dict(K.LAUNCHES)
+    ms = lb.map(lambda v: v + 1).sum().totorch()
+    st = lb.stats()
+    for name in ("fused_map_reduce", "fused_welford"):
+        check(K.LAUNCHES[name] > before[name], "the loaded array's "
+              "map(v + 1).sum()/stats() never launched %s" % name)
+    # the saved array's results, to compare with: not the path's launches
+    before = dict(K.LAUNCHES)
+    same(ms, b.map(lambda v: v + 1).sum().totorch(), "loaded map-sum")
+    st_b = b.stats()
+    compared = {k: K.LAUNCHES[k] - before[k] for k in before}
+    for f in ("mean", "variance", "min", "max"):
+        check(np.array_equal(getattr(st, f)(), getattr(st_b, f)()),
+              "the loaded array's stats() %s differs" % f)
+    # C5 on the card: config 1's records shifted to [0, 16] as uint16
+    xh = (b.toarray() + 8).astype(np.uint16)
+    del b, lb, ms, st, st_b
+    unsigned_cases(bolt, torch, np, dev, xh, out)
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {k: v - compared[k] for k, v in K.LAUNCHES.items()}
+    out["launches"] = launches
+    report["resume_phase"] = out
+    report["phases"]["resume_s"] = time.perf_counter() - t0
+    log("resume phase ok in %.1f s" % report["phases"]["resume_s"])
+    log("phase 12 launches: %s" % json.dumps(launches))
     return launches
 
 
@@ -3023,6 +3376,9 @@ def main():
 
     # ---- phase 11: the streamed stages, groups, shuffle and retries --------
     stages_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 12: resume, checkpoints and unsigned records ----------------
+    resume_launches = resume_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
@@ -3045,7 +3401,8 @@ def main():
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"],
+                        "phase12_launches": resume_launches[name]})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -221,9 +221,9 @@ def test_buggy_callables_raise_not_fallback():
         warnings.simplefilter("error", bolt.HostFallbackWarning)
         with pytest.raises(AttributeError):
             b.map(lambda v: v.nonexistent_attr)
-        with pytest.raises(RuntimeError):
+        with pytest.raises(TypeError):
             b.map(lambda v: v.reshape(3))
-        with pytest.raises(RuntimeError):
+        with pytest.raises(TypeError):
             b.reduce(lambda a, c: a @ torch.ones((99, 2), dtype=a.dtype))
 
 

@@ -37,6 +37,13 @@ group member bit for bit against its standalone streamed terminal), a
 resident and a spilled swap bit for bit against the materialised swap,
 and an injected upload fault retried on the card's copy streams with the
 same bits as the run with no fault.
+
+Unsigned records and resume on the card: ``uint16``, ``uint32`` and
+``uint64`` arrays through operators, stat terminals, ``reduce``,
+``cumsum``, ``clip``, a group and a streamed ``sum``/``max``, values
+and dtypes equal to numpy's; an armed int8 stream killed by an injected
+upload fault and resumed bit for bit, ``fused_decode_sum`` once for
+each slab streamed after the resume.
 """
 
 import os
@@ -1079,3 +1086,75 @@ def test_upload_fault_retried_on_card():
         _chaos.clear()
     assert engine.counters()["stream_retries"] - c0 == 1
     assert np.array_equal(got.view(np.int32), clean.view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32, np.uint64])
+def test_unsigned_records_on_card(dtype):
+    # the unsigned dtypes torch leaves kernels out of compute in their
+    # carriers on the card too: every call against numpy, values and dtype
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    x = np.random.RandomState(13).randint(0, 17, (64, 6, 5)).astype(dtype)
+    b = bolt.array(x, dev)
+    cases = [
+        (b + 1, x + 1), (b > 3, x > 3), (b // 2, x // 2),
+        (b.map(lambda v: v + 1).sum(), (x + 1).sum(0)),
+        (b.min(), x.min(0)), (b.max(), x.max(0)),
+        (b.reduce(np.maximum), x.max(0)), (b.clip(2, 9), np.clip(x, 2, 9)),
+        (bolt.compute(b.sum(), b.max())[1], x.max(0))]
+    for got, want in cases:
+        g = np.asarray(got.toarray())
+        assert g.dtype == want.dtype and np.array_equal(g, want)
+    red = np.asarray(b.reduce(np.add).toarray())
+    assert red.dtype == x.dtype and np.array_equal(red, x.sum(0))
+    cum = np.asarray(b.cumsum(axis=0).toarray())
+    assert cum.dtype == x.dtype and np.array_equal(cum, np.cumsum(x, 0))
+    st = b.stats()
+    assert np.array_equal(st.min(), x.min(0))
+    assert np.array_equal(st.max(), x.max(0))
+    np.testing.assert_allclose(st.mean(), x.mean(0), rtol=1e-6)
+    src = bolt.fromcallback(lambda idx: x[idx], x.shape, dev, dtype=dtype,
+                            chunks=8)
+    for got, want in ((src.sum(), x.sum(0)), (src.max(), x.max(0))):
+        g = np.asarray(got.toarray())
+        assert g.dtype == want.dtype and np.array_equal(g, want)
+
+
+@pytest.mark.gpu
+def test_resumed_int8_stream_launches_decode_sum_on_card(tmp_path,
+                                                         monkeypatch):
+    # a streamed int8 sum killed at its 5th upload resumes on the card bit
+    # for bit, launching fused_decode_sum once for each slab it streams
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import _chaos, checkpoint, engine, stream
+    dev = _cuda()
+    monkeypatch.setenv("BOLT_CODEC_KERNEL", "1")
+    x = np.random.RandomState(14).randint(-8, 9, (64, 16, 36)).astype(
+        np.float32)
+    ck = str(tmp_path / "ck")
+
+    def run(ckdir=None):
+        with stream.uploaders(1):
+            return bolt.fromcallback(lambda idx: x[idx], x.shape, dev,
+                                     dtype=np.float32, chunks=8,
+                                     codec="int8", checkpoint=ckdir).sum() \
+                .toarray()
+
+    clean = run()
+    _chaos.inject("stream.upload", nth=5)
+    try:
+        with pytest.raises(_chaos.ChaosError):
+            run(ck)
+    finally:
+        _chaos.clear()
+    assert checkpoint.stream_pending(ck)
+    c0 = engine.counters()
+    before = K.LAUNCHES["fused_decode_sum"]
+    got = run(ck)
+    c1 = engine.counters()
+    slabs = c1["stream_chunks"] - c0["stream_chunks"]
+    assert c1["stream_resumes"] - c0["stream_resumes"] == 1 and slabs < 8
+    assert K.LAUNCHES["fused_decode_sum"] - before == slabs
+    assert np.array_equal(got.view(np.int32), clean.view(np.int32))
+    assert not checkpoint.stream_pending(ck)
