@@ -339,8 +339,10 @@ def stream_load(path, fingerprint, multiprocess=False):
     finally:
         z.close()
     want = meta.get("digest")
-    if want is not None and _state_digest(
-            meta["slabs"], meta["records"], leaves) != want:
+    if want is None:
+        raise CheckpointCorruptError(
+            corrupt % "the meta record holds no content digest")
+    if _state_digest(meta["slabs"], meta["records"], leaves) != want:
         raise CheckpointCorruptError(
             corrupt % "content digest mismatch vs the meta record")
     return (int(meta["slabs"]), int(meta["records"]),

@@ -386,20 +386,57 @@ class _WithKeysFunc:
         self.func = func
 
 
-def _user_call(call, args):
-    """``call(*args)`` of a user callable.  Where torch has no kernel for
-    an unsigned argument's dtype, ``call`` runs again on the arguments'
-    carriers (``gpu/dtypes.py``), and its result takes back the dtype
-    ``call`` gives on meta tensors of the arguments' own dtypes."""
+# per user callable and (argument dtypes, device type): None where torch
+# runs it on the arguments' own dtypes, else the result dtype it gives on
+# them (it then runs on their carriers)
+_CARRIED_CALLS = weakref.WeakKeyDictionary()
+
+
+def _user_call(func, args, depth=0, key=None):
+    """``func(*args)`` of a user callable, vmapped ``depth`` times over
+    the arguments' leading axes.  Where torch has no kernel for an
+    unsigned argument's dtype, ``func`` runs on the arguments' carriers
+    under ``dtypes.CarrierMode``, which computes what torch would on the
+    unsigned values or raises ``TypeError``; the result takes back the
+    dtype ``func`` gives on meta tensors of the arguments' own dtypes.
+    Which of the two runs is found once per callable (``key``, else
+    ``func``), argument dtypes and device."""
+    def batched(f):
+        for _ in range(depth):
+            f = vmap(f)
+        return f
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    sig = (tuple(a.dtype for a in tensors), tensors[0].device.type)
     try:
-        return call(*args)
-    except NotImplementedError as exc:
-        if not dtypes.missing_unsigned_kernel(exc, args):
+        plans = _CARRIED_CALLS.setdefault(func if key is None else key, {})
+    except TypeError:           # not weakly referable (a builtin)
+        plans = {}
+    if sig not in plans:
+        try:
+            out = batched(func)(*args)
+        except NotImplementedError as exc:
+            if not dtypes.missing_unsigned_kernel(exc, args):
+                raise
+            plans[sig] = batched(func)(*[
+                a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in args]).dtype
+        else:
+            plans[sig] = None
+            return out
+    want = plans[sig]
+    if want is None:
+        return batched(func)(*args)
+    mode = dtypes.CarrierMode()
+    try:
+        with mode:
+            out = batched(mode.entry(func, args))(*[
+                dtypes.carry(a) if isinstance(a, torch.Tensor) else a
+                for a in args])
+    except TypeError as exc:
+        if mode.refused is None:
             raise
-    want = call(*[a.to("meta") if isinstance(a, torch.Tensor) else a
-                  for a in args]).dtype
-    out = call(*[dtypes.carry(a) if isinstance(a, torch.Tensor) else a
-                 for a in args])
+        raise TypeError(mode.refused) from exc
     return dtypes.uncarry(out, want)
 
 
@@ -423,13 +460,10 @@ def _chain_apply(funcs, split, data, kshape=None, start=0):
             def one(v, *k, _f=func.func):
                 return _f((tuple(k), v))
 
-            res = _user_call(vmap(one), (flat, *keys))
+            res = _user_call(one, (flat, *keys), 1, key=func.func)
             out = res.reshape(ks + tuple(res.shape[1:]))
             continue
-        f = func
-        for _ in range(split):
-            f = vmap(f)
-        out = _user_call(f, (out,))
+        out = _user_call(func, (out,), split)
     return out
 
 
@@ -439,10 +473,9 @@ def _reduce_tree(data, func, n, vshape):
     combines the first half of the records with the second, the odd one
     out carried to the end, so integral reduces stay bit-identical."""
     x = data.reshape((n,) + tuple(vshape))
-    vfunc = vmap(func)
     while x.shape[0] > 1:
         half = x.shape[0] // 2
-        combined = _user_call(vfunc, (x[:half], x[half:2 * half]))
+        combined = _user_call(func, (x[:half], x[half:2 * half]), 1)
         rem = x[2 * half:]
         x = torch.cat([combined, rem], dim=0) if rem.shape[0] else combined
     out = x[0]
@@ -520,8 +553,8 @@ def _pred_mask(pred, flat):
     """The filter predicate as a bool mask over the flattened records —
     the reference's ONE coercion rule (``asarray(..., bool).reshape(())``
     per record), shared by the resolution and the fused terminals."""
-    return _user_call(vmap(lambda v: _as_tensor(pred(v), flat.device).to(
-        torch.bool).reshape(())), (flat,)).contiguous()
+    return _user_call(lambda v: _as_tensor(pred(v), flat.device).to(
+        torch.bool).reshape(()), (flat,), 1, key=pred).contiguous()
 
 
 def _identity(name, dtype):
@@ -625,11 +658,11 @@ def _masked_partial(slot, recs, mask, vshape, vdtype):
     if name in _COMBINE:
         ident = torch.tensor(_identity(name, recs.dtype), device=recs.device
                              ).to(recs.dtype)
-        return _reduce_stat(torch.where(mfull, recs, ident), name, axes,
+        return _reduce_stat(dtypes.where(mfull, recs, ident), name, axes,
                             keepdims, None, vdtype)
     out_dt = dtypes.stat_dtype(name, torch_dtype(vdtype))
-    xf = torch.where(mfull, recs, torch.zeros((), dtype=recs.dtype,
-                                              device=recs.device)).to(out_dt)
+    xf = dtypes.where(mfull, recs, torch.zeros((), dtype=recs.dtype,
+                                               device=recs.device)).to(out_dt)
     return (xf.sum(dim=axes, keepdim=keepdims),
             (xf * xf).sum(dim=axes, keepdim=keepdims))
 
@@ -995,7 +1028,6 @@ def _masked_tree(fp, dtype, func, keepdims):
     the empty-reduce ``TypeError``."""
     vshape = fp[4]
     x, valid = _filter_values(fp, dtype)
-    vfunc = vmap(func)
 
     def bc(m, like):
         return m.reshape(m.shape + (1,) * (like.ndim - 1))
@@ -1004,14 +1036,14 @@ def _masked_tree(fp, dtype, func, keepdims):
         half = x.shape[0] // 2
         a, b = x[:half], x[half:2 * half]
         va, vb = valid[:half], valid[half:2 * half]
-        comb = vfunc(a, b)
+        comb = _user_call(func, (a, b), 1)
         if comb.shape != a.shape:
             raise ValueError("reduce produced shape %s, expected value "
                              "shape %s" % (tuple(comb.shape[1:]), vshape))
         # both valid: combined; one valid: that operand (the combined
         # slot may be garbage and is discarded)
-        sel = torch.where(bc(va & vb, comb), comb,
-                          torch.where(bc(va, comb), a, b))
+        sel = dtypes.where(bc(va & vb, comb), comb,
+                           dtypes.where(bc(va, comb), a, b))
         vsel = va | vb
         rem, vrem = x[2 * half:], valid[2 * half:]
         if rem.shape[0]:
@@ -1431,9 +1463,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         def build():
             def run(data):
                 fp = (data,) + geom
-                parts = [recs[_pred_mask(fp[2], recs)] if recs.shape[0]
-                         else recs for _, _, recs in _filter_blocks(fp,
-                                                                    dtype)]
+                parts = [dtypes.rows(recs, _pred_mask(fp[2], recs))
+                         if recs.shape[0] else recs
+                         for _, _, recs in _filter_blocks(fp, dtype)]
                 return torch.cat(parts) if len(parts) > 1 else parts[0]
             return run
 

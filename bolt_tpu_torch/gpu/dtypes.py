@@ -32,16 +32,21 @@ is torch code): an ``int32`` record minus ``0.25`` is float32 there,
 where the reference gives float64, and ``Tensor.mean()`` refuses an
 integer record, so ``filter(lambda v: v.mean() > 0)`` raises on an
 integer array.  A callable on unsigned records runs on the records'
-own dtype; where torch has no kernel for it, it runs again on their
-carriers and its result takes the dtype torch infers for the own
-dtype.  In that carrier a ``uint64`` record of 2**63 or more reads as
-negative, so an ordering or a division inside the callable sees it so.
+own dtype; where torch has no kernel for it, it runs on their carriers
+under :class:`CarrierMode`, which gives each op torch's result for the
+unsigned values: ``(v - 5) // 2`` of a ``uint16`` 0 is 32765, as in
+numpy.  An op on a ``uint64`` record that its int64 carrier cannot do
+exactly (a division, a right shift, a conversion to float) raises
+``TypeError`` there instead.
 """
 
+import weakref
 from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 # each node and the nodes directly above it (jax._src.dtypes
 # _type_promotion_lattice, with numpy-style names)
@@ -212,9 +217,200 @@ def uncarry(t, dtype, ordered=False):
     return t if t.dtype == dtype else t.to(dtype)
 
 
+def where(cond, x, y):
+    """``torch.where(cond, x, y)`` of two tensors of one dtype, in their
+    carrier for a carried dtype (torch's CUDA build selects no uint16,
+    uint32 or uint64 elements)."""
+    if x.dtype in _CARRIER:
+        return uncarry(torch.where(cond, carry(x), carry(y)), x.dtype)
+    return torch.where(cond, x, y)
+
+
+def rows(x, mask):
+    """``x[mask]``, the rows a bool ``mask`` keeps, in the carrier for a
+    carried dtype (torch's CUDA build indexes no uint16, uint32 or
+    uint64 tensor)."""
+    if x.dtype in _CARRIER:
+        return uncarry(carry(x)[mask], x.dtype)
+    return x[mask]
+
+
 def missing_unsigned_kernel(exc, tensors):
     """Whether ``exc`` is torch refusing an unsigned dtype of ``tensors``
     it has no kernel for."""
     return isinstance(exc, NotImplementedError) and "UInt" in str(exc) \
         and any(isinstance(t, torch.Tensor) and t.dtype in _CARRIER
                 for t in tensors)
+
+
+# a uint64 carrier holds its value's bits: these ops give the same bits
+# whether the bits are read signed or unsigned (the wrapping arithmetic,
+# the bitwise ops, equality, and the ops that only move elements)
+_U64_EXACT = frozenset("""
+    add add_ sub sub_ __rsub__ rsub subtract mul mul_ multiply neg neg_
+    negative square bitwise_and bitwise_and_ __and__ __iand__ bitwise_or
+    bitwise_or_ __or__ __ior__ bitwise_xor bitwise_xor_ __xor__ __ixor__
+    bitwise_not bitwise_not_ __invert__ bitwise_left_shift __lshift__
+    __ilshift__ eq __eq__ ne __ne__ not_equal equal sum prod cumsum
+    cumprod __get__ __getitem__ __setitem__ reshape view view_as flatten
+    unflatten ravel squeeze unsqueeze permute transpose swapaxes swapdims
+    movedim moveaxis t expand expand_as broadcast_to contiguous clone
+    detach select narrow index_select gather take take_along_dim cat
+    concat concatenate stack hstack vstack dstack flip fliplr flipud roll
+    repeat tile chunk split unbind tensor_split diagonal diag tril triu
+    where zeros_like ones_like empty_like full_like new_zeros new_ones
+    new_empty new_full masked_fill copy_ fill_ to type type_as long int
+    short char byte bool size dim numel __len__ is_contiguous
+""".split())
+# the orderings, which run on sign-flipped bits; those of the first line
+# also take a Python int as a value to order against
+_U64_ORDER_SCALAR = frozenset("""
+    gt lt ge le greater less greater_equal less_equal clamp clip
+    clamp_min clamp_max
+""".split())
+_U64_ORDER = _U64_ORDER_SCALAR | frozenset("""
+    maximum minimum fmax fmin amax amin max min argmax argmin sort
+    argsort msort topk
+""".split())
+_MASK = {torch.uint16: 0xFFFF, torch.uint32: 0xFFFFFFFF}
+
+
+def _flip_number(c):
+    """A Python int ordered against uint64 bits: its sign-flipped bits,
+    read as int64."""
+    if not 0 <= c < 1 << 64:
+        raise TypeError("%d is outside the range of uint64" % c)
+    c ^= 1 << 63
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+class CarrierMode(TorchFunctionMode):
+    """What torch would compute on unsigned values it has no kernels for,
+    computed on their carriers: the mode a user callable reruns under
+    (``gpu/array.py :: _user_call``).
+
+    Every tensor that stands for a ``uint16``/``uint32``/``uint64`` value
+    is tracked.  An op on one computes on the carriers and takes the
+    result dtype torch gives on meta tensors of the unsigned dtypes (its
+    own rule, as inside any callable).  An unsigned result is a carrier
+    again: a ``uint16``/``uint32`` one is masked back into its range, so
+    a later ordering or division sees the wrapped unsigned value.  A
+    ``uint64`` carrier holds its value's bits, which an op of
+    ``_U64_EXACT`` keeps exact and an ordering of ``_U64_ORDER`` reads on
+    sign-flipped bits; any other op on one (a division, a right shift, a
+    conversion to float) raises ``TypeError`` rather than read 2**63 and
+    more as negative.  torch turns a ``TypeError`` out of an operator
+    (``v // 2``) into Python's own, so the refusal is kept in
+    ``refused`` for the caller to raise."""
+
+    def __init__(self):
+        super().__init__()
+        self._unsigned = {}         # id(tensor) -> (weakref, dtype)
+        self.refused = None
+
+    def _refuse(self, msg):
+        self.refused = msg
+        raise TypeError(msg)
+
+    def mark(self, t, dtype):
+        """Track ``t`` as the carrier of a ``dtype`` value."""
+        key, table = id(t), self._unsigned
+
+        def gone(ref):
+            if table.get(key, (None,))[0] is ref:
+                del table[key]
+        table[key] = (weakref.ref(t, gone), dtype)
+
+    def entry(self, func, args):
+        """``func`` with its arguments at the places of ``args`` that are
+        carried tensors tracked first (the per-record function a vmap
+        wraps: it sees the batched arguments)."""
+        places = [(i, a.dtype) for i, a in enumerate(args)
+                  if isinstance(a, torch.Tensor) and a.dtype in _CARRIER]
+
+        def tracked(*inner):
+            for i, dt in places:
+                self.mark(inner[i], dt)
+            return func(*inner)
+        return tracked
+
+    def _kind(self, x):
+        """The unsigned dtype tensor ``x`` stands for, or None."""
+        hit = self._unsigned.get(id(x))
+        if hit is not None and hit[0]() is x:
+            return hit[1]
+        return x.dtype if x.dtype in _CARRIER else None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        flat, spec = tree_flatten((args, kwargs or {}))
+        kinds = [self._kind(x) if isinstance(x, torch.Tensor) else None
+                 for x in flat]
+        if not any(kinds):
+            return func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", repr(func))
+        u64 = torch.uint64 in kinds
+        order = u64 and name in _U64_ORDER
+        if u64 and not order and name not in _U64_EXACT:
+            self._refuse(
+                "%s of a uint64 record in a callable: torch has no uint64 "
+                "kernel for it, and its int64 carrier would read values "
+                "of 2**63 or more as negative; astype a signed or float "
+                "dtype first" % name)
+        cflat = []
+        for x, k in zip(flat, kinds):
+            if k is not None:
+                x = x if x.dtype == _CARRIER[k] else carry(x)
+                if order and k == torch.uint64:
+                    x = x ^ _SIGN_BIT
+            elif u64 and isinstance(x, int) and not isinstance(x, bool):
+                if order and name in _U64_ORDER_SCALAR:
+                    x = _flip_number(x)
+                elif x >= 1 << 63:
+                    x -= 1 << 64            # the same bits, wrapped
+            cflat.append(x)
+        cargs, ckwargs = tree_unflatten(cflat, spec)
+        out = func(*cargs, **ckwargs)
+        oflat, ospec = tree_flatten(out)
+        if not any(isinstance(o, (torch.Tensor, torch.dtype))
+                   for o in oflat):
+            return out
+        # torch's result dtypes for the unsigned operands themselves
+        mflat = [torch.empty(tuple(x.shape), dtype=k or x.dtype,
+                             device="meta")
+                 if isinstance(x, torch.Tensor) else x
+                 for x, k in zip(flat, kinds)]
+        margs, mkwargs = tree_unflatten(mflat, spec)
+        want = tree_flatten(func(*margs, **mkwargs))[0]
+        inputs = {id(x) for x in cflat if isinstance(x, torch.Tensor)}
+        return tree_unflatten([self._result(o, w, u64, order, name,
+                                            id(o) in inputs)
+                               for o, w in zip(oflat, want)], ospec)
+
+    def _result(self, o, w, u64, order, name, inplace):
+        """One output ``o`` of the carrier op, given its meta twin ``w``."""
+        if isinstance(o, torch.dtype):
+            return w
+        if not isinstance(o, torch.Tensor):
+            return o
+        dt = w.dtype
+        if u64 and (dt.is_floating_point or dt.is_complex):
+            self._refuse(
+                "%s of a uint64 record in a callable gives %s: its int64 "
+                "carrier would read values of 2**63 or more as negative; "
+                "astype a float dtype first" % (name, dt))
+        if dt not in _CARRIER:
+            return o if o.dtype == dt else o.to(dt)
+        if dt == torch.uint64:
+            o = o.to(torch.int64) if o.dtype != torch.int64 else o
+            if order:
+                o = o ^ _SIGN_BIT
+        else:
+            if o.dtype != _CARRIER[dt]:
+                o = carry(o) if o.dtype in _CARRIER else o
+                o = (o & _MASK[dt]).to(_CARRIER[dt])
+            elif inplace:
+                o.bitwise_and_(_MASK[dt])
+            else:
+                o = o & _MASK[dt]
+        self.mark(o, dt)
+        return o

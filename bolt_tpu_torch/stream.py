@@ -936,7 +936,7 @@ def _terminal_partial(terminal, flat, mfull, vshape, n, rfunc, dtype):
     from bolt_tpu_torch.gpu.array import _reduce_stat, _reduce_tree
     zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
     if terminal == "sum":
-        v = flat if mfull is None else torch.where(mfull, flat, zero)
+        v = flat if mfull is None else dtypes.where(mfull, flat, zero)
         return _reduce_stat(v, "sum", (0,), False, None, dtype)
     if terminal in ("min", "max"):
         return _reduce_stat(flat, terminal, (0,), False, None, dtype)
@@ -950,7 +950,7 @@ def _terminal_partial(terminal, flat, mfull, vshape, n, rfunc, dtype):
         dev = xf - mu
     else:
         cnt = mfull.reshape(n).to(out_dt).sum()
-        xf = torch.where(mfull, flat, zero).to(out_dt)
+        xf = dtypes.where(mfull, flat, zero).to(out_dt)
         safe = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
         mu = xf.sum(dim=0) / safe
         dev = torch.where(mfull, xf - mu, torch.zeros_like(mu))
@@ -1472,7 +1472,8 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
                   and terminal == "sum" and not source.stages
                   and source.split == 1
                   and _codec_registry().kernel_enabled())
-    ck = _Resume.open(source, terminal, ddof, rfunc, specs, codec_obj)
+    ck = _Resume.open(source, terminal, ddof, rfunc, specs, codec_obj,
+                      use_kernel)
     run_sp = _obs.begin("stream.run", terminal=terminal, depth=depth,
                         uploaders=nwork, kind=source.kind,
                         **({"codec": codec_obj.name}
@@ -1516,7 +1517,8 @@ class _Resume:
         self.state = None
 
     @classmethod
-    def open(cls, source, terminal, ddof, rfunc, specs, codec_obj):
+    def open(cls, source, terminal, ddof, rfunc, specs, codec_obj,
+             use_kernel=False):
         """The plan of a run over ``source``, with the checkpoint a killed
         run of the same pipeline left loaded (and counted as a resume)."""
         scope = checkpoint_scope()
@@ -1529,7 +1531,7 @@ class _Resume:
         from bolt_tpu_torch import checkpoint as _ckptlib
         ck.codec = codec_obj.name if codec_obj is not None else None
         ck.fp = _run_fingerprint(source, terminal, ddof, rfunc, specs,
-                                 ck.codec)
+                                 ck.codec, use_kernel)
         got = _ckptlib.stream_load(ck.dir, ck.fp)
         if got is not None:
             ck.start, ck.records, ck.state = got
@@ -1822,14 +1824,17 @@ def _stage_token(stage):
                     for x in stage)
 
 
-def _run_fingerprint(source, terminal, ddof, rfunc, specs, codec=None):
+def _run_fingerprint(source, terminal, ddof, rfunc, specs, codec=None,
+                     use_kernel=False):
     """Identity of one logical streamed run for checkpoint matching: the
     source's geometry and slab plan, the stage chain, the terminal (with
-    ``ddof``, ``rfunc`` and a group's members) and the ingest codec, every
-    user callable (stages, the filter predicate, ``rfunc``, a callback
-    source's ``produce``) by its bytecode token (``utils.code_token``).
-    An edited pipeline or another codec is another run, whose checkpoint
-    is ignored, and the port's own version tag keeps a reference
+    ``ddof``, ``rfunc`` and a group's members), the ingest codec, whether
+    ``fused_decode_sum`` decodes it and the device type (the routes'
+    partials differ in their last bits), every user callable (stages,
+    the filter predicate, ``rfunc``, a callback source's ``produce``) by
+    its bytecode token (``utils.code_token``).  An edited pipeline,
+    another codec or another route is another run, whose checkpoint is
+    ignored, and the port's own version tag keeps a reference
     checkpoint in the same directory from being adopted.  Data captured
     in a closure is not part of it: pointing an identical loader at other
     bytes of the same geometry is the caller's contract."""
@@ -1842,7 +1847,8 @@ def _run_fingerprint(source, terminal, ddof, rfunc, specs, codec=None):
             int(source.split), str(source.dtype), int(source.slab),
             str(source.kind),
             code_token(source.produce) if source.produce is not None
-            else "", stages, members, str(codec or ""))
+            else "", stages, members, str(codec or ""),
+            "kernel" if use_kernel else "", source.device.type)
 
 
 def _shuffle_fingerprint(source, pre_stages, perm, new_split, out_block):

@@ -190,8 +190,8 @@ result):
    bit against phase 11's sum; config 1 through ``checkpoint.save``/
    ``load`` bit for bit (write and read rates logged), and
    ``map(v + 1).sum()`` and ``stats()`` of the loaded array launching
-   ``fused_map_reduce`` and ``fused_welford`` and equal to the saved
-   array's; config 1's records shifted to [0, 16] as ``uint16`` through
+   ``fused_map_reduce`` and ``fused_welford`` once each and equal to the
+   saved array's; config 1's records shifted to [0, 16] as ``uint16`` through
    ``+ 1``, ``>``, ``//``, ``map(v + 1).sum()``, ``min``, ``max``,
    ``stats()``, ``reduce(np.add)``, ``reduce(np.maximum)``, ``cumsum``,
    ``clip``, ``compute(sum, mean, max)`` and a streamed ``sum``/``max``,
@@ -203,7 +203,9 @@ The launch counters are zeroed just before each path (phases 2–3, phase
 no kernel of their own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
-object (each row's ``phase12_launches`` is its launches in phase 12) and
+object (each row's ``phase12_launches`` holds its launches in each path
+of phase 12 that launched it: each run of the resumes, ``loaded_array``
+and ``uint16``, every one counted from 0) and
 ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -2810,16 +2812,20 @@ def resume_phase(bolt, K, torch, np, dev, report):
                                  chunks=SLAB_RECORDS, codec=codec)
 
     runs = {}
-    out = {"runs": runs}
+    launches = {}               # each path's own launches, by path
+    out = {"runs": runs, "launches": launches}
 
     def run(label, fn, fault=None):
         """One run: its result, wall, slabs, resumes, checkpoint bytes and
         seconds, and peak device memory, logged on one line.  ``fault``
-        (``(seam, nth)``) is armed for the run, which must raise it."""
+        (``(seam, nth)``) is armed for the run, which must raise it.  The
+        launch counters are zeroed just before the run and read after it:
+        the run's own launches."""
         c0 = engine.counters()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
         t = time.perf_counter()
         res = None
         if fault is None:
@@ -2837,6 +2843,7 @@ def resume_phase(bolt, K, torch, np, dev, report):
                 _chaos.clear()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+        launches[label] = dict(K.LAUNCHES)
         d = {k: v - c0[k] for k, v in engine.counters().items()}
         peak = torch.cuda.max_memory_allocated()
         runs[label] = {"wall_s": wall, "slabs": d["stream_chunks"],
@@ -2865,7 +2872,6 @@ def resume_phase(bolt, K, torch, np, dev, report):
               "phase 12 %s is not bit-identical to the uninterrupted run"
               % what)
 
-    K.reset_launches()
     with stream.uploaders(4):
         # the streamed north-star's map(v + 1).sum(), killed at its 80th
         # upload (of 160) and resumed, against phase 6's uninterrupted sum
@@ -2923,10 +2929,9 @@ def resume_phase(bolt, K, torch, np, dev, report):
             with stream.resumable(ck1):
                 run("int8_faulted", lambda: source1("int8").sum().totorch(),
                     fault=("stream.upload", s1 * 4 // 5))
-                before = K.LAUNCHES["fused_decode_sum"]
                 got = run("int8_resumed",
                           lambda: source1("int8").sum().totorch())
-                launched = K.LAUNCHES["fused_decode_sum"] - before
+                launched = launches["int8_resumed"]["fused_decode_sum"]
         finally:
             os.environ.pop("BOLT_CODEC_KERNEL", None)
         same(got, KEEP["c1_int8"], "resumed armed int8 sum")
@@ -2983,31 +2988,33 @@ def resume_phase(bolt, K, torch, np, dev, report):
           "the loaded config-1 array is not the saved one bit for bit")
     log("phase 12 checkpoint.save %.3f GB/s, load %.3f GB/s (%.3f GB)"
         % (out["save_gb_s"], out["load_gb_s"], nbytes / 1e9))
-    before = dict(K.LAUNCHES)
+    K.reset_launches()
     ms = lb.map(lambda v: v + 1).sum().totorch()
     st = lb.stats()
+    torch.cuda.synchronize()
+    launches["loaded_array"] = dict(K.LAUNCHES)
     for name in ("fused_map_reduce", "fused_welford"):
-        check(K.LAUNCHES[name] > before[name], "the loaded array's "
-              "map(v + 1).sum()/stats() never launched %s" % name)
-    # the saved array's results, to compare with: not the path's launches
-    before = dict(K.LAUNCHES)
+        check(launches["loaded_array"][name] == 1, "the loaded array's "
+              "map(v + 1).sum()/stats() launched %s %d times, not once"
+              % (name, launches["loaded_array"][name]))
+    # the saved array's results, to compare with: after the path's read
     same(ms, b.map(lambda v: v + 1).sum().totorch(), "loaded map-sum")
     st_b = b.stats()
-    compared = {k: K.LAUNCHES[k] - before[k] for k in before}
     for f in ("mean", "variance", "min", "max"):
         check(np.array_equal(getattr(st, f)(), getattr(st_b, f)()),
               "the loaded array's stats() %s differs" % f)
     # C5 on the card: config 1's records shifted to [0, 16] as uint16
     xh = (b.toarray() + 8).astype(np.uint16)
     del b, lb, ms, st, st_b
+    K.reset_launches()
     unsigned_cases(bolt, torch, np, dev, xh, out)
+    launches["uint16"] = dict(K.LAUNCHES)
     shutil.rmtree(root, ignore_errors=True)
-    launches = {k: v - compared[k] for k, v in K.LAUNCHES.items()}
-    out["launches"] = launches
     report["resume_phase"] = out
     report["phases"]["resume_s"] = time.perf_counter() - t0
     log("resume phase ok in %.1f s" % report["phases"]["resume_s"])
-    log("phase 12 launches: %s" % json.dumps(launches))
+    log("phase 12 launches by path: %s" % json.dumps(
+        {p: {k: v for k, v in c.items() if v} for p, c in launches.items()}))
     return launches
 
 
@@ -3402,7 +3409,9 @@ def main():
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        "phase12_launches": resume_launches[name]})
+                        "phase12_launches": {
+                            path: c[name] for path, c in
+                            resume_launches.items() if c[name]}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -41,7 +41,8 @@ same bits as the run with no fault.
 Unsigned records and resume on the card: ``uint16``, ``uint32`` and
 ``uint64`` arrays through operators, stat terminals, ``reduce``,
 ``cumsum``, ``clip``, a group and a streamed ``sum``/``max``, values
-and dtypes equal to numpy's; an armed int8 stream killed by an injected
+and dtypes equal to numpy's, and callables that wrap and order on
+them; an armed int8 stream killed by an injected
 upload fault and resumed bit for bit, ``fused_decode_sum`` once for
 each slab streamed after the resume.
 """
@@ -1117,6 +1118,38 @@ def test_unsigned_records_on_card(dtype):
     src = bolt.fromcallback(lambda idx: x[idx], x.shape, dev, dtype=dtype,
                             chunks=8)
     for got, want in ((src.sum(), x.sum(0)), (src.max(), x.max(0))):
+        g = np.asarray(got.toarray())
+        assert g.dtype == want.dtype and np.array_equal(g, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32, np.uint64])
+def test_unsigned_callables_on_card(dtype):
+    # a callable torch's CUDA build has no unsigned kernel for runs on the
+    # carriers: wraps and orderings inside it give numpy's answers, and a
+    # uint64 division there refuses rather than read the carrier signed
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    x = np.random.RandomState(14).randint(0, 17, (64, 6, 5)).astype(dtype)
+    if dtype == np.uint64:
+        x.reshape(-1)[::7] += np.uint64(2 ** 63)
+    b = bolt.array(x, dev)
+    keep = (x[:, 0, 0] - dtype(5)) > 3
+    cases = [(b.map(lambda v: (v - 5) > 3), (x - dtype(5)) > 3),
+             (b.map(lambda v: v > 5), x > 5),
+             (b.filter(lambda v: (v[0, 0] - 5) > 3), x[keep]),
+             (b.filter(lambda v: (v[0, 0] - 5) > 3).max(), x[keep].max(0)),
+             (b.filter(lambda v: (v[0, 0] - 5) > 3).sum(), x[keep].sum(0)),
+             (b.reduce(lambda a, c: a * (a > c) + c * (a <= c)), x.max(0))]
+    src = bolt.fromcallback(lambda idx: x[idx], x.shape, dev, dtype=dtype,
+                            chunks=8).filter(lambda v: v[0, 0] > 9)
+    cases.append((src.sum(), x[x[:, 0, 0] > 9].sum(0)))
+    if dtype != np.uint64:
+        cases.append((b.map(lambda v: (v - 5) // 2), (x - dtype(5)) // 2))
+    else:
+        with pytest.raises(TypeError, match="uint64"):
+            b.map(lambda v: (v - 5) // 2).toarray()
+    for got, want in cases:
         g = np.asarray(got.toarray())
         assert g.dtype == want.dtype and np.array_equal(g, want)
 

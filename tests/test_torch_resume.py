@@ -15,6 +15,7 @@ f64 (sums are exact in any order), within ``rtol=1e-12`` on random f64.
 Sources run on the torch CPU device.
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -309,6 +310,31 @@ def test_resume_int8_codec_and_a_changed_codec_restarts(tmp_path):
     assert _bits(got, clean)
 
 
+def test_resume_with_the_decode_kernel_toggled_restarts(tmp_path,
+                                                        monkeypatch):
+    # the fused_decode_sum route and the plain decode differ in their
+    # last bits: a run killed on one route never resumes on the other
+    data = _intdata().astype(np.float32)
+    ck = str(tmp_path / "ck")
+    monkeypatch.setenv("BOLT_CODEC_KERNEL", "1")
+    armed = _a(_source(data, codec="int8").sum())
+    _kill(lambda: _source(data, ck=ck, codec="int8").sum().cache())
+    monkeypatch.delenv("BOLT_CODEC_KERNEL")
+    c0 = engine.counters()
+    plain = _a(_source(data, ck=ck, codec="int8").sum())
+    c1 = engine.counters()
+    assert c1["stream_resumes"] == c0["stream_resumes"]
+    assert c1["stream_chunks"] - c0["stream_chunks"] == 8
+    assert _bits(plain, _a(_source(data, codec="int8").sum()))
+    # armed again, the run resumes from its own route's checkpoint
+    monkeypatch.setenv("BOLT_CODEC_KERNEL", "1")
+    _kill(lambda: _source(data, ck=ck, codec="int8").sum().cache())
+    c0 = engine.counters()
+    got = _a(_source(data, ck=ck, codec="int8").sum())
+    assert engine.counters()["stream_resumes"] == c0["stream_resumes"] + 1
+    assert _bits(got, armed)
+
+
 def test_abort_watermark_counts_only_folded_slabs(tmp_path):
     # a dispatch that fails is not retired: the abort checkpoint's
     # watermark stops before it, and the resume re-runs it
@@ -404,7 +430,10 @@ def test_subprocess_kill9_resume_bit_identical(tmp_path):
     out = str(tmp_path / "sum.npy")
     clean_out = str(tmp_path / "clean.npy")
     assert _child(str(tmp_path / "clean_ck"), clean_out).returncode == 0
-    killed = _child(ck, out, "stream.upload:6:kill")
+    # killed in the consumer thread, at its 6th slab: the checkpoints of
+    # slabs 2 and 4 are whole.  An uploader-thread kill can land between
+    # the two renames of a write, and that torn pair is refused by design
+    killed = _child(ck, out, "stream.dispatch:6:kill")
     assert killed.returncode != 0                # SIGKILL, not an exit
     assert checkpoint.stream_pending(ck)
     p = _child(ck, out)
@@ -503,6 +532,21 @@ def test_corrupt_state_refused_pointedly(tmp_path):
         f.write(b"\xde\xad\xbe\xef")
     with pytest.raises(checkpoint.CheckpointCorruptError):
         _source(data, ck=ck).sum().cache()
+
+
+def test_meta_without_a_digest_refused(tmp_path):
+    # every meta the port writes holds the state's digest: one without it
+    # was edited by hand or written by another tool
+    fp = ("fp",)
+    checkpoint.stream_save(str(tmp_path), fp, 2, 8, ([np.ones(3)], None))
+    meta = os.path.join(str(tmp_path), "stream_meta.json")
+    with open(meta) as f:
+        rec = json.load(f)
+    del rec["digest"]
+    with open(meta, "w") as f:
+        json.dump(rec, f)
+    with pytest.raises(checkpoint.CheckpointCorruptError, match="digest"):
+        checkpoint.stream_load(str(tmp_path), fp)
 
 
 def test_edited_pipeline_fingerprint_refused(tmp_path):

@@ -11,11 +11,11 @@ or ``var``, within ``rtol=1e-6`` in f32 and ``1e-12`` in f64: XLA divides
 by a constant through its reciprocal).  The ``uint64`` records include
 values of 2**63 and more, whose int64 carrier is negative, so the
 operators' orderings and divisions are held where the signed and the
-unsigned answers part.  Inside a user callable such a record reads as
-negative where torch has no uint64 kernel
-(``test_uint64_callable_reads_the_carrier_signed``, ROADMAP
-"Differences"), so the callables of the table only add and compare for
-equality.
+unsigned answers part.  A user callable torch has no kernel for runs
+on the carriers under ``dtypes.CarrierMode``: ``CALLABLES`` holds
+wraps, orderings and divisions inside callables against the reference,
+and a uint64 callable that divides refuses with ``TypeError`` (ROADMAP
+"Differences").
 """
 
 import numpy as np
@@ -167,6 +167,89 @@ def test_unsigned_streamed_group_and_reduce(mesh, dtype):
               _a(src(ref, mesh).reduce(fn)))
 
 
+def _max_by_order(a, c):
+    # the larger of two records by comparisons alone: associative, so a
+    # streamed fold in any order gives the reference's value
+    return a * (a > c) + c * (a <= c)
+
+
+CALLABLES = {
+    "map_wrap_floordiv": lambda b: b.map(lambda v: (v - 5) // 2),
+    "map_wrap_gt": lambda b: b.map(lambda v: (v - 5) > 3),
+    "map_gt": lambda b: b.map(lambda v: v > 5),
+    "map_wrap_mul_eq": lambda b: b.map(lambda v: (v - 7) * 3 == v),
+    "filter_wrap_gt": lambda b: b.filter(lambda v: (v[0, 0] - 5) > 3),
+    "filter_wrap_sum": lambda b: b.filter(
+        lambda v: (v[0, 0] - 5) > 3).sum(),
+    "reduce_wrap_floordiv": lambda b: b.reduce(lambda a, c: (a - c) // 2),
+    "reduce_by_order": lambda b: b.reduce(_max_by_order),
+    "filter_reduce_by_order": lambda b: b.filter(
+        lambda v: (v[0, 0] - 5) > 3).reduce(_max_by_order),
+    "filter_max": lambda b: b.filter(lambda v: (v[0, 0] - 5) > 3).max(),
+    "filter_mean": lambda b: b.filter(lambda v: (v[0, 0] - 5) > 3).mean(),
+}
+# a uint64 record in a callable divides only through a refusal
+_U64_REFUSED = {"map_wrap_floordiv", "reduce_wrap_floordiv"}
+
+
+@pytest.mark.parametrize("dtype", UNSIGNED)
+@pytest.mark.parametrize("name", sorted(CALLABLES))
+def test_unsigned_callable_matches_reference(mesh, dtype, name):
+    # a wrap, an ordering or a division inside a callable sees the
+    # unsigned value where torch runs it on the carrier
+    x = _x(dtype)
+    if dtype == np.uint64 and name in _U64_REFUSED:
+        with pytest.raises(TypeError, match="uint64"):
+            _a(CALLABLES[name](bolt.array(x, CPU)))
+        return
+    want = _a(CALLABLES[name](ref.array(x, mesh)))
+    got = _a(CALLABLES[name](bolt.array(x, CPU)))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("dtype", UNSIGNED)
+def test_unsigned_streamed_user_reduce_matches_reference(mesh, dtype):
+    # the streamed fold merges slab partials with the user function
+    x = _x(dtype, shape=(32, 3, 4))
+
+    def src(pkg, ctx):
+        return pkg.fromcallback(lambda i: x[i], x.shape, ctx, dtype=dtype,
+                                chunks=4)
+
+    _same(_a(src(bolt, CPU).reduce(_max_by_order)),
+          _a(src(ref, mesh).reduce(_max_by_order)))
+
+
+@pytest.mark.parametrize("dtype", UNSIGNED)
+@pytest.mark.parametrize("name", ["sum", "mean", "max"])
+def test_unsigned_streamed_filter_matches_reference(mesh, dtype, name):
+    # a streamed filter drops records by selecting in the carrier
+    x = _x(dtype, shape=(32, 3, 4))
+
+    def src(pkg, ctx):
+        return pkg.fromcallback(lambda i: x[i], x.shape, ctx, dtype=dtype,
+                                chunks=4).filter(lambda v: v[0, 0] > 9)
+
+    _same(_a(getattr(src(bolt, CPU), name)()),
+          _a(getattr(src(ref, mesh), name)()))
+
+
+def test_carried_callable_runs_once_per_application_after_the_first():
+    # which of the two runs a callable takes is found once: later
+    # applications run it once, on the carriers
+    x = _x(np.uint16)
+    b = bolt.array(x, CPU)
+    runs = []
+
+    def g(v):
+        runs.append(v.dtype)
+        return v + 1                     # no uint16 add: the carrier
+    assert np.array_equal(b.map(g).toarray(), x + 1)
+    runs.clear()
+    assert np.array_equal(b.map(g).toarray(), x + 1)
+    assert runs == [torch.uint16]
+
+
 def test_uint64_carrier_orders_and_divides_unsigned():
     # the values where int64 bits and uint64 part: 2**63 and more
     from bolt_tpu_torch.gpu import dtypes, ufuncs
@@ -218,15 +301,23 @@ def test_unsigned_callable_keeps_its_own_dtype_where_torch_allows():
         return v + 1                     # no uint16 add: the carrier
     out = b.map(g).toarray()
     assert out.dtype == np.uint16 and np.array_equal(out, x + 1)
-    assert torch.int32 in seen
+    # the carrier's record reports its own dtype too
+    assert set(seen) == {torch.uint16}
 
 
 def test_uint64_callable_reads_the_carrier_signed():
-    # pinned difference: torch has no uint64 comparison, so a callable
-    # comparing a uint64 record runs on its int64 carrier, where 2**63
-    # and more are negative (the operators order unsigned)
+    # torch has no uint64 comparison, so a callable comparing a uint64
+    # record runs on its int64 carrier, where 2**63 and more read as
+    # negative; the carrier mode orders on sign-flipped bits, so the
+    # callable orders unsigned, as the operators do
     x = np.array([[1], [2 ** 63 + 1]], dtype=np.uint64)
     b = bolt.array(x, CPU)
     got = np.asarray(b.map(lambda v: v > 5).toarray()).ravel()
-    assert got.tolist() == [False, False]
+    assert got.tolist() == [False, True]
     assert np.asarray((b > 5).toarray()).ravel().tolist() == [False, True]
+    got = np.asarray(b.map(lambda v: (v - 2) < 3).toarray()).ravel()
+    assert got.tolist() == [False, False]        # 1 - 2 wraps to 2**64 - 1
+    # torch divides uint64 by itself, but not after an add it lacks
+    assert np.array_equal(b.map(lambda v: v / 2).toarray(), x / 2)
+    with pytest.raises(TypeError, match="uint64"):
+        b.map(lambda v: (v + 1) / 2).toarray()
