@@ -42,9 +42,9 @@ __all__ = ["array", "ones", "zeros", "full", "rand", "randn",
            "HostFallbackWarning", "__version__"]
 
 # the submodules ``bolt_tpu_torch.<name>`` reaches on first access, as the
-# reference's (its ``analysis`` and ``serve`` are not ported yet)
-_SUBMODULES = ("checkpoint", "engine", "obs", "profile", "parallel", "ops",
-               "statcounter", "stream", "utils")
+# reference's
+_SUBMODULES = ("analysis", "checkpoint", "engine", "obs", "profile",
+               "parallel", "ops", "serve", "statcounter", "stream", "utils")
 
 
 def __getattr__(name):

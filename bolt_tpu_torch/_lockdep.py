@@ -64,13 +64,25 @@ import traceback
 #                    expression program; the engine's own builds run
 #                    outside its lock, so this is the worst case)
 #   stream.reseq / stream.uploader_hw / stream.ring -> obs.registry
+#   serve.active -> (Server construction: scheduler, arbiter, registry
+#                    gauges)
+#   serve.scheduler / serve.arbiter -> obs.registry   (queue gauges set
+#                    under the condition)
 #
 # obs.registry is the LEAF: every counter increment in the package
 # ends there, from under any other lock.
 RANKS = {
+    # process-wide singleton gates (held across whole-subsystem
+    # construction/teardown, so they sit OUTSIDE everything)
+    "serve.active": 10,        # serve.py _ACTIVE_LOCK
+    "batched.arm": 16,         # gpu/batched.py _ARM_LOCK
     # stat groups hold their lock across the WHOLE resolution, the
     # dispatch included (see DISPATCH_SAFE below): an OUTER lock
     "multistat.group": 18,     # gpu/multistat._StatGroup.lock
+    # the serving scheduler and its device-memory arbiter
+    "serve.scheduler": 34,     # serve.Server._cond
+    "serve.lease": 36,         # serve.ArbiterLease._lock
+    "serve.arbiter": 38,       # serve.DeviceArbiter._cond
     # the streaming executor's delivery/accounting locks
     "stream.reseq": 40,        # stream._Reseq._cond
     "stream.uploader_hw": 42,  # stream uploader high-water lock

@@ -125,7 +125,8 @@ _SCHEMA = {
     # instead of building again
     "coalesced_builds": 0,
     "coalesced_compiles": 0,  # 0: no per-signature compile under torch
-    # 0 until the serving layer's micro-batching is ported
+    # serve micro-batching (gpu/batched.py): coalesced dispatches and
+    # the requests they served
     "batched_dispatches": 0,
     "batched_requests": 0,
     # codec-encoded ingest (gpu/codec.py): raw - wire = bytes saved;
@@ -348,6 +349,14 @@ def donation_granted():
     consuming terminal's span."""
     _COUNTERS.add("donations")
     _obs.event("engine.donate")
+
+
+def record_batched(n_requests):
+    """Tally one coalesced serve dispatch (``gpu/batched.py``) serving
+    ``n_requests`` queued same-key requests from one batched program;
+    the timeline carries it as the ``serve.batched_dispatch`` span."""
+    _COUNTERS.update(batched_dispatches=1,
+                     batched_requests=int(n_requests))
 
 
 def record_fused_stats(n_terminals):

@@ -252,11 +252,14 @@ def _infer_pred(func, vshape, dtype):
 
 def _check_reducer(func, vshape, dtype):
     """Trace the binary reducer ``func`` once on meta records (cached per
-    (func, record shape, dtype)): raises what ``vmap`` raises."""
+    (func, record shape, dtype)): raises what ``vmap`` raises, else
+    returns the ``(shape, dtype)`` of its value on two records."""
     def run():
         rec = _meta((1,) + tuple(vshape), dtype)
-        vmap(func)(rec, rec)
-        return True
+        out = vmap(func)(rec, rec)
+        if not isinstance(out, torch.Tensor):
+            return None, None
+        return tuple(out.shape[1:]), out.dtype
     return _cached_eval_shape(("reduce", func, tuple(vshape), str(dtype)),
                               run)
 
@@ -483,6 +486,24 @@ def _reduce_tree(data, func, n, vshape):
         raise ValueError("reduce produced shape %s, expected value shape %s"
                          % (tuple(out.shape), tuple(vshape)))
     return out
+
+
+def _reduce_body(data, func, funcs, split, n, vshape, keepdims):
+    """The ``reduce(func)`` terminal of the chain ``funcs`` over ``data``
+    (``n`` records of ``vshape`` after the chain): :func:`_reduce_tree`,
+    the one body of the eager terminal, its deferred handle and a lane of
+    a serve batched dispatch (``gpu/batched.py``)."""
+    out = _reduce_tree(_chain_apply(funcs, split, data), func, n, vshape)
+    if keepdims:
+        out = out.reshape((1,) * split + tuple(vshape))
+    return out
+
+
+def _reduce_program(func, funcs, split, n, vshape, keepdims):
+    """The engine program of :func:`_reduce_body` (key ``"reduce"``)."""
+    def run(data):
+        return _reduce_body(data, func, funcs, split, n, vshape, keepdims)
+    return run
 
 
 def _reduce_stat(x, name, axes, keepdims, ddof, dtype):
@@ -759,28 +780,63 @@ def _filter_stats(fp, vdtype, slots):
     return out
 
 
-def _chain_sum(base, funcs, split, axes):
-    """``sum`` of the chain ``funcs`` over ``base`` through the
-    ``fused_map_reduce`` kernel, reading the base once with no mapped
-    temporary: the column form when ``axes`` are the key axes, the full
-    form when they are every axis.  ``None`` (the caller keeps the torch
-    path) when the chain is empty or does not compile, the base is not
-    contiguous or the axes are another set: a plan decision, made before
-    any launch."""
+def _chain_sum_plan(base, funcs, split, axes):
+    """How ``sum`` of the chain ``funcs`` over ``base`` reads it through
+    the ``fused_map_reduce`` kernel: ``(program, cols)``, the column form
+    when ``axes`` are the key axes, the full form when they are every
+    axis; ``None`` (the torch path) when the chain is empty or does not
+    compile, the base is not contiguous or the axes are another set.  A
+    plan decision, made before any launch."""
     if not funcs or not base.is_contiguous():
         return None
     cols = split > 0 and axes == tuple(range(split))
     if not cols and axes != tuple(range(base.ndim)):
         return None
-    vshape = tuple(base.shape[split:])
-    program = mapexpr.compile(funcs, vshape, base.dtype)
+    program = mapexpr.compile(funcs, tuple(base.shape[split:]), base.dtype)
     if program is None:
         return None
+    return program, cols
+
+
+def _chain_sum(base, funcs, split, axes):
+    """``sum`` of the chain ``funcs`` over ``base`` through the
+    ``fused_map_reduce`` kernel, reading the base once with no mapped
+    temporary (:func:`_chain_sum_plan`), or ``None``."""
+    plan = _chain_sum_plan(base, funcs, split, axes)
+    if plan is None:
+        return None
+    program, cols = plan
     if not cols:
         return kernels.fused_map_reduce_program(base, program)
+    vshape = tuple(base.shape[split:])
     n = prod(base.shape[:split])
     return kernels.fused_map_reduce_cols(
         base.reshape(n, prod(vshape)), program).reshape(vshape)
+
+
+def _chain_sum_lanes(bases, funcs, split, axes):
+    """:func:`_chain_sum` of each of ``bases`` (one shape and dtype, the
+    lanes of a serve batched dispatch) as ``{lane: result}`` for the lanes
+    the kernel plans for: one base launches the standalone entry, several
+    one ``fused_map_reduce_lanes`` launch, whose lanes equal their
+    standalone launches bit for bit.  The lanes left out take the torch
+    path, as their standalone terminals do."""
+    if len(bases) == 1:
+        out = _chain_sum(bases[0], funcs, split, axes)
+        return {} if out is None else {0: out}
+    plans = {i: _chain_sum_plan(b, funcs, split, axes)
+             for i, b in enumerate(bases)}
+    idx = [i for i, p in plans.items() if p is not None]
+    if not idx:
+        return {}
+    program, cols = plans[idx[0]]
+    vshape = tuple(bases[0].shape[split:])
+    n = prod(bases[0].shape[:split])
+    xs = [bases[i].reshape(n, prod(vshape)) if cols else bases[i]
+          for i in idx]
+    outs = kernels.fused_map_reduce_lanes(xs, program, cols=cols)
+    return {i: (outs[j].reshape(vshape) if cols else outs[j])
+            for j, i in enumerate(idx)}
 
 
 def _chain_rec_bytes(base, split, shape, dtype):
@@ -931,6 +987,32 @@ def _chain_stats(base, funcs, split, shape, dtype, slots):
             out.append(_reduce_stat(mapped, name, axes, keepdims, ddof,
                                     dtype))
     return out
+
+
+def _chain_group_lanes(bases, funcs, split, shape, dtype, slots):
+    """The stat ``slots`` (``(name, axes, keepdims, ddof)``) of the chain
+    ``funcs`` over each of ``bases`` (mapped values of ``shape`` and numpy
+    ``dtype``), as one tuple of results per base: a compiled ``sum``
+    through ``fused_map_reduce`` (:func:`_chain_sum_lanes`, one launch for
+    every lane), every other slot by :func:`_chain_stats` of the lane.
+    The one body of a chain stat group's program (one base) and of a serve
+    batched dispatch of such groups (``gpu/batched.py``, a base a lane),
+    so each lane equals its standalone group bit for bit."""
+    outs = [{} for _ in bases]
+    for slot in slots:
+        name, axes, keepdims, _ = slot
+        if name != "sum":
+            continue
+        oshape = tuple(1 if a in axes else d for a, d in enumerate(shape)
+                       ) if keepdims else tuple(
+            d for a, d in enumerate(shape) if a not in axes)
+        for i, r in _chain_sum_lanes(bases, funcs, split, axes).items():
+            outs[i][slot] = r.reshape(oshape)
+    for base, out in zip(bases, outs):
+        rest = [s for s in slots if s not in out]
+        out.update(zip(rest, _chain_stats(base, funcs, split, shape, dtype,
+                                          rest)))
+    return [tuple(out[s] for s in slots) for out in outs]
 
 
 def _chain_stat(base, funcs, split, shape, dtype, name, axes, keepdims,
@@ -1240,6 +1322,15 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                 "longer be read (donating terminals consume a sole-owned "
                 "array; scope bolt_tpu_torch.engine.donation(None) to keep "
                 "sources readable)" % self._donated)
+
+    def _adopt_materialised(self, data):
+        """Adopt ``data`` as this deferred chain's materialised result:
+        the scatter half of a serve batched dispatch (``gpu/batched.py``),
+        whose lane is what the standalone ``("chain", ...)`` program would
+        have produced, so the chain simply retires."""
+        self._concrete = data
+        self._shape = tuple(data.shape)
+        self._chain = None
 
     def _adopt_resolved(self, res):
         """Adopt ``res``, the result of resolving this stream's swap stages
@@ -1572,6 +1663,15 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             if out is not NotImplemented:
                 return out
         axes = sorted(tupleize(axis))
+        # the lazy door while a batching server is armed
+        # (gpu/multistat.py :: defer_reduce): a reduce over every key axis
+        # of a chain defers as a pending handle the serve scheduler can
+        # coalesce; read alone it runs this terminal's own program.
+        # NotImplemented takes the eager path below.
+        from bolt_tpu_torch.gpu import multistat
+        out = multistat.defer_reduce(self, func, tuple(axes), keepdims)
+        if out is not NotImplemented:
+            return out
         aligned = self._align(axes)
         split = aligned._split
         kshape = aligned.shape[:split]
@@ -1601,19 +1701,11 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         # tree has read it (checked before the base local exists)
         donate = aligned.deferred and _chain_donate_ok(aligned._chain)
         base, funcs = aligned._chain_parts()
-
-        def build():
-            def run(data):
-                out = _reduce_tree(_chain_apply(funcs, split, data), func,
-                                   n, vshape)
-                if keepdims:
-                    out = out.reshape((1,) * split + tuple(vshape))
-                return out
-            return run
-
         fn = _cached_jit(("reduce", func, funcs, tuple(base.shape),
                           str(base.dtype), split, keepdims, donate,
-                          self._device), build)
+                          self._device),
+                         lambda: _reduce_program(func, funcs, split, n,
+                                                 vshape, keepdims))
         with _obs.span("array.reduce", funcs=len(funcs), donate=donate):
             out = fn(base)
         if donate:

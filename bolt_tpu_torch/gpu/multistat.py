@@ -40,10 +40,16 @@ takes it as the reference's groups do: the first terminal's call consumes
 the source (later reads of it raise), siblings still join the group, and
 the group drops the base when it resolves.
 
-Left out until its module comes: the serve layer's batched claim
-(ROADMAP A10).
+The serve layer's micro-batching (``gpu/batched.py``) CLAIMS chain groups
+for one batched dispatch: while a group is claimed, a new terminal
+declines to join it and a concurrent read waits for the batched fill (or
+the unclaim, after which it resolves standalone).  While a batching
+server is armed, ``reduce(func)`` over the key axes of a chain defers
+too (:func:`defer_reduce`), as a one-member group whose standalone
+resolution is the eager terminal's own program.
 """
 
+import sys
 import weakref
 from collections import OrderedDict
 
@@ -142,11 +148,25 @@ class _StatGroup:
         self.members = []
         self.dispatched = False
         self.lock = _lockdep.lock("multistat.group")
+        # a deferred reduce(func) (defer_reduce): the group's one member
+        # is the reduce tree, which no stat member can share
+        self.rfunc = None
+        # the serve batched dispatch's claim (gpu/batched.py): while
+        # claimed, resolve() waits on claim_event instead of dispatching
+        # and try_join declines (a new member could never ride the batch)
+        self.claimed = False
+        self.claim_event = None
+
+    def live_members(self):
+        """The members still referenced."""
+        return [m for m in (r() for r in self.members) if m is not None]
 
     def try_join(self, axis, name, keepdims, ddof):
         """A new member for ``name`` over ``axis``, or NotImplemented when
         the spec cannot ride this group (the caller takes the eager
-        path), or when the group resolved meanwhile."""
+        path), or when the group resolved or was claimed meanwhile."""
+        if self.rfunc is not None:
+            return NotImplemented
         if self.kind == "stream":
             h = self._stream_member(name, axis, keepdims, ddof)
         elif self.kind == "fpending":
@@ -156,10 +176,10 @@ class _StatGroup:
         if h is NotImplemented:
             return h
         with self.lock:
-            if self.dispatched:
-                # a concurrent reader resolved the group between the
-                # caller's check and this append: the member would never
-                # be filled
+            if self.dispatched or self.claimed:
+                # a concurrent reader resolved the group (or a serve
+                # batched dispatch claimed it) between the caller's check
+                # and this append: the member would never be filled
                 return NotImplemented
             self.members.append(weakref.ref(h))
         return h
@@ -211,31 +231,75 @@ class _StatGroup:
     def resolve(self, accumulate=None):
         """Compute every member's result.  Idempotent and thread-safe;
         ``accumulate`` is the per-call reduced-precision mode of
-        :func:`compute`."""
-        with self.lock:
-            if self.dispatched:
-                return
-            mode = _precision.resolve_accumulate(accumulate)
-            if mode is not None and self.kind != "chain":
-                if accumulate is not None:
-                    raise ValueError(
-                        "accumulate=%r applies to in-memory fused "
-                        "reductions only; this group %s and runs exact"
-                        % (accumulate, "streams" if self.kind == "stream"
-                           else "filters"))
-                mode = None                  # an ambient scope: exact
-            members = [m for m in (r() for r in self.members)
-                       if m is not None]
-            if self.kind == "chain":
-                self._resolve_chain(members, mode)
-            elif self.kind == "stream":
-                self._resolve_stream(members)
-            else:
-                self._resolve_fpending(members)
-            self.dispatched = True
-            self.members = []
-            self.base = self.fpending = self.source = None
-            self.funcs = ()
+        :func:`compute` (a deferred ``reduce`` ignores it and runs exact,
+        as the eager terminal does).  While a serve batched dispatch holds
+        the group's claim, a reader waits for the batched fill, or for
+        the unclaim and then resolves standalone."""
+        while True:
+            with self.lock:
+                if self.dispatched:
+                    return
+                ev = self.claim_event if self.claimed else None
+                if ev is None:
+                    self._resolve_locked(accumulate)
+                    return
+            # claimed on a serve worker: wait for the fill or the unclaim
+            # and check again (the timeout only bounds a claim owner that
+            # died without its unclaim)
+            ev.wait(1.0)
+
+    def _resolve_locked(self, accumulate):
+        mode = _precision.resolve_accumulate(accumulate)
+        if self.rfunc is not None:
+            mode = None
+        elif mode is not None and self.kind != "chain":
+            if accumulate is not None:
+                raise ValueError(
+                    "accumulate=%r applies to in-memory fused "
+                    "reductions only; this group %s and runs exact"
+                    % (accumulate, "streams" if self.kind == "stream"
+                       else "filters"))
+            mode = None                  # an ambient scope: exact
+        members = self.live_members()
+        if self.rfunc is not None:
+            self._resolve_reduce(members)
+        elif self.kind == "chain":
+            self._resolve_chain(members, mode)
+        elif self.kind == "stream":
+            self._resolve_stream(members)
+        else:
+            self._resolve_fpending(members)
+        self.retire()
+
+    def retire(self):
+        """Mark the group resolved and drop its source (under the
+        lock)."""
+        self.dispatched = True
+        self.claimed = False
+        self.members = []
+        self.base = self.fpending = self.source = None
+        self.funcs = ()
+
+    def _resolve_reduce(self, members):
+        """A deferred ``reduce(func)`` read alone: the eager terminal's own
+        program (the same engine key: the door refuses donating
+        chains)."""
+        from bolt_tpu_torch.gpu.array import _reduce_program
+        if not members:
+            return
+        m = members[0]
+        func, base, funcs, split = self.rfunc, self.base, self.funcs, \
+            self.split
+        n = prod(self.shape[:split])
+        vshape = self.shape[split:]
+        keepdims = m.keepdims
+        fn = _cached_jit(("reduce", func, funcs, tuple(base.shape),
+                          str(base.dtype), split, keepdims, False,
+                          self.device),
+                         lambda: _reduce_program(func, funcs, split, n,
+                                                 vshape, keepdims))
+        with _obs.span("array.reduce", funcs=len(funcs), donate=False):
+            m.result = fn(base)
 
     def _resolve_chain(self, members, mode):
         from bolt_tpu_torch.gpu.array import _stat_program
@@ -327,27 +391,17 @@ def _chain_group_program(funcs, split, shape, dtype, slots, mode):
     the base through ``fused_map_reduce``, as its standalone terminal
     does, and the other slots share one application of the chain; under
     a reduced-precision ``mode`` every slot reduces one mapped tensor."""
-    from bolt_tpu_torch.gpu.array import (_chain_stats, _chain_sum,
-                                          _chain_values)
+    from bolt_tpu_torch.gpu.array import _chain_group_lanes, _chain_values
 
     def run(base):
-        out = {}
         if mode is None:
-            for slot in slots:
-                name, axes, keepdims, _ = slot
-                r = _chain_sum(base, funcs, split, axes) \
-                    if name == "sum" else None
-                if r is not None:
-                    out[slot] = r.reshape(_out_shape(shape, axes, keepdims))
-            rest = [s for s in slots if s not in out]
-            out.update(zip(rest, _chain_stats(base, funcs, split, shape,
-                                              dtype, rest)))
-        else:
-            mapped = _chain_values(base, funcs, split, shape, dtype)
-            for slot in slots:
-                out[slot] = _accumulated(mapped, *slot, mode, dtype)
-            del mapped
-        return tuple(out[s] for s in slots)
+            return _chain_group_lanes([base], funcs, split, shape, dtype,
+                                      slots)[0]
+        mapped = _chain_values(base, funcs, split, shape, dtype)
+        out = tuple(_accumulated(mapped, *slot, mode, dtype)
+                    for slot in slots)
+        del mapped
+        return out
     return run
 
 
@@ -431,6 +485,54 @@ def defer_stat(arr, axis, name, keepdims, ddof):
         arr._consume_donated("%s()" % name if g.kind == "chain"
                              else "filter().%s()" % name)
     return _wrap(arr, h)
+
+
+def defer_reduce(arr, func, axes, keepdims):
+    """The lazy door of ``reduce(func)``, open only while a batching
+    server is armed (``gpu/batched.py :: armed``): a reduce over every key
+    axis of a chain or a concrete array defers as a one-member group, so
+    the serve scheduler can coalesce same-shape requests into one batched
+    dispatch; read alone it runs the eager terminal's own program, so its
+    result and its engine entry are the eager ones.  NotImplemented (the
+    eager path) when the door is shut or the geometry does not fit: other
+    axes, streams, filters, pending stats, donating chains, a reducer
+    ``vmap`` cannot trace, or one whose value leaves the record shape
+    (the eager call raises then)."""
+    bt = sys.modules.get("bolt_tpu_torch.gpu.batched")
+    if bt is None or not bt.armed():
+        return NotImplemented
+    if (arr._donated or arr._stream is not None
+            or arr._fpending is not None or arr._spending is not None
+            or arr._stat_group is not None):
+        return NotImplemented
+    split = arr._split
+    if split == 0 or tuple(axes) != tuple(range(split)):
+        return NotImplemented
+    shape = tuple(arr._shape)
+    if prod(shape[:split]) == 0:
+        return NotImplemented          # the eager empty-reduce raise
+    vshape = shape[split:]
+    from bolt_tpu_torch.gpu.array import (_chain_donate_ok, _check_reducer,
+                                          numpy_dtype)
+    try:
+        oshape, odtype = _check_reducer(func, vshape, torch_dtype(arr.dtype))
+        odtype = numpy_dtype(odtype)
+    except Exception:
+        return NotImplemented          # the eager path raises or falls back
+    if oshape != tuple(vshape):
+        return NotImplemented          # the eager call-time ValueError
+    if arr.deferred and _chain_donate_ok(arr._chain):
+        return NotImplemented          # the donating eager terminal
+    base, funcs = arr._chain_parts()
+    g = _StatGroup("chain", split, shape, arr.dtype, base=base,
+                   funcs=funcs, device=arr.device)
+    del base
+    g.rfunc = func
+    m = PendingStat(g, "reduce", tuple(axes), keepdims, None,
+                    ((1,) * split + tuple(vshape)) if keepdims
+                    else tuple(vshape), odtype, split if keepdims else 0)
+    g.members.append(weakref.ref(m))
+    return _wrap(arr, m)
 
 
 def _wrap(arr, handle):

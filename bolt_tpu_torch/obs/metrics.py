@@ -339,6 +339,7 @@ def registry():
 # every thread the package constructs carries one of these name
 # prefixes
 _THREAD_PREFIXES = (
+    "bolt-serve-worker-",         # serve.py scheduler pool
     "bolt-stream-prefetch",       # stream.py dispenser/prefetch lead
     "bolt-stream-upload-",        # stream.py uploader pool
 )

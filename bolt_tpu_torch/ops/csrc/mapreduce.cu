@@ -76,6 +76,20 @@
 //   the same from run to run.
 // Accumulator: f32 for f16/bf16/f32, f64 for f64; results are written in
 // the input's type.
+//
+// bolt_fused_map_reduce_cols_lanes and bolt_fused_map_reduce_full_lanes
+// (kernels.py :: fused_map_reduce_lanes) replace no further Pallas call:
+// they are the batch axis that jax.vmap adds to _mr_kernel
+// (bolt_tpu/ops/kernels.py:99, its pallas_call at :129) when the serving
+// layer's micro-batching (bolt_tpu/tpu/batched.py) vmaps a terminal over
+// W queued requests.  blockIdx.y is the request: each lane reads its own
+// base in place through a device array of pointers (no stacking copy, and
+// each base keeps the 16-byte alignment its standalone launch had) and runs
+// the standalone grid, so each lane's sum equals its standalone launch bit
+// for bit; only lanes of one pack width share a launch.  Bound: at the
+// serving configuration of 16 requests of (128, 32) f32, about 16 * 16 KB
+// read, some 0.1 us of memory time, so a launch there is bound by its
+// launch and the host, not by bytes; a right and simple kernel is enough.
 
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
@@ -521,17 +535,29 @@ __device__ __forceinline__ int64_t unit_start(int64_t b, int64_t W, int64_t P) {
 // With part null every block holds one column block whole and writes out
 // in T; otherwise segment s writes its sums, in the accumulator type, to
 // part[(blockIdx.x * segs + s) * cw + column within the column block].
+//
+// Batched lanes (bolt_fused_map_reduce_cols_lanes): with ptrs set,
+// blockIdx.y is the batch lane b of nb; its input is ptrs[b], its output
+// ptrs[nb + b] and its scratch the b-th slice of part.  Every lane runs the
+// standalone grid over its own base, so each lane's sums are the standalone
+// launch's bit for bit.  ptrs is null for the standalone launch (one lane).
 template <typename T, int VEC, int ROWS, bool kCalls>
 __global__ void __launch_bounds__(kThreads, 2)
 mr_cols_kernel(const __grid_constant__ Program prog, const T* __restrict__ x,
                const uint8_t* __restrict__ mask, typename Acc<T>::type* __restrict__ part,
-               T* __restrict__ out, int64_t n, int64_t C, int lanes, int segs) {
+               T* __restrict__ out, int64_t n, int64_t C, int lanes, int segs,
+               const int64_t* __restrict__ ptrs, int nb) {
   using A = typename Acc<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const File<A, ROWS * VEC> file{smem};
   const int width = kThreads / lanes;
   const int lane = threadIdx.x / width;
   const int64_t cw = (int64_t)width * VEC;
+  if (ptrs != nullptr) {
+    x = reinterpret_cast<const T*>(ptrs[blockIdx.y]);
+    out = reinterpret_cast<T*>(ptrs[nb + blockIdx.y]);
+    if (part != nullptr) part += (int64_t)blockIdx.y * gridDim.x * segs * cw;
+  }
   const int64_t W = (C + cw - 1) / cw * n;
   const int64_t u0 = unit_start(blockIdx.x, W, gridDim.x);
   const int64_t u1 = unit_start((int64_t)blockIdx.x + 1, W, gridDim.x);
@@ -566,11 +592,18 @@ mr_cols_kernel(const __grid_constant__ Program prog, const T* __restrict__ x,
 
 // out[c] = the partials of column c, from the blocks whose shares hold its
 // column block, added in block order, in T.
+// With ptrs set, blockIdx.y is the batch lane (its partials and its output,
+// as in mr_cols_kernel).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mr_cols_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __restrict__ out,
-                       int64_t n, int64_t C, int64_t cw, int64_t P, int segs) {
+                       int64_t n, int64_t C, int64_t cw, int64_t P, int segs,
+                       const int64_t* __restrict__ ptrs, int nb) {
   using A = typename Acc<T>::type;
+  if (ptrs != nullptr) {
+    part += (int64_t)blockIdx.y * P * segs * cw;
+    out = reinterpret_cast<T*>(ptrs[nb + blockIdx.y]);
+  }
   const int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (c >= C) return;
   const int64_t W = (C + cw - 1) / cw * n;
@@ -608,22 +641,23 @@ struct ColsLaunch {
   template <typename T, int VEC, int ROWS, bool kCalls>
   static cudaError_t run(const Program& prog, const void* x, const void* mask, void* part,
                          void* out, int64_t n, int64_t C, int lanes, int blocks, int segs,
-                         cudaStream_t stream) {
+                         const int64_t* ptrs, int nb, cudaStream_t stream) {
     using A = typename Acc<T>::type;
-    if (lanes < 1 || lanes > kThreads || kThreads % lanes != 0 || blocks < 1 || segs < 1)
+    if (lanes < 1 || lanes > kThreads || kThreads % lanes != 0 || blocks < 1 || segs < 1 ||
+        nb < 1 || nb > 65535)
       return cudaErrorInvalidValue;
     const size_t smem = cols_smem<T, VEC, ROWS, kCalls>(prog.nfile, lanes);
     cudaError_t err = allow_smem(mr_cols_kernel<T, VEC, ROWS, kCalls>, smem);
     if (err != cudaSuccess) return err;
-    mr_cols_kernel<T, VEC, ROWS, kCalls><<<blocks, kThreads, smem, stream>>>(
+    mr_cols_kernel<T, VEC, ROWS, kCalls><<<dim3(blocks, nb), kThreads, smem, stream>>>(
         prog, static_cast<const T*>(x), static_cast<const uint8_t*>(mask), static_cast<A*>(part),
-        static_cast<T*>(out), n, C, lanes, segs);
+        static_cast<T*>(out), n, C, lanes, segs, ptrs, nb);
     err = cudaGetLastError();
     if (err != cudaSuccess || part == nullptr) return err;
     const int64_t cw = (int64_t)(kThreads / lanes) * VEC;
     const unsigned cgrid = (unsigned)((C + kThreads - 1) / kThreads);
-    mr_cols_combine_kernel<T><<<cgrid, kThreads, 0, stream>>>(
-        static_cast<const A*>(part), static_cast<T*>(out), n, C, cw, blocks, segs);
+    mr_cols_combine_kernel<T><<<dim3(cgrid, nb), kThreads, 0, stream>>>(
+        static_cast<const A*>(part), static_cast<T*>(out), n, C, cw, blocks, segs, ptrs, nb);
     return cudaGetLastError();
   }
 };
@@ -664,15 +698,22 @@ __device__ __forceinline__ A block_sum(A s) {
 
 // One partial sum of fn per block over a grid-stride pass (thread i takes
 // packs i, i + stride, ..., ROWS of them a tile); part is (gridDim.x,) in
-// the accumulator type.
+// the accumulator type.  With ptrs set, blockIdx.y is the batch lane b: its
+// input is ptrs[b] and its partials the b-th slice of part (ptrs is null
+// for the standalone launch).
 template <typename T, int VEC, int ROWS, bool kCalls>
 __global__ void __launch_bounds__(kThreads, 2)
 mr_full_partial_kernel(const __grid_constant__ Program prog, const T* __restrict__ x,
-                       typename Acc<T>::type* __restrict__ part, int64_t N) {
+                       typename Acc<T>::type* __restrict__ part, int64_t N,
+                       const int64_t* __restrict__ ptrs) {
   using A = typename Acc<T>::type;
   constexpr int kTile = ROWS * VEC;
   extern __shared__ __align__(16) unsigned char smem[];
   const File<A, kTile> file{smem};
+  if (ptrs != nullptr) {
+    x = reinterpret_cast<const T*>(ptrs[blockIdx.y]);
+    part += (int64_t)blockIdx.y * gridDim.x;
+  }
   A acc[VEC];
 #pragma unroll
   for (int v = 0; v < VEC; ++v) acc[v] = A(0);
@@ -701,12 +742,17 @@ mr_full_partial_kernel(const __grid_constant__ Program prog, const T* __restrict
 }
 
 // One block folds the P partials: thread t takes t, t + kThreads, ... in
-// order, then the block sum runs in its fixed order.
+// order, then the block sum runs in its fixed order.  With ptrs set, block b
+// folds batch lane b's partials into ptrs[nb + b].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mr_full_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __restrict__ out,
-                       int P) {
+                       int P, const int64_t* __restrict__ ptrs, int nb) {
   using A = typename Acc<T>::type;
+  if (ptrs != nullptr) {
+    part += (int64_t)blockIdx.x * P;
+    out = reinterpret_cast<T*>(ptrs[nb + blockIdx.x]);
+  }
   A s = A(0);
   for (int p = threadIdx.x; p < P; p += kThreads) s += part[p];
   s = block_sum(s);
@@ -721,18 +767,18 @@ size_t full_smem(int nfile) {
 struct FullLaunch {
   template <typename T, int VEC, int ROWS, bool kCalls>
   static cudaError_t run(const Program& prog, const void* x, void* part, void* out, int64_t N,
-                         int blocks, cudaStream_t stream) {
+                         int blocks, const int64_t* ptrs, int nb, cudaStream_t stream) {
     using A = typename Acc<T>::type;
-    if (blocks < 1) return cudaErrorInvalidValue;
+    if (blocks < 1 || nb < 1 || nb > 65535) return cudaErrorInvalidValue;
     const size_t smem = full_smem<T, VEC, ROWS, kCalls>(prog.nfile);
     cudaError_t err = allow_smem(mr_full_partial_kernel<T, VEC, ROWS, kCalls>, smem);
     if (err != cudaSuccess) return err;
-    mr_full_partial_kernel<T, VEC, ROWS, kCalls><<<blocks, kThreads, smem, stream>>>(
-        prog, static_cast<const T*>(x), static_cast<A*>(part), N);
+    mr_full_partial_kernel<T, VEC, ROWS, kCalls><<<dim3(blocks, nb), kThreads, smem, stream>>>(
+        prog, static_cast<const T*>(x), static_cast<A*>(part), N, ptrs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    mr_full_combine_kernel<T><<<1, kThreads, 0, stream>>>(static_cast<const A*>(part),
-                                                         static_cast<T*>(out), blocks);
+    mr_full_combine_kernel<T><<<nb, kThreads, 0, stream>>>(static_cast<const A*>(part),
+                                                          static_cast<T*>(out), blocks, ptrs, nb);
     return cudaGetLastError();
   }
 };
@@ -829,7 +875,8 @@ int bolt_fused_map_reduce_cols(const void* prog, const void* x, const void* mask
   const Program& p = *static_cast<const Program*>(prog);
   if (!valid(p)) return cudaErrorInvalidValue;
   return by_dtype<ColsLaunch>(dtype, vec, rows, calls(p), p, x, mask, part, out, n, C, lanes,
-                              blocks, segs, static_cast<cudaStream_t>(stream));
+                              blocks, segs, static_cast<const int64_t*>(nullptr), 1,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // prog: as above; x: N contiguous elements; part: (blocks,) scratch in the
@@ -839,6 +886,36 @@ int bolt_fused_map_reduce_full(const void* prog, const void* x, void* part, void
   const Program& p = *static_cast<const Program*>(prog);
   if (!valid(p)) return cudaErrorInvalidValue;
   return by_dtype<FullLaunch>(dtype, vec, rows, calls(p), p, x, part, out, N, blocks,
+                              static_cast<const int64_t*>(nullptr), 1,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The batched lanes of the two forms: nb bases of one shape, each summed by
+// the standalone grid (the wrapper passes the standalone plan: blocks,
+// segs, vec and rows exactly as for one base), blockIdx.y the lane.  ptrs:
+// 2 * nb device int64s, the lanes' input pointers then their output
+// pointers (one element for the full form, C for the column form); part:
+// nb slices of the standalone scratch, lane after lane.  No mask.
+int bolt_fused_map_reduce_cols_lanes(const void* prog, const void* ptrs, int nb, void* part,
+                                     int64_t n, int64_t C, int lanes, int blocks, int segs,
+                                     int dtype, int vec, int rows, void* stream) {
+  const Program& p = *static_cast<const Program*>(prog);
+  if (!valid(p) || ptrs == nullptr) return cudaErrorInvalidValue;
+  return by_dtype<ColsLaunch>(dtype, vec, rows, calls(p), p, static_cast<const void*>(nullptr),
+                              static_cast<const void*>(nullptr), part,
+                              static_cast<void*>(nullptr), n, C, lanes, blocks, segs,
+                              static_cast<const int64_t*>(ptrs), nb,
+                              static_cast<cudaStream_t>(stream));
+}
+
+int bolt_fused_map_reduce_full_lanes(const void* prog, const void* ptrs, int nb, void* part,
+                                     int64_t N, int blocks, int dtype, int vec, int rows,
+                                     void* stream) {
+  const Program& p = *static_cast<const Program*>(prog);
+  if (!valid(p) || ptrs == nullptr) return cudaErrorInvalidValue;
+  return by_dtype<FullLaunch>(dtype, vec, rows, calls(p), p, static_cast<const void*>(nullptr),
+                              part, static_cast<void*>(nullptr), N, blocks,
+                              static_cast<const int64_t*>(ptrs), nb,
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -29,7 +29,10 @@ the kernel.
   the kernel as an expression program (``ops/mapexpr.py``); and
   :func:`fused_map_reduce_cols`, the same kernel's column form
   ``(n, C) -> (C,)`` with an optional record mask, the body of
-  ``map(fn).sum()`` and ``filter(...).sum()`` (``csrc/mapreduce.cu``).
+  ``map(fn).sum()`` and ``filter(...).sum()`` (``csrc/mapreduce.cu``);
+  :func:`fused_map_reduce_lanes` runs either form over the bases of W
+  batched serve requests in one launch (the batch axis ``jax.vmap`` gives
+  the reference's kernel), counted as ``fused_map_reduce_lanes``.
 
 The reference's TPU gates (128-lane minor dimension, the VMEM budgets,
 ``_MINOR_MAX_TAPS``, the band's radius of 128) are not carried over: each
@@ -56,7 +59,8 @@ from bolt_tpu_torch.utils import prod
 # launches of each kernel since the last reset (chip_smoke.py zeroes these
 # before it drives a path and reads them after)
 LAUNCHES = {"fused_welford": 0, "fused_stats": 0, "sepfilter1d": 0,
-            "lane_band": 0, "fused_decode_sum": 0, "fused_map_reduce": 0}
+            "lane_band": 0, "fused_decode_sum": 0, "fused_map_reduce": 0,
+            "fused_map_reduce_lanes": 0}
 
 # dtype codes of the C entry points (moments.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
@@ -92,6 +96,13 @@ _SIGNATURES = {
         "bolt_fused_map_reduce_cols": [ctypes.c_void_p] * 5 + [
             ctypes.c_int64] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         "bolt_fused_map_reduce_full": [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "bolt_fused_map_reduce_cols_lanes": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p],
+        "bolt_fused_map_reduce_full_lanes": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         "bolt_map_reduce_resident": [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int)],
@@ -816,11 +827,7 @@ def fused_map_reduce_cols(x, program, mask=None):
         return out.zero_()
     m = None if mask is None else mask.contiguous().view(torch.uint8)
     struct, calls = _encoded(program)
-    vec = _vec(x, columns)
-    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
-    lanes = _lanes(columns, vec)
-    plan = map_reduce_plan(n, columns, vec, _resident(
-        x.device, 0, lanes, x.dtype, vec, rows, calls, struct.nfile))
+    vec, rows, lanes, plan = _cols_plan(x, struct, calls)
     part = None if plan.direct else torch.empty(
         plan.blocks * plan.segs * (_THREADS // lanes) * vec,
         dtype=_acc_dtype(x.dtype), device=x.device)
@@ -851,10 +858,7 @@ def fused_map_reduce_program(x, program):
         return out.zero_().reshape(())
     struct, calls = _encoded(program)
     # one row: the kernel folds the ragged tail itself
-    vec = _vec(x, 0)
-    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
-    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)), _resident(
-        x.device, 1, 1, x.dtype, vec, rows, calls, struct.nfile)))
+    vec, rows, blocks = _full_plan(x, struct, calls)
     part = torch.empty(blocks, dtype=_acc_dtype(x.dtype), device=x.device)
     lib = _mapreduce_lib()
     stream = _stream(x.device)
@@ -866,6 +870,112 @@ def fused_map_reduce_program(x, program):
     _check(code, "fused_map_reduce")
     LAUNCHES["fused_map_reduce"] += 1
     return out.reshape(())
+
+
+def _cols_plan(x, struct, calls):
+    """The standalone column-form plan of the contiguous 2-d ``x``:
+    ``(vec, rows, lanes, MapReducePlan)``."""
+    n, columns = x.shape
+    vec = _vec(x, columns)
+    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
+    lanes = _lanes(columns, vec)
+    plan = map_reduce_plan(n, columns, vec, _resident(
+        x.device, 0, lanes, x.dtype, vec, rows, calls, struct.nfile))
+    return vec, rows, lanes, plan
+
+
+def _full_plan(x, struct, calls):
+    """The standalone full-form plan of the flat ``x``: ``(vec, rows,
+    blocks)``."""
+    vec = _vec(x, 0)
+    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
+    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)), _resident(
+        x.device, 1, 1, x.dtype, vec, rows, calls, struct.nfile)))
+    return vec, rows, blocks
+
+
+def _fused_map_reduce_lanes_plain(xs, program, cols=False):
+    """The plain PyTorch version of :func:`fused_map_reduce_lanes`: the
+    plain version of one lane, for each lane, stacked."""
+    return torch.stack([_fused_map_reduce_plain(x, program, cols=cols)
+                        for x in xs])
+
+
+def fused_map_reduce_lanes(xs, program, cols=False):
+    """:func:`fused_map_reduce_program` (``cols=False``) or
+    :func:`fused_map_reduce_cols` (``cols=True``, no mask) of each tensor
+    of ``xs``, W tensors of one shape, dtype and device, as one stacked
+    ``(W,)`` or ``(W, C)`` tensor: the serving layer's batched ``sum``
+    (``gpu/batched.py``).  Each lane gets the standalone plan of its own
+    base (pack width, tile, grid and scratch), so lane ``i`` equals the
+    standalone launch on ``xs[i]`` bit for bit; the lanes of one pack
+    width (a base's 16-byte alignment decides it) share one launch, whose
+    grid's second axis is the lane, reading each base in place through a
+    device array of pointers."""
+    xs = list(xs)
+    if not xs:
+        raise ValueError("fused_map_reduce_lanes needs at least one lane")
+    x0 = xs[0]
+    for x in xs:
+        _check_program(x, program)
+        if (tuple(x.shape) != tuple(x0.shape) or x.dtype != x0.dtype
+                or x.device != x0.device):
+            raise ValueError("fused_map_reduce_lanes takes lanes of one "
+                             "shape, dtype and device; got %s %s on %s "
+                             "beside %s %s on %s"
+                             % (tuple(x.shape), x.dtype, x.device,
+                                tuple(x0.shape), x0.dtype, x0.device))
+    if cols and x0.ndim != 2:
+        raise ValueError("the column form takes 2-d lanes, got shape %s"
+                         % (tuple(x0.shape),))
+    if x0.device.type == "cpu":
+        return _fused_map_reduce_lanes_plain(xs, program, cols)
+    xs = [_on_card(x, "fused_map_reduce") for x in xs]
+    if not cols:
+        xs = [x.reshape(-1) for x in xs]
+    device, dtype = x0.device, x0.dtype
+    nb = len(xs)
+    out = torch.empty((nb,) + ((x0.shape[1],) if cols else ()),
+                      dtype=dtype, device=device)
+    if xs[0].numel() == 0:
+        return out.zero_()
+    struct, calls = _encoded(program)
+    lib = _mapreduce_lib()
+    # lanes of one pack width share a launch
+    groups = {}
+    for i, x in enumerate(xs):
+        vec = _vec(x, x.shape[1] if cols else 0)
+        groups.setdefault(vec, []).append(i)
+    for idx in groups.values():
+        lane = [xs[i] for i in idx]
+        ptrs = torch.tensor([x.data_ptr() for x in lane]
+                            + [out[i].data_ptr() for i in idx],
+                            dtype=torch.int64).to(device)
+        stream = _stream(device)
+        if cols:
+            n, columns = lane[0].shape
+            vec, rows, lanes, plan = _cols_plan(lane[0], struct, calls)
+            part = None if plan.direct else torch.empty(
+                len(idx) * plan.blocks * plan.segs * (_THREADS // lanes)
+                * vec, dtype=_acc_dtype(dtype), device=device)
+            with _on_device(device):
+                code = lib.bolt_fused_map_reduce_cols_lanes(
+                    ctypes.byref(struct), ptrs.data_ptr(), len(idx),
+                    None if part is None else part.data_ptr(), n, columns,
+                    lanes, plan.blocks, plan.segs, _DTYPE_CODE[dtype], vec,
+                    rows, stream)
+        else:
+            vec, rows, blocks = _full_plan(lane[0], struct, calls)
+            part = torch.empty(len(idx) * blocks, dtype=_acc_dtype(dtype),
+                               device=device)
+            with _on_device(device):
+                code = lib.bolt_fused_map_reduce_full_lanes(
+                    ctypes.byref(struct), ptrs.data_ptr(), len(idx),
+                    part.data_ptr(), lane[0].numel(), blocks,
+                    _DTYPE_CODE[dtype], vec, rows, stream)
+        _check(code, "fused_map_reduce_lanes")
+        LAUNCHES["fused_map_reduce_lanes"] += 1
+    return out
 
 
 def fused_map_reduce(x, fn=None):

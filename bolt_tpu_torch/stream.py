@@ -84,8 +84,11 @@ threads too; with tracing armed (:mod:`bolt_tpu_torch.obs`) a run is a
 ``stream.run`` span (a shuffle a ``stream.shuffle`` span, a checkpoint
 write a ``stream.checkpoint`` span, a resume a ``stream.resume`` event),
 and the ingest spans its threads begin parent under it by explicit
-handoff.  Not ported yet: pods (ROADMAP A12) and the serving lease
-(A10).
+handoff.  Under a serving layer (``bolt_tpu_torch.serve``) a run leases
+its slabs from the process-wide device-memory arbiter, in slab order and
+in wire bytes, and returns each slab's bytes when the consumer confirms it
+retired; a budget smaller than the ring shallows the pipeline instead of
+deadlocking it.  Not ported yet: pods (ROADMAP A12).
 Any other consumer — a filtered stream's shape, ``prod``/``all``/``any``,
 ``min``/``max`` under a filter, an axis other than all the key axes —
 materialises the source (:func:`materialize`), which needs the whole
@@ -95,6 +98,7 @@ array to fit.
 import contextlib
 import os
 import queue
+import sys
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -269,10 +273,26 @@ def spill_scope():
 
 def swap_budget():
     """The resident ceiling a streamed-swap resolution plans against: the
-    innermost :func:`spill` scope's ``budget``, else ``None`` (unbounded).
-    The reference also reads the serving arbiter's budget here; the port
-    has no serving layer yet (ROADMAP A10)."""
-    return spill_scope()[1]
+    innermost :func:`spill` scope's ``budget``, else the active serving
+    arbiter's device budget, else ``None`` (unbounded)."""
+    b = spill_scope()[1]
+    if b is not None:
+        return b
+    sv = sys.modules.get("bolt_tpu_torch.serve")
+    arb = sv.device_arbiter() if sv is not None else None
+    return None if arb is None else int(arb.budget)
+
+
+def _tenant_lease():
+    """A device-memory lease from the active serving arbiter
+    (``bolt_tpu_torch.serve``) for the calling thread's tenant, or
+    ``None`` when no serving layer runs.  Found through ``sys.modules``,
+    so streaming never imports (or starts) the serving layer."""
+    sv = sys.modules.get("bolt_tpu_torch.serve")
+    arb = sv.device_arbiter() if sv is not None else None
+    if arb is None:
+        return None
+    return arb.lease(_engine.current_tenant() or "default")
 
 
 def checkpoint_scope():
@@ -1191,8 +1211,14 @@ class _Ingest:
     there."""
 
     def __init__(self, source, codec_obj, delta_ok, depth, nwork, run_sp,
-                 jobs=None, prefix="bolt-stream", skip=(0, 0)):
+                 jobs=None, prefix="bolt-stream", skip=(0, 0), lease=None):
         self.source = source
+        # the serving arbiter's lease (None: no serving layer): each slab
+        # acquires its wire bytes in slab order before its upload
+        self.lease = lease
+        self.rec_bytes = 0 if lease is None else prod(source.shape[1:]) * (
+            codec_obj.wire_dtype(source.dtype).itemsize
+            if codec_obj is not None else source.dtype.itemsize)
         self.device = source.device
         self.codec_obj = codec_obj
         self.delta_ok = delta_ok
@@ -1268,6 +1294,8 @@ class _Ingest:
             for j, (g, lo, hi) in enumerate(self.jobs):
                 if not _acquire(self.permits, self.stop):
                     return
+                if not self.lease_slab(lo, hi):
+                    return
                 self.jobq.put((j, g, lo, hi))
             self.rsq.finish(len(self.jobs))
         except BaseException as exc:        # noqa: BLE001 — re-raised in
@@ -1275,6 +1303,17 @@ class _Ingest:
         finally:
             for _ in range(self.nwork):
                 self.jobq.put(None)         # poison pills: the pool drains
+
+    def slab_bytes(self, lo, hi):
+        """The arbiter bytes of the slab of records ``[lo, hi)``: its
+        wire bytes (a codec's sidecar excluded)."""
+        return (hi - lo) * self.rec_bytes
+
+    def lease_slab(self, lo, hi):
+        """Acquire a slab's bytes from the serving lease (True at once
+        without one); False when the run stopped while waiting."""
+        return self.lease is None or self.lease.acquire(
+            self.slab_bytes(lo, hi), stop=self.stop)
 
     def _worker(self, wid):
         try:
@@ -1362,6 +1401,8 @@ class _Ingest:
                             _obs.cancel(sp)     # the probe saw the end
                             sp = None
                             break
+                        if not self.lease_slab(lo, hi):
+                            return
                         attempt, prev = 0, None
                         while True:
                             try:
@@ -1479,12 +1520,14 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
                         **({"codec": codec_obj.name}
                            if codec_obj is not None else {}))
     try:
+        # under a serving layer the run's slabs draw on the process-wide
+        # device-memory budget (the tenant tag rides into the pool threads)
         ing = _Ingest(source, codec_obj, delta_ok, depth, nwork, run_sp,
                       jobs=[(g, lo, hi) for g, (lo, hi)
                             in enumerate(source.slab_ranges())
                             if g >= ck.start]
                       if source.kind == "callback" else None,
-                      skip=(ck.start, ck.records))
+                      skip=(ck.start, ck.records), lease=_tenant_lease())
         out, nslabs, ingest, compute, overlap, inflight_hw = _consume(
             ing, source, st, terminal, ddof, rfunc, comps, specs,
             codec_obj, use_kernel, delta_ok, ck)
@@ -1588,7 +1631,10 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
     nslabs = dispatched = confirmed = inflight_hw = 0
     fold = _PairFold(lambda a, b: _combine(terminal, rfunc, a, b, comps))
     pend = None                 # the even slab's partial awaiting its pair
-    pending_sync = deque()      # (slabs covered, event) not yet confirmed
+    pend_bytes = 0              # that slab's leased bytes, still held
+    pending_sync = deque()      # (slabs covered, event, leased bytes) not
+    #                             yet confirmed
+    lease = ing.lease
     done_records = ck.records   # records the folded slabs cover
     if ck.state is not None:
         # the fold exactly where the killed run left it: the tree's levels
@@ -1603,7 +1649,7 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
         """Wait for the OLDEST unconfirmed pair partial (normally long
         retired) and release its ring permits."""
         nonlocal compute, confirmed
-        cov, ev = pending_sync.popleft()
+        cov, ev, nb = pending_sync.popleft()
         ssp = _obs.begin("stream.sync", slabs=cov)
         t0 = _clock()
         try:
@@ -1614,6 +1660,8 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
         compute += _clock() - t0
         confirmed += cov
         ing.release(cov)
+        if lease is not None:
+            lease.release(nb)
 
     def _retire():
         """Release the permits of every pair partial the device has
@@ -1622,6 +1670,28 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
         while pending_sync and (pending_sync[0][1] is None
                                 or pending_sync[0][1].query()):
             _confirm_oldest()
+
+    def _starved():
+        """The serving arbiter's starvation valve (with :func:`_retire`,
+        the re-sequencer's ``idle``): while some acquire is queued on the
+        arbiter (this run's blocked feeder is one), confirm the oldest
+        window entry, or sync the lone unpaired partial, so their slab
+        bytes return and a budget smaller than the ring runs a shallower
+        pipeline instead of deadlocking.  A feeder merely slow on its
+        source leaves the window as it is."""
+        nonlocal pend_bytes
+        _retire()
+        if lease.arbiter.waiting() == 0:
+            return
+        if pending_sync:
+            _confirm_oldest()
+        elif pend is not None and pend_bytes:
+            # its slab program's input is released once the program ran:
+            # only the value-shaped partial lives
+            if on_card:
+                compute_stream.synchronize()
+            lease.release(pend_bytes)
+            pend_bytes = 0
 
     def _dispatch(parts):
         _chaos.hit("stream.dispatch")
@@ -1640,10 +1710,10 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
     ing.start()
     try:
         while True:
-            got = ing.next(idle=_retire)
+            got = ing.next(idle=_retire if lease is None else _starved)
             if got is None:
                 break
-            _, (slab_parts, tsec, g, _, hi) = got
+            _, (slab_parts, tsec, g, lo, hi) = got
             del got
             ingest += tsec
             t0 = _clock()
@@ -1656,8 +1726,10 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
                 part = _retried(ing, g, "slab dispatch",
                                 lambda: _dispatch(parts))
                 del parts
+                nb = ing.slab_bytes(lo, hi)
                 if pend is None:
                     pend = part
+                    pend_bytes = nb
                 else:
                     # the level-0 merge: the even slab's partial, then
                     # this one
@@ -1667,7 +1739,8 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
                     if on_card:
                         done = torch.cuda.Event()
                         done.record(compute_stream)
-                    pending_sync.append((2, done))
+                    pending_sync.append((2, done, nb + pend_bytes))
+                    pend_bytes = 0
             finally:
                 _obs.end(csp)
             # counted only once the slab's partial is in the fold: the
@@ -1720,6 +1793,8 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
     finally:
         ing.close()
         pending_sync.clear()
+        if lease is not None:
+            lease.close()       # every outstanding budget byte returns
     if ck.dir is not None:
         ck.clear()                  # success leaves no checkpoint behind
     compute += _clock() - t0

@@ -196,16 +196,43 @@ result):
    ``stats()``, ``reduce(np.add)``, ``reduce(np.maximum)``, ``cumsum``,
    ``clip``, ``compute(sum, mean, max)`` and a streamed ``sum``/``max``,
    each equal to numpy in values and the reference's dtype.  One log line
-   a run: wall, slabs, resumes, checkpoint bytes and seconds, peak.
+   a run: wall, slabs, resumes, checkpoint bytes and seconds, peak;
+13. serving (``bolt_tpu_torch.serve``), each path with its launches
+   counted from 0: ``scripts/bench_all.py``'s config 9, four tenants each
+   streaming ``(2048, 256, 64)`` f32 (128 MB, 16 slabs of 128 records,
+   25 ms of sleep a slab) through ``map(v + 1).sum()`` under
+   ``serving(workers=4, queue_limit=8)``, each result bit for bit against
+   the single-tenant run, a cold four-tenant round building what one
+   tenant builds (engine misses and nvcc builds), each tenant's
+   ``transfer_bytes`` its own 128 MB, the queue's high-water at most 8,
+   and the aggregate wall against the serialised one logged; config 1 in
+   memory, four tenants' ``map(v + 1).sum()`` and ``stats()`` under a
+   budget of 90% of ``torch.cuda.mem_get_info()``'s free bytes, bit for
+   bit against their standalone runs with 4 ``fused_map_reduce`` and 4
+   ``fused_welford`` launches; phase 11's armed int8 ``sum`` under a
+   budget of one wire slab (the starvation valve), bit for bit against
+   phase 11's, ``fused_decode_sum`` once a slab, the arbiter's high-water
+   within its budget and nothing leased after; config 14, 256 requests of
+   ``(128, 32)`` f32 ``map(v + 1).sum()`` over 8 bases on one worker,
+   three saturated drains and the sparse p50 unbatched and under
+   ``batching={"max_batch": 16, "linger": 0.002}`` after ``batched.warm``
+   (every result bit for bit against its standalone run, no build in the
+   steady state, ``fused_map_reduce_lanes`` once a batched dispatch and the
+   standalone ``fused_map_reduce`` only for the requests that ran alone;
+   req/s and the p50 ratio logged beside the reference's bench gates);
+   then ``fused_map_reduce_lanes`` at 16 lanes of config 14, bit for bit
+   against 16 standalone launches and timed beside them, its plain
+   version, ``torch.sum`` of a stacked copy and its bound.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4, phase 6, phase 7, phase 8, phase 11 and phase 12; phases 9 and 10 run
-no kernel of their own) and
+4, phase 6, phase 7, phase 8, phase 11, phase 12 and each path of phase
+13; phases 9 and 10 run no kernel of their own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object (each row's ``phase12_launches`` holds its launches in each path
 of phase 12 that launched it: each run of the resumes, ``loaded_array``
-and ``uint16``, every one counted from 0) and
+and ``uint16``, every one counted from 0; ``phase13_launches`` the same
+for phase 13's ``config9``, ``config1``, ``int8_c1`` and ``config14``) and
 ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -238,13 +265,16 @@ REPLACES = {"fused_welford": "bolt_tpu/ops/kernels.py:188",
             "sepfilter1d": "bolt_tpu/ops/kernels.py:534",
             "lane_band": "bolt_tpu/ops/kernels.py:395",
             "fused_decode_sum": "bolt_tpu/ops/kernels.py:308",
-            "fused_map_reduce": "bolt_tpu/ops/kernels.py:110"}
+            "fused_map_reduce": "bolt_tpu/ops/kernels.py:110",
+            # vmap's batch axis over _mr_kernel (:99, its pallas_call :129)
+            "fused_map_reduce_lanes": "bolt_tpu/ops/kernels.py:129"}
 SOURCE = {"fused_welford": "bolt_tpu_torch/ops/csrc/moments.cu",
           "fused_stats": "bolt_tpu_torch/ops/csrc/moments.cu",
           "sepfilter1d": "bolt_tpu_torch/ops/csrc/window.cu",
           "lane_band": "bolt_tpu_torch/ops/csrc/window.cu",
           "fused_decode_sum": "bolt_tpu_torch/ops/csrc/codec.cu",
-          "fused_map_reduce": "bolt_tpu_torch/ops/csrc/mapreduce.cu"}
+          "fused_map_reduce": "bolt_tpu_torch/ops/csrc/mapreduce.cu",
+          "fused_map_reduce_lanes": "bolt_tpu_torch/ops/csrc/mapreduce.cu"}
 CONFIG1 = (200, 200, 64, 64)
 # phase 9's shapes: BASELINE config 5b (scripts/bench_all.py), the pca
 # family of scripts/perf_regress.py and ops/group.py's measured layout
@@ -272,6 +302,16 @@ SPILL_BUDGET = 1 << 28
 # results of phases 6 and 11 that phase 12's resumed runs must equal bit
 # for bit (value-shaped tensors on the card)
 KEEP = {}
+# phase 13's serving configurations (scripts/bench_all.py): config 9's four
+# tenants each stream 128 MB in 16 slabs of 128 records from a source that
+# sleeps 25 ms a slab; config 14's 256 requests of (128, 32) f32 over 8
+# bases
+CONFIG9 = (2048, 256, 64)
+CONFIG9_SLAB_RECORDS = 128
+CONFIG9_LATENCY_S = 0.025
+CONFIG14 = (128, 32)
+SERVE_REQUESTS = 256
+SERVE_BASES = 8
 
 
 def check(cond, what):
@@ -3018,6 +3058,406 @@ def resume_phase(bolt, K, torch, np, dev, report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving (the multi-tenant server, the arbiter, micro-batching)
+# ---------------------------------------------------------------------------
+
+def serve_config9(bolt, torch, np, dev, engine, serve, reg, add1, out):
+    """Config 9 at its width: four tenants each stream 128 MB under
+    ``serving(workers=4, queue_limit=8)``; returns the served results'
+    check values."""
+    tenants = ["c9-t%d" % i for i in range(4)]
+    x9 = np.random.default_rng(9).standard_normal(CONFIG9, dtype=np.float32)
+    nbytes = x9.nbytes
+
+    def read9(idx):
+        time.sleep(CONFIG9_LATENCY_S)     # the emulated storage fetch
+        return x9[idx]
+
+    def make9():
+        return bolt.fromcallback(read9, CONFIG9, dev, dtype=np.float32,
+                                 chunks=CONFIG9_SLAB_RECORDS).map(add1).sum()
+
+    single = make9().totorch()           # builds the slab programs
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in tenants:
+        make9().totorch()                # one at a time
+    torch.cuda.synchronize()
+    serial = time.perf_counter() - t
+    reg.gauge("serve.queue_depth_high_water").reset()
+    moved0 = {n: engine.tenant_counters(n)["transfer_bytes"]
+              for n in tenants}
+    with serve.serving(workers=4, queue_limit=8) as sv:
+        t = time.perf_counter()
+        futs = [sv.submit(make9(), tenant=n) for n in tenants]
+        outs = [f.result(timeout=600).totorch() for f in futs]
+        torch.cuda.synchronize()
+        conc = time.perf_counter() - t
+        depth_hw = sv.stats()["queue_depth_high_water"]
+    lats = sorted(f.finished_s - f.submitted_s for f in futs)
+    for n, o in zip(tenants, outs):
+        check(torch.equal(o, single), "config 9 tenant %s differs from "
+              "the single-tenant run" % n)
+        moved = engine.tenant_counters(n)["transfer_bytes"] - moved0[n]
+        check(moved == nbytes, "config 9 tenant %s moved %d bytes, not "
+              "its %d" % (n, moved, nbytes))
+    check(depth_hw <= 8, "config 9 queue depth high-water %d > 8"
+          % depth_hw)
+
+    def builds():
+        c = engine.counters()
+        return c["misses"], c["aot_compiles"], c["persistent_misses"]
+
+    engine.clear()
+    c0 = builds()
+    with serve.serving(workers=4) as sv:
+        [f.result(timeout=600) for f in
+         [sv.submit(make9(), tenant=n) for n in tenants]]
+    four = tuple(b - a for a, b in zip(c0, builds()))
+    engine.clear()
+    c0 = builds()
+    make9().totorch()
+    one = tuple(b - a for a, b in zip(c0, builds()))
+    check(four == one, "a cold 4-tenant round built %s (misses, builds, "
+          "nvcc), one tenant %s" % (four, one))
+    out.update(serial_s=serial, concurrent_s=conc, ratio=serial / conc,
+               aggregate_gbps=len(tenants) * nbytes / conc / 1e9,
+               serialised_gbps=len(tenants) * nbytes / serial / 1e9,
+               latency_p50_s=lats[len(lats) // 2], latency_max_s=lats[-1],
+               queue_depth_high_water=depth_hw, cold_builds_4=four,
+               cold_builds_1=one)
+    log("phase 13 config9: %d tenants x %d MB, aggregate %.3f GB/s vs "
+        "serialised %.3f GB/s (%.2fx; the reference's bench gate >= 2.5x), "
+        "latency p50 %.3f s max %.3f s, queue depth high-water %d, cold "
+        "builds 4 tenants %s == 1 tenant %s, per-slab latency %g s"
+        % (len(tenants), nbytes >> 20, out["aggregate_gbps"],
+           out["serialised_gbps"], out["ratio"], out["latency_p50_s"],
+           out["latency_max_s"], depth_hw, four, one, CONFIG9_LATENCY_S))
+
+
+def serve_config1(bolt, K, torch, np, dev, serve, add1, out):
+    """Config 1 in memory: four tenants' ``map(v + 1).sum()`` and
+    ``stats()`` under an explicit budget, each bit for bit against its
+    standalone run; returns the served path's launches."""
+    arrays = [bolt.randn(CONFIG1, mode="gpu", dtype=np.float32,
+                         seed=130 + i) for i in range(4)]
+    sums = [a.map(add1).sum().totorch() for a in arrays]
+    stats = [a.stats() for a in arrays]
+    free, _ = torch.cuda.mem_get_info()
+    budget = int(free * 0.9)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with serve.serving(workers=4, budget_bytes=budget) as sv:
+        fs = [sv.submit(a.map(add1).sum(), tenant="c1-t%d" % i)
+              for i, a in enumerate(arrays)]
+        ft = [sv.submit(lambda a=a: a.stats(), tenant="c1-t%d" % i)
+              for i, a in enumerate(arrays)]
+        got_s = [f.result(timeout=600).totorch() for f in fs]
+        got_t = [f.result(timeout=600) for f in ft]
+        torch.cuda.synchronize()
+        arb = sv.stats()["arbiter"]
+    launches = dict(K.LAUNCHES)
+    check(sv.arbiter.in_use() == 0, "config 1 leases were not returned")
+    for i in range(4):
+        check(torch.equal(got_s[i], sums[i]), "config 1 tenant %d's served "
+              "sum differs from its standalone run" % i)
+        a, b = got_t[i], stats[i]
+        check(a.count() == b.count() and all(
+            np.array_equal(getattr(a, m)(), getattr(b, m)())
+            for m in ("mean", "variance", "min", "max")),
+            "config 1 tenant %d's served stats() differs from its "
+            "standalone run" % i)
+    check(launches["fused_map_reduce"] == 4 and
+          launches["fused_welford"] == 4, "config 1's served path launched "
+          "fused_map_reduce %d and fused_welford %d times, not 4 and 4"
+          % (launches["fused_map_reduce"], launches["fused_welford"]))
+    out.update(budget_bytes=budget, arbiter=arb)
+    return launches
+
+
+def serve_int8(bolt, K, torch, np, stream, serve, reg, out):
+    """Config 1's armed int8 streamed sum under a budget of one wire slab
+    (the starvation valve shallows its ring); returns the launches."""
+    cb1 = seeded_records(np, CONFIG1[1:], integers=True)
+    s1 = -(-CONFIG1[0] // SLAB_RECORDS)
+    wire_slab = SLAB_RECORDS * math.prod(CONFIG1[1:])     # uint8 records
+
+    def source1():
+        return bolt.fromcallback(cb1, CONFIG1, mode="gpu", dtype=np.float32,
+                                 chunks=SLAB_RECORDS, codec="int8")
+
+    ring = stream.prefetch_depth() + stream.pool_size(source1()._stream)
+    hw = reg.gauge("serve.arbiter_in_use_high_water")
+    hw.reset()
+    waits0 = reg.counter("serve.arbiter_waits").value
+    os.environ["BOLT_CODEC_KERNEL"] = "1"
+    try:
+        K.reset_launches()
+        with serve.serving(workers=1, budget_bytes=wire_slab) as sv:
+            got = sv.submit(source1().sum(), tenant="c1-int8").result(
+                timeout=600).totorch()
+            torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    finally:
+        os.environ.pop("BOLT_CODEC_KERNEL", None)
+    waits = reg.counter("serve.arbiter_waits").value - waits0
+    check(torch.equal(got.view(torch.int32), KEEP["c1_int8"].view(
+        torch.int32)), "the served int8 sum differs from phase 11's")
+    check(launches["fused_decode_sum"] == s1, "the served int8 sum "
+          "launched fused_decode_sum %d times for %d slabs"
+          % (launches["fused_decode_sum"], s1))
+    check(0 < hw.value <= wire_slab, "the arbiter's high-water %d passed "
+          "its budget %d" % (hw.value, wire_slab))
+    check(waits > 0, "the one-slab budget never made the feeder wait")
+    check(sv.arbiter.in_use() == 0, "the int8 lease was not returned")
+    out.update(budget_bytes=wire_slab, ring_slabs=ring,
+               high_water_bytes=hw.value, arbiter_waits=waits, slabs=s1)
+    return launches
+
+
+def serve_config14(bolt, K, torch, np, dev, engine, serve, batched, add1,
+                   out):
+    """Config 14 at its width: 256 requests of ``(128, 32)`` over 8 bases
+    on one worker, unbatched and batched; returns the batched drains'
+    launches."""
+    import threading
+    gen = torch.Generator(device=dev).manual_seed(140)
+    b14 = [bolt.array(torch.randn(CONFIG14, generator=gen, device=dev),
+                      dev) for _ in range(SERVE_BASES)]
+
+    def make14(i=0):
+        return b14[i % SERVE_BASES].map(add1).sum()
+
+    refs = [make14(i).totorch() for i in range(SERVE_BASES)]
+
+    def saturated(sv):
+        """Three drains of a queue filled behind a parked worker; the best
+        drain's wall (gate open to the last future's finish), and every
+        drain's futures."""
+        best, allf, outs = float("inf"), [], None
+        for _ in range(3):
+            gate = threading.Event()
+            blocker = sv.submit(gate.wait)
+            futs = [sv.submit(make14(i), tenant="t%d" % (i % 4))
+                    for i in range(SERVE_REQUESTS)]
+            t0 = time.perf_counter()
+            gate.set()
+            outs = [f.result(timeout=600).totorch() for f in futs]
+            best = min(best, max(f.finished_s for f in futs) - t0)
+            blocker.result(timeout=30)
+            allf += futs
+            for i, o in enumerate(outs):
+                check(torch.equal(o, refs[i % SERVE_BASES]), "config 14 "
+                      "request %d differs from its standalone run" % i)
+        return best, allf
+
+    def sparse(sv, n=30):
+        """Min of two medians of ``n`` lone requests' latencies, and the
+        medians of their queue waits and runs (start to finish: the host
+        dispatch, the launch returning before the device ends)."""
+        meds, waits, runs = [], [], []
+        [sv.submit(make14()).result(timeout=60) for _ in range(5)]
+        for _ in range(2):
+            lats = []
+            for _ in range(n):
+                f = sv.submit(make14())
+                f.result(timeout=60)
+                lats.append(f.finished_s - f.submitted_s)
+                waits.append(f.wait_seconds)
+                runs.append(f.run_seconds)
+                time.sleep(0.005)
+            lats.sort()
+            meds.append(lats[len(lats) // 2])
+        return min(meds), sorted(waits)[len(waits) // 2], \
+            sorted(runs)[len(runs) // 2]
+
+    with serve.serving(workers=1, queue_limit=2 * SERVE_REQUESTS) as sv:
+        [f.result(timeout=60) for f in
+         [sv.submit(make14(i)) for i in range(16)]]
+        wall_u, _ = saturated(sv)
+        p50_off, wait_off, run_off = sparse(sv)
+    with serve.serving(workers=1, queue_limit=2 * SERVE_REQUESTS,
+                       batching={"max_batch": 16, "linger": 0.002}) as sv:
+        batched.warm(make14, buckets=sv.batching.buckets)
+        [f.result(timeout=60) for f in
+         [sv.submit(make14(i)) for i in range(16)]]
+        torch.cuda.synchronize()
+        c0 = engine.counters()
+        K.reset_launches()
+        wall_b, futs = saturated(sv)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        c1 = engine.counters()
+        p50_on, wait_on, run_on = sparse(sv)
+    # a batched drain's run seconds: one dispatch's, shared by its lanes
+    runs_b = sorted(f.run_seconds for f in futs if f.batch_width)
+    asm_b = sorted(f.assembly_seconds for f in futs if f.batch_width)
+    d = {k: c1[k] - c0[k] for k in ("misses", "aot_compiles",
+                                     "batched_dispatches",
+                                     "batched_requests", "dispatches")}
+    alone = sum(1 for f in futs if f.batch_width is None)
+    check(d["misses"] == 0 and d["aot_compiles"] == 0, "config 14's "
+          "steady state built %s" % d)
+    check(d["batched_dispatches"] >= 1, "config 14 never coalesced")
+    check(launches["fused_map_reduce_lanes"] == d["batched_dispatches"],
+          "config 14 launched fused_map_reduce_lanes %d times for %d "
+          "batched dispatches" % (launches["fused_map_reduce_lanes"],
+                                  d["batched_dispatches"]))
+    check(launches["fused_map_reduce"] == alone, "config 14 launched the "
+          "standalone fused_map_reduce %d times for %d standalone requests"
+          % (launches["fused_map_reduce"], alone))
+    check(d["batched_requests"] + alone == 3 * SERVE_REQUESTS,
+          "config 14's batched and standalone requests do not add up")
+    out.update(reqs_per_s_batched=SERVE_REQUESTS / wall_b,
+               reqs_per_s_unbatched=SERVE_REQUESTS / wall_u,
+               ratio=wall_u / wall_b, p50_on_s=p50_on, p50_off_s=p50_off,
+               p50_ratio=p50_on / p50_off, wait_p50_off_s=wait_off,
+               run_p50_off_s=run_off, wait_p50_on_s=wait_on,
+               run_p50_on_s=run_on,
+               batched_run_p50_s=runs_b[len(runs_b) // 2] if runs_b
+               else None,
+               batched_assembly_p50_s=asm_b[len(asm_b) // 2] if asm_b
+               else None,
+               occupancy=d["batched_requests"] / d["batched_dispatches"],
+               dispatches_per_request=d["dispatches"] / (3.0
+                                                         * SERVE_REQUESTS),
+               standalone_requests=alone, counters=d)
+    log("phase 13 config14: %d x %s requests, 1 worker: %.0f req/s "
+        "batched vs %.0f unbatched (%.2fx; the reference's bench gate >= "
+        "3x), occupancy %.2f, sparse p50 %.1f us on / %.1f us off (%.3fx; "
+        "its gate < 1.2x), %d standalone requests, steady-state builds 0; "
+        "a lone request's queue wait %.1f us and run %.1f us (unbatched "
+        "server), a batched dispatch's run %s us and assembly %s us"
+        % (SERVE_REQUESTS, CONFIG14, out["reqs_per_s_batched"],
+           out["reqs_per_s_unbatched"], out["ratio"], out["occupancy"],
+           1e6 * p50_on, 1e6 * p50_off, out["p50_ratio"], alone,
+           1e6 * wait_off, 1e6 * run_off,
+           None if not runs_b else "%.1f" % (1e6 * out["batched_run_p50_s"]),
+           None if not asm_b else "%.1f" % (
+               1e6 * out["batched_assembly_p50_s"])))
+    return launches, [b._data for b in b14]
+
+
+def lanes_timings(K, torch, dev, bases, add1):
+    """``fused_map_reduce_lanes`` at config 14 (16 lanes of ``(128, 32)``
+    f32): bit for bit against 16 standalone launches, against its plain
+    version, and timed beside them, the library call on a stacked copy
+    and its bound."""
+    from bolt_tpu_torch.ops import mapexpr
+    gen = torch.Generator(device=dev).manual_seed(141)
+    xs = [b for b in bases] + [torch.randn(CONFIG14, generator=gen,
+                                           device=dev)
+                               for _ in range(16 - len(bases))]
+    prog = mapexpr.compile((add1,), CONFIG14[1:], torch.float32)
+    full = mapexpr.compile((add1,), CONFIG14, torch.float32)
+    got = K.fused_map_reduce_lanes(xs, prog, cols=True)
+    gotf = K.fused_map_reduce_lanes(xs, full)
+    plain = K._fused_map_reduce_lanes_plain(xs, prog, True)
+    for i, x in enumerate(xs):
+        check(torch.equal(got[i], K.fused_map_reduce_cols(x, prog))
+              and torch.equal(gotf[i], K.fused_map_reduce_program(x, full)),
+              "lane %d of fused_map_reduce_lanes differs from its "
+              "standalone launch" % i)
+    err = float((got.double() - plain.double()).abs().max())
+    mag = float(plain.double().abs().max())
+    check(err <= 1e-4 * (1 + mag), "fused_map_reduce_lanes: max abs err "
+          "%.3g against its plain version" % err)
+    stacked = torch.stack(xs)
+    n_el = stacked.numel()
+    t_bytes = (n_el + 16 * CONFIG14[1]) * 4 / HBM_BYTES_PER_S
+    t_ops = OPS_PER_ELEMENT["fused_map_reduce"] * n_el / PEAK_OPS["float32"]
+    row = {"ms": timed_ms(lambda: K.fused_map_reduce_lanes(
+               xs, prog, cols=True), 200),
+           "full_ms": timed_ms(lambda: K.fused_map_reduce_lanes(xs, full),
+                               200),
+           "standalone_16_ms": timed_ms(
+               lambda: [K.fused_map_reduce_cols(x, prog) for x in xs], 50),
+           "standalone_1_ms": timed_ms(
+               lambda: K.fused_map_reduce_cols(xs[0], prog), 200),
+           "plain_ms": timed_ms(lambda: K._fused_map_reduce_lanes_plain(
+               xs, prog, True), 50),
+           "library_ms": timed_ms(lambda: torch.sum(stacked, 1), 200),
+           "library_full_ms": timed_ms(
+               lambda: torch.sum(stacked.reshape(16, -1), 1), 200),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err,
+           # the device's share: the kernels of one call, by the profiler
+           "device_us": device_us(lambda: K.fused_map_reduce_lanes(
+               xs, prog, cols=True))[1],
+           "standalone_1_device_us": device_us(
+               lambda: K.fused_map_reduce_cols(xs[0], prog))[1]}
+    log("fused_map_reduce_lanes config14 x16: device %s us a call (one "
+        "standalone launch %s us)" % (row["device_us"],
+                                      row["standalone_1_device_us"]))
+    log("fused_map_reduce_lanes config14 x16 kernel_ms %.4f (full form "
+        "%.4f) standalone_16_ms %.4f (one launch %.4f) plain_ms %.4f "
+        "library_ms %.4f (torch.sum(x.reshape(16, -1), 1) %.4f) bound_ms "
+        "%.6f (%s)"
+        % (row["ms"], row["full_ms"], row["standalone_16_ms"],
+           row["standalone_1_ms"],
+           row["plain_ms"], row["library_ms"], row["library_full_ms"],
+           row["bound_ms"], row["bound_by"]))
+    return row
+
+
+def serve_phase(bolt, K, torch, np, dev, report):
+    """Phase 13: config 9's four streamed tenants, config 1 in memory
+    under the arbiter and its armed int8 stream under a one-slab budget,
+    and config 14's micro-batched requests; returns each path's launches
+    and the lanes kernel's timings."""
+    from bolt_tpu_torch import engine, serve, stream
+    from bolt_tpu_torch.gpu import batched
+    from bolt_tpu_torch.obs import metrics
+    t0 = time.perf_counter()
+    reg = metrics.registry()
+    add1 = lambda v: v + 1           # noqa: E731 — shared by every tenant
+    out = {}
+    launches = {}
+
+    def path(label, fn):
+        """One path: its wall, peak device memory and launches (counted
+        from 0), logged on one line."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        out[label] = {}
+        t = time.perf_counter()
+        got = fn(out[label])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[label] = dict(K.LAUNCHES) if got is None else got
+        peak = torch.cuda.max_memory_allocated()
+        out[label].update(wall_s=wall, peak_gb=peak / 1e9, launches={
+            k: v for k, v in launches[label].items() if v})
+        log("phase 13 %-9s wall %.3f s, peak %.3f GB, launches %s"
+            % (label, wall, peak / 1e9, json.dumps(out[label]["launches"])))
+
+    path("config9", lambda o: serve_config9(bolt, torch, np, dev, engine,
+                                            serve, reg, add1, o))
+    path("config1", lambda o: serve_config1(bolt, K, torch, np, dev, serve,
+                                            add1, o))
+    path("int8_c1", lambda o: serve_int8(bolt, K, torch, np, stream, serve,
+                                         reg, o))
+    bases = []
+
+    def c14(o):
+        got, b = serve_config14(bolt, K, torch, np, dev, engine, serve,
+                                batched, add1, o)
+        bases.extend(b)
+        return got
+
+    path("config14", c14)
+    lanes = lanes_timings(K, torch, dev, bases, add1)
+    check(not serve.active() and not batched.armed(), "phase 13 left a "
+          "server or the batching door behind")
+    report["serve_phase"] = dict(out, lanes_kernel=lanes)
+    report["phases"]["serve_s"] = time.perf_counter() - t0
+    log("serve phase ok in %.1f s" % report["phases"]["serve_s"])
+    return launches, lanes
+
+
 def main():
     try:
         import torch
@@ -3386,12 +3826,18 @@ def main():
 
     # ---- phase 12: resume, checkpoints and unsigned records ----------------
     resume_launches = resume_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 13: serving -------------------------------------------------
+    serve_launches, lanes = serve_phase(bolt, K, torch, np, dev, report)
+    timings[("fused_map_reduce_lanes", "config14_x16")] = lanes
+    max_err["fused_map_reduce_lanes"] = lanes["max_abs_err"]
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
     # kernels' and fused_map_reduce's from phases 2-3, the window kernels'
     # from phase 4, fused_decode_sum's from phase 6 (timed at the slab it is
-    # given there)
+    # given there), fused_map_reduce_lanes' from phase 13's config 14 (timed
+    # at 16 lanes of it)
     kernels = []
     for name, path_launches, label in (
             ("fused_welford", launches, "north_star"),
@@ -3399,7 +3845,9 @@ def main():
             ("sepfilter1d", img_launches, "imaging"),
             ("lane_band", img_launches, "imaging"),
             ("fused_decode_sum", stream_launches, "slab"),
-            ("fused_map_reduce", launches, "north_star_cols")):
+            ("fused_map_reduce", launches, "north_star_cols"),
+            ("fused_map_reduce_lanes", serve_launches["config14"],
+             "config14_x16")):
         row = timings[(name, label)]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
@@ -3411,7 +3859,10 @@ def main():
                         "library_ms": row["library_ms"],
                         "phase12_launches": {
                             path: c[name] for path, c in
-                            resume_launches.items() if c[name]}})
+                            resume_launches.items() if c[name]},
+                        "phase13_launches": {
+                            path: c[name] for path, c in
+                            serve_launches.items() if c[name]}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -45,6 +45,16 @@ and dtypes equal to numpy's, and callables that wrap and order on
 them; an armed int8 stream killed by an injected
 upload fault and resumed bit for bit, ``fused_decode_sum`` once for
 each slab streamed after the resume.
+
+Serving on the card: ``fused_map_reduce_lanes`` in both forms, 1, 2, 5
+and 16 lanes, f32/f64/bf16/f16, at the serving shape ``(128, 32)`` and
+at ``(257, 33)`` (a numel that is not a multiple of the pack, ragged
+columns), each lane bit for bit against its standalone launch in one
+lanes launch, and a misaligned view lane taking a launch of its own; a
+batched serve of ``sum``, ``mean``, ``var``, ``std``, ``min``, ``max``,
+``prod``, ``reduce(add)`` and chain materialisation, each lane bit for
+bit against its standalone result; a child process started with
+``Server(start_warm=dir)`` running no ``nvcc``.
 """
 
 import os
@@ -1191,3 +1201,162 @@ def test_resumed_int8_stream_launches_decode_sum_on_card(tmp_path,
     assert K.LAUNCHES["fused_decode_sum"] - before == slabs
     assert np.array_equal(got.view(np.int32), clean.view(np.int32))
     assert not checkpoint.stream_pending(ck)
+
+
+# ---------------------------------------------------------------------
+# serving on the card: the lane-batched map-reduce kernel, batched serve
+# terminals, and the warm start of a fresh process
+# ---------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [False, True], ids=["full", "cols"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("lanes", [1, 2, 16, 5])
+def test_fused_map_reduce_lanes_bit_for_bit_on_card(lanes, dtype, cols):
+    # each lane equals the standalone launch on its base bit for bit (the
+    # same plan, so the same partition and order), in one launch; the
+    # serving shape (128, 32), a numel that is not a multiple of the pack
+    # and ragged columns (257, 33)
+    M, programs = _mr_programs()
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(31)
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}.get(dtype, 1.6e-2)
+    for shape in ((128, 32), (257, 33)):
+        xs = [torch.randn(shape, generator=g, device=dev).to(dtype)
+              for _ in range(lanes)]
+        for name in ("v+1", "where", "trans"):
+            prog = M.compile((programs[name],),
+                             shape[1:] if cols else shape, dtype)
+            b_lanes = K.LAUNCHES["fused_map_reduce_lanes"]
+            b_one = K.LAUNCHES["fused_map_reduce"]
+            out = K.fused_map_reduce_lanes(xs, prog, cols=cols)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["fused_map_reduce_lanes"] == b_lanes + 1
+            assert K.LAUNCHES["fused_map_reduce"] == b_one
+            assert out.shape == ((lanes,) + shape[1:] if cols
+                                 else (lanes,)) and out.dtype == dtype
+            for i, x in enumerate(xs):
+                one = K.fused_map_reduce_cols(x, prog) if cols else \
+                    K.fused_map_reduce_program(x, prog)
+                assert torch.equal(out[i], one), (name, shape, i)
+            want = K._fused_map_reduce_lanes_plain(xs, prog, cols)
+            mag = float(want.double().abs().max())
+            assert float((out.double() - want.double()).abs().max()) \
+                <= tol * (1 + mag) * (1 if cols else shape[0]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [False, True], ids=["full", "cols"])
+def test_fused_map_reduce_lanes_misaligned_view_lane_on_card(cols):
+    # a lane that starts 4 bytes past a 16-byte boundary loads one element
+    # at a time, as its standalone launch does: it takes a launch of its
+    # own, and every lane still equals its standalone launch bit for bit
+    from bolt_tpu_torch.ops import mapexpr as M
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(32)
+    shape = (130, 64)
+    raw = torch.randn(1 + 130 * 64, generator=g, device=dev)
+    xs = [torch.randn(shape, generator=g, device=dev),
+          raw[1:].view(shape),
+          torch.randn(shape, generator=g, device=dev)]
+    prog = M.compile((lambda v: v * 2 + 1,), shape[1:] if cols else shape,
+                     torch.float32)
+    before = K.LAUNCHES["fused_map_reduce_lanes"]
+    out = K.fused_map_reduce_lanes(xs, prog, cols=cols)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_map_reduce_lanes"] == before + 2
+    for i, x in enumerate(xs):
+        one = K.fused_map_reduce_cols(x, prog) if cols else \
+            K.fused_map_reduce_program(x, prog)
+        assert torch.equal(out[i], one), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sum", "mean", "var", "std", "min", "max",
+                                  "prod", "reduce", "chain"])
+def test_batched_serve_terminals_bit_for_bit_on_card(name):
+    # four queued requests of one batch key coalesce into one batched
+    # dispatch whose every lane equals the standalone result on the card;
+    # a compiled sum runs one lanes launch and no standalone launch
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import engine, serve
+    import threading
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(33)
+    bases = [bolt.array(torch.randn((128, 32), generator=g, device=dev)
+                        * 0.1 + 1.0, dev) for _ in range(4)]
+
+    def add1(v):
+        return v + 1
+
+    def make(i):
+        m = bases[i].map(add1)
+        if name == "chain":
+            return m
+        if name == "reduce":
+            return m.reduce(torch.add)
+        return getattr(m, name)()
+
+    with serve.serving(workers=1, batching={"max_batch": 4,
+                                            "linger": 0.05}) as sv:
+        want = [make(i).totorch() for i in range(4)]
+        torch.cuda.synchronize()
+        gate = threading.Event()
+        blocker = sv.submit(gate.wait)
+        futs = [sv.submit(make(i)) for i in range(4)]
+        c0 = engine.counters()
+        b_lanes = K.LAUNCHES["fused_map_reduce_lanes"]
+        b_one = K.LAUNCHES["fused_map_reduce"]
+        gate.set()
+        outs = [f.result(timeout=120).totorch() for f in futs]
+        blocker.result(timeout=30)
+        torch.cuda.synchronize()
+        c1 = engine.counters()
+    assert all(f.batch_width == 4 for f in futs)
+    assert c1["batched_dispatches"] - c0["batched_dispatches"] == 1
+    for got, w in zip(outs, want):
+        assert got.dtype == w.dtype and torch.equal(got, w), name
+    if name == "sum":
+        assert K.LAUNCHES["fused_map_reduce_lanes"] - b_lanes == 1
+        assert K.LAUNCHES["fused_map_reduce"] == b_one
+
+
+@pytest.mark.gpu
+def test_start_warm_child_runs_no_nvcc(tmp_path):
+    # a fresh process started with Server(start_warm=dir) over libraries
+    # an earlier process built loads them without nvcc: no persistent
+    # miss, at least one warm hit, and its first request launches B1
+    import json
+    import shutil
+    import subprocess
+    import sys
+    from bolt_tpu_torch.ops import _build
+    _cuda()
+    d = str(tmp_path / "warm-kernels")
+    os.makedirs(d)
+    for name, path in _build.build().items():   # the checkout's builds
+        shutil.copy(path, d)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "sys.path.insert(0, %r)\n"
+        "import bolt_tpu_torch as bolt\n"
+        "from bolt_tpu_torch import engine, serve\n"
+        "from bolt_tpu_torch.ops import kernels as K\n"
+        "dev = torch.device('cuda', 0)\n"
+        "x = np.arange(128 * 32, dtype=np.float32).reshape(128, 32)\n"
+        "with serve.serving(workers=1, start_warm=%r) as sv:\n"
+        "    out = sv.submit(bolt.array(x, dev).map(lambda v: v + 1)"
+        ".sum()).result(120).toarray()\n"
+        "c = engine.counters()\n"
+        "print(json.dumps({'misses': c['persistent_misses'], "
+        "'warm': c['persistent_warm_hits'], 'b1': "
+        "K.LAUNCHES['fused_map_reduce'], 'ok': bool(np.array_equal("
+        "out, (x + 1).sum(0)))}))\n" % (root, d))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got == {"misses": 0, "warm": got["warm"], "b1": 1, "ok": True}
+    assert got["warm"] >= 1

@@ -30,7 +30,9 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.gpu.stack", "bolt_tpu_torch.ops.linalg",
            "bolt_tpu_torch.ops.group", "bolt_tpu_torch.ops.hist",
            "bolt_tpu_torch.gpu.npdispatch", "bolt_tpu_torch._chaos",
-           "bolt_tpu_torch.checkpoint", "bolt_tpu_torch.parallel.shuffle"]
+           "bolt_tpu_torch.checkpoint", "bolt_tpu_torch.parallel.shuffle",
+           "bolt_tpu_torch.serve", "bolt_tpu_torch.gpu.batched",
+           "bolt_tpu_torch.analysis", "bolt_tpu_torch.analysis.check"]
 
 
 def _sources():
@@ -74,6 +76,15 @@ def test_imports_with_jax_blocked():
               "lambda v: v.sum() > 20)\n"
             + "assert f.streaming and np.array_equal(f.sum().toarray(), "
               "x[x.sum(1) > 20].sum(0))\n"
+            + "a = bolt_tpu_torch.array(x, torch.device('cpu'))\n"
+            + "add1 = lambda v: v + 1\n"
+            + "with bolt_tpu_torch.serve.serving(workers=2, batching="
+              "{'max_batch': 4, 'linger': 0.01}) as sv:\n"
+            + "    fs = [sv.submit(a.map(add1).sum()) for _ in range(4)]\n"
+            + "    assert all(np.array_equal(f.result(60).toarray(), "
+              "(x + 1).sum(0)) for f in fs)\n"
+            + "assert bolt_tpu_torch.analysis.working_set_bytes("
+              "a.map(add1)) == 2 * x.nbytes\n"
             + "assert not any(m == 'bolt_tpu' or m.startswith('bolt_tpu.')"
               " for m in sys.modules), 'reference package imported'\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -256,7 +256,8 @@ def test_launch_counters_reset():
     K.reset_launches()
     assert K.LAUNCHES == {"fused_welford": 0, "fused_stats": 0,
                           "sepfilter1d": 0, "lane_band": 0,
-                          "fused_decode_sum": 0, "fused_map_reduce": 0}
+                          "fused_decode_sum": 0, "fused_map_reduce": 0,
+                          "fused_map_reduce_lanes": 0}
 
 
 # ---------------------------------------------------------------------------
