@@ -75,6 +75,7 @@ RANKS = {
     # process-wide singleton gates (held across whole-subsystem
     # construction/teardown, so they sit OUTSIDE everything)
     "serve.active": 10,        # serve.py _ACTIVE_LOCK
+    "analysis.strict": 14,     # analysis/__init__.py _ACTIVE_LOCK
     "batched.arm": 16,         # gpu/batched.py _ARM_LOCK
     # stat groups hold their lock across the WHOLE resolution, the
     # dispatch included (see DISPATCH_SAFE below): an OUTER lock

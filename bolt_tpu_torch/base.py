@@ -20,6 +20,15 @@ class HostFallbackWarning(UserWarning):
     fallback sites."""
 
 
+class HBMPressureWarning(UserWarning):
+    """An operation's estimated device-memory demand exceeds the ASSUMED
+    card memory (the card did not report its capacity, so an 80 GB H100
+    is assumed).  The op may still fit; set ``BOLT_HBM_BYTES`` (or
+    ``bolt_tpu_torch.gpu.array._HBM_LIMIT_OVERRIDE``) to the card's
+    memory size to make this an up-front ``MemoryError`` instead of a
+    CUDA out-of-memory error mid-program."""
+
+
 class BoltArray(metaclass=ABCMeta):
     """An n-dimensional array whose axes split into *key axes* (the
     distributed / parallel domain) and *value axes* (the local block each

@@ -384,6 +384,12 @@ def set_strict_guard(fn):
     _STRICT_GUARD = fn
 
 
+def strict_guarded():
+    """True while a pre-dispatch checker hook is installed (a caller
+    that must build an array to check it asks first)."""
+    return _STRICT_GUARD is not None
+
+
 def strict_guard(arr, op):
     """Run the installed pre-dispatch checker on ``arr`` for terminal
     ``op``; nothing when no guard is set."""

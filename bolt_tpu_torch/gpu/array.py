@@ -1211,6 +1211,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
 
     @property
     def shape(self):
+        if self._shape is None:
+            # a consumed filter never learnt its survivor count
+            self._guard_donated()
         if self._stream is not None and self._shape is None:
             # a streamed filter: the survivor count is unknown until the
             # source materialises
@@ -1324,10 +1327,11 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                 "sources readable)" % self._donated)
 
     def _adopt_materialised(self, data):
-        """Adopt ``data`` as this deferred chain's materialised result:
-        the scatter half of a serve batched dispatch (``gpu/batched.py``),
-        whose lane is what the standalone ``("chain", ...)`` program would
-        have produced, so the chain simply retires."""
+        """Adopt ``data`` as this array's materialised value: the scatter
+        half of a serve batched dispatch (``gpu/batched.py``), whose lane
+        is what the standalone ``("chain", ...)`` program would have
+        produced, or an in-place ``sort`` (``gpu/methods.py``); any chain
+        simply retires."""
         self._concrete = data
         self._shape = tuple(data.shape)
         self._chain = None
@@ -2108,6 +2112,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             if out is not NotImplemented:
                 return out
         self._guard_donated()
+        _engine.strict_guard(self, "swap()")
         base, funcs = self._chain_parts()
 
         def build():
@@ -2356,7 +2361,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                 ["?"] + [str(d) for d in
                          stream.result_state(self._stream).vshape])
         else:
-            s += "shape: %s\n" % str(self.shape)
+            # a consumed array shows what it recorded, never the guard
+            s += "shape: %s\n" % str(self._shape if self._donated
+                                      else self.shape)
         s += "split: %d\n" % self._split
         s += "dtype: %s\n" % str(self.dtype)
         s += "device: %s\n" % str(self._device)
@@ -2392,6 +2399,59 @@ def implicit_gather_warning(nbytes):
         "(e.g. np.asarray(b)); use bolt methods to stay on the device, or "
         "call .toarray() to make the transfer explicit"
         % (nbytes / float(1 << 20)), stacklevel=3)
+
+
+# device-memory limit of hbm_check: an explicit override, else
+# BOLT_HBM_BYTES, else the card's own report (torch.cuda.mem_get_info,
+# read once per card), else an ASSUMED 80 GB H100 (warn-only).  A CPU
+# device has no limit here.
+_HBM_LIMIT_OVERRIDE = None
+_ASSUMED_HBM_BYTES = 80 << 30
+_HBM_DEVICE_REPORT = {}
+
+
+def _hbm_limit(device=None):
+    """``(bytes, known)``: the device-memory budget of ``device`` and
+    whether it is known (configured or reported) or assumed; ``(None,
+    False)`` on the CPU."""
+    import os
+    if _HBM_LIMIT_OVERRIDE is not None:
+        return int(_HBM_LIMIT_OVERRIDE), True
+    env = os.environ.get("BOLT_HBM_BYTES")
+    if env:
+        return int(env), True
+    if device is None or torch.device(device).type != "cuda":
+        return None, False
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _HBM_DEVICE_REPORT:
+        try:
+            report = (int(torch.cuda.mem_get_info(idx)[1]), True)
+        except Exception:
+            report = (_ASSUMED_HBM_BYTES, False)
+        _HBM_DEVICE_REPORT[idx] = report
+    return _HBM_DEVICE_REPORT[idx]
+
+
+def hbm_check(op, need_bytes, model, device=None):
+    """Fail fast (or warn, when the limit is only assumed) when ``op``'s
+    estimated device demand ``need_bytes`` on ``device`` cannot fit
+    (reference: ``bolt_tpu/tpu/array.py :: hbm_check``).  ``model`` is
+    the memory model shown in the message ("input + output + sort
+    scratch")."""
+    limit, known = _hbm_limit(device)
+    if limit is None or need_bytes <= limit:
+        return
+    msg = ("%s needs ~%.1f GB of device memory (%s) but the device "
+           "holds %.1f GB" % (op, need_bytes / float(1 << 30), model,
+                              limit / float(1 << 30)))
+    if known:
+        raise MemoryError(msg)
+    from bolt_tpu_torch.base import HBMPressureWarning
+    warnings.warn(msg + "; this limit is ASSUMED (the card did not report "
+                  "its capacity) — set BOLT_HBM_BYTES to the card's memory "
+                  "size for an exact up-front check", HBMPressureWarning,
+                  stacklevel=3)
 
 
 def _upload(a, device):

@@ -173,8 +173,7 @@ def batch_key(arr):
         base = g.base
         return ("stat", _group_slots(g), g.funcs, g.rfunc,
                 tuple(base.shape), str(base.dtype), g.split, g.device)
-    if (arr._chain is not None and arr._concrete is None
-            and arr._fpending is None and arr._stream is None
+    if (arr.deferred and arr._fpending is None and arr._stream is None
             and arr._stat_group is None):
         # a deferred map chain whose submitted terminal is its
         # materialisation (serve resolves it through .cache())
@@ -315,6 +314,10 @@ def dispatch(batch, buckets, record=True):
     counts the dispatch as realised coalescing (``warm`` does not)."""
     from bolt_tpu_torch.gpu import ufuncs
     from bolt_tpu_torch.gpu.multistat import _slot
+    for a in batch.arrs:
+        # before any build: a refusal leaves the batch for the caller
+        # to unclaim
+        _engine.strict_guard(a, "serve batched dispatch")
     n = len(batch.arrs)
     bw = bucket_width(n, buckets)
     kind, slots, rfunc = batch.kind, batch.slots, batch.rfunc

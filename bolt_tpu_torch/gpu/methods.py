@@ -8,9 +8,10 @@ terminals (``quantile``, ``argmax``, ``argsort``, ``sort``, ``cumsum``,
 methods of ``_ufunc_method``).  :class:`ArrayMethods` is a mixin of
 :class:`~bolt_tpu_torch.gpu.array.BoltArrayGPU`: each method applies a
 deferred chain once (``_mapped``), runs torch ops on the result and wraps
-it with the reference's split rule.  The reference's TPU memory plans
-(``_argsort_chunked``, the HBM demand checks) have no counterpart: one
-card sorts in place of the slabs.
+it with the reference's split rule.  The reference's slabbed
+``_argsort_chunked`` has no counterpart (one card sorts in place of the
+slabs); its up-front demand checks do (``gpu/array.py :: hbm_check``:
+cumulative ops, ``argsort``, ``sort``).
 
 ``quantile`` sorts the reduced axes with ``torch.sort`` and interpolates
 as ``jnp.quantile`` does (``torch.quantile`` refuses inputs above 2**24
@@ -28,6 +29,12 @@ from bolt_tpu_torch.gpu.dtypes import torch_dtype
 from bolt_tpu_torch.utils import prod, tupleize
 
 QUANTILE_METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
+
+def _hbm_check(op, need_bytes, model, device):
+    # gpu/array.py imports this module: its hbm_check is read at the call
+    from bolt_tpu_torch.gpu.array import hbm_check
+    hbm_check(op, need_bytes, model, device)
+
 
 def _check_sort_kind(kind):
     """numpy's sort kinds (its wording for the rejection).  Every kind
@@ -199,6 +206,10 @@ class ArrayMethods:
         split = self._split
         if axis is not None:
             axis = self._one_axis(axis)
+        # memory model: input + full-size output (bool counts in int64)
+        out_item = 8 if self.dtype == np.bool_ else self.dtype.itemsize
+        _hbm_check(fn.__name__, self.size * (self.dtype.itemsize + out_item),
+                   "input + full-size output", self.device)
         x = self._mapped()
         dt = torch.int64 if x.dtype == torch.bool else x.dtype
         # an unsigned dtype torch leaves out scans in its carrier, which
@@ -222,6 +233,11 @@ class ArrayMethods:
         split = self._split
         if axis is not None:
             axis = self._one_axis(axis)
+        # memory model: input + index output + the sort's scratch of both
+        in_bytes = self.size * self.dtype.itemsize
+        _hbm_check("argsort", 2 * (in_bytes + self.size * 8),
+                   "input + index output + sort scratch of both",
+                   self.device)
         x = self._mapped()
         if axis is None:
             return self._wrap(_argsort(x.reshape(-1), 0), 1 if split else 0)
@@ -233,16 +249,17 @@ class ArrayMethods:
         wrappers of the old data keep it)."""
         _check_sort_kind(kind)
         axis = self._one_axis(axis)
+        # memory model: input + sorted output + sort scratch
+        _hbm_check("sort", 3 * self.size * self.dtype.itemsize,
+                   "input + sorted output + sort scratch", self.device)
         x = self._mapped()
         if x.is_complex():
             out = torch.take_along_dim(x, _argsort(x, axis), axis)
         else:
             out = _unsortable(torch.sort(_sortable(x), dim=axis,
                                          stable=True).values, x.dtype)
-        self._concrete = out
-        self._chain = None
+        self._adopt_materialised(out)
         self._stat_group = None
-        self._shape = tuple(out.shape)
         return None
 
     def take(self, indices, axis=None, mode="raise"):

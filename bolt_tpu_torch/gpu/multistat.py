@@ -234,7 +234,14 @@ class _StatGroup:
         :func:`compute` (a deferred ``reduce`` ignores it and runs exact,
         as the eager terminal does).  While a serve batched dispatch holds
         the group's claim, a reader waits for the batched fill, or for
-        the unclaim and then resolves standalone."""
+        the unclaim and then resolves standalone.  Under
+        ``analysis.strict()`` the group is checked first, through one of
+        its pending members."""
+        if engine.strict_guarded():
+            pend = [m for m in self.live_members() if m.result is None]
+            if pend and not self.dispatched:
+                engine.strict_guard(_wrap_handle(pend[0], self.device),
+                                    "compute()")
         while True:
             with self.lock:
                 if self.dispatched:
@@ -536,8 +543,12 @@ def defer_reduce(arr, func, axes, keepdims):
 
 
 def _wrap(arr, handle):
+    return _wrap_handle(handle, arr.device)
+
+
+def _wrap_handle(handle, device):
     from bolt_tpu_torch.gpu.array import BoltArrayGPU
-    out = BoltArrayGPU(None, handle.new_split, arr.device)
+    out = BoltArrayGPU(None, handle.new_split, device)
     out._spending = handle
     out._shape = handle.shape
     out._dtype = handle.dtype

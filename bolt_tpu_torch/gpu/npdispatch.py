@@ -3142,6 +3142,13 @@ def _meshgrid(*xi, copy=True, sparse=False, indexing="xy"):
         raise _Fallback("meshgrid over >1-d operands")
     k = len(xi)
     sparse = bool(sparse)
+    if not sparse:
+        from bolt_tpu_torch.gpu.array import hbm_check
+        grid = prod([int(np.size(x)) for x in xi])
+        item = sum(np.dtype(getattr(x, "dtype", np.float64)).itemsize
+                   for x in xi)
+        hbm_check("meshgrid", grid * item,
+                  "%d dense grids of %d elements" % (k, grid), anchor.device)
 
     def body(*ds):
         # each input along its own axis (the first two swapped for 'xy'),

@@ -65,6 +65,7 @@ def welford(barray, requested=("mean", "var", "std", "min", "max"),
     if len(axes) == 0:
         raise ValueError("at least one axis is required")
     n_total = prod(tuple(barray.shape[a] for a in axes))
+    _engine.strict_guard(barray, "stats()")
     x = barray._data
     fn = _cached_jit(("welford", tuple(x.shape), str(x.dtype), axes,
                       x.device), lambda: lambda data: _moments(data, axes))

@@ -129,7 +129,7 @@ def segment_reduce(b, labels, num_segments=None, op="sum", method=None,
     if b.mode == "local":
         return _local_segment(b, labels, num_segments, op)
 
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU, _cached_jit
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU, _cached_jit, hbm_check
     base, funcs = b._chain_parts()
     split = b.split
     # cost gate for the one-hot form: ~2 * nseg * size flops at the
@@ -147,6 +147,13 @@ def segment_reduce(b, labels, num_segments=None, op="sum", method=None,
         method in (None, "auto") and op in ("sum", "mean") and float_in
         and num_segments > 0 and oh_bytes <= data_bytes
         and est_matmul < est_scatter)) and n > 0
+    if method == "matmul" and n > 0:
+        # the forced one-hot form: input + one-hot + output (the auto
+        # gate already caps the one-hot at the data's own size)
+        hbm_check("segment_reduce matmul",
+                  int(data_bytes + oh_bytes
+                      + num_segments * (b.size // max(n, 1)) * item),
+                  "input + one-hot + output", b.device)
     shape = tuple(b.shape)
     dtype = b.dtype
 
@@ -362,15 +369,23 @@ def topk(b, k, axis=-1):
                 BoltArrayLocal(np.moveaxis(idx, -1, axis)))
 
     from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _cached_jit,
-                                          _chain_apply)
+                                          _chain_apply, hbm_check)
     split = b.split
-    in_bytes = prod(b.shape) * np.dtype(b.dtype).itemsize
+    itemsize = np.dtype(b.dtype).itemsize
+    in_bytes = prod(b.shape) * itemsize
     plan = slab_plan(b.shape, axis, in_bytes) \
         if axis != ndim - 1 and in_bytes > _CHUNK_MAX_BYTES else None
     if plan is not None:
+        slab_bytes = in_bytes // len(plan[1])
+        hbm_check("topk", in_bytes + 2 * slab_bytes
+                  + (slab_bytes // itemsize) * 8,
+                  "input + per-slab moved copy + per-slab argsort index",
+                  b.device)
         vals, idx = _topk_slabs(b._data, axis, k, plan)
         return (BoltArrayGPU(vals, split, b.device),
                 BoltArrayGPU(idx, split, b.device))
+    hbm_check("topk", 2 * in_bytes + prod(b.shape) * 8,
+              "input + moved copy + argsort index array", b.device)
     base, funcs = b._chain_parts()
 
     def build():

@@ -688,9 +688,43 @@ class _ResultState:
         self.pred = pred
 
 
+def stage_label(stage):
+    """The label of one stage in an analysis report."""
+    def _name(f):
+        return getattr(f, "__name__", None) or type(f).__name__
+    kind = stage[0]
+    if kind == "map":
+        return "map(%s)" % _name(stage[1])
+    if kind == "chunk":
+        return "chunk(plan=%s).map(%s)" % (tuple(stage[2]), _name(stage[1]))
+    if kind == "stack":
+        return "stacked(%d).map(%s)" % (stage[2], _name(stage[1]))
+    if kind == "filter":
+        return "filter(%s)" % _name(stage[1])
+    if kind == "swap":
+        return "swap(perm=%s, split=%d)" % (stage[1], stage[2])
+    return kind
+
+
+def stage_aval(stage, split, aval):
+    """The result of one stage on the meta tensor ``aval`` (the
+    reference's abstract value): the stage's own body run on a
+    ``device="meta"`` tensor, memoised per (stage, split, shape, dtype)
+    in ``gpu/array.py``'s shape-inference cache.  A ``swap`` permutes the
+    shape without running anything.  Allocates and launches nothing."""
+    if stage[0] == "swap":
+        return aval.permute(stage[1])
+    from bolt_tpu_torch.gpu.array import _cached_eval_shape, _meta
+    shape, dtype = tuple(aval.shape), aval.dtype
+    return _cached_eval_shape(
+        ("stream-stage", stage, split, shape, str(dtype)),
+        lambda: _stage_apply(stage, split, _meta(shape, dtype)))
+
+
 def result_state(source):
     """Walk the stage chain on a meta tensor of the source's shape (no
-    memory, no data; cached on the source)."""
+    memory, no data; cached on the source) through :func:`stage_aval`,
+    the checker's own walk."""
     if source._state is None:
         from bolt_tpu_torch.gpu.array import numpy_dtype, torch_dtype
         x = torch.empty(source.shape, dtype=torch_dtype(source.dtype),
@@ -701,11 +735,9 @@ def result_state(source):
             if stage[0] == "filter":
                 pred = stage[1]         # a filter is always the last stage
                 break
+            x = stage_aval(stage, split, x)
             if stage[0] == "swap":
-                x = x.permute(stage[1])
                 split = stage[2]        # the swap redraws the key cut
-            else:
-                x = _stage_apply(stage, split, x)
         shape = tuple(x.shape)
         n = prod(shape[:split])
         vshape = shape[split:]
@@ -1485,6 +1517,10 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
     from bolt_tpu_torch.gpu.array import BoltArrayGPU
     if source is None:
         source = arr._stream
+    if arr is not None:
+        # a pending stat's group passes no array: its terminal was gated
+        # at the call and its resolution is gated in multistat
+        _engine.strict_guard(arr, "stream.%s()" % terminal)
     if has_swap(source):
         raise RuntimeError(
             "internal: execute() received a source with an unresolved "

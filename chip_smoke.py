@@ -223,16 +223,37 @@ result):
    then ``fused_map_reduce_lanes`` at 16 lanes of config 14, bit for bit
    against 16 standalone launches and timed beside them, its plain
    version, ``torch.sum`` of a stacked copy and its bound.
+14. the analysis layer (``bolt_tpu_torch.analysis``), each path with its
+   launches counted from 0: ``analysis.check`` of the north-star's
+   ``map(v + 1).sum()``, ``stats()``, a seven-member group and config 4's
+   filter, config 1's swap, config 5's ``chunk().map()`` with the
+   per-chunk SVD (``ops.svdvals``), the streamed north-star's
+   ``map(v + 1)``, config 1's armed int8 stream (BLT016), a resumable
+   one-shot iterator (BLT011), config 1's streamed swap under a 256 MiB
+   budget with and without a spill directory (BLT017), a pipeline under a
+   server whose budget is half its slab (BLT010) and config 14 on a
+   batching server (BLT015): each check holds the engine's builds, every
+   launch counter, the kernel libraries and the card's allocated bytes
+   and peak flat (host walls, first and cached, logged); then each
+   pipeline under ``analysis.strict()``, its predicted shape and dtype
+   equal to its result's and its result bit for bit its unguarded run's
+   (the streamed and int8 sums against phases 6 and 11), the spill
+   forecast equal to the spill decision, the BLT010 pipeline refused at
+   ``submit`` and by ``strict()``, a hand-built broken chain refused
+   (BLT001) with nothing built, launched or allocated; strict's extra
+   host time on the cached north-star ``map(v + 1).sum()`` and the
+   ``strict_checks``/``strict_rejections`` counts logged.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
-4, phase 6, phase 7, phase 8, phase 11, phase 12 and each path of phase
-13; phases 9 and 10 run no kernel of their own) and
+4, phase 6, phase 7, phase 8, phase 11, phase 12 and each path of phases
+13 and 14; phases 9 and 10 run no kernel of their own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object (each row's ``phase12_launches`` holds its launches in each path
 of phase 12 that launched it: each run of the resumes, ``loaded_array``
 and ``uint16``, every one counted from 0; ``phase13_launches`` the same
-for phase 13's ``config9``, ``config1``, ``int8_c1`` and ``config14``) and
+for phase 13's ``config9``, ``config1``, ``int8_c1`` and ``config14``;
+``phase14_launches`` for phase 14's paths) and
 ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -3458,6 +3479,407 @@ def serve_phase(bolt, K, torch, np, dev, report):
     return launches, lanes
 
 
+def analysis_phase(bolt, K, torch, np, dev, report):
+    """Phase 14: ``analysis.check`` of the main path's pipelines at full
+    width (nothing built, launched or allocated on the card by a check),
+    then each pipeline under ``analysis.strict()``: its prediction equal
+    to its result, its result bit for bit the unguarded run's, BLT017's
+    forecast equal to the spill decision, BLT010 refused at ``submit``, a
+    broken chain refused before any build.  Returns each path's launches,
+    counted from 0."""
+    import shutil
+    from bolt_tpu_torch import (analysis, checkpoint, engine, ops, serve,
+                                stream)
+    from bolt_tpu_torch.gpu import batched
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    add1 = lambda v: v + 1           # noqa: E731
+    pred = lambda v: v.mean() > 1    # noqa: E731  (config 4's)
+    checks, launches, results = {}, {}, {}
+    out = {"checks": checks, "results": results}
+    c_start = engine.counters()
+
+    def checked(label, obj):
+        """``analysis.check(obj)`` twice (first and cached host walls),
+        holding the engine's builds, every launch counter, the kernel
+        libraries and the card's allocated bytes and peak flat."""
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        c0, l0, b0 = engine.counters(), dict(K.LAUNCHES), len(_build._LOADED)
+        t = time.perf_counter()
+        rep = analysis.check(obj)
+        first = time.perf_counter() - t
+        t = time.perf_counter()
+        analysis.check(obj)
+        cached = time.perf_counter() - t
+        torch.cuda.synchronize()
+        c1 = engine.counters()
+        moved = {k: c1[k] - c0[k] for k in ("misses", "aot_compiles",
+                                             "dispatches")}
+        moved.update({k: v - l0.get(k, 0) for k, v in K.LAUNCHES.items()})
+        moved["libraries"] = len(_build._LOADED) - b0
+        moved["allocated"] = torch.cuda.memory_allocated() - a0
+        moved["peak"] = torch.cuda.max_memory_allocated() - a0
+        moved = {k: v for k, v in moved.items() if v}
+        check(not moved, "phase 14 check of %s moved %s" % (label, moved))
+        codes = sorted({d.code for d in rep.diagnostics})
+        checks[label] = {"first_ms": 1e3 * first, "cached_ms": 1e3 * cached,
+                         "codes": codes, "ok": rep.ok,
+                         "shape": rep.shape, "dtype": str(rep.dtype),
+                         "dynamic": rep.dynamic}
+        log("phase 14 check %-16s first %.3f ms, cached %.3f ms, codes %s, "
+            "shape %s %s" % (label, 1e3 * first, 1e3 * cached, codes,
+                             rep.shape, rep.dtype))
+        return rep
+
+    def predicted(label, rep, got):
+        """The report's shape and dtype equal the result tensor's (a
+        dynamic report: the value axes)."""
+        shape, dtype = tuple(got.shape), got.dtype
+        if rep.dynamic:
+            check(rep.shape[0] is None and rep.shape[1:] == shape[1:],
+                  "phase 14 %s: predicted %s, got %s" % (label, rep.shape,
+                                                         shape))
+        else:
+            check(rep.shape == shape, "phase 14 %s: predicted %s, got %s"
+                  % (label, rep.shape, shape))
+        check(np.dtype(rep.dtype) == np.dtype(str(dtype).split(".")[1]),
+              "phase 14 %s: predicted dtype %s, got %s" % (label, rep.dtype,
+                                                           dtype))
+
+    def same(label, got, want):
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got.reshape(-1).view(torch.int32)
+                              if got.dtype == torch.float32
+                              else got.reshape(-1), want.reshape(-1).view(
+                                  torch.int32) if want.dtype == torch.float32
+                              else want.reshape(-1)),
+              "phase 14 %s under strict() differs from its unguarded run"
+              % label)
+        results[label] = "bit for bit"
+
+    def path(label, fn):
+        """One path's launches counted from 0 (its unguarded and strict
+        runs), its wall logged."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        launches[label] = dict(K.LAUNCHES)
+        log("phase 14 %-10s wall %.3f s, launches %s" % (
+            label, time.perf_counter() - t,
+            json.dumps({k: v for k, v in launches[label].items() if v})))
+
+    # ---- the north-star (10.49 GB on the card) ------------------------
+    b = bolt.randn(NORTH_STAR, mode="gpu", dtype=np.float32, seed=0)
+
+    def north_star():
+        rep = checked("ns_map_sum", b.map(add1).sum())
+        want = b.map(add1).sum().totorch()
+        with analysis.strict():
+            got = b.map(add1).sum().totorch()
+        predicted("ns_map_sum", rep, got)
+        same("ns_map_sum", got, want)
+        rep = checked("ns_stats", b)
+        want = b.stats()
+        with analysis.strict():
+            st = b.stats()
+        check(tuple(st.mean().shape) == rep.shape[rep.split:],
+              "phase 14 stats(): predicted value shape %s, got %s"
+              % (rep.shape[rep.split:], st.mean().shape))
+        for m in ("mean", "variance", "min", "max"):
+            check(np.array_equal(getattr(st, m)(), getattr(want, m)()),
+                  "phase 14 stats() %s under strict() differs" % m)
+        results["ns_stats"] = "bit for bit"
+        names = ("sum", "mean", "var", "std", "min", "max", "ptp")
+        m = b.map(add1)
+        plain = [getattr(m, n)() for n in names]
+        bolt.compute(*plain)
+        m = b.map(add1)
+        handles = [getattr(m, n)() for n in names]
+        rep = checked("ns_group", handles[0])
+        check(rep.has("BLT009"), "phase 14: the group forecast no BLT009")
+        with analysis.strict():
+            bolt.compute(*handles)
+        for n, h, p in zip(names, handles, plain):
+            predicted("ns_group_%s" % n, rep if n == "sum"
+                      else analysis.check(h), h.totorch())
+            same("ns_group_%s" % n, h.totorch(), p.totorch())
+        f = b.map(add1).filter(pred)
+        rep = checked("ns_filter", f)
+        check(rep.dynamic and rep.has("BLT008"), "phase 14: config 4's "
+              "filter is not dynamic")
+        rep_s = checked("ns_filter_sum", f.sum())
+        want = b.map(add1).filter(pred).sum().totorch()
+        with analysis.strict():
+            got = b.map(add1).filter(pred).sum().totorch()
+        predicted("ns_filter_sum", rep_s, got)
+        same("ns_filter_sum", got, want)
+        # a broken hand-built chain: refused before any build or launch
+        bad = BoltArrayGPU._deferred(
+            b.totorch(), (lambda v: v @ torch.ones((99, 2), device=v.device),
+                          ), 1, dev, (NORTH_STAR[0], 2), np.float32)
+        c0, l0 = engine.counters(), dict(K.LAUNCHES)
+        a0 = torch.cuda.memory_allocated()
+        with analysis.strict():
+            try:
+                bad.sum()
+            except analysis.PipelineError as exc:
+                check("BLT001" in str(exc), "phase 14: the broken chain "
+                      "was refused without BLT001: %s" % exc)
+            else:
+                check(False, "phase 14: strict() dispatched a broken chain")
+        c1 = engine.counters()
+        check(c1["misses"] == c0["misses"] and c1["aot_compiles"]
+              == c0["aot_compiles"] and dict(K.LAUNCHES) == l0
+              and torch.cuda.memory_allocated() == a0, "phase 14: the "
+              "refused chain built, launched or allocated")
+        results["ns_broken_chain"] = "refused (BLT001)"
+        # strict's extra host time on the cached map(v + 1).sum()
+        reps = 20
+        walls = {}
+        for mode in ("plain", "strict", "plain2", "strict2"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                if mode.startswith("strict"):
+                    with analysis.strict():
+                        b.map(add1).sum().totorch()
+                else:
+                    b.map(add1).sum().totorch()
+            torch.cuda.synchronize()
+            walls[mode] = (time.perf_counter() - t) / reps
+        plain = min(walls["plain"], walls["plain2"])
+        guarded = min(walls["strict"], walls["strict2"])
+        out["strict_overhead_ms"] = 1e3 * (guarded - plain)
+        out["ns_map_sum_plain_ms"] = 1e3 * plain
+        out["ns_map_sum_strict_ms"] = 1e3 * guarded
+        log("phase 14 strict() on the cached north-star map(v+1).sum(): "
+            "%.4f ms a call against %.4f ms unguarded (%.4f ms extra host "
+            "time; B1 itself about 3.48 ms)"
+            % (1e3 * guarded, 1e3 * plain, out["strict_overhead_ms"]))
+
+    path("north_star", north_star)
+
+    # ---- config 1: swap and the per-chunk SVD (no kernel) ---------------
+    b1 = bolt.randn(CONFIG1, mode="gpu", dtype=np.float32, seed=1)
+    b5 = bolt.randn((64, 4096, 32), mode="gpu", dtype=np.float32, seed=5)
+
+    def config1():
+        rep = checked("c1_swap", b1.map(add1))
+        want = b1.map(add1).swap((0,), (0,)).totorch()
+        with analysis.strict():
+            got = b1.map(add1).swap((0,), (0,)).totorch()
+        check(rep.shape == CONFIG1, "phase 14 swap's input shape")
+        same("c1_swap", got, want)
+        view = b5.chunk(size=(512,), axis=(0,))
+        rep = checked("c5_chunk_svd", view)
+        svd = lambda blk: ops.svdvals(blk)[None, :]      # noqa: E731
+        want = view.map(svd).unchunk().totorch()
+        with analysis.strict():
+            got = b5.chunk(size=(512,), axis=(0,)).map(svd).unchunk()
+        check(rep.shape == (64, 4096, 32) and tuple(got.shape) == (64, 8, 32),
+              "phase 14 chunk().map() shapes")
+        same("c5_chunk_svd", got.totorch(), want)
+
+    path("config1", config1)
+    del b1, b5
+
+    # ---- the streamed north-star (160 slabs) -----------------------------
+    cb = seeded_records(np, NORTH_STAR[1:])
+
+    def stream_ns():
+        src = bolt.fromcallback(cb, NORTH_STAR, mode="gpu", dtype=np.float32)
+        rep = checked("stream_map", src.map(add1))
+        check(len(rep.stages) == 2 and "%d slabs" % -(
+            -NORTH_STAR[0] // SLAB_RECORDS) in rep.stages[0].note,
+            "phase 14: the streamed plan's stages")
+        rep_s = checked("stream_map_sum", src.map(add1).sum())
+        with stream.uploaders(4), analysis.strict():
+            got = src.map(add1).sum().totorch().reshape(-1)
+        predicted("stream_map_sum", rep_s, got.view(NORTH_STAR[1:]))
+        same("stream_map_sum", got, KEEP["ns_map_sum"])
+
+    path("stream_ns", stream_ns)
+
+    # ---- config 1's armed int8 stream (BLT016) --------------------------
+    cb1 = seeded_records(np, CONFIG1[1:], integers=True)
+
+    def source1(codec=None, chunks=SLAB_RECORDS):
+        return bolt.fromcallback(cb1, CONFIG1, mode="gpu", dtype=np.float32,
+                                 chunks=chunks, codec=codec)
+
+    def int8_c1():
+        os.environ["BOLT_CODEC_KERNEL"] = "1"
+        try:
+            rep = checked("int8_c1", source1("int8").sum())
+            check(rep.has("BLT016") and rep.has("BLT009"),
+                  "phase 14: the armed int8 stream forecast no BLT016")
+            with analysis.strict():
+                got = source1("int8").sum().totorch()
+        finally:
+            os.environ.pop("BOLT_CODEC_KERNEL", None)
+        predicted("int8_c1", rep, got)
+        check(torch.equal(got.view(torch.int32),
+                          KEEP["c1_int8"].view(torch.int32)),
+              "phase 14 int8_c1 under strict() differs from phase 11's")
+        results["int8_c1"] = "bit for bit"
+
+    path("int8_c1", int8_c1)
+
+    # ---- a resumable one-shot iterator (BLT011) --------------------------
+    def resumable():
+        shape = (SLAB_RECORDS * 4,) + CONFIG1[1:]
+
+        def gen():
+            for lo in range(0, shape[0], SLAB_RECORDS):
+                yield cb1((slice(lo, lo + SLAB_RECORDS),))
+
+        def run(guard):
+            ck_dir = os.path.join(ROOT, "build", "phase14_ckpt_" + guard)
+            shutil.rmtree(ck_dir, ignore_errors=True)
+            with stream.resumable(ck_dir):
+                src = bolt.fromiter(gen(), shape, mode="gpu",
+                                    dtype=np.float32)
+                rep = checked("resumable_%s" % guard, src)
+                check(rep.has("BLT011") and rep.ok, "phase 14: no BLT011 "
+                      "warning on a one-shot iterator under resumable()")
+                if guard == "strict":
+                    with analysis.strict():
+                        return rep, src.sum().totorch()
+                return rep, src.sum().totorch()
+
+        _, want = run("plain")
+        rep, got = run("strict")
+        check(rep.shape == shape, "phase 14 resumable source shape")
+        same("resumable_sum", got, want)
+
+    path("resumable", resumable)
+
+    # ---- config 1's swap under a 256 MiB budget (BLT017) ----------------
+    spill_dir = os.path.join(ROOT, "build", "phase14_spill")
+    os.makedirs(spill_dir, exist_ok=True)
+
+    def blt017(rep):
+        ds = [d for d in rep.diagnostics if d.code == "BLT017"]
+        check(len(ds) == 1, "phase 14: %d BLT017 findings" % len(ds))
+        return ds[0]
+
+    def swap_c1():
+        checkpoint.spill_clear(spill_dir)
+        rep = checked("swap_c1_resident", source1().swap((0,), (0,)))
+        d = blt017(rep)
+        check(d.severity == "info" and "resident" in d.message, "phase 14 "
+              "resident forecast: %s" % d.message)
+        s0 = engine.counters()["spill_bytes"]
+        want = source1().swap((0,), (0,)).sum().totorch()
+        check(engine.counters()["spill_bytes"] == s0, "phase 14: the "
+              "resident forecast spilled")
+        with stream.spill(spill_dir, budget=SPILL_BUDGET):
+            sw = source1().swap((0,), (0,))
+            d = blt017(checked("swap_c1_spill", sw))
+            check(d.severity == "info" and "spill" in d.message, "phase 14 "
+                  "spill forecast: %s" % d.message)
+            with analysis.strict():
+                got = sw.sum().totorch()
+        check(engine.counters()["spill_bytes"] > s0, "phase 14: the spill "
+              "forecast spilled nothing")
+        same("swap_c1_spill", got, want)
+        checkpoint.spill_clear(spill_dir)
+        with stream.spill(None, budget=SPILL_BUDGET):
+            sw = source1().swap((0,), (0,))
+            d = blt017(checked("swap_c1_nodir", sw))
+            check(d.severity == "warning" and "NO spill directory"
+                  in d.message, "phase 14 no-dir forecast: %s" % d.message)
+            s1 = engine.counters()["spill_bytes"]
+            try:
+                with analysis.strict():
+                    sw.sum().totorch()
+            except RuntimeError as exc:
+                check("spill" in str(exc), "phase 14: the no-dir swap "
+                      "raised %s" % exc)
+            else:
+                check(False, "phase 14: the no-dir swap was not refused")
+            check(engine.counters()["spill_bytes"] == s1, "phase 14: the "
+                  "refused swap spilled")
+        results["swap_c1_nodir"] = "refused at dispatch, as forecast"
+
+    path("swap_c1", swap_c1)
+
+    # ---- BLT010: a server whose budget is below the floor ----------------
+    def blt010():
+        # half of one slab: the stream can never degrade into it
+        budget = analysis.admission_floor_bytes(source1()) // 2
+        with serve.serving(workers=1, budget_bytes=budget) as sv:
+            arr = source1().map(add1).sum()
+            rep = checked("blt010", arr)
+            check(rep.has("BLT010") and not rep.ok, "phase 14: no BLT010 "
+                  "under a budget of %d bytes" % budget)
+            try:
+                sv.submit(arr)
+            except serve.AdmissionError as exc:
+                check("BLT010" in str(exc), "phase 14 admission: %s" % exc)
+            else:
+                check(False, "phase 14: submit admitted the BLT010 pipeline")
+            try:
+                with analysis.strict():
+                    source1().map(add1).sum().totorch()
+            except analysis.PipelineError as exc:
+                check("BLT010" in str(exc), "phase 14 strict: %s" % exc)
+            else:
+                check(False, "phase 14: strict() ran the BLT010 pipeline")
+        results["blt010"] = "refused at submit and by strict()"
+
+    path("blt010", blt010)
+
+    # ---- config 14 on a batching server (BLT015) --------------------------
+    def config14():
+        gen = torch.Generator(device=dev).manual_seed(141)
+        bases = [bolt.array(torch.randn(CONFIG14, generator=gen, device=dev),
+                            dev) for _ in range(16)]
+        want = [b_.map(add1).sum().totorch() for b_ in bases]
+        with serve.serving(workers=1, batching={"max_batch": 16,
+                                                "linger": 0.002}):
+            arrs = [b_.map(add1).sum() for b_ in bases]
+            rep = checked("config14", arrs[0])
+            check(rep.has("BLT015"), "phase 14: no BLT015 on a batching "
+                  "server")
+            with analysis.strict():
+                batch = batched.claim(arrs, batched.batch_key(arrs[0]))
+                check(batch is not None, "phase 14: could not claim the "
+                      "16 requests")
+                batched.dispatch(batch, (16,))
+            for i, a in enumerate(arrs):
+                predicted("config14", rep, a.totorch())
+                same("config14_%d" % i, a.totorch(), want[i])
+
+    path("config14", config14)
+    checkpoint.spill_clear(spill_dir)
+    del b
+
+    c_end = engine.counters()
+    out["strict_checks"] = c_end["strict_checks"] - c_start["strict_checks"]
+    out["strict_rejections"] = (c_end["strict_rejections"]
+                                - c_start["strict_rejections"])
+    out["launches"] = {p: {k: v for k, v in c.items() if v}
+                       for p, c in launches.items()}
+    for name, where in (("fused_map_reduce", "north_star"),
+                        ("fused_welford", "north_star"),
+                        ("fused_decode_sum", "int8_c1"),
+                        ("fused_map_reduce_lanes", "config14")):
+        check(launches[where][name] > 0, "phase 14 %s never launched %s "
+              "under strict()" % (where, name))
+    report["analysis_phase"] = out
+    report["phases"]["analysis_s"] = time.perf_counter() - t0
+    log("phase 14 strict_checks %d, strict_rejections %d"
+        % (out["strict_checks"], out["strict_rejections"]))
+    log("analysis phase ok in %.1f s" % report["phases"]["analysis_s"])
+    return launches
+
+
 def main():
     try:
         import torch
@@ -3831,6 +4253,9 @@ def main():
     serve_launches, lanes = serve_phase(bolt, K, torch, np, dev, report)
     timings[("fused_map_reduce_lanes", "config14_x16")] = lanes
     max_err["fused_map_reduce_lanes"] = lanes["max_abs_err"]
+
+    # ---- phase 14: the analysis layer --------------------------------------
+    analysis_launches = analysis_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
@@ -3862,7 +4287,10 @@ def main():
                             resume_launches.items() if c[name]},
                         "phase13_launches": {
                             path: c[name] for path, c in
-                            serve_launches.items() if c[name]}})
+                            serve_launches.items() if c[name]},
+                        "phase14_launches": {
+                            path: c[name] for path, c in
+                            analysis_launches.items() if c[name]}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

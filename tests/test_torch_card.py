@@ -55,6 +55,13 @@ batched serve of ``sum``, ``mean``, ``var``, ``std``, ``min``, ``max``,
 ``prod``, ``reduce(add)`` and chain materialisation, each lane bit for
 bit against its standalone result; a child process started with
 ``Server(start_warm=dir)`` running no ``nvcc``.
+
+The analysis layer on the card: ``analysis.check`` of a CUDA map chain, a
+pending filter, a stat group and a stream allocates no device byte
+(``torch.cuda.memory_allocated`` and ``max_memory_allocated`` flat) and
+builds and launches nothing; ``strict()`` refuses a broken chain on the
+card before any build and passes a clean ``map(v + 1).sum()`` bit for bit;
+``hbm_check`` reads ``torch.cuda.mem_get_info`` as a known limit.
 """
 
 import os
@@ -1360,3 +1367,82 @@ def test_start_warm_child_runs_no_nvcc(tmp_path):
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got == {"misses": 0, "warm": got["warm"], "b1": 1, "ok": True}
     assert got["warm"] >= 1
+
+
+def _flat_device_and_counters(fn):
+    """Run ``fn`` and return the change of the card's allocated bytes,
+    its peak, the engine's builds/dispatches and the kernel launches."""
+    from bolt_tpu_torch import engine
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c0, l0 = engine.counters(), dict(K.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    c1 = engine.counters()
+    moved = {"allocated": torch.cuda.memory_allocated() - a0,
+             "peak": torch.cuda.max_memory_allocated() - a0}
+    moved.update({k: c1[k] - c0[k] for k in ("misses", "aot_compiles",
+                                             "dispatches")})
+    moved.update({k: v - l0.get(k, 0) for k, v in K.LAUNCHES.items()})
+    return out, {k: v for k, v in moved.items() if v}
+
+
+@pytest.mark.gpu
+def test_check_on_card_allocates_and_launches_nothing():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import analysis
+    dev = _cuda()
+    x = np.random.RandomState(0).randn(64, 32, 16).astype(np.float32)
+    b = bolt.array(x, dev)
+    m = b.map(lambda v: v + 1)
+    f = m.filter(lambda v: v.mean() > 1)
+    s, v = m.sum(), m.var()
+    src = bolt.fromcallback(lambda i: x[i], x.shape, dev, dtype=np.float32,
+                            chunks=8)
+    for obj in (m, f, s, m.chunk(size=(8,), axis=(0,)),
+                src.map(lambda v: v + 1).swap((0,), (0,))):
+        rep, moved = _flat_device_and_counters(lambda: analysis.check(obj))
+        assert rep.ok and moved == {}, (rep, moved)
+        assert all(st.spec == dev or st.spec == torch.device("cuda", 0)
+                   for st in rep.stages)
+    assert s._spending is not None and f.pending
+
+
+@pytest.mark.gpu
+def test_strict_refuses_on_card_before_a_build():
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import analysis
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    dev = _cuda()
+    x = np.random.RandomState(1).randn(64, 32, 16).astype(np.float32)
+    base = bolt.array(x, dev)._data
+    bad = BoltArrayGPU._deferred(
+        base, (lambda v: v @ torch.ones((99, 2), device=v.device),), 1,
+        dev, (64, 2), np.float32)
+
+    def refused():
+        with analysis.strict():
+            with pytest.raises(analysis.PipelineError, match="BLT001"):
+                bad.sum()
+    _, moved = _flat_device_and_counters(refused)
+    assert moved == {}
+    want = bolt.array(x, dev).map(lambda v: v + 1).sum().toarray()
+    with analysis.strict():
+        got = bolt.array(x, dev).map(lambda v: v + 1).sum().toarray()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_hbm_check_reads_mem_get_info_on_card(monkeypatch):
+    from bolt_tpu_torch.gpu import array as garray
+    dev = _cuda()
+    monkeypatch.delenv("BOLT_HBM_BYTES", raising=False)
+    monkeypatch.setattr(garray, "_HBM_LIMIT_OVERRIDE", None)
+    monkeypatch.setattr(garray, "_HBM_DEVICE_REPORT", {})
+    limit, known = garray._hbm_limit(dev)
+    assert known and limit == torch.cuda.mem_get_info(
+        torch.cuda.current_device())[1]
+    with pytest.raises(MemoryError, match="sort"):
+        garray.hbm_check("sort", limit + 1, "test", dev)
+    garray.hbm_check("sort", limit // 2, "test", dev)

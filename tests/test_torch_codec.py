@@ -12,6 +12,8 @@ kernel in interpret mode, as ``test_codec.py`` runs it, within
 held against the plain version on the card by ``test_torch_card.py``.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -298,3 +300,91 @@ def test_byte_vec_follows_alignment_and_width(columns, vec):
     assert q.data_ptr() % 16 == 0       # torch aligns its allocations
     assert K._byte_vec(q, columns) == vec
     assert K._byte_vec(q.reshape(-1)[1:], columns) == 1
+
+
+def _figures(msg):
+    """The byte figures of a diagnostic's message, in order."""
+    return re.findall(r"(\d+(?:\.\d+)?) (GB|MB|MiB|B)\b", msg)
+
+
+# ---------------------------------------------------------------------
+# analysis: BLT016
+# ---------------------------------------------------------------------
+
+_SHAPE16 = (32, 6, 4)
+
+
+def _pos16():
+    rs = np.random.RandomState(7)
+    return (np.abs(rs.randn(*_SHAPE16)) + 0.5).astype(np.float32)
+
+
+def _mine16(x, codec=None):
+    import bolt_tpu_torch as bolt
+    return bolt.fromcallback(lambda idx: x[idx], x.shape,
+                             torch.device("cpu"), dtype=x.dtype, chunks=8,
+                             codec=codec)
+
+
+def _theirs16(x, mesh, codec=None):
+    import bolt_tpu as ref
+    return ref.fromcallback(lambda idx: x[idx], x.shape, mesh,
+                            dtype=x.dtype, chunks=8, codec=codec)
+
+
+def _blt016(rep):
+    return next(d for d in rep.diagnostics if d.code == "BLT016")
+
+
+@pytest.mark.parametrize("codec", ["bf16", "delta-f32", "int8"])
+def test_blt016_forecasts_bytes_saved_as_the_reference(mesh, codec):
+    from bolt_tpu import analysis as ref_analysis
+    from bolt_tpu_torch import analysis, engine
+    x = _pos16()
+    arr = _mine16(x, codec).map(lambda v: v + 1)
+    c0 = engine.counters()
+    rep = analysis.check(arr)
+    c1 = engine.counters()
+    assert c1["misses"] == c0["misses"]
+    assert c1["aot_compiles"] == c0["aot_compiles"]
+    d = _blt016(rep)
+    w = _blt016(ref_analysis.check(_theirs16(x, mesh, codec).map(
+        lambda v: v + 1)))
+    assert d.severity == w.severity == "info" and codec in d.message
+    assert _figures(d.message) == _figures(w.message)
+    ratio = re.search(r"\(([\d.]+)x\)", d.message).group(1)
+    assert ratio == re.search(r"\(([\d.]+)x\)", w.message).group(1)
+    if codec == "delta-f32":
+        assert "bit-identical" in d.message
+
+
+def test_blt016_warns_lossy_meets_order_member():
+    from bolt_tpu_torch import analysis, stream
+    x = np.random.RandomState(10).randn(*_SHAPE16).astype(np.float32)
+    src = _mine16(x)
+    s, h = src.sum(), src.min()         # one pending group, two members
+    with stream.codec("bf16"):
+        rep = analysis.check(h)
+    d = _blt016(rep)
+    assert d.severity == "warning" and "min" in d.message
+    h.toarray()                             # scope gone: resolves raw
+
+
+def test_blt016_info_for_lossless_order_member():
+    from bolt_tpu_torch import analysis
+    x = np.random.RandomState(11).randn(*_SHAPE16).astype(np.float32)
+    src = _mine16(x, "delta-f32")
+    s, h = src.sum(), src.min()         # lossless: allowed
+    assert _blt016(analysis.check(h)).severity == "info"
+    h.toarray()
+
+
+def test_blt016_warns_unsupported_dtype_and_quiet_without_codec():
+    from bolt_tpu_torch import analysis, stream
+    x = (np.arange(np.prod(_SHAPE16)) % 7).astype(np.int32).reshape(
+        _SHAPE16)
+    with stream.codec("bf16"):
+        rep = analysis.check(_mine16(x))
+    d = _blt016(rep)
+    assert d.severity == "warning" and "refuse" in d.message
+    assert not analysis.check(_mine16(_pos16())).has("BLT016")

@@ -32,7 +32,10 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.gpu.npdispatch", "bolt_tpu_torch._chaos",
            "bolt_tpu_torch.checkpoint", "bolt_tpu_torch.parallel.shuffle",
            "bolt_tpu_torch.serve", "bolt_tpu_torch.gpu.batched",
-           "bolt_tpu_torch.analysis", "bolt_tpu_torch.analysis.check"]
+           "bolt_tpu_torch.analysis", "bolt_tpu_torch.analysis.check",
+           "bolt_tpu_torch.analysis.diagnostics",
+           "bolt_tpu_torch.analysis.astlint",
+           "bolt_tpu_torch.analysis.concurrency"]
 
 
 def _sources():
@@ -141,3 +144,46 @@ def test_gpu_mode_defaults_to_cuda0(monkeypatch):
     assert construct.resolve_device(cpu) is cpu
     with pytest.raises(ValueError):
         construct.resolve_device("cuda:0")
+
+
+def test_analysis_import_starts_no_serving_and_loads_no_extension():
+    """``import bolt_tpu_torch.analysis`` imports neither the serving
+    layer nor the batched dispatch and loads no kernel library; checking
+    a stream starts no executor thread."""
+    code = ("import sys, threading\n"
+            "sys.modules['jax'] = None\n"
+            "import numpy as np, torch\n"
+            "import bolt_tpu_torch as bolt\n"
+            "from bolt_tpu_torch import analysis\n"
+            "from bolt_tpu_torch.ops import _build\n"
+            "for m in ('bolt_tpu_torch.serve', "
+            "'bolt_tpu_torch.gpu.batched'):\n"
+            "    assert m not in sys.modules, m\n"
+            "x = np.ones((8, 4), np.float32)\n"
+            "s = bolt.fromcallback(lambda i: x[i], x.shape, "
+            "torch.device('cpu'), dtype=np.float32, chunks=2)\n"
+            "n0 = threading.active_count()\n"
+            "rep = analysis.check(s.map(lambda v: v + 1).swap((0,), (0,)))\n"
+            "assert rep.ok and threading.active_count() == n0\n"
+            "assert not _build._LOADED, _build._LOADED\n"
+            "assert 'bolt_tpu_torch.serve' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_lint_cli_imports_neither_torch_nor_jax():
+    code = ("import runpy, sys\n"
+            "sys.argv = ['lint.py', '--codes']\n"
+            "try:\n"
+            "    runpy.run_path('bolt_tpu_torch/analysis/lint.py', "
+            "run_name='__main__')\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'numpy', 'bolt_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BLT114" in out.stdout

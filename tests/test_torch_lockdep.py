@@ -7,8 +7,8 @@ inversion, ``gpu.lru`` for the leaf, ``stream.ring`` for a lock that
 must not be held across a dispatch).  Then the port's own paths under
 the armed witness: a map-sum, a group, a filter, a chunk and a stacked
 map, and a streamed run record no violation.  The lint tests (BLT111 to
-BLT114) wait for the analysis layer (ROADMAP A11), the serving-layer
-races for the server (A10)."""
+BLT114) are in ``tests/test_torch_lint.py``, the serving-layer races in
+``tests/test_torch_serve.py``."""
 
 import ast
 import os

@@ -10,8 +10,8 @@ reference counts compiled programs and dispatches; a group's one pass is
 counted here by the applications of its chain and by
 ``engine.counters()``'s ``fused_stat_groups``/``fused_stat_terminals``.
 A group donates once (``test_group_donates_once_and_guards_source``).
-The stream and ``check``/strict members wait for the stream groups and
-the analysis layer (ROADMAP A9, A11).
+The BLT009 forecast and the strict gate are checked at the end, with no
+build, against the reference's forecast.
 """
 
 import threading
@@ -713,3 +713,56 @@ def test_blocked_stats_of_two_key_axes_match_reference(mesh, monkeypatch,
     assert applications == [1] * -(-12 // records)
     for (a, n), got in zip(specs, group):
         assert _bits(got.toarray(), getattr(chain(), n)(axis=a).toarray())
+
+
+# ---------------------------------------------------------------------------
+# analysis: the BLT009 forecast and the strict gate
+# ---------------------------------------------------------------------------
+
+def test_check_forecasts_fusion_with_no_build(mesh):
+    from bolt_tpu import analysis as ref_analysis
+    from bolt_tpu_torch import analysis
+    x = _x(seed=17)
+    m = bolt.array(x, CPU).map(lambda v: v + 1)
+    s, v = m.sum(), m.var()
+    rm = ref.array(x, mesh).map(lambda v: v + 1)
+    rs, _ = rm.sum(), rm.var()
+    c0 = engine.counters()
+    rep = analysis.check(s)                  # the pending-stat array
+    rep_src = analysis.check(m)              # the source carrying the group
+    c1 = engine.counters()
+    for k in ("misses", "aot_compiles", "dispatches"):
+        assert c1[k] == c0[k], k
+    want = ref_analysis.check(rs)
+    assert rep.ok and rep.has("BLT009") and want.has("BLT009")
+    assert rep.shape == want.shape == (6, 4)
+    assert np.dtype(rep.dtype) == np.dtype(want.dtype) == np.float64
+    assert [st.shape for st in rep.stages] == [
+        tuple(st.shape) for st in want.stages]
+    assert rep_src.has("BLT009")
+    txt = analysis.explain(s)
+    assert "fusable terminal set" in txt and "ONE" in txt
+    assert s._spending is not None and v._spending is not None
+    # a stream group forecasts too
+    xs = _x((16, 6, 4), seed=3)
+    h = bolt.fromcallback(lambda i: xs[i], xs.shape, CPU, dtype=xs.dtype,
+                          chunks=4).sum()
+    assert analysis.check(h).has("BLT009") and h._spending is not None
+    assert _bits(s.toarray(), bolt.array(x, CPU).map(
+        lambda v: v + 1).sum().toarray())
+
+
+def test_strict_gate_still_fires_at_call():
+    from bolt_tpu_torch import analysis
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    base = bolt.array(_x(seed=18), CPU)._data
+    bad = BoltArrayGPU._deferred(
+        base, (lambda v: v @ torch.ones((99, 2), dtype=torch.float64),),
+        1, CPU, (16, 2), np.float64)
+    c0 = engine.counters()
+    with analysis.strict():
+        with pytest.raises(analysis.PipelineError, match="BLT001"):
+            bad.sum()
+        with pytest.raises(analysis.PipelineError, match="BLT001"):
+            bolt.compute(bad.mean(), bad.var())
+    assert engine.counters()["misses"] == c0["misses"]

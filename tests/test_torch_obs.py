@@ -19,7 +19,7 @@ registry, timeline export — ``tests/test_obs.py`` on the port, on the CPU
 
 Values of the pipelines traced here equal ``bolt_tpu``'s on the same
 numpy inputs (``rtol=1e-10`` in f64).  The reference's lint test BLT106
-waits for the port's analysis layer (ROADMAP A11).
+is in ``tests/test_torch_lint.py``.
 """
 
 import importlib.util

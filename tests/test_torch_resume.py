@@ -606,3 +606,34 @@ def test_spilled_swap_resume_counts_a_resume(tmp_path):
     assert np.array_equal(got, want.sum(axis=0))
     assert np.array_equal(data_back, want)
     checkpoint.spill_clear(spill)
+
+
+# ---------------------------------------------------------------------
+# analysis: BLT011
+# ---------------------------------------------------------------------
+
+def test_blt011_one_shot_iterator_under_resumable(mesh, tmp_path):
+    from bolt_tpu import analysis as ref_analysis
+    from bolt_tpu_torch import analysis
+    data = _intdata()
+
+    def gen():
+        yield data
+
+    src = bolt.fromiter(gen(), SHAPE, CPU, dtype=np.float64,
+                        checkpoint=str(tmp_path))
+    rep = analysis.check(src)
+    want = ref_analysis.check(ref.fromiter(gen(), SHAPE, mesh,
+                                           dtype=np.float64,
+                                           checkpoint=str(tmp_path)))
+    assert rep.has("BLT011") and want.has("BLT011")
+    assert rep.ok and want.ok                # warning severity, not error
+    [d] = [d for d in rep.diagnostics if d.code == "BLT011"]
+    assert d.severity == "warning" and "one-shot" in d.message
+    lst = bolt.fromiter([data], SHAPE, CPU, dtype=np.float64)
+    with stream.resumable(str(tmp_path)):
+        assert not analysis.check(lst).has("BLT011")
+        assert analysis.check(bolt.fromiter(
+            gen(), SHAPE, CPU, dtype=np.float64)).has("BLT011")
+    assert not analysis.check(
+        bolt.fromiter(gen(), SHAPE, CPU, dtype=np.float64)).has("BLT011")

@@ -13,7 +13,8 @@ violation it recorded.
 
 Differences from the reference's file, each for a stated reason:
 * ``test_blt010_rejects_impossible_pipeline`` keeps the admission half;
-  ``analysis.check`` and its BLT010 forecast wait for ROADMAP A11;
+  ``test_blt010_check_forecasts_the_rejection`` holds ``analysis.check``'s
+  BLT010 to the reference's (its byte figures) and adds ``strict()``;
 * ``test_concurrent_streamed_runs_overlap_across_tenants`` replaces the
   reference's wall-clock ratio (1.3x, which comes and goes with the
   host's load) by proof of overlap: every tenant's source meets one
@@ -27,6 +28,7 @@ Differences from the reference's file, each for a stated reason:
   warm hits.
 """
 
+import re
 import threading
 import time
 
@@ -841,3 +843,38 @@ def test_thread_census_empty_after_server_teardown(mesh):
         chunks=4).map(REF_ADD1).sum().toarray())
     assert _bits(got, want)
     assert obs.thread_census() == {}, "server teardown leaked threads"
+
+
+def _figures(msg):
+    """The byte figures of a diagnostic's message (``~12.0 MB``,
+    ``0.0 MiB``...), in order."""
+    return re.findall(r"(\d+(?:\.\d+)?) (GB|MB|MiB|B)\b", msg)
+
+
+def test_blt010_check_forecasts_the_rejection(mesh):
+    """The checker half of the reference's BLT010 test: while a server
+    runs with a budget below the pipeline's floor, check() reports the
+    error BLT010 with the reference's byte figures; the slab-shrunk twin
+    and any pipeline without a server check clean."""
+    from bolt_tpu import analysis as ref_analysis, serve as ref_serve
+    x = _x((64, 8, 4))
+    with ref_serve.serving(workers=1, budget_bytes=4096):
+        src = ref.fromcallback(lambda idx: x[idx], x.shape, mesh,
+                               dtype=np.float32, chunks=64)
+        want = ref_analysis.check(src.map(REF_ADD1).sum())
+    with serve.serving(workers=1, budget_bytes=4096) as sv:
+        arr = _pipeline(x, chunks=64)
+        rep = analysis.check(arr)
+        assert rep.has("BLT010") and not rep.ok
+        [d] = [d for d in rep.diagnostics if d.code == "BLT010"]
+        [w] = [d for d in want.diagnostics if d.code == "BLT010"]
+        assert d.severity == w.severity == "error"
+        assert _figures(d.message) == _figures(w.message)
+        with pytest.raises(serve.AdmissionError, match="BLT010"):
+            sv.submit(arr, tenant="a")
+        assert not analysis.check(_pipeline(x, chunks=8)).has("BLT010")
+        # under strict() the refused pipeline never reaches the worker
+        with analysis.strict():
+            with pytest.raises(analysis.PipelineError, match="BLT010"):
+                _pipeline(x, chunks=64).toarray()
+    assert not analysis.check(_pipeline(x, chunks=64)).has("BLT010")

@@ -19,9 +19,10 @@ moments in another order).  On the CPU a compiled ``sum`` runs
 (``test_torch_card.py``) hold the kernel itself.  The port's lock witness
 is armed over every test.
 
-``test_blt015_forecast_gated_on_a_batching_server``'s forecast needs
-``analysis.check`` (ROADMAP A11): its port checks the batch keys the
-forecast reads, under a batching server and after it.
+``test_batchable_pipelines_under_a_batching_server`` checks the batch
+keys the BLT015 forecast reads; ``test_blt015_forecast_gated_on_a_
+batching_server`` holds the forecast itself to the reference's, under a
+batching server and after it.
 """
 
 import threading
@@ -790,3 +791,25 @@ def test_every_batched_terminal_equals_its_standalone(name):
     for got, w in zip(outs, want):
         assert _bits(got, w)
     assert all(f.batch_width == 4 for f in futs)
+
+
+def test_blt015_forecast_gated_on_a_batching_server(mesh):
+    """The checker half of the reference's BLT015 test, beside the
+    reference's own forecasts on the same pipelines."""
+    from bolt_tpu import analysis as ref_analysis, serve as ref_serve
+    b = _bases(1)[0]
+    rb = ref.array(_records(0, (32, 8)), mesh)
+    assert not analysis.check(b.map(ADD1).sum()).has("BLT015")
+    with ref_serve.serving(workers=1, batching=True):
+        want = [ref_analysis.check(p).has("BLT015") for p in (
+            rb.map(REF_ADD1).sum(), rb.map(REF_ADD1),
+            rb.map(REF_ADD1).filter(lambda v: v.sum() > 0))]
+    with serve.serving(workers=1, batching=True):
+        got = [analysis.check(p).has("BLT015") for p in (
+            b.map(ADD1).sum(), b.map(ADD1),
+            b.map(ADD1).filter(lambda v: v.sum() > 0))]
+        [d] = [d for d in analysis.check(b.map(ADD1).sum()).diagnostics
+               if d.code == "BLT015"]
+        assert d.severity == "info" and "stat form" in d.message
+    assert got == want == [True, True, False]
+    assert not analysis.check(b.map(ADD1).sum()).has("BLT015")

@@ -576,3 +576,60 @@ def test_dead_pool_thread_is_a_pointed_error():
     t.join()
     with pytest.raises(RuntimeError, match="bolt-stream-upload-0.*slab 0"):
         stream._Reseq().next([t])
+
+
+# ---------------------------------------------------------------------
+# analysis: streaming plans under check() and strict()
+# ---------------------------------------------------------------------
+
+DOUBLE = lambda blk: blk * 2          # noqa: E731
+POSSUM = lambda v: v.sum() > 0        # noqa: E731
+
+
+def test_analysis_check_streaming_plan_no_build(mesh):
+    from bolt_tpu import analysis as ref_analysis
+    from bolt_tpu_torch import analysis
+    data = _intdata()
+    p = (_mine(data, 4).chunk(size=(3,), axis=(0,)).map(DOUBLE)
+         .filter(POSSUM))
+    c0 = engine.counters()
+    rep = analysis.check(p)
+    c1 = engine.counters()
+    assert all(c1[k] == c0[k] for k in ("misses", "aot_compiles",
+                                        "dispatches", "transfer_bytes"))
+    want = ref_analysis.check(_theirs(data, mesh, 4).chunk(
+        size=(3,), axis=(0,)).map(DOUBLE).filter(POSSUM))
+    assert "streaming" in rep.target and rep.dynamic and rep.has("BLT008")
+    assert rep.shape == want.shape == (None, V0, V1)
+    assert np.dtype(rep.dtype) == np.dtype(want.dtype) == np.float64
+    assert len(rep.stages) == len(want.stages) == 3
+    rep2 = analysis.check(_mine(data, 4).map(ADD1))
+    assert rep2.shape == SHAPE and not rep2.dynamic
+
+
+def test_analysis_strict_gates_streamed_terminal():
+    from bolt_tpu_torch import analysis
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    data = _intdata()
+    base = _mine(data, 4)
+    # a hand-appended NON-SCALAR predicate (the public filter() refuses
+    # it at the call): strict refuses the streamed terminal before any
+    # upload or build
+    arr = BoltArrayGPU._streamed(base._stream.with_stage(
+        ("filter", lambda v: v > 0)))
+    rep = analysis.check(arr)
+    assert rep.has("BLT007") and rep.has("BLT008") and not rep.ok
+    c0 = engine.counters()
+    with analysis.strict():
+        with pytest.raises(analysis.PipelineError, match="BLT007"):
+            arr.sum()
+    c1 = engine.counters()
+    assert c1["strict_rejections"] - c0["strict_rejections"] == 1
+    assert c1["misses"] == c0["misses"]
+    assert c1["transfer_bytes"] == c0["transfer_bytes"]
+    # a healthy streamed terminal passes the gate, bit for bit
+    want = _mine(data, 4).sum().toarray()
+    with analysis.strict():
+        out = _mine(data, 4).sum().toarray()
+    assert out.dtype == want.dtype and np.array_equal(out, want)
+    assert np.array_equal(out, data.sum(axis=0))

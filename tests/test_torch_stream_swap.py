@@ -13,6 +13,7 @@ they are bit for bit too.
 """
 
 import glob
+import re
 import os
 import tempfile
 
@@ -452,3 +453,56 @@ def test_spill_manifest_and_fingerprint_isolation(tmp_path):
 def test_spill_load_missing_bucket_refuses_pointedly(tmp_path):
     with pytest.raises(checkpoint.CheckpointCorruptError, match="spill"):
         checkpoint.spill_load(str(tmp_path), ("fp",), 0, 0)
+
+
+def _figures(msg):
+    """The byte figures of a diagnostic's message, in order."""
+    return re.findall(r"(\d+(?:\.\d+)?) (GB|MB|MiB|B)\b", msg)
+
+
+def test_blt017_forecast_matches_runtime_decision(mesh, tmp_path):
+    """The checker's BLT017 forecast runs the executor's planner with the
+    executor's budget resolution: resident forecast -> nothing spills,
+    spill forecast -> the run spills, and no spill dir -> the WARNING the
+    executor's refusal matches.  The working-set and budget figures equal
+    the reference's."""
+    from bolt_tpu import analysis as ref_analysis
+    from bolt_tpu_torch import analysis
+    data = _data()
+
+    def blt017(rep):
+        ds = [d for d in rep.diagnostics if d.code == "BLT017"]
+        assert len(ds) == 1, rep.diagnostics
+        return ds[0]
+
+    s = _source(data, 4).swap((0,), (0,))
+    d = blt017(analysis.check(s))
+    w = blt017(ref_analysis.check(_theirs(data, mesh, 4).swap((0,), (0,))))
+    assert d.severity == w.severity == "info" and "resident" in d.message
+    # the working set (the reference's message adds its all-to-all bytes)
+    assert _figures(d.message)[:1] == _figures(w.message)[:1]
+    c0 = engine.counters()
+    resident = s.toarray()
+    assert engine.counters()["spill_bytes"] == c0["spill_bytes"]
+
+    with stream.spill(dir=str(tmp_path), budget=1), \
+            ref_stream.spill(dir=str(tmp_path / "ref"), budget=1):
+        s2 = _source(data, 4).swap((0,), (0,))
+        d2 = blt017(analysis.check(s2))
+        w2 = blt017(ref_analysis.check(
+            _theirs(data, mesh, 4).swap((0,), (0,))))
+        assert d2.severity == w2.severity == "info"
+        assert "spill" in d2.message
+        assert _figures(d2.message)[:2] == _figures(w2.message)[:2]
+        c0 = engine.counters()
+        spilled = s2.toarray()
+        assert engine.counters()["spill_bytes"] > c0["spill_bytes"]
+    assert np.array_equal(spilled, resident)
+    checkpoint.spill_clear(str(tmp_path))
+
+    with stream.spill(dir=None, budget=1):
+        s3 = _source(data, 4).swap((0,), (0,))
+        d3 = blt017(analysis.check(s3))
+        assert d3.severity == "warning" and "NO spill directory" in d3.message
+        with pytest.raises(RuntimeError, match="spill"):
+            s3.toarray()
