@@ -9,7 +9,9 @@ re-bucket of a streamed swap), ``"stream.spill"`` (before each spilled
 bucket write), ``"stream.checkpoint"`` (a stream checkpoint write's
 entry), ``"checkpoint.meta"`` (between its state rename and its meta
 rename) and ``"checkpoint.corrupt"`` (a tripped fault flips bytes of the
-state file just written) — and this registry trips a chosen one
+state file just written); the pod layer at ``"multihost.barrier"``
+(every named rendezvous) and ``"multihost.collective"`` (every
+collective that moves data) — and this registry trips a chosen one
 deterministically:
 
 >>> from bolt_tpu_torch import _chaos as chaos
@@ -72,6 +74,8 @@ SEAMS = (
     "stream.checkpoint",      # a stream checkpoint write's entry
     "checkpoint.meta",        # between the state rename and the meta's
     "checkpoint.corrupt",     # flips bytes of the state just written
+    "multihost.barrier",      # every named cross-rank rendezvous
+    "multihost.collective",   # every collective that moves data
 )
 
 

@@ -22,9 +22,12 @@ diagnostics of :mod:`bolt_tpu_torch.analysis.diagnostics`:
   (``BLT011``), batch eligibility (``BLT015``), codec-encoded ingest
   (``BLT016``) and the streamed shuffle's plan (``BLT017``).
 
-BLT004 (idle mesh devices) and BLT012–BLT014 (multi-process topology,
-recovery, supervision) have no single-card meaning: they are registered
-and never emitted here.
+On a mesh (``gpu/mesharray.py``) the check walks this rank's box as the
+single-device checker does (each stage's spec is the rank's box) and adds
+``BLT004`` when the key sharding leaves ranks idle.  BLT012–BLT014
+(streamed pods, recovery, supervision) belong to later slices of the
+mesh port (ROADMAP A12b, A12c): they are registered and not emitted
+yet.
 
 Each map stage evaluates through the terminals' own
 ``gpu/array.py :: _chain_apply`` (and so ``_user_call``, with its
@@ -495,6 +498,56 @@ def _check_impl(obj):
     return rep
 
 
+def _idle_device_check(mesh, shape, split, stage_idx, diags, seen):
+    """``BLT004`` once per report: the derived key sharding leaves mesh
+    ranks idle because the key extents do not divide the mesh (the
+    reference's check, code, severity and message)."""
+    from bolt_tpu_torch.parallel.sharding import key_spec, spec_names
+    if seen or mesh is None or not split:
+        return seen
+    try:
+        spec = key_spec(mesh, shape, split)
+        names = [n for e in spec for n in spec_names(e)]
+        assigned = prod([mesh.shape[n] for n in names]) if names else 1
+        full = prod([mesh.shape[n] for n in mesh.axis_names
+                     if mesh.shape[n] > 1])
+    except Exception:       # noqa: BLE001 — malformed state: BLT002's
+        return seen
+    if assigned < full:
+        diags.append(Diagnostic(
+            "BLT004", stage_idx,
+            "key axes %s assign only %d of %d mesh devices (extents do "
+            "not divide the mesh %s)"
+            % (tuple(shape[:split]), assigned, full, dict(mesh.shape)),
+            hint="reshape the key axes (keys.reshape) or choose key "
+                 "extents divisible by the mesh axis sizes"))
+        return True
+    return seen
+
+
+def _mesh_report(arr, target):
+    """A mesh array's report: this rank's box walked as a single-device
+    array, each stage's spec the rank's box in global coordinates, and
+    ``BLT004`` when the key sharding leaves ranks idle."""
+    mesh = arr._mesh
+    target = "%s, mesh %s rank %d" % (target, dict(mesh.shape), mesh.rank)
+    rep = _report(arr._local)
+    if arr._mfilter is not None:
+        kbox, gkshape, _, _ = arr._mfilter
+        key_box, shape = kbox, None
+    else:
+        key_box = arr.box[:arr._split]
+        shape = arr._shape
+    for st in rep.stages:
+        st.spec = "box %s" % (tuple(key_box) + tuple(
+            (0, d) for d in st.shape[len(key_box):]),)
+    diags = []
+    if shape is not None:
+        _idle_device_check(mesh, shape, arr._split, 0, diags, False)
+    return Report(target, rep.stages, diags + list(rep.diagnostics),
+                  dynamic=rep.dynamic)
+
+
 def _report(obj):
     from bolt_tpu_torch.gpu.array import BoltArrayGPU, _meta
     from bolt_tpu_torch.gpu.chunk import ChunkedArray
@@ -508,6 +561,8 @@ def _report(obj):
     elif isinstance(arr, StackedArray):
         target = "gpu, stacked view size=%d" % arr.size
         arr = arr._barray
+    if getattr(arr, "_mesh", None) is not None:
+        return _mesh_report(arr, target)
 
     if not isinstance(arr, BoltArrayGPU):
         # the local oracle (or anything array-like): nothing deferred

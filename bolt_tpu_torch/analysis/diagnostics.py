@@ -6,9 +6,10 @@ a :class:`Diagnostic` with a stable ``BLT0xx`` code, a severity, the
 index of the pipeline stage it anchors to, and a fix hint — the
 compiler-style contract the repo linter
 (:mod:`bolt_tpu_torch.analysis.astlint`) mirrors with its ``BLT1xx``
-range.  The code table is the reference's (``docs/API.md``); BLT004 and
-BLT012–BLT014 concern a mesh or a multi-process topology, so a single
-card registers them and never emits them.
+range.  The code table is the reference's (``docs/API.md``); the checker
+emits BLT004 on a mesh (idle ranks); BLT012–BLT014 concern streamed pods
+and pod recovery, later slices of the mesh port (ROADMAP A12b, A12c),
+and stay registered and unemitted until then.
 
 Severities:
 

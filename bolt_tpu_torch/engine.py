@@ -37,7 +37,10 @@ turns it off.
 
 Keys follow the reference's convention: (op-tag, user funcs, shape,
 dtype, split, device, extras) — hashable, and holding no tensor, so a
-cached entry pins no device memory.
+cached entry pins no device memory.  Work on a mesh of ranks runs under
+:func:`topology`, which appends the pod's topology token and the mesh's
+geometry to every key (the reference's keys hold the mesh geometry), so
+a program built for one mesh never serves another or a single device.
 """
 
 import contextlib
@@ -643,6 +646,33 @@ class _Dispatch:
         return out
 
 
+_TOPOLOGY = threading.local()
+
+
+@contextlib.contextmanager
+def topology(token):
+    """Scope the program keys of this thread's lookups with ``token``
+    (the mesh layer's pod topology token and mesh geometry,
+    ``gpu/mesharray.py :: topology_key``): a program built for one mesh
+    never serves another, nor a single device.  Keys outside any scope
+    are unchanged.
+
+    Today's mesh programs hold no collective (each runs on its rank's
+    box, whose shape and device its key already holds, and the folds run
+    outside them), so reusing one across meshes would give the same
+    bits; the scope costs one build per program and mesh.  It keeps a
+    program that captures its mesh's groups (the streamed pod fold,
+    ROADMAP A12b) from serving another mesh or a pod of another
+    topology, and keeps the cache's counts per mesh, as the reference's
+    keys hold the mesh geometry."""
+    prev = getattr(_TOPOLOGY, "token", None)
+    _TOPOLOGY.token = token
+    try:
+        yield
+    finally:
+        _TOPOLOGY.token = prev
+
+
 def get(key, builder):
     """The engine's dispatch lookup: returns a callable running the
     program ``builder`` returns, built at most once per key and shared
@@ -657,6 +687,9 @@ def get(key, builder):
     the rest wait and adopt its entry (``coalesced_builds``).  A failed
     build wakes the waiters, which then build for themselves (the
     exception propagates to the owner alone)."""
+    scope = getattr(_TOPOLOGY, "token", None)
+    if scope is not None:
+        key = key + (scope,) if isinstance(key, tuple) else (key, scope)
     waited = False                      # each lookup counts exactly ONCE:
     while True:                         # hit, miss, or coalesced wait
         with _LOCK:

@@ -2,9 +2,11 @@
 
 Port of ``bolt_tpu/tpu/array.py :: BoltArrayTPU``.  The array holds ONE
 tensor carrying the full logical shape, key axes leading; ``split`` says
-how many leading axes are keys.  Where the reference maps key axes onto a
-mesh, this backend runs on a single card, so a re-axis is a permute and a
-contiguous copy, and every terminal runs eagerly in PyTorch:
+how many leading axes are keys.  This module is the single-device half: a
+re-axis is a permute and a contiguous copy, and every terminal runs
+eagerly in PyTorch.  The mesh half (key axes spread over a mesh of ranks,
+one process each) is ``gpu/mesharray.py :: BoltArrayMesh``, which holds
+this rank's box as one of these arrays:
 
 =========================  =======================================
 reference lowering         here
@@ -706,15 +708,17 @@ def _masked_final(slot, acc, count, vshape, vdtype):
     return torch.sqrt(out) if name == "std" else out
 
 
-def _filter_stats(fp, vdtype, slots):
-    """The masked terminals ``slots`` (``(name, axes, keepdims, ddof)``,
-    ``axes`` holding the flat key axis 0) of the pending filter ``fp``
-    whose records have numpy dtype ``vdtype``, in order, from one pass of
-    the chain and the predicate over blocks.  ``sum`` and ``mean`` over
-    the key axis of a chain that compiles run ``fused_map_reduce`` with
-    the mask (a dropped record is not read); the others fold their block
-    partials in block order.  ``max``/``min`` with no survivor raise the
-    zero-size ``ValueError``.
+def _filter_partials(fp, vdtype, slots):
+    """The partials of the masked terminals ``slots`` (``(name, axes,
+    keepdims, ddof)``, ``axes`` holding the flat key axis 0) of the
+    pending filter ``fp`` whose records have numpy dtype ``vdtype``, from
+    one pass of the chain and the predicate over blocks:
+    ``(accs, fused, count, any_kept)``.  ``sum`` and ``mean`` over the
+    key axis of a chain that compiles run ``fused_map_reduce`` with the
+    mask (a dropped record is not read; their partial is the masked sum,
+    ``fused`` true); the others fold their block partials in block order.
+    :func:`_filter_final` makes each terminal of its partial; a mesh
+    folds the partials of its ranks in between.
 
     A chain the compiler has not seen is traced after the mask pass is
     queued, so the trace's host time overlaps the card's work; if it does
@@ -763,21 +767,35 @@ def _filter_stats(fp, vdtype, slots):
                 del recs
     fused = [c and program is not None for c in cand]
     mask = torch.cat(masks) if len(masks) > 1 else masks[0]
-    out = []
     for i, slot in enumerate(slots):
-        name, _, keepdims, _ = slot
-        if name in ("max", "min") and not bool(mask.any()):
-            raise ValueError("zero-size array to reduction operation %s "
-                             "which has no identity" % name)
-        if not fused[i]:
-            out.append(_masked_final(slot, accs[i], count, vshape, vdtype))
-            continue
-        r = kernels.fused_map_reduce_cols(
-            base.reshape(n, prod(vshape)), program, mask).reshape(vshape)
-        if name == "mean":
-            r = r / count.to(r.dtype)
-        out.append(r.reshape((1,) + vshape) if keepdims else r)
-    return out
+        if fused[i]:
+            accs[i] = kernels.fused_map_reduce_cols(
+                base.reshape(n, prod(vshape)), program, mask).reshape(vshape)
+    return accs, fused, count, mask.any()
+
+
+def _filter_final(slot, acc, fused, count, any_kept, vshape, vdtype):
+    """The masked terminal ``slot`` from its folded partial ``acc`` (of
+    :func:`_filter_partials`), the kept ``count`` and whether any record
+    was kept."""
+    name, _, keepdims, _ = slot
+    if name in ("max", "min") and not bool(any_kept):
+        raise ValueError("zero-size array to reduction operation %s "
+                         "which has no identity" % name)
+    if not fused:
+        return _masked_final(slot, acc, count, vshape, vdtype)
+    r = acc
+    if name == "mean":
+        r = r / count.to(r.dtype)
+    return r.reshape((1,) + vshape) if keepdims else r
+
+
+def _filter_stats(fp, vdtype, slots):
+    """The masked terminals ``slots`` of the pending filter ``fp`` (see
+    :func:`_filter_partials`), in order."""
+    accs, fused, count, any_kept = _filter_partials(fp, vdtype, slots)
+    return [_filter_final(slot, accs[i], fused[i], count, any_kept,
+                          fp[4], vdtype) for i, slot in enumerate(slots)]
 
 
 def _chain_sum_plan(base, funcs, split, axes):
@@ -1154,6 +1172,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
     after them."""
 
     _mode = "gpu"
+    # the mesh of ranks (gpu/mesharray.py :: BoltArrayMesh); None on one
+    # device
+    _mesh = None
 
     def __init__(self, data, split, device):
         if data is not None and (split < 0 or split > data.ndim):
@@ -1233,8 +1254,16 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
 
     @property
     def device(self):
-        """The ``torch.device`` holding the data (the reference's mesh)."""
+        """The ``torch.device`` holding the data (on a mesh, this rank's
+        device)."""
         return self._device
+
+    @property
+    def mesh(self):
+        """The mesh of ranks the array lives on (reference:
+        ``BoltArrayTPU.mesh``), ``None`` on a single device
+        (``gpu/mesharray.py`` holds the mesh half)."""
+        return self._mesh
 
     @property
     def deferred(self):

@@ -12,7 +12,20 @@ vmaps ``func`` over them, trims the halo and reassembles with the same
 recursive concatenate as the reference.  On a streamed source ``map``
 records a stage that the slab programs run through these same two bodies
 (``stream.chunked_map_stage``).
+
+On a mesh (``gpu/mesharray.py``) a chunked value axis can itself be split
+across a mesh axis (:meth:`ChunkedArray.shard`, the sequence-parallel
+analog; ``vshard`` maps the value axis to its mesh axis).  ``map`` then
+runs on each rank's block: the uniform path as it stands, a padded map
+over the blocks of the rank's box extended by its neighbours' halos
+(``parallel/halo.py :: exchange_halo``).  Where the chunk size does not
+divide a rank's extent, the sharded axis is gathered first and the
+result re-split, or left replicated with the reference's warning when
+the output no longer divides the mesh.
 """
+
+import warnings
+from itertools import product as _product
 
 import torch
 from torch.func import vmap
@@ -24,6 +37,71 @@ from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _block_records,
 from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.utils import (check_value_shape, chunk_align, chunk_pad,
                                   chunk_plan, iterexpand, prod, tupleize)
+
+
+def _halo_extend(x, ax, pad, name, mesh):
+    """This rank's block ``x`` extended along ``ax`` by ``pad`` elements
+    of each neighbour on the mesh axis ``name``; the array's own edges
+    get no halo (the chunked map clips there).  Returns the block and the
+    offset of its own first element in it."""
+    from bolt_tpu_torch.parallel.halo import exchange_halo
+    ext = exchange_halo(x, pad, ax, name, mode="zero", mesh=mesh)
+    idx, n = mesh.coords()[name], mesh.shape[name]
+    start = pad if idx == 0 else 0
+    stop = ext.shape[ax] - (pad if idx == n - 1 else 0)
+    return ext.narrow(ax, start, stop - start), pad - start
+
+
+def _constrain_chunked(barray, vshard, warning):
+    """``barray`` on a mesh moved to the layout keeping the explicit
+    value-axis shards ``vshard`` where its shape still divides them, else
+    left on its key-only layout with ``warning`` (naming the shards) and
+    no shard (reference: ``_constrain_chunked``).  Returns the array and
+    the shards it keeps."""
+    if not vshard:
+        return barray, {}
+    from bolt_tpu_torch.parallel.sharding import combined_spec
+    try:
+        spec = combined_spec(barray.mesh, barray.shape, barray.split, vshard)
+    except ValueError:
+        warnings.warn(warning % (vshard,))
+        return barray, {}
+    return barray._relaid(spec), dict(vshard)
+
+
+def _block_map(ext, func, split, plan, pad, cores, offs, canon=None):
+    """The padded chunked map over this rank's block ``ext`` (its own
+    ``cores`` extents starting at ``offs`` on each value axis, halos
+    around them): each block's padded slice, clipped to ``ext``, through
+    ``func`` vmapped over the keys, trimmed to its core."""
+    kshape = tuple(ext.shape[:split])
+    nv = len(cores)
+    out = None
+    for idx in _product(*[range(-(-cores[i] // plan[i]))
+                          for i in range(nv)]):
+        sl, trim, dst = [], [], []
+        for i, j in enumerate(idx):
+            c0 = offs[i] + j * plan[i]
+            c1 = min(offs[i] + cores[i], c0 + plan[i])
+            s0 = max(0, c0 - pad[i])
+            s1 = min(ext.shape[split + i], c1 + pad[i])
+            sl.append(slice(s0, s1))
+            trim.append(slice(c0 - s0, c1 - s0))
+            dst.append(slice(c0 - offs[i], c1 - offs[i]))
+        keys = (slice(None),) * split
+        blk = ext[keys + tuple(sl)]
+        res = _nested_vmap(func, split)(blk)
+        if tuple(res.shape) != tuple(blk.shape):
+            raise ValueError(
+                "with padding or a ragged chunk plan, the mapped function "
+                "must preserve the block shape; got %s -> %s"
+                % (str(tuple(blk.shape[split:])),
+                   str(tuple(res.shape[split:]))))
+        if out is None:
+            out = torch.empty(kshape + tuple(cores), dtype=res.dtype,
+                              device=ext.device)
+        out[keys + tuple(dst)] = res[keys + tuple(trim)]
+    return out if canon is None else out.to(canon)
 
 
 def _cached_jit(key, builder):
@@ -144,10 +222,12 @@ def _general_map_body(data, func, split, plan, pad, canon=None):
 class ChunkedArray:
     """A chunk-plan view over a :class:`BoltArrayGPU`."""
 
-    def __init__(self, barray, plan, padding):
+    def __init__(self, barray, plan, padding, vshard=None):
         self._barray = barray
         self._plan = tuple(int(p) for p in plan)
         self._padding = tuple(int(p) for p in padding)
+        # value-axis -> mesh-axis shards (sequence-parallel analog)
+        self._vshard = dict(vshard) if vshard else {}
 
     @classmethod
     def chunk(cls, barray, size="150", axis=None, padding=None):
@@ -207,6 +287,97 @@ class ChunkedArray:
         """True when every chunk has the same shape (no ragged tail)."""
         return all(v % c == 0 for v, c in zip(self.vshape, self._plan))
 
+    @property
+    def vshard(self):
+        """Value-axis → mesh-axis shards (empty unless :meth:`shard`-ed)."""
+        return dict(self._vshard)
+
+    # ------------------------------------------------------------------
+    # value-axis sharding on a mesh: the sequence/context-parallel analog
+    # ------------------------------------------------------------------
+
+    def shard(self, mesh_axis, axis=None):
+        """Split a chunked value axis across the (unused) mesh axis
+        ``mesh_axis``; ``axis`` defaults to the first chunked value axis.
+        The data moves to the new layout by one all_to_all (reference:
+        ``ChunkedArray.shard``)."""
+        from bolt_tpu_torch.parallel.sharding import combined_spec
+        b = self._barray
+        if b.mesh is None:
+            raise ValueError("shard() needs an array on a mesh (context= "
+                             "a bolt_tpu_torch.parallel mesh); this one is "
+                             "on %s" % (b.device,))
+        if axis is None:
+            chunked = [i for i, (v, c) in enumerate(zip(self.vshape,
+                                                       self._plan))
+                       if c < v]
+            axis = chunked[0] if chunked else 0
+        vshard = dict(self._vshard)
+        vshard[axis] = mesh_axis
+        spec = combined_spec(b.mesh, b.shape, b.split, vshard)  # validates
+        return ChunkedArray(b._relaid(spec), self._plan, self._padding,
+                            vshard)
+
+    def _rewrap(self, barray, plan, padding, vshard):
+        """Wrap a swapped array, re-applying the value-axis shards that
+        survive the swap (the swap lays out by the key spec alone)."""
+        barray, vshard = _constrain_chunked(
+            barray, vshard, "value-axis shard %s no longer divides after "
+            "the axis exchange; the axis is now replicated")
+        return ChunkedArray(barray, plan, padding, vshard)
+
+    def _mesh_map(self, func, value_shape, dtype):
+        """``map`` on a mesh: each rank maps the blocks of its box (see
+        the module docstring)."""
+        from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+        from bolt_tpu_torch.parallel.sharding import spec_names
+        b = self._barray
+        mesh, split, spec = b.mesh, b.split, b._spec
+        plan, pad, vshape = self._plan, self._padding, self.vshape
+        nv = len(vshape)
+        canon = None if dtype is None else torch_dtype(dtype)
+        vshard = dict(self._vshard)
+        ways = [prod([mesh.shape[n] for n in spec_names(spec[split + i])])
+                for i in range(nv)]
+        local_ok = all(
+            w == 1 or (len(spec_names(spec[split + i])) == 1
+                       and (vshape[i] // w) % plan[i] == 0
+                       and pad[i] <= vshape[i] // w)
+            for i, w in enumerate(ways))
+        if not local_ok:
+            # a block straddles ranks: map the gathered axis, re-split
+            whole = b._whole_records()
+            with whole._scope():
+                out = ChunkedArray(whole._local, plan, pad).map(
+                    func, value_shape=value_shape, dtype=dtype)
+            shape = whole.shape[:split] + out._barray.shape[split:]
+            res, vshard = _constrain_chunked(
+                BoltArrayMesh(out._barray, mesh, shape, split,
+                              whole._spec[:split] + (None,) * nv), vshard,
+                "chunked map output does not divide the mesh for value "
+                "shard %s; the axis is now replicated")
+            return ChunkedArray(res, out._plan, pad, vshard)
+        grid = self.grid
+        with b._scope():
+            x = b._local._mapped()
+            if self.uniform and not any(pad):
+                out = _uniform_map_body(x, func, split, plan, canon)
+            else:
+                offs = [0] * nv
+                for i, w in enumerate(ways):
+                    if w > 1 and pad[i]:
+                        x, offs[i] = _halo_extend(
+                            x, split + i, pad[i], spec[split + i], mesh)
+                cores = [vshape[i] // w for i, w in enumerate(ways)]
+                out = _block_map(x, func, split, plan, pad, cores, offs,
+                                 canon)
+        shape = tuple(b.shape[:split]) + tuple(
+            out.shape[split + i] * w for i, w in enumerate(ways))
+        res = BoltArrayMesh.wrap(out, mesh, shape, split, spec)
+        if self.uniform and not any(pad):
+            plan = tuple(o // g for o, g in zip(shape[split:], grid))
+        return ChunkedArray(res, plan, pad, vshard)
+
     def map(self, func, value_shape=None, dtype=None):
         """Apply ``func`` to every chunk of every record; returns a new
         :class:`ChunkedArray`.  With no padding and a uniform plan
@@ -221,6 +392,8 @@ class ChunkedArray:
             blk = vmap(func)(torch.empty((1,) + plan, device="meta",
                                          dtype=torch_dtype(b.dtype)))
             check_value_shape(value_shape, tuple(blk.shape[1:]))
+        if b.mesh is not None:
+            return self._mesh_map(func, value_shape, dtype)
         if b._stream is not None:
             # a stream records the per-block map as a stage of its slab
             # program (NotImplemented: it materialises below)
@@ -292,8 +465,10 @@ class ChunkedArray:
                     raise ValueError(
                         "chunk size must be >= 1, got %d" % int(s))
             moved = [min(int(s), m) for s, m in zip(sizes, moved)]
-        return ChunkedArray(swapped, tuple(moved) + self._plan,
-                            (0,) * len(moved) + self._padding)
+        # surviving value axes shift right by the number moved in
+        vshard = {va + len(moved): name for va, name in self._vshard.items()}
+        return self._rewrap(swapped, tuple(moved) + self._plan,
+                            (0,) * len(moved) + self._padding, vshard)
 
     def values_to_keys(self, axes):
         """Move value axes into the keys (appended after the existing key
@@ -306,8 +481,10 @@ class ChunkedArray:
                     "value axis %d out of range for %d value axes" % (a, nv))
         swapped = self._barray.swap((), axes)
         keep = [i for i in range(nv) if i not in axes]
-        return ChunkedArray(swapped, tuple(self._plan[i] for i in keep),
-                            tuple(self._padding[i] for i in keep))
+        vshard = {pos: self._vshard[old] for pos, old in enumerate(keep)
+                  if old in self._vshard}
+        return self._rewrap(swapped, tuple(self._plan[i] for i in keep),
+                            tuple(self._padding[i] for i in keep), vshard)
 
     def unchunk(self):
         """Back to a :class:`BoltArrayGPU` — a no-op unwrap: the data never
@@ -345,4 +522,6 @@ class ChunkedArray:
         s += "plan: %s\n" % str(self._plan)
         s += "padding: %s\n" % str(self._padding)
         s += "grid: %s\n" % str(self.grid)
+        if self._vshard:
+            s += "vshard: %s\n" % str(self._vshard)
         return s

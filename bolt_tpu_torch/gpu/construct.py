@@ -1,11 +1,20 @@
 """Constructors for the ``mode='gpu'`` backend.
 
 Port of ``bolt_tpu/tpu/construct.py :: ConstructTPU``.  The context that
-selects this backend is a ``torch.device`` (the reference's
+selects this backend is a ``torch.device`` or a port mesh of ranks
+(``bolt_tpu_torch.parallel.mesh.Mesh``; the reference's context is a
 ``jax.sharding.Mesh``).  ``ones``/``zeros``/``full``/``rand``/``randn`` build
 their tensor directly on the device, never on the host; ``array`` moves the
 key axes to the front and uploads once; ``fromcallback``/``fromiter`` with
 a dtype give lazy out-of-core streams (``bolt_tpu_torch/stream.py``).
+
+On a mesh every constructor builds only this rank's box
+(``gpu/mesharray.py``): ``array`` uploads the box of the host array,
+never the whole of it, and the filled and random constructors build the
+box on the rank's device.  Random values on a mesh depend on the seed
+AND the layout: a box that is not the whole array draws from a generator
+seeded by the seed and the box, so replicas of one box agree and a
+one-rank mesh draws exactly the single-device numbers.
 """
 
 import numpy as np
@@ -14,11 +23,19 @@ import torch
 from bolt_tpu_torch.utils import inshape, tupleize
 
 
+def _is_mesh(context):
+    from bolt_tpu_torch.parallel.mesh import Mesh
+    return isinstance(context, Mesh)
+
+
 def resolve_device(context):
-    """The device of a ``mode='gpu'`` call: ``context`` itself, or
-    ``cuda:0`` when it is None.  Raises when CUDA is needed and missing —
-    the backend never moves to the CPU on its own; a caller who wants the
-    CPU passes ``context=torch.device("cpu")``."""
+    """The device of a ``mode='gpu'`` call: ``context`` itself, this
+    rank's device of a mesh, or ``cuda:0`` when it is None.  Raises when
+    CUDA is needed and missing — the backend never moves to the CPU on
+    its own; a caller who wants the CPU passes
+    ``context=torch.device("cpu")``."""
+    if _is_mesh(context):
+        return context.device
     if context is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -27,7 +44,7 @@ def resolve_device(context):
                 "run the gpu backend on the CPU")
         return torch.device("cuda", 0)
     if not isinstance(context, torch.device):
-        raise ValueError("context must be a torch.device, got %r"
+        raise ValueError("context must be a torch.device or a mesh, got %r"
                          % (context,))
     if context.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("context %s needs CUDA, which is not available "
@@ -45,9 +62,10 @@ class ConstructGPU:
         (reference: ``ConstructTPU._argcheck`` detects a mesh)."""
         if kwargs.get("mode") == "gpu":
             return True
-        if isinstance(kwargs.get("context"), torch.device):
+        ctx = kwargs.get("context")
+        if isinstance(ctx, torch.device) or _is_mesh(ctx):
             return True
-        return any(isinstance(a, torch.device) for a in args)
+        return any(isinstance(a, torch.device) or _is_mesh(a) for a in args)
 
     @staticmethod
     def array(a, context=None, axis=(0,), dtype=None, npartitions=None):
@@ -63,6 +81,8 @@ class ConstructGPU:
         axes = sorted(tupleize(axis))
         if len(axes) == 0:
             raise ValueError("at least one key axis is required")
+        if _is_mesh(context):
+            return ConstructGPU._mesh_array(a, context, axes, dtype)
         if isinstance(a, BoltArrayGPU):
             a = a._data
         elif isinstance(a, BoltArray):
@@ -83,6 +103,59 @@ class ConstructGPU:
                             len(axes), device)
 
     @staticmethod
+    def _mesh_array(a, mesh, axes, dtype):
+        """``array`` on a mesh: this rank's box of the key-axes-first
+        array, uploaded alone (a tensor is sliced where it lies, then
+        moved)."""
+        from bolt_tpu_torch.base import BoltArray
+        from bolt_tpu_torch.gpu.array import _upload, torch_dtype
+        from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+        from bolt_tpu_torch.parallel import sharding
+        if isinstance(a, BoltArray):
+            a = a.toarray()
+        if isinstance(a, torch.Tensor):
+            inshape(tuple(a.shape), axes)
+            rest = [i for i in range(a.ndim) if i not in axes]
+            full = a.permute(axes + rest)
+        else:
+            a = np.asarray(a, dtype=dtype)
+            inshape(a.shape, axes)
+            rest = [i for i in range(a.ndim) if i not in axes]
+            full = np.transpose(a, axes + rest)
+        shape = tuple(full.shape)
+        spec = sharding.key_spec(mesh, shape, len(axes))
+        part = full[sharding.box_slices(sharding.box(mesh, spec, shape))]
+        if isinstance(part, torch.Tensor):
+            data = part.to(mesh.device, part.dtype if dtype is None
+                           else torch_dtype(dtype)).contiguous()
+            if data.data_ptr() == a.data_ptr():
+                data = data.clone()      # never alias the caller's tensor
+        else:
+            data = _upload(np.ascontiguousarray(part), mesh.device)
+        return BoltArrayMesh.wrap(data, mesh, shape, len(axes), spec)
+
+    @staticmethod
+    def _mesh_box(context, shape, split):
+        """``(box shape, spec, box)`` of this rank for a constructor on a
+        mesh, or ``None`` off a mesh."""
+        if not _is_mesh(context):
+            return None
+        from bolt_tpu_torch.parallel import sharding
+        spec = sharding.key_spec(context, shape, split)
+        bx = sharding.box(context, spec, shape)
+        return sharding.box_shape(bx), spec, bx
+
+    @staticmethod
+    def _on_mesh(data, context, shape, split, placed):
+        """The constructor's result: a mesh array over the box ``data``,
+        or the single-device array."""
+        from bolt_tpu_torch.gpu.array import BoltArrayGPU
+        if placed is None:
+            return BoltArrayGPU(data, split, data.device)
+        from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+        return BoltArrayMesh.wrap(data, context, shape, split, placed[1])
+
+    @staticmethod
     def _device_build_spec(shape, context, axis, dtype):
         """``(device, key-axes-first shape, split, torch dtype)`` — the
         prologue shared by the build-on-device constructors."""
@@ -101,16 +174,21 @@ class ConstructGPU:
 
     @staticmethod
     def _filled(fill, shape, context, axis, dtype):
-        from bolt_tpu_torch.gpu.array import BoltArrayGPU
         device, shape, split, tdtype = \
             ConstructGPU._device_build_spec(shape, context, axis, dtype)
+        placed = ConstructGPU._mesh_box(context, shape, split)
         if np.ndim(fill):
             # an array-like fill broadcasts against the shape, as jnp.full
             data = torch.as_tensor(np.asarray(fill)).to(device, tdtype)
-            data = data.broadcast_to(shape).contiguous()
+            data = data.broadcast_to(shape)
+            if placed is not None:
+                from bolt_tpu_torch.parallel.sharding import box_slices
+                data = data[box_slices(placed[2])]
+            data = data.contiguous()
         else:
-            data = torch.full(shape, fill, dtype=tdtype, device=device)
-        return BoltArrayGPU(data, split, device)
+            data = torch.full(shape if placed is None else placed[0], fill,
+                              dtype=tdtype, device=device)
+        return ConstructGPU._on_mesh(data, context, shape, split, placed)
 
     @staticmethod
     def _random(kind, shape, context, axis, dtype, seed):
@@ -118,17 +196,26 @@ class ConstructGPU:
         seeded with ``seed`` (any Python int, reduced mod 2**32 like the
         local backend).  Its numbers differ from ``jax.random``'s and from
         numpy's: tests build shared inputs with numpy instead."""
-        from bolt_tpu_torch.gpu.array import BoltArrayGPU
         device, shape, split, tdtype = \
             ConstructGPU._device_build_spec(shape, context, axis, dtype)
         if not tdtype.is_floating_point:
             raise ValueError("random constructors require a float dtype, "
                              "got %s" % tdtype)
+        placed = ConstructGPU._mesh_box(context, shape, split)
+        seed = seed % (1 << 32)
+        local = shape
+        if placed is not None and placed[0] != tuple(shape):
+            # a box of the array: its own stream, from the seed and the
+            # box (replicas of the box draw the same numbers)
+            local = placed[0]
+            seed = int(np.random.SeedSequence(
+                [seed] + [int(i) for b in placed[2] for i in b]
+            ).generate_state(1)[0])
         gen = torch.Generator(device=device)
-        gen.manual_seed(seed % (1 << 32))
+        gen.manual_seed(seed)
         sampler = torch.randn if kind == "randn" else torch.rand
-        data = sampler(shape, generator=gen, dtype=tdtype, device=device)
-        return BoltArrayGPU(data, split, device)
+        data = sampler(local, generator=gen, dtype=tdtype, device=device)
+        return ConstructGPU._on_mesh(data, context, shape, split, placed)
 
     @staticmethod
     def randn(shape, context=None, axis=(0,), dtype=None, seed=0):
@@ -160,6 +247,7 @@ class ConstructGPU:
         produces and uploads at once, from one call over the whole
         array."""
         from bolt_tpu_torch.gpu.array import BoltArrayGPU
+        ConstructGPU._one_rank(context, "fromcallback")
         explicit = dtype is not None
         device, shape, split, _ = ConstructGPU._device_build_spec(
             shape, context, axis, dtype)
@@ -190,6 +278,7 @@ class ConstructGPU:
         iterator once; other consumers assemble it on the host first."""
         from bolt_tpu_torch.gpu.array import BoltArrayGPU
         from bolt_tpu_torch.stream import StreamSource
+        ConstructGPU._one_rank(context, "fromiter")
         if dtype is None:
             raise ValueError(
                 "fromiter requires an explicit dtype (blocks are consumed "
@@ -199,6 +288,14 @@ class ConstructGPU:
         src = StreamSource.from_iter(blocks, shape, split, dtype, device,
                                      checkpoint=checkpoint, codec=codec)
         return BoltArrayGPU._streamed(src)
+
+    @staticmethod
+    def _one_rank(context, what):
+        """Streams and their sources are not ported to a mesh of more than
+        one rank (ROADMAP A12b); a one-rank mesh streams on its device."""
+        if _is_mesh(context) and context.size > 1:
+            from bolt_tpu_torch.gpu.mesharray import not_ported
+            raise not_ported(what, context, "A12b")
 
     @staticmethod
     def ones(shape, context=None, axis=(0,), dtype=None):
@@ -226,6 +323,11 @@ class ConstructGPU:
         if not isinstance(arrays, (tuple, list)) or len(arrays) == 0:
             raise ValueError("concatenate requires a non-empty tuple of "
                              "arrays")
+        for a in arrays:
+            mesh = getattr(a, "_mesh", None)
+            if mesh is not None and mesh.size > 1:
+                from bolt_tpu_torch.gpu.mesharray import not_ported
+                raise not_ported("concatenate", mesh)
         from bolt_tpu_torch.base import BoltArray
         from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _upload,
                                               numpy_dtype, torch_dtype)

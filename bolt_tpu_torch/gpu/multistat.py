@@ -594,6 +594,10 @@ def fluent_stats(arr, names, axis=None, accumulate=None):
         if n not in LAZY_NAMES:
             raise ValueError("unknown statistic %r; choose from %s"
                              % (n, ", ".join(LAZY_NAMES)))
+    if getattr(arr, "_mesh", None) is not None:
+        # a mesh array: every member's partial in one exchange
+        return OrderedDict(zip(names, mesh_stats(
+            arr, [(n, axis, False, None) for n in names])))
     if arr._stream is not None and any(n not in _STREAM_LAZY
                                        for n in names):
         # a name with no streamed fold (prod/all/any) would materialise
@@ -603,3 +607,214 @@ def fluent_stats(arr, names, axis=None, accumulate=None):
     handles = [getattr(arr, n)(axis=axis) for n in names]
     compute(*handles, accumulate=accumulate)
     return OrderedDict(zip(names, handles))
+
+
+# ---------------------------------------------------------------------
+# stat groups on a mesh (gpu/mesharray.py): each rank's partial of every
+# member, ONE exchange over the mesh axes that shard the reduced axes,
+# and the same fold in rank order on every rank
+# ---------------------------------------------------------------------
+
+def _mesh_kinds(name):
+    """The partials a member ``name`` folds over the mesh: the shared
+    ``(count, mean, M2)`` moments of ``mean``/``var``/``std``, ``ptp``'s
+    ``max`` and ``min``, else its own terminal's."""
+    if name in ("mean", "var", "std"):
+        return ("moments",)
+    if name == "ptp":
+        return ("max", "min")
+    return (name,)
+
+
+def _mesh_moments(loc, axes):
+    """``(count, mean, M2)`` of the box ``loc`` over ``axes``: one
+    ``fused_welford`` launch when the axes lead (``gpu/stats.py ::
+    _moments``)."""
+    from bolt_tpu_torch.gpu.stats import _moments
+    mu, m2, _, _ = _moments(loc._mapped(), axes)
+    n = prod([loc.shape[a] for a in axes])
+    return torch.tensor(n, dtype=torch.int64, device=mu.device), mu, m2
+
+
+def _mesh_combine(kind, a, b):
+    """Two ranks' partials of one ``kind`` as one, as the terminals fold
+    their blocks (``gpu/array.py :: _fold_partials``): ``"moments"``
+    ``(count, mean, M2)`` by Chan's pairwise combine, ``"sums"`` a tuple
+    of sums element by element, a terminal's name by its ``_COMBINE``."""
+    from bolt_tpu_torch.gpu.array import _COMBINE, _fold_partials
+    if kind == "moments":
+        return _fold_partials("var", (int(a[0]), a[1], a[2]),
+                              (int(b[0]), b[1], b[2]))
+    if kind == "sums":
+        return tuple(x + y for x, y in zip(a, b))
+    return _COMBINE[kind](a, b)
+
+
+def mesh_fold(kinds, partials, group):
+    """This rank's ``partials`` (one of each of ``kinds``) folded with
+    those of every rank of ``group``: ONE exchange, then
+    :func:`_mesh_combine` in rank order, so every rank holds the same
+    bits.  The one fold of the mesh's stat terminals, stat groups,
+    ``stats()`` and masked filter terminals."""
+    from bolt_tpu_torch.parallel import multihost
+    return multihost.fold_partials(
+        tuple(partials), lambda a, b: tuple(
+            _mesh_combine(k, x, y) for k, x, y in zip(kinds, a, b)),
+        group)
+
+
+def _mesh_final(name, acc, ddof, dtype):
+    """The stat ``name`` of its folded partial (numpy ``dtype`` is the
+    array's)."""
+    out_dt = dtypes.stat_dtype(name, torch_dtype(dtype))
+    if name in ("mean", "var", "std"):
+        n, mu, m2 = acc
+        if name == "mean":
+            out = mu
+        else:
+            out = m2 / max(0, int(n) - (0 if ddof is None else ddof))
+            if name == "std":
+                out = torch.sqrt(out)
+    elif name == "ptp":
+        out = ufuncs.binary("subtract", acc[0], acc[1])
+    else:
+        out = acc
+    return out if out.dtype == out_dt else out.to(out_dt)
+
+
+def _mesh_result(arr, out, axes, keepdims, split):
+    """A mesh array over this rank's result ``out`` (a tensor or a
+    single-device array) of a stat over ``axes``: the kept axes keep
+    their layout, the reduced ones are whole on every rank."""
+    from bolt_tpu_torch.gpu.array import stat_split
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    shape, spec = arr.shape, arr._spec
+    if keepdims:
+        oshape = tuple(1 if a in axes else d for a, d in enumerate(shape))
+        ospec = tuple(None if a in axes else e for a, e in enumerate(spec))
+    else:
+        oshape = tuple(d for a, d in enumerate(shape) if a not in axes)
+        ospec = tuple(e for a, e in enumerate(spec) if a not in axes)
+    new_split = stat_split(split, axes, keepdims)
+    if isinstance(out, torch.Tensor):
+        from bolt_tpu_torch.parallel import sharding
+        local = sharding.box_shape(sharding.box(arr._mesh, ospec, oshape))
+        return BoltArrayMesh.wrap(out.reshape(local), arr._mesh, oshape,
+                                  new_split, ospec)
+    return BoltArrayMesh(out, arr._mesh, oshape, new_split, ospec)
+
+
+def mesh_stats(arr, slots):
+    """The stat terminals ``slots`` (``(name, axis, keepdims, ddof)``) of
+    the mesh array ``arr``, in order.  A member whose reduced axes no
+    mesh axis shards is this rank's own terminal (on a one-rank mesh,
+    the single-device path); the others take each rank's partial
+    (:func:`_mesh_kinds`: every handle made before any is read, so the
+    rank's box resolves them as ONE group; the moment terminals share
+    one :func:`_mesh_moments` for each set of axes), exchange each
+    distinct partial once in ONE gather over those mesh axes, and fold
+    them in rank order (:func:`mesh_fold`) — the same bits on every
+    rank."""
+    from bolt_tpu_torch.gpu.array import stat_axes
+    from bolt_tpu_torch.gpu.mesharray import topology_key
+    from bolt_tpu_torch.parallel import sharding
+    shape, split, spec = arr.shape, arr._split, arr._spec
+    plans = []
+    for name, axis, keepdims, ddof in slots:
+        if name not in LAZY_NAMES:
+            raise ValueError("unknown statistic %r" % (name,))
+        axes = stat_axes(shape, split, axis)
+        if name in ("max", "min", "ptp") and \
+                prod([shape[a] for a in axes]) == 0:
+            raise ValueError("zero-size array to reduction operation %s "
+                             "which has no identity" % name)
+        plans.append((name, axes, keepdims, ddof,
+                      sharding.shard_axes(spec, axes)))
+    loc = arr._local
+    out = [None] * len(plans)
+    with engine.topology(topology_key(arr._mesh)):
+        # the moments before any handle (a group may consume a sole-owned
+        # box), then every partial's handle, each (kind, axes) once: the
+        # first read below resolves the rank's whole stat group at once
+        moments, handles, groups = {}, {}, {}
+        for name, axes, _, _, maxes in plans:
+            if maxes and "moments" in _mesh_kinds(name) and \
+                    axes not in moments:
+                moments[axes] = _mesh_moments(loc, axes)
+        for i, (name, axes, keepdims, ddof, maxes) in enumerate(plans):
+            if not maxes:
+                out[i] = loc._stat(axes, name, keepdims, ddof)
+                continue
+            groups.setdefault(maxes, []).append(i)
+            for kind in _mesh_kinds(name):
+                if kind != "moments" and (kind, axes) not in handles:
+                    handles[kind, axes] = loc._stat(axes, kind)
+        for maxes, items in groups.items():
+            keys = list(dict.fromkeys(
+                (kind, plans[i][1]) for i in items
+                for kind in _mesh_kinds(plans[i][0])))
+            acc = dict(zip(keys, mesh_fold(
+                [kind for kind, _ in keys],
+                [moments[axes] if kind == "moments" else
+                 handles[kind, axes]._data for kind, axes in keys],
+                arr._mesh.group(maxes))))
+            for i in items:
+                name, axes = plans[i][:2]
+                part = tuple(acc[kind, axes] for kind in _mesh_kinds(name))
+                out[i] = _mesh_final(name, part if name == "ptp" else
+                                     part[0], plans[i][3], arr.dtype)
+        # the rank's own terminals resolve here, under the mesh's key
+        # scope (the group resolved above if any member was read)
+        for o in out:
+            if not isinstance(o, torch.Tensor):
+                o._data
+    return [_mesh_result(arr, o, p[1], p[2], split)
+            for o, p in zip(out, plans)]
+
+
+def mesh_filter_stats(arr, slots):
+    """The masked terminals ``slots`` of the pending filter on the mesh
+    array ``arr``, in order: each rank's masked partials from one pass of
+    its box (``gpu/array.py :: _filter_partials``, ``fused_map_reduce``
+    with the mask for a compiled chain's ``sum``/``mean``), ONE gather
+    over the mesh axes that shard the source's key axes, the fold in rank
+    order and the terminals of the fold.  NotImplemented for the
+    geometries the masked form does not serve (the caller resolves the
+    filter)."""
+    from bolt_tpu_torch.gpu.array import (_COMBINE, _filter_final,
+                                          _filter_partials, filter_axes)
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh, topology_key
+    from bolt_tpu_torch.parallel import sharding
+    kbox, gkshape, kspec, vshape = arr._mfilter
+    loc = arr._local
+    resolved = []
+    for name, axis, keepdims, ddof in slots:
+        axes = filter_axes(vshape, arr.dtype, axis, name)
+        if axes is NotImplemented:
+            return NotImplemented
+        resolved.append((name, axes, keepdims, ddof))
+    maxes = sharding.shard_axes(kspec, range(len(kspec)))
+    res = []
+    with engine.topology(topology_key(arr._mesh)):
+        if not maxes:
+            locs = [loc._stat(axis, name, keepdims, ddof)
+                    for name, axis, keepdims, ddof in slots]
+            for o in locs:
+                o._data          # resolved under the mesh's key scope
+                res.append(BoltArrayMesh(o, arr._mesh, o.shape, o.split,
+                                         (None,) * len(o.shape)))
+        else:
+            accs, fused, count, kept = _filter_partials(
+                tuple(loc._fpending), arr.dtype, resolved)
+            kinds = ["sum" if fused[i] else name if name in _COMBINE
+                     else "sums" for i, (name, _, _, _) in
+                     enumerate(resolved)] + ["sum", "any"]
+            *accs, count, kept = mesh_fold(kinds, accs + [count, kept],
+                                           arr._mesh.group(maxes))
+            for i, slot in enumerate(resolved):
+                o = _filter_final(slot, accs[i], fused[i], count, kept,
+                                  vshape, arr.dtype)
+                res.append(BoltArrayMesh.wrap(o, arr._mesh,
+                                              tuple(o.shape), o.ndim -
+                                              len(vshape), (None,) * o.ndim))
+    return res

@@ -7,7 +7,12 @@ the Pallas ``fused_welford``) and Chan-combines them across the mesh with
 across devices: the moments of the whole array come from ONE call of the
 CUDA ``fused_welford`` kernel when the reduced axes lead, and from the
 two-pass torch body otherwise, as one engine program (family
-``"welford"``).
+``"welford"``).  On a mesh (``gpu/mesharray.py``) each rank computes the
+moments of its box the same way, and the ``(n, mean, M2, min, max)``
+partials of the ranks that split the reduced axes are gathered and
+Chan-combined in rank order (:func:`_mesh_moments`, through the mesh's
+one fold, ``gpu/multistat.py :: mesh_fold``); mesh axes that
+split no reduced axis hold replicas and are never combined over.
 """
 
 from bolt_tpu_torch import engine as _engine
@@ -66,9 +71,45 @@ def welford(barray, requested=("mean", "var", "std", "min", "max"),
         raise ValueError("at least one axis is required")
     n_total = prod(tuple(barray.shape[a] for a in axes))
     _engine.strict_guard(barray, "stats()")
+    if getattr(barray, "_mesh", None) is not None:
+        mu, m2, mn, mx = _mesh_moments(barray, axes)
+        return StatCounter.from_moments(n_total, mu, m2, minValue=mn,
+                                        maxValue=mx, stats=requested)
     x = barray._data
     fn = _cached_jit(("welford", tuple(x.shape), str(x.dtype), axes,
                       x.device), lambda: lambda data: _moments(data, axes))
     mu, m2, mn, mx = (t.detach().cpu().numpy() for t in fn(x))
     return StatCounter.from_moments(n_total, mu, m2, minValue=mn,
                                     maxValue=mx, stats=requested)
+
+
+def _mesh_moments(barray, axes):
+    """Host ``(mu, m2, min, max)`` over ``axes`` of the mesh array
+    ``barray``: each rank's :func:`_moments` of its box (one
+    ``fused_welford`` launch when the axes lead), folded in rank order
+    over the mesh axes that shard ``axes``, then the kept axes gathered
+    where the mesh splits them.  Every rank returns the same bits."""
+    import torch
+    from bolt_tpu_torch.gpu import multistat
+    from bolt_tpu_torch.gpu.array import _download
+    from bolt_tpu_torch.gpu.mesharray import topology_key
+    from bolt_tpu_torch.parallel import sharding
+    mesh, spec, shape = barray._mesh, barray._spec, barray.shape
+    loc = barray.local
+    with _engine.topology(topology_key(mesh)):
+        x = loc._data
+        fn = _cached_jit(("welford", tuple(x.shape), str(x.dtype), axes,
+                          x.device), lambda: lambda data: _moments(data, axes))
+        mu, m2, mn, mx = fn(x)
+    maxes = sharding.shard_axes(spec, axes)
+    if maxes:
+        n = torch.tensor(prod(tuple(x.shape[a] for a in axes)),
+                         dtype=torch.int64, device=mu.device)
+        (_, mu, m2), mn, mx = multistat.mesh_fold(
+            ("moments", "min", "max"), ((n, mu, m2), mn, mx),
+            mesh.group(maxes))
+    kept = tuple(a for a in range(len(shape)) if a not in axes)
+    kspec = tuple(spec[a] for a in kept)
+    kshape = tuple(shape[a] for a in kept)
+    return tuple(sharding.gather(t, mesh, kshape, kspec, _download)[0]
+                 for t in (mu, m2, mn, mx))

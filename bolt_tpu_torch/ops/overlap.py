@@ -10,6 +10,11 @@ boundary rows.  :func:`map_overlap` packages that pattern; :func:`smooth`,
 On the gpu mode a floating array is filtered whole: its deferred map chain
 is applied and every active axis goes through ONE launch of the window
 kernel (``ops/kernels.py :: sepfilter1d``), in the caller's axis order.
+On a mesh (``gpu/mesharray.py``) ``shard=`` splits chunked value axes
+across mesh axes, as in the reference, and each rank runs the window
+kernel on its own block, extended along a split axis by its neighbours'
+halos (``parallel/halo.py``) and trimmed after: every output element sees
+the values and the taps it sees on one device.
 Non-floating inputs, the median and the local mode take the chunked path
 (``chunk(padding=...).map(...)``), whose block functions pick numpy or
 torch by the block's type.  A kernel that fails raises: nothing retries
@@ -50,15 +55,30 @@ def map_overlap(b, func, depth, axis=None, size="150", value_shape=None,
     neighbours on the chunked axes, clipped at the array edges, so stencil
     functions compute correct values at interior block boundaries.
 
-    ``shard`` splits chunked value axes across a device mesh in the
-    reference; the port runs on one device (ROADMAP A12), so every mode
-    refuses it as the reference refuses it on a mode without a mesh.
+    ``shard`` (an array on a mesh only) splits chunked VALUE axes across
+    mesh axes, the sequence-parallel regime: a mesh-axis name (applied to
+    the first chunked axis) or a ``{value_axis: mesh_axis}`` dict; halos
+    then come from the neighbouring ranks.
     """
-    if shard is not None:
-        raise ValueError("shard= needs a device mesh (not ported yet); "
-                         "mode=%r has no mesh axes" % (b.mode,))
+    return _sharded_chunks(b, depth, axis, size, shard).map(
+        func, value_shape=value_shape, dtype=dtype).unchunk()
+
+
+def _sharded_chunks(b, depth, axis, size, shard):
+    """``b.chunk(size, axis, padding=depth)`` with the ``shard=`` request
+    applied; a ``ValueError`` off a mesh, as the reference refuses it on
+    a mode without a mesh."""
+    if shard is not None and getattr(b, "mesh", None) is None:
+        raise ValueError("shard= needs an array on a device mesh; "
+                         "mode=%r here has no mesh axes" % (b.mode,))
     c = b.chunk(size=size, axis=axis, padding=depth)
-    return c.map(func, value_shape=value_shape, dtype=dtype).unchunk()
+    if shard is not None:
+        if isinstance(shard, dict):
+            for va, name in sorted(shard.items()):
+                c = c.shard(name, axis=va)
+        else:
+            c = c.shard(shard)
+    return c
 
 
 def _odd_widths(width, n):
@@ -140,7 +160,12 @@ def _separable_filter(b, taps_list, axes, size, mode, shard=None,
     mode = _canon_mode(mode)
     depth = tuple(len(t) // 2 for t in taps_list)
     taps_key = tuple(tuple(float(t) for t in taps) for taps in taps_list)
-    if b.mode == "gpu" and shard is None:
+    if getattr(b, "mesh", None) is not None:
+        out = _mesh_sepfilter(b, taps_key, tuple(axes), mode, pr, depth,
+                              size, shard)
+        if out is not None:
+            return out
+    elif b.mode == "gpu" and shard is None:
         out = _whole_array_sepfilter(b, taps_key, tuple(axes), mode, pr)
         if out is not None:
             return out
@@ -167,6 +192,53 @@ def _whole_array_sepfilter(b, taps_key, axes, mode, precision="highest"):
     for g, taps in active:
         x = kernels.sepfilter1d(x, taps, g, mode=mode, precision=precision)
     return b._wrap(x, split)
+
+
+def _mesh_sepfilter(b, taps_key, axes, mode, precision, depth, size,
+                    shard):
+    """The separable filter of a floating array on a mesh: the
+    ``shard=`` layout first (``chunk(...).shard(...)``, as the reference
+    applies it), then on each rank one window-kernel launch per active
+    axis over its block, extended along a split axis by its neighbours'
+    halos and trimmed after (``None`` for a non-floating dtype: the
+    chunked path).  An axis split over several mesh axes, or whose halo
+    is wider than a rank's extent, is gathered first and re-split
+    after."""
+    from bolt_tpu_torch.gpu.chunk import _halo_extend
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    from bolt_tpu_torch.ops import kernels
+    from bolt_tpu_torch.parallel.sharding import spec_names
+    split = b.split
+    active = [(split + a, taps) for a, taps in zip(axes, taps_key)
+              if len(taps) > 1 or taps[0] != 1.0]
+    if not np.issubdtype(np.dtype(b.dtype), np.floating):
+        return None
+    src = _sharded_chunks(b, depth, axes, size, shard)._barray
+    mesh, spec = src.mesh, src._spec
+    target = spec
+    if any(len(spec_names(spec[g])) > 1 or (
+            spec[g] is not None and len(taps) // 2 > src._data.shape[g])
+           for g, taps in active):
+        src = src._whole_records()
+    if not active:
+        return src._relaid(target) if src._spec != target else \
+            BoltArrayMesh(src._local, mesh, src.shape, split, spec)
+    with src._scope():
+        x = src._local._mapped()
+        for g, taps in active:
+            r = len(taps) // 2
+            name = src._spec[g]
+            if name is None or mesh.shape[name] == 1 or r == 0:
+                x = kernels.sepfilter1d(x, taps, g, mode=mode,
+                                        precision=precision)
+                continue
+            length = x.shape[g]
+            ext, off = _halo_extend(x, g, r, name, mesh)
+            x = kernels.sepfilter1d(ext, taps, g, mode=mode,
+                                    precision=precision).narrow(
+                g, off, length).contiguous()
+    out = BoltArrayMesh.wrap(x, mesh, src.shape, split, src._spec)
+    return out if out._spec == target else out._relaid(target)
 
 
 def _filter_axes(b, axis):

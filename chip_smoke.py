@@ -242,18 +242,43 @@ result):
    ``submit`` and by ``strict()``, a hand-built broken chain refused
    (BLT001) with nothing built, launched or allocated; strict's extra
    host time on the cached north-star ``map(v + 1).sum()`` and the
-   ``strict_checks``/``strict_rejections`` counts logged.
+   ``strict_checks``/``strict_rejections`` counts logged;
+15. device meshes (``bolt_tpu_torch.parallel``): child pods of ranks on
+   this one card through ``parallel/harness.py``, each result held
+   against the single-device one this process computes first.  A
+   one-rank NCCL pod at the north-star (``randn`` seed 0:
+   ``map(v + 1).sum()``, ``stats()`` and ``swap`` bit for bit, nothing
+   staged through the host); a two-rank gloo pod with the north-star
+   split 1600 records a rank (crafted exact data, built on each rank's
+   device: ``map(v + 1).sum()``, ``reduce(add)``, config 4's filter
+   ``sum()``/``mean()`` bit for bit on both ranks, ``stats()`` and the
+   fluent ``stats("sum", "mean", "var", "min", "max")`` group of
+   constant columns bit for bit; ``randn`` within 2e-2 (sum), 2e-5
+   (mean) and 1e-4 relative (var) of f64 references; then config 1's
+   crafted ``swap`` through the ``all_to_all`` box by box and
+   ``toarray()`` bit for bit against the single device, the swap also
+   against ``np.transpose`` of the gather); a four-rank ``(2, 2)`` ``("k", "v")`` gloo pod at
+   config 1 (the keys on ``"k"``, replicated on ``"v"``: the sum with no
+   double count; ``chunk().shard("v")`` with a halo-padded map and
+   ``ops.gaussian(..., axis=(0, 2), shard="v")``, each rank's box bit
+   for bit through ``payloads.fingerprint``); and two NCCL ranks on one
+   card refused.  Each path logs its wall, peak growth, launches per
+   rank, collective bytes and host-staged bytes beside the card; each
+   pod's first ``map(v + 1).sum()``/``stats()`` (library loads, the
+   first trace) is the ``first_call`` path.  It needs no second card.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
 4, phase 6, phase 7, phase 8, phase 11, phase 12 and each path of phases
-13 and 14; phases 9 and 10 run no kernel of their own) and
+13, 14 and 15, phase 15's in every rank; phases 9 and 10 run no kernel
+of their own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object (each row's ``phase12_launches`` holds its launches in each path
 of phase 12 that launched it: each run of the resumes, ``loaded_array``
 and ``uint16``, every one counted from 0; ``phase13_launches`` the same
 for phase 13's ``config9``, ``config1``, ``int8_c1`` and ``config14``;
-``phase14_launches`` for phase 14's paths) and
+``phase14_launches`` for phase 14's paths; ``phase15_launches`` a list
+a path of phase 15, one count a rank) and
 ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -3880,6 +3905,233 @@ def analysis_phase(bolt, K, torch, np, dev, report):
     return launches
 
 
+# phase 15's pods: every rank on the one card ("cuda"); the one-rank pod
+# on NCCL, the others on gloo (two ranks cannot share a card under NCCL)
+MESH_POD_DEVICE = "cuda"
+MESH_ONE_BACKEND = "nccl"
+MESH_CHUNK = 50
+MESH_POD_WALL = 300
+
+
+def mesh_pod(harness, out, name, payload, nproc, backend, args):
+    """Run ``payload`` on a pod of ``nproc`` ranks on the card; log each
+    path's wall, peak growth and launches per rank and its collective
+    bytes (host-staged among them) beside the card's name and power
+    limit.  Returns the per-rank results."""
+    t = time.perf_counter()
+    res = harness.run_cluster(payload, nproc=nproc, timeout=MESH_POD_WALL,
+                              args=args, device=MESH_POD_DEVICE,
+                              backend=backend)
+    wall = time.perf_counter() - t
+    pod = out["pods"][name] = {"ranks": nproc, "backend": backend,
+                               "wall_s": wall, "paths": {}}
+    for path in res[0]["paths"]:
+        per = [r["paths"][path] for r in res]
+        pod["paths"][path] = per
+        log("phase 15 %s %s: wall %s s, peak growth %s GB per rank, "
+            "launches per rank %s, collective bytes %s, host-staged %s "
+            "(%s)" % (name, path, [round(p["wall_s"], 3) for p in per],
+                      [round(p.get("peak_growth_bytes", 0) / 1e9, 3)
+                       for p in per], [p["launches"] for p in per],
+                      [p["collectives"]["collective_bytes"] for p in per],
+                      [p["collectives"]["collective_host_bytes"]
+                       for p in per], out["card"]))
+    log("phase 15 pod %s: %d ranks (%s) in %.1f s" % (name, nproc, backend,
+                                                       wall))
+    return res
+
+
+def mesh_phase(bolt, K, torch, np, dev, report):
+    """Phase 15: device meshes.  Child pods of ranks on this one card
+    (``bolt_tpu_torch/parallel/harness.py``), each held against the
+    single-device result this process computes first: a one-rank NCCL
+    pod at the north-star (``map(v + 1).sum()``, ``stats()`` and
+    ``swap`` bit for bit), a two-rank gloo pod with the north-star split
+    1600 records a rank (crafted exact data bit for bit: ``map(v +
+    1).sum()``, ``reduce(add)``, config 4's filter ``sum()``/``mean()``,
+    ``stats()`` and the fluent group of constant columns; ``randn``
+    against f64 references; config 1's crafted ``swap`` box by box and
+    ``toarray()``, each by fingerprint), a
+    four-rank ``(2, 2)`` gloo pod at config 1 (the keys on ``"k"``,
+    replicated on ``"v"``: the sum with no double count; the halo-padded
+    chunk map and ``ops.gaussian(..., shard="v")`` each rank's box bit
+    for bit), and two NCCL ranks on one card refused.  Returns each
+    path's launches per rank."""
+    from operator import add
+    from bolt_tpu_torch import ops
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.parallel import harness, payloads, sharding
+    from bolt_tpu_torch.parallel.mesh import layout
+    t_phase = time.perf_counter()
+    out = {"pods": {}, "card": report["card"]}
+    report["mesh"] = out
+    add1 = lambda v: v + 1           # noqa: E731
+    pred = lambda v: v.mean() > 1    # noqa: E731  (config 4's)
+    whole = lambda shape: tuple((0, n) for n in shape)  # noqa: E731
+
+    # ---- the single-device results ----------------------------------------
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    b = bolt.randn(NORTH_STAR, mode="gpu", dtype=np.float32, seed=0)
+    st = b.stats()
+    one = {"map_sum": b.map(add1).sum().toarray(), "mean": st.mean(),
+           "var": st.variance()}
+    s = b.swap((0,), (0,))
+    one["swap"] = payloads.fingerprint(s.totorch())
+    del b, s
+    x = BoltArrayGPU(payloads.crafted_box(NORTH_STAR, whole(NORTH_STAR),
+                                          dev), 1, dev)
+    two = {"map_sum": x.map(add1).sum().toarray(),
+           "reduce": x.reduce(add).toarray(),
+           "filter_sum": x.map(add1).filter(pred).sum().toarray(),
+           "filter_mean": x.map(add1).filter(pred).mean().toarray()}
+    del x
+    z = BoltArrayGPU(payloads.constant_box(NORTH_STAR, whole(NORTH_STAR),
+                                           dev), 1, dev)
+    st = z.stats()
+    two["const"] = {k: np.asarray(getattr(st, k)()) for k in
+                    ("mean", "variance", "min", "max")}
+    g = z.map(add1).stats(*payloads.GROUP_NAMES)
+    two["const_group"] = {k: g[k].toarray() for k in payloads.GROUP_NAMES}
+    del z, g
+    c1 = BoltArrayGPU(payloads.crafted_box(CONFIG1, whole(CONFIG1), dev), 1,
+                      dev)
+    four = {"map_sum": c1.map(add1).sum().toarray()}
+    # config 1's crafted swap on two ranks: each rank's box of the single
+    # device's swap, and the whole array a gather gives every rank
+    sw = c1.swap((0,), (0,)).totorch()
+    lay2 = layout((2,), ("k",))
+    sw_shape = tuple(sw.shape)
+    sw_spec = sharding.key_spec(lay2, sw_shape, 1)
+    two["swap_fp"] = {}
+    for r in range(lay2.size):
+        bx = sharding.box(lay2, sw_spec, sw_shape, r)
+        two["swap_fp"][bx] = payloads.fingerprint(
+            sw[sharding.box_slices(bx)])
+    two["toarray_fp"] = payloads.fingerprint(c1.totorch())
+    two["swapped_fp"] = payloads.fingerprint(sw)
+    del sw
+    halo = c1.chunk(size=(MESH_CHUNK,), axis=(0,), padding=2).map(
+        lambda blk: blk * 2 + 1).unchunk().totorch()
+    gauss = ops.gaussian(c1, 2.0, axis=(0, 2)).totorch()
+    lay = layout((2, 2), ("k", "v"))
+    spec = sharding.combined_spec(lay, CONFIG1, 1, {0: "v"})
+    four["halo"], four["gaussian"] = {}, {}
+    for r in range(lay.size):
+        bx = sharding.box(lay, spec, CONFIG1, r)
+        sl = sharding.box_slices(bx)
+        four["halo"][bx] = payloads.fingerprint(halo[sl])
+        four["gaussian"][bx] = payloads.fingerprint(gauss[sl])
+    del c1, halo, gauss
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["refs_s"] = time.perf_counter() - t
+    log("phase 15 single-device results in %.1f s" % out["refs_s"])
+
+    def same(got, want, what):
+        check(got.dtype == np.asarray(want).dtype
+              and np.array_equal(got, want), "phase 15 %s" % what)
+
+    # ---- the one-rank NCCL pod: the single-device path's bits --------------
+    res = mesh_pod(harness, out, "one", "card_one", 1, MESH_ONE_BACKEND,
+                   {"north_star": list(NORTH_STAR)})
+    r = res[0]
+    check(r["backend"] == MESH_ONE_BACKEND, "phase 15 one-rank backend")
+    same(r["map_sum"], one["map_sum"], "one-rank map(v+1).sum()")
+    same(r["mean"], one["mean"], "one-rank stats() mean")
+    same(r["var"], one["var"], "one-rank stats() variance")
+    check(r["swap"] == one["swap"], "phase 15 one-rank swap fingerprint")
+    check(all(p["collectives"]["collective_host_bytes"] == 0
+              for p in r["paths"].values()),
+          "phase 15 one-rank pod staged bytes through the host")
+
+    # ---- two gloo ranks on the card: the north-star split ------------------
+    res = mesh_pod(harness, out, "pod2", "card_pod2", 2, "gloo",
+                   {"north_star": list(NORTH_STAR),
+                    "config1": list(CONFIG1)})
+    for r in res:
+        for k in ("map_sum", "reduce", "filter_sum", "filter_mean"):
+            same(r[k], two[k], "two-rank crafted %s (rank %d)"
+                 % (k, r["rank"]))
+        for k, v in two["const"].items():
+            same(r["const_stats"][k], v, "two-rank constant-column stats "
+                 "%s (rank %d)" % (k, r["rank"]))
+        for k, v in two["const_group"].items():
+            same(r["const_group"][k], v, "two-rank fluent stat group %s "
+                 "(rank %d)" % (k, r["rank"]))
+        check(r["const_count"] == NORTH_STAR[0], "phase 15 stats count")
+        e = r["randn_err"]
+        check(e["sum"] <= 2e-2 and e["mean"] <= 2e-5
+              and e["var_rel"] <= 1e-4, "phase 15 two-rank randn against "
+              "f64 references: %s" % e)
+        check(r["swap_equal"], "phase 15 config 1 swap through the "
+              "all_to_all vs np.transpose (rank %d)" % r["rank"])
+        bx = tuple(tuple(b) for b in r["swap_box"])
+        check(r["swap_fp"] == two["swap_fp"].get(bx), "phase 15 two-rank "
+              "crafted config 1 swap box %s bit for bit (rank %d)"
+              % (bx, r["rank"]))
+        check(r["toarray_fp"] == two["toarray_fp"]
+              and r["swapped_fp"] == two["swapped_fp"], "phase 15 two-rank "
+              "crafted config 1 toarray() bit for bit (rank %d)" % r["rank"])
+        p = r["paths"]
+        check(p["ns_map_sum"]["launches"].get("fused_map_reduce", 0) >= 1
+              and p["ns_filter"]["launches"].get("fused_map_reduce", 0) >= 2
+              and p["ns_stats"]["launches"].get("fused_welford", 0) >= 1
+              and p["ns_group"]["launches"].get("fused_map_reduce", 0) >= 1
+              and p["ns_group"]["launches"].get("fused_welford", 0) >= 1
+              and p["ns_randn"]["launches"].get("fused_welford", 0) >= 1,
+              "phase 15 two-rank kernel launches: %s" % {
+                  k: v["launches"] for k, v in p.items()})
+        check(p["c1_swap"]["collectives"]["collective_host_bytes"] > 0,
+              "phase 15 the gloo swap staged nothing through the host")
+    check(all(np.array_equal(res[0][k], res[1][k]) for k in
+              ("map_sum", "reduce", "filter_sum", "filter_mean")),
+          "phase 15 two ranks returned different bits")
+    log("phase 15 two-rank randn errors against f64: %s; gather %s"
+        % ([r["randn_err"] for r in res], res[0]["gather_stats"]))
+
+    # ---- four gloo ranks, (2, 2) ("k", "v"), config 1 ----------------------
+    res = mesh_pod(harness, out, "pod4", "card_pod4", 4, "gloo",
+                   {"config1": list(CONFIG1), "chunk": MESH_CHUNK})
+    for r in res:
+        check(r["spec"] == ["k", None, None, None], "phase 15 pod4 layout")
+        same(r["map_sum"], four["map_sum"], "four-rank map(v+1).sum() with "
+             "the keys replicated on 'v' (rank %d)" % r["rank"])
+        for k in ("halo", "gaussian"):
+            bx = tuple(tuple(b) for b in r[k]["box"])
+            check(r[k]["fp"] == four[k][bx], "phase 15 four-rank %s box %s "
+                  "bit for bit (rank %d)" % (k, bx, r["rank"]))
+        p = r["paths"]
+        check(p["c1_sum"]["launches"].get("fused_map_reduce", 0) >= 1
+              and p["c1_gaussian"]["launches"].get("sepfilter1d", 0) >= 1
+              and p["c1_gaussian"]["launches"].get("lane_band", 0) >= 1,
+              "phase 15 four-rank kernel launches: %s" % {
+                  k: v["launches"] for k, v in p.items()})
+
+    # ---- two NCCL ranks on one card: refused, pointedly --------------------
+    if MESH_POD_DEVICE == "cuda":
+        t = time.perf_counter()
+        try:
+            harness.run_cluster("sleep", nproc=2, timeout=MESH_POD_WALL,
+                                args={"seconds": 0}, device="cuda",
+                                backend="nccl")
+            check(False, "phase 15: two NCCL ranks on one card ran")
+        except RuntimeError as exc:
+            check("distinct GPU per rank" in str(exc),
+                  "phase 15 nccl refusal: %s" % str(exc)[-400:])
+        log("phase 15 two NCCL ranks on one card refused in %.1f s"
+            % (time.perf_counter() - t))
+
+    launches = {}
+    for name, pod in out["pods"].items():
+        for path, per in pod["paths"].items():
+            launches["%s/%s" % (name, path)] = [p["launches"] for p in per]
+    out["wall_s"] = time.perf_counter() - t_phase
+    report["phases"]["mesh_s"] = out["wall_s"]
+    log("phase 15 ok in %.1f s" % out["wall_s"])
+    return launches
+
+
 def main():
     try:
         import torch
@@ -4256,6 +4508,9 @@ def main():
 
     # ---- phase 14: the analysis layer --------------------------------------
     analysis_launches = analysis_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 15: device meshes -------------------------------------------
+    mesh_launches = mesh_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
@@ -4290,7 +4545,11 @@ def main():
                             serve_launches.items() if c[name]},
                         "phase14_launches": {
                             path: c[name] for path, c in
-                            analysis_launches.items() if c[name]}})
+                            analysis_launches.items() if c[name]},
+                        "phase15_launches": {
+                            path: [c.get(name, 0) for c in per]
+                            for path, per in mesh_launches.items()
+                            if any(c.get(name, 0) for c in per)}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -1446,3 +1446,52 @@ def test_hbm_check_reads_mem_get_info_on_card(monkeypatch):
     with pytest.raises(MemoryError, match="sort"):
         garray.hbm_check("sort", limit + 1, "test", dev)
     garray.hbm_check("sort", limit // 2, "test", dev)
+
+
+# ---------------------------------------------------------------------------
+# pods of ranks on the card (bolt_tpu_torch/parallel/harness.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_nccl_refuses_two_ranks_on_one_card():
+    """Two NCCL ranks on one card raise the pointed ValueError before
+    NCCL is touched (the harness names the rank that died of it)."""
+    _cuda()
+    from bolt_tpu_torch.parallel import harness
+    with pytest.raises(RuntimeError, match="distinct GPU per rank"):
+        harness.run_cluster("sleep", nproc=2, timeout=120,
+                            args={"seconds": 0}, device="cuda",
+                            backend="nccl")
+
+
+@pytest.mark.gpu
+def test_gloo_pod_on_one_card_runs_the_dry_run():
+    """The multichip dry run on two gloo ranks sharing the card: every
+    collective stages through the host, and the answers equal numpy's."""
+    _cuda()
+    from bolt_tpu_torch.parallel import harness
+    res = harness.run_cluster("dryrun", nproc=2, timeout=300,
+                              device="cuda", backend="gloo")
+    shape = tuple(res[0]["result"]["shape"])
+    x = np.arange(np.prod(shape), dtype=np.float64).reshape(shape)
+    for r in res:
+        np.testing.assert_array_equal(r["result"]["sum"],
+                                      (x * 2.0 + 1.0).sum(axis=(0, 1)))
+
+
+@pytest.mark.gpu
+def test_nccl_pod_across_distinct_cards():
+    """Two NCCL ranks, each on its own card: the dry run's swap, stats,
+    sum, gather and filter.  Needs two cards (the one-card machine skips
+    it; not verified there)."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from bolt_tpu_torch.parallel import harness
+    res = harness.run_cluster("dryrun", nproc=2, timeout=300,
+                              device="cuda:rank", backend="nccl")
+    shape = tuple(res[0]["result"]["shape"])
+    x = np.arange(np.prod(shape), dtype=np.float64).reshape(shape)
+    for r in res:
+        np.testing.assert_array_equal(r["result"]["sum"],
+                                      (x * 2.0 + 1.0).sum(axis=(0, 1)))

@@ -35,7 +35,12 @@ MODULES = ["bolt_tpu_torch", "bolt_tpu_torch.ops", "bolt_tpu_torch.ops._build",
            "bolt_tpu_torch.analysis", "bolt_tpu_torch.analysis.check",
            "bolt_tpu_torch.analysis.diagnostics",
            "bolt_tpu_torch.analysis.astlint",
-           "bolt_tpu_torch.analysis.concurrency"]
+           "bolt_tpu_torch.analysis.concurrency",
+           "bolt_tpu_torch.parallel", "bolt_tpu_torch.parallel.mesh",
+           "bolt_tpu_torch.parallel.sharding", "bolt_tpu_torch.parallel.halo",
+           "bolt_tpu_torch.parallel.multihost",
+           "bolt_tpu_torch.parallel.harness",
+           "bolt_tpu_torch.parallel.payloads", "bolt_tpu_torch.gpu.mesharray"]
 
 
 def _sources():
@@ -111,6 +116,51 @@ def test_no_jax_or_reference_imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "bolt_tpu", "bolt"), \
                 "%s imports %s" % (path, name)
+
+
+def _distributed_uses(path):
+    """Lines of ``path`` that import or reach ``torch.distributed``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    hits = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [(node.module or "") + "." + a.name for a in node.names]
+        elif isinstance(node, ast.Attribute):
+            names = [ast.unparse(node)]
+        else:
+            continue
+        if any(n == "torch.distributed" or n.startswith("torch.distributed.")
+               for n in names):
+            hits.append(node.lineno)
+    return hits
+
+
+def test_torch_distributed_only_in_multihost():
+    """Every ``torch.distributed`` use of the package is in
+    ``parallel/multihost.py``: the mesh, sharding, halo and harness
+    modules call its wrappers."""
+    home = os.path.join(PKG, "parallel", "multihost.py")
+    assert _distributed_uses(home)
+    stray = {os.path.relpath(p, PKG): _distributed_uses(p)
+             for p in _sources() if p != home}
+    assert not {p: h for p, h in stray.items() if h}
+
+
+def test_pod_worker_imports_neither_jax_nor_the_reference():
+    """A pod worker runs ``bolt_tpu_torch.parallel.harness`` with jax
+    blocked: the harness and its payloads import the port alone."""
+    code = ("import sys\nsys.modules['jax'] = None\n"
+            "from bolt_tpu_torch.parallel import harness, payloads\n"
+            "assert set(harness.PAYLOADS) >= {'checks', 'dryrun', 'sched'}\n"
+            "bad = [m for m in sys.modules if sys.modules[m] is not None "
+            "and m.split('.')[0] in ('jax', 'bolt_tpu', 'tests')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_gpu_mode_without_cuda_raises(monkeypatch):

@@ -226,6 +226,20 @@ def test_lint_blt110_torch_distributed():
                   "bolt_tpu_torch/parallel/mymultihost.py") == ["BLT110"]
 
 
+@pytest.mark.parametrize("module", ["mesh", "sharding", "halo", "harness",
+                                    "payloads"])
+def test_lint_blt110_fires_beside_multihost(module):
+    # the mesh layer's other modules stay wrapper-only: a stray
+    # torch.distributed import or call there is a finding
+    path = "bolt_tpu_torch/parallel/%s.py" % module
+    assert _codes("import torch.distributed as dist\n", path) == ["BLT110"]
+    assert _codes("import torch\n"
+                  "torch.distributed.all_reduce(torch.ones(1))\n", path) \
+        == ["BLT110"]
+    assert _codes("from bolt_tpu_torch.parallel import multihost\n"
+                  "multihost.barrier('x')\n", path) == []
+
+
 _PRELUDE = "from bolt_tpu_torch import _lockdep\n"
 
 
