@@ -19,15 +19,17 @@ diagnostics of :mod:`bolt_tpu_torch.analysis.diagnostics`:
   dynamic shape pending a survivor count (``BLT008``);
 * the stat group's single-pass forecast (``BLT009``), the serving
   admission budget (``BLT010``), a one-shot iterator under checkpointing
-  (``BLT011``), batch eligibility (``BLT015``), codec-encoded ingest
-  (``BLT016``) and the streamed shuffle's plan (``BLT017``).
+  (``BLT011``), a pod stream's slab the key-axis assignment does not
+  divide (``BLT012``), batch eligibility (``BLT015``), codec-encoded
+  ingest (``BLT016``, with the sidecar codec's refusal on a pod) and the
+  streamed shuffle's plan (``BLT017``).
 
 On a mesh (``gpu/mesharray.py``) the check walks this rank's box as the
 single-device checker does (each stage's spec is the rank's box) and adds
-``BLT004`` when the key sharding leaves ranks idle.  BLT012–BLT014
-(streamed pods, recovery, supervision) belong to later slices of the
-mesh port (ROADMAP A12b, A12c): they are registered and not emitted
-yet.
+``BLT004`` when the key sharding leaves ranks idle.  A pod stream's
+source stage notes every rank's rows of a slab.  BLT013 and BLT014
+(pod recovery and supervision) belong to a later slice of the mesh port
+(ROADMAP A12c): they are registered and not emitted yet.
 
 Each map stage evaluates through the terminals' own
 ``gpu/array.py :: _chain_apply`` (and so ``_user_call``, with its
@@ -257,6 +259,16 @@ def _note_codec(src, idx, diags, members=()):
     c = _effective_codec(src)
     if c is None:
         return
+    if src.mesh is not None:
+        from bolt_tpu_torch.parallel import multihost
+        err = multihost.sidecar_codec_error(c, src.mesh)
+        if err is not None:
+            diags.append(Diagnostic(
+                "BLT016", idx, "the streamed run will refuse it: " + err,
+                severity="warning",
+                hint="use a sidecar-free codec ('bf16', 'f16', "
+                     "'delta-f32') on a pod, or stream uncompressed"))
+            return
     raw = int(prod(src.shape) * src.dtype.itemsize)
     try:
         wire = int(prod(src.shape) * c.wire_dtype(src.dtype).itemsize)
@@ -391,6 +403,37 @@ def _check_predicate(pred, vshape, vdtype, idx, diags):
                  "lambda v: (v > 0).all()"))
 
 
+def _pod_note(src, diags):
+    """A pod stream's per-rank plan (``explain`` shows it: every rank's
+    rows of a slab, and the mesh axes each slab's partial is folded
+    over), and ``BLT012`` when a slab the key-axis assignment does not
+    divide will be refused, with the executor's own message."""
+    from bolt_tpu_torch.parallel import multihost, sharding
+    mesh, split = src.mesh, src.split
+    nproc = multihost.mesh_process_count(mesh)
+    err = multihost.slab_divisibility_error(
+        mesh, src.shape, split,
+        src.slab_ranges() if src.kind == "callback" else [])
+    axes = multihost.key_collective_axes(mesh, src.shape, split)
+    note = ("MULTI-PROCESS: %d ranks x ~%d records/slab each (per-rank "
+            "ingest, each slab's partial folded over mesh axes %s)"
+            % (nproc, src.slab // nproc, axes or ("?",)))
+    if err is not None:
+        if err.startswith("BLT012: "):
+            err = err[len("BLT012: "):]
+        diags.append(Diagnostic(
+            "BLT012", 0, err,
+            hint="pick chunks= and key extents that are multiples of the "
+                 "key-axis device assignment; uneven tails cannot stream "
+                 "across processes"))
+        return note
+    slab = (min(src.slab, src.shape[0]),) + tuple(src.shape[1:])
+    spec = sharding.key_spec(mesh, slab, split)
+    rows = ", ".join("rank %d rows [%d, %d)" % ((q,) + sharding.box(
+        mesh, spec, slab, q)[0]) for q in range(mesh.size))
+    return note + "; of each %d-record slab: %s" % (slab[0], rows)
+
+
 def _check_stream(arr, target, stages, diags):
     """A streaming plan: the source and its recorded stages, each
     through ``stream.stage_aval`` (the slab program's own bodies on
@@ -406,6 +449,8 @@ def _check_stream(arr, target, stages, diags):
             "uploader pool %d"
             % (nslabs, src.slab, _stream.prefetch_depth(),
                _stream.pool_size(src)))
+    if src.mesh is not None:
+        note += "; " + _pod_note(src, diags)
     stages.append(Stage(0, "stream source (%s)" % src.kind, src.shape,
                         np.dtype(src.dtype), walk_split, device,
                         note=note))
@@ -562,7 +607,10 @@ def _report(obj):
         target = "gpu, stacked view size=%d" % arr.size
         arr = arr._barray
     if getattr(arr, "_mesh", None) is not None:
-        return _mesh_report(arr, target)
+        if arr._stream is None:
+            return _mesh_report(arr, target)
+        target = "%s, mesh %s rank %d" % (target, dict(arr._mesh.shape),
+                                          arr._mesh.rank)
 
     if not isinstance(arr, BoltArrayGPU):
         # the local oracle (or anything array-like): nothing deferred

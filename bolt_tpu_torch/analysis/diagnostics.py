@@ -7,9 +7,10 @@ index of the pipeline stage it anchors to, and a fix hint — the
 compiler-style contract the repo linter
 (:mod:`bolt_tpu_torch.analysis.astlint`) mirrors with its ``BLT1xx``
 range.  The code table is the reference's (``docs/API.md``); the checker
-emits BLT004 on a mesh (idle ranks); BLT012–BLT014 concern streamed pods
-and pod recovery, later slices of the mesh port (ROADMAP A12b, A12c),
-and stay registered and unemitted until then.
+emits BLT004 on a mesh (idle ranks) and BLT012 for a pod stream's slab
+the key-axis assignment does not divide; BLT013 and BLT014 concern pod
+recovery, a later slice of the mesh port (ROADMAP A12c), and stay
+registered and unemitted until then.
 
 Severities:
 

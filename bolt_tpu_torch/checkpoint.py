@@ -1,16 +1,20 @@
 """Checkpoint files: bolt arrays, streamed runs, and the shuffle spill.
 
-Port of ``bolt_tpu/checkpoint.py``, single process only, in three parts:
+Port of ``bolt_tpu/checkpoint.py``, in three parts:
 
 * **arrays** (:func:`save`/:func:`load`): the reference's one-process
   ``"format": "npy"`` layout, ``bolt_meta.json`` (split, shape, dtype,
   format) beside ``array.npy`` written atomically (a temporary file, then
   a rename).  The reference writes orbax's sharded format when orbax is
   installed; orbax imports jax, so the port reads and writes ``npy``
-  only and refuses an orbax directory pointedly.  numpy has no
-  bfloat16, and the port's arrays hold numpy dtypes, so a reference
-  checkpoint of a bfloat16 array (its 2-byte patterns, ``V2``) is
-  refused pointedly;
+  only and refuses an orbax directory pointedly.  An array on a mesh of
+  more than one rank is written the way orbax owns shards: each rank
+  writes its own box (``array.p<rank>.npy``), rank 0 the meta (the
+  mesh, the spec and every rank's box, ``"format": "npy-shards"``), and
+  a barrier ends the save; :func:`load` reads each rank's box back onto
+  a mesh of the same layout.  numpy has no bfloat16, and the port's
+  arrays hold numpy dtypes, so a reference checkpoint of a bfloat16
+  array (its 2-byte patterns, ``V2``) is refused pointedly;
 
   >>> from bolt_tpu_torch import checkpoint
   >>> checkpoint.save("/tmp/ckpt", b)
@@ -28,8 +32,15 @@ Port of ``bolt_tpu/checkpoint.py``, single process only, in three parts:
   says so, so it round-trips bit for bit.  The state file is written
   and renamed first and the meta second; the meta carries a digest of
   the state and the state carries the watermark, so a torn pair or a
-  rotten file is refused, never adopted.  Pod checkpoints (one shard
-  file per process) wait for multi-GPU support (ROADMAP A12);
+  rotten file is refused, never adopted.  A streamed pod writes one
+  shard file a rank, named by its watermark (``stream_state.p<rank>.
+  w<slabs>.npz``): a barrier proves every shard landed, rank 0 then
+  flips the meta (which records the pod's width), and a second barrier
+  fences the removal of superseded shards, so a pod killed at any
+  instant leaves a meta whose watermark has a shard for every rank.
+  The fold state is the same on every rank, so each shard is a whole
+  resume point.  A checkpoint of the same run cut at another width is
+  refused (adopting it is the topology remap of ROADMAP A12c);
 * **the shuffle spill**: when a streamed ``swap`` plans a working set
   larger than its resident budget (``stream.spill``), phase 1 of the
   shuffle writes each re-keyed bucket to disk and phase 2 streams the
@@ -55,12 +66,9 @@ import numpy as np
 
 from bolt_tpu_torch import _chaos
 
-# one process on one card: the file names keep the reference's
-# per-process suffix
+# the shuffle spill is single-process (a pod refuses to spill): its file
+# names keep the reference's per-process suffix
 _PROCESS = 0
-
-_POD = ("pod checkpoints (one shard file per process) are not ported "
-        "yet: multi-GPU runs come with ROADMAP A12")
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -104,40 +112,106 @@ def _tensor(a, dtype):
         a.astype(np.dtype(dtype), copy=False)))
 
 
-def save(path, barray, force=True):
-    """Write a ``mode='gpu'`` bolt array (its data and its split, shape
-    and dtype) under the directory ``path`` in the ``npy`` format: the
-    array copied to the host once and written atomically, the meta
-    after it.  A deferred chain is materialised first.  ``force`` is the
-    reference's overwrite flag; the atomic rename always replaces."""
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU
-    if not isinstance(barray, BoltArrayGPU):
-        raise TypeError("checkpoint.save expects a mode='gpu' array; "
-                        "got %r" % type(barray).__name__)
-    os.makedirs(path, exist_ok=True)
-    host = _host(barray._data)
-    tmp = _npy_path(path) + ".tmp"
+def _shard_path(path, rank):
+    return os.path.join(path, "array.p%d.npy" % int(rank))
+
+
+def _write_npy(fpath, host):
+    tmp = fpath + ".tmp"
     with open(tmp, "wb") as f:       # np.save(path) would append ".npy"
         np.save(f, host)
-    os.replace(tmp, _npy_path(path))
-    meta = {"split": barray.split, "shape": list(barray.shape),
-            "dtype": str(barray.dtype), "format": "npy"}
+    os.replace(tmp, fpath)
+
+
+def _write_meta(path, meta):
     tmp = _meta_path(path) + ".tmp"
     with open(tmp, "w") as f:
         json.dump(meta, f)
     os.replace(tmp, _meta_path(path))
 
 
+def save(path, barray, force=True):
+    """Write a ``mode='gpu'`` bolt array (its data and its split, shape
+    and dtype) under the directory ``path`` in the ``npy`` format: the
+    array copied to the host once and written atomically, the meta
+    after it.  A deferred chain is materialised first.  ``force`` is the
+    reference's overwrite flag; the atomic rename always replaces.  On a
+    mesh of more than one rank (every rank calls it) each rank writes its
+    own box, rank 0 the meta, and a barrier ends the save."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    if not isinstance(barray, BoltArrayGPU):
+        raise TypeError("checkpoint.save expects a mode='gpu' array; "
+                        "got %r" % type(barray).__name__)
+    mesh = getattr(barray, "_mesh", None)
+    if mesh is not None and mesh.size > 1:
+        return _save_shards(path, barray, mesh)
+    os.makedirs(path, exist_ok=True)
+    _write_npy(_npy_path(path), _host(barray._data))
+    _write_meta(path, {"split": barray.split, "shape": list(barray.shape),
+                       "dtype": str(barray.dtype), "format": "npy"})
+
+
+def _save_shards(path, barray, mesh):
+    """:func:`save` on a mesh of ranks: this rank's box to its own file,
+    the meta (the mesh, the spec, every rank's box) from rank 0, then
+    every rank's barrier."""
+    from bolt_tpu_torch.parallel import multihost, sharding
+    os.makedirs(path, exist_ok=True)
+    host = _host(barray._data)
+    spec, shape = barray._spec, barray.shape
+    _write_npy(_shard_path(path, mesh.rank), host)
+    if mesh.rank == 0:
+        _write_meta(path, {
+            "split": barray.split, "shape": list(shape),
+            "dtype": str(barray.dtype), "format": "npy-shards",
+            "mesh": [list(mesh.axis_names), list(mesh.sizes)],
+            "spec": [list(e) if isinstance(e, tuple) else e for e in spec],
+            "boxes": [[list(b) for b in bx]
+                      for bx in sharding.boxes(mesh, spec, shape)]})
+    multihost.barrier("bolt_checkpoint_save")
+
+
+def _load_shards(path, meta, context):
+    """:func:`load` of a mesh array's shards: this rank's box onto the
+    mesh ``context``, which must have the saved layout."""
+    from bolt_tpu_torch.gpu.construct import _is_mesh
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    from bolt_tpu_torch.stream import transfer
+    names, sizes = meta["mesh"]
+    if not _is_mesh(context) or context.geometry != (tuple(names),
+                                                     tuple(sizes)):
+        raise ValueError(
+            "checkpoint %r holds an array saved by a mesh %s of %s ranks, "
+            "one file per rank; load it onto a mesh of that layout (got "
+            "context %r)" % (path, tuple(names), tuple(sizes), context))
+    rank = context.rank
+    spec = tuple(tuple(e) if isinstance(e, list) else e
+                 for e in meta["spec"])
+    box = tuple(tuple(b) for b in meta["boxes"][rank])
+    host = _tensor(np.load(_shard_path(path, rank)), meta["dtype"])
+    want = tuple(e - s for s, e in box)
+    if tuple(host.shape) != want:
+        raise CheckpointCorruptError(
+            "checkpoint shard %r has shape %s, its meta's box %s says %s"
+            % (_shard_path(path, rank), tuple(host.shape), box, want))
+    return BoltArrayMesh.wrap(transfer(host, context.device), context,
+                              tuple(meta["shape"]), int(meta["split"]),
+                              spec)
+
+
 def load(path, context=None):
     """Restore an array :func:`save` wrote (or the reference's ``npy``
     format) onto ``context``'s device (default ``cuda:0``), through the
-    counted transfer.  An orbax directory raises: the port reads the
-    ``npy`` format only."""
+    counted transfer; a mesh array's shards onto the mesh ``context``,
+    each rank reading its own box.  An orbax directory raises: the port
+    reads the ``npy`` format only."""
     from bolt_tpu_torch.gpu.array import BoltArrayGPU
     from bolt_tpu_torch.gpu.construct import resolve_device
     from bolt_tpu_torch.stream import transfer
     with open(_meta_path(path)) as f:
         meta = json.load(f)
+    if meta.get("format") == "npy-shards":
+        return _load_shards(path, meta, context)
     if meta.get("format", "npy") != "npy" or not os.path.exists(
             _npy_path(path)):
         raise ValueError(
@@ -164,17 +238,30 @@ def load(path, context=None):
 #
 # On disk: <dir>/stream_state.npz (the partial's leaves and the
 # watermark) and <dir>/stream_meta.json (fingerprint, watermark, leaf
-# structure, digest).  The meta is the checkpoint's existence: the state
-# is replaced first and the meta second, both by an atomic rename, so a
-# kill -9 at any instant leaves the previous checkpoint or the new one,
-# never a meta naming torn state.
+# structure, digest, the run's width).  The meta is the checkpoint's
+# existence: the state is replaced first and the meta second, both by an
+# atomic rename, so a kill -9 at any instant leaves the previous
+# checkpoint or the new one, never a meta naming torn state.
+#
+# A pod writes one shard a rank, <dir>/stream_state.p<rank>.w<slabs>.npz
+# (the watermark in the name: old and new shards coexist), then every
+# rank takes a barrier, then rank 0 alone flips the meta to the new
+# watermark, and a second barrier fences the removal of superseded
+# shards.  A pod killed at any instant leaves a meta whose watermark has
+# a shard for every rank, so no two ranks resume from different
+# watermarks.  The pod's fold state is the same on every rank (each
+# slab's partial is folded across the ranks before it joins the fold),
+# so a rank whose own shard is missing adopts a peer's.
 
 _STATE_NAME = "stream_state.npz"
 _SMETA_NAME = "stream_meta.json"
 
 
-def _state_path(path):
-    return os.path.join(path, _STATE_NAME)
+def _state_path(path, rank=None, slabs=None):
+    if rank is None:
+        return os.path.join(path, _STATE_NAME)
+    return os.path.join(path, "stream_state.p%d.w%d.npz"
+                        % (int(rank), int(slabs)))
 
 
 def _smeta_path(path):
@@ -219,7 +306,8 @@ def _decode(node, leaves):
 def _state_digest(slabs, records, leaves):
     """Content hash of one checkpoint's state: the watermark and every
     leaf's shape, dtype and bytes.  :func:`stream_save` records it in the
-    meta and :func:`stream_load` checks it."""
+    meta and :func:`stream_load` checks it (a pod's meta writer's digest
+    checks any rank's shard: their states are the same bits)."""
     h = hashlib.sha256()
     h.update(np.asarray([int(slabs), int(records)],
                         dtype=np.int64).tobytes())
@@ -230,8 +318,13 @@ def _state_digest(slabs, records, leaves):
     return h.hexdigest()
 
 
+def _pod_width(multiprocess):
+    from bolt_tpu_torch.parallel import multihost
+    return multihost.process_count() if multiprocess else 1
+
+
 def stream_save(path, fingerprint, slabs, records, state,
-                multiprocess=False, codec=None):
+                multiprocess=False, rendezvous=True, codec=None, box=None):
     """Write one streamed-run checkpoint: ``slabs`` retired slabs covering
     ``records`` records, ``state`` the executor's folded partial
     (``(levels, pend)``; tensors on any device are copied to the host
@@ -240,14 +333,24 @@ def stream_save(path, fingerprint, slabs, records, state,
     ingest codec in the meta (the fingerprint holds it too).  Returns
     the state's byte count (the ``checkpoint_bytes`` tally).
 
+    ``multiprocess=True`` is a pod run: every rank calls this at the same
+    watermark, writes its own shard (recording its key ``box``), a
+    barrier proves every shard landed, rank 0 flips the meta, and a
+    second barrier fences the removal of this rank's superseded shards.
+    ``rendezvous=False`` is a failing pod run's write: no barrier (a peer
+    may be gone), and the meta only moves forward (a checkpoint of the
+    same run at a higher watermark is kept); one rank's shard is a whole
+    resume point, since the fold state is the same on every rank.
+
     The seams of :mod:`bolt_tpu_torch._chaos`: ``stream.checkpoint`` on
     entry, ``checkpoint.corrupt`` (a tripped fault flips four bytes of
     the state file just written) and ``checkpoint.meta`` between the
     state's rename and the meta's."""
-    if multiprocess:
-        raise NotImplementedError(_POD)
+    from bolt_tpu_torch.parallel import multihost
     _chaos.hit("stream.checkpoint")
     os.makedirs(path, exist_ok=True)
+    nproc = _pod_width(multiprocess)
+    rank = multihost.process_index()
     leaves = []
     structure = _encode(state, leaves)
     arrays = {"leaf_%d" % i: leaf for i, leaf in enumerate(leaves)}
@@ -256,7 +359,10 @@ def stream_save(path, fingerprint, slabs, records, state,
     # refuses that pair instead of folding slabs twice
     arrays["watermark"] = np.asarray([int(slabs), int(records)],
                                      dtype=np.int64)
-    spath = _state_path(path)
+    if box is not None:
+        arrays["box"] = np.asarray(box, dtype=np.int64)
+    spath = _state_path(path) if nproc == 1 \
+        else _state_path(path, rank, slabs)
     tmp = spath + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
@@ -268,18 +374,45 @@ def stream_save(path, fingerprint, slabs, records, state,
             f.seek(0, os.SEEK_END)
             f.seek(max(0, f.tell() // 2))
             f.write(b"\xde\xad\xbe\xef")
+    nbytes = sum(int(leaf.nbytes) for leaf in leaves)
+    if nproc > 1 and rendezvous:
+        # every rank's shard of this watermark exists past here: only
+        # then may the meta name it
+        multihost.barrier("bolt_stream_ckpt_w%d" % int(slabs))
     meta = {"fingerprint": list(fingerprint), "slabs": int(slabs),
             "records": int(records), "structure": structure,
-            "leaves": len(leaves), "nproc": 1,
-            "digest": _state_digest(slabs, records, leaves)}
+            "leaves": len(leaves), "nproc": nproc}
     if codec is not None:
         meta["codec"] = str(codec)
-    _chaos.hit("checkpoint.meta")
-    tmp = _smeta_path(path) + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(meta, f)
-    os.replace(tmp, _smeta_path(path))
-    return sum(int(leaf.nbytes) for leaf in leaves)
+    if nproc > 1 and not rendezvous:
+        meta["abort"] = True
+        cur = _read_meta(path)
+        if cur is not None and \
+                list(cur.get("fingerprint", ())) == list(fingerprint) \
+                and int(cur.get("slabs", -1)) >= int(slabs):
+            return nbytes           # advance-only: keep the later point
+    if nproc == 1 or rank == 0 or not rendezvous:
+        meta["digest"] = _state_digest(slabs, records, leaves)
+        _chaos.hit("checkpoint.meta")
+        tmp = _smeta_path(path) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, _smeta_path(path))
+    if nproc > 1 and rendezvous:
+        # superseded shards go only once the meta names the new watermark
+        multihost.barrier("bolt_stream_ckpt_meta_w%d" % int(slabs))
+        for old in glob.glob(os.path.join(
+                path, "stream_state.p%d.w*.npz" % rank)):
+            if old != spath:
+                _remove(old)
+    return nbytes
+
+
+def _remove(p):
+    try:
+        os.remove(p)
+    except FileNotFoundError:
+        pass
 
 
 def _read_meta(path):
@@ -290,24 +423,63 @@ def _read_meta(path):
         return None
 
 
-def stream_load(path, fingerprint, multiprocess=False):
+def _other_width(path, meta, nproc):
+    """The refusal of a checkpoint of this run cut at another pod
+    width."""
+    return NotImplementedError(
+        "stream checkpoint %r was cut by a run over %d process(es); this "
+        "run spans %d.  Resuming it here is the topology remap of "
+        "ROADMAP A12c, which is not ported yet: rerun at the width that "
+        "cut it, or delete the checkpoint to start from scratch"
+        % (path, int(meta.get("nproc", 1)), nproc))
+
+
+def _shard_to_read(path, meta, rank):
+    """This rank's shard of the meta's watermark, else any peer's (the
+    pod's fold state is the same on every rank), else ``None``."""
+    slabs = int(meta["slabs"])
+    own = _state_path(path, rank, slabs)
+    if os.path.exists(own):
+        return own
+    peers = sorted(glob.glob(os.path.join(
+        path, "stream_state.p*.w%d.npz" % slabs)))
+    return peers[0] if peers else None
+
+
+def stream_load(path, fingerprint, multiprocess=False, box=None):
     """The checkpoint :func:`stream_save` wrote, as ``(slabs, records,
     state)`` with CPU tensor leaves, or ``None`` when there is none, its
     fingerprint names another run (an edited pipeline, another codec, a
     reference checkpoint), or its meta and state come from different
-    writes (a kill between the two renames).  A state file that exists
-    but cannot be read, or fails the meta's digest, raises
-    :class:`CheckpointCorruptError`."""
-    if multiprocess:
-        raise NotImplementedError(_POD)
+    writes (a kill between the two renames).  A pod run reads the shared
+    meta and its own shard of the meta's watermark (a peer's when its own
+    never landed), whose recorded key ``box`` must be this rank's.  A
+    checkpoint of the same run cut at another width (a pod's read by one
+    process, one process's read by a pod, another pod width) raises
+    ``NotImplementedError`` naming ROADMAP A12c: it is never adopted.  A
+    state file that exists but cannot be read, or fails the meta's
+    digest, raises :class:`CheckpointCorruptError`."""
+    from bolt_tpu_torch.parallel import multihost
     meta = _read_meta(path)           # None when missing or malformed
     if meta is None:
         return None
-    if list(meta.get("fingerprint", ())) != list(fingerprint):
+    nproc = _pod_width(multiprocess)
+    got = list(meta.get("fingerprint", ()))
+    if got != list(fingerprint):
+        if got[:-1] == list(fingerprint)[:-1] and got:
+            raise _other_width(path, meta, nproc)
         return None
-    if int(meta.get("nproc", 1)) != 1:
-        raise NotImplementedError(_POD)
-    spath = _state_path(path)
+    if int(meta.get("nproc", 1)) != nproc:
+        raise _other_width(path, meta, nproc)
+    own = True
+    if nproc == 1:
+        spath = _state_path(path)
+    else:
+        spath = _shard_to_read(path, meta, multihost.process_index())
+        if spath is None:
+            return None
+        own = spath == _state_path(path, multihost.process_index(),
+                                   int(meta["slabs"]))
     corrupt = (
         "stream checkpoint state file %r is corrupt (%%s); refusing to "
         "seed the fold with it — delete the file (or the whole "
@@ -329,6 +501,12 @@ def stream_load(path, fingerprint, multiprocess=False):
         if int(wm[0]) != int(meta["slabs"]) \
                 or int(wm[1]) != int(meta["records"]):
             return None             # meta and state of different writes
+        if own and box is not None and "box" in z.files and \
+                np.asarray(z["box"]).tolist() != [list(b) for b in box]:
+            raise CheckpointCorruptError(
+                corrupt % ("its key box %s is not this rank's %s"
+                           % (np.asarray(z["box"]).tolist(),
+                              [list(b) for b in box])))
         try:
             leaves = [np.asarray(z["leaf_%d" % i])
                       for i in range(int(meta["leaves"]))]
@@ -353,14 +531,24 @@ def stream_clear(path, multiprocess=False):
     """Remove a directory's stream checkpoint (a finished run leaves none
     behind): the meta first, then the state, the reverse of the write
     order, so an interrupted clear never leaves a meta naming a missing
-    state."""
-    if multiprocess:
-        raise NotImplementedError(_POD)
+    state.  A pod (every rank calls it): a barrier proves every rank
+    finished, rank 0 removes the meta, a second barrier fences it, then
+    each rank removes its own shards and rank 0 every shard left (an
+    abort write's, a peer's, a write a kill left half done)."""
+    if multiprocess and _pod_width(True) > 1:
+        from bolt_tpu_torch.parallel import multihost
+        rank = multihost.process_index()
+        multihost.barrier("bolt_stream_clear")
+        if rank == 0:
+            _remove(_smeta_path(path))
+        multihost.barrier("bolt_stream_clear_meta")
+        pat = "stream_state.p*" if rank == 0 \
+            else "stream_state.p%d.w*.npz" % rank
+        for p in glob.glob(os.path.join(path, pat)):
+            _remove(p)
+        return
     for p in (_smeta_path(path), _state_path(path)):
-        try:
-            os.remove(p)
-        except FileNotFoundError:
-            pass
+        _remove(p)
 
 
 def stream_pending(path):

@@ -659,12 +659,12 @@ def topology(token):
 
     Today's mesh programs hold no collective (each runs on its rank's
     box, whose shape and device its key already holds, and the folds run
-    outside them), so reusing one across meshes would give the same
-    bits; the scope costs one build per program and mesh.  It keeps a
-    program that captures its mesh's groups (the streamed pod fold,
-    ROADMAP A12b) from serving another mesh or a pod of another
-    topology, and keeps the cache's counts per mesh, as the reference's
-    keys hold the mesh geometry."""
+    outside them, the streamed pod fold's exchanges included), so
+    reusing one across meshes would give the same bits; the scope costs
+    one build per program and mesh.  It would keep a program that
+    captured its mesh's groups from serving another mesh or a pod of
+    another topology, and it keeps the cache's counts per mesh, as the
+    reference's keys hold the mesh geometry."""
     prev = getattr(_TOPOLOGY, "token", None)
     _TOPOLOGY.token = token
     try:

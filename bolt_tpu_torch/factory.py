@@ -88,7 +88,8 @@ def rand(shape, context=None, axis=(0,), mode=None, dtype=None, seed=0):
 
 
 def fromcallback(fn, shape, context=None, axis=(0,), mode=None, dtype=None,
-                 chunks=None, checkpoint=None, codec=None):
+                 chunks=None, checkpoint=None, per_process=False,
+                 codec=None):
     """Build a bolt array by calling ``fn(index_slices) -> block`` per
     record range (reference: ``bolt_tpu/factory.py :: fromcallback``).
     ``mode='gpu'`` with an explicit ``dtype``: a LAZY stream whose
@@ -96,13 +97,16 @@ def fromcallback(fn, shape, context=None, axis=(0,), mode=None, dtype=None,
     (``bolt_tpu_torch.stream``; ``chunks`` records a slab, ``codec=`` an
     ingest codec, ``checkpoint=dir`` makes every streamed run over it
     resumable, see ``stream.resumable``); other consumers materialise
-    it.  Local mode: one call for the whole array."""
+    it.  ``per_process=True`` opts a mesh of several ranks into the pod
+    ingest contract: each rank's executor calls ``fn`` for its own rows
+    of every slab only.  Local mode: one call for the whole array."""
     cls = _lookup(context=context, mode=mode)
     if cls is ConstructLocal:
         return ConstructLocal.fromcallback(fn, shape, axis=axis, dtype=dtype)
     return ConstructGPU.fromcallback(fn, shape, context=context, axis=axis,
                                      dtype=dtype, chunks=chunks,
-                                     checkpoint=checkpoint, codec=codec)
+                                     checkpoint=checkpoint,
+                                     per_process=per_process, codec=codec)
 
 
 def fromiter(blocks, shape, context=None, axis=(0,), mode=None, dtype=None,
@@ -110,8 +114,9 @@ def fromiter(blocks, shape, context=None, axis=(0,), mode=None, dtype=None,
     """Build a bolt array from an ITERABLE of consecutive record blocks
     (key-axes-first layout along the first key axis); ``dtype`` is
     required.  ``mode='gpu'``: a lazy stream like :func:`fromcallback`'s
-    (a resumable one re-iterates ``blocks``, so it must be re-iterable);
-    local mode assembles the blocks on the host."""
+    (a resumable one re-iterates ``blocks``, so it must be re-iterable;
+    so must one on a mesh of several ranks, where every rank iterates its
+    own copy); local mode assembles the blocks on the host."""
     cls = _lookup(context=context, mode=mode)
     if cls is ConstructLocal:
         return ConstructLocal.fromiter(blocks, shape, axis=axis, dtype=dtype)

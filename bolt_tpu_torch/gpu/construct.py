@@ -7,6 +7,8 @@ selects this backend is a ``torch.device`` or a port mesh of ranks
 their tensor directly on the device, never on the host; ``array`` moves the
 key axes to the front and uploads once; ``fromcallback``/``fromiter`` with
 a dtype give lazy out-of-core streams (``bolt_tpu_torch/stream.py``).
+On a mesh of more than one rank a stream is a pod stream: each rank's
+executor ingests only its own rows of every slab.
 
 On a mesh every constructor builds only this rank's box
 (``gpu/mesharray.py``): ``array`` uploads the box of the host array,
@@ -231,7 +233,8 @@ class ConstructGPU:
 
     @staticmethod
     def fromcallback(fn, shape, context=None, axis=(0,), dtype=None,
-                     chunks=None, checkpoint=None, codec=None):
+                     chunks=None, checkpoint=None, per_process=False,
+                     codec=None):
         """Build an array by calling ``fn(index)`` per record range, with
         ``index`` a tuple of per-axis slices of the KEY-AXES-FIRST
         ``shape`` (reference: ``ConstructTPU.fromcallback``).
@@ -243,29 +246,46 @@ class ConstructGPU:
         budget of 64 MiB), any other consumer materialises it.
         ``codec=`` names an ingest codec (``bolt_tpu_torch.gpu.codec``)
         for the streamed runs; ``checkpoint=dir`` makes them resumable
-        (``bolt_tpu_torch.stream.resumable``).  ``dtype=None`` keeps whatever the callback
-        produces and uploads at once, from one call over the whole
-        array."""
-        from bolt_tpu_torch.gpu.array import BoltArrayGPU
-        ConstructGPU._one_rank(context, "fromcallback")
+        (``bolt_tpu_torch.stream.resumable``).  ``dtype=None`` keeps
+        whatever the callback produces and uploads at once, from one call
+        over the whole array.
+
+        ``per_process=True`` opts into the pod ingest contract
+        (``bolt_tpu_torch.parallel.multihost``): on a mesh of more than
+        one rank each rank's executor calls ``fn`` only for its own
+        contiguous rows of each slab and uploads only those, and each
+        slab's partial is folded across the ranks; ``fn`` must serve any
+        range on any rank (a shared-storage reader).  On one device or a
+        one-rank mesh the flag changes nothing.  Without it, a mesh of
+        several ranks builds the array at once, each rank calling ``fn``
+        for its own box."""
         explicit = dtype is not None
+        if per_process and not explicit:
+            raise ValueError(
+                "fromcallback(per_process=True) requires an explicit "
+                "dtype: the per-process contract is a streaming plan, "
+                "and streaming sources record their element type up "
+                "front")
         device, shape, split, _ = ConstructGPU._device_build_spec(
             shape, context, axis, dtype)
-        if explicit:
-            from bolt_tpu_torch.stream import StreamSource
-            src = StreamSource.from_callback(fn, shape, split, dtype, device,
-                                             chunks=chunks,
-                                             checkpoint=checkpoint,
-                                             codec=codec)
-            return BoltArrayGPU._streamed(src)
+        pod = context if ConstructGPU._pod(context) else None
+        if explicit and (pod is None or per_process):
+            from bolt_tpu_torch.stream import StreamSource, as_array
+            return as_array(StreamSource.from_callback(
+                fn, shape, split, dtype, device, chunks=chunks,
+                checkpoint=checkpoint, codec=codec, mesh=pod))
         from bolt_tpu_torch.stream import transfer
-        index = tuple(slice(0, n) for n in shape)
-        block = np.asarray(fn(index))
-        if block.shape != shape:
+        placed = ConstructGPU._mesh_box(pod, shape, split)
+        index = tuple(slice(0, n) for n in shape) if placed is None \
+            else tuple(slice(s, e) for s, e in placed[2])
+        block = np.asarray(fn(index), dtype=dtype)
+        want = tuple(shape) if placed is None else placed[0]
+        if block.shape != want:
             raise ValueError(
                 "fromcallback callback returned shape %s for index %s "
-                "(expected %s)" % (block.shape, index, shape))
-        return BoltArrayGPU(transfer(block, device), split, device)
+                "(expected %s)" % (block.shape, index, want))
+        return ConstructGPU._on_mesh(transfer(block, device), pod, shape,
+                                     split, placed)
 
     @staticmethod
     def fromiter(blocks, shape, context=None, axis=(0,), dtype=None,
@@ -275,27 +295,40 @@ class ConstructGPU:
         together they must cover ``shape``), the sequential twin of
         :meth:`fromcallback` (reference: ``ConstructTPU.fromiter``).
         ``dtype`` is required.  The reduction terminals stream the
-        iterator once; other consumers assemble it on the host first."""
-        from bolt_tpu_torch.gpu.array import BoltArrayGPU
-        from bolt_tpu_torch.stream import StreamSource
-        ConstructGPU._one_rank(context, "fromiter")
+        iterator once; other consumers assemble it on the host first.  On
+        a mesh of more than one rank the source must be RE-ITERABLE:
+        every rank iterates its own copy and slices its rows out of each
+        block; a one-shot iterator is refused."""
+        from bolt_tpu_torch.stream import StreamSource, as_array
         if dtype is None:
             raise ValueError(
                 "fromiter requires an explicit dtype (blocks are consumed "
                 "lazily, so the element type cannot be inferred up front)")
         device, shape, split, _ = ConstructGPU._device_build_spec(
             shape, context, axis, dtype)
-        src = StreamSource.from_iter(blocks, shape, split, dtype, device,
-                                     checkpoint=checkpoint, codec=codec)
-        return BoltArrayGPU._streamed(src)
+        pod = context if ConstructGPU._pod(context) else None
+        if pod is not None and iter(blocks) is blocks:
+            # every rank must walk the block sequence to slice its own
+            # rows of each slab, and a killed run could never re-stream
+            # a one-shot iterator (the BLT011 reasoning)
+            raise ValueError(
+                "fromiter on a multi-process mesh requires a RE-ITERABLE "
+                "source (e.g. a list of blocks, or an object whose "
+                "__iter__ starts fresh): each process iterates its own "
+                "copy and uploads only its per-process shard of every "
+                "slab (bolt_tpu_torch.parallel.multihost contract).  A "
+                "one-shot iterator cannot serve that — nor can a killed "
+                "run ever resume from it (the BLT011 rule: the iterator "
+                "dies with the process).  Use fromcallback("
+                "per_process=True) for random-access loaders")
+        return as_array(StreamSource.from_iter(
+            blocks, shape, split, dtype, device, checkpoint=checkpoint,
+            codec=codec, mesh=pod))
 
     @staticmethod
-    def _one_rank(context, what):
-        """Streams and their sources are not ported to a mesh of more than
-        one rank (ROADMAP A12b); a one-rank mesh streams on its device."""
-        if _is_mesh(context) and context.size > 1:
-            from bolt_tpu_torch.gpu.mesharray import not_ported
-            raise not_ported(what, context, "A12b")
+    def _pod(context):
+        """Is ``context`` a mesh of more than one rank (a pod)?"""
+        return _is_mesh(context) and context.size > 1
 
     @staticmethod
     def ones(shape, context=None, axis=(0,), dtype=None):

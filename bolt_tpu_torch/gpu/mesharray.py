@@ -35,6 +35,14 @@ filter (mask, count, gather)   the rank's mask; survivor indices are
                                from its first holder in bounded pieces
 =============================  =========================================
 
+A stream on a mesh of more than one rank (``fromcallback(...,
+per_process=True)``, a re-iterable ``fromiter``) is a mesh array whose
+``_stream`` is set and which holds no box yet: its reduction terminals
+stream every rank's rows of each slab and fold the slab's partial across
+the ranks (``stream.execute``), its stages record lazily as on one
+device, and any other consumer materialises it, each rank building its
+own box (``stream.materialize``).
+
 Mesh axes that shard no reduced axis are never folded over: their ranks
 hold replicas.  A one-rank mesh is the single-device path: its box is the
 whole array, every fold is over one partial, and any method outside this
@@ -102,6 +110,44 @@ class BoltArrayMesh(BoltArrayGPU):
         return cls(BoltArrayGPU(tensor, split, tensor.device), mesh, shape,
                    split, spec)
 
+    @classmethod
+    def _streamed(cls, source):
+        """A lazy pod stream over ``source`` (``source.mesh`` spans more
+        than one rank): the global shape and key layout, no box until a
+        consumer materialises it."""
+        from bolt_tpu_torch import stream
+        st = stream.result_state(source)
+        b = cls.__new__(cls)
+        BoltArrayGPU.__init__(b, None, st.split, source.device)
+        b._local = None
+        b._mesh = source.mesh
+        b._mfilter = None
+        b._stream = source
+        b._dtype = st.dtype
+        b._shape = None if st.dynamic else tuple(st.shape)
+        b._spec = None if st.dynamic else sharding.key_spec(
+            source.mesh, b._shape, st.split)
+        return b
+
+    def _adopt_resolved(self, res):
+        """Adopt ``res``, the mesh array a pod stream's swap resolved to
+        (``stream.resolve_swaps``; a pod shuffle is resident)."""
+        self._stream = None
+        self._local, self._shape, self._spec = res._local, res._shape, \
+            res._spec
+        self._split, self._dtype, self._mfilter = res._split, res._dtype, \
+            res._mfilter
+        self._stat_group = None
+
+    def _unstream(self):
+        """Materialise a pod stream: each rank builds its box and the
+        recorded stages replay on the mesh; this array adopts the
+        result."""
+        if self._stream is None:
+            return
+        from bolt_tpu_torch import stream
+        self._adopt_resolved(stream.materialize(self._stream))
+
     def _scope(self):
         return _engine.topology(topology_key(self._mesh))
 
@@ -114,6 +160,8 @@ class BoltArrayMesh(BoltArrayGPU):
 
     @property
     def shape(self):
+        if self._stream is not None and self._shape is None:
+            self._unstream()          # a streamed filter's survivors
         if self._mfilter is not None:
             self._resolve_mfilter()
         return self._shape
@@ -121,6 +169,7 @@ class BoltArrayMesh(BoltArrayGPU):
     @property
     def box(self):
         """This rank's block, one ``(start, stop)`` per axis."""
+        self._unstream()
         if self._mfilter is not None:
             self._resolve_mfilter()
         return sharding.box(self._mesh, self._spec, self._shape)
@@ -128,6 +177,7 @@ class BoltArrayMesh(BoltArrayGPU):
     @property
     def local(self):
         """This rank's box as a single-device array."""
+        self._unstream()
         if self._mfilter is not None:
             self._resolve_mfilter()
         return self._local
@@ -138,15 +188,16 @@ class BoltArrayMesh(BoltArrayGPU):
 
     @property
     def deferred(self):
-        return self._local.deferred
+        return self._stream is None and self._local.deferred
 
     @property
     def streaming(self):
-        return False
+        return self._stream is not None
 
     @property
     def _data(self):
         """This rank's box, materialised (under the mesh's key scope)."""
+        self._unstream()
         if self._mfilter is not None:
             self._resolve_mfilter()
         with self._scope():
@@ -194,6 +245,10 @@ class BoltArrayMesh(BoltArrayGPU):
         first, as ``func`` sees whole records."""
         if with_keys and self._multi():
             raise not_ported("map(with_keys=True)", self._mesh)
+        if self._stream is not None:
+            # a stage of the pod stream's slab program
+            return BoltArrayGPU.map(self, func, axis=axis,
+                                    value_shape=value_shape, dtype=dtype)
         axes = sorted(tupleize(axis))
         src = self._align(axes)._whole_records()
         split = src._split
@@ -212,6 +267,8 @@ class BoltArrayMesh(BoltArrayGPU):
         each rank's masked partials; any other consumer counts the
         survivors and lays them out by ``key_spec`` of the new global
         shape (replicated when the count does not divide the mesh)."""
+        if self._stream is not None:
+            return BoltArrayGPU.filter(self, func, axis=axis, sort=sort)
         func = _traceable(func)
         axes = sorted(tupleize(axis))
         src = self._align(axes)._whole_records()
@@ -322,8 +379,10 @@ class BoltArrayMesh(BoltArrayGPU):
         """Reduce the records with the binary ``func``: each rank's
         pairwise tree over its box, then ``func`` over the partials of
         the ranks that split the key axes, in rank order (the same bits
-        on every rank)."""
+        on every rank).  A pod stream materialises first: a user
+        ``func`` has no per-slab fold over the ranks."""
         func = _traceable(func)
+        self._unstream()
         if self._mfilter is not None:
             self._resolve_mfilter()
         axes = sorted(tupleize(axis))
@@ -353,6 +412,21 @@ class BoltArrayMesh(BoltArrayGPU):
 
     def _stat(self, axis, name, keepdims=False, ddof=None):
         from bolt_tpu_torch.gpu import multistat
+        if self._stream is not None:
+            from bolt_tpu_torch import stream
+            if stream.has_swap(self._stream):
+                stream._swap_resolved(self)
+        if self._stream is not None:
+            # the pod stream's terminal: lazy in its stream group, or
+            # streamed now; a geometry neither serves materialises
+            _engine.strict_guard(self, "%s()" % name)
+            out = multistat.defer_stat(self, axis, name, keepdims, ddof)
+            if out is NotImplemented:
+                from bolt_tpu_torch import stream
+                out = stream.maybe_stat(self, axis, name, keepdims, ddof)
+            if out is not NotImplemented:
+                return out
+            self._unstream()
         if self._mfilter is not None:
             out = multistat.mesh_filter_stats(self, [(name, axis, keepdims,
                                                       ddof)])
@@ -373,6 +447,8 @@ class BoltArrayMesh(BoltArrayGPU):
                 raise not_ported("stats(accumulate=...)", self._mesh)
             return self.local.stats(*requested, axis=axis,
                                     accumulate=accumulate, **kwargs)
+        if not (requested and all(isinstance(r, str) for r in requested)):
+            self._unstream()          # the StatCounter form reads boxes
         return BoltArrayGPU.stats(self, *requested, axis=axis, **kwargs)
 
     # ------------------------------------------------------------------
@@ -382,7 +458,9 @@ class BoltArrayMesh(BoltArrayGPU):
     def _do_swap(self, kaxes, vaxes, donate=False):
         """:meth:`BoltArrayGPU.swap`'s work on a mesh: the boxes move to
         the ``key_spec`` layout of the new shape by one all_to_all;
-        ``donate`` releases this rank's box once moved."""
+        ``donate`` releases this rank's box once moved.  A pod stream
+        records the swap as a lazy stage (the consuming terminal resolves
+        it by the pod shuffle), or materialises where it cannot."""
         if self._mfilter is not None:
             self._resolve_mfilter()
         split = self._split
@@ -394,6 +472,12 @@ class BoltArrayMesh(BoltArrayGPU):
         new_split = len(keys_rest) + len(vaxes)
         if perm == list(range(self.ndim)) and new_split == split:
             return self
+        if self._stream is not None:
+            from bolt_tpu_torch import stream
+            out = stream.swap_stage(self, tuple(perm), new_split)
+            if out is not NotImplemented:
+                return out
+            self._unstream()
         new_shape = tuple(self.shape[p] for p in perm)
         out = self._relaid(sharding.key_spec(self._mesh, new_shape,
                                              new_split), new_split, perm)
@@ -419,7 +503,9 @@ class BoltArrayMesh(BoltArrayGPU):
     def __repr__(self):
         s = "BoltArray\n"
         s += "mode: gpu (mesh %s)\n" % (dict(self._mesh.shape),)
-        if self._mfilter is not None:
+        if self._stream is not None:
+            s += "streaming: %r\n" % (self._stream,)
+        elif self._mfilter is not None:
             s += "shape: pending filter\n"
         else:
             s += "shape: %s\n" % (self.shape,)

@@ -594,8 +594,9 @@ def fluent_stats(arr, names, axis=None, accumulate=None):
         if n not in LAZY_NAMES:
             raise ValueError("unknown statistic %r; choose from %s"
                              % (n, ", ".join(LAZY_NAMES)))
-    if getattr(arr, "_mesh", None) is not None:
-        # a mesh array: every member's partial in one exchange
+    if getattr(arr, "_mesh", None) is not None and arr._stream is None:
+        # a mesh array: every member's partial in one exchange (a pod
+        # stream's members form its stream group below)
         return OrderedDict(zip(names, mesh_stats(
             arr, [(n, axis, False, None) for n in names])))
     if arr._stream is not None and any(n not in _STREAM_LAZY

@@ -13,7 +13,8 @@ dict whose numpy arrays travel as ``.npy`` files.
   run raises.
 * When a rank dies, the others (which would wait in the next collective)
   are killed after a short grace, and the run raises a ``RuntimeError``
-  naming the dead rank and its exit code.
+  naming the dead rank and its exit code (``expect_dead=True``, for a
+  run killed on purpose, returns every rank's exit code instead).
 * Workers set ``torch.set_num_threads(1)`` and run at a lower CPU
   priority (``nice`` 10) than their caller: a pod of 8 shares the host's
   cores.
@@ -93,7 +94,7 @@ def _tail(path, n=3000):
 
 def run_cluster(payload, nproc=2, timeout=120, args=None, inputs=None, *,
                 device, backend=None, env=None, worker_env=None,
-                keep=False):
+                keep=False, expect_dead=False):
     """Stand up an ``nproc``-rank pod and run ``PAYLOADS[payload]`` on
     every rank; returns the list of per-rank result dicts (numpy arrays
     loaded back).
@@ -106,13 +107,16 @@ def run_cluster(payload, nproc=2, timeout=120, args=None, inputs=None, *,
     takes it.  ``env`` adds to every worker's environment, ``worker_env``
     (``{rank: {...}}``) to one's — how a test arms ``BOLT_CHAOS`` on one
     rank.  A rank that dies raises a ``RuntimeError`` naming it; so does
-    the wall limit ``timeout``.  ``keep=True`` leaves the run's
-    directory (its logs) in place."""
+    the wall limit ``timeout``.  ``expect_dead=True`` (a run a test kills
+    on purpose) returns the list of every rank's exit code instead of
+    results: once one rank died, the others get the same short grace and
+    are then killed.  ``keep=True`` leaves the run's directory (its
+    logs) in place."""
     _check_device(device)
     out_dir = tempfile.mkdtemp(prefix="bolt-pod-")
     try:
         return _run(payload, nproc, timeout, args, inputs, device, backend,
-                    env, worker_env, out_dir)
+                    env, worker_env, out_dir, expect_dead)
     finally:
         if not keep:
             shutil.rmtree(out_dir, ignore_errors=True)
@@ -130,7 +134,7 @@ def _check_device(spec):
 
 
 def _run(payload, nproc, timeout, args, inputs, device, backend, env,
-         worker_env, out_dir):
+         worker_env, out_dir, expect_dead=False):
     os.makedirs(os.path.join(out_dir, "inputs"))
     for name, arr in (inputs or {}).items():
         np.save(os.path.join(out_dir, "inputs", name + ".npy"),
@@ -163,12 +167,14 @@ def _run(payload, nproc, timeout, args, inputs, device, backend, env,
                     cwd=_ROOT, env=e, stdout=log, stderr=subprocess.STDOUT))
             finally:
                 log.close()
-        _watch(procs, timeout, out_dir)
+        rcs = _watch(procs, timeout, out_dir, expect_dead)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
+    if expect_dead:
+        return rcs
     results = []
     for rank in range(nproc):
         with open(os.path.join(out_dir, "result.%d.json" % rank)) as f:
@@ -176,14 +182,15 @@ def _run(payload, nproc, timeout, args, inputs, device, backend, env,
     return results
 
 
-def _watch(procs, timeout, out_dir):
+def _watch(procs, timeout, out_dir, expect_dead=False):
     """Wait for every worker; on a death kill the rest (after a short
-    grace) and raise naming the dead rank; past ``timeout`` kill all."""
+    grace) and raise naming the dead rank (``expect_dead``: return every
+    exit code); past ``timeout`` kill all."""
     deadline = time.monotonic() + timeout
     while True:
         rcs = [p.poll() for p in procs]
         if all(rc == 0 for rc in rcs):
-            return
+            return rcs
         bad = [r for r, rc in enumerate(rcs) if rc not in (None, 0)]
         if bad:
             grace = time.monotonic() + 3.0
@@ -193,6 +200,8 @@ def _watch(procs, timeout, out_dir):
             for p in procs:
                 if p.poll() is None:
                     p.kill()
+            if expect_dead:
+                return [p.wait() for p in procs]
             dead = bad[0]
             log = os.path.join(out_dir, "worker.%d.log" % dead)
             raise RuntimeError(

@@ -291,26 +291,150 @@ def heal_backend_init(*args, **kwargs):
     _later(("heal_backend_init", "A12c"))
 
 
-def local_slab_spec(*args, **kwargs):
-    """The per-process streamed ingest contract: not ported yet (ROADMAP
-    A12b)."""
-    _later(("local_slab_spec", "A12b"))
+# ---------------------------------------------------------------------
+# the per-rank ingest contract of a streamed pod (bolt_tpu_torch.stream)
+# ---------------------------------------------------------------------
+
+class LocalSlabSpec:
+    """The per-rank slab contract of one streamed source geometry: which
+    contiguous sub-range of each slab's leading key axis THIS rank
+    produces and uploads.  Built by :func:`local_slab_spec`; read by the
+    streaming executor's uploader pool.
+
+    ``local_range(lo, hi)`` maps a global slab ``[lo, hi)`` to this
+    rank's ``[llo, lhi)`` in GLOBAL record coordinates (the slices a
+    ``fromcallback(..., per_process=True)`` loader is called with): the
+    leading-axis extent of the rank's box under the key sharding of the
+    slab.  Replica ranks of one box (mesh axes that shard no key axis)
+    get the same range.  Raises the pointed BLT012 error when the slab
+    extent does not divide the key-axis assignment (no per-rank split
+    exists)."""
+
+    __slots__ = ("mesh", "shape", "split", "pid", "nproc", "_cache")
+
+    def __init__(self, mesh, shape, split):
+        self.mesh = mesh
+        self.shape = tuple(int(s) for s in shape)
+        self.split = int(split)
+        self.pid = process_index()
+        self.nproc = mesh_process_count(mesh)
+        self._cache = {}
+
+    def local_range(self, lo, hi):
+        """Global-coordinate ``[llo, lhi)`` of slab ``[lo, hi)`` this
+        rank ingests (the whole slab on a one-rank mesh)."""
+        llo, lhi = self._local_box(hi - lo)
+        return lo + llo, lo + lhi
+
+    def _local_box(self, nrec):
+        """This rank's leading-axis range ``(llo, lhi)`` RELATIVE to a
+        slab of ``nrec`` records, from its box under the key sharding of
+        the slab; a layout whose rank boundary does not fall on the
+        leading key axis (the box is not whole records) is refused
+        instead of silently mis-ingested."""
+        got = self._cache.get(nrec)
+        if got is not None:
+            return got
+        if self.nproc <= 1:
+            out = (0, nrec)
+            self._cache[nrec] = out
+            return out
+        err = slab_divisibility_error(self.mesh, self.shape, self.split,
+                                      [(0, nrec)])
+        if err is not None:
+            raise ValueError(err)
+        from bolt_tpu_torch.parallel.sharding import box, key_spec
+        shape = (nrec,) + self.shape[1:]
+        bx = box(self.mesh, key_spec(self.mesh, shape, self.split), shape)
+        llo, lhi = bx[0]
+        vol = int(np.prod([e - s for s, e in bx], dtype=np.int64))
+        want = (lhi - llo) * int(np.prod(self.shape[1:], dtype=np.int64))
+        if vol != want:
+            raise ValueError(
+                "multi-process streaming needs the process boundary on "
+                "the leading key axis: this mesh scatters process %d's "
+                "devices across a non-contiguous region of a %d-record "
+                "slab; use a mesh whose leading axis spans the "
+                "processes in order" % (self.pid, nrec))
+        out = (llo, lhi)
+        self._cache[nrec] = out
+        return out
 
 
-def slab_divisibility_error(*args, **kwargs):
-    """The BLT012 rule of streamed pods: not ported yet (ROADMAP A12b)."""
-    _later(("slab_divisibility_error", "A12b"))
+def local_slab_spec(mesh, shape=None, split=None):
+    """The :class:`LocalSlabSpec` of one streamed geometry: ``(mesh,
+    shape, split)``, or one source-like object with ``.mesh`` /
+    ``.shape`` / ``.split`` attributes (a ``stream.StreamSource``)."""
+    if shape is None and hasattr(mesh, "mesh"):
+        src = mesh
+        return LocalSlabSpec(src.mesh, src.shape, src.split)
+    return LocalSlabSpec(mesh, shape, split)
 
 
-def sidecar_codec_error(*args, **kwargs):
-    """The codec pod's sidecar rule: not ported yet (ROADMAP A12b)."""
-    _later(("sidecar_codec_error", "A12b"))
+def key_collective_axes(mesh, shape, split):
+    """The mesh-axis names the leading ``split`` key axes of ``shape``
+    shard over: the axes a streamed pod's per-slab fold reduces across
+    (the other axes hold replicas, which are never counted twice)."""
+    from bolt_tpu_torch.parallel.sharding import key_spec, spec_names
+    spec = key_spec(mesh, shape, split)
+    return tuple(n for e in tuple(spec)[:split] for n in spec_names(e))
 
 
-def key_collective_axes(*args, **kwargs):
-    """The streamed pod fold's mesh axes: not ported yet (ROADMAP
-    A12b)."""
-    _later(("key_collective_axes", "A12b"))
+def slab_divisibility_error(mesh, shape, split, ranges):
+    """The BLT012 rule, as one shared message (``analysis.check`` emits
+    it as a diagnostic; the streaming executor raises it): every slab's
+    leading extent must keep the SAME key-axis assignment the full shape
+    has, or per-rank sub-slabs do not exist for that slab and the fold
+    over the ranks would double-count replicated records.  Returns the
+    message, or ``None`` when every slab in ``ranges`` divides."""
+    if mesh_process_count(mesh) <= 1:
+        return None
+    full_axes = key_collective_axes(mesh, shape, split)
+    if not full_axes:
+        width = int(np.prod([mesh.shape[n] for n in mesh.axis_names
+                             if mesh.shape[n] > 1], dtype=np.int64))
+        return ("BLT012: key axes %s do not divide the %d-device "
+                "multi-process mesh %s, so no per-process shard "
+                "assignment exists; choose key extents divisible by "
+                "the mesh axis sizes"
+                % (tuple(shape[:split]), width, dict(mesh.shape)))
+    for lo, hi in ranges:
+        slab_shape = (hi - lo,) + tuple(shape[1:])
+        axes = key_collective_axes(mesh, slab_shape, split)
+        if axes != full_axes:
+            width = int(np.prod([mesh.shape[n] for n in full_axes],
+                                dtype=np.int64))
+            return ("BLT012: slab [%d, %d) holds %d records, not "
+                    "divisible by the %d-way key-axis device assignment "
+                    "%s — the per-process ingest split does not exist "
+                    "for it; pick chunks= (records per slab) and a key "
+                    "extent that are multiples of %d, or pad the "
+                    "source (uneven tails cannot stream on a "
+                    "multi-process mesh)"
+                    % (lo, hi, hi - lo, width, full_axes, width))
+    return None
+
+
+def sidecar_codec_error(codec, mesh):
+    """The pod codec rule, as one shared message (``stream`` raises it;
+    ``analysis.check`` forecasts it under BLT016): a codec whose encode
+    emits a per-slab SIDECAR (int8's scale and zero point) cannot stream
+    on a mesh of more than one rank, because each rank encodes only its
+    own rows, so the sidecars are per-rank values, not the replicated
+    slab-wide inputs the pod's slab program decodes with.  Sidecar-free
+    codecs (``bf16``/``f16``/``delta-f32``) stream on pods unchanged:
+    each rank encodes its own rows, so its ingest bytes shrink by the
+    wire ratio.  Returns the message, or ``None`` when the combination
+    is fine."""
+    if codec is None or not getattr(codec, "sidecar", False) \
+            or mesh_process_count(mesh) <= 1:
+        return None
+    return ("codec %r carries a per-slab sidecar and cannot stream on "
+            "a mesh spanning %d processes: per-process encodes produce "
+            "per-process sidecars, which are not the replicated global "
+            "inputs a pod's slab program requires.  Use a sidecar-free "
+            "codec ('bf16', 'f16', 'delta-f32') on pods, or stream this "
+            "source uncompressed" % (codec.name, mesh_process_count(mesh)))
 
 
 # ---------------------------------------------------------------------

@@ -150,16 +150,15 @@ def check_main_path(mesh, inputs):
 
 
 def check_not_ported(mesh, inputs):
-    """Outside the slice a multi-rank mesh array raises, naming the
-    ROADMAP item."""
+    """Outside the ported slices a multi-rank mesh raises, naming the
+    ROADMAP item: the surface (A12d) and pod recovery (A12c)."""
     bolt = _bolt()
     b = bolt.array(inputs["main_x"], mesh)
     out = {}
+    from bolt_tpu_torch.parallel import multihost
     calls = {
         "quantile": lambda: np.quantile(b, 0.5),
-        "stream": lambda: bolt.fromcallback(
-            lambda idx: inputs["main_x"][idx], inputs["main_x"].shape,
-            mesh, dtype=np.float64),
+        "reform": lambda: multihost.reform(mesh),
         "getitem": lambda: b[0:2],
         "add": lambda: b + 1,
         "asarray": lambda: np.asarray(b),
@@ -401,11 +400,340 @@ def payload_sleep(rank, args, inputs):
     return {"rank": rank}
 
 
+# ---------------------------------------------------------------------
+# streamed pods (the reference harness's stream payloads)
+# ---------------------------------------------------------------------
+
+def crafted(n, vdim, period=8):
+    """The reference harness's exact data (``scripts/multihost_harness.py
+    :: _crafted``): record ``r``, value slot ``j`` holds ``r % period +
+    j * 0.5`` in f32.  Sums are exact in f32 in any order, and every
+    range of a multiple of ``period`` records has the same mean, so the
+    moments folded over ranks equal one process's bit for bit."""
+    r = np.arange(n, dtype=np.float32) % period
+    v = np.arange(vdim, dtype=np.float32) * 0.5
+    return (r[:, None] + v[None, :]).astype(np.float32)
+
+
+def _pod_mesh(names=("k",), shape=None):
+    from bolt_tpu_torch.parallel import multihost
+    from bolt_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(tuple(shape) if shape else (multihost.process_count(),),
+                     tuple(names))
+
+
+def _value(b):
+    """The host value of a result every rank holds whole."""
+    from bolt_tpu_torch.parallel import multihost
+    return multihost.local_value(b)
+
+
+def _stream_args(args):
+    return (int(args.get("n", 64)), int(args.get("vdim", 8)),
+            int(args.get("chunks", 16)))
+
+
+def payload_stream_parity(rank, args, inputs):
+    """The streamed pod's parity payload (the reference's
+    ``payload_stream_parity``): ``fromcallback(per_process=True)``'s
+    ``map(v + 1).sum()`` over two passes (compile once, the transfer
+    bytes of the rank's rows), ``stats("sum", "var")``, the rows each
+    rank's loader produced, ``explain``'s per-rank plan, BLT012 refused
+    and forecast, a re-iterable ``fromiter``'s sum and a one-shot
+    iterator refused, with no span left open."""
+    from bolt_tpu_torch import analysis, engine, obs
+    from bolt_tpu_torch.parallel import multihost
+    bolt = _bolt()
+    n, vdim, chunks = _stream_args(args)
+    x = crafted(n, vdim)
+    mesh = _pod_mesh()
+    nproc = multihost.process_count()
+    obs.clear()
+    obs.enable()
+    rows = []                  # list.append is thread-safe (the pool)
+
+    def loader(idx):
+        rows.append(len(range(*idx[0].indices(n))))
+        return x[idx]
+
+    def make():
+        return bolt.fromcallback(loader, (n, vdim), mesh, dtype=np.float32,
+                                 chunks=chunks, per_process=True)
+
+    res = {"rank": rank, "nproc": nproc}
+    c0 = engine.counters()
+    res["sum"] = _value(make().map(_add1).sum().cache())
+    c1 = engine.counters()
+    make().map(_add1).sum().cache()
+    c2 = engine.counters()
+    res["misses_first_pass"] = c1["misses"] - c0["misses"]
+    res["recompiles_second_pass"] = (c2["aot_compiles"] - c1["aot_compiles"]
+                                     + c2["misses"] - c1["misses"])
+    res["transfer_bytes"] = c2["transfer_bytes"] - c0["transfer_bytes"]
+    st = make().map(_add1).stats("sum", "var")
+    res["stats_sum"], res["stats_var"] = _value(st["sum"]), \
+        _value(st["var"])
+    res["rows_produced"] = sum(rows)
+    res["rows_expected"] = 3 * (n // nproc)
+    res["explain"] = str(analysis.explain(make().map(_add1)))
+    bad = bolt.fromcallback(lambda idx: x[idx], (n, vdim), mesh,
+                            dtype=np.float32, chunks=3, per_process=True)
+    try:
+        bad.map(_add1).sum().cache()
+        res["blt012_refused"] = None
+    except ValueError as exc:
+        res["blt012_refused"] = str(exc)
+    res["blt012_forecast"] = analysis.check(bad.map(_add1)).has("BLT012")
+    blocks = [x[i:i + chunks] for i in range(0, n, chunks)]
+    fi = bolt.fromiter(blocks, (n, vdim), mesh, dtype=np.float32)
+    res["fromiter_sum"] = _value(fi.map(_add1).sum().cache())
+    try:
+        bolt.fromiter((b for b in blocks), (n, vdim), mesh,
+                      dtype=np.float32)
+        res["oneshot_refused"] = None
+    except ValueError as exc:
+        res["oneshot_refused"] = str(exc)
+    res["leaked_spans"] = obs.active_count()
+    obs.disable()
+    return res
+
+
+def payload_single_ref(rank, args, inputs):
+    """The one-rank reference of :func:`payload_stream_parity`: the same
+    data and pipelines on a one-rank mesh (the single-device path)."""
+    bolt = _bolt()
+    n, vdim, chunks = _stream_args(args)
+    x = crafted(n, vdim)
+    mesh = _pod_mesh()
+
+    def make():
+        return bolt.fromcallback(lambda idx: x[idx], (n, vdim), mesh,
+                                 dtype=np.float32, chunks=chunks,
+                                 per_process=True)
+
+    st = make().map(_add1).stats("sum", "var")
+    blocks = [x[i:i + chunks] for i in range(0, n, chunks)]
+    fi = bolt.fromiter(blocks, (n, vdim), mesh, dtype=np.float32)
+    return {"rank": rank, "sum": _value(make().map(_add1).sum().cache()),
+            "stats_sum": _value(st["sum"]), "stats_var": _value(st["var"]),
+            "fromiter_sum": _value(fi.map(_add1).sum().cache())}
+
+
+def payload_resume(rank, args, inputs):
+    """A checkpointed streamed pod sum over 8 slabs (the reference's
+    ``payload_resume``): the caller arms ``BOLT_CHAOS`` to kill every
+    rank mid-run, then runs it again clean, which resumes from the
+    ranks' shards.  ``args["sub_pod"]`` instead asks a checkpointed run
+    on a mesh of fewer ranks than the pod (refused; the ranks outside it
+    build nothing).  ``args["other_width"]`` runs it expecting the
+    refusal of a checkpoint cut at another width."""
+    from bolt_tpu_torch import engine
+    bolt = _bolt()
+    ck = args["ckpt"]
+    n, vdim, chunks = 64, 8, 8                      # 8 slabs of 8
+    x = crafted(n, vdim)
+    mesh = _pod_mesh()
+    c0 = engine.counters()
+    src = bolt.fromcallback(lambda idx: x[idx], (n, vdim), mesh,
+                            dtype=np.float32, chunks=chunks, checkpoint=ck,
+                            per_process=True)
+    if args.get("other_width"):
+        try:
+            src.map(_add1).sum().cache()
+            return {"rank": rank, "other_width_refused": None}
+        except NotImplementedError as exc:
+            return {"rank": rank, "other_width_refused": str(exc)}
+    s = src.map(_add1).sum().cache()
+    c1 = engine.counters()
+    return {"rank": rank, "sum": _value(s),
+            "resumes": c1["stream_resumes"] - c0["stream_resumes"],
+            "slabs": c1["stream_chunks"] - c0["stream_chunks"]}
+
+
+def payload_pod_extras(rank, args, inputs):
+    """On a four-rank pod: a ``(2, 2)`` ``("a", "b")`` mesh streaming a
+    key extent ``"b"`` does not divide (each box replicated on ``"b"``:
+    the sum folds over ``"a"`` alone, with no double count), and a
+    checkpointed run on a mesh of half the pod's ranks (refused; the
+    ranks outside it build nothing); then ``checkpoint.save``/``load`` of
+    a mesh array on the ``(2, 2)`` mesh, a shard file a rank
+    (``args["array_dir"]``)."""
+    from bolt_tpu_torch import checkpoint
+    from bolt_tpu_torch.parallel import multihost
+    from bolt_tpu_torch.parallel.mesh import Mesh
+    bolt = _bolt()
+    res = {"rank": rank}
+    shape = tuple(args.get("replicated_shape", (6, 4)))
+    xq = crafted(shape[0], int(np.prod(shape[1:])), 4).reshape(shape)
+    mesh2 = _pod_mesh(("a", "b"), (2, multihost.process_count() // 2))
+    srcq = bolt.fromcallback(lambda idx: xq[idx], shape, mesh2,
+                             dtype=np.float32,
+                             chunks=int(args.get("replicated_chunks", 2)),
+                             per_process=True)
+    res["replicated_spec"] = [list(e) if isinstance(e, tuple) else e
+                              for e in srcq._spec]
+    res["replicated_sum"] = _value(srcq.map(_add1).sum().cache())
+    res["sub_pod_refused"] = None
+    width = multihost.process_count() // 2
+    if rank < width:
+        x = crafted(64, 8)
+        mesh = Mesh((width,), ("k",), [multihost.local_device()] * width)
+        src = bolt.fromcallback(lambda idx: x[idx], (64, 8), mesh,
+                                dtype=np.float32, chunks=8,
+                                checkpoint=args["ckpt"], per_process=True)
+        try:
+            src.map(_add1).sum().cache()
+        except ValueError as exc:
+            res["sub_pod_refused"] = str(exc)
+    b = bolt.array(xq, mesh2).map(_add1)
+    checkpoint.save(args["array_dir"], b)
+    back = checkpoint.load(args["array_dir"], mesh2)
+    res["array"] = {"saved_box": b._data.cpu().numpy(),
+                    "loaded_box": back._data.cpu().numpy(),
+                    "box": [list(x) for x in back.box],
+                    "spec": [list(e) if isinstance(e, tuple) else e
+                             for e in back._spec],
+                    "shape": list(back.shape), "split": back.split,
+                    "value": back.toarray()}
+    return res
+
+
+def payload_codec_pod(rank, args, inputs):
+    """Codec-encoded ingest on a pod (the reference's
+    ``payload_codec_pod``): each rank encodes its own rows, so ``bf16``
+    ships half the raw bytes, ``delta-f32`` folds to the raw pod sum bit
+    for bit, and the sidecar codec ``int8`` is refused."""
+    from bolt_tpu_torch import engine, obs
+    bolt = _bolt()
+    n, vdim, chunks = _stream_args(args)
+    x = crafted(n, vdim)
+    mesh = _pod_mesh()
+    obs.clear()
+    obs.enable()
+
+    def make(codec=None):
+        return bolt.fromcallback(lambda idx: x[idx], (n, vdim), mesh,
+                                 dtype=np.float32, chunks=chunks,
+                                 per_process=True, codec=codec)
+
+    res = {"rank": rank}
+    c0 = engine.counters()
+    res["raw"] = _value(make().map(_add1).sum().cache())
+    c1 = engine.counters()
+    res["delta"] = _value(make("delta-f32").map(_add1).sum().cache())
+    c2 = engine.counters()
+    res["bf16"] = _value(make("bf16").map(_add1).sum().cache())
+    c3 = engine.counters()
+    res["raw_bytes"] = c1["transfer_bytes"] - c0["transfer_bytes"]
+    res["delta_bytes"] = c2["transfer_bytes"] - c1["transfer_bytes"]
+    res["bf16_bytes"] = c3["transfer_bytes"] - c2["transfer_bytes"]
+    try:
+        make("int8").map(_add1).sum().cache()
+        res["sidecar_refused"] = None
+    except ValueError as exc:
+        res["sidecar_refused"] = str(exc)
+    res["leaked_spans"] = obs.active_count()
+    obs.disable()
+    return res
+
+
+def payload_swap(rank, args, inputs):
+    """The streamed swap on a pod (the reference's ``payload_swap``): one
+    ``all_to_all`` a slab, each rank's box against the materialised
+    mesh swap of the same source; lazy until read, shuffle bytes moved,
+    nothing spilled, and a pod spill refused."""
+    from bolt_tpu_torch import engine, obs, stream
+    bolt = _bolt()
+    n, vdim, chunks = _stream_args(args)
+    x = crafted(n, vdim)
+    mesh = _pod_mesh()
+    obs.clear()
+    obs.enable()
+
+    def make():
+        return bolt.fromcallback(lambda idx: x[idx], (n, vdim), mesh,
+                                 dtype=np.float32, chunks=chunks,
+                                 per_process=True)
+
+    res = {"rank": rank}
+    c0 = engine.counters()
+    streamed = make().swap((0,), (0,))
+    res["lazy_after_swap"] = streamed._stream is not None
+    res["streamed"] = streamed._data.cpu().numpy()
+    res["box"] = [list(b) for b in streamed.box]
+    c1 = engine.counters()
+    mat = make()
+    mat.cache()
+    res["materialised"] = mat.swap((0,), (0,))._data.cpu().numpy()
+    res["shuffle_bytes"] = c1["shuffle_bytes"] - c0["shuffle_bytes"]
+    res["spill_bytes"] = c1["spill_bytes"] - c0["spill_bytes"]
+    try:
+        with stream.spill(dir=args["spill"], budget=1):
+            make().swap((0,), (0,))._data
+        res["pod_spill_refused"] = None
+    except RuntimeError as exc:
+        res["pod_spill_refused"] = str(exc)
+    res["leaked_spans"] = obs.active_count()
+    obs.disable()
+    return res
+
+
+def payload_retried(rank, args, inputs):
+    """A retried slab dispatch on ONE rank (``args["fault_rank"]``, the
+    ``stream.dispatch`` seam under ``stream.retries(1)``): the rank reruns
+    only its own slab program, before the slab's exchange, so the pod's
+    sum keeps its bits and every rank's dispatch schedule digest still
+    agrees (``multihost.verify_schedule``)."""
+    from bolt_tpu_torch import _chaos, engine, stream
+    from bolt_tpu_torch.parallel import multihost
+    bolt = _bolt()
+    n, vdim, chunks = _stream_args(args)
+    x = crafted(n, vdim)
+    mesh = _pod_mesh()
+
+    def run():
+        return _value(bolt.fromcallback(
+            lambda idx: x[idx], (n, vdim), mesh, dtype=np.float32,
+            chunks=chunks, per_process=True).map(_add1).sum().cache())
+
+    clean = run()
+    c0 = engine.counters()
+    if rank == int(args.get("fault_rank", 1)):
+        _chaos.inject("stream.dispatch", nth=2)
+    try:
+        with stream.retries(1):
+            retried = run()
+    finally:
+        _chaos.clear()
+    return {"rank": rank, "clean": clean, "retried": retried,
+            "retries": engine.counters()["stream_retries"]
+            - c0["stream_retries"],
+            "digest": multihost.verify_schedule("retried")}
+
+
+def payload_stream_suite(rank, args, inputs):
+    """:func:`payload_stream_parity`, :func:`payload_codec_pod`,
+    :func:`payload_swap` and :func:`payload_retried` on one pod (one
+    start-up for the four)."""
+    return {"rank": rank, "parity": payload_stream_parity(rank, args, inputs),
+            "codec": payload_codec_pod(rank, args, inputs),
+            "swap": payload_swap(rank, args, inputs),
+            "retried": payload_retried(rank, args, inputs)}
+
+
 PAYLOADS = {
     "checks": payload_checks,
     "dryrun": payload_dryrun,
     "sched": payload_sched,
     "sleep": payload_sleep,
+    "stream_parity": payload_stream_parity,
+    "single_ref": payload_single_ref,
+    "resume": payload_resume,
+    "codec_pod": payload_codec_pod,
+    "swap": payload_swap,
+    "retried": payload_retried,
+    "stream_suite": payload_stream_suite,
+    "pod_extras": payload_pod_extras,
 }
 
 
@@ -486,11 +814,18 @@ def _on_mesh(mesh, shape, spec, make):
 
 class _Path:
     """One measured path of a card pod: its wall, the rank's peak device
-    memory growth, its kernel launches and collective bytes, all counted
-    from 0 at the start."""
+    memory growth, its kernel launches, collective bytes and the
+    engine's stream counters (``transfer_bytes``, ``stream_chunks``,
+    ``misses``, ``stream_resumes``, ``shuffle_bytes``), all counted from
+    0 at the start; ``extra`` (a dict the path may fill while it runs)
+    joins the record."""
 
-    def __init__(self, out, name):
+    _ENGINE = ("transfer_bytes", "stream_chunks", "misses",
+               "stream_resumes", "shuffle_bytes")
+
+    def __init__(self, out, name, extra=None):
         self.out, self.name = out, name
+        self.extra = {} if extra is None else extra
 
     def __enter__(self):
         import torch
@@ -502,8 +837,10 @@ class _Path:
             torch.cuda.synchronize(self.dev)  # lint: allow(BLT107 a path's wall)
             torch.cuda.reset_peak_memory_stats(self.dev)
             self.a0 = torch.cuda.memory_allocated(self.dev)
+        from bolt_tpu_torch import engine
         kernels.reset_launches()
         multihost.reset_counters()
+        self.c0 = engine.counters()
         self.t0 = time.monotonic()
         return self
 
@@ -515,9 +852,13 @@ class _Path:
             return False
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)  # lint: allow(BLT107 a path's wall)
+        from bolt_tpu_torch import engine
+        c1 = engine.counters()
         rec = {"wall_s": time.monotonic() - self.t0,
                "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
-               "collectives": multihost.counters()}
+               "collectives": multihost.counters(),
+               "engine": {k: c1[k] - self.c0[k] for k in self._ENGINE}}
+        rec.update(self.extra)
         if self.dev.type == "cuda":
             rec["peak_growth_bytes"] = \
                 torch.cuda.max_memory_allocated(self.dev) - self.a0
@@ -557,6 +898,8 @@ def payload_card_one(rank, args, inputs):
         s = b.swap((0,), (0,))
         out["swap"] = fingerprint(s._data)
     del s, b
+    if args.get("stream"):
+        _stream_int8(out, args["stream"])
     return out
 
 
@@ -652,6 +995,10 @@ def payload_card_pod2(rank, args, inputs):
     dev = multihost.local_device()
     out["toarray_fp"] = fingerprint(torch.from_numpy(full).to(dev))
     out["swapped_fp"] = fingerprint(torch.from_numpy(swapped).to(dev))
+    del c, sw, full, swapped
+    if args.get("stream"):
+        _stream_ns(out, mesh, args["stream"])
+        _stream_c1(out, mesh, args["stream"])
     return out
 
 
@@ -681,9 +1028,240 @@ def payload_card_pod4(rank, args, inputs):
         g = ops.gaussian(x, 2.0, axis=(0, 2), shard="v")
         out["gaussian"] = {"box": [list(b) for b in g.box],
                            "fp": fingerprint(g._data)}
+    del x, h, g
+    if args.get("stream"):
+        _stream_rep(out, mesh, args["stream"])
     return out
+
+
+# ---------------------------------------------------------------------
+# the card's streamed pods (chip_smoke.py phase 16): the phase 15 pods
+# run these paths too when their args carry "stream", so no pod start is
+# paid twice; each path is named "s16_..."
+# ---------------------------------------------------------------------
+
+def seeded_records(rec, seed=7, integers=False):
+    """A ``fromcallback`` loader drawing record ``r`` from
+    ``np.random.default_rng(seed + r)`` (``chip_smoke.py`` phase 6's):
+    standard normals, or integers in [-8, 8]."""
+    def cb(index):
+        lo, hi = index[0].start, index[0].stop
+        out = np.empty((hi - lo,) + tuple(rec), np.float32)
+        for r in range(lo, hi):
+            g = np.random.default_rng(seed + r)
+            out[r - lo] = g.integers(-8, 9, rec) if integers else \
+                g.standard_normal(rec, dtype=np.float32)
+        return out
+    return cb
+
+
+def crafted_records(rec, constant=False):
+    """A ``fromcallback`` loader of :func:`crafted_box`'s data (record
+    ``r``, value slot ``j``: ``r % 8 - 4 + (j % 16) * 0.5``), or with
+    ``constant`` of :func:`constant_box`'s (``(j % 16) * 0.5``)."""
+    nv = int(np.prod(rec, dtype=np.int64))
+    val = ((np.arange(nv) % 16) * 0.5).astype(np.float32)
+
+    def cb(index):
+        lo, hi = index[0].start, index[0].stop
+        r = np.zeros(hi - lo, np.float32) if constant else \
+            (np.arange(lo, hi) % 8 - 4).astype(np.float32)
+        return (r[:, None] + val[None, :]).reshape((hi - lo,) + tuple(rec))
+    return cb
+
+
+def _counted(cb, rows):
+    """``cb`` counting the records it produced into ``rows`` (the pool
+    calls it from several threads; ``list.append`` is atomic)."""
+    def f(index):
+        rows.append(index[0].stop - index[0].start)
+        return cb(index)
+    return f
+
+
+def _s16_path(out, name, fn, rows=None):
+    """One phase 16 path: ``fn()`` measured (:class:`_Path`), with the
+    records this rank's loader produced."""
+    extra = {}
+    with _Path(out, name, extra):
+        got = fn()
+        if rows is not None:
+            extra["rows"] = sum(rows)
+            del rows[:]
+    return got
+
+
+def _stream_ns(out, mesh, args):
+    """Path a: the streamed north-star at full width, 160 slabs of 20
+    records (10 a rank) under four uploaders a rank: phase 6's seeded
+    ``randn`` records' ``map(v + 1).sum()`` and fluent group, then the
+    crafted records' ``map(v + 1).sum()`` twice (the second pass must
+    build nothing) and the constant columns' group."""
+    from bolt_tpu_torch import stream
+    bolt = _bolt()
+    ns = tuple(args["north_star"])
+    chunks = int(args["chunks"])
+    rows = []
+    res = out["s16"] = {}
+
+    def src(cb):
+        return bolt.fromcallback(_counted(cb, rows), ns, mesh,
+                                 dtype=np.float32, chunks=chunks,
+                                 per_process=True)
+
+    randn = seeded_records(ns[1:], args["seed"])
+    crafted = crafted_records(ns[1:])
+    const = crafted_records(ns[1:], constant=True)
+    with stream.uploaders(int(args["uploaders"])):
+        res["randn_sum"] = _s16_path(out, "s16_ns_randn_sum", lambda: _value(
+            src(randn).map(_add1).sum().cache()), rows)
+        res["randn_group"] = _s16_path(out, "s16_ns_randn_group", lambda: {
+            k: _value(v) for k, v in src(randn).map(_add1).stats(
+                *GROUP_NAMES).items()}, rows)
+        res["crafted_sum"] = _s16_path(out, "s16_ns_crafted_sum", lambda:
+                                       _value(src(crafted).map(_add1).sum()
+                                              .cache()), rows)
+        res["crafted_again"] = _s16_path(out, "s16_ns_crafted_again",
+                                         lambda: _value(src(crafted).map(
+                                             _add1).sum().cache()), rows)
+        res["const_group"] = _s16_path(out, "s16_ns_const_group", lambda: {
+            k: _value(v) for k, v in src(const).map(_add1).stats(
+                *GROUP_NAMES).items()}, rows)
+
+
+def _stream_c1(out, mesh, args):
+    """Path b on two ranks, crafted config 1: the streamed ``swap``
+    through one ``all_to_all`` a slab (this rank's box fingerprinted), a
+    pod spill refused, the codecs (``bf16`` half the bytes, ``delta-f32``
+    the raw fold's bits, ``int8`` refused), an uneven slab refused with
+    BLT012 and forecast, a one-shot ``fromiter`` refused, and the clean
+    checkpointed sum path c's resumed run is held against."""
+    from bolt_tpu_torch import analysis, stream
+    bolt = _bolt()
+    c1 = tuple(args["config1"])
+    chunks = int(args["chunks"])
+    crafted = crafted_records(c1[1:])
+    res = out["s16"]
+
+    def src(codec=None, chunks=chunks, cb=crafted, ckpt=None):
+        return bolt.fromcallback(cb, c1, mesh, dtype=np.float32,
+                                 chunks=chunks, per_process=True,
+                                 codec=codec, checkpoint=ckpt)
+
+    def swap():
+        sw = src().swap((0,), (0,))
+        data = sw._data
+        return {"box": [list(b) for b in sw.box], "fp": fingerprint(data)}
+
+    res["swap"] = _s16_path(out, "s16_c1_swap", swap)
+    try:
+        with stream.spill(dir=args["spill"], budget=1):
+            src().swap((0,), (0,))._data
+        res["pod_spill_refused"] = None
+    except RuntimeError as exc:
+        res["pod_spill_refused"] = str(exc)
+    res["codec"] = {}
+    for codec in (None, "delta-f32", "bf16"):
+        res["codec"][codec or "raw"] = _s16_path(
+            out, "s16_c1_%s" % (codec or "raw"),
+            lambda: _value(src(codec).map(_add1).sum().cache()))
+    try:
+        src("int8").sum().cache()
+        res["int8_refused"] = None
+    except ValueError as exc:
+        res["int8_refused"] = str(exc)
+    bad = src(chunks=3).map(_add1)
+    try:
+        bad.sum().cache()
+        res["blt012_refused"] = None
+    except ValueError as exc:
+        res["blt012_refused"] = str(exc)
+    res["blt012_forecast"] = analysis.check(bad).has("BLT012")
+    try:
+        bolt.fromiter((crafted((slice(i, i + chunks),))
+                       for i in range(0, c1[0], chunks)), c1, mesh,
+                      dtype=np.float32)
+        res["oneshot_refused"] = None
+    except ValueError as exc:
+        res["oneshot_refused"] = str(exc)
+    res["clean_sum"] = _s16_path(out, "s16_c1_clean_ckpt", lambda: _value(
+        _resume_source(bolt, mesh, args, args["ckpt_clean"]).map(_add1)
+        .sum().cache()))
+
+
+def _resume_source(bolt, mesh, args, ckpt):
+    """Path c's checkpointed source: crafted config 1 on the pod."""
+    c1 = tuple(args["config1"])
+    return bolt.fromcallback(crafted_records(c1[1:]), c1, mesh,
+                             dtype=np.float32, chunks=int(args["chunks"]),
+                             per_process=True, checkpoint=ckpt)
+
+
+def payload_card_resume(rank, args, inputs):
+    """Path c on the card: the checkpointed crafted config 1 sum of a
+    two-rank pod (the caller kills it mid-run on every rank, then runs it
+    again, which resumes from the ranks' shards)."""
+    from bolt_tpu_torch.parallel import multihost
+    from bolt_tpu_torch.parallel.mesh import make_mesh
+    bolt = _bolt()
+    mesh = make_mesh((multihost.process_count(),), ("k",))
+    out = {"rank": rank, "s16": {}}
+    out["s16"]["sum"] = _s16_path(out, "s16_c1_resumed", lambda: _value(
+        _resume_source(bolt, mesh, args, args["ckpt"]).map(_add1).sum()
+        .cache()))
+    return out
+
+
+def _stream_int8(out, args):
+    """Path d on the one NCCL rank: config 1's armed int8 streamed sum of
+    integer-valued records, one ``fused_decode_sum`` a slab (a one-rank
+    mesh streams as one device)."""
+    import os
+    from bolt_tpu_torch.parallel.mesh import default_mesh
+    bolt = _bolt()
+    c1 = tuple(args["config1"])
+    cb = seeded_records(c1[1:], args["seed"], integers=True)
+    os.environ["BOLT_CODEC_KERNEL"] = "1"
+    try:
+        out["s16"] = {"int8_sum": _s16_path(out, "s16_c1_int8", lambda:
+                                            _value(bolt.fromcallback(
+                                                cb, c1, default_mesh(),
+                                                dtype=np.float32,
+                                                chunks=int(args["chunks"]),
+                                                codec="int8").sum()
+                                                .cache()))}
+    finally:
+        os.environ.pop("BOLT_CODEC_KERNEL", None)
+
+
+def _stream_rep(out, mesh, args):
+    """Path b on four ranks: a key extent the ``(2, 2)`` mesh's ``"v"``
+    axis does not divide (each box replicated on ``"v"``), streamed
+    ``map(v + 1).sum()`` with no double count; then a checkpointed run on
+    a mesh of half the pod's ranks (refused on the ranks in it)."""
+    from bolt_tpu_torch.parallel import multihost
+    from bolt_tpu_torch.parallel.mesh import Mesh
+    bolt = _bolt()
+    shape = tuple(args["replicated"])
+    src = bolt.fromcallback(crafted_records(shape[1:]), shape, mesh,
+                            dtype=np.float32,
+                            chunks=int(args["replicated_chunks"]),
+                            per_process=True)
+    res = out["s16"] = {"spec": [list(e) if isinstance(e, tuple) else e
+                                 for e in src._spec]}
+    res["rep_sum"] = _s16_path(out, "s16_rep_sum", lambda: _value(
+        src.map(_add1).sum().cache()))
+    res["sub_pod_refused"] = None
+    width = multihost.process_count() // 2
+    if mesh.rank < width:
+        sub = Mesh((width,), ("k",), [multihost.local_device()] * width)
+        try:
+            _resume_source(bolt, sub, args, args["ckpt_sub"]).sum().cache()
+        except ValueError as exc:
+            res["sub_pod_refused"] = str(exc)
 
 
 PAYLOADS.update({"card_one": payload_card_one,
                  "card_pod2": payload_card_pod2,
-                 "card_pod4": payload_card_pod4})
+                 "card_pod4": payload_card_pod4,
+                 "card_resume": payload_card_resume})

@@ -64,7 +64,7 @@ The module-level :func:`submit` lazily starts a default server, tuned by
 ``BOLT_SERVE_QUEUE_LIMIT`` / ``BOLT_SERVE_BATCHING`` (with
 ``BOLT_SERVE_MAX_BATCH`` and ``BOLT_SERVE_LINGER``).
 
-Not ported yet (ROADMAP A12, pods): the peer-loss callbacks that drain
+Not ported yet (ROADMAP A12c, pod recovery): the peer-loss callbacks that drain
 admission, ``supervise=`` and its budget rescale, ``pod_paused`` and the
 quiesce holds on a retry.  :class:`PeerLostError` is defined here so
 ``submit(retries=)`` keeps the reference's retryable type.
@@ -124,7 +124,7 @@ class DeadlineError(RuntimeError):
 
 class PeerLostError(RuntimeError):
     """A pod peer died under a collective.  One card has no peers, so the
-    port never raises it itself (ROADMAP A12 brings the liveness layer,
+    port never raises it itself (ROADMAP A12c brings the liveness layer,
     which will raise this type); a job that raises it is retried under
     ``submit(retries=)`` as the reference retries a pod outage."""
 
@@ -525,7 +525,7 @@ class Server:
         if supervise:
             raise NotImplementedError(
                 "Server(supervise=...) drives pod recovery, which the "
-                "port has not yet (ROADMAP A12, multi-GPU and pods)")
+                "port has not yet (ROADMAP A12c, pod recovery)")
         if batching is None:
             batching = _DEF_BATCHING
         self.batching = None

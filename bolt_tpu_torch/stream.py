@@ -88,7 +88,23 @@ handoff.  Under a serving layer (``bolt_tpu_torch.serve``) a run leases
 its slabs from the process-wide device-memory arbiter, in slab order and
 in wire bytes, and returns each slab's bytes when the consumer confirms it
 retired; a budget smaller than the ring shallows the pipeline instead of
-deadlocking it.  Not ported yet: pods (ROADMAP A12).
+deadlocking it.
+
+On a pod (a mesh of more than one rank, one process each; the source's
+``mesh``) the same executor runs on every rank over one slab schedule:
+each rank produces and uploads only its own contiguous rows of every
+slab (``multihost.local_slab_spec``: the ``fromcallback(...,
+per_process=True)`` contract; a re-iterable ``fromiter`` slices its
+rows out of each block), runs the slab program on them, and folds the
+slab's partial across the ranks of the mesh axes the key axes are
+sharded over (:func:`_pod_fold`, on the consumer thread in slab order,
+one exchange a slab and a second for moments), so every rank's fold
+holds the same bits.  A slab the key-axis assignment does not divide
+(BLT012), a sidecar codec and a user ``reduce`` are refused before any
+thread starts; checkpoints are one shard file a rank
+(:mod:`bolt_tpu_torch.checkpoint`); a streamed ``swap`` exchanges each
+slab's rows by one ``all_to_all`` (resident only).  Pod runs launch no
+kernel: ``fused_decode_sum`` is off a pod (int8 is refused there).
 Any other consumer — a filtered stream's shape, ``prod``/``all``/``any``,
 ``min``/``max`` under a filter, an axis other than all the key axes —
 materialises the source (:func:`materialize`), which needs the whole
@@ -522,11 +538,11 @@ class StreamSource:
     applied to every slab (its stage kinds: the module docstring)."""
 
     __slots__ = ("kind", "produce", "blocks", "shape", "split", "dtype",
-                 "device", "slab", "stages", "ckpt", "codec", "_state",
-                 "_consumed")
+                 "device", "slab", "stages", "ckpt", "codec", "mesh",
+                 "_state", "_consumed")
 
     def __init__(self, kind, produce, blocks, shape, split, dtype, device,
-                 slab, stages=(), ckpt=None, codec=None):
+                 slab, stages=(), ckpt=None, codec=None, mesh=None):
         self.kind = kind
         self.produce = produce          # callback: fn(index_slices)
         self.blocks = blocks            # iter: the iterable of blocks
@@ -538,6 +554,9 @@ class StreamSource:
         self.stages = tuple(stages)
         self.ckpt = ckpt                # resumable checkpoint dir, or None
         self.codec = codec              # ingest codec NAME, or None
+        # the pod's mesh (more than one rank: each rank ingests its own
+        # rows of every slab), or None on one device or a one-rank mesh
+        self.mesh = mesh
         self._state = None
         # a one-shot iterator streams once; the cell is shared by the
         # sources derived with with_stage (they share the iterator)
@@ -545,29 +564,29 @@ class StreamSource:
 
     @classmethod
     def from_callback(cls, fn, shape, split, dtype, device, chunks=None,
-                      checkpoint=None, codec=None):
+                      checkpoint=None, codec=None, mesh=None):
         if codec is not None:
             _codec_registry().get(codec)    # pointed at construction
         slab = _slab_records(shape, dtype, chunks)
         return cls("callback", fn, None, shape, split, dtype, device, slab,
-                   ckpt=_ckpt_dir(checkpoint), codec=codec)
+                   ckpt=_ckpt_dir(checkpoint), codec=codec, mesh=mesh)
 
     @classmethod
     def from_iter(cls, blocks, shape, split, dtype, device, checkpoint=None,
-                  codec=None):
+                  codec=None, mesh=None):
         if codec is not None:
             _codec_registry().get(codec)
         # slab sizes are whatever the iterator yields
         slab = _slab_records(shape, dtype, None)
         return cls("iter", None, blocks, shape, split, dtype, device, slab,
-                   ckpt=_ckpt_dir(checkpoint), codec=codec)
+                   ckpt=_ckpt_dir(checkpoint), codec=codec, mesh=mesh)
 
     def with_stage(self, stage):
         """A new source sharing the host side, one stage longer."""
         out = StreamSource(self.kind, self.produce, self.blocks, self.shape,
                            self.split, self.dtype, self.device, self.slab,
                            self.stages + (stage,), ckpt=self.ckpt,
-                           codec=self.codec)
+                           codec=self.codec, mesh=self.mesh)
         out._consumed = self._consumed
         return out
 
@@ -768,25 +787,33 @@ def _probe_stage(src, stage):
     return out
 
 
+def as_array(source):
+    """The lazy array over ``source``: a single-device array, or on a pod
+    (``source.mesh``) a mesh array whose terminals stream every rank's
+    rows of each slab and fold them across the ranks."""
+    if source.mesh is not None:
+        from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+        return BoltArrayMesh._streamed(source)
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    return BoltArrayGPU._streamed(source)
+
+
 def map_stage(arr, func):
     """Record a per-record map on a stream-backed array (lazy)."""
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU
-    return BoltArrayGPU._streamed(arr._stream.with_stage(("map", func)))
+    return as_array(arr._stream.with_stage(("map", func)))
 
 
 def filter_stage(arr, pred):
     """Record a trailing filter predicate (lazy; the result's record
     count is unknown until a consumer other than a streamed terminal
     materialises it)."""
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU
-    return BoltArrayGPU._streamed(arr._stream.with_stage(("filter", pred)))
+    return as_array(arr._stream.with_stage(("filter", pred)))
 
 
 def chunked_map_stage(view, func, dtype):
     """Record a chunked per-block map on a streaming chunked view; the new
     view, or ``NotImplemented`` when the stage cannot stream (the caller
     materialises)."""
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU
     from bolt_tpu_torch.gpu.chunk import ChunkedArray
     src = view._barray._stream
     st = result_state(src)
@@ -803,7 +830,7 @@ def chunked_map_stage(view, func, dtype):
         new_plan = tuple(o // g for o, g in zip(nst.vshape, grid))
     else:
         new_plan = plan             # the general path keeps the blocks
-    return ChunkedArray(BoltArrayGPU._streamed(out), new_plan, pad)
+    return ChunkedArray(as_array(out), new_plan, pad)
 
 
 def stacked_map_stage(view, func, dtype):
@@ -813,20 +840,22 @@ def stacked_map_stage(view, func, dtype):
     (``records_per_slab % size == 0``): a stacked ``func`` mixes records
     within its block, so slab boundaries must fall on block boundaries.
     Misaligned geometries, iterator sources (their block sizes are not
-    known ahead) and a pending swap materialise (``NotImplemented``)."""
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    known ahead), a pending swap and a pod source (its rank boundaries
+    would have to fall on block boundaries on every rank) materialise
+    (``NotImplemented``)."""
     from bolt_tpu_torch.gpu.stack import StackedArray
     src = view._barray._stream
     st = result_state(src)
     size = int(view._size)
-    if st.dynamic or src.kind != "callback" or has_swap(src):
+    if st.dynamic or src.kind != "callback" or has_swap(src) \
+            or src.mesh is not None:
         return NotImplemented
     if (src.slab * prod(st.shape[1:st.split])) % size != 0:
         return NotImplemented
     out = _probe_stage(src, ("stack", func, size, dtype))
     if out is None:
         return NotImplemented
-    return StackedArray(BoltArrayGPU._streamed(out), size)
+    return StackedArray(as_array(out), size)
 
 
 def swap_stage(arr, perm, new_split):
@@ -835,15 +864,20 @@ def swap_stage(arr, perm, new_split):
     (:func:`resolve_swaps`).  ``NotImplemented`` (the caller materialises)
     behind a filter (the record count is unknown) and under a lossy codec
     (phase 1 decodes once, and a later lossy terminal would quantise
-    again)."""
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    again), and on a pod for an iterator source (each rank's output rows
+    need random access to the source) or a swap that keeps the record
+    axis leading."""
     src = arr._stream
     if result_state(src).dynamic:
         return NotImplemented
     codec_obj = resolve_codec(src)
     if codec_obj is not None and not codec_obj.lossless:
         return NotImplemented
-    return BoltArrayGPU._streamed(src.with_stage(
+    if src.mesh is not None and (src.kind != "callback" or perm[0] == 0):
+        # the record axis staying leading re-lays every record out:
+        # the mesh's materialised swap does that
+        return NotImplemented
+    return as_array(src.with_stage(
         ("swap", tuple(int(p) for p in perm), int(new_split))))
 
 
@@ -917,6 +951,10 @@ def maybe_reduce(arr, func, axes, keepdims):
     st = result_state(src)
     if st.pred is not None or st.n == 0 \
             or tuple(axes) != tuple(range(st.split)):
+        return NotImplemented
+    if src.mesh is not None:
+        # a user combine function has no fold over the ranks that the
+        # per-slab exchange could run: materialise instead
         return NotImplemented
     return execute(arr, "reduce", rfunc=func)
 
@@ -1040,12 +1078,14 @@ def _finalise_multi(folded, comps, specs):
 
 
 def _slab_partial(source, st, terminal, rfunc, codec_obj, use_kernel,
-                  delta_ok, parts, comps=None, slab=0):
+                  delta_ok, parts, comps=None, slab=0, pod=False):
     """The program each slab runs: decode (when a codec is armed), the
     stages, the terminal's partial (masked by a trailing filter).
     ``use_kernel`` routes an int8 ``sum`` with no stages through
     ``fused_decode_sum``, whose CUDA kernel launches on a card tensor or
-    raises."""
+    raises.  ``pod=True`` returns this rank's half of a pod slab instead
+    (:func:`_pod_local`), which :func:`_pod_fold` completes across the
+    ranks."""
     from bolt_tpu_torch.gpu.array import _pred_mask, torch_dtype
     raw_dtype = torch_dtype(source.dtype)
     if codec_obj is None:
@@ -1071,12 +1111,101 @@ def _slab_partial(source, st, terminal, rfunc, codec_obj, use_kernel,
     if st.pred is not None:
         mfull = _pred_mask(st.pred, flat).reshape(
             (n,) + (1,) * len(st.vshape))
+    if pod:
+        return _pod_local(terminal, comps, flat, mfull, st.vshape, n,
+                          st.dtype)
     if terminal == "multi":
         return tuple(_terminal_partial(c, flat, mfull, st.vshape, n, None,
                                        st.dtype) for c in comps)
     return _terminal_partial(
         terminal if terminal in ("sum", "min", "max", "reduce")
         else "moments", flat, mfull, st.vshape, n, rfunc, st.dtype)
+
+
+# ---------------------------------------------------------------------
+# the pod slab: this rank's rows, folded across the ranks each slab
+# ---------------------------------------------------------------------
+
+def _pod_kinds(terminal, comps):
+    """The components a pod slab folds (a group's, or the terminal's
+    own; mean/var/std fold the moments)."""
+    if terminal == "multi":
+        return comps
+    return (terminal if terminal in ("sum", "min", "max") else "moments",)
+
+
+def _pod_local(terminal, comps, flat, mfull, vshape, n, dtype):
+    """This rank's half of a pod slab over its ``n`` records: per
+    component, the part that precedes the exchange — the sum, the
+    extremum, or the moments' count and value sums (with the records and
+    mask their M2 needs once the slab's mean is known)."""
+    from bolt_tpu_torch.gpu import dtypes
+    out = []
+    for c in _pod_kinds(terminal, comps):
+        if c != "moments":
+            out.append((c, _terminal_partial(c, flat, mfull, vshape, n,
+                                             None, dtype)))
+            continue
+        out_dt = dtypes.stat_dtype("mean", flat.dtype)
+        if mfull is None:
+            cnt = torch.tensor(n, dtype=out_dt, device=flat.device)
+            xf = flat.to(out_dt)
+        else:
+            zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+            cnt = mfull.reshape(n).to(out_dt).sum()
+            xf = dtypes.where(mfull, flat, zero).to(out_dt)
+        out.append((c, cnt, xf.sum(dim=0), xf, mfull))
+    return out
+
+
+def _pod_merge(kind, a, b):
+    """One exchanged component of rank ``b`` folded onto the ranks before
+    it (``a``): the materialised folds, or the moments' count and sums
+    added."""
+    from bolt_tpu_torch.gpu.array import _COMBINE
+    if kind == "moments":
+        return a[0] + b[0], a[1] + b[1]
+    return _COMBINE[kind](a, b)
+
+
+def _pod_fold(local, terminal, group):
+    """A pod slab's partial from every rank's half (:func:`_pod_local`),
+    the same bits on every rank: ONE exchange of every component's
+    pre-fold part over ``group`` (the ranks of the mesh axes the key axes
+    shard over, so replicas are not counted twice), folded in rank order;
+    then, when moments are folded, the slab's mean from the global count
+    and sums, each rank's M2 about it, and a second exchange adding
+    those (the reference's ``psum`` of the count and sums, then of M2).
+    Runs on the consumer thread, in slab order, once a slab."""
+    from bolt_tpu_torch.parallel import multihost
+    kinds = [p[0] for p in local]
+    pre = tuple((p[1], p[2]) if p[0] == "moments" else p[1]
+                for p in local)
+    trees = multihost.all_gather(pre, group)
+    acc = trees[0]
+    for t in trees[1:]:
+        acc = tuple(_pod_merge(k, a, b) for k, a, b in zip(kinds, acc, t))
+    out = list(acc)
+    mom = [i for i, k in enumerate(kinds) if k == "moments"]
+    if mom:
+        mus, m2s = [], []
+        for i in mom:
+            cnt, sums = acc[i]
+            xf, mfull = local[i][3], local[i][4]
+            safe = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
+            mu = sums / safe
+            dev = xf - mu
+            if mfull is not None:
+                dev = torch.where(mfull, dev, torch.zeros_like(mu))
+            mus.append(mu)
+            m2s.append((dev * dev).sum(dim=0))
+        trees = multihost.all_gather(tuple(m2s), group)
+        m2 = list(trees[0])
+        for t in trees[1:]:
+            m2 = [a + b for a, b in zip(m2, t)]
+        for i, mu, q in zip(mom, mus, m2):
+            out[i] = (acc[i][0], mu, q)
+    return tuple(out) if terminal == "multi" else out[0]
 
 
 class _PairFold:
@@ -1240,11 +1369,16 @@ class _Ingest:
     under the run's retry budget (:meth:`retry`).  ``skip`` is a resumed
     iterator run's ``(slabs, records)`` watermark: its thread drains that
     prefix first and refuses an iterator whose blocks no longer cut
-    there."""
+    there.  ``mspec`` (a pod: ``multihost.LocalSlabSpec``) narrows every
+    slab to this rank's rows: a callback source produces only them, an
+    iterator's block is sliced to them, and only they are uploaded (and
+    counted in ``transfer_bytes``)."""
 
     def __init__(self, source, codec_obj, delta_ok, depth, nwork, run_sp,
-                 jobs=None, prefix="bolt-stream", skip=(0, 0), lease=None):
+                 jobs=None, prefix="bolt-stream", skip=(0, 0), lease=None,
+                 mspec=None):
         self.source = source
+        self.mspec = mspec
         # the serving arbiter's lease (None: no serving layer): each slab
         # acquires its wire bytes in slab order before its upload
         self.lease = lease
@@ -1336,10 +1470,16 @@ class _Ingest:
             for _ in range(self.nwork):
                 self.jobq.put(None)         # poison pills: the pool drains
 
+    def local(self, lo, hi):
+        """The records of slab ``[lo, hi)`` this rank ingests."""
+        return (lo, hi) if self.mspec is None \
+            else self.mspec.local_range(lo, hi)
+
     def slab_bytes(self, lo, hi):
-        """The arbiter bytes of the slab of records ``[lo, hi)``: its
-        wire bytes (a codec's sidecar excluded)."""
-        return (hi - lo) * self.rec_bytes
+        """The arbiter bytes of this rank's part of the slab of records
+        ``[lo, hi)``: its wire bytes (a codec's sidecar excluded)."""
+        llo, lhi = self.local(lo, hi)
+        return (lhi - llo) * self.rec_bytes
 
     def lease_slab(self, lo, hi):
         """Acquire a slab's bytes from the serving lease (True at once
@@ -1365,7 +1505,8 @@ class _Ingest:
                                         slab=g, worker=wid, attempt=attempt)
                         try:
                             slab = self._ingest(
-                                self.source.produce_slab(lo, hi),
+                                self.source.produce_slab(*self.local(lo,
+                                                                     hi)),
                                 copy_stream)
                         except Exception as exc:
                             _obs.end(sp, error=type(exc).__name__)
@@ -1435,6 +1576,9 @@ class _Ingest:
                             break
                         if not self.lease_slab(lo, hi):
                             return
+                        if self.mspec is not None:
+                            llo, lhi = self.local(lo, hi)
+                            block = block[llo - lo:lhi - lo]
                         attempt, prev = 0, None
                         while True:
                             try:
@@ -1542,12 +1686,13 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
             "a quantised extremum is never the answer the caller "
             "meant.  Use the lossless 'delta-f32' codec, or stream "
             "this terminal uncompressed" % (codec_obj.name, names))
+    mspec = _pod_plan(source, terminal, codec_obj)
     delta_ok = source.split < len(source.shape)
     # the reference's conditions for the decode-and-reduce kernel, read
-    # once per run: no stage and no filter
+    # once per run: no stage, no filter, not a pod
     use_kernel = (codec_obj is not None and codec_obj.name == "int8"
                   and terminal == "sum" and not source.stages
-                  and source.split == 1
+                  and source.split == 1 and mspec is None
                   and _codec_registry().kernel_enabled())
     ck = _Resume.open(source, terminal, ddof, rfunc, specs, codec_obj,
                       use_kernel)
@@ -1563,7 +1708,8 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
                             in enumerate(source.slab_ranges())
                             if g >= ck.start]
                       if source.kind == "callback" else None,
-                      skip=(ck.start, ck.records), lease=_tenant_lease())
+                      skip=(ck.start, ck.records), lease=_tenant_lease(),
+                      mspec=mspec)
         out, nslabs, ingest, compute, overlap, inflight_hw = _consume(
             ing, source, st, terminal, ddof, rfunc, comps, specs,
             codec_obj, use_kernel, delta_ok, ck)
@@ -1579,6 +1725,32 @@ def execute(arr, terminal, ddof=None, rfunc=None, specs=None, source=None):
         _obs.end(run_sp)
 
 
+def _pod_plan(source, terminal, codec_obj):
+    """A pod run's ingest contract (``multihost.LocalSlabSpec``), or
+    ``None`` off a pod.  Every refusal of a pod run is decided here from
+    the shape, the terminal, the codec and the mesh alone, before any
+    thread starts, so every rank raises it alike and none is left
+    waiting in an exchange: a user ``reduce``, a slab the key-axis
+    assignment does not divide (BLT012) and a sidecar codec."""
+    from bolt_tpu_torch.parallel import multihost
+    mesh = source.mesh
+    if mesh is None:
+        return None
+    if terminal == "reduce":
+        raise ValueError(
+            "streamed reduce(func) cannot run on a multi-process mesh: a "
+            "user combine function has no mesh collective")
+    err = multihost.slab_divisibility_error(
+        mesh, source.shape, source.split,
+        source.slab_ranges() if source.kind == "callback" else [])
+    if err is not None:
+        raise ValueError(err)           # BLT012: check() forecasts it
+    err = multihost.sidecar_codec_error(codec_obj, mesh)
+    if err is not None:
+        raise ValueError(err)
+    return multihost.local_slab_spec(source)
+
+
 class _Resume:
     """One run's checkpoint plan (:func:`resumable`, or the source's own
     ``checkpoint=``): the directory and cadence, the run's fingerprint,
@@ -1588,12 +1760,15 @@ class _Resume:
     resumable."""
 
     __slots__ = ("dir", "every", "fp", "codec", "start", "records",
-                 "state")
+                 "state", "pod", "box")
 
     def __init__(self, dir=None, every=None, fp=None, codec=None):
         self.dir, self.every, self.fp, self.codec = dir, every, fp, codec
         self.start = self.records = 0
         self.state = None
+        # a pod run: per-rank shard files (and this rank's key box)
+        self.pod = False
+        self.box = None
 
     @classmethod
     def open(cls, source, terminal, ddof, rfunc, specs, codec_obj,
@@ -1608,26 +1783,52 @@ class _Resume:
         else:
             return cls()
         from bolt_tpu_torch import checkpoint as _ckptlib
+        mesh = source.mesh
+        if mesh is not None:
+            from bolt_tpu_torch.parallel import multihost, sharding
+            if multihost.mesh_process_count(mesh) \
+                    != multihost.process_count():
+                # the checkpoint's barriers cover the whole pod: ranks
+                # outside the mesh would never arrive
+                raise ValueError(
+                    "resumable checkpointing on a SUB-POD mesh is not "
+                    "supported: this mesh spans %d of the runtime's %d "
+                    "processes, and the checkpoint rendezvous barrier "
+                    "covers the whole runtime.  Stream the checkpointed "
+                    "run on a mesh covering every process (or drop "
+                    "checkpoint=/resumable() for this sub-mesh run)"
+                    % (multihost.mesh_process_count(mesh),
+                       multihost.process_count()))
+            ck.pod = True
+            ck.box = sharding.box(mesh, sharding.key_spec(
+                mesh, source.shape, source.split), source.shape)
         ck.codec = codec_obj.name if codec_obj is not None else None
         ck.fp = _run_fingerprint(source, terminal, ddof, rfunc, specs,
                                  ck.codec, use_kernel)
-        got = _ckptlib.stream_load(ck.dir, ck.fp)
+        got = _ckptlib.stream_load(ck.dir, ck.fp, multiprocess=ck.pod,
+                                   box=ck.box)
         if got is not None:
             ck.start, ck.records, ck.state = got
             _engine.record_stream_resume()
             _obs.event("stream.resume", slabs=ck.start, records=ck.records)
         return ck
 
-    def write(self, slabs, records, levels, pend):
+    def write(self, slabs, records, levels, pend, abort=False):
         """Write the fold state of ``slabs`` retired slabs (the caller has
-        drained the in-flight window)."""
+        drained the in-flight window).  On a pod every rank writes its
+        shard at the same watermark; ``abort`` (a failing run's write)
+        takes no barrier, since a peer may be gone: the fold state is the
+        same on every rank, so one rank's shard is a whole resume
+        point."""
         from bolt_tpu_torch import checkpoint as _ckptlib
         csp = _obs.begin("stream.checkpoint", slabs=slabs)
         t0 = _clock()
         try:
             nb = _ckptlib.stream_save(self.dir, self.fp, slabs, records,
                                       (list(levels), pend),
-                                      codec=self.codec)
+                                      multiprocess=self.pod,
+                                      rendezvous=not abort,
+                                      codec=self.codec, box=self.box)
             _engine.record_checkpoint(nb, _clock() - t0)
             if csp is not None:
                 csp.set(bytes=nb)
@@ -1636,7 +1837,7 @@ class _Resume:
 
     def clear(self):
         from bolt_tpu_torch import checkpoint as _ckptlib
-        _ckptlib.stream_clear(self.dir)
+        _ckptlib.stream_clear(self.dir, multiprocess=self.pod)
 
 
 def _on_device(tree, device):
@@ -1654,7 +1855,17 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
     in order into the bounded in-flight window, fold, finalise; under a
     checkpoint plan ``ck``, restore the fold a resumed run left, write it
     every ``ck.every`` retired slabs and on failure, and clear it on
-    success."""
+    success.  On a pod each slab's program runs on this rank's rows and
+    its partial is folded across the ranks (:func:`_pod_fold`) before it
+    joins the fold, so every rank's fold holds the same bits; a retried
+    dispatch reruns only the rank's own program, before the exchange, so
+    every rank issues the same exchanges in the same order."""
+    pod = ing.mspec is not None
+    group = None
+    if pod:
+        from bolt_tpu_torch.parallel import multihost
+        group = source.mesh.group(multihost.key_collective_axes(
+            source.mesh, source.shape, source.split))
     on_card = ing.on_card
     compute_stream = torch.cuda.current_stream(ing.device) \
         if on_card else None
@@ -1733,15 +1944,16 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
         _chaos.hit("stream.dispatch")
         return _slab_partial(source, st, terminal, rfunc, codec_obj,
                              use_kernel, delta_ok, parts, comps,
-                             ck.start + nslabs)
+                             ck.start + nslabs, pod)
 
-    def _checkpoint():
+    def _checkpoint(abort=False):
         """Write the watermark and fold state: every slab counted in
         ``nslabs`` has its partial in the fold, and the in-flight window
         is drained first, so the state holds exactly those slabs."""
         while pending_sync:
             _confirm_oldest()
-        ck.write(ck.start + nslabs, done_records, fold.levels, pend)
+        ck.write(ck.start + nslabs, done_records, fold.levels, pend,
+                 abort=abort)
 
     ing.start()
     try:
@@ -1762,6 +1974,8 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
                 part = _retried(ing, g, "slab dispatch",
                                 lambda: _dispatch(parts))
                 del parts
+                if pod:
+                    part = _pod_fold(part, terminal, group)
                 nb = ing.slab_bytes(lo, hi)
                 if pend is None:
                     pend = part
@@ -1822,7 +2036,7 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
         # checkpoint — best effort, never masking the original error
         if ck.dir is not None and nslabs:
             try:
-                _checkpoint()
+                _checkpoint(abort=True)
             except Exception:       # noqa: BLE001 — the original failure
                 pass                # is the story
         raise
@@ -1896,8 +2110,11 @@ def _replay_stages(b, stages):
 def _materialize_base(source):
     """Upload the raw source: a callback source slab by slab into one
     device tensor (the pool produces the slabs concurrently, so no whole
-    host copy exists), an iterator source assembled on the host first."""
+    host copy exists), an iterator source assembled on the host first.
+    On a pod each rank builds only its own box (:func:`_materialize_box`)."""
     from bolt_tpu_torch.gpu.array import BoltArrayGPU, torch_dtype
+    if source.mesh is not None:
+        return _materialize_box(source)
     if source.kind != "callback":
         host = np.empty(source.shape, source.dtype)
         for lo, hi, block in source.slabs():
@@ -1923,6 +2140,55 @@ def _materialize_base(source):
     return BoltArrayGPU(data, source.split, source.device)
 
 
+def _materialize_box(source):
+    """The raw pod source as a mesh array, each rank building its own box
+    of the key layout: a callback source produces the box's records
+    slab by slab (the pool calls ``fn`` with the box's slices), an
+    iterator source (re-iterable on a pod) is walked whole by every rank
+    and sliced.  Counted at the box's bytes."""
+    from bolt_tpu_torch.gpu.array import torch_dtype
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    from bolt_tpu_torch.parallel import sharding
+    mesh, shape, split = source.mesh, source.shape, source.split
+    spec = sharding.key_spec(mesh, shape, split)
+    bx = sharding.box(mesh, spec, shape)
+    index = sharding.box_slices(bx)
+    if source.kind != "callback":
+        host = np.empty(shape, source.dtype)
+        for lo, hi, block in source.slabs():
+            host[lo:hi] = block
+        data = transfer(np.ascontiguousarray(host[index]), source.device)
+        return BoltArrayMesh.wrap(data, mesh, shape, split, spec)
+    t0 = _clock()
+    bshape = sharding.box_shape(bx)
+    data = torch.empty(bshape, dtype=torch_dtype(source.dtype),
+                       device=source.device)
+    r0, r1 = bx[0]
+
+    def fill(rng):
+        lo, hi = rng
+        idx = (slice(lo, hi),) + index[1:]
+        block = np.asarray(source.produce(idx), dtype=source.dtype)
+        if block.shape != (hi - lo,) + bshape[1:]:
+            raise ValueError(
+                "fromcallback callback returned shape %s for index %s "
+                "(expected %s)" % (block.shape, idx,
+                                   (hi - lo,) + bshape[1:]))
+        data[lo - r0:hi - r0].copy_(torch.from_numpy(
+            np.ascontiguousarray(block)))
+
+    ranges = [(max(lo, r0), min(hi, r1)) for lo, hi in source.slab_ranges()
+              if min(hi, r1) > max(lo, r0)]
+    with ThreadPoolExecutor(max_workers=pool_size(source),
+                            thread_name_prefix="bolt-stream-upload") as ex:
+        list(ex.map(fill, ranges))
+    if data.device.type == "cuda":
+        torch.cuda.current_stream(data.device).synchronize()
+    _engine.record_transfer(data.numel() * data.element_size(),
+                            _clock() - t0)
+    return BoltArrayMesh.wrap(data, mesh, shape, split, spec)
+
+
 # ---------------------------------------------------------------------
 # the two-phase shuffle: streamed swap resolution
 # ---------------------------------------------------------------------
@@ -1946,8 +2212,12 @@ def _run_fingerprint(source, terminal, ddof, rfunc, specs, codec=None,
     its bytecode token (``utils.code_token``).  An edited pipeline,
     another codec or another route is another run, whose checkpoint is
     ignored, and the port's own version tag keeps a reference
-    checkpoint in the same directory from being adopted.  Data captured
-    in a closure is not part of it: pointing an identical loader at other
+    checkpoint in the same directory from being adopted.  The last
+    element is the run's topology: the pod's mesh geometry (so its width)
+    on a pod, empty otherwise; a checkpoint of the same run cut at
+    another topology is refused (``checkpoint.stream_load``), and each
+    rank's shard also records the rank's key box.  Data captured in a
+    closure is not part of it: pointing an identical loader at other
     bytes of the same geometry is the caller's contract."""
     from bolt_tpu_torch.utils import code_token
     stages = "|".join(_stage_token(s) for s in source.stages)
@@ -1959,7 +2229,9 @@ def _run_fingerprint(source, terminal, ddof, rfunc, specs, codec=None,
             str(source.kind),
             code_token(source.produce) if source.produce is not None
             else "", stages, members, str(codec or ""),
-            "kernel" if use_kernel else "", source.device.type)
+            "kernel" if use_kernel else "", source.device.type,
+            "pod%r" % (source.mesh.geometry,) if source.mesh is not None
+            else "")
 
 
 def _shuffle_fingerprint(source, pre_stages, perm, new_split, out_block):
@@ -1999,14 +2271,14 @@ def _resolve_one_swap(source):
     base = StreamSource(source.kind, source.produce, source.blocks,
                         source.shape, source.split, source.dtype,
                         source.device, source.slab, pre, ckpt=source.ckpt,
-                        codec=source.codec)
+                        codec=source.codec, mesh=source.mesh)
     base._consumed = source._consumed
     st = result_state(base)
     device = source.device
     spill_dir = spill_scope()[0]
     plan = _shuffle.plan_shuffle(st.shape, st.dtype, st.split, perm,
                                  new_split, base.slab, swap_budget(),
-                                 spill_dir)
+                                 spill_dir, source.mesh)
     if not plan.resident and spill_dir is None:
         raise RuntimeError(
             "streamed swap: the re-keyed working set (%.1f MiB) exceeds "
@@ -2016,6 +2288,22 @@ def _resolve_one_swap(source):
             % (plan.total_bytes / 2**20, (plan.budget or 0) / 2**20))
     codec_obj = resolve_codec(base)     # lossless or None (swap_stage)
     delta_ok = source.split < len(source.shape)
+    mspec = pod = None
+    if source.mesh is not None:
+        mspec = _pod_plan(base, "swap", codec_obj)
+        if not plan.resident:
+            # a spilled bucket is one rank's rows, while re-streaming it
+            # as a pod slab would split it across the ranks (BLT012)
+            raise RuntimeError(
+                "streamed swap: the re-keyed working set (%.1f MiB) "
+                "exceeds the resident budget (%.1f MiB) and disk "
+                "spill is single-process only — on a multi-process "
+                "mesh raise the arbiter budget so the buckets stay "
+                "resident, or materialise first (toarray) and swap "
+                "in memory; analysis.check forecasts this as BLT017"
+                % (plan.total_bytes / 2**20, (plan.budget or 0) / 2**20))
+        pod = _shuffle.PodShuffle(source.mesh, plan, min(base.slab,
+                                                         st.shape[0]))
     fp = _shuffle_fingerprint(base, pre, perm, new_split, plan.out_block)
     # spill resume: slabs whose every bucket landed are skipped (their
     # files are complete: atomic renames, the slab marked after them)
@@ -2038,11 +2326,12 @@ def _resolve_one_swap(source):
     out = None
     try:
         if plan.resident:
-            out = torch.empty(plan.out_shape, dtype=torch_dtype(plan.dtype),
-                              device=device)
+            out = torch.empty(plan.out_shape if pod is None else
+                              tuple(e - b for b, e in pod.out_box),
+                              dtype=torch_dtype(plan.dtype), device=device)
         ing = _Ingest(base, codec_obj, delta_ok, prefetch_depth(),
                       pool_size(base), run_sp, jobs=jobs,
-                      prefix="bolt-shuffle")
+                      prefix="bolt-shuffle", mspec=mspec)
         on_card = ing.on_card
         compute_stream = torch.cuda.current_stream(device) \
             if on_card else None
@@ -2085,6 +2374,10 @@ def _resolve_one_swap(source):
                 try:
                     part = _retried(ing, g, "shuffle dispatch",
                                     lambda: _rebucket(parts))
+                    if pod is not None:
+                        # after the retried local program: every rank
+                        # issues the same exchange, slab by slab
+                        part = pod.exchange(part)
                 finally:
                     _obs.end(csp)
                 del parts
@@ -2128,6 +2421,10 @@ def _resolve_one_swap(source):
             "streamed swap produced no slabs (empty source?) — the "
             "materialised path owns empty-input rules")
 
+    if pod is not None:
+        from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+        return _replay_stages(BoltArrayMesh.wrap(
+            out, source.mesh, plan.out_shape, new_split, pod.out_spec), post)
     if plan.resident:
         return _replay_stages(BoltArrayGPU(out, new_split, device), post)
 

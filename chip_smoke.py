@@ -266,11 +266,39 @@ result):
    rank, collective bytes and host-staged bytes beside the card; each
    pod's first ``map(v + 1).sum()``/``stats()`` (library loads, the
    first trace) is the ``first_call`` path.  It needs no second card.
+16. streamed pods (``fromcallback(per_process=True)``: each rank ingests
+   its own rows of every slab, each slab's partial folded across the
+   ranks).  Its paths ride phase 15's pods (paths ``s16_...``, so no pod
+   start is paid twice): a. the streamed north-star at full width on the
+   two gloo ranks, 160 slabs of 20 records (10 a rank) under four
+   uploaders a rank: phase 6's seeded ``randn`` records'
+   ``map(v + 1).sum()`` and fluent ``stats("sum", "mean", "var", "min",
+   "max")`` within phase 6's tolerances of its f64 references, the
+   crafted records' ``map(v + 1).sum()`` (twice: the second pass builds
+   nothing) and the constant columns' group bit for bit against the
+   single device's streamed runs, the same bits on both ranks, each rank
+   producing and uploading 1600 records (5.24 GB) a pass under 2 GB of
+   peak growth; b. crafted config 1 on the two ranks: the streamed
+   ``swap`` through one ``all_to_all`` a slab box by box against phase
+   15's single-device swap, a pod spill refused, ``delta-f32`` bit for
+   bit and ``bf16`` at half the bytes, ``int8`` refused (its sidecar),
+   an uneven slab refused with BLT012 and forecast by ``analysis.check``,
+   a one-shot ``fromiter`` refused; on the four-rank ``(2, 2)`` pod a
+   key extent ``(198, ...)`` the ``"v"`` axis replicates, streamed
+   ``sum()`` with no double count, and a checkpointed run on a mesh of
+   half the pod refused; c. a two-rank checkpointed crafted config 1
+   pod killed -9 on every rank at its 7th upload (a shard a rank left),
+   then restarted: one resume, fewer slabs, the clean run's bits, no
+   file left; d. the one NCCL rank's armed int8 ``sum`` of config 1, one
+   ``fused_decode_sum`` a slab, bit for bit against phase 11's.  The
+   two-rank and four-rank pods launch no kernel.  Each path logs its
+   wall, rows produced, transfer bytes, collective and host-staged
+   bytes, peak growth, launches and engine misses per rank.
 
 The launch counters are zeroed just before each path (phases 2–3, phase
 4, phase 6, phase 7, phase 8, phase 11, phase 12 and each path of phases
-13, 14 and 15, phase 15's in every rank; phases 9 and 10 run no kernel
-of their own) and
+13, 14, 15 and 16, phases 15's and 16's in every rank; phases 9 and 10
+run no kernel of their own) and
 read just after it: each path must
 have launched every kernel it runs.  The last two lines are a ``{"kernels": [...]}`` JSON
 object (each row's ``phase12_launches`` holds its launches in each path
@@ -278,7 +306,8 @@ of phase 12 that launched it: each run of the resumes, ``loaded_array``
 and ``uint16``, every one counted from 0; ``phase13_launches`` the same
 for phase 13's ``config9``, ``config1``, ``int8_c1`` and ``config14``;
 ``phase14_launches`` for phase 14's paths; ``phase15_launches`` a list
-a path of phase 15, one count a rank) and
+a path of phase 15, one count a rank; ``phase16_launches`` the same for
+phase 16) and
 ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -1180,6 +1209,7 @@ def stream_phase(bolt, K, torch, np, dev, report):
         s1 = run("map_sum", lambda: source().map(lambda v: v + 1).sum())
         errs["map_sum"] = sum_close(s1, ref, n, "streamed map(v+1).sum()")
         KEEP["ns_map_sum"] = s1
+        KEEP["ns_refs"] = ref           # phase 16's f64 references
         errs["mean"] = close(run("mean", lambda: source().mean()),
                              ref["mean"], 1e-5, 1e-6, "streamed mean()")
         errs["var"] = close(run("var", lambda: source().var()),
@@ -3925,19 +3955,29 @@ def mesh_pod(harness, out, name, payload, nproc, backend, args):
     wall = time.perf_counter() - t
     pod = out["pods"][name] = {"ranks": nproc, "backend": backend,
                                "wall_s": wall, "paths": {}}
+    KEEP.setdefault("pods", {})[name] = res
     for path in res[0]["paths"]:
         per = [r["paths"][path] for r in res]
         pod["paths"][path] = per
-        log("phase 15 %s %s: wall %s s, peak growth %s GB per rank, "
-            "launches per rank %s, collective bytes %s, host-staged %s "
-            "(%s)" % (name, path, [round(p["wall_s"], 3) for p in per],
+        # phase 16's streamed paths ride the same pods ("s16_...")
+        log("phase %s %s %s: wall %s s, peak growth %s GB per rank, "
+            "launches per rank %s, collective bytes %s, host-staged %s%s "
+            "(%s)" % ("16" if path.startswith("s16_") else "15", name, path,
+                      [round(p["wall_s"], 3) for p in per],
                       [round(p.get("peak_growth_bytes", 0) / 1e9, 3)
                        for p in per], [p["launches"] for p in per],
                       [p["collectives"]["collective_bytes"] for p in per],
                       [p["collectives"]["collective_host_bytes"]
-                       for p in per], out["card"]))
-    log("phase 15 pod %s: %d ranks (%s) in %.1f s" % (name, nproc, backend,
-                                                       wall))
+                       for p in per],
+                      "" if not path.startswith("s16_") else
+                      ", rows %s, transfer bytes %s, engine misses %s"
+                      % ([p.get("rows") for p in per],
+                         [p["engine"]["transfer_bytes"] for p in per],
+                         [p["engine"]["misses"] for p in per]),
+                      out["card"]))
+    log("phase %s pod %s: %d ranks (%s) in %.1f s"
+        % ("16" if all(p.startswith("s16_") for p in res[0]["paths"])
+           else "15", name, nproc, backend, wall))
     return res
 
 
@@ -4011,6 +4051,7 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     two["toarray_fp"] = payloads.fingerprint(c1.totorch())
     two["swapped_fp"] = payloads.fingerprint(sw)
     del sw
+    KEEP["mesh_two"] = two
     halo = c1.chunk(size=(MESH_CHUNK,), axis=(0,), padding=2).map(
         lambda blk: blk * 2 + 1).unchunk().totorch()
     gauss = ops.gaussian(c1, 2.0, axis=(0, 2)).totorch()
@@ -4034,7 +4075,8 @@ def mesh_phase(bolt, K, torch, np, dev, report):
 
     # ---- the one-rank NCCL pod: the single-device path's bits --------------
     res = mesh_pod(harness, out, "one", "card_one", 1, MESH_ONE_BACKEND,
-                   {"north_star": list(NORTH_STAR)})
+                   {"north_star": list(NORTH_STAR),
+                    "stream": pod_stream_args()})
     r = res[0]
     check(r["backend"] == MESH_ONE_BACKEND, "phase 15 one-rank backend")
     same(r["map_sum"], one["map_sum"], "one-rank map(v+1).sum()")
@@ -4048,7 +4090,8 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     # ---- two gloo ranks on the card: the north-star split ------------------
     res = mesh_pod(harness, out, "pod2", "card_pod2", 2, "gloo",
                    {"north_star": list(NORTH_STAR),
-                    "config1": list(CONFIG1)})
+                    "config1": list(CONFIG1),
+                    "stream": pod_stream_args()})
     for r in res:
         for k in ("map_sum", "reduce", "filter_sum", "filter_mean"):
             same(r[k], two[k], "two-rank crafted %s (rank %d)"
@@ -4092,7 +4135,8 @@ def mesh_phase(bolt, K, torch, np, dev, report):
 
     # ---- four gloo ranks, (2, 2) ("k", "v"), config 1 ----------------------
     res = mesh_pod(harness, out, "pod4", "card_pod4", 4, "gloo",
-                   {"config1": list(CONFIG1), "chunk": MESH_CHUNK})
+                   {"config1": list(CONFIG1), "chunk": MESH_CHUNK,
+                    "stream": pod_stream_args()})
     for r in res:
         check(r["spec"] == ["k", None, None, None], "phase 15 pod4 layout")
         same(r["map_sum"], four["map_sum"], "four-rank map(v+1).sum() with "
@@ -4125,10 +4169,262 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     launches = {}
     for name, pod in out["pods"].items():
         for path, per in pod["paths"].items():
-            launches["%s/%s" % (name, path)] = [p["launches"] for p in per]
+            if not path.startswith("s16_"):
+                launches["%s/%s" % (name, path)] = [p["launches"]
+                                                    for p in per]
     out["wall_s"] = time.perf_counter() - t_phase
     report["phases"]["mesh_s"] = out["wall_s"]
     log("phase 15 ok in %.1f s" % out["wall_s"])
+    return launches
+
+
+# phase 16's streamed pods: the phase 15 pods run its paths too (the
+# "stream" args), and two more two-rank pods kill and resume path c
+POD_STREAM_UPLOADERS = 4
+POD_STREAM_REPLICATED = (198, 200, 64, 64)
+POD_STREAM_REPLICATED_CHUNKS = 22
+POD_STREAM_KILL = "stream.upload:7:kill"
+POD_STREAM_DIR = os.path.join(ROOT, "build", "phase16")
+
+
+def pod_stream_args():
+    """The ``stream`` args of phase 16's paths in the phase 15 pods."""
+    os.makedirs(POD_STREAM_DIR, exist_ok=True)
+    return {"north_star": list(NORTH_STAR), "config1": list(CONFIG1),
+            "chunks": SLAB_RECORDS, "seed": STREAM_SEED,
+            "uploaders": POD_STREAM_UPLOADERS,
+            "replicated": list(POD_STREAM_REPLICATED),
+            "replicated_chunks": POD_STREAM_REPLICATED_CHUNKS,
+            "spill": os.path.join(POD_STREAM_DIR, "spill"),
+            "ckpt_clean": os.path.join(POD_STREAM_DIR, "clean"),
+            "ckpt_sub": os.path.join(POD_STREAM_DIR, "sub")}
+
+
+def pod_stream_phase(bolt, K, torch, np, dev, report):
+    """Phase 16: streamed pods on the one card.  Path a, b (two ranks),
+    b (four ranks) and d ran inside phase 15's pods; this phase takes the
+    single-device references, runs path c (a two-rank checkpointed pod
+    killed -9 on every rank mid-run, then restarted), and holds every
+    rank's results: path a's seeded ``randn`` within phase 6's
+    tolerances of its f64 references and its crafted data bit for bit
+    against the single device's streamed runs, the same bits on both
+    ranks, 1600 records (5.24 GB) a pass a rank, no build in a second
+    pass, under 2 GB of peak growth a rank; path b's swap box by box, the
+    codecs, the refusals; path c's resumed sum; path d's armed int8 sum
+    (one ``fused_decode_sum`` a slab) bit for bit against phase 11's.
+    The two-rank pods launch no kernel.  Returns each path's launches, a
+    count a rank."""
+    import shutil
+    from bolt_tpu_torch import engine, stream
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.parallel import harness, payloads
+    t_phase = time.perf_counter()
+    out = {"card": report["card"], "paths": {}, "pods": {}}
+    report["pod_stream"] = out
+    pods = KEEP["pods"]
+    ns, c1 = NORTH_STAR, CONFIG1
+    n = ns[0]
+    nslabs = -(-n // SLAB_RECORDS)
+    whole = lambda shape: tuple((0, k) for k in shape)  # noqa: E731
+    add1 = lambda v: v + 1                               # noqa: E731
+
+    def same(got, want, what):
+        want = want.cpu().numpy() if hasattr(want, "cpu") else want
+        check(np.asarray(got).dtype == np.asarray(want).dtype
+              and np.array_equal(got, want), "phase 16 %s" % what)
+
+    # ---- the single device's streamed runs of the crafted sources ----------
+    t = time.perf_counter()
+    c0 = engine.counters()
+    with stream.uploaders(POD_STREAM_UPLOADERS):
+        def src(cb, shape=ns):
+            return bolt.fromcallback(cb, shape, mode="gpu", dtype=np.float32,
+                                     chunks=SLAB_RECORDS)
+        one = {"crafted_sum": src(payloads.crafted_records(ns[1:])).map(
+            add1).sum().toarray()}
+        g = src(payloads.crafted_records(ns[1:], constant=True)).map(
+            add1).stats(*payloads.GROUP_NAMES)
+        one["const_group"] = {k: v.toarray() for k, v in g.items()}
+        one["c1_sum"] = src(payloads.crafted_records(c1[1:]), c1).map(
+            add1).sum().toarray()
+    del g
+    check(engine.counters()["stream_chunks"] - c0["stream_chunks"]
+          == 2 * nslabs + -(-c1[0] // SLAB_RECORDS),
+          "phase 16 single-device crafted streams")
+    rep_box = payloads.crafted_box(POD_STREAM_REPLICATED,
+                                   whole(POD_STREAM_REPLICATED), dev)
+    rep_sum = BoltArrayGPU(rep_box, 1, dev).map(add1).sum().toarray()
+    del rep_box
+    torch.cuda.empty_cache()
+    out["refs_s"] = time.perf_counter() - t
+    log("phase 16 single-device streamed references in %.1f s"
+        % out["refs_s"])
+
+    # ---- path a: the streamed north-star on two gloo ranks -----------------
+    ref = KEEP["ns_refs"]
+    res = pods["pod2"]
+    recs_rank = n // 2
+    rank_bytes = recs_rank * 4 * math.prod(ns[1:])
+    for r in res:
+        s = r["s16"]
+        p = r["paths"]
+        k = r["rank"]
+        got = torch.from_numpy(s["randn_sum"]).to(dev).reshape(-1)
+        sum_close(got, ref, n, "phase 16 pod randn map(v+1).sum() (rank %d)"
+                  % k)
+        gr = {m: torch.from_numpy(v).to(dev).reshape(-1)
+              for m, v in s["randn_group"].items()}
+        sum_close(gr["sum"], ref, n, "phase 16 pod randn group sum (rank %d)"
+                  % k)
+        close(gr["mean"], ref["mean"] + 1, 1e-5, 1e-6,
+              "phase 16 pod randn group mean (rank %d)" % k)
+        close(gr["var"], ref["var"], 1e-4, 1e-5,
+              "phase 16 pod randn group var (rank %d)" % k)
+        for m in ("min", "max"):
+            check(torch.equal(gr[m], ref[m].float() + 1), "phase 16 pod "
+                  "randn group %s not exact (rank %d)" % (m, k))
+        same(s["crafted_sum"], one["crafted_sum"], "pod crafted "
+             "map(v+1).sum() against the single device's stream (rank %d)"
+             % k)
+        same(s["crafted_again"], one["crafted_sum"], "pod crafted second "
+             "pass (rank %d)" % k)
+        for m, v in one["const_group"].items():
+            same(s["const_group"][m], v, "pod constant-column group %s "
+                 "(rank %d)" % (m, k))
+        for path in ("s16_ns_randn_sum", "s16_ns_randn_group",
+                     "s16_ns_crafted_sum", "s16_ns_crafted_again",
+                     "s16_ns_const_group"):
+            q = p[path]
+            check(q["rows"] == recs_rank and q["engine"]["transfer_bytes"]
+                  == rank_bytes and q["engine"]["stream_chunks"] == nslabs,
+                  "phase 16 %s rank %d produced %s records, uploaded %s "
+                  "bytes in %s slabs" % (path, k, q["rows"],
+                                         q["engine"]["transfer_bytes"],
+                                         q["engine"]["stream_chunks"]))
+            check(q.get("peak_growth_bytes", 0) < STREAM_PEAK_BYTES,
+                  "phase 16 %s peak growth %.3f GB (rank %d)"
+                  % (path, q.get("peak_growth_bytes", 0) / 1e9, k))
+            check(q["collectives"]["collective_host_bytes"] > 0,
+                  "phase 16 %s staged nothing through the host" % path)
+        check(p["s16_ns_crafted_again"]["engine"]["misses"] == 0,
+              "phase 16 the second pass built a program (rank %d)" % k)
+    for key in ("randn_sum", "crafted_sum"):
+        check(np.array_equal(res[0]["s16"][key], res[1]["s16"][key]),
+              "phase 16 two ranks returned different bits: %s" % key)
+    for m in payloads.GROUP_NAMES:
+        check(np.array_equal(res[0]["s16"]["randn_group"][m],
+                             res[1]["s16"]["randn_group"][m]),
+              "phase 16 two ranks' randn group %s differ" % m)
+
+    # ---- path b: config 1 on two ranks --------------------------------------
+    two = KEEP["mesh_two"]
+    for r in res:
+        s = r["s16"]
+        k = r["rank"]
+        bx = tuple(tuple(b) for b in s["swap"]["box"])
+        check(s["swap"]["fp"] == two["swap_fp"].get(bx), "phase 16 streamed "
+              "pod swap box %s bit for bit (rank %d)" % (bx, k))
+        check("single-process only" in (s["pod_spill_refused"] or ""),
+              "phase 16 pod spill refusal: %s" % s["pod_spill_refused"])
+        raw = s["codec"]["raw"]
+        same(raw, one["c1_sum"], "pod crafted config 1 sum (rank %d)" % k)
+        same(s["codec"]["delta-f32"], raw, "delta-f32 pod sum (rank %d)" % k)
+        check(np.allclose(s["codec"]["bf16"], raw, rtol=1e-2),
+              "phase 16 bf16 pod sum (rank %d)" % k)
+        p = r["paths"]
+        rb = p["s16_c1_raw"]["engine"]["transfer_bytes"]
+        check(rb == c1[0] // 2 * 4 * math.prod(c1[1:])
+              and p["s16_c1_delta-f32"]["engine"]["transfer_bytes"] == rb
+              and 2 * p["s16_c1_bf16"]["engine"]["transfer_bytes"] == rb,
+              "phase 16 codec bytes a rank: raw %s, delta %s, bf16 %s" % (
+                  rb, p["s16_c1_delta-f32"]["engine"]["transfer_bytes"],
+                  p["s16_c1_bf16"]["engine"]["transfer_bytes"]))
+        check("sidecar" in (s["int8_refused"] or ""), "phase 16 int8 pod "
+              "refusal: %s" % s["int8_refused"])
+        check((s["blt012_refused"] or "").startswith("BLT012: slab")
+              and s["blt012_forecast"], "phase 16 BLT012: %s"
+              % s["blt012_refused"])
+        check("RE-ITERABLE" in (s["oneshot_refused"] or ""),
+              "phase 16 one-shot fromiter refusal")
+        same(s["clean_sum"], one["c1_sum"], "pod checkpointed clean sum "
+             "(rank %d)" % k)
+    clean = os.path.join(POD_STREAM_DIR, "clean")
+    check(not (os.path.isdir(clean) and os.listdir(clean)),
+          "phase 16 the clean checkpointed pod run left files")
+
+    # ---- path b: four ranks, (2, 2), the keys replicated on "v" ------------
+    for r in pods["pod4"]:
+        s = r["s16"]
+        check(s["spec"] == ["k", None, None, None], "phase 16 replicated "
+              "layout %s" % s["spec"])
+        same(s["rep_sum"], rep_sum, "four-rank streamed sum with the keys "
+             "replicated on 'v' (rank %d)" % r["rank"])
+        if r["rank"] < 2:
+            check((s["sub_pod_refused"] or "").startswith(
+                "resumable checkpointing on a SUB-POD mesh"),
+                "phase 16 sub-pod refusal: %s" % s["sub_pod_refused"])
+
+    # ---- path d: one NCCL rank, config 1's armed int8 sum -------------------
+    r = pods["one"][0]
+    same(r["s16"]["int8_sum"], KEEP["c1_int8"], "one-rank armed int8 sum "
+         "against the single device's")
+    check(r["paths"]["s16_c1_int8"]["launches"].get("fused_decode_sum", 0)
+          == -(-c1[0] // SLAB_RECORDS), "phase 16 one-rank armed int8 "
+          "launches: %s" % r["paths"]["s16_c1_int8"]["launches"])
+
+    # ---- path c: kill -9 on every rank, then resume ------------------------
+    ck = os.path.join(POD_STREAM_DIR, "resume")
+    shutil.rmtree(ck, ignore_errors=True)
+    args = dict(pod_stream_args(), ckpt=ck)
+    t = time.perf_counter()
+    rcs = harness.run_cluster("card_resume", nproc=2, timeout=MESH_POD_WALL,
+                              args=args, device=MESH_POD_DEVICE,
+                              backend="gloo", expect_dead=True,
+                              env={"BOLT_CHAOS": POD_STREAM_KILL,
+                                   "BOLT_CHECKPOINT_EVERY": "1"})
+    out["kill_s"] = time.perf_counter() - t
+    left = sorted(os.listdir(ck))
+    shards = {p.split(".")[1] for p in left if p.startswith("stream_state.p")
+              and p.endswith(".npz")}
+    log("phase 16 path c: the pod killed by %s in %.1f s, exit codes %s, "
+        "left %s" % (POD_STREAM_KILL, out["kill_s"], rcs, left))
+    check(rcs == [-9, -9] and "stream_meta.json" in left
+          and shards == {"p0", "p1"}, "phase 16 kill -9: %s %s" % (rcs, left))
+    res = mesh_pod(harness, out, "resume", "card_resume", 2, "gloo", args)
+    out["resume_s"] = out["pods"]["resume"]["wall_s"]
+    for r in res:
+        e = r["paths"]["s16_c1_resumed"]["engine"]
+        same(r["s16"]["sum"], one["c1_sum"], "resumed pod sum (rank %d)"
+             % r["rank"])
+        check(e["stream_resumes"] == 1 and 0 < e["stream_chunks"]
+              < -(-c1[0] // SLAB_RECORDS), "phase 16 resumed run: %s" % e)
+    check(not os.listdir(ck), "phase 16 the resumed run left %s"
+          % os.listdir(ck))
+
+    launches = {}
+    for name in ("one", "pod2", "pod4"):
+        for path, per in report["mesh"]["pods"][name]["paths"].items():
+            if path.startswith("s16_"):
+                launches["%s/%s" % (name, path)] = [p["launches"]
+                                                    for p in per]
+    launches["resume/s16_c1_resumed"] = [
+        p["launches"] for p in out["pods"]["resume"]["paths"][
+            "s16_c1_resumed"]]
+    for path, per in launches.items():
+        if not path.startswith("one/"):
+            check(not any(per), "phase 16 %s launched kernels on a pod: %s"
+                  % (path, per))
+    for name in ("pod2", "pod4", "one"):
+        for path, per in report["mesh"]["pods"][name]["paths"].items():
+            if path.startswith("s16_"):
+                out["paths"]["%s/%s" % (name, path)] = per
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["stream_paths_s"] = sum(
+        max(p["wall_s"] for p in per) for per in out["paths"].values())
+    report["phases"]["pod_stream_s"] = out["wall_s"]
+    log("phase 16 ok: %.1f s here (references, path c) and %.1f s of "
+        "streamed paths inside phase 15's pods (%s)"
+        % (out["wall_s"], out["stream_paths_s"], out["card"]))
     return launches
 
 
@@ -4511,6 +4807,9 @@ def main():
 
     # ---- phase 15: device meshes -------------------------------------------
     mesh_launches = mesh_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 16: streamed pods --------------------------------------------
+    pod_stream_launches = pod_stream_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
@@ -4549,6 +4848,10 @@ def main():
                         "phase15_launches": {
                             path: [c.get(name, 0) for c in per]
                             for path, per in mesh_launches.items()
+                            if any(c.get(name, 0) for c in per)},
+                        "phase16_launches": {
+                            path: [c.get(name, 0) for c in per]
+                            for path, per in pod_stream_launches.items()
                             if any(c.get(name, 0) for c in per)}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

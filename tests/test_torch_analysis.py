@@ -668,3 +668,63 @@ def test_bench_configs_run_under_strict_bit_for_bit():
     for name in plain:
         a, b = plain[name], guarded[name]
         assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+# ----------------------------------------------------------------------
+# a pod stream's forecasts (a stream source on an unbound layout of a
+# two-rank pod: checked, never run)
+# ----------------------------------------------------------------------
+
+def _pod_source(monkeypatch, chunks, codec=None):
+    from bolt_tpu_torch import convert, stream
+    from bolt_tpu_torch.parallel import multihost
+    lay = convert.mesh_from_reference((2,), ("k",))
+    monkeypatch.setattr(multihost, "mesh_process_count", lambda m: m.size)
+    x = np.arange(64 * 8, dtype=np.float32).reshape(64, 8)
+    src = stream.StreamSource.from_callback(
+        lambda idx: x[idx], x.shape, 1, np.float32, CPU, chunks=chunks,
+        codec=codec, mesh=lay)
+    return stream.as_array(src).map(lambda v: v + 1), src
+
+
+def test_blt012_forecast_is_the_executors_refusal(monkeypatch):
+    from bolt_tpu_torch.parallel import multihost
+    arr, src = _pod_source(monkeypatch, 3)
+    c0 = _counters()
+    rep = analysis.check(arr)
+    assert not _flat(c0)
+    err = multihost.slab_divisibility_error(src.mesh, src.shape, 1,
+                                            src.slab_ranges())
+    got = [d for d in rep.diagnostics if d.code == "BLT012"]
+    assert len(got) == 1 and got[0].severity == "error"
+    assert "BLT012: " + got[0].message == err
+    assert not rep.ok
+    quiet, _ = _pod_source(monkeypatch, 16)
+    assert not analysis.check(quiet).has("BLT012")
+
+
+def test_pod_stream_explain_names_each_ranks_rows(monkeypatch):
+    arr, _ = _pod_source(monkeypatch, 16)
+    text = analysis.explain(arr)
+    assert "MULTI-PROCESS: 2 ranks x ~8 records/slab each" in text, text
+    assert "of each 16-record slab: rank 0 rows [0, 8), rank 1 rows " \
+           "[8, 16)" in text, text
+    assert "mesh {'k': 2} rank 0" in text
+
+
+@pytest.mark.parametrize("codec,refused", [("int8", True),
+                                           ("bf16", False),
+                                           ("delta-f32", False)])
+def test_blt016_forecasts_the_sidecar_refusal_on_a_pod(monkeypatch, codec,
+                                                       refused):
+    from bolt_tpu_torch.gpu import codec as codeclib
+    from bolt_tpu_torch.parallel import multihost
+    arr, src = _pod_source(monkeypatch, 16, codec=codec)
+    got = [d for d in analysis.check(arr).diagnostics if d.code == "BLT016"]
+    assert len(got) == 1
+    err = multihost.sidecar_codec_error(codeclib.get(codec), src.mesh)
+    assert (err is not None) == refused
+    if refused:
+        assert got[0].severity == "warning" and err in got[0].message
+    else:
+        assert "codec-encoded ingest (%s" % codec in got[0].message

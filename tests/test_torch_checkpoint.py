@@ -219,8 +219,21 @@ def test_save_writes_atomically_array_then_meta(tmp_path, monkeypatch):
 
 
 def test_multiprocess_stream_checkpoint_refused_pointedly(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        checkpoint.stream_save(str(tmp_path), ("fp",), 2, 8,
-                               ([np.ones(3)], None), multiprocess=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        checkpoint.stream_load(str(tmp_path), ("fp",), multiprocess=True)
+    # a pod's checkpoint of this run (its meta records two processes)
+    # read by one process: the topology remap, ROADMAP A12c, is refused
+    checkpoint.stream_save(str(tmp_path), ("fp", "pod"), 2, 8,
+                           ([np.ones(3)], None))
+    meta = checkpoint._read_meta(str(tmp_path))
+    meta.update(nproc=2, fingerprint=["fp", ""])
+    with open(os.path.join(str(tmp_path), "stream_meta.json"), "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(NotImplementedError, match="A12c"):
+        checkpoint.stream_load(str(tmp_path), ("fp", ""))
+    # the same run cut at another topology (its last element)
+    meta.update(nproc=1, fingerprint=["fp", "pod"])
+    with open(os.path.join(str(tmp_path), "stream_meta.json"), "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(NotImplementedError, match="A12c"):
+        checkpoint.stream_load(str(tmp_path), ("fp", ""))
+    # another run's checkpoint is ignored, not refused
+    assert checkpoint.stream_load(str(tmp_path), ("other", "")) is None

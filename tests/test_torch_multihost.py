@@ -119,12 +119,131 @@ def test_bound_mesh_spans_the_pod():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("reform", "A12c"), ("heal_backend_init", "A12c"),
-    ("local_slab_spec", "A12b"), ("slab_divisibility_error", "A12b"),
-    ("sidecar_codec_error", "A12b"), ("key_collective_axes", "A12b")])
+    ("reform", "A12c"), ("heal_backend_init", "A12c")])
 def test_later_slices_raise_naming_their_item(name, item):
     with pytest.raises(NotImplementedError, match="ROADMAP %s" % item):
         getattr(multihost, name)()
+
+
+# ---------------------------------------------------------------------
+# the streamed pod's helpers in one process (``test_multihost.py``'s
+# in-process half and ``test_codec.py``'s sidecar rule)
+# ---------------------------------------------------------------------
+
+def test_local_slab_spec_identity_single_process():
+    mesh = default_mesh(devices=[CPU])
+    spec = multihost.local_slab_spec(mesh, (64, 8), 1)
+    assert spec.nproc == 1
+    assert spec.local_range(0, 16) == (0, 16)
+    assert spec.local_range(48, 64) == (48, 64)
+    # source-like duck typing (a StreamSource)
+    src = tbolt.fromcallback(lambda idx: np.zeros((8, 4), np.float32)[idx],
+                             (8, 4), mesh, dtype=np.float32)._stream
+    spec2 = multihost.local_slab_spec(src)
+    assert spec2.shape == (8, 4) and spec2.split == 1
+
+
+def test_slab_divisibility_single_process_is_quiet():
+    mesh = default_mesh(devices=[CPU])
+    assert multihost.slab_divisibility_error(
+        mesh, (7, 3), 1, [(0, 7)]) is None
+
+
+def test_per_process_flag_single_process_parity(mesh):
+    """per_process=True on one rank is the plain streaming path: one
+    loader runs unchanged from one card to a pod (and both equal the
+    reference's run)."""
+    one = default_mesh(devices=[CPU])
+    x = np.arange(64 * 4, dtype=np.float32).reshape(64, 4)
+
+    def make(per_process):
+        return tbolt.fromcallback(lambda idx: x[idx], (64, 4), one,
+                                  dtype=np.float32, chunks=16,
+                                  per_process=per_process)
+
+    a = make(True).map(lambda v: v + 1).sum().toarray()
+    b = make(False).map(lambda v: v + 1).sum().toarray()
+    want = np.asarray(bolt.fromcallback(
+        lambda idx: x[idx], (64, 4), mesh, dtype=np.float32, chunks=16,
+        per_process=True).map(lambda v: v + 1).sum().toarray())
+    assert np.array_equal(a, b) and np.array_equal(a, want)
+
+
+def test_per_process_requires_dtype():
+    one = default_mesh(devices=[CPU])
+    with pytest.raises(ValueError, match="explicit dtype") as mine:
+        tbolt.fromcallback(lambda idx: np.zeros((4, 2))[idx], (4, 2), one,
+                           per_process=True)
+    with pytest.raises(ValueError) as theirs:
+        bolt.fromcallback(lambda idx: np.zeros((4, 2))[idx], (4, 2),
+                          jax.make_mesh((8,), ("k",)), per_process=True)
+    assert str(mine.value) == str(theirs.value)
+
+
+def test_sidecar_codec_error_names_the_pod_rule(monkeypatch):
+    from bolt_tpu_torch.gpu import codec as codeclib
+    monkeypatch.setattr(multihost, "mesh_process_count", lambda m: 3)
+    msg = multihost.sidecar_codec_error(codeclib.get("int8"), None)
+    assert "int8" in msg and "sidecar" in msg and "bf16" in msg
+    assert "spanning 3 processes" in msg
+    assert multihost.sidecar_codec_error(codeclib.get("bf16"),
+                                         None) is None
+    assert multihost.sidecar_codec_error(codeclib.get("delta-f32"),
+                                         None) is None
+    assert multihost.sidecar_codec_error(None, None) is None
+
+
+_DIVIDE_CASES = [
+    ((64, 8), 1, [(0, 16), (16, 32)]),
+    ((64, 8), 1, [(0, 3)]),
+    ((64, 8), 1, [(0, 16), (16, 20)]),
+    ((7, 3), 1, [(0, 7)]),
+    ((24, 6, 4), 2, [(0, 8), (8, 16)]),
+    ((16, 2, 5), 2, [(0, 4)]),
+]
+
+
+@pytest.mark.parametrize("shape,split,ranges", _DIVIDE_CASES)
+def test_slab_divisibility_error_is_the_references(
+        monkeypatch, mesh2d, shape, split, ranges):
+    """BLT012's verdict and message, on a pod of the reference's (4, 2)
+    mesh shape, equal the reference's word for word."""
+    from bolt_tpu.parallel import multihost as ref_mh
+    lay = convert.mesh_from_reference((4, 2), ("a", "b"))
+    monkeypatch.setattr(multihost, "mesh_process_count", lambda m: 8)
+    monkeypatch.setattr(ref_mh, "mesh_process_count", lambda m: 8)
+    got = multihost.slab_divisibility_error(lay, shape, split, ranges)
+    want = ref_mh.slab_divisibility_error(mesh2d, shape, split, ranges)
+    assert got == want
+    assert multihost.key_collective_axes(lay, shape, split) == \
+        ref_mh.key_collective_axes(mesh2d, shape, split)
+
+
+@pytest.mark.parametrize("rank,want", [(0, (0, 4)), (1, (4, 8)),
+                                       (3, (12, 16))])
+def test_local_slab_spec_ranges_of_a_pod(monkeypatch, rank, want):
+    """Each rank's rows of a 16-record slab on a 4-rank pod, in global
+    record coordinates; an uneven slab is BLT012."""
+    lay = convert.mesh_from_reference((4,), ("k",))
+    monkeypatch.setattr(multihost, "mesh_process_count", lambda m: 4)
+    monkeypatch.setattr(type(lay), "rank", property(lambda self: rank))
+    spec = multihost.local_slab_spec(lay, (64, 8), 1)
+    assert spec.local_range(0, 16) == want
+    assert spec.local_range(32, 48) == (32 + want[0], 32 + want[1])
+    with pytest.raises(ValueError, match="BLT012: slab"):
+        spec.local_range(0, 6)
+
+
+def test_local_slab_spec_refuses_a_box_that_is_not_whole_records(
+        monkeypatch):
+    """Two key axes split over a (2, 2) mesh: a rank's box of a slab is
+    not whole records, so no per-rank ingest range exists."""
+    lay = convert.mesh_from_reference((2, 2), ("a", "b"))
+    monkeypatch.setattr(multihost, "mesh_process_count", lambda m: 4)
+    spec = multihost.local_slab_spec(lay, (8, 4, 3), 2)
+    with pytest.raises(ValueError, match="process boundary on the "
+                                         "leading key axis"):
+        spec.local_range(0, 4)
 
 
 def test_nccl_needs_a_cuda_device():
