@@ -11,7 +11,10 @@ entry), ``"checkpoint.meta"`` (between its state rename and its meta
 rename) and ``"checkpoint.corrupt"`` (a tripped fault flips bytes of the
 state file just written); the pod layer at ``"multihost.barrier"``
 (every named rendezvous) and ``"multihost.collective"`` (every
-collective that moves data) — and this registry trips a chosen one
+collective that moves data); the recovery layer at
+``"podwatch.heartbeat"`` (each liveness beat), ``"supervisor.elect"``
+(each recovery attempt) and ``"supervisor.rejoin"`` (the rejoin door) —
+and this registry trips a chosen one
 deterministically:
 
 >>> from bolt_tpu_torch import _chaos as chaos
@@ -76,6 +79,9 @@ SEAMS = (
     "checkpoint.corrupt",     # flips bytes of the state just written
     "multihost.barrier",      # every named cross-rank rendezvous
     "multihost.collective",   # every collective that moves data
+    "podwatch.heartbeat",     # top of every liveness-watch beat
+    "supervisor.elect",       # top of every supervised recovery attempt
+    "supervisor.rejoin",      # the supervisor's rejoin-door handler
 )
 
 

@@ -75,11 +75,18 @@ RANKS = {
     # process-wide singleton gates (held across whole-subsystem
     # construction/teardown, so they sit OUTSIDE everything)
     "serve.active": 10,        # serve.py _ACTIVE_LOCK
+    "supervisor.active": 12,   # parallel/supervisor.py _ACTIVE_LOCK
     "analysis.strict": 14,     # analysis/__init__.py _ACTIVE_LOCK
     "batched.arm": 16,         # gpu/batched.py _ARM_LOCK
     # stat groups hold their lock across the WHOLE resolution, the
     # dispatch included (see DISPATCH_SAFE below): an OUTER lock
     "multistat.group": 18,     # gpu/multistat._StatGroup.lock
+    # the pod recovery layer (drives reforms, which reach the engine)
+    "supervisor.state": 20,    # supervisor.Supervisor._lock
+    "podwatch.watch": 24,      # podwatch._WATCH_LOCK (start/stop gate)
+    "podwatch.callbacks": 26,  # podwatch._CB_LOCK
+    "podwatch.state": 28,      # podwatch._Watch.lock
+    "podwatch.busy": 30,       # podwatch._BUSY_LOCK (collective gate)
     # the serving scheduler and its device-memory arbiter
     "serve.scheduler": 34,     # serve.Server._cond
     "serve.lease": 36,         # serve.ArbiterLease._lock

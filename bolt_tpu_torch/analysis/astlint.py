@@ -93,9 +93,12 @@ _EXEMPT = {
     # the executor's transfer/window syncs, the engine, and profile's
     # timing barriers are the sanctioned sync points
     "BLT107": ("stream.py", "engine.py", "profile.py"),
-    # the blessed concurrency homes: the uploader pool and the
-    # multi-tenant scheduler
-    "BLT108": ("stream.py", "serve.py"),
+    # the blessed concurrency homes: the uploader pool, the
+    # multi-tenant scheduler, and the pod lifecycle's liveness watch and
+    # recovery supervisor
+    "BLT108": ("stream.py", "serve.py",
+               os.path.join("parallel", "podwatch.py"),
+               os.path.join("parallel", "supervisor.py")),
     # the one blessed fault-injection home (plus tests/scripts)
     "BLT109": ("_chaos.py", "tests" + os.sep, "scripts" + os.sep),
     # the one blessed process-topology home (plus tests/scripts, which

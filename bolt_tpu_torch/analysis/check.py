@@ -27,9 +27,12 @@ diagnostics of :mod:`bolt_tpu_torch.analysis.diagnostics`:
 On a mesh (``gpu/mesharray.py``) the check walks this rank's box as the
 single-device checker does (each stage's spec is the rank's box) and adds
 ``BLT004`` when the key sharding leaves ranks idle.  A pod stream's
-source stage notes every rank's rows of a slab.  BLT013 and BLT014
-(pod recovery and supervision) belong to a later slice of the mesh port
-(ROADMAP A12c): they are registered and not emitted yet.
+source stage notes every rank's rows of a slab and its recovery plan
+(the liveness watch's cadence and deadline, the resume topology, and
+the supervised contract when a ``parallel.supervisor`` is installed);
+``BLT013`` flags a pod stream with no recovery path (no checkpoint
+directory, or a sub-pod mesh) and ``BLT014`` a supervised pod stream
+whose ``fromiter`` source a rejoined rank cannot re-ingest.
 
 Each map stage evaluates through the terminals' own
 ``gpu/array.py :: _chain_apply`` (and so ``_user_call``, with its
@@ -359,10 +362,7 @@ def _note_resumable(src, idx, diags):
     """``BLT011``: checkpointing is armed (the source's ``checkpoint=``
     or a ``stream.resumable()`` scope) over a ONE-SHOT iterator, which
     dies with the process: resume is impossible."""
-    from bolt_tpu_torch import stream as _stream
-    scope = _stream.checkpoint_scope()
-    ck_dir = src.ckpt if src.ckpt is not None else (
-        scope[0] if scope is not None else None)
+    ck_dir = _stream_ckpt_dir(src)
     if ck_dir is None or src.kind != "iter" or src.blocks is None:
         return
     if iter(src.blocks) is not src.blocks:
@@ -376,6 +376,116 @@ def _note_resumable(src, idx, diags):
         hint="use fromcallback (random access) or pass a re-iterable "
              "block list so a restarted run can skip the already-"
              "retired slabs"))
+
+
+def _stream_ckpt_dir(src):
+    """The checkpoint directory a run over ``src`` would use (the
+    source's ``checkpoint=`` before the thread's ``resumable()`` scope),
+    or ``None``."""
+    from bolt_tpu_torch import stream as _stream
+    if src.ckpt is not None:
+        return src.ckpt
+    scope = _stream.checkpoint_scope()
+    return scope[0] if scope is not None else None
+
+
+def _active_supervisor():
+    """The installed recovery supervisor, probed through ``sys.modules``
+    so checking a pipeline never imports (or starts) the supervision
+    layer."""
+    import sys
+    sup = sys.modules.get("bolt_tpu_torch.parallel.supervisor")
+    return None if sup is None else sup.active()
+
+
+def _recovery_plan(src, nproc):
+    """The pod fault-tolerance plan ``explain()`` renders for a pod
+    stream: the heartbeat cadence, the watchdog deadline, the topology a
+    peer loss resumes on, and, with a recovery supervisor installed, the
+    SUPERVISED contract (backoff budget, quarantine, the rejoin door)."""
+    from bolt_tpu_torch.parallel import podwatch
+    cfg = podwatch.config()
+    if cfg.get("timeout"):
+        hb = ("peer loss -> PeerLostError (heartbeat %.3gs, watchdog "
+              "deadline %.3gs, %s transport)"
+              % (cfg["interval"], cfg["timeout"], cfg["transport"]))
+    else:
+        hb = "watchdog OFF (BOLT_POD_TIMEOUT=0): peer loss may hang"
+    ck_dir = _stream_ckpt_dir(src)
+    if ck_dir is not None:
+        resume = ("resume topology: reform to the survivors (<= %d "
+                  "processes) and resume from %r" % (nproc - 1, ck_dir))
+    else:
+        resume = ("NO checkpoint dir: peer loss discards all partials "
+                  "(BLT013)")
+    plan = "recovery plan: %s; %s" % (hb, resume)
+    sup = _active_supervisor()
+    if sup is not None:
+        scfg = sup.config()
+        q = scfg.get("quarantine") or []
+        plan += ("; SUPERVISED: auto-reform (%d retries, %.3gs "
+                 "exponential backoff), rejoin door open via the %s "
+                 "transport (quiesce at a slab-boundary checkpoint, "
+                 "reform UP, resume bit-identically), quarantine %s"
+                 % (scfg["retries"], scfg["backoff"], cfg["transport"],
+                    sorted(q) if q else "empty"))
+    return plan
+
+
+def _note_pod_recovery(src, nproc, idx, diags):
+    """``BLT013``: a pod stream with no recovery path: no checkpoint
+    directory (one peer loss discards every fold partial), or a SUB-POD
+    mesh (the checkpoint's barriers cover the whole pod, so
+    checkpointing is refused there)."""
+    if nproc <= 1:
+        return
+    from bolt_tpu_torch.parallel import multihost
+    ck_dir = _stream_ckpt_dir(src)
+    if ck_dir is None:
+        diags.append(Diagnostic(
+            "BLT013", idx,
+            "this pipeline streams across %d processes with NO "
+            "checkpoint dir: a single peer loss discards every fold "
+            "partial and the whole run restarts from scratch "
+            "(recovery impossible)" % nproc,
+            hint="arm stream.resumable(dir) or fromcallback/fromiter "
+                 "checkpoint=dir so the survivors can "
+                 "multihost.reform() and resume from the last "
+                 "rendezvous-consistent watermark"))
+        return
+    runtime = multihost.process_count()
+    if runtime > 1 and nproc != runtime:
+        diags.append(Diagnostic(
+            "BLT013", idx,
+            "this stream's mesh spans %d of the runtime's %d "
+            "processes (a SUB-POD mesh): the checkpoint rendezvous "
+            "barrier covers the whole runtime, so resumable "
+            "checkpointing is refused and peer loss discards all "
+            "partials" % (nproc, runtime),
+            hint="stream the checkpointed run on a mesh covering "
+                 "every process, or drop checkpoint=/resumable() for "
+                 "this sub-mesh run"))
+
+
+def _note_supervised_source(src, nproc, idx, diags):
+    """``BLT014``: a recovery supervisor is installed (re-expansion is
+    armed) and this pod stream reads a ``fromiter`` block iterable: only
+    a per-process ``fromcallback`` loader lets a REJOINED process
+    re-ingest its rows of the remaining slabs, so the pod cannot grow
+    during this run."""
+    if nproc <= 1 or src.kind != "iter" or _active_supervisor() is None:
+        return
+    diags.append(Diagnostic(
+        "BLT014", idx,
+        "automatic re-expansion is armed (a recovery supervisor is "
+        "installed) but this %d-process stream reads a fromiter block "
+        "iterable: a REJOINED replacement process has no way to "
+        "re-ingest its shard mid-run, so the supervisor cannot grow "
+        "the pod during this stream" % nproc,
+        hint="use fromcallback(..., per_process=True) with a shared-"
+             "storage loader (any process can then produce any shard "
+             "range), or accept that re-expansion defers to the next "
+             "per-process-sourced run"))
 
 
 def _check_predicate(pred, vshape, vdtype, idx, diags):
@@ -449,14 +559,22 @@ def _check_stream(arr, target, stages, diags):
             "uploader pool %d"
             % (nslabs, src.slab, _stream.prefetch_depth(),
                _stream.pool_size(src)))
+    from bolt_tpu_torch.parallel import multihost
+    nproc = 1 if src.mesh is None \
+        else multihost.mesh_process_count(src.mesh)
     if src.mesh is not None:
         note += "; " + _pod_note(src, diags)
+    if nproc > 1:
+        # what a peer's death does to this run
+        note += "; " + _recovery_plan(src, nproc)
     stages.append(Stage(0, "stream source (%s)" % src.kind, src.shape,
                         np.dtype(src.dtype), walk_split, device,
                         note=note))
     _note_admission(_stream_slab_bytes(src), 0, diags)
     _note_codec(src, 0, diags)
     _note_resumable(src, 0, diags)
+    _note_pod_recovery(src, nproc, 0, diags)
+    _note_supervised_source(src, nproc, 0, diags)
     dynamic = False
     for i, stage in enumerate(src.stages):
         idx = i + 1

@@ -7,10 +7,10 @@ index of the pipeline stage it anchors to, and a fix hint — the
 compiler-style contract the repo linter
 (:mod:`bolt_tpu_torch.analysis.astlint`) mirrors with its ``BLT1xx``
 range.  The code table is the reference's (``docs/API.md``); the checker
-emits BLT004 on a mesh (idle ranks) and BLT012 for a pod stream's slab
-the key-axis assignment does not divide; BLT013 and BLT014 concern pod
-recovery, a later slice of the mesh port (ROADMAP A12c), and stay
-registered and unemitted until then.
+emits BLT004 on a mesh (idle ranks), BLT012 for a pod stream's slab
+the key-axis assignment does not divide, BLT013 for a pod stream with no
+recovery path and BLT014 for a supervised pod stream a rejoined rank
+cannot re-ingest.
 
 Severities:
 

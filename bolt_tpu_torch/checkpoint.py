@@ -39,8 +39,8 @@ Port of ``bolt_tpu/checkpoint.py``, in three parts:
   fences the removal of superseded shards, so a pod killed at any
   instant leaves a meta whose watermark has a shard for every rank.
   The fold state is the same on every rank, so each shard is a whole
-  resume point.  A checkpoint of the same run cut at another width is
-  refused (adopting it is the topology remap of ROADMAP A12c);
+  resume point, and a checkpoint of the same run cut at another width
+  resumes through the topology remap (:func:`stream_load`);
 * **the shuffle spill**: when a streamed ``swap`` plans a working set
   larger than its resident budget (``stream.spill``), phase 1 of the
   shuffle writes each re-keyed bucket to disk and phase 2 streams the
@@ -324,7 +324,8 @@ def _pod_width(multiprocess):
 
 
 def stream_save(path, fingerprint, slabs, records, state,
-                multiprocess=False, rendezvous=True, codec=None, box=None):
+                multiprocess=False, rendezvous=True, codec=None, box=None,
+                remap_from=None):
     """Write one streamed-run checkpoint: ``slabs`` retired slabs covering
     ``records`` records, ``state`` the executor's folded partial
     (``(levels, pend)``; tensors on any device are copied to the host
@@ -384,6 +385,8 @@ def stream_save(path, fingerprint, slabs, records, state,
             "leaves": len(leaves), "nproc": nproc}
     if codec is not None:
         meta["codec"] = str(codec)
+    if remap_from is not None:
+        meta["remapped_from"] = int(remap_from)
     if nproc > 1 and not rendezvous:
         meta["abort"] = True
         cur = _read_meta(path)
@@ -423,63 +426,66 @@ def _read_meta(path):
         return None
 
 
-def _other_width(path, meta, nproc):
-    """The refusal of a checkpoint of this run cut at another pod
-    width."""
-    return NotImplementedError(
-        "stream checkpoint %r was cut by a run over %d process(es); this "
-        "run spans %d.  Resuming it here is the topology remap of "
-        "ROADMAP A12c, which is not ported yet: rerun at the width that "
-        "cut it, or delete the checkpoint to start from scratch"
-        % (path, int(meta.get("nproc", 1)), nproc))
-
-
-def _shard_to_read(path, meta, rank):
-    """This rank's shard of the meta's watermark, else any peer's (the
-    pod's fold state is the same on every rank), else ``None``."""
+def _remap_state_path(path, meta, rank):
+    """A state file for the meta's watermark, whatever topology cut it:
+    this rank's own shard when present, else the lowest-rank survivor's,
+    else the single-process file (every rank's fold state is the same
+    bits, so any of them is a whole resume point), or ``None``."""
+    if int(meta.get("nproc", 1)) == 1:
+        sp = _state_path(path)
+        return sp if os.path.exists(sp) else None
     slabs = int(meta["slabs"])
     own = _state_path(path, rank, slabs)
     if os.path.exists(own):
         return own
-    peers = sorted(glob.glob(os.path.join(
-        path, "stream_state.p*.w%d.npz" % slabs)))
-    return peers[0] if peers else None
+
+    def _rank_of(p):
+        try:
+            return int(os.path.basename(p).split(".p")[1].split(".w")[0])
+        except (IndexError, ValueError):
+            return 1 << 30
+    cands = glob.glob(os.path.join(path, "stream_state.p*.w%d.npz"
+                                   % slabs))
+    return min(cands, key=_rank_of) if cands else None
 
 
-def stream_load(path, fingerprint, multiprocess=False, box=None):
+def stream_load(path, fingerprint, multiprocess=False, box=None,
+                info=None):
     """The checkpoint :func:`stream_save` wrote, as ``(slabs, records,
     state)`` with CPU tensor leaves, or ``None`` when there is none, its
     fingerprint names another run (an edited pipeline, another codec, a
     reference checkpoint), or its meta and state come from different
     writes (a kill between the two renames).  A pod run reads the shared
     meta and its own shard of the meta's watermark (a peer's when its own
-    never landed), whose recorded key ``box`` must be this rank's.  A
-    checkpoint of the same run cut at another width (a pod's read by one
-    process, one process's read by a pod, another pod width) raises
-    ``NotImplementedError`` naming ROADMAP A12c: it is never adopted.  A
-    state file that exists but cannot be read, or fails the meta's
-    digest, raises :class:`CheckpointCorruptError`."""
+    never landed), whose recorded key ``box`` must be this rank's.
+
+    A checkpoint of the same run cut at another TOPOLOGY (the
+    fingerprint's last element: a pod's read by one process, one
+    process's read by a pod, another pod width or mesh) is the
+    **topology remap** of a shrink or a growth: every rank's fold state
+    is the same bits, so any surviving shard of the meta's watermark is
+    adopted (this rank's index first, else the lowest), its digest
+    verified, and ``info`` (a dict) receives ``{"remapped_from": N}``,
+    the width that cut it.  A state file that exists but cannot be
+    read, or fails the meta's digest, raises
+    :class:`CheckpointCorruptError`."""
     from bolt_tpu_torch.parallel import multihost
     meta = _read_meta(path)           # None when missing or malformed
     if meta is None:
         return None
     nproc = _pod_width(multiprocess)
-    got = list(meta.get("fingerprint", ()))
-    if got != list(fingerprint):
-        if got[:-1] == list(fingerprint)[:-1] and got:
-            raise _other_width(path, meta, nproc)
+    rank = multihost.process_index()
+    got, want = list(meta.get("fingerprint", ())), list(fingerprint)
+    if not got or got[:-1] != want[:-1]:
         return None
-    if int(meta.get("nproc", 1)) != nproc:
-        raise _other_width(path, meta, nproc)
-    own = True
-    if nproc == 1:
-        spath = _state_path(path)
-    else:
-        spath = _shard_to_read(path, meta, multihost.process_index())
-        if spath is None:
-            return None
-        own = spath == _state_path(path, multihost.process_index(),
-                                   int(meta["slabs"]))
+    meta_nproc = int(meta.get("nproc", 1))
+    remap = got[-1] != want[-1] or meta_nproc != nproc
+    spath = _remap_state_path(path, meta, rank)
+    if spath is None:
+        return None
+    # the key box is checked on this rank's own shard of its own width
+    own = not remap and (nproc == 1 or spath == _state_path(
+        path, rank, int(meta["slabs"])))
     corrupt = (
         "stream checkpoint state file %r is corrupt (%%s); refusing to "
         "seed the fold with it — delete the file (or the whole "
@@ -516,13 +522,15 @@ def stream_load(path, fingerprint, multiprocess=False, box=None):
                 corrupt % ("leaf unreadable: %s" % exc)) from exc
     finally:
         z.close()
-    want = meta.get("digest")
-    if want is None:
+    digest = meta.get("digest")
+    if digest is None:
         raise CheckpointCorruptError(
             corrupt % "the meta record holds no content digest")
-    if _state_digest(meta["slabs"], meta["records"], leaves) != want:
+    if _state_digest(meta["slabs"], meta["records"], leaves) != digest:
         raise CheckpointCorruptError(
             corrupt % "content digest mismatch vs the meta record")
+    if remap and info is not None:
+        info["remapped_from"] = meta_nproc
     return (int(meta["slabs"]), int(meta["records"]),
             _decode(meta["structure"], leaves))
 
@@ -534,9 +542,13 @@ def stream_clear(path, multiprocess=False):
     state.  A pod (every rank calls it): a barrier proves every rank
     finished, rank 0 removes the meta, a second barrier fences it, then
     each rank removes its own shards and rank 0 every shard left (an
-    abort write's, a peer's, a write a kill left half done)."""
+    abort write's, a dead peer's, a write a kill left half done, the
+    one-process state a growth resumed), and the latched-dead peers'
+    heartbeat markers go with them (``podwatch.sweep_dead_markers``).
+    One process removes the shards of a pod checkpoint it resumed
+    through the topology remap too."""
     if multiprocess and _pod_width(True) > 1:
-        from bolt_tpu_torch.parallel import multihost
+        from bolt_tpu_torch.parallel import multihost, podwatch
         rank = multihost.process_index()
         multihost.barrier("bolt_stream_clear")
         if rank == 0:
@@ -546,8 +558,13 @@ def stream_clear(path, multiprocess=False):
             else "stream_state.p%d.w*.npz" % rank
         for p in glob.glob(os.path.join(path, pat)):
             _remove(p)
+        if rank == 0:
+            # a pod that resumed a one-process checkpoint (a growth)
+            _remove(_state_path(path))
+        podwatch.sweep_dead_markers()
         return
-    for p in (_smeta_path(path), _state_path(path)):
+    for p in [_smeta_path(path), _state_path(path)] + glob.glob(
+            os.path.join(path, "stream_state.p*.w*.npz")):
         _remove(p)
 
 

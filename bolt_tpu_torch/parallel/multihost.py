@@ -27,7 +27,17 @@ BLT110): every other module calls the wrappers below.
   :func:`ppermute`) move raw bytes, so every dtype travels exactly.
   Folds are deterministic: the partials are gathered and combined in
   rank order on every rank, so every rank returns the same bits whatever
-  the backend's reduction order.
+  the backend's reduction order.  While the liveness watch runs
+  (:mod:`bolt_tpu_torch.parallel.podwatch`, started by
+  :func:`initialize` on a pod of more than one rank) every collective
+  is issued with ``async_op=True`` and its ``Work`` is polled against
+  the watch, so a dead peer raises ``PeerLostError`` instead of
+  blocking in C++ (a gloo op already blocked there is bounded only by
+  the group's ``timeout``).
+* :func:`reform` rebuilds the process group at another width: on the
+  survivors of a peer death, or on survivors plus rejoined processes
+  (``parallel.supervisor`` drives it); :func:`heal_backend_init` cleans
+  up after a failed bring-up.
 """
 
 import datetime
@@ -40,6 +50,10 @@ import tempfile
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from bolt_tpu_torch.parallel import podwatch
+from bolt_tpu_torch.parallel.podwatch import PeerLostError  # noqa: F401 — the
+#   re-export: callers catch multihost.PeerLostError
 
 # ---------------------------------------------------------------------
 # bootstrap / teardown
@@ -68,6 +82,10 @@ _DEFAULT_TIMEOUT = 120.0               # seconds: bring-up and every wait
 
 _COUNTS = {"collectives": 0, "collective_bytes": 0,
            "collective_host_bytes": 0}
+
+# the last bring-up's store, rank, device and backend (kept past a
+# failed one for heal_backend_init, past a teardown for reform)
+_BRINGUP = {"store": None, "rank": None, "device": None, "backend": None}
 
 
 def _env_int(name):
@@ -119,10 +137,16 @@ def _refuse_shared_nccl(store, rank, world, device, timeout):
     "duplicate GPU" error): every rank publishes its device's identity
     through the store and each refuses, with the same pointed
     ``ValueError``, when two ranks share one."""
+    wait = datetime.timedelta(seconds=timeout)
     store.set("bolt/device/%d" % rank, _device_identity(device))
     keys = ["bolt/device/%d" % r for r in range(world)]
-    store.wait(keys, datetime.timedelta(seconds=timeout))
+    store.wait(keys, wait)
     idents = [store.get(k).decode() for k in keys]
+    # every rank has read every identity before any goes on (a refused
+    # rank's heal_backend_init deletes its key)
+    if store.add("bolt/device/read", 1) == world:
+        store.set("bolt/device/read/all", "1")
+    store.wait(["bolt/device/read/all"], wait)
     hit = shared_devices(idents)
     if hit is not None:
         a, b, ident = hit
@@ -154,10 +178,11 @@ def initialize(coordinator_address=None, num_processes=None,
     store is a ``FileStore`` at ``store_path`` (no port to race for: what
     the tests and the harness use) or a ``TCPStore`` at
     ``coordinator_address`` (``host:port``, rank 0 serving it).  Every
-    wait is bounded by ``timeout`` seconds (default 120).  Idempotent:
-    returns ``True`` when this call brought the group up, ``False`` when
-    it was already up."""
-    global _POD
+    wait is bounded by ``timeout`` seconds (default 120).  On a pod of
+    more than one rank the liveness watch starts
+    (``podwatch.start``; ``BOLT_POD_TIMEOUT=0`` disables it).
+    Idempotent: returns ``True`` when this call brought the group up,
+    ``False`` when it was already up."""
     if _POD is not None:
         return False
     world = num_processes if num_processes is not None \
@@ -169,7 +194,29 @@ def initialize(coordinator_address=None, num_processes=None,
     if rank is None:
         raise ValueError("multihost.initialize needs process_id= (or "
                          "RANK) for a %d-process pod" % world)
-    rank = int(rank)
+    if store_path is None and coordinator_address is None:
+        addr, port = os.environ.get("MASTER_ADDR"), \
+            os.environ.get("MASTER_PORT")
+        if addr and port:
+            coordinator_address = "%s:%s" % (addr, port)
+        elif world != 1:
+            raise ValueError(
+                "multihost.initialize needs store_path= (a FileStore "
+                "every rank can reach) or coordinator_address= "
+                "(host:port, or MASTER_ADDR/MASTER_PORT)")
+    _bring_up(coordinator_address, world, int(rank), backend, device,
+              store_path, timeout)
+    if world > 1:
+        podwatch.start(world, int(rank))
+    return True
+
+
+def _bring_up(coordinator_address, world, rank, backend, device,
+              store_path, timeout):
+    """The process group of ``world`` ranks with this process as
+    ``rank``, on its own store: :func:`initialize`'s and
+    :func:`reform`'s shared half."""
+    global _POD
     if not 0 <= rank < world:
         raise ValueError("process_id %d out of range for %d processes"
                          % (rank, world))
@@ -189,18 +236,8 @@ def initialize(coordinator_address=None, num_processes=None,
     wait = datetime.timedelta(seconds=timeout)
     store_dir = None
     if store_path is None and coordinator_address is None:
-        addr, port = os.environ.get("MASTER_ADDR"), \
-            os.environ.get("MASTER_PORT")
-        if addr and port:
-            coordinator_address = "%s:%s" % (addr, port)
-        elif world == 1:
-            store_dir = tempfile.mkdtemp(prefix="bolt-pod-")
-            store_path = os.path.join(store_dir, "store")
-        else:
-            raise ValueError(
-                "multihost.initialize needs store_path= (a FileStore "
-                "every rank can reach) or coordinator_address= "
-                "(host:port, or MASTER_ADDR/MASTER_PORT)")
+        store_dir = tempfile.mkdtemp(prefix="bolt-pod-")
+        store_path = os.path.join(store_dir, "store")
     if store_path is not None:
         store = dist.FileStore(str(store_path), world)
         store.set_timeout(wait)
@@ -208,6 +245,8 @@ def initialize(coordinator_address=None, num_processes=None,
         host, _, port = str(coordinator_address).rpartition(":")
         store = dist.TCPStore(host, int(port), world, rank == 0,
                               timeout=wait)
+    _BRINGUP.update(store=store, rank=rank, device=device,
+                    backend=backend)
     if backend == "nccl":
         _refuse_shared_nccl(store, rank, world, device, timeout)
     # the process group works on its own namespace of the store, so its
@@ -220,22 +259,39 @@ def initialize(coordinator_address=None, num_processes=None,
     dist.all_reduce(probe)
     _POD = _Pod(rank, world, backend, device, store, store_dir)
     _EPOCH[0] += 1
-    return True
 
 
 def shutdown():
     """Tear down the process group :func:`initialize` brought up (no-op
-    otherwise); returns whether it did."""
+    otherwise); returns whether it did.  The liveness watch says
+    farewell first (a peer still streaming must not latch a clean leaver
+    dead); next to a dead peer the group is dropped with no rendezvous."""
     global _POD
     if _POD is None:
         return False
+    podwatch.stop(farewell=True)
     pod, _POD = _POD, None
     try:
-        dist.destroy_process_group()
+        _drop_group(_DEFAULT_TIMEOUT)
     finally:
         if pod.store_dir is not None:
             shutil.rmtree(pod.store_dir, ignore_errors=True)
     return True
+
+
+def _drop_group(timeout):
+    """Destroy the default process group with no barrier (a peer may be
+    dead), the wait bounded by ``timeout`` seconds.  Gloo drops a group
+    with a dead peer at once; a destroy still running past the bound is
+    refused pointedly rather than waited on."""
+    if not dist.is_initialized():
+        return
+    if not podwatch.bounded(dist.destroy_process_group, timeout,
+                            "multihost.destroy_process_group"):
+        raise RuntimeError(
+            "multihost: destroying the old process group did not return "
+            "within %.1fs; this process cannot bring up another one"
+            % timeout)
 
 
 def is_initialized():
@@ -275,20 +331,124 @@ def local_device():
     return None if _POD is None else _POD.device
 
 
-def _later(item):
-    raise NotImplementedError(
-        "multihost.%s belongs to a later slice of the port (ROADMAP %s)"
-        % item)
+def pod_store():
+    """The pod's key-value store (the liveness watch's ``KVTransport``
+    rides it), or ``None`` when no pod is up."""
+    return None if _POD is None else _POD.store
 
 
-def reform(*args, **kwargs):
-    """Shrink-or-grow-and-resume: not ported yet (ROADMAP A12c)."""
-    _later(("reform", "A12c"))
+def reform(coordinator_address=None, num_processes=None, process_id=None,
+           epoch=None, init_timeout=None, store_path=None, device=None,
+           backend=None):
+    """Shrink-or-grow-and-resume: rebuild the process group as a
+    ``num_processes``-rank pod, on the SURVIVORS of a peer death or on
+    survivors plus rejoined processes (``parallel.supervisor`` drives
+    that).
+
+    ::
+
+        try:
+            big.sum().cache()              # 3-rank pod, a peer dies
+        except multihost.PeerLostError:
+            multihost.reform("127.0.0.1:29511", num_processes=2)
+            ...rebuild the mesh, re-run the pipeline: it resumes from
+            the checkpoint through the topology remap...
+
+    Every member calls it with the SAME new store: a ``TCPStore`` at
+    ``coordinator_address`` (``host:port``, served by the new rank 0) or
+    a ``FileStore`` at ``store_path`` (a path fresh for this reform); a
+    reform onto one rank may name neither (a store of its own).
+    ``process_id`` defaults to this rank's index among
+    ``podwatch.alive_peers()`` (every survivor computes the same
+    mapping).  The old group is dropped with no barrier and its pending
+    ``Work`` is never waited on again; the new one comes up on the SAME
+    ``torch.device`` this rank owned, with the same backend (``device=``
+    and ``backend=`` only for a fresh process, the rejoiner, which has
+    nothing to tear down): NCCL with two ranks on one card stays
+    refused, and nothing falls back to gloo or to the CPU.  The
+    engine's program cache is cleared (no kernel library is rebuilt).
+    ``init_timeout`` bounds the teardown and the bring-up (the
+    supervisor passes a short one so a second death mid-reform fails
+    the attempt fast).  The liveness watch restarts at ``epoch`` (the
+    supervisor's plan carries it), stale markers are swept, and
+    ``podwatch.on_reform`` subscribers are notified last.  Returns the
+    new rank."""
+    global _POD
+    if num_processes is None or int(num_processes) < 1:
+        raise ValueError("reform num_processes must be >= 1, got %r"
+                         % (num_processes,))
+    if process_id is None:
+        alive = podwatch.alive_peers()
+        if not alive:
+            raise RuntimeError(
+                "multihost.reform needs process_id= when no liveness "
+                "watch is running (the survivors' rank mapping comes "
+                "from podwatch.alive_peers)")
+        old = process_index()
+        if old not in alive:
+            raise RuntimeError(
+                "multihost.reform: this process (%d) is not among the "
+                "surviving peers %s" % (old, list(alive)))
+        process_id = alive.index(old)
+    if coordinator_address is None and store_path is None \
+            and int(num_processes) > 1:
+        raise ValueError("multihost.reform needs the new store: "
+                         "coordinator_address= (host:port) or "
+                         "store_path= (a fresh FileStore path)")
+    timeout = float(_DEFAULT_TIMEOUT if init_timeout is None
+                    else init_timeout)
+    if _POD is not None:
+        device, backend = _POD.device, _POD.backend
+    elif device is None:
+        device, backend = _BRINGUP["device"], backend or _BRINGUP["backend"]
+    podwatch.stop(farewell=True)
+    pod, _POD = _POD, None
+    try:
+        _drop_group(timeout)
+    finally:
+        if pod is not None and pod.store_dir is not None:
+            shutil.rmtree(pod.store_dir, ignore_errors=True)
+    from bolt_tpu_torch import engine as _engine
+    _engine.clear()
+    _bring_up(coordinator_address, int(num_processes), int(process_id),
+              backend, device, store_path, timeout)
+    if int(num_processes) > 1:
+        podwatch.start(int(num_processes), int(process_id), epoch=epoch)
+        podwatch.sweep_stale_markers()
+    podwatch.notify_reform()
+    return int(process_id)
 
 
-def heal_backend_init(*args, **kwargs):
-    """Backend bring-up repair: not ported yet (ROADMAP A12c)."""
-    _later(("heal_backend_init", "A12c"))
+def heal_backend_init():
+    """Clean up after a FAILED bring-up (an ``initialize`` or ``reform``
+    that raised part way): destroy a half-registered default process
+    group, delete the keys this rank published in the failed bring-up's
+    store (its device identity), drop the engine's programs, and emit
+    ``multihost.backend_heal``, so the next bring-up starts clean.
+    Returns ``True`` only when a live store was found to heal against."""
+    if _POD is not None:
+        return False              # a healthy pod: nothing to heal
+    if dist.is_initialized():
+        try:
+            _drop_group(_DEFAULT_TIMEOUT)
+        except Exception:         # noqa: BLE001 — best effort: the
+            pass                  # group is unusable either way
+    store, rank = _BRINGUP["store"], _BRINGUP["rank"]
+    if store is None:
+        return False
+    try:
+        store.check(["bolt/device/%d" % rank])
+    except Exception:             # noqa: BLE001 — a dead store: nothing
+        return False              # to heal there
+    try:
+        store.delete_key("bolt/device/%d" % rank)
+    except Exception:             # noqa: BLE001 — absent key
+        pass
+    from bolt_tpu_torch import engine as _engine
+    _engine.clear()
+    from bolt_tpu_torch.obs import trace as _obs
+    _obs.event("multihost.backend_heal", process_id=rank)
+    return True
 
 
 # ---------------------------------------------------------------------
@@ -503,7 +663,9 @@ def _next_tag(kind, name):
 
 
 def barrier(name, timeout=None):
-    """Named rendezvous of every rank (no-op single-process), through the
+    """Named rendezvous of every rank (no-op single-process).  While the
+    liveness watch runs it is the watchdog barrier (``podwatch.barrier``:
+    a dead peer raises ``PeerLostError``); otherwise it goes through the
     pod's store.  The arrival is taken under the engine's dispatch-order
     lock, so it holds one place in this process's program order; the
     wait runs outside it.  Raises a pointed ``RuntimeError`` naming how
@@ -514,6 +676,11 @@ def barrier(name, timeout=None):
     from bolt_tpu_torch import _chaos
     from bolt_tpu_torch import engine as _engine
     _chaos.hit("multihost.barrier")
+    if podwatch.active():
+        # the watchdog barrier: a peer dead before arriving raises
+        # PeerLostError on every survivor within ~one heartbeat timeout
+        podwatch.barrier(name)
+        return
     timeout = _DEFAULT_TIMEOUT if timeout is None else float(timeout)
     store = _POD.store
     with _engine.order_lock():
@@ -720,6 +887,23 @@ def _collective():
     _chaos.hit("multihost.collective")
 
 
+def _complete(work, poll=True):
+    """Wait for one issued collective.  While the liveness watch runs the
+    ``Work`` is polled against it (``podwatch.wait_ready``), so a dead
+    peer raises ``PeerLostError`` rather than blocking in C++, and a
+    transport error from ``wait()`` is classified the same way.
+    ``poll=False`` for gloo's point-to-point ``Work``, which reports
+    completion only from ``wait()``: that wait is bounded by the group's
+    ``timeout`` alone (a latched dead peer still refuses before it)."""
+    if not podwatch.active():
+        work.wait()
+        return
+    with podwatch.guard("collective"):
+        if poll:
+            podwatch.wait_ready(work, phase="collective")
+        work.wait()
+
+
 def _wire_device(device):
     """Where a collective's buffers live: the host under gloo."""
     return torch.device("cpu") if _POD.backend == "gloo" else device
@@ -736,14 +920,14 @@ def all_gather_bytes(b, group):
     size = torch.tensor([b.numel()], dtype=torch.int64,
                         device=_wire_device(device))
     sizes = [torch.empty_like(size) for _ in range(n)]
-    dist.all_gather(sizes, size, group=group)
+    _complete(dist.all_gather(sizes, size, group=group, async_op=True))
     lens = [int(s.item()) for s in sizes]
     top = max(lens)
     pad = b if b.numel() == top else torch.cat(
         [b, torch.zeros(top - b.numel(), dtype=torch.uint8, device=device)])
     wire = _wire(pad)
     outs = [torch.empty_like(wire) for _ in range(n)]
-    dist.all_gather(outs, wire, group=group)
+    _complete(dist.all_gather(outs, wire, group=group, async_op=True))
     _COUNTS["collectives"] += 1
     _COUNTS["collective_bytes"] += top * (n - 1) + b.numel()
     return [_back(o[:ln], device) for o, ln in zip(outs, lens)]
@@ -833,7 +1017,8 @@ def all_to_all(sends, recv_sizes, device):
     wire_in = _wire(inp)
     wire_out = torch.empty(sum(out_sizes), dtype=torch.uint8,
                            device=wire_in.device)
-    dist.all_to_all_single(wire_out, wire_in, out_sizes, in_sizes)
+    _complete(dist.all_to_all_single(wire_out, wire_in, out_sizes,
+                                     in_sizes, async_op=True))
     _COUNTS["collectives"] += 1
     _COUNTS["collective_bytes"] += sum(in_sizes) + sum(out_sizes)
     out = _back(wire_out, device)
@@ -860,13 +1045,14 @@ def broadcast(t, src, out_device=None):
     _COUNTS["collectives"] += 1
     _COUNTS["collective_bytes"] += t.numel() * t.element_size()
     if process_index() == src:
-        dist.broadcast(_wire(t.contiguous()), src)
+        _complete(dist.broadcast(_wire(t.contiguous()), src,
+                                 async_op=True))
         return t
     device = out_device or (_POD.device if t.device.type == "meta"
                             else t.device)
     wire = torch.empty(t.shape, dtype=t.dtype,
                        device=_wire_device(_POD.device))
-    dist.broadcast(wire, src)
+    _complete(dist.broadcast(wire, src, async_op=True))
     return _back(wire, device)
 
 
@@ -901,7 +1087,7 @@ def ppermute(t, ranks, pairs):
             ops.append(dist.P2POp(dist.irecv, recv, peer))
     if ops:
         for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            _complete(work, poll=False)
         _COUNTS["collectives"] += 1
         nb = t.numel() * t.element_size()
         _COUNTS["collective_bytes"] += nb * len(ops)

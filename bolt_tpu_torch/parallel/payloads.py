@@ -151,14 +151,12 @@ def check_main_path(mesh, inputs):
 
 def check_not_ported(mesh, inputs):
     """Outside the ported slices a multi-rank mesh raises, naming the
-    ROADMAP item: the surface (A12d) and pod recovery (A12c)."""
+    ROADMAP item: the surface (A12d)."""
     bolt = _bolt()
     b = bolt.array(inputs["main_x"], mesh)
     out = {}
-    from bolt_tpu_torch.parallel import multihost
     calls = {
         "quantile": lambda: np.quantile(b, 0.5),
-        "reform": lambda: multihost.reform(mesh),
         "getitem": lambda: b[0:2],
         "add": lambda: b + 1,
         "asarray": lambda: np.asarray(b),
@@ -525,8 +523,8 @@ def payload_resume(rank, args, inputs):
     rank mid-run, then runs it again clean, which resumes from the
     ranks' shards.  ``args["sub_pod"]`` instead asks a checkpointed run
     on a mesh of fewer ranks than the pod (refused; the ranks outside it
-    build nothing).  ``args["other_width"]`` runs it expecting the
-    refusal of a checkpoint cut at another width."""
+    build nothing).  Run over a checkpoint cut at another width it
+    resumes through the topology remap."""
     from bolt_tpu_torch import engine
     bolt = _bolt()
     ck = args["ckpt"]
@@ -537,12 +535,6 @@ def payload_resume(rank, args, inputs):
     src = bolt.fromcallback(lambda idx: x[idx], (n, vdim), mesh,
                             dtype=np.float32, chunks=chunks, checkpoint=ck,
                             per_process=True)
-    if args.get("other_width"):
-        try:
-            src.map(_add1).sum().cache()
-            return {"rank": rank, "other_width_refused": None}
-        except NotImplementedError as exc:
-            return {"rank": rank, "other_width_refused": str(exc)}
     s = src.map(_add1).sum().cache()
     c1 = engine.counters()
     return {"rank": rank, "sum": _value(s),
@@ -1259,6 +1251,524 @@ def _stream_rep(out, mesh, args):
             _resume_source(bolt, sub, args, args["ckpt_sub"]).sum().cache()
         except ValueError as exc:
             res["sub_pod_refused"] = str(exc)
+
+
+# ---------------------------------------------------------------------
+# pod recovery (the reference harness's reform, serve_pod, supervise and
+# precollective payloads): a victim rank dies by BOLT_CHAOS=...:kill,
+# the survivors catch PeerLostError, reform and resume; a replacement
+# process (BOLT_POD_REJOINER=1: it brought up no pod) joins through
+# supervisor.attach
+# ---------------------------------------------------------------------
+
+def _recovery_loader(args, pace=0.0):
+    """``(shape, loader)`` of a recovery payload: the reference
+    harness's ``crafted(n, vdim)`` (``args["shape"]`` of two axes), or
+    ``crafted_records`` of the card's north-star (more axes), either
+    slowed by ``pace`` seconds a call (an emulated storage fetch)."""
+    shape = tuple(int(d) for d in args["shape"])
+    if len(shape) == 2:
+        x = crafted(*shape)
+
+        def base(idx):
+            return x[idx]
+    else:
+        base = crafted_records(shape[1:])
+
+    def loader(idx):
+        if pace:
+            time.sleep(pace)
+        return base(idx)
+    return shape, loader
+
+
+def _pod_device():
+    from bolt_tpu_torch.parallel import multihost
+    return multihost.local_device()
+
+
+def _detection_age(podwatch, dead):
+    """How stale the dead peer's beat was when this rank learned of it:
+    the age its watch reports (the detection latency)."""
+    return podwatch.peers().get(dead[0], {}).get("age") if dead else None
+
+
+def payload_reform(rank, args, inputs):
+    """Pod fault tolerance end to end (the reference's
+    ``payload_reform``).  With ``BOLT_CHAOS`` armed on one rank (the
+    victim), each survivor: (1) catches ``PeerLostError`` from the
+    killed checkpointed streamed ``map(v + 1).sum()``, naming the dead
+    rank; (2) sees ``multihost.barrier`` convert too; (3)
+    ``multihost.reform``s onto the survivors (a ``FileStore`` at
+    ``args["reform_store"]``); (4) resumes the sum from the killed
+    pod's checkpoint (the topology remap); then (5) runs a checkpointed
+    ``stats("sum", "var")`` on the reformed pod through an injected
+    abort on every rank and its resume.  Run with no victim it is the
+    clean baseline at the smaller width.  ``args["card"]`` adds, on the
+    reformed pod, config 1's armed int8 sum and a resident
+    ``map(v + 1).sum()`` (chip_smoke.py phase 17), each a measured
+    path with its launches."""
+    from bolt_tpu_torch import _chaos, engine, obs, stream
+    from bolt_tpu_torch import checkpoint as ckptlib
+    from bolt_tpu_torch.parallel import multihost, podwatch
+    import os
+    bolt = _bolt()
+    pace = float(args.get("pace", 0))
+    shape, loader = _recovery_loader(args, pace)
+    chunks = int(args["chunks"])
+    ck_sum = os.path.join(args["ckpt"], "sum")
+    res = {"rank": rank, "start_nproc": multihost.process_count()}
+    obs.clear()
+    obs.enable()
+
+    def make_sum():
+        src = bolt.fromcallback(loader, shape, _pod_mesh(),
+                                dtype=np.float32, chunks=chunks,
+                                checkpoint=ck_sum, per_process=True)
+        return src.map(_add1).sum()
+
+    ec0 = engine.counters()
+    t0 = time.monotonic()
+    with stream.uploaders(int(args.get("uploaders", 1))):
+        try:
+            s = make_sum().cache()
+            res["peer_lost"] = False
+            res["wall_s"] = time.monotonic() - t0
+        except multihost.PeerLostError as exc:
+            t_caught = time.monotonic()
+            res["peer_lost"] = True
+            res["caught_s"] = t_caught - t0
+            res["caught_peer"] = exc.peer
+            res["caught_slab"] = exc.slab
+            res["caught_phase"] = exc.phase
+            deadline = podwatch.deadline() or 5.0
+            while not podwatch.dead_peers() and \
+                    time.monotonic() - t_caught < 2 * deadline:
+                time.sleep(0.05)
+            dead = podwatch.dead_peers()
+            res["dead_peers"] = list(dead)
+            res["detection_s"] = _detection_age(podwatch, dead)
+            # (2) a barrier next to the dead peer converts on every
+            # survivor within 2x the deadline
+            tb = time.monotonic()
+            try:
+                multihost.barrier("post-loss-probe")
+                res["barrier_peerlost"] = False
+            except multihost.PeerLostError:
+                res["barrier_peerlost"] = True
+            res["barrier_s"] = time.monotonic() - tb
+            res["watchdog_deadline"] = deadline
+            # (3) reform onto the survivors (rank mapping from the watch)
+            survivors = podwatch.alive_peers()
+            c_lib = engine.counters()["persistent_misses"]
+            tr = time.monotonic()
+            res["new_pid"] = multihost.reform(
+                store_path=args["reform_store"],
+                num_processes=len(survivors))
+            res["reform_s"] = time.monotonic() - tr
+            res["reform_builds"] = \
+                engine.counters()["persistent_misses"] - c_lib
+            res["new_nproc"] = multihost.process_count()
+            res["new_device"] = str(multihost.local_device())
+            res["new_backend"] = multihost.backend()
+            # (4) resume the checkpointed sum on the smaller pod
+            t4 = time.monotonic()
+            s = make_sum().cache()
+            res["resume_s"] = time.monotonic() - t4
+            res["recovery_s"] = time.monotonic() - t_caught
+    res["sum"] = _value(s)
+    ec1 = engine.counters()
+    res["sum_resumes"] = ec1["stream_resumes"] - ec0["stream_resumes"]
+    res["sum_stale_ckpt"] = ckptlib.stream_pending(ck_sum) \
+        or bool([p for p in os.listdir(ck_sum) if p.startswith("stream_")]
+                if os.path.isdir(ck_sum) else [])
+    # the killed stream's and the resume's tallies (the card's measured
+    # paths count their own from zero)
+    _process_tallies(res)
+    if args.get("card"):
+        _reformed_card_paths(res, args)
+    if args.get("stats", True):
+        _reform_stats(res, args)
+    res["nproc_final"] = multihost.process_count()
+    res["leaked_spans"] = obs.active_count()
+    obs.disable()
+    return res
+
+
+def _process_tallies(res):
+    """This process's collective tallies (``multihost.counters()``: the
+    exchanges of every pod it was part of) and kernel launches so far."""
+    from bolt_tpu_torch.ops import kernels
+    from bolt_tpu_torch.parallel import multihost
+    res["collectives"] = multihost.counters()
+    res["launches_total"] = {k: v for k, v in kernels.LAUNCHES.items()
+                             if v}
+
+
+def _reform_stats(res, args):
+    """The reference's leg (5): a checkpointed ``stats("sum", "var")``
+    of 128 crafted records in slabs of 16 on the (reformed) pod: on a
+    pod every rank injects the same fault at its 5th upload (one
+    uploader, so the same slab everywhere), the abort-path checkpoint
+    (no barrier) is left, and the re-run resumes from it.  Skipped where
+    a rank's rows of a slab are not a whole period of the data (the
+    moments are then not exact at every width)."""
+    import os
+    from bolt_tpu_torch import _chaos, engine, stream
+    from bolt_tpu_torch import checkpoint as ckptlib
+    from bolt_tpu_torch.parallel import multihost
+    bolt = _bolt()
+    n2, chunks2 = 128, 16
+    x2 = crafted(n2, int(args["shape"][-1]))
+    ck = os.path.join(args["ckpt"], "stats")
+    if n2 % (multihost.process_count() * 8):
+        res["stats_skipped"] = multihost.process_count()
+        return
+
+    def make():
+        src = bolt.fromcallback(lambda idx: x2[idx], x2.shape, _pod_mesh(),
+                                dtype=np.float32, chunks=chunks2,
+                                checkpoint=ck, per_process=True)
+        return src.map(_add1).stats("sum", "var")
+
+    ec1 = engine.counters()
+    with stream.uploaders(1):
+        if multihost.process_count() > 1:
+            _chaos.inject("stream.upload", nth=5)
+            try:
+                _value(make()["sum"])
+                res["stats_died"] = None
+            except Exception as exc:    # noqa: BLE001 — recorded
+                res["stats_died"] = type(exc).__name__
+            finally:
+                _chaos.clear()
+            res["stats_ckpt_after_abort"] = ckptlib.stream_pending(ck)
+        st = make()
+        res["stats_sum"] = _value(st["sum"])
+        res["stats_var"] = _value(st["var"])
+    ec2 = engine.counters()
+    res["stats_resumes"] = ec2["stream_resumes"] - ec1["stream_resumes"]
+    res["stats_stale_ckpt"] = ckptlib.stream_pending(ck)
+
+
+def _reformed_card_paths(res, args):
+    """On the reformed one-rank pod (chip_smoke.py phase 17 path e):
+    config 1's armed int8 streamed sum of integer-valued records (one
+    ``fused_decode_sum`` a slab) and a resident ``map(v + 1).sum()`` of
+    the crafted config 1 (one ``fused_map_reduce``), each a measured
+    path."""
+    import os
+    from bolt_tpu_torch.parallel.mesh import default_mesh
+    bolt = _bolt()
+    c1 = tuple(args["config1"])
+    out = {"rank": res["rank"]}
+    cb = seeded_records(c1[1:], args["seed"], integers=True)
+    os.environ["BOLT_CODEC_KERNEL"] = "1"
+    try:
+        res["int8_sum"] = _s16_path(out, "s17_c1_int8", lambda: _value(
+            bolt.fromcallback(cb, c1, default_mesh(), dtype=np.float32,
+                              chunks=int(args["c1_chunks"]),
+                              codec="int8").sum().cache()))
+    finally:
+        os.environ.pop("BOLT_CODEC_KERNEL", None)
+    x = crafted_records(c1[1:])((slice(0, c1[0]),))
+    b = bolt.array(x, default_mesh())
+    res["resident_sum"] = _s16_path(out, "s17_c1_resident", lambda: _value(
+        b.map(_add1).sum()))
+    res["paths"] = out["paths"]
+
+
+def payload_serve_pod(rank, args, inputs):
+    """Serve-layer pod degradation (the reference's ``payload_serve_pod``):
+    a server per rank runs a streamed per-rank pipeline and the victim is
+    killed mid-run; the survivor's future FAILS with ``PeerLostError``
+    (never hangs), the arbiter reads zero bytes after it, admission
+    drains until a reform notification resumes the queue."""
+    from bolt_tpu_torch import obs, serve, stream
+    from bolt_tpu_torch.parallel import multihost, podwatch
+    bolt = _bolt()
+    n, vdim, chunks = 64, 8, 8
+    x = crafted(n, vdim)
+    obs.clear()
+    obs.enable()
+
+    def make():
+        src = bolt.fromcallback(lambda idx: x[idx], (n, vdim), _pod_mesh(),
+                                dtype=np.float32, chunks=chunks,
+                                per_process=True)
+        return src.map(_add1).sum()
+
+    res = {"rank": rank, "nproc": multihost.process_count()}
+    with stream.uploaders(1):
+        with serve.serving(workers=1, budget_bytes=16 << 20) as sv:
+            fut = sv.submit(make(), tenant="podtest")
+            exc = fut.exception(timeout=120)
+            res["future_error"] = (type(exc).__name__ if exc is not None
+                                   else None)
+            res["future_peer"] = getattr(exc, "peer", None)
+            res["arbiter_bytes_after_abort"] = \
+                sv.stats()["arbiter"]["in_use_bytes"]
+            t0 = time.monotonic()
+            while not sv.pod_paused() and time.monotonic() - t0 < 30:
+                time.sleep(0.05)
+            res["pod_paused"] = sv.pod_paused()
+            podwatch.notify_reform()
+            res["pod_resumed"] = not sv.pod_paused()
+    res["leaked_spans"] = obs.active_count()
+    obs.disable()
+    return res
+
+
+def payload_precollective(rank, args, inputs):
+    """The pre-collective death bound (the reference's
+    ``payload_precollective``): the victim dies at its FIRST upload,
+    before any exchange; the survivor's readiness rendezvous raises
+    ``PeerLostError`` within ~2x ``BOLT_POD_TIMEOUT`` of the death.  The
+    victim dies only once its own first run reached its first upload,
+    so ``victim_last_beat_s`` (its last heartbeat on the shared-directory
+    transport, on the host's clock, after this rank's start) dates the
+    death."""
+    import os
+    from bolt_tpu_torch.parallel import multihost, podwatch
+    bolt = _bolt()
+    n, vdim, chunks = 64, 8, 8
+    x = crafted(n, vdim)
+    res = {"rank": rank, "deadline": podwatch.deadline()}
+    # the mesh binds its process groups first (a store rendezvous both
+    # ranks pass): the clock starts at the run itself
+    mesh = _pod_mesh()
+    t0, w0 = time.monotonic(), time.time()
+    try:
+        bolt.fromcallback(lambda idx: x[idx], (n, vdim), mesh,
+                          dtype=np.float32, chunks=chunks,
+                          per_process=True).map(_add1).sum().cache()
+        res["pre_peerlost"] = False
+    except multihost.PeerLostError as exc:
+        res["pre_peerlost"] = True
+        res["pre_elapsed"] = time.monotonic() - t0
+        res["pre_phase"] = exc.phase
+        res["pre_peer"] = exc.peer
+        tr = podwatch.transport()
+        beat = getattr(tr, "path", None) and os.path.join(
+            tr.path, "hb.e%d.p%d" % (tr.epoch, exc.peer))
+        if beat and os.path.exists(beat):
+            res["victim_last_beat_s"] = os.path.getmtime(beat) - w0
+    return res
+
+
+def payload_raw_error(rank, args, inputs):
+    """The raw error a dead gloo peer leaves (the watch OFF:
+    ``BOLT_POD_TIMEOUT=0``): the victim (``BOLT_CHAOS=
+    multihost.collective:2:kill``) dies at its second exchange, and the
+    survivor records what its second collective raises and whether
+    ``podwatch.is_transport_error`` classifies it."""
+    import torch
+    from bolt_tpu_torch.parallel import multihost, podwatch
+    group = _pod_mesh().group(("k",))
+    t = torch.ones(4)
+    multihost.all_reduce_sum(t, group)
+    time.sleep(0.5)
+    res = {"rank": rank, "watch": podwatch.active()}
+    try:
+        multihost.all_reduce_sum(t, group)
+        res["error"] = None
+    except Exception as exc:            # noqa: BLE001 — recorded
+        res["error"] = str(exc)
+        res["error_type"] = type(exc).__name__
+        res["classified"] = podwatch.is_transport_error(exc)
+    return res
+
+
+def payload_supervise(rank, args, inputs):
+    """Self-healing end to end (the reference's ``payload_supervise``).
+    Every rank runs ``Server(supervise=True)`` and submits, in the same
+    order:
+
+    * **A**, a checkpointed paced sum: the victim is killed mid-A; the
+      survivors' futures succeed with no caller intervention (the held
+      ``retries=`` re-attempt resumes once the supervisor's automatic
+      shrink lands);
+    * **B**, a checkpointed paced sum: a replacement process
+      (``BOLT_POD_REJOINER=1``) rings the rejoin door mid-B; the pod
+      quiesces at a slab-boundary checkpoint, the supervisor reforms up,
+      and B's re-attempt resumes on the larger pod (the rejoiner submits
+      B too and joins the resumed slab schedule);
+    * **C**, ``stats("sum", "var")`` of period-4 crafted data
+      (``args["stats"]``), a clean run on the re-expanded pod.
+
+    Run with no victim and no rejoiner (the reference leg) all three
+    stream clean.  ``args["shape"]`` of more than two axes streams the
+    card's crafted north-star records."""
+    import glob
+    import os
+    from bolt_tpu_torch import analysis, engine, obs, serve
+    from bolt_tpu_torch import checkpoint as ckptlib
+    from bolt_tpu_torch.parallel import multihost, podwatch, supervisor
+    bolt = _bolt()
+    out = args["out"]
+    hbdir = os.environ["BOLT_POD_HB_DIR"]
+    rejoiner = os.environ.get("BOLT_POD_REJOINER") == "1"
+    pace = float(args.get("pace", 0.2))
+    shape, loader = _recovery_loader(args, pace)
+    chunks = int(args["chunks"])
+    x2 = crafted(shape[0], 8, period=4) if len(shape) == 2 else None
+    obs.clear()
+    obs.enable()
+    res = {"rank": rank, "rejoiner": rejoiner}
+    deaths = []
+    podwatch.on_peer_death(lambda dead: deaths.append(
+        (dead, podwatch.peers().get(dead, {}).get("age"))))
+
+    # jobs are FACTORIES: a retry after a reform rebuilds the pipeline on
+    # the CURRENT mesh, and its checkpoint resumes through the remap
+    def make_sum(name):
+        def job():
+            src = bolt.fromcallback(
+                loader, shape, _pod_mesh(), dtype=np.float32,
+                chunks=chunks, checkpoint=os.path.join(args["ckpt"], name),
+                per_process=True)
+            return src.map(_add1).sum().cache()
+        return job
+
+    def make_stats():
+        def job():
+            src = bolt.fromcallback(
+                lambda idx: x2[idx], x2.shape, _pod_mesh(),
+                dtype=np.float32, chunks=24,
+                checkpoint=os.path.join(args["ckpt"], "statsC"),
+                per_process=True)
+            return src.map(_add1).stats("sum", "var")
+        return job
+
+    if rejoiner:
+        # wait until every incumbent has B in flight, then ring the door
+        want = int(args.get("expect_bstart", 2))
+        hold = time.monotonic() + 300
+        while len(glob.glob(os.path.join(out, "b_started.*"))) < want:
+            if time.monotonic() > hold:
+                raise RuntimeError("rejoiner: the B gate never opened")
+            time.sleep(0.02)
+        t0 = time.monotonic()
+        spec = os.environ["BOLT_POD_DEVICE"]
+        import torch
+        device = torch.device("cuda", 0) if spec.startswith("cuda") \
+            else torch.device(spec)
+        sup = supervisor.attach(args.get("rejoin_id", "w1b"), dir=hbdir,
+                                device=device,
+                                backend=os.environ.get("BOLT_POD_BACKEND")
+                                or None)
+        res["attach_s"] = time.monotonic() - t0
+        res["new_pid"] = multihost.process_index()
+        res["new_nproc"] = multihost.process_count()
+        sv = serve.start(workers=1, budget_bytes=64 << 20, supervise=sup)
+    else:
+        sv = serve.start(workers=1, budget_bytes=64 << 20, supervise=True)
+    ec0 = engine.counters()
+    try:
+        if not rejoiner:
+            tA = time.monotonic()
+            sA = sv.submit(make_sum("sumA"), tenant="elastic",
+                           retries=3).result(timeout=600)
+            res["wall_a"] = time.monotonic() - tA
+            res["sumA"] = _value(sA)
+            ecA = engine.counters()
+            res["a_resumes"] = ecA["stream_resumes"] - ec0["stream_resumes"]
+            stA = sv.stats()
+            res["a_reforms"] = stA["totals"]["reforms"]
+            res["a_peer_losses"] = stA["totals"]["peer_losses"]
+            res["budget_share_after_a"] = stA["pod"]["budget_share"]
+            res["nproc_after_a"] = multihost.process_count()
+            res["detection_age"] = deaths[0][1] if deaths else None
+            supA = sv.supervisor.stats()
+            res["reform_s"] = supA.get("last_reform_seconds")
+            res["recovery_s"] = supA.get("last_recovery_seconds")
+            tB = time.monotonic()
+            futB = sv.submit(make_sum("sumB"), tenant="elastic", retries=3)
+            gate = os.path.join(out, "b_started.%d" % rank)
+            with open(gate + ".tmp", "w") as f:
+                f.write("1")
+            os.replace(gate + ".tmp", gate)
+        else:
+            tB = time.monotonic()
+            futB = sv.submit(make_sum("sumB"), tenant="elastic", retries=3)
+        ecB0 = engine.counters()
+        sB = futB.result(timeout=600)
+        res["wall_b"] = time.monotonic() - tB
+        res["sumB"] = _value(sB)
+        ecB = engine.counters()
+        res["b_resumes"] = ecB["stream_resumes"] - ecB0["stream_resumes"]
+        stB = sv.stats()
+        res["reforms"] = stB["totals"]["reforms"]
+        res["rejoins"] = stB["totals"]["rejoins"]
+        res["supervise_seconds"] = stB["totals"]["supervise_seconds"]
+        res["budget_share_after_b"] = stB["pod"]["budget_share"]
+        res["nproc_after_b"] = multihost.process_count()
+        res["rejoin_recovery_s"] = \
+            sv.supervisor.stats().get("last_recovery_seconds")
+        if x2 is not None:
+            tC = time.monotonic()
+            st = sv.submit(make_stats(), tenant="elastic",
+                           retries=3).result(timeout=600)
+            res["wall_c"] = time.monotonic() - tC
+            res["statsC_sum"] = _value(st["sum"])
+            res["statsC_var"] = _value(st["var"])
+            n = shape[0]
+            xs = crafted(*shape)
+            blocks = [xs[i:i + chunks] for i in range(0, n, chunks)]
+            fi = bolt.fromiter(blocks, shape, _pod_mesh(),
+                               dtype=np.float32)
+            res["blt014"] = analysis.check(fi.map(_add1)).has("BLT014")
+            probe = bolt.fromcallback(lambda idx: xs[idx], shape,
+                                      _pod_mesh(), dtype=np.float32,
+                                      chunks=chunks, per_process=True)
+            res["explain_supervised"] = \
+                "SUPERVISED" in analysis.explain(probe.map(_add1))
+        res["arbiter_bytes_after"] = sv.stats()["arbiter"]["in_use_bytes"]
+    finally:
+        serve.stop(wait=True)
+    res["stale_ckpt"] = [name for name in ("sumA", "sumB", "statsC")
+                         if ckptlib.stream_pending(
+                             os.path.join(args["ckpt"], name))]
+    tr = podwatch.transport()
+    res["stale_markers"] = tr.stale_marker_count() if tr is not None else 0
+    res["final_epoch"] = podwatch.epoch()
+    _process_tallies(res)
+    res["leaked_spans"] = obs.active_count()
+    obs.disable()
+    return res
+
+
+def payload_nccl_reform(rank, args, inputs):
+    """A one-rank NCCL pod on the card and a replacement process reform
+    into two NCCL ranks on that one card: both refuse with the pointed
+    ``ValueError`` (two ranks cannot share a GPU under NCCL, before and
+    after a reform), and ``heal_backend_init`` then cleans the failed
+    bring-up's store."""
+    import os
+    import torch
+    from bolt_tpu_torch.parallel import multihost
+    rejoiner = os.environ.get("BOLT_POD_REJOINER") == "1"
+    res = {"rank": rank, "rejoiner": rejoiner,
+           "before": None if rejoiner else multihost.backend()}
+    try:
+        multihost.reform(store_path=args["store"], num_processes=2,
+                         process_id=1 if rejoiner else 0,
+                         device=torch.device("cuda", 0), backend="nccl",
+                         init_timeout=60)
+        res["refused"] = None
+    except ValueError as exc:
+        res["refused"] = str(exc)
+    res["healed"] = multihost.heal_backend_init()
+    res["pod_up"] = multihost.is_initialized()
+    return res
+
+
+PAYLOADS.update({"reform": payload_reform,
+                 "serve_pod": payload_serve_pod,
+                 "precollective": payload_precollective,
+                 "raw_error": payload_raw_error,
+                 "nccl_reform": payload_nccl_reform,
+                 "supervise": payload_supervise})
 
 
 PAYLOADS.update({"card_one": payload_card_one,

@@ -64,10 +64,16 @@ The module-level :func:`submit` lazily starts a default server, tuned by
 ``BOLT_SERVE_QUEUE_LIMIT`` / ``BOLT_SERVE_BATCHING`` (with
 ``BOLT_SERVE_MAX_BATCH`` and ``BOLT_SERVE_LINGER``).
 
-Not ported yet (ROADMAP A12c, pod recovery): the peer-loss callbacks that drain
-admission, ``supervise=`` and its budget rescale, ``pod_paused`` and the
-quiesce holds on a retry.  :class:`PeerLostError` is defined here so
-``submit(retries=)`` keeps the reference's retryable type.
+On a pod (:mod:`bolt_tpu_torch.parallel.podwatch`) a peer death drains
+admission: in-flight streamed futures fail with ``PeerLostError`` (their
+leases return), workers start nothing new, and a reject-policy server
+refuses submits, until ``multihost.reform`` notifies the liveness layer
+and the queue resumes (:meth:`Server.pod_paused`, ``stats()["pod"]``).
+A ``PeerLostError`` retry under ``submit(retries=)`` is held behind the
+drain and behind a latched quiesce.  ``Server(supervise=True)`` attaches
+a recovery supervisor (``parallel.supervisor``) that drives the reform
+itself and rescales the arbiter budget to the surviving share of the pod
+(``supervise=`` an existing ``Supervisor`` adopts it).
 """
 
 import contextlib
@@ -80,6 +86,9 @@ from bolt_tpu_torch import engine as _engine
 from bolt_tpu_torch.obs import metrics as _metrics
 from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.obs.trace import clock as _clock
+from bolt_tpu_torch.parallel import podwatch as _podwatch
+from bolt_tpu_torch.parallel.podwatch import PeerLostError  # noqa: F401 — the
+#   retryable pod outage submit(retries=) honours, re-exported
 
 # ---------------------------------------------------------------------
 # configuration
@@ -108,6 +117,10 @@ _SCHEMA = {
     "run_seconds": 0.0,        # total start->finish execution time
     "retried": 0,              # per-submit retry attempts consumed
     "expired": 0,              # jobs failed on their deadline= budget
+    "peer_losses": 0,          # pod peer deaths observed
+    "reforms": 0,              # supervised reforms driven
+    "rejoins": 0,              # identities folded back in by a reform up
+    "supervise_seconds": 0.0,  # total pause -> resume recovery wall
 }
 
 
@@ -120,13 +133,6 @@ class AdmissionError(RuntimeError):
 class DeadlineError(RuntimeError):
     """A job's ``deadline=`` budget (seconds since submit) expired before
     it could start; delivered through ``Future.result()``."""
-
-
-class PeerLostError(RuntimeError):
-    """A pod peer died under a collective.  One card has no peers, so the
-    port never raises it itself (ROADMAP A12c brings the liveness layer,
-    which will raise this type); a job that raises it is retried under
-    ``submit(retries=)`` as the reference retries a pod outage."""
 
 
 class BatchPolicy:
@@ -522,10 +528,6 @@ class Server:
         if policy not in ("queue", "reject"):
             raise ValueError("policy must be 'queue' or 'reject', got %r"
                              % (policy,))
-        if supervise:
-            raise NotImplementedError(
-                "Server(supervise=...) drives pod recovery, which the "
-                "port has not yet (ROADMAP A12c, pod recovery)")
         if batching is None:
             batching = _DEF_BATCHING
         self.batching = None
@@ -578,6 +580,38 @@ class Server:
         self._cancel = threading.Event()   # close(wait=False) only: a
         #                                    leased job's arbiter wait
         #                                    survives a clean drain
+        # the pod half: a peer death drains admission until
+        # multihost.reform notifies the liveness layer (deregistered on
+        # close)
+        self._pod_ok = threading.Event()
+        self._pod_ok.set()
+        self._pod_lost = None
+        self._pod_reason = None
+        self._pause_t0 = None
+        self._pw_handles = (
+            _podwatch.on_peer_death(self._on_peer_death),
+            _podwatch.on_reform(self._on_pod_reform))
+        # supervise=True: a recovery supervisor drives the reform itself
+        # and the arbiter budget follows the surviving share of the pod;
+        # an existing Supervisor (supervisor.attach's) is adopted
+        self.supervisor = None
+        self._own_supervisor = False
+        self._budget0 = None
+        self._pod_nproc0 = None
+        if supervise:
+            from bolt_tpu_torch.parallel import multihost as _multihost
+            from bolt_tpu_torch.parallel import supervisor as _supervisor
+            self._budget0 = self.arbiter.budget
+            n = _multihost.process_count()
+            self._pod_nproc0 = n if n > 1 else None
+            if supervise is True:
+                self.supervisor = _supervisor.Supervisor(
+                    on_pause=self._sup_pause, on_resume=self._sup_resume)
+                self._own_supervisor = True
+            else:
+                self.supervisor = supervise
+                self.supervisor.on_pause = self._sup_pause
+                self.supervisor.on_resume = self._sup_resume
         reg = _metrics.registry()
         self._counters = reg.group("serve", _SCHEMA)
         self._tc_cache = {}            # tenant -> registry group (memo)
@@ -600,6 +634,77 @@ class Server:
             from bolt_tpu_torch.gpu import batched as _batched
             self._batched = _batched
             _batched.arm()            # opens reduce()'s lazy door
+
+    # -- the pod half (bolt_tpu_torch.parallel.podwatch) ---------------
+
+    def _on_peer_death(self, pid):
+        """Liveness callback (watch thread): a pod peer died; drain
+        admission until the pod reforms."""
+        self._pod_lost = pid
+        self._pod_ok.clear()
+        self._counters.add("peer_losses")
+        _obs.event("serve.peer_lost", peer=pid)
+        with self._cond:
+            self._cond.notify_all()
+
+    def _on_pod_reform(self):
+        """Liveness callback: ``multihost.reform`` rebuilt the pod;
+        resume the queue."""
+        self._pod_lost = None
+        self._pod_ok.set()
+        _obs.event("serve.pod_resumed")
+        with self._cond:
+            self._cond.notify_all()
+
+    def pod_paused(self):
+        """Is admission drained behind a pod peer loss or a supervised
+        recovery?"""
+        return not self._pod_ok.is_set()
+
+    def _sup_pause(self, reason):
+        """Supervisor hook: a recovery started (a death or a rejoin's
+        quiesce); drain admission like a raw peer loss."""
+        if self._pod_nproc0 is None:
+            # a server built before multihost.initialize read a width
+            # of 1: take the pre-loss width now, or the resume after a
+            # shrink would count the SHRUNK width as full capacity
+            from bolt_tpu_torch.parallel import multihost as _multihost
+            n = _multihost.process_count()
+            self._pod_nproc0 = n if n > 1 else None
+        self._pod_reason = reason
+        self._pause_t0 = _clock()
+        self._pod_ok.clear()
+        _obs.event("serve.supervise_pause", reason=str(reason))
+        with self._cond:
+            self._cond.notify_all()
+
+    def _sup_resume(self, info):
+        """Supervisor hook: the reform landed.  Count it, rescale the
+        arbiter budget to the surviving share of the pod (BLT010 floors
+        recompute against it on the next submit), resume the queue."""
+        keys = {"rejoins": len(info.get("rejoined", ()))}
+        if not info.get("deferred"):
+            # a deferred growth resumed the pod untouched: no reform
+            keys["reforms"] = 1
+        if self._pause_t0 is not None:
+            keys["supervise_seconds"] = _clock() - self._pause_t0
+            self._pause_t0 = None
+        self._counters.update(**keys)
+        nproc = int(info.get("nproc") or 0)
+        if nproc >= 1 and self._budget0 is not None:
+            if nproc > (self._pod_nproc0 or 1):
+                self._pod_nproc0 = nproc      # a full-capacity sighting
+            if self._pod_nproc0 is not None:
+                # a pod shrunk to one rank keeps its share (1/n): the
+                # width it was built at is still the full capacity
+                share = nproc / self._pod_nproc0
+                self.arbiter.resize(max(1, int(self._budget0 * share)))
+        self._pod_reason = None
+        self._pod_lost = None
+        self._pod_ok.set()
+        _obs.event("serve.supervise_resume", nproc=nproc)
+        with self._cond:
+            self._cond.notify_all()
 
     # -- submission ----------------------------------------------------
 
@@ -636,6 +741,28 @@ class Server:
         if self._closing:
             raise RuntimeError("serve.Server is closed")
         tenant = str(tenant)
+        if not self._pod_ok.is_set():
+            # admission is drained behind a pod loss: a reject-policy
+            # server refuses, a queue-policy one applies backpressure
+            # until the pod reforms
+            if self.policy == "reject":
+                why = ("pod peer %s was lost" % self._pod_lost
+                       if self._pod_lost is not None
+                       else "supervised recovery in progress (%s)"
+                       % self._pod_reason)
+                self._reject(tenant,
+                             "admission drained: %s and the pod has "
+                             "not reformed yet (multihost.reform "
+                             "resumes the queue)" % why)
+            while not self._pod_ok.wait(0.05):
+                if self._closing:
+                    raise RuntimeError("serve.Server is closed")
+                sup = self.supervisor
+                if sup is not None and sup.failed is not None:
+                    self._reject(tenant,
+                                 "supervised recovery abandoned (%s); "
+                                 "admission stays drained until a "
+                                 "manual multihost.reform" % sup.failed)
         retries = max(0, int(retries))
         if deadline is not None:
             deadline = float(deadline)
@@ -721,6 +848,12 @@ class Server:
         mid-turn forfeits the rest of its turn."""
         with self._cond:
             while True:
+                if not self._pod_ok.is_set() and not self._stop.is_set():
+                    # a pod loss drains: running jobs finish (or fail
+                    # with PeerLostError), nothing new starts until the
+                    # reform (a closing server still drains)
+                    self._cond.wait(0.05)
+                    continue
                 for _ in range(len(self._ring)):
                     t = self._ring[0]
                     q = self._queues.get(t)
@@ -761,6 +894,27 @@ class Server:
                     _clock() - fut.submitted_s > deadline
                 allowed = attempt < nretry and not expired \
                     and not self._cancel.is_set()
+                if allowed and isinstance(exc, PeerLostError):
+                    # a pod outage is retryable, but only once the pod
+                    # reforms: hold the re-attempt behind the admission
+                    # drain, and behind a latched quiesce (rank 0 can
+                    # trip the gate before this process's supervisor
+                    # pauses).  A deadline, a cancel, a closing server
+                    # or a supervisor giveup cuts the hold off.
+                    while allowed and (
+                            not self._pod_ok.wait(0.05)
+                            or _podwatch.quiesce_requested()
+                            is not None):
+                        if _podwatch.quiesce_requested() is not None:
+                            self._stop.wait(0.05)
+                        if self._cancel.is_set() or self._stop.is_set() \
+                                or (deadline is not None
+                                    and _clock() - fut.submitted_s
+                                    > deadline):
+                            allowed = False
+                        sup = self.supervisor
+                        if sup is not None and sup.failed is not None:
+                            allowed = False
                 if allowed:
                     self._counters.add("retried")
                     self._tenant_counters(tenant).add("retried")
@@ -1037,6 +1191,16 @@ class Server:
                                "serve.arbiter_in_use_high_water").value,
                            "waits": reg.counter(
                                "serve.arbiter_waits").value},
+               "pod": {"paused": self.pod_paused(),
+                       "lost_peer": self._pod_lost,
+                       "reason": self._pod_reason,
+                       "supervised": self.supervisor is not None,
+                       "quarantine": (self.supervisor.quarantined()
+                                      if self.supervisor is not None
+                                      else []),
+                       "budget_share": (
+                           self.arbiter.budget / self._budget0
+                           if self._budget0 else 1.0)},
                "batching": self._batching_stats(),
                "totals": self._counters.snapshot(),
                "tenants": {}}
@@ -1099,6 +1263,15 @@ class Server:
             self._cond.notify_all()
         for th in self._threads:
             th.join()
+        for h in self._pw_handles:
+            _podwatch.remove_callback(h)   # a closed server must not
+            #                                pause or resume from beyond
+        if self.supervisor is not None:
+            if self._own_supervisor:
+                self.supervisor.close()
+            else:                          # adopted: detach our hooks
+                self.supervisor.on_pause = None
+                self.supervisor.on_resume = None
         if self.warm_dir is not None:
             # the warm tally covers this server's lifetime; the directory
             # stays attached

@@ -105,6 +105,13 @@ thread starts; checkpoints are one shard file a rank
 (:mod:`bolt_tpu_torch.checkpoint`); a streamed ``swap`` exchanges each
 slab's rows by one ``all_to_all`` (resident only).  Pod runs launch no
 kernel: ``fused_decode_sum`` is off a pod (int8 is refused there).
+Recovery (:mod:`bolt_tpu_torch.parallel.podwatch`): a pod run counts
+itself busy (``pod_enter``/``pod_exit``), meets its peers at a readiness
+rendezvous before its first exchange, guards each exchange so a dead
+peer raises ``PeerLostError`` naming it and the in-flight slab, and
+stops with ``PodQuiesceError`` at a slab-boundary checkpoint when the
+supervisor asks; a checkpoint cut at another width resumes at its
+watermark through the topology remap, with this run's per-rank rows.
 Any other consumer — a filtered stream's shape, ``prod``/``all``/``any``,
 ``min``/``max`` under a filter, an axis other than all the key axes —
 materialises the source (:func:`materialize`), which needs the whole
@@ -127,6 +134,7 @@ from bolt_tpu_torch import _lockdep
 from bolt_tpu_torch import engine as _engine
 from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.obs.trace import clock as _clock
+from bolt_tpu_torch.parallel import podwatch as _podwatch
 from bolt_tpu_torch.utils import iter_record_blocks, prod, tupleize
 
 # ---------------------------------------------------------------------
@@ -1760,7 +1768,7 @@ class _Resume:
     resumable."""
 
     __slots__ = ("dir", "every", "fp", "codec", "start", "records",
-                 "state", "pod", "box")
+                 "state", "pod", "box", "remap")
 
     def __init__(self, dir=None, every=None, fp=None, codec=None):
         self.dir, self.every, self.fp, self.codec = dir, every, fp, codec
@@ -1769,6 +1777,9 @@ class _Resume:
         # a pod run: per-rank shard files (and this rank's key box)
         self.pod = False
         self.box = None
+        # the width that cut a checkpoint adopted through the topology
+        # remap (recorded in every checkpoint this run writes)
+        self.remap = None
 
     @classmethod
     def open(cls, source, terminal, ddof, rfunc, specs, codec_obj,
@@ -1805,12 +1816,18 @@ class _Resume:
         ck.codec = codec_obj.name if codec_obj is not None else None
         ck.fp = _run_fingerprint(source, terminal, ddof, rfunc, specs,
                                  ck.codec, use_kernel)
+        info = {}
         got = _ckptlib.stream_load(ck.dir, ck.fp, multiprocess=ck.pod,
-                                   box=ck.box)
+                                   box=ck.box, info=info)
         if got is not None:
+            # a checkpoint cut at another width (a shrink or a growth)
+            # resumes at its watermark with THIS run's per-rank rows
             ck.start, ck.records, ck.state = got
+            ck.remap = info.get("remapped_from")
             _engine.record_stream_resume()
-            _obs.event("stream.resume", slabs=ck.start, records=ck.records)
+            _obs.event("stream.resume", slabs=ck.start, records=ck.records,
+                       **({"remapped_from": ck.remap}
+                          if ck.remap is not None else {}))
         return ck
 
     def write(self, slabs, records, levels, pend, abort=False):
@@ -1828,7 +1845,8 @@ class _Resume:
                                       (list(levels), pend),
                                       multiprocess=self.pod,
                                       rendezvous=not abort,
-                                      codec=self.codec, box=self.box)
+                                      codec=self.codec, box=self.box,
+                                      remap_from=self.remap)
             _engine.record_checkpoint(nb, _clock() - t0)
             if csp is not None:
                 csp.set(bytes=nb)
@@ -1860,10 +1878,15 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
     joins the fold, so every rank's fold holds the same bits; a retried
     dispatch reruns only the rank's own program, before the exchange, so
     every rank issues the same exchanges in the same order."""
+    from bolt_tpu_torch.parallel import multihost
     pod = ing.mspec is not None
+    # a pod run, or any run of a one-rank pod whose supervisor keeps a
+    # rejoin door open: busy for the supervisor, and stopped by its
+    # quiesce at a checkpoint (a growth must not reform under it)
+    watched = pod or (_podwatch.active()
+                      and multihost.process_count() == 1)
     group = None
     if pod:
-        from bolt_tpu_torch.parallel import multihost
         group = source.mesh.group(multihost.key_collective_axes(
             source.mesh, source.shape, source.split))
     on_card = ing.on_card
@@ -1956,11 +1979,22 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
                  abort=abort)
 
     ing.start()
+    if watched:
+        # the supervisor's quiesce drain waits for this count to fall
+        # before it reforms the pod up
+        _podwatch.pod_enter()
+    ready_done = False
     try:
         while True:
             got = ing.next(idle=_retire if lease is None else _starved)
             if got is None:
                 break
+            if pod and not ready_done:
+                # every rank confirms its peers alive right before the
+                # first exchange: a peer dead before dispatching raises
+                # PeerLostError within ~2x BOLT_POD_TIMEOUT
+                _podwatch.ready_rendezvous()
+                ready_done = True
             _, (slab_parts, tsec, g, lo, hi) = got
             del got
             ingest += tsec
@@ -1975,7 +2009,10 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
                                 lambda: _dispatch(parts))
                 del parts
                 if pod:
-                    part = _pod_fold(part, terminal, group)
+                    # a dead peer raises PeerLostError naming it and
+                    # this slab, never a hang in the exchange
+                    with _podwatch.guard("slab program", slab=g):
+                        part = _pod_fold(part, terminal, group)
                 nb = ing.slab_bytes(lo, hi)
                 if pend is None:
                     pend = part
@@ -2009,7 +2046,15 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
             # last slab of a known-size stream (the run clears it next)
             if ck.dir is not None and nslabs % ck.every == 0 \
                     and not (total is not None and nslabs >= total):
+                # a pod's quiesce (a rejoined rank waits to be folded
+                # in) stops here: rank 0 publishes its decision before
+                # the checkpoint, whose barriers fence it, so every rank
+                # raises the same PodQuiesceError at this watermark
+                if watched:
+                    _podwatch.quiesce_pre(ck.start + nslabs)
                 _checkpoint()
+                if watched:
+                    _podwatch.quiesce_gate(ck.start + nslabs, fenced=True)
         if pend is not None:
             fold.push(pend)     # an odd slab count's tail joins as a leaf
             pend = None
@@ -2041,6 +2086,8 @@ def _consume(ing, source, st, terminal, ddof, rfunc, comps, specs,
                 pass                # is the story
         raise
     finally:
+        if watched:
+            _podwatch.pod_exit()
         ing.close()
         pending_sync.clear()
         if lease is not None:
@@ -2361,11 +2408,19 @@ def _resolve_one_swap(source):
             _engine.record_spill(nb)
 
         ing.start()
+        if pod is not None:
+            _podwatch.pod_enter()
+        ready_done = False
         try:
             while True:
                 got = ing.next(idle=_retire)
                 if got is None:
                     break
+                if pod is not None and not ready_done:
+                    # every rank confirms its peers alive right before
+                    # the first exchange (podwatch.ready_rendezvous)
+                    _podwatch.ready_rendezvous()
+                    ready_done = True
                 _, (slab_parts, _, g, lo, hi) = got
                 del got
                 parts = _wait_slab(ing, slab_parts, compute_stream)
@@ -2377,7 +2432,9 @@ def _resolve_one_swap(source):
                     if pod is not None:
                         # after the retried local program: every rank
                         # issues the same exchange, slab by slab
-                        part = pod.exchange(part)
+                        with _podwatch.guard("shuffle re-bucket",
+                                             slab=g):
+                            part = pod.exchange(part)
                 finally:
                     _obs.end(csp)
                 del parts
@@ -2409,6 +2466,8 @@ def _resolve_one_swap(source):
             if on_card:
                 compute_stream.synchronize()
         finally:
+            if pod is not None:
+                _podwatch.pod_exit()
             ing.close()
             pending.clear()
     finally:

@@ -1210,11 +1210,15 @@ def stream_phase(bolt, K, torch, np, dev, report):
         errs["map_sum"] = sum_close(s1, ref, n, "streamed map(v+1).sum()")
         KEEP["ns_map_sum"] = s1
         KEEP["ns_refs"] = ref           # phase 16's f64 references
-        errs["mean"] = close(run("mean", lambda: source().mean()),
-                             ref["mean"], 1e-5, 1e-6, "streamed mean()")
-        errs["var"] = close(run("var", lambda: source().var()),
-                            ref["var"], 1e-4, 1e-5, "streamed var()")
+        mean = run("mean", lambda: source().mean())
+        errs["mean"] = close(mean, ref["mean"], 1e-5, 1e-6,
+                             "streamed mean()")
+        var = run("var", lambda: source().var())
+        errs["var"] = close(var, ref["var"], 1e-4, 1e-5, "streamed var()")
         raw = run("sum", lambda: source().sum(), profiled=True)
+        # phase 11 holds its group's sum, mean and var against these
+        # standalone streamed terminals of the same source
+        KEEP["ns_standalone"] = {"sum": raw, "mean": mean, "var": var}
         delta = run("delta_sum", lambda: source("delta-f32").sum())
         check(torch.equal(raw.view(torch.int32), delta.view(torch.int32)),
               "delta-f32 sum() is not bit-identical to the uncompressed "
@@ -2680,7 +2684,13 @@ def stages_phase(bolt, K, torch, np, dev, report):
                 *[getattr(s, m)() for m in names])]
 
         members = run("group", group, nslabs)
-        alone = [run(m, lambda m=m: getattr(source(), m)().totorch()
+        # sum, mean and var ran standalone in phase 6 (the same source and
+        # program): their results and walls are taken from there
+        done6 = KEEP["ns_standalone"]
+        for m in done6:
+            runs[m] = report["stream"]["runs"][m]
+        alone = [done6[m].reshape(-1) if m in done6 else
+                 run(m, lambda m=m: getattr(source(), m)().totorch()
                      .reshape(-1), nslabs) for m in names]
         for m, g, a in zip(names, members, alone):
             check(torch.equal(g, a), "group member %s is not bit-identical "
@@ -4248,6 +4258,9 @@ def pod_stream_phase(bolt, K, torch, np, dev, report):
         one["c1_sum"] = src(payloads.crafted_records(c1[1:]), c1).map(
             add1).sum().toarray()
     del g
+    # phase 17 holds its resumed runs against these
+    KEEP["ns_crafted_sum"] = one["crafted_sum"]
+    KEEP["c1_crafted_sum"] = one["c1_sum"]
     check(engine.counters()["stream_chunks"] - c0["stream_chunks"]
           == 2 * nslabs + -(-c1[0] // SLAB_RECORDS),
           "phase 16 single-device crafted streams")
@@ -4425,6 +4438,183 @@ def pod_stream_phase(bolt, K, torch, np, dev, report):
     log("phase 16 ok: %.1f s here (references, path c) and %.1f s of "
         "streamed paths inside phase 15's pods (%s)"
         % (out["wall_s"], out["stream_paths_s"], out["card"]))
+    return launches
+
+
+RECOVERY_DIR = os.path.join(ROOT, "build", "phase17")
+RECOVERY_TIMEOUT = 4.0          # BOLT_POD_TIMEOUT of phase 17's pods
+RECOVERY_EVERY = 4              # BOLT_CHECKPOINT_EVERY of phase 17's runs
+RECOVERY_WALL = 420
+RECOVERY_PACE = 0.0             # seconds a load sleeps (a CPU rehearsal's
+#                                 small slabs need some, so the rejoin
+#                                 lands while job B still streams)
+
+
+def recovery_phase(bolt, K, torch, np, dev, report):
+    """Phase 17: pod liveness and recovery on the one card (gloo ranks
+    sharing ``cuda:0``, the shared-directory transport).  Path e, a
+    manual shrink: a two-rank pod streams the crafted north-star
+    ``map(v + 1).sum()`` (``per_process=True``, checkpointed), rank 1 is
+    killed -9 at its 7th upload, rank 0 catches ``PeerLostError`` naming
+    it within 2x ``BOLT_POD_TIMEOUT`` and a barrier converts too, then
+    ``multihost.reform`` onto one rank (the same device, no library
+    built) resumes through the topology remap to phase 16's
+    single-device bits, and on the reformed pod config 1's armed int8 sum
+    (one ``fused_decode_sum`` a slab) and a resident ``map(v + 1).sum()``
+    (one ``fused_map_reduce``) each equal their earlier phase's bits.
+    Path f, supervised shrink and growth: a two-rank ``Server(supervise=
+    True)`` pod runs job A (the crafted north-star sum, ``retries=``),
+    rank 1 is killed -9, the survivor reforms to one rank by itself (its
+    budget share 1/2); a replacement process attaches during job B, the
+    pod quiesces at a checkpoint, reforms up to two ranks and resumes;
+    both jobs equal the single device's bits, the share ends at 1.0, no
+    arbiter byte, span, checkpoint or marker is left.  Each path logs
+    its detection, reform and resume seconds and its recovery wall
+    against the clean two-rank stream of phase 16.  Returns each path's
+    launches, a count a rank."""
+    import shutil
+    from bolt_tpu_torch.parallel import harness
+    t_phase = time.perf_counter()
+    out = {"card": report["card"], "paths": {}}
+    report["recovery"] = out
+    shutil.rmtree(RECOVERY_DIR, ignore_errors=True)
+    os.makedirs(RECOVERY_DIR)
+    ns, c1 = NORTH_STAR, CONFIG1
+    c1_slabs = -(-c1[0] // SLAB_RECORDS)
+    env = {"BOLT_POD_TIMEOUT": RECOVERY_TIMEOUT,
+           "BOLT_CHECKPOINT_EVERY": RECOVERY_EVERY}
+    clean = report["pod_stream"]["paths"].get(
+        "pod2/s16_ns_crafted_sum") or []
+    clean_s = max((p["wall_s"] for p in clean), default=None)
+    out["clean_two_rank_s"] = clean_s
+
+    def same(got, want, what):
+        want = want.cpu().numpy() if hasattr(want, "cpu") else want
+        check(np.asarray(got).dtype == np.asarray(want).dtype
+              and np.array_equal(got, want), "phase 17 %s" % what)
+
+    def leftovers(d):
+        return [p for p in os.listdir(d) if p.startswith("stream_")] \
+            if os.path.isdir(d) else []
+
+    # ---- path e: kill -9, manual reform onto one rank, resume ---------------
+    ck = os.path.join(RECOVERY_DIR, "e-ckpt")
+    args = {"shape": list(ns), "chunks": SLAB_RECORDS,
+            "uploaders": POD_STREAM_UPLOADERS, "stats": False,
+            "card": True, "config1": list(c1), "c1_chunks": SLAB_RECORDS,
+            "seed": STREAM_SEED, "ckpt": ck,
+            "reform_store": os.path.join(RECOVERY_DIR, "e-store")}
+    t = time.perf_counter()
+    res, rcs = harness.run_cluster(
+        "reform", 2, timeout=RECOVERY_WALL, args=args,
+        device=MESH_POD_DEVICE, backend="gloo", tolerate={1},
+        env=dict(env, BOLT_POD_HB_DIR=os.path.join(RECOVERY_DIR, "e-hb")),
+        worker_env={1: {"BOLT_CHAOS": POD_STREAM_KILL}})
+    out["e_wall_s"] = time.perf_counter() - t
+    check(rcs[1] == -9 and res[1] is None and res[0] is not None,
+          "phase 17 path e exit codes %s" % rcs)
+    r = res[0]
+    e = {k: r.get(k) for k in (
+        "caught_s", "caught_peer", "caught_slab", "caught_phase",
+        "detection_s", "barrier_s", "reform_s", "resume_s", "recovery_s",
+        "new_nproc", "new_device", "new_backend", "reform_builds",
+        "sum_resumes")}
+    out["e"] = e
+    log("phase 17 path e: %s" % json.dumps(e))
+    check(r["peer_lost"] and r["caught_peer"] == 1 and r["dead_peers"] == [1],
+          "phase 17 path e: PeerLostError naming rank 1: %s" % e)
+    check(r["detection_s"] <= 2 * RECOVERY_TIMEOUT, "phase 17 path e "
+          "detection %.2f s past 2x the deadline" % r["detection_s"])
+    check(r["barrier_peerlost"], "phase 17 path e: the barrier next to the "
+          "dead rank did not convert")
+    check(r["new_nproc"] == 1 and r["new_device"] == "cuda:0"
+          and r["new_backend"] == "gloo" and r["reform_builds"] == 0,
+          "phase 17 path e reform: %s" % e)
+    same(r["sum"], KEEP["ns_crafted_sum"], "path e resumed sum against the "
+         "single device's crafted stream")
+    check(r["sum_resumes"] == 1 and not r["sum_stale_ckpt"]
+          and not leftovers(ck), "phase 17 path e resume: %d resumes, "
+          "left %s" % (r["sum_resumes"], leftovers(ck)))
+    same(r["int8_sum"], KEEP["c1_int8"], "path e reformed pod's armed int8 "
+         "sum against phase 11's")
+    same(r["resident_sum"], KEEP["c1_crafted_sum"], "path e reformed pod's "
+         "resident map(v+1).sum() against the single device's")
+    p = r["paths"]
+    check(p["s17_c1_int8"]["launches"].get("fused_decode_sum", 0)
+          == c1_slabs, "phase 17 path e int8 launches: %s"
+          % p["s17_c1_int8"]["launches"])
+    check(p["s17_c1_resident"]["launches"].get("fused_map_reduce", 0) == 1,
+          "phase 17 path e resident launches: %s"
+          % p["s17_c1_resident"]["launches"])
+    if clean_s:
+        log("phase 17 path e recovery %.1f s (learn -> barrier -> reform -> "
+            "resume) against the clean two-rank stream's %.1f s"
+            % (r["recovery_s"], clean_s))
+    log("phase 17 path e rank 0 over the killed stream and its resume: "
+        "collectives %s, launches %s"
+        % (json.dumps(r["collectives"]), json.dumps(r["launches_total"])))
+    out["paths"]["e/s17_c1_int8"] = [p["s17_c1_int8"]]
+    out["paths"]["e/s17_c1_resident"] = [p["s17_c1_resident"]]
+
+    # ---- path f: supervised shrink to one rank and growth back to two -----
+    ck = os.path.join(RECOVERY_DIR, "f-ckpt")
+    out_f = os.path.join(RECOVERY_DIR, "f-out")
+    os.makedirs(out_f)
+    args = {"shape": list(ns), "chunks": SLAB_RECORDS, "pace": RECOVERY_PACE,
+            "out": out_f, "ckpt": ck, "expect_bstart": 1,
+            "rejoin_id": "card-w1b"}
+    t = time.perf_counter()
+    res, rcs = harness.run_cluster(
+        "supervise", 2, timeout=RECOVERY_WALL, args=args,
+        device=MESH_POD_DEVICE, backend="gloo", tolerate={1},
+        env=dict(env, BOLT_POD_HB_DIR=os.path.join(RECOVERY_DIR, "f-hb"),
+                 BOLT_SUPERVISE_BACKOFF="0.25"),
+        worker_env={1: {"BOLT_CHAOS": POD_STREAM_KILL}}, extra=[{}])
+    out["f_wall_s"] = time.perf_counter() - t
+    check(rcs[1] == -9 and res[0] is not None and res[2] is not None,
+          "phase 17 path f exit codes %s" % rcs)
+    inc, rj = res[0], res[2]
+    f = {k: inc.get(k) for k in (
+        "wall_a", "wall_b", "detection_age", "reform_s", "recovery_s",
+        "rejoin_recovery_s", "a_resumes", "b_resumes", "reforms", "rejoins",
+        "nproc_after_a", "nproc_after_b", "budget_share_after_a",
+        "budget_share_after_b", "supervise_seconds")}
+    f["attach_s"] = rj.get("attach_s")
+    out["f"] = f
+    log("phase 17 path f: %s" % json.dumps(f))
+    check(inc["detection_age"] is not None
+          and inc["detection_age"] <= 2 * RECOVERY_TIMEOUT,
+          "phase 17 path f detection: %s" % inc["detection_age"])
+    check(inc["nproc_after_a"] == 1 and inc["budget_share_after_a"] == 0.5,
+          "phase 17 path f shrink: %s" % f)
+    check(rj["new_nproc"] == 2 and inc["nproc_after_b"] == 2
+          and inc["rejoins"] == 1 and inc["budget_share_after_b"] == 1.0,
+          "phase 17 path f growth: %s" % f)
+    check(inc["a_resumes"] + inc["b_resumes"] >= 1 and rj["b_resumes"] == 1,
+          "phase 17 path f resumes: %s" % f)
+    same(inc["sumA"], KEEP["ns_crafted_sum"], "path f job A")
+    for who, x in (("incumbent", inc), ("rejoiner", rj)):
+        same(x["sumB"], KEEP["ns_crafted_sum"], "path f job B (%s)" % who)
+        check(x["arbiter_bytes_after"] == 0 and x["leaked_spans"] == 0
+              and x["stale_ckpt"] == [] and x["stale_markers"] == 0,
+              "phase 17 path f hygiene (%s): arbiter %s, spans %s, "
+              "checkpoints %s, markers %s" % (
+                  who, x["arbiter_bytes_after"], x["leaked_spans"],
+                  x["stale_ckpt"], x["stale_markers"]))
+    for who, x in (("incumbent", inc), ("rejoiner", rj)):
+        log("phase 17 path f %s over its run: collectives %s, launches %s"
+            % (who, json.dumps(x["collectives"]),
+               json.dumps(x["launches_total"])))
+    if clean_s:
+        log("phase 17 path f walls: A %.1f s, B %.1f s against the clean "
+            "two-rank stream's %.1f s a job" % (inc["wall_a"], inc["wall_b"],
+                                                clean_s))
+    launches = {path: [q["launches"] for q in per]
+                for path, per in out["paths"].items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    report["phases"]["recovery_s"] = out["wall_s"]
+    log("phase 17 ok in %.1f s: path e %.1f s, path f %.1f s (%s)"
+        % (out["wall_s"], out["e_wall_s"], out["f_wall_s"], out["card"]))
     return launches
 
 
@@ -4810,6 +5000,9 @@ def main():
 
     # ---- phase 16: streamed pods --------------------------------------------
     pod_stream_launches = pod_stream_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 17: pod liveness and recovery -------------------------------
+    recovery_launches = recovery_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
@@ -4852,6 +5045,10 @@ def main():
                         "phase16_launches": {
                             path: [c.get(name, 0) for c in per]
                             for path, per in pod_stream_launches.items()
+                            if any(c.get(name, 0) for c in per)},
+                        "phase17_launches": {
+                            path: [c.get(name, 0) for c in per]
+                            for path, per in recovery_launches.items()
                             if any(c.get(name, 0) for c in per)}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

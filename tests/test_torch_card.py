@@ -1495,3 +1495,40 @@ def test_nccl_pod_across_distinct_cards():
     for r in res:
         np.testing.assert_array_equal(r["result"]["sum"],
                                       (x * 2.0 + 1.0).sum(axis=(0, 1)))
+
+
+@pytest.mark.gpu
+def test_reform_on_card_keeps_device_and_builds_nothing():
+    """The 3 -> 2 reform of gloo ranks sharing the card: every survivor
+    comes back up on the same ``cuda:0`` with the same backend, no
+    kernel library is rebuilt, and the resumed sum equals the unkilled
+    two-rank run's bits."""
+    _cuda()
+    from bolt_tpu_torch.parallel import harness
+    r = harness.run_reform_bench(device="cuda", backend="gloo",
+                                 args={"stats": False})
+    assert r["victim_rc"] == -9 and r["survivors"] == 2
+    assert r["bit_identical"] and r["stale_checkpoint_files"] == []
+    for s in r["killed"]:
+        if s is not None:
+            assert s["new_device"] == "cuda:0", s
+            assert s["new_backend"] == "gloo" and s["reform_builds"] == 0
+
+
+@pytest.mark.gpu
+def test_nccl_refused_for_two_ranks_on_one_card_after_reform():
+    """A one-rank NCCL pod and a replacement process reforming into two
+    NCCL ranks on the one card: both refuse with the pointed error, and
+    the failed bring-up heals; nothing falls back to gloo."""
+    _cuda()
+    import tempfile
+    from bolt_tpu_torch.parallel import harness
+    with tempfile.TemporaryDirectory() as d:
+        res, rcs = harness.run_cluster(
+            "nccl_reform", 1, timeout=300, device="cuda", backend="nccl",
+            args={"store": os.path.join(d, "store")}, extra=[{}])
+    assert rcs == [0, 0]
+    assert res[0]["before"] == "nccl"
+    for r in res:
+        assert "distinct GPU per rank" in (r["refused"] or ""), r
+        assert r["healed"] is True and r["pod_up"] is False

@@ -220,20 +220,29 @@ def test_save_writes_atomically_array_then_meta(tmp_path, monkeypatch):
 
 def test_multiprocess_stream_checkpoint_refused_pointedly(tmp_path):
     # a pod's checkpoint of this run (its meta records two processes)
-    # read by one process: the topology remap, ROADMAP A12c, is refused
+    # read by one process: the topology remap adopts it (every rank's
+    # fold state is the same bits) and reports the width that cut it
     checkpoint.stream_save(str(tmp_path), ("fp", "pod"), 2, 8,
                            ([np.ones(3)], None))
     meta = checkpoint._read_meta(str(tmp_path))
-    meta.update(nproc=2, fingerprint=["fp", ""])
+    meta.update(nproc=2, fingerprint=["fp", "pod"])
     with open(os.path.join(str(tmp_path), "stream_meta.json"), "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="A12c"):
-        checkpoint.stream_load(str(tmp_path), ("fp", ""))
+    state = os.path.join(str(tmp_path), "stream_state.npz")
+    shard = os.path.join(str(tmp_path), "stream_state.p1.w2.npz")
+    os.replace(state, shard)          # rank 1's shard: rank 0's is gone
+    info = {}
+    got = checkpoint.stream_load(str(tmp_path), ("fp", ""), info=info)
+    assert got[:2] == (2, 8) and info == {"remapped_from": 2}
+    assert np.array_equal(got[2][0][0].numpy(), np.ones(3))
     # the same run cut at another topology (its last element)
+    os.replace(shard, state)
     meta.update(nproc=1, fingerprint=["fp", "pod"])
     with open(os.path.join(str(tmp_path), "stream_meta.json"), "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="A12c"):
-        checkpoint.stream_load(str(tmp_path), ("fp", ""))
+    info = {}
+    assert checkpoint.stream_load(str(tmp_path), ("fp", ""),
+                                  info=info)[0] == 2
+    assert info == {"remapped_from": 1}
     # another run's checkpoint is ignored, not refused
     assert checkpoint.stream_load(str(tmp_path), ("other", "")) is None

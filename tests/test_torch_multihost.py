@@ -121,8 +121,14 @@ def test_bound_mesh_spans_the_pod():
 @pytest.mark.parametrize("name,item", [
     ("reform", "A12c"), ("heal_backend_init", "A12c")])
 def test_later_slices_raise_naming_their_item(name, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP %s" % item):
-        getattr(multihost, name)()
+    # A12c (pod recovery) is ported: neither door names a later slice.
+    # reform with no width refuses pointedly; heal_backend_init with no
+    # failed bring-up to clean up returns False
+    if name == "reform":
+        with pytest.raises(ValueError, match="num_processes"):
+            multihost.reform()
+    else:
+        assert multihost.heal_backend_init() is False
 
 
 # ---------------------------------------------------------------------

@@ -143,9 +143,18 @@ def test_start_refuses_a_second_server():
 
 
 def test_supervise_waits_for_the_pod_layer():
-    with pytest.raises(NotImplementedError, match="A12"):
-        serve.Server(workers=1, supervise=True)
-    assert serve.active() is None
+    # the pod layer is ported (A12c): supervise=True owns a recovery
+    # supervisor, which idles in one process and goes with the server
+    from bolt_tpu_torch.parallel import supervisor
+    sv = serve.Server(workers=1, supervise=True)
+    try:
+        assert supervisor.active() is sv.supervisor
+        st = sv.stats()["pod"]
+        assert st["supervised"] and st["budget_share"] == 1.0
+        assert not sv.pod_paused()
+    finally:
+        sv.close()
+    assert supervisor.active() is None and serve.active() is None
 
 
 # ---------------------------------------------------------------------
