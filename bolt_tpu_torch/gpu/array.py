@@ -1877,6 +1877,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
     def _operand(self, other):
         """A non-scalar operand as a tensor on this array's device."""
         if isinstance(other, BoltArrayGPU):
+            check_mesh(self, other, "elementwise")
             if other._device != self._device:
                 raise ValueError(
                     "operands live on different devices (%s vs %s); move "
@@ -2178,6 +2179,14 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
     # ------------------------------------------------------------------
 
     def transpose(self, *axes):
+        axes = self._transpose_axes(axes)
+        if axes == tuple(range(self.ndim)):
+            return self
+        return self._wrap(self._data.permute(axes), self._split)
+
+    def _transpose_axes(self, axes):
+        """``transpose``'s argument checked: a permutation that keeps the
+        key axes among themselves."""
         axes = argpack(axes)
         if len(axes) == 0:
             axes = tuple(reversed(range(self.ndim)))
@@ -2189,9 +2198,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             raise ValueError(
                 "transpose may not move axes between keys and values; "
                 "use swap (key axes: %s)" % str(tuple(range(split))))
-        if tuple(axes) == tuple(range(self.ndim)):
-            return self
-        return self._wrap(self._data.permute(tuple(axes)), split)
+        return tuple(int(a) for a in axes)
 
     @property
     def T(self):
@@ -2331,7 +2338,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
     def totorch(self):
         """Unwrap to the engine-native object, the device tensor
         (materialises a deferred chain first) — the structural slot of the
-        reference's ``tojax``."""
+        reference's ``tojax``.  On a mesh it is this rank's box (the
+        reference's sharded array addresses this process's shards);
+        ``toarray`` gathers the whole array."""
         return self._data
 
     def first(self):
@@ -2349,12 +2358,10 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         ``casting`` is validated against numpy's rules."""
         np.empty(0, dtype=self.dtype).astype(dtype, casting=casting)
         target = torch_dtype(dtype)
-        if self._split == 0:
-            return self._wrap(self._data.to(target), 0)
 
         def cast(v):
             return v.to(target)
-        return self.map(cast, axis=tuple(range(self._split)))
+        return self._apply(cast)
 
     def cache(self):
         """Materialise a deferred chain and keep the result."""
@@ -2408,6 +2415,20 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         elif self._fpending is not None:
             s += "pending: deferred filter (predicate not yet run)\n"
         return s
+
+
+def check_mesh(a, b, what):
+    """Binary operands of which one lies on a mesh of more than one rank
+    share that mesh (reference: ``BoltArrayTPU._check_mesh``): moving a
+    foreign array onto it would hide a data move."""
+    ma, mb = getattr(a, "_mesh", None), getattr(b, "_mesh", None)
+    if ma == mb or all(m is None or m.size == 1 for m in (ma, mb)):
+        return
+    shape = [None if m is None else tuple(m.sizes) for m in (ma, mb)]
+    raise ValueError(
+        "%s operands live on different meshes (%s vs %s); move one "
+        "explicitly first, e.g. other.tolocal().togpu(context=self.mesh) "
+        "or bolt_tpu_torch.parallel.reshard" % (what, shape[0], shape[1]))
 
 
 # np.asarray(b) above this many bytes warns once a process: a silent copy

@@ -356,11 +356,9 @@ class ConstructGPU:
         if not isinstance(arrays, (tuple, list)) or len(arrays) == 0:
             raise ValueError("concatenate requires a non-empty tuple of "
                              "arrays")
-        for a in arrays:
-            mesh = getattr(a, "_mesh", None)
-            if mesh is not None and mesh.size > 1:
-                from bolt_tpu_torch.gpu.mesharray import not_ported
-                raise not_ported("concatenate", mesh)
+        from bolt_tpu_torch.gpu.mesharray import on_mesh
+        if any(on_mesh(a) for a in arrays):
+            return ConstructGPU._mesh_concatenate(arrays, int(axis))
         from bolt_tpu_torch.base import BoltArray
         from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _upload,
                                               numpy_dtype, torch_dtype)
@@ -381,3 +379,76 @@ class ConstructGPU:
         mats = [a.toarray() if isinstance(a, BoltArray) else np.asarray(a)
                 for a in arrays]
         return ConstructGPU.array(np.concatenate(mats, axis), context=context)
+
+    @staticmethod
+    def _mesh_concatenate(arrays, axis):
+        """``concatenate`` where an operand lies on a mesh of more than
+        one rank: the result is laid out by ``key_spec`` (the first
+        operand's split); each mesh operand's records move to their new
+        boxes by one all_to_all (``sharding.route``), and each rank
+        copies its part of a host operand.  Mesh operands share one
+        mesh."""
+        from bolt_tpu_torch.base import BoltArray
+        from bolt_tpu_torch.gpu.array import (BoltArrayGPU, check_mesh,
+                                              numpy_dtype, torch_dtype)
+        from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh, on_mesh
+        from bolt_tpu_torch.parallel import sharding
+        lead = next(a for a in arrays if on_mesh(a))
+        for a in arrays:
+            if isinstance(a, BoltArrayGPU):
+                check_mesh(lead, a, "concatenate")
+        first = arrays[0]
+        if not isinstance(first, BoltArrayGPU):
+            mats = [a.toarray() if isinstance(a, BoltArray) else
+                    np.asarray(a) for a in arrays]
+            return ConstructGPU.array(np.concatenate(mats, axis),
+                                      context=lead._mesh)
+        shapes = [tuple(a.shape) if isinstance(a, BoltArray) else
+                  tuple(np.shape(a)) for a in arrays]
+        ndim = len(shapes[0])
+        ax = axis + ndim if axis < 0 else axis
+        if not 0 <= ax < ndim:
+            raise ValueError("axis %d is out of bounds for array of "
+                             "dimension %d" % (axis, ndim))
+        for s in shapes:
+            if len(s) != ndim or s[:ax] + s[ax + 1:] != \
+                    shapes[0][:ax] + shapes[0][ax + 1:]:
+                raise TypeError(
+                    "all the input array dimensions except for the "
+                    "concatenation axis must match exactly (%s vs %s)"
+                    % (shapes[0], s))
+        dts = [np.dtype(a.dtype) if isinstance(a, BoltArray) else
+               numpy_dtype(a.dtype) if isinstance(a, torch.Tensor) else
+               np.asarray(a).dtype for a in arrays]
+        mesh, split = lead._mesh, first.split
+        shape = list(shapes[0])
+        shape[ax] = sum(s[ax] for s in shapes)
+        shape = tuple(shape)
+        spec = sharding.key_spec(mesh, shape, split)
+        bx = sharding.box(mesh, spec, shape)
+        out = torch.empty(sharding.box_shape(bx),
+                          dtype=torch_dtype(np.result_type(*dts)),
+                          device=lead.device)
+        off = 0
+        for a, s in zip(arrays, shapes):
+            n = s[ax]
+            if isinstance(a, BoltArrayMesh):
+                index = [np.arange(d) for d in shape]
+                index[ax] = np.full(shape[ax], -1, np.int64)
+                index[ax][off:off + n] = np.arange(n)
+                sharding.route(a._data, mesh, a.shape, a._spec, index, spec,
+                               out=out)
+            else:
+                lo, hi = max(bx[ax][0], off), min(bx[ax][1], off + n)
+                if lo < hi:
+                    src = [slice(*e) for e in bx]
+                    src[ax] = slice(lo - off, hi - off)
+                    dst = [slice(None)] * ndim
+                    dst[ax] = slice(lo - bx[ax][0], hi - bx[ax][0])
+                    part = a.toarray() if isinstance(a, BoltArray) else a
+                    part = part[tuple(src)]
+                    if not isinstance(part, torch.Tensor):
+                        part = torch.from_numpy(np.ascontiguousarray(part))
+                    out[tuple(dst)] = part.to(out.device, out.dtype)
+            off += n
+        return BoltArrayMesh.wrap(out, mesh, shape, split, spec)

@@ -269,6 +269,20 @@ class ArrayMethods:
         other out of bounds raises ``IndexError``), ``wrap``, ``clip``.
         Index dtypes follow numpy: float arrays are refused, float
         sequences truncate, bools are 0/1."""
+        wrapped, axis = self._take_indices(indices, axis, mode)
+        split = self._split
+        x = self._mapped()
+        ids = torch.as_tensor(wrapped.astype(np.int64), device=x.device)
+        if axis is None:
+            return self._wrap(x.reshape(-1)[ids],
+                              1 if split and wrapped.ndim else 0)
+        out = torch.index_select(x, axis, ids.reshape(-1)).reshape(
+            tuple(x.shape[:axis]) + wrapped.shape + tuple(x.shape[axis + 1:]))
+        return self._wrap(out, _take_split(split, axis, wrapped.ndim))
+
+    def _take_indices(self, indices, axis, mode):
+        """``take``'s checks: ``(indices in range, as an int array of the
+        given shape; the axis, or None)``."""
         if mode not in ("raise", "wrap", "clip"):
             raise ValueError("mode must be 'raise', 'wrap' or 'clip', "
                              "got %r" % (mode,))
@@ -295,17 +309,7 @@ class ArrayMethods:
             if idx.size and (wrapped.min() < 0 or wrapped.max() >= dim):
                 raise IndexError("take index out of bounds for size %d"
                                  % dim)
-        split = self._split
-        x = self._mapped()
-        ids = torch.as_tensor(wrapped.astype(np.int64), device=x.device)
-        if axis is None:
-            return self._wrap(x.reshape(-1)[ids],
-                              1 if split and idx.ndim else 0)
-        out = torch.index_select(x, axis, ids.reshape(-1)).reshape(
-            tuple(x.shape[:axis]) + idx.shape + tuple(x.shape[axis + 1:]))
-        new_split = split if axis >= split or idx.ndim == 1 \
-            else split + idx.ndim - 1
-        return self._wrap(out, new_split)
+        return np.asarray(wrapped), axis
 
     def ravel(self, order="C"):
         """Flatten to 1-d, keyed by one flat key axis (a key-less array
@@ -327,6 +331,21 @@ class ArrayMethods:
         """Repeat elements (``ndarray.repeat``: ``axis=None`` flattens
         first; ``repeats`` a scalar or a 1-d array of the axis' length;
         floats truncate)."""
+        rep, axis = self._repeats(repeats, axis)
+        x = self._mapped()
+        if isinstance(rep, np.ndarray):
+            r = torch.as_tensor(rep, device=x.device)
+        else:
+            r = rep
+        split = self._split
+        if axis is None:
+            return self._wrap(torch.repeat_interleave(x.reshape(-1), r),
+                              1 if split else 0)
+        return self._wrap(torch.repeat_interleave(x, r, dim=axis), split)
+
+    def _repeats(self, repeats, axis):
+        """``repeat``'s checks: ``(an int, or an int64 array of the
+        axis' length; the axis, or None)``."""
         rep = np.asarray(repeats)
         if rep.ndim > 1:
             raise ValueError("object too deep for desired array")
@@ -340,16 +359,9 @@ class ArrayMethods:
         if rep.ndim == 1 and rep.size not in (1, dim):
             raise ValueError("operands could not be broadcast together "
                              "with shape (%d,) (%d,)" % (dim, rep.size))
-        x = self._mapped()
         if rep.ndim == 1 and rep.size == dim:
-            r = torch.as_tensor(rep.astype(np.int64), device=x.device)
-        else:
-            r = int(rep.reshape(-1)[0])
-        split = self._split
-        if axis is None:
-            return self._wrap(torch.repeat_interleave(x.reshape(-1), r),
-                              1 if split else 0)
-        return self._wrap(torch.repeat_interleave(x, r, dim=axis), split)
+            return rep.astype(np.int64), axis
+        return int(rep.reshape(-1)[0]), axis
 
     def _diag_axes(self, axis1, axis2):
         axis1, axis2 = self._one_axis(axis1), self._one_axis(axis2)
@@ -467,6 +479,10 @@ class ArrayMethods:
         """One element as a Python scalar (ndarray's forms: no argument
         for a size-1 array, a flat index, or one index per axis;
         negatives wrap).  Only that element is copied to the host."""
+        return self._mapped()[self._item_index(args)].item()
+
+    def _item_index(self, args):
+        """``item``'s arguments as one index per axis."""
         if len(args) == 1 and isinstance(args[0], tuple):
             args = args[0]
         if not all(isinstance(a, Integral) for a in args):
@@ -476,32 +492,52 @@ class ArrayMethods:
             if prod(shape) != 1:
                 raise ValueError("can only convert an array of size 1 to "
                                  "a Python scalar")
-            multi = (0,) * len(shape)
-        elif len(args) == 1:
+            return (0,) * len(shape)
+        if len(args) == 1:
             flat, size = int(args[0]), prod(shape)
             if flat < 0:
                 flat += size
             if not 0 <= flat < size:
                 raise IndexError("index %d is out of bounds for size %d"
                                  % (int(args[0]), size))
-            multi = tuple(int(i) for i in np.unravel_index(flat, shape))
-        else:
-            if len(args) != len(shape):
-                raise ValueError("incorrect number of indices for array")
-            multi = []
-            for a, dim in zip(args, shape):
-                i = int(a) + (dim if int(a) < 0 else 0)
-                if not 0 <= i < dim:
-                    raise IndexError("index %d is out of bounds for axis "
-                                     "of size %d" % (int(a), dim))
-                multi.append(i)
-            multi = tuple(multi)
-        return self._mapped()[multi].item()
+            return tuple(int(i) for i in np.unravel_index(flat, shape))
+        if len(args) != len(shape):
+            raise ValueError("incorrect number of indices for array")
+        multi = []
+        for a, dim in zip(args, shape):
+            i = int(a) + (dim if int(a) < 0 else 0)
+            if not 0 <= i < dim:
+                raise IndexError("index %d is out of bounds for axis "
+                                 "of size %d" % (int(a), dim))
+            multi.append(i)
+        return tuple(multi)
 
     def tolist(self):
         """Nested Python lists of the whole array (a full copy to the
         host, like :meth:`toarray`)."""
         return self.toarray().tolist()
+
+    # ------------------------------------------------------------------
+    # the ufunc methods' device work (gpu/mesharray.py runs them on a
+    # mesh)
+    # ------------------------------------------------------------------
+
+    def _ufunc_reduce(self, ufunc, axes, dt, keepdims, initial, new_split):
+        return self._wrap(ufuncs.ufunc_reduce(
+            ufunc, self._mapped(), axes, dt, keepdims, initial), new_split)
+
+    def _along(self, axis, fn):
+        """``fn`` of the mapped tensor, an op along ``axis`` that keeps
+        every other axis, as an array of this split."""
+        return self._wrap(fn(self._mapped()), self._split)
+
+    def _ufunc_outer(self, ufunc, inputs, dt):
+        from bolt_tpu_torch.gpu.array import BoltArrayGPU
+        a, b = (x._mapped() if isinstance(x, BoltArrayGPU)
+                else self._operand(x) for x in inputs)
+        new_split = inputs[0].split if isinstance(inputs[0], BoltArrayGPU) \
+            else 0
+        return self._wrap(ufuncs.ufunc_outer(ufunc, a, b, dt), new_split)
 
     # ------------------------------------------------------------------
     # products
@@ -542,6 +578,11 @@ class ArrayMethods:
         ``@`` (keyword-only: ndarray.dot's second positional is ``out``,
         which this backend does not take)."""
         return self._matmul(other, dot=True, precision=precision)
+
+
+def _take_split(split, axis, ndim):
+    """The key axes of ``take(idx, axis)`` with an ``ndim``-d ``idx``."""
+    return split if axis >= split or ndim == 1 else split + ndim - 1
 
 
 def _reduce_axes(arr, axis):
@@ -599,8 +640,8 @@ def ufunc_method(arr, ufunc, method, inputs, kwargs):
             return NotImplemented
         new_split = split if (keepdims or not axes) else \
             split - sum(1 for a in axes if a < split)
-        return arr._wrap(ufuncs.ufunc_reduce(
-            ufunc, arr._mapped(), axes, dt, keepdims, initial), new_split)
+        return arr._ufunc_reduce(ufunc, axes, dt, keepdims, initial,
+                                 new_split)
 
     if method == "accumulate":
         axis = kwargs.pop("axis", 0)
@@ -608,17 +649,14 @@ def ufunc_method(arr, ufunc, method, inputs, kwargs):
             return NotImplemented
         if axis is None:
             raise ValueError("accumulate does not allow multiple axes")
-        return arr._wrap(ufuncs.ufunc_accumulate(
-            ufunc, arr._mapped(), arr._one_axis(axis), dt), arr.split)
+        axis = arr._one_axis(axis)
+        return arr._along(axis, lambda x: ufuncs.ufunc_accumulate(
+            ufunc, x, axis, dt))
 
     if method == "outer":
         if kwargs or len(inputs) != 2:
             return NotImplemented
-        a, b = (x._mapped() if isinstance(x, BoltArrayGPU)
-                else arr._operand(x) for x in inputs)
-        new_split = inputs[0].split if isinstance(inputs[0], BoltArrayGPU) \
-            else 0
-        return arr._wrap(ufuncs.ufunc_outer(ufunc, a, b, dt), new_split)
+        return arr._ufunc_outer(ufunc, inputs, dt)
 
     if method == "reduceat":
         axis = kwargs.pop("axis", 0)
@@ -640,6 +678,6 @@ def ufunc_method(arr, ufunc, method, inputs, kwargs):
                                  "[0, %d)" % (int(idx[bad][0]), name, n_ax))
         if idx.ndim != 1:
             return NotImplemented
-        return arr._wrap(ufuncs.ufunc_reduceat(
-            ufunc, arr._mapped(), idx, axis, dt), arr.split)
+        return arr._along(axis, lambda x: ufuncs.ufunc_reduceat(
+            ufunc, x, idx, axis, dt))
     return NotImplemented

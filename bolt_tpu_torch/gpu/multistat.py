@@ -616,10 +616,16 @@ def fluent_stats(arr, names, axis=None, accumulate=None):
 # and the same fold in rank order on every rank
 # ---------------------------------------------------------------------
 
-def _mesh_kinds(name):
+def _mesh_kinds(name, dtype=None):
     """The partials a member ``name`` folds over the mesh: the shared
-    ``(count, mean, M2)`` moments of ``mean``/``var``/``std``, ``ptp``'s
-    ``max`` and ``min``, else its own terminal's."""
+    ``(count, mean, M2)`` moments of ``var``/``std``, the ``sum`` of
+    ``mean`` (divided by the count once folded, as one device divides its
+    blocks' sum; a half float's ``mean`` takes the moments, whose
+    accumulators are f32), ``ptp``'s ``max`` and ``min``, else its own
+    terminal's."""
+    if name == "mean" and dtype is not None and torch_dtype(dtype) not in (
+            torch.float16, torch.bfloat16):
+        return ("sum",)
     if name in ("mean", "var", "std"):
         return ("moments",)
     if name == "ptp":
@@ -664,11 +670,13 @@ def mesh_fold(kinds, partials, group):
         group)
 
 
-def _mesh_final(name, acc, ddof, dtype):
+def _mesh_final(name, acc, ddof, dtype, count=None):
     """The stat ``name`` of its folded partial (numpy ``dtype`` is the
-    array's)."""
+    array's; ``count`` the elements a folded ``mean`` sum holds)."""
     out_dt = dtypes.stat_dtype(name, torch_dtype(dtype))
-    if name in ("mean", "var", "std"):
+    if name == "mean" and isinstance(acc, torch.Tensor):
+        out = acc.to(dtypes.inexact(acc.dtype)) / count
+    elif name in ("mean", "var", "std"):
         n, mu, m2 = acc
         if name == "mean":
             out = mu
@@ -739,7 +747,7 @@ def mesh_stats(arr, slots):
         # first read below resolves the rank's whole stat group at once
         moments, handles, groups = {}, {}, {}
         for name, axes, _, _, maxes in plans:
-            if maxes and "moments" in _mesh_kinds(name) and \
+            if maxes and "moments" in _mesh_kinds(name, arr.dtype) and \
                     axes not in moments:
                 moments[axes] = _mesh_moments(loc, axes)
         for i, (name, axes, keepdims, ddof, maxes) in enumerate(plans):
@@ -747,13 +755,13 @@ def mesh_stats(arr, slots):
                 out[i] = loc._stat(axes, name, keepdims, ddof)
                 continue
             groups.setdefault(maxes, []).append(i)
-            for kind in _mesh_kinds(name):
+            for kind in _mesh_kinds(name, arr.dtype):
                 if kind != "moments" and (kind, axes) not in handles:
                     handles[kind, axes] = loc._stat(axes, kind)
         for maxes, items in groups.items():
             keys = list(dict.fromkeys(
                 (kind, plans[i][1]) for i in items
-                for kind in _mesh_kinds(plans[i][0])))
+                for kind in _mesh_kinds(plans[i][0], arr.dtype)))
             acc = dict(zip(keys, mesh_fold(
                 [kind for kind, _ in keys],
                 [moments[axes] if kind == "moments" else
@@ -761,9 +769,11 @@ def mesh_stats(arr, slots):
                 arr._mesh.group(maxes))))
             for i in items:
                 name, axes = plans[i][:2]
-                part = tuple(acc[kind, axes] for kind in _mesh_kinds(name))
+                part = tuple(acc[kind, axes]
+                             for kind in _mesh_kinds(name, arr.dtype))
                 out[i] = _mesh_final(name, part if name == "ptp" else
-                                     part[0], plans[i][3], arr.dtype)
+                                     part[0], plans[i][3], arr.dtype,
+                                     prod([shape[a] for a in axes]))
         # the rank's own terminals resolve here, under the mesh's key
         # scope (the group resolved above if any member was read)
         for o in out:

@@ -126,6 +126,9 @@ class StackedArray:
         consumed array raises on later reads."""
         func = _traceable(func)
         b = self._barray
+        from bolt_tpu_torch.gpu.mesharray import on_mesh
+        if on_mesh(b):
+            return self._mesh_map(func, value_shape, dtype)
         _engine.strict_guard(b, "stacked().map()")
         canon = None if dtype is None else torch_dtype(dtype)
         split = b.split
@@ -172,6 +175,22 @@ class StackedArray:
             del base
             b._consume_donated("stacked().map()")
         return StackedArray(BoltArrayGPU(out, split, b.device), size)
+
+    def _mesh_map(self, func, value_shape, dtype):
+        """``map`` on a mesh of more than one rank: each rank stacks its
+        own records (its box, with whole records) into blocks of
+        ``size`` and maps them as one device does; the keys keep their
+        layout."""
+        from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+        b = self._barray._whole_records()
+        split = b.split
+        with b._scope():
+            out = StackedArray(b.local, self._size).map(
+                func, value_shape=value_shape, dtype=dtype)._barray
+        shape = tuple(b.shape[:split]) + tuple(out.shape[split:])
+        spec = tuple(b._spec[:split]) + (None,) * (len(shape) - split)
+        return StackedArray(BoltArrayMesh(out, b._mesh, shape, split, spec),
+                            self._size)
 
     def unstack(self):
         """Back to a :class:`~bolt_tpu_torch.gpu.array.BoltArrayGPU`

@@ -50,7 +50,16 @@ def _labels(b, labels):
     a gpu array a bolt gpu array or a tensor of labels stays on the card
     (another device is refused, as a binary operand's); anything else
     goes through numpy."""
-    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU, check_mesh
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    if b.mode == "gpu" and on_mesh(b):
+        # each rank takes its slice of the whole label vector
+        if isinstance(labels, BoltArrayGPU):
+            check_mesh(b, labels, "segment_reduce labels")
+            return labels.toarray()
+        if isinstance(labels, torch.Tensor):
+            return labels.cpu().numpy()
+        return np.asarray(labels)
     if b.mode == "gpu":
         if isinstance(labels, BoltArrayGPU):
             labels = labels.totorch()
@@ -130,6 +139,9 @@ def segment_reduce(b, labels, num_segments=None, op="sum", method=None,
         return _local_segment(b, labels, num_segments, op)
 
     from bolt_tpu_torch.gpu.array import BoltArrayGPU, _cached_jit, hbm_check
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    if on_mesh(b):
+        return _mesh_segment(b, labels, num_segments, op, method, precision)
     base, funcs = b._chain_parts()
     split = b.split
     # cost gate for the one-hot form: ~2 * nseg * size flops at the
@@ -171,6 +183,44 @@ def segment_reduce(b, labels, num_segments=None, op="sum", method=None,
     lab = labels if on_card else torch.from_numpy(
         labels.astype(np.int64)).to(b.device)
     return BoltArrayGPU(fn(base, lab), 1, b.device)
+
+
+_FOLD = {"sum": torch.add, "mean": torch.add, "max": torch.maximum,
+         "min": torch.minimum}
+
+
+def _mesh_segment(b, labels, num_segments, op, method, precision):
+    """:func:`segment_reduce` on a mesh of more than one rank: each rank
+    reduces its own records with its slice of the labels (a mean as
+    sums), the partials of the mesh axes that split the records fold in
+    rank order, and a mean divides by the global counts."""
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    from bolt_tpu_torch.parallel import multihost, sharding
+    bx = b.box
+    lo, hi = bx[0]
+    lab = np.asarray(labels)[lo:hi].astype(np.int64)
+    loc = b.local
+    float_in = np.issubdtype(np.dtype(b.dtype), np.floating) or \
+        np.issubdtype(np.dtype(b.dtype), np.complexfloating)
+    with b._scope():
+        if op == "mean" and not float_in:
+            loc = loc.astype(np.float64)
+        part = segment_reduce(
+            loc, torch.from_numpy(lab).to(loc.device), num_segments,
+            "sum" if op == "mean" else op, method, precision)._data
+        maxes = sharding.shard_axes(b._spec, [0])
+        if maxes:
+            part = multihost.fold_partials(part, _FOLD[op],
+                                           b._mesh.group(maxes))
+        if op == "mean":
+            cnt = torch.from_numpy(np.bincount(
+                np.asarray(labels).astype(np.int64),
+                minlength=num_segments)).to(part.device, part.dtype)
+            part = part / torch.clamp(cnt, min=1).reshape(
+                (-1,) + (1,) * (part.ndim - 1))
+    shape = (num_segments,) + tuple(b.shape[1:])
+    spec = (None,) + tuple(b._spec[1:])
+    return BoltArrayMesh.wrap(part, b._mesh, shape, 1, spec)._constrained()
 
 
 def _local_segment(b, labels, num_segments, op):
@@ -370,6 +420,16 @@ def topk(b, k, axis=-1):
 
     from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _cached_jit,
                                           _chain_apply, hbm_check)
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    if on_mesh(b):
+        # each rank's box made whole along ``axis``: its indices are
+        # global, and the other axes keep their layout
+        keep = [None if a == axis else a for a in range(ndim)]
+        res = []
+        for i in range(2):
+            res.append(b._on_whole([axis], lambda loc, i=i: topk(
+                loc, k, axis)[i], keep, b.split))
+        return tuple(res)
     split = b.split
     itemsize = np.dtype(b.dtype).itemsize
     in_bytes = prod(b.shape) * itemsize
@@ -471,6 +531,9 @@ def unique(b, return_counts=False):
     and the per-chunk uniques and counts merge exactly on the host."""
     if b.mode == "local":
         return np.unique(np.asarray(b), return_counts=return_counts)
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    if on_mesh(b):
+        return _unique_sharded(b, return_counts)
     from bolt_tpu_torch.gpu.array import _cached_jit, _chain_apply
     from bolt_tpu_torch.gpu.dtypes import torch_dtype
     n = prod(b.shape)
@@ -493,6 +556,35 @@ def unique(b, return_counts=False):
                              str(base.dtype), split, return_counts,
                              b.device), build)(base)
     return (uniq, cnt) if return_counts else uniq
+
+
+def _unique_sharded(b, return_counts):
+    """``unique`` on a mesh of more than one rank (the reference's
+    ``_unique_sharded``): each rank sorts and masks its own box (a
+    partition of the elements is all unique needs), the uniques and
+    counts of the distinct boxes are gathered once, and the host merges
+    them exactly.  Only the ranks that differ along the mesh axes that
+    shard the array exchange, so a replicated layout counts each element
+    once, not once a replica."""
+    from bolt_tpu_torch.parallel import multihost, sharding
+    loc = b.local
+    with b._scope():
+        u, c = unique(loc, return_counts=True) if loc.size else (
+            np.empty(0, np.dtype(b.dtype)), np.empty(0, np.int64))
+    maxes = sharding.shard_axes(b._spec, range(b.ndim))
+    group = b._mesh.group(maxes) if maxes else None
+    blobs = multihost.all_gather_bytes(torch.from_numpy(np.frombuffer(
+        np.int64(u.size).tobytes() + u.tobytes() + c.tobytes(),
+        dtype=np.uint8).copy()), group)
+    vals, cnts = [], []
+    for blob in blobs:
+        raw = blob.cpu().numpy().tobytes()
+        m = int(np.frombuffer(raw[:8], np.int64)[0])
+        end = 8 + m * u.itemsize
+        vals.append(np.frombuffer(raw[8:end], u.dtype))
+        cnts.append(np.frombuffer(raw[end:end + 8 * m], np.int64))
+    return _merge_unique_parts(vals, cnts if return_counts else None,
+                               return_counts)
 
 
 def _unique_chunked(data, return_counts, dtype):
@@ -540,6 +632,9 @@ def bincount(b, minlength=0):
         return np.bincount(np.asarray(b).reshape(-1), minlength=minlength)
 
     from bolt_tpu_torch.gpu.array import _cached_jit, _chain_apply, _download
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    if on_mesh(b):
+        return _mesh_bincount(b, minlength)
     base, funcs = b._chain_parts()
     split = b.split
     chunk = _BINCOUNT_CHUNK
@@ -566,3 +661,35 @@ def bincount(b, minlength=0):
     return _cached_jit(("bincount", funcs, tuple(base.shape),
                         str(base.dtype), split, minlength, chunk, b.device),
                        build)(base).astype(np.int64)
+
+
+def _mesh_bincount(b, minlength):
+    """:func:`bincount` on a mesh of more than one rank: the range folds
+    over the ranks first (every rank then counts into the same length),
+    each rank counts its own box, and the counts of the ranks holding
+    distinct boxes add in rank order (int64: nothing wraps)."""
+    from bolt_tpu_torch.gpu.array import _chain_apply, _download
+    from bolt_tpu_torch.parallel import multihost, sharding
+    loc = b.local
+    maxes = sharding.shard_axes(b._spec, range(b.ndim))
+    group = b._mesh.group(maxes) if maxes else None
+    with b._scope():
+        base, funcs = loc._chain_parts()
+        x = _chain_apply(funcs, loc.split, base).reshape(-1)
+        if x.dtype not in (torch.uint8, torch.int8, torch.int16,
+                           torch.int32, torch.int64):
+            x = x.to(torch.int64)
+        mm = torch.stack(torch.aminmax(x)).to(torch.int64) if x.numel() \
+            else torch.tensor([2 ** 62, -1], dtype=torch.int64,
+                              device=x.device)
+        mm = multihost.fold_partials(mm, lambda p, q: torch.stack(
+            [torch.minimum(p[0], q[0]), torch.maximum(p[1], q[1])]), group)
+        mn, mx = (int(v) for v in mm.tolist())
+        if mn < 0:
+            raise ValueError("bincount requires non-negative values")
+        length = max(minlength, mx + 1)
+        counts = torch.bincount(x, minlength=length) if x.numel() else \
+            torch.zeros(length, dtype=torch.int64, device=x.device)
+        counts = multihost.fold_partials(counts.to(torch.int64), torch.add,
+                                         group)
+    return _download(counts).astype(np.int64)

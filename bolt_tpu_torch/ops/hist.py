@@ -89,7 +89,14 @@ def histogram(b, bins=10, range=None, density=False):
 
     from bolt_tpu_torch.gpu.array import _cached_jit
     from bolt_tpu_torch.gpu.dtypes import torch_dtype
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
     dtype = _inexact(torch_dtype(b.dtype))
+    if on_mesh(b):
+        counts, edges = _mesh_histogram(b, bins, None if range is None
+                                        else (lo, hi), dtype)
+        if density:
+            counts = counts / np.diff(edges) / counts.sum()
+        return counts, edges
     base, funcs = b._chain_parts()
     split, shape, vdtype = b.split, tuple(b.shape), b.dtype
     bounds = None if range is None else (lo, hi)
@@ -122,6 +129,37 @@ def histogram(b, bins=10, range=None, density=False):
     if density:
         counts = counts / np.diff(edges) / counts.sum()
     return counts, edges
+
+
+def _mesh_histogram(b, bins, bounds, dtype):
+    """:func:`histogram` on a mesh of more than one rank: the range is
+    the min/max fold over the ranks holding distinct boxes, then each
+    rank counts its own box and the counts add in rank order (int64)."""
+    from bolt_tpu_torch.parallel import multihost, sharding
+    loc = b.local
+    maxes = sharding.shard_axes(b._spec, range(b.ndim))
+    group = b._mesh.group(maxes) if maxes else None
+    base, funcs = loc._chain_parts()
+    split, shape, vdtype = loc.split, tuple(loc.shape), loc.dtype
+    with b._scope():
+        if bounds is None:
+            lo_hi = torch.tensor([float("inf"), -float("inf")], dtype=dtype,
+                                 device=base.device)
+            for x in _flat_blocks(base, funcs, split, shape, vdtype):
+                part = torch.stack(torch.aminmax(x.to(dtype)))
+                lo_hi = torch.stack([torch.minimum(lo_hi[0], part[0]),
+                                     torch.maximum(lo_hi[1], part[1])])
+            lo_hi = multihost.fold_partials(lo_hi, lambda p, q: torch.stack(
+                [torch.minimum(p[0], q[0]), torch.maximum(p[1], q[1])]),
+                group)
+            bounds = lo_hi.tolist()
+        edges = bin_edges(bounds[0], bounds[1], bins, dtype)
+        dev_edges = edges.to(base.device)
+        counts = torch.zeros(bins, dtype=torch.int64, device=base.device)
+        for x in _flat_blocks(base, funcs, split, shape, vdtype):
+            counts = counts + _counts(x.to(dtype), dev_edges).to(torch.int64)
+        counts = multihost.fold_partials(counts, torch.add, group)
+    return counts.to("cpu").numpy().astype(np.int64), edges.numpy()
 
 
 def histogramdd(sample, bins, ranges, density):

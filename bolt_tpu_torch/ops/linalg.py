@@ -470,6 +470,18 @@ def _moments(base, funcs, split, n, d, dtype, pr, conj_first):
     one pass of blocks: ``G = X^H X`` (``conj_first``, pca's Gram) or
     ``X^T conj(X)`` (np.cov's convention, the conjugate on the second
     factor), and the per-feature mean."""
+    g, s1 = _moment_sums(base, funcs, split, n, d, dtype, pr, conj_first)
+    return g, s1 / n
+
+
+def _moment_sums(base, funcs, split, n, d, dtype, pr, conj_first):
+    """``(G, column sums)`` of :func:`_moments`."""
+    if n == 0:
+        from bolt_tpu_torch.gpu.dtypes import torch_dtype
+        z = _widen(torch.zeros((0, d), dtype=torch_dtype(dtype),
+                               device=base.device))
+        return torch.zeros((d, d), dtype=z.dtype, device=z.device), \
+            torch.zeros(d, dtype=z.dtype, device=z.device)
     g = s1 = None
     with _precision.f32_matmul(pr):
         for _, _, x in _blocks(base, funcs, split, n, d, dtype):
@@ -480,7 +492,60 @@ def _moments(base, funcs, split, n, d, dtype, pr, conj_first):
             g = part if g is None else g + part
             s1 = col if s1 is None else s1 + col
             del x, xt
-    return g, s1 / n
+    return g, s1
+
+
+def _mesh_moments(b, split, d, pr, conj_first):
+    """``(G, column sums, box)`` of a mesh array's samples × features:
+    each rank's Gram and sums over its own rows (whole records, through
+    the deferred chain), folded over the mesh axes that split the
+    samples in rank order, the same bits on every rank ("shard-local
+    Gram + all-reduce")."""
+    from bolt_tpu_torch.parallel import multihost, sharding
+    loc = b.local
+    base, funcs = loc._chain_parts()
+    nloc = prod(loc.shape[:split])
+    with b._scope():
+        g, s1 = _moment_sums(base, funcs, split, nloc, d, b.dtype, pr,
+                             conj_first)
+    maxes = sharding.shard_axes(b._spec, range(split))
+    if maxes:
+        g, s1 = multihost.fold_partials(
+            (g, s1), lambda x, y: (x[0] + y[0], x[1] + y[1]),
+            b._mesh.group(maxes))
+    return g, s1
+
+
+def _mesh_pca(b, split, shape, n, d, k, center, pr):
+    """:func:`pca` on a mesh of more than one rank: the folded Gram, the
+    same ``(d, d)`` eigenproblem on every rank, and each rank's own rows
+    projected (the scores keep the keys' layout)."""
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    b = b._whole_records()
+    g, s1 = _mesh_moments(b, split, d, pr, True)
+    mu = s1 / n
+    if not center:
+        mu = torch.zeros_like(mu)
+    else:
+        g = g - n * torch.outer(mu.conj(), mu)
+    vec, ev = _decompose_gram(g, k, _card_eigh)
+    loc = b.local
+    base, funcs = loc._chain_parts()
+    kbox = tuple(loc.shape[:split])
+    nloc = prod(kbox)
+    parts = []
+    with b._scope(), _precision.f32_matmul(pr):
+        off = torch.matmul(mu, vec) if center else None
+        for _, _, x in _blocks(base, funcs, split, nloc, d, b.dtype):
+            blk = torch.matmul(x, vec)
+            parts.append(blk - off if off is not None else blk)
+    if not parts:
+        parts = [torch.zeros((0, k), dtype=vec.dtype, device=vec.device)]
+    scores = (parts[0] if len(parts) == 1 else torch.cat(parts)).reshape(
+        kbox + (k,))
+    out = BoltArrayMesh.wrap(scores, b._mesh, tuple(shape[:split]) + (k,),
+                             split, b._spec[:split] + (None,))
+    return out._constrained(), vec, torch.sqrt(ev), mu
 
 
 def pca(b, k=None, center=False, axis=None, return_mean=False,
@@ -534,6 +599,15 @@ def pca(b, k=None, center=False, axis=None, return_mean=False,
         return out + (mu,) if return_mean else out
 
     from bolt_tpu_torch.gpu.array import BoltArrayGPU, _cached_jit, _download
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    if on_mesh(b):
+        wrapped, vec, sv, mu = _mesh_pca(b, split, shape, n, d, k, center,
+                                         pr)
+        if not fetch:
+            return (wrapped, vec, sv, mu) if return_mean else \
+                (wrapped, vec, sv)
+        out = (wrapped, _download(vec), _download(sv))
+        return out + (_download(mu),) if return_mean else out
     base, funcs = b._chain_parts()
     dtype = b.dtype
 
@@ -633,23 +707,19 @@ def cov(b, axis=None, center=True, ddof=1, return_mean=False,
         return (c, mu) if return_mean else c
 
     from bolt_tpu_torch.gpu.array import _cached_jit, _download
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    if on_mesh(b):
+        g, s1 = _mesh_moments(b._whole_records(), split, d, pr, False)
+        c, mu = _cov_final(g, s1 / n, n, center, ddof)
+        return (_download(c), _download(mu)) if return_mean else \
+            _download(c)
     base, funcs = b._chain_parts()
     dtype = b.dtype
 
     def build():
         def run(data):
             c, mu = _moments(data, funcs, split, n, d, dtype, pr, False)
-            if not center:
-                return c / (n - ddof), torch.zeros_like(mu)
-            c = c - n * torch.outer(mu, mu.conj())
-            # the explicit-centering form's diagonal (a sum of squared
-            # moduli) cannot go negative; the fold can cancel past f32
-            # precision, so restore the invariant (corrcoef's
-            # sqrt(diag) depends on it)
-            diag = torch.clamp(torch.diagonal(c).real, min=0.0)
-            c = c.clone()
-            torch.diagonal(c).copy_(diag.to(c.dtype))
-            return c / (n - ddof), mu
+            return _cov_final(c, mu, n, center, ddof)
         return run
 
     fn = _cached_jit(("ops-cov", funcs, tuple(base.shape), str(base.dtype),
@@ -658,6 +728,21 @@ def cov(b, axis=None, center=True, ddof=1, return_mean=False,
     if return_mean:
         return _download(c), _download(mu)
     return _download(c)
+
+
+def _cov_final(c, mu, n, center, ddof):
+    """The covariance and the mean of the second moment ``c`` and the
+    mean ``mu`` of ``n`` samples."""
+    if not center:
+        return c / (n - ddof), torch.zeros_like(mu)
+    c = c - n * torch.outer(mu, mu.conj())
+    # the explicit-centering form's diagonal (a sum of squared moduli)
+    # cannot go negative; the fold can cancel past f32 precision, so
+    # restore the invariant (corrcoef's sqrt(diag) depends on it)
+    diag = torch.clamp(torch.diagonal(c).real, min=0.0)
+    c = c.clone()
+    torch.diagonal(c).copy_(diag.to(c.dtype))
+    return c / (n - ddof), mu
 
 
 def corrcoef(b, axis=None, precision=None):

@@ -847,6 +847,10 @@ def _as_bytes(t):
         return t
     if not t.numel():
         return torch.empty(0, dtype=torch.uint8, device=t.device)
+    if t.stride(0) != 1:
+        # a one-element view of a strided tensor counts as contiguous
+        # but keeps its stride, which a dtype view refuses
+        t = t.clone(memory_format=torch.contiguous_format)
     return t.view(torch.uint8)
 
 

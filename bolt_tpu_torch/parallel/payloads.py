@@ -151,7 +151,8 @@ def check_main_path(mesh, inputs):
 
 def check_not_ported(mesh, inputs):
     """Outside the ported slices a multi-rank mesh raises, naming the
-    ROADMAP item: the surface (A12d)."""
+    ROADMAP item: numpy's function table (A12d-2).  The array's own
+    surface runs (``None``: the call returned)."""
     bolt = _bolt()
     b = bolt.array(inputs["main_x"], mesh)
     out = {}
@@ -352,7 +353,79 @@ def dryrun_multichip(n):
     if rnd.shape != (n * 2, 3, 4) or not np.isfinite(rnd.toarray()).all():
         raise AssertionError("randn")
     out["filtered"] = int(keep.shape[0])
+    out.update(_dryrun_surface(bolt, mesh, kshape, x, m))
     return out
+
+
+def _dryrun_surface(bolt, mesh, kshape, x, m):
+    """The dry run's steps on the array surface and the ops library
+    (the reference's, past the filter, less its numpy-table steps):
+    distributed ``pca``, ``median``, ``cov``, the per-chunk SVD, ``set``,
+    an in-place ``sort``, the vector quantile, ``segment_reduce`` with
+    labels on the device, ``topk``, ``toarray(out=)`` and
+    ``iter_shards``.  Raises on a wrong answer."""
+    import torch
+    n = mesh.size
+    pdata = np.random.RandomState(7).randn(n * 6, 5)
+    pb = bolt.array(pdata, mesh, axis=(0,))
+    scores, comps, svals = bolt.ops.pca(pb, k=3, center=True)
+    xc = pdata - pdata.mean(axis=0)
+    if not np.allclose(svals, np.linalg.svd(xc, compute_uv=False)[:3],
+                       rtol=1e-6) or scores.shape != (n * 6, 3):
+        raise AssertionError("pca")
+    if not np.allclose(m.median().toarray(),
+                       np.median(x * 2.0 + 1.0, axis=(0, 1))):
+        raise AssertionError("median")
+    if not np.allclose(bolt.ops.cov(pb, return_mean=False),
+                       np.cov(pdata, rowvar=False), rtol=1e-6):
+        raise AssertionError("cov")
+    tall = np.random.RandomState(5).randn(kshape[0], 32, 3).astype(
+        np.float32)
+    tb = bolt.array(tall, mesh, axis=(0,))
+    sv = tb.chunk(size=(8,), axis=(0,)).map(
+        lambda blk: torch.linalg.svdvals(blk)[None, :]).unchunk()
+    expect = np.stack([np.stack([
+        np.linalg.svd(tall[k, i * 8:(i + 1) * 8], compute_uv=False)
+        for i in range(4)]) for k in range(kshape[0])])
+    if not np.allclose(np.asarray(sv.toarray()).reshape(expect.shape),
+                       expect, rtol=1e-4, atol=1e-4):
+        raise AssertionError("per-chunk svd")
+    sdata = np.random.RandomState(11).randn(kshape[0], 12, 3)
+    sb = bolt.array(sdata, mesh, axis=(0,))
+    rows = [0, 1] if sdata.shape[0] > 1 else [0]
+    st = sb.set((rows, slice(None), [0, 2]), -1.0)
+    sref = sdata.copy()
+    sref[np.ix_(rows, range(12), [0, 2])] = -1.0
+    if not np.allclose(st.toarray(), sref):
+        raise AssertionError("set")
+    srt = bolt.array(sdata, mesh, axis=(0,))
+    if srt.sort(axis=1) is not None or not np.allclose(
+            srt.toarray(), np.sort(sdata, axis=1)):
+        raise AssertionError("in-place sort")
+    vq = sb.quantile([0.25, 0.75])
+    if vq.split != 1 or not np.allclose(
+            vq.toarray(), np.quantile(sdata, [0.25, 0.75], axis=0)):
+        raise AssertionError("vector quantile")
+    dlab = torch.as_tensor(np.arange(sdata.shape[0]) % 2,
+                           device=mesh.device)
+    gseg = bolt.ops.segment_reduce(sb, dlab, num_segments=2, op="sum")
+    if not np.allclose(gseg.toarray(), np.stack(
+            [sdata[np.arange(sdata.shape[0]) % 2 == g].sum(axis=0)
+             for g in range(2)])):
+        raise AssertionError("segment_reduce")
+    tv, _ = bolt.ops.topk(sb, 2, axis=1)
+    if tv.shape != (sdata.shape[0], 2, 3):
+        raise AssertionError("topk")
+    tgt = np.empty(sb.shape, sb.dtype)
+    if sb.toarray(out=tgt) is not tgt or not np.allclose(tgt, sdata):
+        raise AssertionError("toarray(out=)")
+    walked = 0
+    for idx, blk in sb.iter_shards():
+        if not np.allclose(blk, sdata[idx]):
+            raise AssertionError("iter_shards")
+        walked += blk.size
+    return {"pca_svals": np.asarray(svals), "median_shape": list(
+        m.median().shape), "shard_elements": walked}
 
 
 def payload_dryrun(rank, args, inputs):
@@ -713,8 +786,16 @@ def payload_stream_suite(rank, args, inputs):
             "retried": payload_retried(rank, args, inputs)}
 
 
+def payload_surface(rank, args, inputs):
+    """The array surface and the ops library on the pod's meshes
+    (:mod:`bolt_tpu_torch.parallel.surface`)."""
+    from bolt_tpu_torch.parallel import surface
+    return surface.payload_surface(rank, args, inputs)
+
+
 PAYLOADS = {
     "checks": payload_checks,
+    "surface": payload_surface,
     "dryrun": payload_dryrun,
     "sched": payload_sched,
     "sleep": payload_sleep,
@@ -795,13 +876,13 @@ def constant_box(shape, box, device):
     return val.expand((n,) + tuple(val.shape)).contiguous()
 
 
-def _on_mesh(mesh, shape, spec, make):
+def _on_mesh(mesh, shape, spec, make, split=1):
     """A mesh array of ``shape`` laid out by ``spec``, each rank's box
     built on its device by ``make(shape, box, device)``."""
     from bolt_tpu_torch.parallel import sharding
     sh = sharding.Sharding(mesh, spec, shape)
     part = make(shape, sh.box(), mesh.device)
-    return sharding.assemble_from_parts(shape, sh, [part], split=1)
+    return sharding.assemble_from_parts(shape, sh, [part], split=split)
 
 
 class _Path:
@@ -991,6 +1072,9 @@ def payload_card_pod2(rank, args, inputs):
     if args.get("stream"):
         _stream_ns(out, mesh, args["stream"])
         _stream_c1(out, mesh, args["stream"])
+    if args.get("surface"):
+        _surface_ns(out, mesh, args["surface"])
+        _surface_ops(out, mesh, args["surface"])
     return out
 
 
@@ -1023,6 +1107,8 @@ def payload_card_pod4(rank, args, inputs):
     del x, h, g
     if args.get("stream"):
         _stream_rep(out, mesh, args["stream"])
+    if args.get("surface"):
+        _surface_c1(out, mesh, args["surface"])
     return out
 
 
@@ -1775,3 +1861,132 @@ PAYLOADS.update({"card_one": payload_card_one,
                  "card_pod2": payload_card_pod2,
                  "card_pod4": payload_card_pod4,
                  "card_resume": payload_card_resume})
+
+
+# ---------------------------------------------------------------------
+# the array surface and the ops library on the card's pods (chip_smoke.py
+# phase 18, inside phase 15's pods)
+# ---------------------------------------------------------------------
+
+def _boxed(t, b):
+    """``{"box", "fp"}`` of this rank's box ``t`` of a mesh array ``b``."""
+    return {"box": [list(x) for x in b.box], "fp": fingerprint(t)}
+
+
+def _surface_ns(out, mesh, args):
+    """The north-star split over the pod: three operator chains of the
+    crafted data ending in ``sum``/``mean`` (one ``fused_map_reduce`` a
+    rank each) and ``stats()`` of a chain of the constant columns (one
+    ``fused_welford`` a rank)."""
+    ns = tuple(args["north_star"])
+    b = _on_mesh(mesh, ns, ("k", None, None, None), crafted_box)
+    # Welford's f32 running mean rounds by the row partition, so the
+    # chain's stats() takes the constant columns (phase 15's ns_stats)
+    z = _on_mesh(mesh, ns, ("k", None, None, None), constant_box)
+    res = out["s18"] = {}
+    calls = (("ops_sum", lambda: (b * 2.0 + 1.0).sum().toarray()),
+             ("ufunc_mean", lambda: np.add(b, 1.0).mean().toarray()),
+             ("clip_sum", lambda: b.clip(-2.0, 2.0).sum().toarray()),
+             ("ops_stats", lambda: _counter((z * 2.0 + 1.0).stats())))
+    for name, fn in calls:
+        with _Path(out, "s18_ns_" + name):
+            res[name] = fn()
+    del b, z
+
+
+def _counter(st):
+    """A ``StatCounter``'s mean, variance, min and max."""
+    return {k: np.asarray(getattr(st, k)()) for k in
+            ("mean", "variance", "min", "max")}
+
+
+def _surface_ops(out, mesh, args):
+    """The ops library at phase 9's shapes on the pod: ``pca``/``cov``/
+    ``corrcoef`` of phase 9's scaled ``randn`` and ``segment_reduce``
+    of its ``(8192, 1024, 64)`` records (each rank builds the single
+    device's data and keeps its box), and ``unique`` with counts of
+    config 1's crafted data doubled (integer-valued)."""
+    import torch
+    bolt = _bolt()
+    from bolt_tpu_torch.parallel import sharding
+    res = out["s18"]
+    dev = mesh.device
+    shape = tuple(args["pca"])
+    full = bolt.randn(shape, context=dev, dtype=np.float32,
+                      seed=int(args["pca_seed"])).totorch()
+    full.mul_(torch.linspace(1.0, 4.0, shape[1], device=dev))
+    b = _whole_to_mesh(mesh, full, 1)
+    del full
+    with _Path(out, "s18_pca"):
+        _, comps, sv = bolt.ops.pca(b, k=4, center=True)
+        res["pca"] = {"comps": comps, "sv": sv}
+    with _Path(out, "s18_cov"):
+        res["cov"] = bolt.ops.cov(b)
+        res["corrcoef"] = bolt.ops.corrcoef(b)
+    del b
+    shape = tuple(args["segment"])
+    nseg = int(args["nseg"])
+    full = bolt.randn(shape, context=dev, dtype=np.float32,
+                      seed=int(args["segment_seed"])).totorch()
+    gen = torch.Generator(device=dev).manual_seed(
+        int(args["segment_label_seed"]))
+    lab = torch.randint(0, nseg, (shape[0],), generator=gen, device=dev)
+    b = _whole_to_mesh(mesh, full, 1)
+    del full
+    with _Path(out, "s18_segment"):
+        seg = bolt.ops.segment_reduce(b, lab, num_segments=nseg, op="sum")
+        res["segment"] = seg.toarray()
+    del b, seg
+    c1 = tuple(args["config1"])
+    spec = sharding.key_spec(mesh, c1, 1)
+    c = _on_mesh(mesh, c1, spec, crafted_box) * 2.0
+    with _Path(out, "s18_unique"):
+        u, cnt = bolt.ops.unique(c, return_counts=True)
+        res["unique"] = {"values": u, "counts": cnt}
+    del c
+
+
+def _whole_to_mesh(mesh, full, split):
+    """A mesh array over this rank's box (``key_spec``) of the whole
+    tensor ``full``, which every rank built alike."""
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    from bolt_tpu_torch.parallel import sharding
+    shape = tuple(full.shape)
+    spec = sharding.key_spec(mesh, shape, split)
+    box = full[sharding.box_slices(sharding.box(mesh, spec, shape))].clone()
+    return BoltArrayMesh.wrap(box, mesh, shape, split, spec)
+
+
+def _surface_c1(out, mesh, args):
+    """Config 1's crafted data with both key axes split over the
+    ``(2, 2)`` ``("k", "v")`` pod: quantiles over the keys, a sort, an
+    argmax, a scan, a reshape that merges the keys, indexing, ``set``,
+    ``concatenate`` and ``transpose``, each rank's box fingerprinted (the
+    parent holds them against the single device's boxes)."""
+    c1 = tuple(args["config1"])
+    b = _on_mesh(mesh, c1, ("k", "v", None, None), crafted_box, split=2)
+    res = out["s18"] = {"spec": [list(e) if isinstance(e, tuple) else e
+                                 for e in b._spec]}
+
+    def boxed(name, fn):
+        with _Path(out, "s18_c1_" + name):
+            r = fn()
+            res[name] = _boxed(r._data, r)
+
+    boxed("median", lambda: b.median())
+    boxed("quantile", lambda: b.quantile([0.25, 0.75]))
+
+    def sort():
+        s = b.astype(np.float32)
+        s.sort(axis=1)
+        return s
+    boxed("sort", sort)
+    with _Path(out, "s18_c1_argmax"):
+        res["argmax"] = int(b.argmax().toarray())
+    boxed("cumsum", lambda: b.cumsum(axis=0))
+    boxed("reshape", lambda: b.reshape((c1[0] * c1[1],) + c1[2:]))
+    boxed("getitem", lambda: b[3:197, [0, 5, 9]])
+    boxed("set", lambda: b.set(np.s_[90:110, 95:105, 10:20], -1.0))
+    boxed("concatenate", lambda: b.concatenate(b, axis=0))
+    boxed("transpose", lambda: b.transpose(1, 0, 3, 2))
+    del b

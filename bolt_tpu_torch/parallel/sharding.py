@@ -326,57 +326,168 @@ def relayout(local, mesh, shape, spec, new_spec, perm=None):
     transpose by ``perm``: returns this rank's new box (a contiguous
     tensor).  Every rank calls it together; the pieces other ranks hold
     arrive by ONE ``multihost.all_to_all`` (none when no byte crosses
-    ranks), the rest is copied locally."""
+    ranks, :func:`exchange`), the rest is copied locally."""
     ndim = len(shape)
     perm = tuple(range(ndim)) if perm is None else tuple(perm)
     new_shape = tuple(shape[p] for p in perm)
+    out = torch.empty(box_shape(box(mesh, new_spec, new_shape)),
+                      dtype=local.dtype, device=local.device)
+    moves = []
+    for s, d, region in relayout_plan(mesh, shape, spec, new_spec, perm):
+        old = box(mesh, spec, shape, s)
+        new = box(mesh, new_spec, new_shape, d)
+        take = [slice(a - o, e - o) for (a, e), (o, _) in zip(region, old)]
+        put = [slice(region[p][0] - new[j][0], region[p][1] - new[j][0])
+               for j, p in enumerate(perm)]
+        moves.append((s, d, take, put))
+    return exchange(local, out, moves, mesh, perm)
+
+
+def whole_spec(mesh, shape, spec, axes, move=True):
+    """A layout of an array of ``shape`` (laid out by ``spec``) in which
+    the ``axes`` are whole on every rank: the mesh axes that sharded them
+    shard instead the first other axis whose widened split still divides
+    it (``move``), else they replicate."""
+    axes = set(axes)
+    names = [list(spec_names(e)) for e in spec]
+    freed = [n for a in sorted(axes) for n in names[a]]
+    for a in axes:
+        names[a] = []
+    for name in freed if move else ():
+        for i, n in enumerate(shape):
+            if i in axes:
+                continue
+            ways = prod([mesh.shape[u] for u in names[i]]) * mesh.shape[name]
+            if n % ways == 0:
+                names[i].append(name)
+                break
+    return tuple(None if not n else n[0] if len(n) == 1 else tuple(n)
+                 for n in names)
+
+
+# ---------------------------------------------------------------------
+# routing: records moved by global index, one all_to_all
+# ---------------------------------------------------------------------
+
+def _as_index(p):
+    """A 1-d position array as a slice where it is a contiguous run."""
+    p = np.asarray(p, dtype=np.int64)
+    if p.size and int(p[-1]) - int(p[0]) == p.size - 1 and (
+            p.size == 1 or bool(np.all(np.diff(p) == 1))):
+        return slice(int(p[0]), int(p[-1]) + 1)
+    return p
+
+
+def _take(t, idx):
+    """``t`` indexed orthogonally by ``idx``: one entry (a slice or an
+    int array) per leading axis."""
+    for ax, i in enumerate(idx):
+        i = _as_index(i) if isinstance(i, np.ndarray) else i
+        if isinstance(i, slice):
+            t = t[(slice(None),) * ax + (i,)]
+        else:
+            t = torch.index_select(t, ax, torch.from_numpy(i).to(t.device))
+    return t
+
+
+def _put(out, idx, piece):
+    """``out[ix_(*idx)] = piece`` (orthogonal, leading axes), cast to
+    ``out``'s dtype."""
+    idx = [_as_index(i) if isinstance(i, np.ndarray) else i for i in idx]
+    piece = piece.to(out.dtype)
+    if all(isinstance(i, slice) for i in idx):
+        out[tuple(idx)] = piece
+        return
+    k = len(idx)
+    ix = []
+    for pos, i in enumerate(idx):
+        a = torch.arange(i.start, i.stop, device=out.device) \
+            if isinstance(i, slice) else torch.from_numpy(i).to(out.device)
+        ix.append(a.reshape((1,) * pos + (-1,) + (1,) * (k - pos - 1)))
+    out[tuple(ix)] = piece
+
+
+def exchange(local, out, moves, mesh, perm=None):
+    """Carry out ``moves``, ``[(src rank, dst rank, take, put)]`` that
+    every rank computes alike: rank ``src``'s ``local[take]`` (its axes
+    permuted by ``perm``) lands in rank ``dst``'s ``out[put]``
+    (orthogonal per-axis indices of the leading axes).  What crosses
+    ranks goes by ONE ``multihost.all_to_all`` (none when nothing
+    crosses); returns ``out``."""
     me = mesh.rank
-    my_old = box(mesh, spec, shape, me)
-    my_new = box(mesh, new_spec, new_shape, me)
-    plan = relayout_plan(mesh, shape, spec, new_spec, perm)
-    itemsize = local.element_size()
-    out = torch.empty(box_shape(my_new), dtype=local.dtype,
-                      device=local.device)
-
-    def local_piece(region):
-        sl = tuple(slice(s - o, e - o) for (s, e), (o, _) in
-                   zip(region, my_old))
-        return local[sl].permute(perm)
-
-    def put(region, piece):
-        sl = tuple(slice(region[p][0] - my_new[j][0],
-                         region[p][1] - my_new[j][0])
-                   for j, p in enumerate(perm))
-        out[sl] = piece
-
-    crossing = any(s != d for s, d, _ in plan)
     sends = [[] for _ in range(mesh.size)]
     recv = [[] for _ in range(mesh.size)]
-    for s, d, region in plan:
+    crossing = False
+
+    def piece(take):
+        t = _take(local, take)
+        return t if perm is None else t.permute(perm)
+
+    for s, d, take, put in moves:
+        crossing |= s != d
         if s == me and d == me:
-            put(region, local_piece(region))
+            _put(out, put, piece(take))
         elif s == me:
-            sends[d].append(local_piece(region).contiguous().reshape(-1))
+            sends[d].append(piece(take).contiguous().reshape(-1))
         elif d == me:
-            recv[s].append(region)
+            recv[s].append(put)
     if not crossing:
         return out
+    rest = tuple(local.shape[len(moves[0][2]):]) if moves else ()
+    itemsize = local.element_size()
+
+    def piece_shape(put):
+        return tuple(len(range(*i.indices(1 << 62))) if isinstance(i, slice)
+                     else len(i) for i in put) + rest
+
     empty = torch.empty(0, dtype=torch.uint8, device=local.device)
     payload = [torch.cat([empty] + [multihost._as_bytes(p) for p in ps])
                for ps in sends]
-    sizes = [sum(prod(box_shape(r)) for r in regs) * itemsize
-             for regs in recv]
+    sizes = [sum(prod(piece_shape(p)) for p in puts) * itemsize
+             for puts in recv]
     got = multihost.all_to_all(payload, sizes, local.device)
     for s in range(mesh.size):
         off = 0
-        for region in recv[s]:
-            n = prod(box_shape(region)) * itemsize
-            piece = multihost._from_bytes(
-                got[s][off:off + n], local.dtype,
-                tuple(box_shape(region)[p] for p in perm))
-            put(region, piece)
+        for put in recv[s]:
+            shp = piece_shape(put)
+            n = prod(shp) * itemsize
+            _put(out, put, multihost._from_bytes(got[s][off:off + n],
+                                                 local.dtype, shp))
             off += n
     return out
+
+
+def route(local, mesh, shape, spec, index, new_spec, out=None):
+    """This rank's box of ``src[ix_(*index)]`` laid out by ``new_spec``,
+    where ``local`` is this rank's box of ``src`` (global ``shape``,
+    layout ``spec``): ``index[a]`` holds, for every position of the
+    result along axis ``a``, the source index it comes from (-1: from
+    another source, left as ``out`` holds it).  Each rank takes from the
+    holder of the source box the pieces its new box needs, by ONE
+    ``all_to_all`` (:func:`exchange`).  The records of a gather, a
+    concatenation or a repeat move this way, and nothing else does."""
+    index = [np.asarray(i, dtype=np.int64).reshape(-1) for i in index]
+    new_shape = tuple(len(i) for i in index)
+    my_new = box(mesh, new_spec, new_shape)
+    if out is None:
+        out = torch.empty(box_shape(my_new), dtype=local.dtype,
+                          device=local.device)
+    held = _holders(boxes(mesh, spec, shape))
+    moves = []
+    for dst in range(mesh.size):
+        nb = box(mesh, new_spec, new_shape, dst)
+        for ob, holders in held:
+            take, put = [], []
+            for a, (lo, hi) in enumerate(nb):
+                ix = index[a][lo:hi]
+                p = np.nonzero((ix >= ob[a][0]) & (ix < ob[a][1]))[0]
+                if not p.size:
+                    break
+                take.append(ix[p] - ob[a][0])
+                put.append(p)
+            else:
+                moves.append((_sender(holders, dst), dst, take, put))
+    return exchange(local, out, moves, mesh)
 
 
 # bytes of one broadcast piece of a gather: bounds the transient buffer

@@ -160,7 +160,7 @@ result):
    ``sum()`` and ``mean()`` (the f32 slab mask held against the f64 one
    within rounding; the sum within ``4 sqrt(kept) 2^-24 sum|v + 1|``,
    the mean ``rtol=1e-5, atol=1e-6``); the group of ``sum``/``mean``/
-   ``var``/``min``/``max`` in one ingest pass (160 slabs), each member
+   ``var``/``min``/``max`` in one ingest pass (40 slabs), each member
    bit for bit against its standalone streamed terminal, its wall beside
    the sum of theirs; ``chunk((50, 32, 32)).map(c * 2).sum()`` and
    ``stacked(20).map(blk - blk.mean(0)).sum()`` against f64 (``8
@@ -179,7 +179,7 @@ result):
    ``stream.uploaders(4)``: phase 6's ``map(v + 1).sum()`` under
    ``stream.resumable(build/..., every=2)``, killed by an injected
    ``stream.upload`` fault at its 80th upload and run again, resumed (one
-   resume, fewer than 160 slabs, no checkpoint left), bit for bit against
+   resume, fewer than 40 slabs, no checkpoint left), bit for bit against
    phase 6's sum, and once clean (its wall beside phase 6's); phase 11's
    group of five killed and resumed (``every=8``), each member bit for
    bit against phase 11's; config 1's armed int8 ``sum`` killed and
@@ -357,6 +357,10 @@ CONFIG5B = (8, 4194304, 16)
 PCA_SHAPE = (33554432, 16)
 SEGMENT_SHAPE = (8192, 1024, 64)
 NORTH_STAR = (3200, 200, 64, 64)
+# the streamed north-star of phases 6, 11, 12 and 14: the same 3.3 MB
+# records, 800 of them (40 slabs), so the streamed phases leave room in
+# the time limit; phases 16 and 17 stream the full depth
+STREAM_NS = (800,) + NORTH_STAR[1:]
 # fam_halo_gaussian (scripts/perf_regress.py): gaussian(sigma=2.0,
 # axis=(0, 1), size="64") over a (64, 2048, 4096) f32 stack, seed 6
 IMAGING = (64, 2048, 4096)
@@ -1121,13 +1125,13 @@ def stream_phase(bolt, K, torch, np, dev, report):
     from bolt_tpu_torch import engine, stream
     from bolt_tpu_torch._precision import codec_bound
     t0 = time.perf_counter()
-    cb = seeded_records(np, NORTH_STAR[1:])
+    cb = seeded_records(np, STREAM_NS[1:])
 
     def source(codec=None):
-        return bolt.fromcallback(cb, NORTH_STAR, mode="gpu",
+        return bolt.fromcallback(cb, STREAM_NS, mode="gpu",
                                  dtype=np.float32, codec=codec)
 
-    n = NORTH_STAR[0]
+    n = STREAM_NS[0]
     nslabs = len(source()._stream.slab_ranges())
     check(source()._stream.slab == SLAB_RECORDS and nslabs == -(
         -n // SLAB_RECORDS), "streamed north-star slab plan")
@@ -1137,7 +1141,7 @@ def stream_phase(bolt, K, torch, np, dev, report):
         t = time.perf_counter()
         mat = source()
         x = mat.totorch()
-        check(tuple(x.shape) == NORTH_STAR and not mat.streaming,
+        check(tuple(x.shape) == STREAM_NS and not mat.streaming,
               "streamed source materialised")
         ref = f64_column_refs(x.view(n, -1))
         lo_all, hi_all = float(ref["min"].min()), float(ref["max"].max())
@@ -1175,7 +1179,7 @@ def stream_phase(bolt, K, torch, np, dev, report):
             runs[label] = {
                 "wall_s": wall, "slabs": d["stream_chunks"],
                 "raw_bytes": d["codec_bytes_raw"] or 4 * math.prod(
-                    NORTH_STAR),
+                    STREAM_NS),
                 "wire_bytes": d["transfer_bytes"],
                 "link_s": d["transfer_seconds"],
                 "ingest_s": d["stream_ingest_seconds"],
@@ -1209,7 +1213,6 @@ def stream_phase(bolt, K, torch, np, dev, report):
         s1 = run("map_sum", lambda: source().map(lambda v: v + 1).sum())
         errs["map_sum"] = sum_close(s1, ref, n, "streamed map(v+1).sum()")
         KEEP["ns_map_sum"] = s1
-        KEEP["ns_refs"] = ref           # phase 16's f64 references
         mean = run("mean", lambda: source().mean())
         errs["mean"] = close(mean, ref["mean"], 1e-5, 1e-6,
                              "streamed mean()")
@@ -2557,13 +2560,13 @@ def stages_phase(bolt, K, torch, np, dev, report):
     from bolt_tpu_torch.gpu.array import _pred_mask
     from bolt_tpu_torch.parallel import shuffle
     t0 = time.perf_counter()
-    n = NORTH_STAR[0]
+    n = STREAM_NS[0]
     nslabs = -(-n // SLAB_RECORDS)
-    cb = seeded_records(np, NORTH_STAR[1:])
+    cb = seeded_records(np, STREAM_NS[1:])
     pred = lambda v: v.mean() > 1           # noqa: E731  (config 4's)
 
     def source():
-        return bolt.fromcallback(cb, NORTH_STAR, mode="gpu",
+        return bolt.fromcallback(cb, STREAM_NS, mode="gpu",
                                  dtype=np.float32)
 
     runs = {}
@@ -2645,8 +2648,8 @@ def stages_phase(bolt, K, torch, np, dev, report):
         # the resident swap: phase 1 streams every slab into the swapped
         # output, bit for bit against the materialised swap
         sw = source().swap((0,), (0,))
-        check(sw.streaming and sw.shape == (NORTH_STAR[1], n)
-              + NORTH_STAR[2:],
+        check(sw.streaming and sw.shape == (STREAM_NS[1], n)
+              + STREAM_NS[2:],
               "swap on a stream is a lazy stage")
         got = run("swap_resident", lambda: sw.totorch(), 0,
                   growth_gb=want_swap.numel() * 4 / 1e9 + 2.0)
@@ -2922,15 +2925,15 @@ def resume_phase(bolt, K, torch, np, dev, report):
     root = os.path.join(ROOT, "build", "phase12")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    n = NORTH_STAR[0]
+    n = STREAM_NS[0]
     nslabs = -(-n // SLAB_RECORDS)
     n1 = CONFIG1[0]
     s1 = -(-n1 // SLAB_RECORDS)
-    cb = seeded_records(np, NORTH_STAR[1:])
+    cb = seeded_records(np, STREAM_NS[1:])
     cb1 = seeded_records(np, CONFIG1[1:], integers=True)
 
     def source():
-        return bolt.fromcallback(cb, NORTH_STAR, mode="gpu",
+        return bolt.fromcallback(cb, STREAM_NS, mode="gpu",
                                  dtype=np.float32)
 
     def source1(codec=None):
@@ -3000,7 +3003,7 @@ def resume_phase(bolt, K, torch, np, dev, report):
 
     with stream.uploaders(4):
         # the streamed north-star's map(v + 1).sum(), killed at its 80th
-        # upload (of 160) and resumed, against phase 6's uninterrupted sum
+        # upload (of 40) and resumed, against phase 6's uninterrupted sum
         ck = os.path.join(root, "north_star")
 
         def mapsum():
@@ -3753,19 +3756,19 @@ def analysis_phase(bolt, K, torch, np, dev, report):
     path("config1", config1)
     del b1, b5
 
-    # ---- the streamed north-star (160 slabs) -----------------------------
-    cb = seeded_records(np, NORTH_STAR[1:])
+    # ---- the streamed north-star (40 slabs) ------------------------------
+    cb = seeded_records(np, STREAM_NS[1:])
 
     def stream_ns():
-        src = bolt.fromcallback(cb, NORTH_STAR, mode="gpu", dtype=np.float32)
+        src = bolt.fromcallback(cb, STREAM_NS, mode="gpu", dtype=np.float32)
         rep = checked("stream_map", src.map(add1))
         check(len(rep.stages) == 2 and "%d slabs" % -(
-            -NORTH_STAR[0] // SLAB_RECORDS) in rep.stages[0].note,
+            -STREAM_NS[0] // SLAB_RECORDS) in rep.stages[0].note,
             "phase 14: the streamed plan's stages")
         rep_s = checked("stream_map_sum", src.map(add1).sum())
         with stream.uploaders(4), analysis.strict():
             got = src.map(add1).sum().totorch().reshape(-1)
-        predicted("stream_map_sum", rep_s, got.view(NORTH_STAR[1:]))
+        predicted("stream_map_sum", rep_s, got.view(STREAM_NS[1:]))
         same("stream_map_sum", got, KEEP["ns_map_sum"])
 
     path("stream_ns", stream_ns)
@@ -3969,10 +3972,12 @@ def mesh_pod(harness, out, name, payload, nproc, backend, args):
     for path in res[0]["paths"]:
         per = [r["paths"][path] for r in res]
         pod["paths"][path] = per
-        # phase 16's streamed paths ride the same pods ("s16_...")
+        # phase 16's and phase 18's paths ride the same pods ("s16_...",
+        # "s18_...")
+        label = path[1:3] if path.startswith(("s16_", "s18_")) else "15"
         log("phase %s %s %s: wall %s s, peak growth %s GB per rank, "
             "launches per rank %s, collective bytes %s, host-staged %s%s "
-            "(%s)" % ("16" if path.startswith("s16_") else "15", name, path,
+            "(%s)" % (label, name, path,
                       [round(p["wall_s"], 3) for p in per],
                       [round(p.get("peak_growth_bytes", 0) / 1e9, 3)
                        for p in per], [p["launches"] for p in per],
@@ -3987,7 +3992,7 @@ def mesh_pod(harness, out, name, payload, nproc, backend, args):
                       out["card"]))
     log("phase %s pod %s: %d ranks (%s) in %.1f s"
         % ("16" if all(p.startswith("s16_") for p in res[0]["paths"])
-           else "15", name, nproc, backend, wall))
+           else "15, 16 and 18", name, nproc, backend, wall))
     return res
 
 
@@ -4101,7 +4106,8 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     res = mesh_pod(harness, out, "pod2", "card_pod2", 2, "gloo",
                    {"north_star": list(NORTH_STAR),
                     "config1": list(CONFIG1),
-                    "stream": pod_stream_args()})
+                    "stream": pod_stream_args(),
+                    "surface": surface_args()})
     for r in res:
         for k in ("map_sum", "reduce", "filter_sum", "filter_mean"):
             same(r[k], two[k], "two-rank crafted %s (rank %d)"
@@ -4146,7 +4152,8 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     # ---- four gloo ranks, (2, 2) ("k", "v"), config 1 ----------------------
     res = mesh_pod(harness, out, "pod4", "card_pod4", 4, "gloo",
                    {"config1": list(CONFIG1), "chunk": MESH_CHUNK,
-                    "stream": pod_stream_args()})
+                    "stream": pod_stream_args(),
+                    "surface": surface_args()})
     for r in res:
         check(r["spec"] == ["k", None, None, None], "phase 15 pod4 layout")
         same(r["map_sum"], four["map_sum"], "four-rank map(v+1).sum() with "
@@ -4179,7 +4186,7 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     launches = {}
     for name, pod in out["pods"].items():
         for path, per in pod["paths"].items():
-            if not path.startswith("s16_"):
+            if not path.startswith(("s16_", "s18_")):
                 launches["%s/%s" % (name, path)] = [p["launches"]
                                                     for p in per]
     out["wall_s"] = time.perf_counter() - t_phase
@@ -4208,6 +4215,25 @@ def pod_stream_args():
             "spill": os.path.join(POD_STREAM_DIR, "spill"),
             "ckpt_clean": os.path.join(POD_STREAM_DIR, "clean"),
             "ckpt_sub": os.path.join(POD_STREAM_DIR, "sub")}
+
+
+def full_depth_refs(bolt, torch, np, shape):
+    """The f64 references of phase 6's seeded records at ``shape`` (the
+    full depth phase 16 streams; phase 6 streams ``STREAM_NS``): the
+    source materialised on the card once, its column sums taken and the
+    records freed."""
+    from bolt_tpu_torch import stream
+    t = time.perf_counter()
+    with stream.uploaders(4):
+        x = bolt.fromcallback(seeded_records(np, shape[1:]), shape,
+                              mode="gpu", dtype=np.float32).totorch()
+    ref = f64_column_refs(x.view(shape[0], -1))
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("phase 16 f64 references of the seeded north-star (%d records) in "
+        "%.1f s" % (shape[0], time.perf_counter() - t))
+    return ref
 
 
 def pod_stream_phase(bolt, K, torch, np, dev, report):
@@ -4274,7 +4300,7 @@ def pod_stream_phase(bolt, K, torch, np, dev, report):
         % out["refs_s"])
 
     # ---- path a: the streamed north-star on two gloo ranks -----------------
-    ref = KEEP["ns_refs"]
+    ref = full_depth_refs(bolt, torch, np, ns)
     res = pods["pod2"]
     recs_rank = n // 2
     rank_bytes = recs_rank * 4 * math.prod(ns[1:])
@@ -4615,6 +4641,205 @@ def recovery_phase(bolt, K, torch, np, dev, report):
     report["phases"]["recovery_s"] = out["wall_s"]
     log("phase 17 ok in %.1f s: path e %.1f s, path f %.1f s (%s)"
         % (out["wall_s"], out["e_wall_s"], out["f_wall_s"], out["card"]))
+    return launches
+
+
+# phase 18 (the surface on a mesh): the seeds of phase 9's pca and
+# segment_reduce data, which the pods rebuild
+PCA_SEED = 9
+SEGMENT_SEED = 12
+SEGMENT_LABEL_SEED = 13
+SEGMENT_NSEG = 256
+
+
+def surface_args():
+    """The ``surface`` args of phase 18's paths in the phase 15 pods."""
+    return {"north_star": list(NORTH_STAR), "config1": list(CONFIG1),
+            "pca": list(PCA_SHAPE), "pca_seed": PCA_SEED,
+            "segment": list(SEGMENT_SHAPE), "segment_seed": SEGMENT_SEED,
+            "segment_label_seed": SEGMENT_LABEL_SEED,
+            "nseg": SEGMENT_NSEG}
+
+
+def surface_mesh_phase(bolt, K, torch, np, dev, report):
+    """Phase 18: the array surface and the ops library on a mesh, whose
+    paths ran inside phase 15's two- and four-rank gloo pods on this card
+    (``payloads._surface_ns``/``_surface_ops``/``_surface_c1``), each
+    held here against the single device on the same data: at the
+    north-star split 1600 records a rank, three operator chains of the
+    crafted data ending in ``sum``/``mean`` and a chain's ``stats()`` of
+    the constant columns bit for bit, one ``fused_map_reduce`` (or
+    ``fused_welford``) a rank; at config 1 on
+    the ``(2, 2)`` pod with both key axes split, quantiles, a sort, an
+    argmax, a scan, a key-merging reshape, indexing, ``set``,
+    ``concatenate`` and ``transpose``, every rank's box bit for bit; on
+    two ranks phase 9's ``pca``/``cov``/``corrcoef`` within phase 9's
+    tolerances, its ``segment_reduce`` within the same bound of its f64
+    references, and ``unique`` with counts exactly.  Returns each path's
+    launches per rank."""
+    from bolt_tpu_torch import ops
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.parallel import payloads, sharding
+    t_phase = time.perf_counter()
+    out = {"card": report["card"], "paths": {}}
+    report["surface_mesh"] = out
+    pods = KEEP["pods"]
+    whole = lambda shape: tuple((0, k) for k in shape)  # noqa: E731
+
+    def same(got, want, what):
+        want = want.cpu().numpy() if hasattr(want, "cpu") else want
+        check(np.asarray(got).dtype == np.asarray(want).dtype
+              and np.array_equal(got, want), "phase 18 %s" % what)
+
+    for name in ("pod2", "pod4"):
+        for path, per in report["mesh"]["pods"][name]["paths"].items():
+            if path.startswith("s18_"):
+                out["paths"]["%s/%s" % (name, path)] = per
+
+    # ---- two ranks: the north-star's operator chains -----------------------
+    x = BoltArrayGPU(payloads.crafted_box(NORTH_STAR, whole(NORTH_STAR),
+                                          dev), 1, dev)
+    one = {"ops_sum": (x * 2.0 + 1.0).sum().toarray(),
+           "ufunc_mean": np.add(x, 1.0).mean().toarray(),
+           "clip_sum": x.clip(-2.0, 2.0).sum().toarray()}
+    del x
+    # the chain's stats() on the constant columns, as the pods take it
+    z = BoltArrayGPU(payloads.constant_box(NORTH_STAR, whole(NORTH_STAR),
+                                           dev), 1, dev)
+    one["ops_stats"] = payloads._counter((z * 2.0 + 1.0).stats())
+    del z
+    torch.cuda.empty_cache()
+    res2 = pods["pod2"]
+    want_kernel = {"ops_sum": "fused_map_reduce",
+                   "ufunc_mean": "fused_map_reduce",
+                   "clip_sum": "fused_map_reduce",
+                   "ops_stats": "fused_welford"}
+    for r in res2:
+        k = r["rank"]
+        for name, kern in want_kernel.items():
+            got, want = r["s18"][name], one[name]
+            if isinstance(want, dict):
+                for m in want:
+                    same(got[m], want[m], "two-rank %s %s (rank %d)"
+                         % (name, m, k))
+            else:
+                same(got, want, "two-rank %s (rank %d)" % (name, k))
+            la = r["paths"]["s18_ns_" + name]["launches"]
+            check(la == {kern: 1}, "phase 18 %s launched %s on rank %d, "
+                  "not one %s" % (name, la, k, kern))
+
+    # ---- two ranks: the ops library at phase 9's shapes ---------------------
+    b = bolt.randn(PCA_SHAPE, mode="gpu", dtype=np.float32, seed=PCA_SEED)
+    b.totorch().mul_(torch.linspace(1.0, 4.0, PCA_SHAPE[1], device=dev))
+    _, comps, sv = ops.pca(b, k=4, center=True)
+    cov = ops.cov(b)
+    corr = ops.corrcoef(b)
+    del b
+    torch.cuda.empty_cache()
+    errs = {}
+    for r in res2:
+        p = r["s18"]
+        rel = float(np.max(np.abs(p["pca"]["sv"] - sv) / sv))
+        check(rel <= 1e-4, "phase 18 pca singular values (rank %d): %.3g"
+              % (r["rank"], rel))
+        cerr = 0.0
+        for i in range(4):
+            sgn = np.sign(np.dot(p["pca"]["comps"][:, i], comps[:, i])) or 1.0
+            cerr = max(cerr, float(np.abs(sgn * p["pca"]["comps"][:, i]
+                                          - comps[:, i]).max()))
+        check(cerr <= 1e-3, "phase 18 pca components (rank %d): %.3g"
+              % (r["rank"], cerr))
+        verr = float(np.max(np.abs(p["cov"] - cov)) / np.abs(cov).max())
+        check(verr <= 1e-4, "phase 18 cov (rank %d): %.3g" % (r["rank"], verr))
+        rerr = float(np.max(np.abs(p["corrcoef"] - corr)))
+        check(rerr <= 1e-4, "phase 18 corrcoef (rank %d): %.3g"
+              % (r["rank"], rerr))
+        errs["pca_rank%d" % r["rank"]] = {"sv_rel": rel, "comps": cerr,
+                                          "cov_rel": verr, "corr": rerr}
+    for r in res2[1:]:
+        for k in ("cov", "corrcoef"):
+            same(r["s18"][k], res2[0]["s18"][k], "%s on every rank" % k)
+    b = bolt.randn(SEGMENT_SHAPE, mode="gpu", dtype=np.float32,
+                   seed=SEGMENT_SEED)
+    xs = b.totorch()
+    n = SEGMENT_SHAPE[0]
+    gen = torch.Generator(device=dev).manual_seed(SEGMENT_LABEL_SEED)
+    lab = torch.randint(0, SEGMENT_NSEG, (n,), generator=gen, device=dev)
+    flat = xs.view(n, -1)
+    ref = torch.zeros((SEGMENT_NSEG, flat.shape[1]), dtype=torch.float64,
+                      device=dev)
+    mag = torch.zeros_like(ref)
+    for s0 in range(0, n, 512):
+        blk = flat[s0:s0 + 512].double()
+        ref.index_add_(0, lab[s0:s0 + 512], blk)
+        mag.index_add_(0, lab[s0:s0 + 512], blk.abs())
+        del blk
+    del b, xs, flat
+    for r in res2:
+        got = torch.from_numpy(r["s18"]["segment"]).to(dev).view(
+            SEGMENT_NSEG, -1)
+        err = float(((got.double() - ref).abs() / (mag + 1e-30)).max())
+        check(err <= 64 * 2.0 ** -24, "phase 18 segment_reduce (rank %d): "
+              "%.3g of sum|x|" % (r["rank"], err))
+        errs["segment_rank%d" % r["rank"]] = err
+        del got
+    del ref, mag, lab
+    torch.cuda.empty_cache()
+    c = BoltArrayGPU(payloads.crafted_box(CONFIG1, whole(CONFIG1), dev), 1,
+                     dev) * 2.0
+    u, cnt = ops.unique(c, return_counts=True)
+    del c
+    for r in res2:
+        same(r["s18"]["unique"]["values"], u, "unique values (rank %d)"
+             % r["rank"])
+        same(r["s18"]["unique"]["counts"], cnt, "unique counts (rank %d)"
+             % r["rank"])
+
+    # ---- four ranks, (2, 2) ("k", "v"): config 1 with both keys split -------
+    c1 = BoltArrayGPU(payloads.crafted_box(CONFIG1, whole(CONFIG1), dev), 2,
+                      dev)
+    s = c1.astype(np.float32)
+    s.sort(axis=1)
+    singles = {
+        "median": lambda: c1.median(),
+        "quantile": lambda: c1.quantile([0.25, 0.75]),
+        "sort": lambda: s,
+        "cumsum": lambda: c1.cumsum(axis=0),
+        "reshape": lambda: c1.reshape((CONFIG1[0] * CONFIG1[1],)
+                                      + CONFIG1[2:]),
+        "getitem": lambda: c1[3:197, [0, 5, 9]],
+        "set": lambda: c1.set(np.s_[90:110, 95:105, 10:20], -1.0),
+        "concatenate": lambda: c1.concatenate(c1, axis=0),
+        "transpose": lambda: c1.transpose(1, 0, 3, 2)}
+    res4 = pods["pod4"]
+    for name, fn in singles.items():
+        t = fn().totorch()
+        for r in res4:
+            bx = tuple(tuple(v) for v in r["s18"][name]["box"])
+            check(r["s18"][name]["fp"] == payloads.fingerprint(
+                t[sharding.box_slices(bx)]), "phase 18 four-rank %s: rank "
+                "%d's box %s is not the single device's" % (name, r["rank"],
+                                                             bx))
+        del t
+    am = int(c1.argmax().toarray())
+    for r in res4:
+        check(r["s18"]["argmax"] == am, "phase 18 four-rank argmax (rank %d)"
+              % r["rank"])
+        check(r["s18"]["spec"] == ["k", "v", None, None],
+              "phase 18 four-rank layout %s" % r["s18"]["spec"])
+    del c1, s
+    torch.cuda.empty_cache()
+
+    launches = {path: [p["launches"] for p in per]
+                for path, per in out["paths"].items()}
+    out["errors"] = errs
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["paths_s"] = sum(max(p["wall_s"] for p in per)
+                         for per in out["paths"].values())
+    report["phases"]["surface_mesh_s"] = out["wall_s"]
+    log("phase 18 ok: %.1f s here (single-device references) and %.1f s of "
+        "paths inside phase 15's pods; errors %s (%s)"
+        % (out["wall_s"], out["paths_s"], json.dumps(errs), out["card"]))
     return launches
 
 
@@ -5003,6 +5228,10 @@ def main():
 
     # ---- phase 17: pod liveness and recovery -------------------------------
     recovery_launches = recovery_phase(bolt, K, torch, np, dev, report)
+
+    # ---- phase 18: the surface on a mesh (paths ran in phase 15's pods) -----
+    surface_mesh_launches = surface_mesh_phase(bolt, K, torch, np, dev,
+                                               report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
@@ -5049,6 +5278,10 @@ def main():
                         "phase17_launches": {
                             path: [c.get(name, 0) for c in per]
                             for path, per in recovery_launches.items()
+                            if any(c.get(name, 0) for c in per)},
+                        "phase18_launches": {
+                            path: [c.get(name, 0) for c in per]
+                            for path, per in surface_mesh_launches.items()
                             if any(c.get(name, 0) for c in per)}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -543,10 +543,18 @@ def test_serve_close_terminates_during_held_retry(watchdir):
 def test_sustained_transport_failure_is_a_liveness_verdict(watchdir):
     """A transport that stops answering for a whole deadline (rank 0's
     TCPStore died, the shared dir is gone) latches a verdict, so guarded
-    syncs raise instead of polling a silent watch forever."""
-    _start(watchdir, timeout=0.3)
+    syncs raise instead of polling a silent watch forever.  Rank 1 beats
+    until the store goes, so the last successful scan never finds a peer
+    past its deadline, however late the sleep wakes."""
+    t = _start(watchdir, timeout=0.3)
+    peer = _FakePeer(t, 1)
     time.sleep(0.1)
-    shutil.rmtree(watchdir)           # the store is gone: every beat
+    peer.kill()
+    # the store is gone: moved aside in one step (a removal racing the
+    # watch's next write could find a file it never listed), then
+    # removed; every beat now fails
+    os.rename(watchdir, watchdir + ".gone")
+    shutil.rmtree(watchdir + ".gone")
     t0 = time.monotonic()             # now fails
     while time.monotonic() - t0 < 5 * 0.3:
         try:
