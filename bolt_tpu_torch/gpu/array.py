@@ -1245,7 +1245,10 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
 
     @property
     def dtype(self):
-        return self._dtype
+        h = self._spending
+        # a lazy stat's dtype is its handle's (a reduced-precision group
+        # sets it when it resolves)
+        return self._dtype if h is None else h.dtype
 
     @property
     def split(self):
@@ -1438,6 +1441,7 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
             h.group.resolve()
         self._concrete = h.result
         self._shape = tuple(h.result.shape)
+        self._dtype = h.dtype
         self._spending = None
 
     def _chain_parts(self):

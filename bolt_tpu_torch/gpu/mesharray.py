@@ -63,12 +63,18 @@ the ranks (``stream.execute``), its stages record lazily as on one
 device, and any other consumer materialises it, each rank building its
 own box (``stream.materialize``).
 
+numpy's function table (``__array_function__``, ``gpu/npdispatch.py``)
+takes the same three forms: the families that have a method call it, and
+the table's shared program path (``npdispatch._device_fused``) runs one
+program a rank over the operands' boxes, box-local, as a fold of
+per-rank partials in rank order (a contraction over a sharded axis), or
+on a layout where the axes its body touches are whole; every result is
+laid out by ``key_spec`` of its shape and split.
+
 Mesh axes that shard no reduced axis are never folded over: their ranks
 hold replicas.  A one-rank mesh is the single-device path: its box is the
 whole array, every fold is over one partial, and every method runs the
-single-device method on the box.  On a mesh of more than one rank numpy's
-function table (``__array_function__``) and the internals only it
-reaches raise ``NotImplementedError`` naming ROADMAP A12d-2; nothing
+single-device method on the box.  On a mesh of more than one rank nothing
 gathers quietly and nothing runs on one rank's data alone.
 """
 
@@ -80,30 +86,26 @@ from bolt_tpu_torch.base import BoltArray
 from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.gpu import ufuncs
 from bolt_tpu_torch.gpu.array import (BoltArrayGPU, _download,
-                                      _filter_blocks, _pred_mask,
-                                      _traceable, _upload, check_mesh,
+                                      _filter_blocks, _infer_pred,
+                                      _is_trace_error, _pred_mask,
+                                      _raise_callable_bug, _traceable,
+                                      _upload, _warn_fallback, check_mesh,
                                       hbm_check)
 from bolt_tpu_torch.gpu.dtypes import torch_dtype
 from bolt_tpu_torch.parallel import multihost, sharding
 from bolt_tpu_torch.utils import inshape, prod, tupleize
-
-# the ROADMAP item of what a multi-rank mesh does not run yet: numpy's
-# function table (__array_function__, gpu/npdispatch.py) and the
-# single-device internals only it reaches
-SURFACE_ITEM = "A12d-2"
 
 # the {regions, broadcasts, max_piece_bytes} of the last toarray() gather
 # (the reference's tpu/array.py :: _LAST_GATHER_STATS)
 _LAST_GATHER_STATS = None
 
 
-def not_ported(what, mesh, item=SURFACE_ITEM):
-    """The error of an operation this slice does not run on a mesh of
-    more than one rank."""
-    return NotImplementedError(
-        "%s on a mesh of %d ranks is not ported yet (ROADMAP %s); it "
-        "runs on a one-rank mesh or a single device" % (what, mesh.size,
-                                                        item))
+# a single-device internal that names no mesh form, reached on several
+# ranks: a call site that never chose one fails here instead of
+# gathering the whole array unseen
+_NO_FORM = ("%s of a mesh array of several ranks names no form: read the "
+            "box (.local), a relayout (_whole(axes)) or the whole array "
+            "(_whole_tensor())")
 
 
 def _one_rank_local(fn):
@@ -136,6 +138,16 @@ _ASSOCIATIVE = frozenset([
     "add", "multiply", "maximum", "minimum", "fmax", "fmin", "hypot",
     "logaddexp", "logaddexp2", "logical_and", "logical_or", "logical_xor",
     "bitwise_and", "bitwise_or", "bitwise_xor", "gcd", "lcm"])
+
+
+def _key_shifted(func, offset):
+    """A ``map(..., with_keys=True)`` callable over a box whose key
+    indices start at ``offset``: ``func`` sees each record's global key
+    tuple."""
+    def shifted(kv):
+        keys, v = kv
+        return func((tuple(k + o for k, o in zip(keys, offset)), v))
+    return shifted
 
 
 def on_mesh(b):
@@ -273,9 +285,21 @@ class BoltArrayMesh(BoltArrayGPU):
             return self._local._data
 
     def _wrap(self, data, split):
+        """A result ``data`` that is whole on every rank (the same bits on
+        each), laid out by ``key_spec`` of its shape and ``split``: each
+        rank keeps its box, with no exchange."""
         if self._multi():
-            raise not_ported("this operation", self._mesh)
+            return self._result(data, tuple(data.shape), split,
+                                (None,) * data.ndim)
         return BoltArrayGPU(data, split, self._device)
+
+    @_one_rank_local
+    def _clone(self):
+        """A new mesh array over a clone of this rank's box wrapper (its
+        chain and pending filter shared, as one device's ``_clone``)."""
+        self._ready()
+        return self._like(self._local._clone(), self.shape, self._split,
+                          self._spec)
 
     def _like(self, local, shape, split, spec):
         return BoltArrayMesh(local, self._mesh, shape, split, spec)
@@ -313,9 +337,11 @@ class BoltArrayMesh(BoltArrayGPU):
         deferred chain, as on one device), so the key layout is kept.
         Key axes other than the current ones move there first (a
         ``swap``); a value axis sharded by a chunk view is gathered
-        first, as ``func`` sees whole records."""
-        if with_keys and self._multi():
-            raise not_ported("map(with_keys=True)", self._mesh)
+        first, as ``func`` sees whole records.  ``with_keys``: each
+        record's key tuple is its global one, the box's own key indices
+        shifted by the box's offsets."""
+        if with_keys and self._stream is not None:
+            self._unstream()        # global key indices need the boxes
         if self._stream is not None:
             # a stage of the pod stream's slab program
             return BoltArrayGPU.map(self, func, axis=axis,
@@ -323,6 +349,9 @@ class BoltArrayMesh(BoltArrayGPU):
         axes = sorted(tupleize(axis))
         src = self._align(axes)._whole_records()
         split = src._split
+        if with_keys and self._multi():
+            func = _key_shifted(_traceable(func), tuple(
+                lo for lo, _ in src.box[:split]))
         with self._scope():
             loc = src._local.map(func, axis=tuple(range(split)),
                                  value_shape=value_shape, dtype=dtype,
@@ -344,19 +373,47 @@ class BoltArrayMesh(BoltArrayGPU):
         axes = sorted(tupleize(axis))
         src = self._align(axes)._whole_records()
         split = src._split
+        if self._multi() and not src._batched_pred(func):
+            return src._host_filter(func)
         with self._scope():
             loc = src._local.filter(func, axis=tuple(range(split)))
         if loc._fpending is None:
-            # the predicate took the host fallback: its survivors carry no
-            # key indices to lay them out by
-            if self._multi():
-                raise not_ported("filter with a predicate vmap cannot "
-                                 "batch", self._mesh)
+            # one rank: the predicate took the host fallback
             return self._like(loc, tuple(loc.shape), 1, (None,) * loc.ndim)
         out = BoltArrayMesh(loc, self._mesh, None, 1, None)
         kbox = sharding.box(src._mesh, src._spec, src.shape)[:split]
         out._mfilter = (kbox, tuple(src.shape[:split]),
                         src._spec[:split], tuple(src.shape[split:]))
+        return out
+
+    def _batched_pred(self, func):
+        """Whether ``vmap`` batches the predicate ``func`` over this
+        array's records (else it warns, as one device's host fallback
+        does)."""
+        vshape = tuple(self.shape[self._split:])
+        try:
+            _infer_pred(func, vshape, torch_dtype(self.dtype))
+        except (RuntimeError, TypeError) as exc:
+            if not _is_trace_error(exc):
+                _raise_callable_bug("filter", func, exc, vshape)
+            _warn_fallback("filter", func, exc)
+            return False
+        return True
+
+    def _host_filter(self, func):
+        """The filter of a predicate ``vmap`` cannot batch: each rank runs
+        it on its own records on the host (the local oracle's truth
+        rule), and the survivors, keyed by their global indices, are laid
+        out as a batched predicate's are."""
+        split = self._split
+        vshape = tuple(self.shape[split:])
+        with self._scope():
+            recs = _download(self.local._mapped()).reshape((-1,) + vshape)
+        mask = np.array([bool(func(v)) for v in recs], dtype=bool)
+        surv = _upload(recs[mask], self._device)
+        out = BoltArrayMesh.wrap(surv, self._mesh, None, 1, None)
+        out._place(surv, torch.from_numpy(mask), self.box[:split],
+                   tuple(self.shape[:split]), self._spec[:split], vshape)
         return out
 
     def _resolve_mfilter(self):
@@ -367,10 +424,9 @@ class BoltArrayMesh(BoltArrayGPU):
         gathered, and the records move to their new boxes by one
         all_to_all."""
         kbox, gkshape, kspec, vshape = self._mfilter
-        mesh, loc = self._mesh, self._local
+        loc = self._local
         pred = loc._fpending[2]
         dtype = torch_dtype(loc._dtype)
-        device = loc._device
         with self._scope():
             parts, masks = [], []
             for _, _, recs in _filter_blocks(loc._fpending, dtype):
@@ -380,6 +436,17 @@ class BoltArrayMesh(BoltArrayGPU):
                 parts.append(dtypes.rows(recs, m) if recs.shape[0] else recs)
             surv = torch.cat(parts) if len(parts) > 1 else parts[0]
             mask = torch.cat(masks) if len(masks) > 1 else masks[0]
+        self._place(surv, mask, kbox, gkshape, kspec, vshape)
+        self._mfilter = None
+
+    def _place(self, surv, mask, kbox, gkshape, kspec, vshape):
+        """Adopt the survivors ``surv`` of this rank's source records (the
+        key box ``kbox`` of the global key shape ``gkshape``, laid out by
+        ``kspec``; ``mask`` over the box's records): their global key
+        indices are gathered, and the records move to ``key_spec`` of
+        ``(count, *vshape)`` by one all_to_all."""
+        mesh = self._mesh
+        device = surv.device
         local_idx = np.nonzero(mask.cpu().numpy())[0]
         kb_shape = sharding.box_shape(kbox)
         if len(gkshape):
@@ -416,9 +483,9 @@ class BoltArrayMesh(BoltArrayGPU):
                                   [pos[i][sel] - lo]))
         sharding.exchange(surv, out, moves, mesh)
         self._local = BoltArrayGPU(out, 1, device)
+        self._dtype = self._local._dtype
         self._shape = shape
         self._spec = spec
-        self._mfilter = None
 
     def reduce(self, func, axis=(0,), keepdims=False):
         """Reduce the records with the binary ``func``: each rank's
@@ -484,15 +551,22 @@ class BoltArrayMesh(BoltArrayGPU):
         """:meth:`BoltArrayGPU.stats` on the mesh: the ``StatCounter`` form
         runs each rank's ``fused_welford`` moments and a Chan combine
         (``gpu/stats.py :: welford``); the fluent form folds every
-        member's partial in one exchange (``gpu/multistat.py``).  A
-        reduced-precision ``accumulate`` runs on a one-rank mesh only,
-        as the single device's group."""
-        if accumulate is not None:
-            if self._multi():
-                raise not_ported("stats(accumulate=...)", self._mesh)
+        member's partial in one exchange (``gpu/multistat.py``).  With a
+        reduced-precision ``accumulate`` each rank's group runs at it and
+        the partials fold in rank order, by the same fold."""
+        fluent = bool(requested) and all(isinstance(r, str)
+                                         for r in requested)
+        if accumulate is not None and not self._multi():
             return self.local.stats(*requested, axis=axis,
                                     accumulate=accumulate, **kwargs)
-        if not (requested and all(isinstance(r, str) for r in requested)):
+        if accumulate is not None and fluent:
+            from collections import OrderedDict
+            from bolt_tpu_torch.gpu import multistat
+            self._ready()
+            return OrderedDict(zip(requested, multistat.mesh_stats(
+                self, [(n, axis, False, None) for n in requested],
+                accumulate=accumulate)))
+        if not fluent:
             self._unstream()          # the StatCounter form reads boxes
         return BoltArrayGPU.stats(self, *requested, axis=axis, **kwargs)
 
@@ -1220,6 +1294,62 @@ class BoltArrayMesh(BoltArrayGPU):
             return self
         return BoltArray.togpu(self, context=context, axis=axis)
 
+    # ------------------------------------------------------------------
+    # numpy's function table, and the internals only it reaches
+    # ------------------------------------------------------------------
+
+    def __array_function__(self, func, types, args, kwargs):
+        """numpy's non-ufunc functions on the mesh (reference:
+        ``BoltArrayTPU.__array_function__``): a one-rank mesh takes the
+        single device's table on its box; on more ranks the table's
+        handlers reach the mesh methods and the mesh form of
+        ``npdispatch._device_fused`` (an operand on another mesh raises
+        the reference's ``different meshes`` error).  A function outside
+        the table, or a call the reference sends to the host, gathers
+        every operand through ``__array__`` on every rank."""
+        from bolt_tpu_torch.gpu import npdispatch
+        return npdispatch.dispatch(func, types, args, kwargs)
+
+    @_one_rank_local
+    def _mapped(self):
+        """Refused on several ranks: a caller reads this rank's box
+        (``self.local._mapped()``), a relayout (``_whole(axes)``) or the
+        whole array by name (``_whole_tensor()``)."""
+        raise TypeError(_NO_FORM % "_mapped")
+
+    @_one_rank_local
+    def _chain_parts(self):
+        """Refused on several ranks, as :meth:`_mapped` is."""
+        raise TypeError(_NO_FORM % "_chain_parts")
+
+    @_one_rank_local
+    def _materialise(self):
+        """Materialise this rank's box (its deferred chain)."""
+        self._data
+
+    @_one_rank_local
+    def _resolve_filter(self):
+        """Lay out a pending filter's survivors (``_resolve_mfilter``)."""
+        self._ready()
+
+    @_one_rank_local
+    def _fused_filter_stat(self, axis, name, keepdims, ddof):
+        """The masked terminal of a pending filter: each rank's partial
+        folded in rank order (``multistat.mesh_filter_stats``), or
+        NotImplemented for a geometry it does not serve."""
+        from bolt_tpu_torch.gpu import multistat
+        if self._mfilter is None:
+            return NotImplemented
+        out = multistat.mesh_filter_stats(self, [(name, axis, keepdims,
+                                                  ddof)])
+        return out if out is NotImplemented else out[0]
+
+    @_one_rank_local
+    def _fused_filter_reduce(self, func, axis, keepdims):
+        """NotImplemented: a mesh ``reduce`` lays the survivors out first
+        and folds the ranks' trees."""
+        return NotImplemented
+
     def __repr__(self):
         s = "BoltArray\n"
         s += "mode: gpu (mesh %s)\n" % (dict(self._mesh.shape),)
@@ -1242,34 +1372,19 @@ _INHERITED = {"chunk", "mean", "var", "std", "ptp", "sum", "max", "min",
               "ndim", "size", "mode", "dtype", "split", "device", "mesh",
               "__len__", "_align", "_guard_donated", "_constructor"}
 
-# what a multi-rank mesh leaves to ROADMAP A12d-2: numpy's function table
-# and the single-device internals only that table reaches (each would
-# compute on one rank's box)
-_NOT_PORTED = {"__array_function__", "_mapped", "_chain_parts",
-               "_materialise", "_resolve_filter", "_fused_filter_stat",
-               "_fused_filter_reduce"}
-
-
 def _guarded(name, attr):
     """The inherited ``attr`` on the mesh: a one-rank mesh runs it on its
     box (the single-device path); on more ranks it runs as inherited,
-    through the mesh's own methods, or raises where ``_NOT_PORTED``
-    holds it."""
-    ported = name not in _NOT_PORTED
+    through the mesh's own methods."""
     if isinstance(attr, property):
         def fget(self):
             if self._multi():
-                if not ported:
-                    raise not_ported(name, self._mesh)
                 return attr.fget(self)
             return getattr(self.local, name)
         return property(fget)
 
     def method(self, *args, **kwargs):
         if self._multi():
-            if not ported:
-                raise not_ported(name if name.startswith("__") else
-                                 "%s()" % name, self._mesh)
             return attr(self, *args, **kwargs)
         return getattr(self.local, name)(*args, **kwargs)
     method.__name__ = name
@@ -1288,7 +1403,7 @@ def _install_guards():
             if isinstance(attr, (staticmethod, classmethod)):
                 continue
             if name.startswith("_") and not name.startswith("__") and \
-                    name not in _NOT_PORTED and name != "_unary":
+                    name != "_unary":
                 continue
             setattr(BoltArrayMesh, name, _guarded(name, attr))
             own.add(name)

@@ -341,6 +341,11 @@ class _StatGroup:
                 m.result = ufuncs.binary("subtract", mx, mn)
             else:
                 m.result = out[_slot(m)[0]]
+            if mode is not None and m.name in _ADDITIVE and \
+                    m.result.dtype in (torch.float32, torch.int32):
+                # a reduced-precision member is in its accumulator's dtype
+                from bolt_tpu_torch.gpu.array import numpy_dtype
+                m.dtype = numpy_dtype(m.result.dtype)
 
     def _resolve_stream(self, members):
         """One streamed pass for every member: a lone member through its
@@ -670,10 +675,12 @@ def mesh_fold(kinds, partials, group):
         group)
 
 
-def _mesh_final(name, acc, ddof, dtype, count=None):
+def _mesh_final(name, acc, ddof, dtype, count=None, out_dt=None):
     """The stat ``name`` of its folded partial (numpy ``dtype`` is the
-    array's; ``count`` the elements a folded ``mean`` sum holds)."""
-    out_dt = dtypes.stat_dtype(name, torch_dtype(dtype))
+    array's; ``count`` the elements a folded ``mean`` sum holds; the
+    result takes ``out_dt``, by default the stat's own dtype)."""
+    if out_dt is None:
+        out_dt = dtypes.stat_dtype(name, torch_dtype(dtype))
     if name == "mean" and isinstance(acc, torch.Tensor):
         out = acc.to(dtypes.inexact(acc.dtype)) / count
     elif name in ("mean", "var", "std"):
@@ -694,7 +701,8 @@ def _mesh_final(name, acc, ddof, dtype, count=None):
 def _mesh_result(arr, out, axes, keepdims, split):
     """A mesh array over this rank's result ``out`` (a tensor or a
     single-device array) of a stat over ``axes``: the kept axes keep
-    their layout, the reduced ones are whole on every rank."""
+    their layout, the reduced ones are whole on every rank, then the
+    result moves to ``key_spec``."""
     from bolt_tpu_torch.gpu.array import stat_split
     from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
     shape, spec = arr.shape, arr._spec
@@ -708,12 +716,28 @@ def _mesh_result(arr, out, axes, keepdims, split):
     if isinstance(out, torch.Tensor):
         from bolt_tpu_torch.parallel import sharding
         local = sharding.box_shape(sharding.box(arr._mesh, ospec, oshape))
-        return BoltArrayMesh.wrap(out.reshape(local), arr._mesh, oshape,
-                                  new_split, ospec)
-    return BoltArrayMesh(out, arr._mesh, oshape, new_split, ospec)
+        res = BoltArrayMesh.wrap(out.reshape(local), arr._mesh, oshape,
+                                 new_split, ospec)
+    else:
+        res = BoltArrayMesh(out, arr._mesh, oshape, new_split, ospec)
+    # laid out by key_spec of its shape and split, as the reference
+    # constrains a result (a mesh axis freed by the reduction may now
+    # shard a kept axis: each rank keeps part of its box)
+    return res._constrained()
 
 
-def mesh_stats(arr, slots):
+def _accumulated_dtype(arr, name, axes, keepdims, ddof, mode):
+    """The torch dtype one device's group gives the member ``name`` of
+    ``arr`` under the reduced-precision ``mode`` (:func:`_accumulated`
+    on a ``meta`` tensor)."""
+    from bolt_tpu_torch.gpu.array import numpy_dtype
+    dt = torch_dtype(arr.dtype)
+    return _accumulated(torch.empty(arr.shape, dtype=dt, device="meta"),
+                        name, axes, keepdims, ddof, mode,
+                        numpy_dtype(dt)).dtype
+
+
+def mesh_stats(arr, slots, accumulate=None):
     """The stat terminals ``slots`` (``(name, axis, keepdims, ddof)``) of
     the mesh array ``arr``, in order.  A member whose reduced axes no
     mesh axis shards is this rank's own terminal (on a one-rank mesh,
@@ -723,7 +747,10 @@ def mesh_stats(arr, slots):
     one :func:`_mesh_moments` for each set of axes), exchange each
     distinct partial once in ONE gather over those mesh axes, and fold
     them in rank order (:func:`mesh_fold`) — the same bits on every
-    rank."""
+    rank.  ``accumulate``: the rank's group resolves at that reduced
+    precision (:func:`compute`), its moments from the group's ``mean``
+    and ``var``, and each result takes the dtype one device's group
+    gives it."""
     from bolt_tpu_torch.gpu.array import stat_axes
     from bolt_tpu_torch.gpu.mesharray import topology_key
     from bolt_tpu_torch.parallel import sharding
@@ -749,7 +776,9 @@ def mesh_stats(arr, slots):
         for name, axes, _, _, maxes in plans:
             if maxes and "moments" in _mesh_kinds(name, arr.dtype) and \
                     axes not in moments:
-                moments[axes] = _mesh_moments(loc, axes)
+                moments[axes] = _mesh_moments(loc, axes) if \
+                    accumulate is None else \
+                    (loc._stat(axes, "mean"), loc._stat(axes, "var"))
         for i, (name, axes, keepdims, ddof, maxes) in enumerate(plans):
             if not maxes:
                 out[i] = loc._stat(axes, name, keepdims, ddof)
@@ -758,6 +787,18 @@ def mesh_stats(arr, slots):
             for kind in _mesh_kinds(name, arr.dtype):
                 if kind != "moments" and (kind, axes) not in handles:
                     handles[kind, axes] = loc._stat(axes, kind)
+        if accumulate is not None:
+            mode = _precision.resolve_accumulate(accumulate)
+            compute(*[o for o in out if o is not None],
+                    *handles.values(),
+                    *[h for pair in moments.values() for h in pair],
+                    accumulate=accumulate)
+            for axes, (mu, var) in moments.items():
+                n = prod([loc.shape[a] for a in axes])
+                mu = mu._data
+                moments[axes] = (torch.tensor(n, dtype=torch.int64,
+                                              device=mu.device), mu,
+                                 var._data * n)
         for maxes, items in groups.items():
             keys = list(dict.fromkeys(
                 (kind, plans[i][1]) for i in items
@@ -771,9 +812,11 @@ def mesh_stats(arr, slots):
                 name, axes = plans[i][:2]
                 part = tuple(acc[kind, axes]
                              for kind in _mesh_kinds(name, arr.dtype))
-                out[i] = _mesh_final(name, part if name == "ptp" else
-                                     part[0], plans[i][3], arr.dtype,
-                                     prod([shape[a] for a in axes]))
+                out[i] = _mesh_final(
+                    name, part if name == "ptp" else part[0], plans[i][3],
+                    arr.dtype, prod([shape[a] for a in axes]),
+                    None if accumulate is None else _accumulated_dtype(
+                        arr, name, axes, plans[i][2], plans[i][3], mode))
         # the rank's own terminals resolve here, under the mesh's key
         # scope (the group resolved above if any member was read)
         for o in out:

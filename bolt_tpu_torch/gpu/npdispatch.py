@@ -449,7 +449,11 @@ def _concat_many(first, others, axis):
             ds = [d.reshape(-1) for d in ds]
         return torch.cat(_promoted(*ds), 0 if axis is None else axis)
 
-    return _device_fused("concat", parts, first, new_split, body, (axis,))
+    # on a mesh: every operand laid out as the first with the joined axis
+    # whole (axis=None ravels: every operand whole)
+    return _device_fused("concat", parts, first, new_split, body, (axis,),
+                         axes=WHOLE if axis is None else (axis,),
+                         aligned=True)
 
 
 @_implements(np.concatenate)
@@ -484,18 +488,26 @@ def _where(condition, x=_NV, y=_NV):
     devs = [a for a in (condition, x, y) if _is_gpu(a)]
     if not devs:
         raise _Fallback("no card operand")
-    # anchor on the operand with the most key axes
+    # anchor on the operand with the most key axes; scalars ride in the
+    # program, the array operands are box-local on a mesh
     b = max(devs, key=lambda a: a.split)
-    c = _tensor(b, condition)
-    xs = [v if isinstance(v, (int, float, complex, bool)) else _tensor(b, v)
-          for v in (x, y)]
-    out = torch.where(c if c.dtype == torch.bool else c != 0, *xs)
+    scalar = [isinstance(v, (int, float, complex, bool)) for v in (x, y)]
+    arrays = [condition] + [v for v, sc in zip((x, y), scalar) if not sc]
+    shape = tuple(np.broadcast_shapes(*[np.shape(v) for v in
+                                        (condition, x, y)]))
     split = b.split
     # keys survive only when no broadcast axis displaced them
-    shape = tuple(out.shape)
     new_split = split if (len(shape) == b.ndim
                           and shape[:split] == b.shape[:split]) else 0
-    return b._wrap(out, new_split)
+
+    def body(c, *rest):
+        it = iter(rest)
+        vals = [v if sc else next(it) for v, sc in zip((x, y), scalar)]
+        return torch.where(c if c.dtype == torch.bool else c != 0, *vals)
+
+    return _device_fused("where", arrays, b, new_split, body,
+                         tuple((type(v).__name__, v) if sc else None
+                               for v, sc in zip((x, y), scalar)), axes=())
 
 
 @_implements(np.histogram)
@@ -571,8 +583,8 @@ def _histogramdd(sample, bins=10, range=None, density=None, weights=None):
     if bb is None:
         raise _Fallback("bin edges")
     from bolt_tpu_torch.ops.hist import histogramdd
-    h, edges = histogramdd(sample.totorch(), bb, _static_ranges(range),
-                           bool(density))
+    h, edges = histogramdd(_tensor(sample, sample), bb,
+                           _static_ranges(range), bool(density))
     return h.astype(np.float64), [e.astype(np.float64) for e in edges]
 
 
@@ -646,7 +658,8 @@ def _size(a, axis=None):
 # expanders, the contractions and most of the families below
 # ---------------------------------------------------------------------
 
-def _device_fused(tag, operands, anchor, new_split, body, extra_key):
+def _device_fused(tag, operands, anchor, new_split, body, extra_key,
+                  axes=None, keep=None, whole=(), aligned=False):
     """ONE engine program over ``operands`` computing ``body(*mapped)``:
     a bolt operand applies its deferred chain inside the program (its own
     chain stays intact), any other operand (numpy, a ``torch.Tensor``, a
@@ -658,7 +671,15 @@ def _device_fused(tag, operands, anchor, new_split, body, extra_key):
 
     ``new_split`` may be a TUPLE for a ``body`` returning that many
     outputs (decomposition-shaped ops): each output takes its own split
-    and the call returns a tuple of bolt arrays."""
+    and the call returns a tuple of bolt arrays.
+
+    ``axes``, ``keep``, ``whole`` and ``aligned`` say which axes
+    ``body`` touches, for an anchor on a mesh of several ranks
+    (:func:`_mesh_fused`); one device ignores them.  A call site names
+    its form: an anchor on several ranks refuses ``axes=None``."""
+    if _multi(anchor):
+        return _mesh_fused(tag, operands, anchor, new_split, body,
+                           extra_key, axes, keep, whole, aligned)
     device = anchor.device
     datas, specs = [], []
     for op in operands:
@@ -691,6 +712,202 @@ def _device_fused(tag, operands, anchor, new_split, body, extra_key):
         return tuple(BoltArrayGPU(o, s, device)
                      for o, s in zip(out, new_split))
     return BoltArrayGPU(out, new_split, device)
+
+
+# ---------------------------------------------------------------------
+# the mesh form (gpu/mesharray.py): one program a rank over the operands'
+# boxes, each result laid out by ``key_spec`` of its shape and split (the
+# reference's ``_constrain`` on the anchor's mesh)
+# ---------------------------------------------------------------------
+
+# ``_device_fused(..., axes=WHOLE)``: every operand gathered whole onto
+# every rank (the costly form, which a call site must ask for by name)
+WHOLE = "whole"
+
+
+def _multi(a):
+    """True for a bolt array on a mesh of more than one rank."""
+    from bolt_tpu_torch.gpu.mesharray import on_mesh
+    return on_mesh(a)
+
+
+def _whole_of(anchor, op):
+    """An operand whole on every rank's device: a mesh array gathered
+    (one all_to_all), any other moved once."""
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    if isinstance(op, BoltArrayMesh):
+        return op._whole_tensor()
+    return _tensor(anchor, op)
+
+
+def _mesh_program(tag, form, anchor, new_split, body, extra_key, datas):
+    """``body(*datas)`` as one engine program under the anchor mesh's key
+    scope (keyed on the form and the operands' box shapes)."""
+    def build():
+        def run(ds):
+            return body(*ds)
+        return run
+
+    key = (tag, form, anchor.device, new_split, extra_key,
+           tuple((tuple(d.shape), str(d.dtype)) for d in datas))
+    with anchor._scope():
+        return _cached_jit(key, build)(datas)
+
+
+def _mesh_fused(tag, operands, anchor, new_split, body, extra_key, axes,
+                keep, whole, aligned):
+    """:func:`_device_fused` with an anchor on a mesh of several ranks:
+    each rank runs ``body`` once over its operands' boxes, in the form the
+    axes it touches allow (every operand on another mesh raises the
+    reference's ``different meshes`` error first):
+
+    - ``axes=()``, box-local (an op per element): the anchor keeps its
+      layout, an operand of the result's shape meets the anchor's box (a
+      mesh array relaid to it, any other sliced), a broadcast one is
+      sliced along its axes longer than one, and the operands at indices
+      ``whole`` (bins, sample points, a test set) come whole;
+    - ``axes`` a tuple: the anchor relaid so those axes are whole on every
+      rank (``sharding.whole_spec``: one all_to_all, its transient checked
+      by ``hbm_check``), every other operand whole, or (``aligned``, for
+      an operand of the anchor's lengths off ``axes``: a concatenation's)
+      laid out as the anchor; ``keep`` names, for
+      each axis of the result, the anchor axis whose length and layout it
+      keeps, or ``None`` for one whole on every rank (default: the
+      anchor's axes, the touched ones whole);
+    - ``axes=WHOLE`` (which every multi-output body takes): every
+      operand whole on every rank, the result whole, each rank keeping
+      its box.  A box-local call whose operands do not broadcast into
+      the anchor takes this form too.
+
+    ``axes=None`` (no form named) raises ``TypeError``, as does a
+    multi-output body with another form: a call site that never chose
+    fails on the CPU pods rather than gathering unseen.
+
+    Every result moves to ``key_spec`` of its shape and split; every rank
+    returns the same bits.  The shapes are global and known before any
+    collective, so a shape error is raised on every rank alike."""
+    for op in operands:
+        if _is_gpu(op):
+            _garray.check_mesh(anchor, op, tag)
+    multi = isinstance(new_split, tuple)
+    if axes is None or (multi and axes != WHOLE):
+        raise TypeError("_device_fused(%r) names no mesh form for its %s: "
+                        "pass axes=() (box-local), a tuple of touched axes "
+                        "(relaid whole) or WHOLE"
+                        % (tag, "outputs" if multi else "operands"))
+    nd = anchor.ndim
+    if axes == () and not _broadcasts_into(operands, anchor, whole):
+        axes = WHOLE
+    if axes != WHOLE:
+        axes = tuple(sorted({a % nd for a in axes})) if nd else ()
+        keep = list(keep) if keep is not None else [
+            None if a in axes else a for a in range(nd)]
+        src = anchor._whole(axes) if axes else anchor._ready()
+        with src._scope():
+            mine = src._local._mapped()
+        datas = []
+        for i, op in enumerate(operands):
+            if op is anchor:
+                datas.append(mine)
+            elif not axes and i not in whole and np.ndim(op):
+                datas.append(src._operand_box(op, src.shape, src._spec))
+            elif aligned and np.ndim(op) == nd and all(
+                    np.shape(op)[a] == src.shape[a]
+                    for a in range(nd) if a not in axes):
+                datas.append(_aligned_box(anchor, op, src, axes))
+            else:
+                datas.append(_whole_of(anchor, op))
+        t = _mesh_program(tag, ("box", axes, tuple(keep), tuple(whole)),
+                          src, new_split, body, extra_key, datas)
+        spec = tuple(None if a is None else src._spec[a] for a in keep)
+        shape = tuple(int(t.shape[j]) if e is None else src.shape[a]
+                      for j, (a, e) in enumerate(zip(keep, spec)))
+        return src._result(t, shape, new_split, spec)
+    datas = [_whole_of(anchor, op) for op in operands]
+    out = _mesh_program(tag, "whole", anchor, new_split, body, extra_key,
+                        datas)
+    if multi:
+        return tuple(anchor._wrap(o, s) for o, s in zip(out, new_split))
+    return anchor._wrap(out, new_split)
+
+
+def _mesh_contract(tag, ops, terms, outl, out_shape, anchor, new_split,
+                   body, extra_key):
+    """A contraction on a mesh as a fold: the labels the anchor's layout
+    shards keep its mesh axes on every operand (a mesh operand relaid to
+    them, any other sliced to the anchor's box), each rank contracts its
+    boxes, and the partials of the mesh axes that shard a contracted label
+    are added in rank order (the same bits on every rank); the output
+    keeps the anchor's layout of its labels.  ``terms``/``outl`` are the
+    operands' and the output's labels (einsum's); returns None where the
+    form does not apply (a repeated label, a broadcast one), and the caller
+    takes the whole form."""
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    from bolt_tpu_torch.parallel import multihost, sharding
+    if any(len(set(t)) != len(t) or len(t) != np.ndim(o)
+           for t, o in zip(terms, ops)):
+        return None
+    src = anchor._ready()
+    aterm = terms[next(i for i, o in enumerate(ops) if o is anchor)]
+    entry = {lab: e for lab, e in zip(aterm, src._spec) if e is not None}
+    size = dict(zip(aterm, src.shape))
+    for o, t in zip(ops, terms):
+        if any(lab in entry and n != size[lab]
+               for lab, n in zip(t, np.shape(o))):
+            return None
+    for o in ops:
+        if _is_gpu(o):
+            _garray.check_mesh(anchor, o, tag)
+    span = dict(zip(aterm, src.box))
+    datas = []
+    for o, t in zip(ops, terms):
+        spec = tuple(entry.get(lab) for lab in t)
+        if o is anchor:
+            with src._scope():
+                datas.append(src._local._mapped())
+        elif isinstance(o, BoltArrayMesh):
+            datas.append((o if o._spec == spec else o._relaid(spec))._data)
+        else:
+            if not isinstance(o, torch.Tensor):
+                o = np.asarray(o)
+            datas.append(_tensor(anchor, o[tuple(
+                slice(*span[lab]) if lab in entry else slice(None)
+                for lab in t)]))
+    part = _mesh_program(tag, ("fold", tuple(terms), outl), src, new_split,
+                         body, extra_key, datas)
+    folded = [entry[lab] for lab in entry if lab not in outl]
+    if folded:
+        names = tuple(n for e in folded for n in sharding.spec_names(e))
+        part = multihost.fold_partials(part, lambda a, b: a + b,
+                                       src._mesh.group(names))
+    return src._result(part, out_shape, new_split,
+                       tuple(entry.get(lab) for lab in outl))
+
+
+def _aligned_box(anchor, op, src, axes):
+    """This rank's part of ``op`` laid out as ``src`` (the anchor with
+    ``axes`` whole; ``op`` of its lengths off ``axes``): a mesh array
+    relaid to ``src``'s layout, any other sliced to ``src``'s box off
+    ``axes``."""
+    from bolt_tpu_torch.gpu.mesharray import BoltArrayMesh
+    if isinstance(op, BoltArrayMesh):
+        return (op if op._spec == src._spec else op._relaid(src._spec))._data
+    if not isinstance(op, torch.Tensor):
+        op = np.asarray(op)
+    return _tensor(anchor, op[tuple(
+        slice(None) if a in axes else slice(*lim)
+        for a, lim in enumerate(src.box))])
+
+
+def _broadcasts_into(operands, anchor, whole):
+    """Whether every operand but those at ``whole`` broadcasts into the
+    anchor's shape (the box-local form's result is the anchor's shape)."""
+    try:
+        return np.broadcast_shapes(*[np.shape(op) for i, op in
+                                     enumerate(operands)
+                                     if i not in whole]) == anchor.shape
+    except ValueError:
+        return False
 
 
 def _tdtype(x):
@@ -785,8 +1002,13 @@ def _expand_device(a, axes):
             if i == a.split - 1:
                 new_split = p + 1
     shape = tuple(shape)
+    # each output axis: the source axis it keeps, or None (inserted)
+    src = iter(range(a.ndim))
+    keep = [None if p in ins else next(src) for p in range(out_ndim)]
     return _device_fused("expand_dims", [a], a, new_split,
-                         lambda d: d.reshape(shape), (shape,))
+                         lambda d: d.reshape(tuple(
+                             1 if k is None else d.shape[k] for k in keep)),
+                         (shape,), axes=(), keep=keep)
 
 
 @_implements(np.expand_dims)
@@ -839,10 +1061,17 @@ def _broadcast_to(array, shape, subok=False):
     # prepended broadcast axes become leading key axes
     new_split = array.split + (len(shape) - array.ndim) if array.split \
         else 0
-    # materialised, as jnp's result is: a stride-0 view would alias
+    # materialised, as jnp's result is: a stride-0 view would alias.  The
+    # prepended axes and the stretched ones of length 1 take the target's
+    # length; the others keep the operand's (its box on a mesh)
+    off = len(shape) - array.ndim
+    keep = [None if j < off or (array.shape[j - off] == 1 and shape[j] != 1)
+            else j - off for j in range(len(shape))]
     return _device_fused("broadcast_to", [array], array, new_split,
-                         lambda d: d.broadcast_to(shape).contiguous(),
-                         (shape,))
+                         lambda d: d.broadcast_to(tuple(
+                             shape[j] if k is None else d.shape[k]
+                             for j, k in enumerate(keep))).contiguous(),
+                         (shape,), axes=(), keep=keep)
 
 
 @_implements(np.tile)
@@ -852,7 +1081,7 @@ def _tile(A, reps):
     # reps longer than ndim prepends axes; they lead, so they join keys
     new_split = A.split + max(0, len(rep_t) - A.ndim) if A.split else 0
     return _device_fused("tile", [A], A, new_split,
-                         lambda d: torch.tile(d, rep_t), (rep_t,))
+                         lambda d: torch.tile(d, rep_t), (rep_t,), axes=WHOLE)
 
 
 @_implements(np.roll)
@@ -882,7 +1111,7 @@ def _roll(a, shift, axis=None):
         ax_arg = ax_t * n if len(ax_t) == 1 else ax_t
     return _device_fused("roll", [a], a, a.split,
                          lambda d: torch.roll(d, sh_arg, ax_arg),
-                         (sh_arg, ax_arg))
+                         (sh_arg, ax_arg), axes=ax_arg or WHOLE)
 
 
 @_implements(np.rot90)
@@ -909,7 +1138,8 @@ def _rot90(m, k=1, axes=(0, 1)):
     if k == 0:
         return m._clone()
     return _device_fused("rot90", [m], m, split,
-                         lambda d: torch.rot90(d, k, (a0, a1)), (k, a0, a1))
+                         lambda d: torch.rot90(d, k, (a0, a1)), (k, a0, a1),
+                         axes=(a0, a1))
 
 
 def _no_padding(pair, size, mode):
@@ -1046,7 +1276,8 @@ def _pad(array, pad_width, mode="constant", **kwargs):
     if array.ndim == 0:
         return array._clone()
     return _device_fused("pad", [array], array, array.split, body,
-                         (pairs, mode, kw_key))
+                         (pairs, mode, kw_key),
+                         axes=tuple(i for i, p in enumerate(pairs) if any(p)))
 
 
 # ---------------------------------------------------------------------
@@ -1072,8 +1303,11 @@ def _stack(arrays, axis=0, out=None, dtype=None, casting="same_kind"):
         raise np.exceptions.AxisError(axis, out_ndim)
     # the new axis joins whichever group it lands in
     new_split = a.split + 1 if ax < a.split else a.split
+    # on a mesh each rank stacks its boxes (the new axis whole)
     return _device_fused("stack", seq, a, new_split,
-                         lambda *ds: torch.stack(_promoted(*ds), ax), (ax,))
+                         lambda *ds: torch.stack(_promoted(*ds), ax), (ax,),
+                         axes=(), keep=[j if j < ax else None if j == ax
+                                        else j - 1 for j in range(out_ndim)])
 
 
 def _stack_like(tag, tup, concat_axis, target_shape):
@@ -1118,7 +1352,11 @@ def _stack_like(tag, tup, concat_axis, target_shape):
                  for d, t in zip(ds, targets)]
         return torch.cat(_promoted(*parts), ax)
 
-    return _device_fused(tag, seq, a, new_split, body, (ax, targets))
+    # on a mesh, operands that need no reshape are concatenated as
+    # np.concatenate's (laid out as the first, the joined axis whole)
+    flat = all(t is None for t in targets)
+    return _device_fused(tag, seq, a, new_split, body, (ax, targets),
+                         axes=(ax,) if flat else None, aligned=True)
 
 
 @_implements(np.vstack)
@@ -1232,6 +1470,10 @@ def _expand_einsum_ellipsis(subs, shapes):
     return ",".join(new_terms) + "->" + new_out
 
 
+# the labels of a contraction written as einsum's (tensordot, inner)
+_LABELS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+
 def _contraction_anchor(*ops):
     anchor = None
     for o in ops:
@@ -1281,10 +1523,17 @@ def _einsum(*operands, out=None, optimize=False, **kwargs):
         and out_shape[:split] == tuple(anchor.shape[:split])
     ) else 0
     pr = _precision.resolve()
-    return _device_fused(
-        "einsum", ops, anchor, new_split,
-        lambda *ds: _contract(lambda *xs: torch.einsum(subs, *xs), ds, pr),
-        (subs, pr))
+
+    def body(*ds):
+        return _contract(lambda *xs: torch.einsum(subs, *xs), ds, pr)
+
+    if _multi(anchor):
+        out = _mesh_contract("einsum", ops, terms, outl, out_shape, anchor,
+                             new_split, body, (subs, pr))
+        if out is not None:
+            return out
+    return _device_fused("einsum", ops, anchor, new_split, body, (subs, pr),
+                         axes=WHOLE)
 
 
 @_implements(np.tensordot)
@@ -1314,9 +1563,24 @@ def _tensordot(a, b, axes=2):
                 out_shape[:a.split] == tuple(a.shape[:a.split]):
             new_split = a.split
     pr = _precision.resolve()
-    return _device_fused("tensordot", [a, b], anchor, new_split,
-                         lambda x, y: _contract(td, (x, y), pr),
-                         (ax_a, ax_b, pr))
+
+    def body(x, y):
+        return _contract(td, (x, y), pr)
+
+    if _multi(anchor):
+        la = _LABELS[:np.ndim(a)]
+        lb = list(_LABELS[np.ndim(a):np.ndim(a) + np.ndim(b)])
+        for i, j in zip(*dims):
+            lb[j] = la[i]
+        lb = "".join(lb)
+        outl = "".join(c for i, c in enumerate(la) if i not in dims[0]) + \
+            "".join(c for j, c in enumerate(lb) if j not in dims[1])
+        out = _mesh_contract("tensordot", [a, b], [la, lb], outl, out_shape,
+                             anchor, new_split, body, (ax_a, ax_b, pr))
+        if out is not None:
+            return out
+    return _device_fused("tensordot", [a, b], anchor, new_split, body,
+                         (ax_a, ax_b, pr), axes=WHOLE)
 
 
 @_implements(np.inner)
@@ -1329,9 +1593,20 @@ def _inner(a, b):
         if out_shape[:cap] == tuple(a.shape[:cap]):
             new_split = cap
     pr = _precision.resolve()
-    return _device_fused("inner", [a, b], anchor, new_split,
-                         lambda x, y: _contract(torch.inner, (x, y), pr),
-                         (pr,))
+
+    def body(x, y):
+        return _contract(torch.inner, (x, y), pr)
+
+    if _multi(anchor) and np.ndim(a) and np.ndim(b):
+        la = _LABELS[:np.ndim(a)]
+        lb = _LABELS[np.ndim(a):np.ndim(a) + np.ndim(b) - 1] + la[-1]
+        out = _mesh_contract("inner", [a, b], [la, lb],
+                             la[:-1] + lb[:-1], out_shape, anchor,
+                             new_split, body, (pr,))
+        if out is not None:
+            return out
+    return _device_fused("inner", [a, b], anchor, new_split, body, (pr,),
+                         axes=WHOLE)
 
 
 @_implements(np.outer)
@@ -1344,7 +1619,8 @@ def _outer(a, b, out=None):
         x, y = _promoted(x, y)
         return x.reshape(-1, 1) * y.reshape(1, -1)
 
-    return _device_fused("outer", [a, b], anchor, new_split, body, ())
+    return _device_fused("outer", [a, b], anchor, new_split, body, (),
+                         axes=WHOLE)
 
 
 # ---------------------------------------------------------------------
@@ -1570,6 +1846,8 @@ def _nan_reduce_common(name, a, axis, dtype, out, keepdims, ddof, kw):
     new_split = _axis_reduced_split(a, ax, kd)
     oshape = tuple(1 if i in dims else s for i, s in enumerate(a.shape)) \
         if kd else tuple(s for i, s in enumerate(a.shape) if i not in dims)
+    if _multi(a):
+        return _mesh_nan_reduce(name, a, dims, kd, ddof, new_split, oshape)
     if a.deferred and set(range(a.split)) <= set(dims) and \
             np.issubdtype(a.dtype, np.floating):
         base, funcs = a._chain_parts()
@@ -1587,7 +1865,33 @@ def _nan_reduce_common(name, a, axis, dtype, out, keepdims, ddof, kw):
                             a.device)
     return _device_fused(name, [a], a, new_split,
                          lambda d: _nan_reduce(name, d, dims, kd, ddof),
-                         (dims, kd, ddof))
+                         (dims, kd, ddof), axes=WHOLE)
+
+
+def _mesh_nan_reduce(name, a, dims, kd, ddof, new_split, oshape):
+    """A nan reduction on a mesh: of floating data over sharded axes, a
+    fold (each rank's :func:`_nan_partial` of its box, the partials of the
+    mesh axes that shard ``dims`` joined by :func:`_nan_fold` in rank
+    order, then :func:`_nan_final`); else on a layout where ``dims`` are
+    whole."""
+    from bolt_tpu_torch.parallel import multihost, sharding
+    keep = _kept(a.ndim, dims, kd)
+    maxes = sharding.shard_axes(a._spec, dims) if dims else ()
+    if not maxes or not np.issubdtype(a.dtype, np.inexact):
+        return _device_fused(name, [a], a, new_split,
+                             lambda d: _nan_reduce(name, d, dims, kd, ddof),
+                             (dims, kd, ddof), axes=dims, keep=keep)
+    src = a._ready()
+    with src._scope():
+        part = _nan_partial(name, src._local._mapped(), dims)
+    acc = multihost.fold_partials(part, lambda x, y: _nan_fold(name, x, y),
+                                  src._mesh.group(maxes))
+    out = _nan_final(name, acc, ddof, torch_dtype(a.dtype))
+    spec = tuple(None if k is None else src._spec[k] for k in keep)
+    if kd:
+        out = out.reshape([1 if i in dims else n
+                           for i, n in enumerate(src._local.shape)])
+    return src._result(out, oshape, new_split, spec)
 
 
 def _nan_reduction(name):
@@ -1610,6 +1914,14 @@ def _nan_reduction(name):
 for _name in ("nansum", "nanprod", "nanmean", "nanvar", "nanstd",
               "nanmin", "nanmax"):
     _TABLE[getattr(np, _name)] = _nan_reduction(_name)
+
+
+def _kept(ndim, dims, kd):
+    """The source axis each axis of a reduction over ``dims`` keeps (the
+    ``keep`` of :func:`_mesh_fused`): ``None`` for a reduced axis kept at
+    length one."""
+    return [None if i in dims else i for i in range(ndim)] if kd else \
+        [i for i in range(ndim) if i not in dims]
 
 
 def _nanquantile_of(x, q, dims, keepdims, method):
@@ -1668,7 +1980,8 @@ def _nanmedian(a, axis=None, out=None, overwrite_input=False,
     dims = _dims(a.ndim, ax) if a.ndim else ()
     body = _nanquantile_body(dims, kd, "linear", True)
     return _device_fused("nanmedian", [a, np.asarray(0.5)], a,
-                         _axis_reduced_split(a, ax, kd), body, (dims, kd))
+                         _axis_reduced_split(a, ax, kd), body, (dims, kd),
+                         axes=dims, keep=_kept(a.ndim, dims, kd))
 
 
 @_implements(np.nanquantile)
@@ -1691,7 +2004,9 @@ def _nanquantile(a, q, axis=None, out=None, overwrite_input=False,
     return _device_fused("nanquantile", [a, np.asarray(qarr, np.float64)],
                          a, new_split,
                          _nanquantile_body(dims, kd, method, scalar_q),
-                         (dims, kd, method))
+                         (dims, kd, method), axes=dims,
+                         keep=([] if scalar_q else [None])
+                         + _kept(a.ndim, dims, kd))
 
 
 @_implements(np.linalg.norm)
@@ -1707,9 +2022,11 @@ def _linalg_norm(x, ord=None, axis=None, keepdims=False):
     def body(d):
         return torch.linalg.norm(_inexact(d), ord=ord, dim=ax, keepdim=kd)
 
+    dims = tuple(sorted(r % x.ndim for r in reduced)) if x.ndim else ()
     return _device_fused("linalg_norm", [x], x,
                          _axis_reduced_split(x, reduced, kd), body,
-                         (str(ord), ax, kd))
+                         (str(ord), ax, kd), axes=dims,
+                         keep=_kept(x.ndim, dims, kd))
 
 
 @_implements(np.average)
@@ -1759,7 +2076,7 @@ def _average(a, axis=None, weights=None, returned=False, *, keepdims=_NV):
 
     avg = _device_fused("average", [a, wb], a,
                         _axis_reduced_split(a, ax, kd), body,
-                        (dims, kd, wb.shape))
+                        (dims, kd, wb.shape), axes=WHOLE)
     if not returned:
         return avg
     scl = np.broadcast_to(np.asarray(scl_full, avg.dtype),
@@ -1782,7 +2099,8 @@ def _isin(element, test_elements, assume_unique=False, invert=False, *,
                           invert=invert)
 
     return _device_fused("isin", [element, te], element, element.split,
-                         body, (bool(assume_unique), bool(invert)))
+                         body, (bool(assume_unique), bool(invert)), axes=(),
+                         whole=(1,))
 
 
 @_implements(np.digitize)
@@ -1809,7 +2127,7 @@ def _digitize(x, bins, right=False):
         return idx if increasing else bb.shape[0] - idx
 
     return _device_fused("digitize", [x, b], x, x.split, body,
-                         (bool(right), increasing))
+                         (bool(right), increasing), axes=(), whole=(1,))
 
 
 @_implements(np.interp)
@@ -1859,7 +2177,7 @@ def _interp(x, xp, fp, left=None, right=None, period=None):
         return f
 
     return _device_fused("interp", [x, xpa, fpa], x, x.split, body,
-                         (left, right, period))
+                         (left, right, period), axes=(), whole=(1, 2))
 
 
 def _gradient_axis(d, h, axis):
@@ -1904,13 +2222,13 @@ def _gradient(f, *varargs, axis=None, edge_order=1):
     if len(axes) > 1 and f.deferred:
         # one program per axis below: materialise a deferred chain ONCE so
         # N gradients don't run it N times
-        f._data
+        f.cache()
     # jnp promotes the data with the (weakly typed) spacing: integers
     # give the default float
     outs = [_device_fused("gradient", [f], f, f.split,
                           lambda d, _a=a, _h=h: _gradient_axis(
                               d.to(dtypes.promote(d.dtype, _h)), _h, _a),
-                          (a, float(h)))
+                          (a, float(h)), axes=(a,))
             for a, h in zip(axes, spacing)]
     return outs[0] if len(outs) == 1 else outs
 
@@ -1951,15 +2269,20 @@ def _trapezoid(y, x=None, dx=1.0, axis=-1):
     _require_gpu(y)
     ax = operator.index(axis)
     split = _axis_reduced_split(y, (ax + y.ndim if ax < 0 else ax,), False)
+    dims = (ax % y.ndim,) if y.ndim else ()
     if x is None:
         return _device_fused("trapezoid", [y], y, split,
                              _trapezoid_body(ax, float(dx)),
-                             (float(dx), ax))
+                             (float(dx), ax), axes=dims,
+                             keep=_kept(y.ndim, dims, False))
     if _is_gpu(x):
         raise _Fallback("card sample points")
     xa = np.asarray(x)
+    # 1-d sample points meet each box whole; others span the array
     return _device_fused("trapezoid_x", [y, xa], y, split,
-                         _trapezoid_body(ax, None), (ax, xa.shape))
+                         _trapezoid_body(ax, None), (ax, xa.shape),
+                         axes=dims if xa.ndim == 1 else WHOLE,
+                         keep=_kept(y.ndim, dims, False))
 
 
 # numpy <2.0 has only trapz, >=2.0 both (trapz deprecated): guard EACH
@@ -2001,7 +2324,8 @@ def _cross(a, b, axisa=-1, axisb=-1, axisc=-1, axis=None):
         raise _Fallback("cross form") from None
     s = anchor.split
     new_split = s if out_shape[:s] == tuple(anchor.shape[:s]) else 0
-    return _device_fused("cross", [a, b], anchor, new_split, _cross_body, ())
+    return _device_fused("cross", [a, b], anchor, new_split, _cross_body, (),
+                         axes=WHOLE)
 
 
 @_implements(np.ediff1d)
@@ -2026,7 +2350,7 @@ def _ediff1d(ary, to_end=None, to_begin=None):
         return torch.cat(parts)
 
     return _device_fused("ediff1d", ops, ary, min(ary.split, 1), body,
-                         (has_begin, has_end))
+                         (has_begin, has_end), axes=WHOLE)
 
 
 def _nan_cum(name):
@@ -2052,7 +2376,8 @@ def _nan_cum(name):
         # axis=None flattens: the flat result gets the filter-style flat
         # key axis, cumsum's convention
         new_split = (1 if a.split else 0) if ax is None else a.split
-        return _device_fused(name, [a], a, new_split, body, (ax,))
+        return _device_fused(name, [a], a, new_split, body, (ax,),
+                             axes=WHOLE if ax is None else (ax,))
     return handler
 
 
@@ -2090,7 +2415,7 @@ def _nan_arg(name):
 
         return _device_fused(name, [a], a,
                              _axis_reduced_split(a, ax_t, kd), body,
-                             (ax, kd))
+                             (ax, kd), axes=ax_t, keep=_kept(a.ndim, ax_t, kd))
     return handler
 
 
@@ -2108,7 +2433,7 @@ def _fix_body(d):
 def _fix(x, out=None):
     _require_default(out=(out, None))
     _require_gpu(x)
-    return _device_fused("fix", [x], x, x.split, _fix_body, ())
+    return _device_fused("fix", [x], x, x.split, _fix_body, (), axes=())
 
 
 # ---------------------------------------------------------------------
@@ -2168,7 +2493,7 @@ def _angle(z, deg=False):
         out = torch.atan2(im, re)
         return torch.rad2deg(out) if deg else out
 
-    return _device_fused("angle", [z], z, z.split, body, (deg,))
+    return _device_fused("angle", [z], z, z.split, body, (deg,), axes=())
 
 
 @_implements(np.unwrap)
@@ -2199,14 +2524,15 @@ def _unwrap(p, discont=None, axis=-1, *, period=6.283185307179586):
                           d.narrow(ax, 1, d.shape[ax] - 1)
                           + torch.cumsum(correct, ax)], ax)
 
-    return _device_fused("unwrap", [p], p, p.split, body, (dc, ax, per))
+    return _device_fused("unwrap", [p], p, p.split, body, (dc, ax, per),
+                         axes=(ax,))
 
 
 def _elementwise(name, fn):
     """A table handler applying ``fn`` to a card operand's tensor."""
     def handler(x):
         _require_gpu(x)
-        return _device_fused(name, [x], x, x.split, fn, ())
+        return _device_fused(name, [x], x, x.split, fn, (), axes=())
     return handler
 
 
@@ -2233,7 +2559,7 @@ def _nan_to_num(x, copy=True, nan=0.0, posinf=None, neginf=None):
             return d.clone()
         return one(d)
 
-    return _device_fused("nan_to_num", [x], x, x.split, body, args)
+    return _device_fused("nan_to_num", [x], x, x.split, body, args, axes=())
 
 
 def _inf_sign(name):
@@ -2242,7 +2568,7 @@ def _inf_sign(name):
     def handler(x, out=None):
         _require_default(out=(out, None))
         _require_gpu(x)
-        return _device_fused(name, [x], x, x.split, fn, ())
+        return _device_fused(name, [x], x, x.split, fn, (), axes=())
     return handler
 
 
@@ -2268,7 +2594,7 @@ def _fft1(name):
         return _device_fused(
             "fft_" + name, [a], a, a.split,
             lambda d: fn(_inexact(d), n=nn, dim=ax, norm=norm),
-            (nn, ax, norm))
+            (nn, ax, norm), axes=(ax,))
     return handler
 
 
@@ -2284,10 +2610,13 @@ def _fftn(name):
                                               for v in tupleize(axes))
         if axt is None and name.endswith("2"):
             axt = (-2, -1)
+        # the transform's axes: s without axes names the last len(s)
+        touched = axt if axt is not None else WHOLE if st is None \
+            else tuple(range(-len(st), 0))
         return _device_fused(
             "fft_" + name, [a], a, a.split,
             lambda d: fn(_inexact(d), s=st, dim=axt, norm=norm),
-            (st, axt, norm))
+            (st, axt, norm), axes=touched)
     return handler
 
 
@@ -2306,7 +2635,8 @@ def _fftshift_fn(name):
         axt = None if axes is None else tuple(operator.index(v)
                                               for v in tupleize(axes))
         return _device_fused("fft_" + name, [x], x, x.split,
-                             lambda d: fn(d, dim=axt), (axt,))
+                             lambda d: fn(d, dim=axt), (axt,),
+                             axes=WHOLE if axt is None else axt)
     return handler
 
 
@@ -2355,7 +2685,8 @@ def _apply_along_axis(func1d, axis, arr, *args, **kwargs):
     # the axis position, displacing everything after it
     new_split = arr.split if ax >= arr.split else ax
     return _device_fused("apply_along_axis", [arr], arr, new_split, func,
-                         (f, ax, args, tuple(sorted(kwargs.items()))))
+                         (f, ax, args, tuple(sorted(kwargs.items()))),
+                         axes=WHOLE)
 
 
 # ---------------------------------------------------------------------
@@ -2371,7 +2702,7 @@ def _tri_fn(name):
             raise _Fallback("1-d %s" % name)   # numpy promotes to 2-d
         kk = operator.index(k)
         return _device_fused(name, [m], m, m.split,
-                             lambda d: fn(d, kk), (kk,))
+                             lambda d: fn(d, kk), (kk,), axes=(-2, -1))
     return handler
 
 
@@ -2390,7 +2721,7 @@ def _diag(v, k=0):
     # building the (n+|k|, n+|k|) matrix: the input axis becomes the row
     # block, so a key axis stays a key axis
     return _device_fused("diag", [v], v, v.split,
-                         lambda d: torch.diag(d, kk), (kk,))
+                         lambda d: torch.diag(d, kk), (kk,), axes=WHOLE)
 
 
 @_implements(np.diagflat)
@@ -2398,7 +2729,7 @@ def _diagflat(v, k=0):
     _require_gpu(v)
     kk = operator.index(k)
     return _device_fused("diagflat", [v], v, 1 if v.split else 0,
-                         lambda d: torch.diagflat(d, kk), (kk,))
+                         lambda d: torch.diagflat(d, kk), (kk,), axes=WHOLE)
 
 
 @_implements(np.vander)
@@ -2418,7 +2749,8 @@ def _vander(x, N=None, increasing=False):
             iota = (n - 1) - iota
         return torch.pow(d[..., None], iota)
 
-    return _device_fused("vander", [x], x, x.split, body, (n, inc))
+    return _device_fused("vander", [x], x, x.split, body, (n, inc), axes=(),
+                         keep=[0, None])
 
 
 def _kron_body(x, y):
@@ -2439,7 +2771,8 @@ def _kron(a, b):
     anchor = _contraction_anchor(a, b)
     new_split = anchor.split if (anchor is a
                                  and np.ndim(b) <= np.ndim(a)) else 0
-    return _device_fused("kron", [a, b], anchor, new_split, _kron_body, ())
+    return _device_fused("kron", [a, b], anchor, new_split, _kron_body, (),
+                         axes=WHOLE)
 
 
 @_implements(np.select)
@@ -2474,7 +2807,8 @@ def _select(condlist, choicelist, default=0):
     # 0 / 0.0 / False compare and hash equal but change the promoted
     # output dtype: the key carries the type too
     return _device_fused("select", conds + choices, anchor, new_split,
-                         body, (n, default, type(default).__name__))
+                         body, (n, default, type(default).__name__),
+                         axes=WHOLE)
 
 
 @_implements(np.compress)
@@ -2549,7 +2883,7 @@ def _conv1d(name):
                 "mode must be one of 'full', 'same', or 'valid'")
         new_split = min(anchor.split, 1) if anchor is a else 0
         return _device_fused(name, [a, v], anchor, new_split,
-                             _conv_body(name, mode), (mode,))
+                             _conv_body(name, mode), (mode,), axes=WHOLE)
     return handler
 
 
@@ -2588,6 +2922,16 @@ def _sliced(fn, x):
         return tuple(torch.cat(p).reshape(batch + p[0].shape[1:])
                      for p in zip(*parts))
     return torch.cat(parts).reshape(batch + parts[0].shape[1:])
+
+
+# the matrix axes of a batched linalg call; the batch axes lead
+_MAT = (-2, -1)
+
+
+def _batch(a):
+    """The batch axes of a matrix stack (a ``keep`` of
+    :func:`_mesh_fused` for a result that drops the matrix axes)."""
+    return list(range(a.ndim - 2))
 
 
 def _mat_split(a, consumed=2):
@@ -2645,7 +2989,7 @@ def _linalg_inv(a):
     _require_gpu(a)
     _square_check(a)
     return _device_fused("linalg_inv", [a], a, _mat_split(a),
-                         _float_body(_inv), ())
+                         _float_body(_inv), (), axes=_MAT)
 
 
 def _svd(d, full_matrices=False, hermitian=False):
@@ -2693,7 +3037,7 @@ def _linalg_pinv(a, rcond=None, hermitian=False, *, rtol=_NV):
     herm = bool(hermitian)
     return _device_fused("linalg_pinv", [a], a, _mat_split(a),
                          _float_body(lambda d: _pinv(d, rc, herm)),
-                         (rc, herm))
+                         (rc, herm), axes=_MAT)
 
 
 @_implements(np.linalg.det)
@@ -2701,7 +3045,8 @@ def _linalg_det(a):
     _require_gpu(a)
     _square_check(a)
     return _device_fused("linalg_det", [a], a, _mat_split(a),
-                         _float_body(torch.linalg.det), ())
+                         _float_body(torch.linalg.det), (), axes=_MAT,
+                         keep=_batch(a))
 
 
 @_implements(np.linalg.slogdet)
@@ -2711,7 +3056,7 @@ def _linalg_slogdet(a):
     s = _mat_split(a)
     return _linalg_result("SlogdetResult", _device_fused(
         "linalg_slogdet", [a], a, (s, s),
-        _float_body(lambda d: tuple(torch.linalg.slogdet(d))), ()))
+        _float_body(lambda d: tuple(torch.linalg.slogdet(d))), (), axes=WHOLE))
 
 
 def _cholesky(d, upper):
@@ -2730,7 +3075,8 @@ def _linalg_cholesky(a, *, upper=False):
     _square_check(a)
     up = bool(upper)
     return _device_fused("linalg_cholesky", [a], a, _mat_split(a),
-                         _float_body(lambda d: _cholesky(d, up)), (up,))
+                         _float_body(lambda d: _cholesky(d, up)), (up,),
+                         axes=_MAT)
 
 
 def _uplo_sym(d, UPLO):
@@ -2764,7 +3110,7 @@ def _linalg_eigh(a, UPLO="L"):
     s = _mat_split(a)
     return _linalg_result("EighResult", _device_fused(
         "linalg_eigh", [a], a, (s, s),
-        _float_body(lambda d: _eigh(_uplo_sym(d, UPLO))), (UPLO,)))
+        _float_body(lambda d: _eigh(_uplo_sym(d, UPLO))), (UPLO,), axes=WHOLE))
 
 
 @_implements(np.linalg.eigvalsh)
@@ -2776,7 +3122,8 @@ def _linalg_eigvalsh(a, UPLO="L"):
     # discarded
     return _device_fused(
         "linalg_eigvalsh", [a], a, _mat_split(a),
-        _float_body(lambda d: _eigvalsh(_uplo_sym(d, UPLO))), (UPLO,))
+        _float_body(lambda d: _eigvalsh(_uplo_sym(d, UPLO))), (UPLO,),
+        axes=_MAT, keep=_batch(a) + [None])
 
 
 @_implements(np.linalg.svd)
@@ -2788,10 +3135,10 @@ def _linalg_svd(a, full_matrices=True, compute_uv=True, hermitian=False):
     if compute_uv:
         return _linalg_result("SVDResult", _device_fused(
             "linalg_svd", [a], a, (s, s, s),
-            _float_body(lambda d: _svd(d, fm, herm)), (fm, herm)))
+            _float_body(lambda d: _svd(d, fm, herm)), (fm, herm), axes=WHOLE))
     return _device_fused("linalg_svdvals", [a], a, s,
                          _float_body(lambda d: _svdvals(d, herm)),
-                         ("no_uv", herm))
+                         ("no_uv", herm), axes=_MAT, keep=_batch(a) + [None])
 
 
 if hasattr(np.linalg, "svdvals"):
@@ -2833,10 +3180,11 @@ def _linalg_qr(a, mode="reduced"):
     if mode == "r":
         return _device_fused(
             "linalg_qr_r", [a], a, s,
-            _float_body(lambda d: torch.linalg.qr(d, mode="r").R), ())
+            _float_body(lambda d: torch.linalg.qr(d, mode="r").R), (),
+            axes=_MAT)
     return _linalg_result("QRResult", _device_fused(
         "linalg_qr", [a], a, (s, s),
-        _float_body(lambda d: _qr(d, mode)), (mode,)))
+        _float_body(lambda d: _qr(d, mode)), (mode,), axes=WHOLE))
 
 
 def _solve(x, y):
@@ -2870,7 +3218,7 @@ def _linalg_solve(a, b):
     new_split = _mat_split(a) if (anchor is a
                                   and np.ndim(b) <= np.ndim(a)) else 0
     return _device_fused("linalg_solve", [a, b], anchor, new_split,
-                         _solve, ())
+                         _solve, (), axes=WHOLE)
 
 
 def _matrix_power(d, n):
@@ -2897,7 +3245,8 @@ def _linalg_matrix_power(a, n):
     _square_check(a)
     n = operator.index(n)
     return _device_fused("linalg_matrix_power", [a], a, _mat_split(a),
-                         _float_body(lambda d: _matrix_power(d, n)), (n,))
+                         _float_body(lambda d: _matrix_power(d, n)), (n,),
+                         axes=_MAT)
 
 
 @_implements(np.linalg.matrix_rank)
@@ -2929,7 +3278,8 @@ def _linalg_matrix_rank(A, tol=None, hermitian=False, *, rtol=_NV):
         return (s > thresh).sum(-1)
 
     return _device_fused("linalg_matrix_rank", [A], A, _mat_split(A),
-                         _float_body(body), (abs_tol, rel_tol, herm))
+                         _float_body(body), (abs_tol, rel_tol, herm),
+                         axes=_MAT, keep=_batch(A))
 
 
 @_implements(np.linalg.lstsq)
@@ -2966,10 +3316,9 @@ def _linalg_lstsq(a, b, rcond=None):
             res = torch.linalg.norm(xb - xa @ x, dim=0) ** 2
     if vec:
         x = x[:, 0]
-    dev = anchor.device
     # numpy returns the rank as a plain int scalar
-    return BoltArrayGPU(x, 0, dev), BoltArrayGPU(res, 0, dev), rank, \
-        BoltArrayGPU(s, 0, dev)
+    return anchor._wrap(x, 0), anchor._wrap(res, 0), rank, \
+        anchor._wrap(s, 0)
 
 
 # ---------------------------------------------------------------------
@@ -3036,7 +3385,7 @@ def _take_along_axis(arr, indices, axis=None):
             _gather_fill(out.dtype), device=out.device).to(out.dtype))
 
     return _device_fused("take_along_axis", [arr, indices], arr, arr.split,
-                         body, (ax, checked))
+                         body, (ax, checked), axes=WHOLE)
 
 
 @_implements(np.put_along_axis)
@@ -3082,7 +3431,8 @@ def _partition(a, kth, axis=-1, kind="introselect", order=None):
     a, k, ax = _partition_common(a, kth, axis, kind, order)
     return _device_fused(
         "partition", [a], a, a.split,
-        lambda d: torch.sort(d, dim=ax, stable=True).values, (k, ax))
+        lambda d: torch.sort(d, dim=ax, stable=True).values, (k, ax),
+        axes=(ax,))
 
 
 @_implements(np.argpartition)
@@ -3090,7 +3440,8 @@ def _argpartition(a, kth, axis=-1, kind="introselect", order=None):
     a, k, ax = _partition_common(a, kth, axis, kind, order)
     return _device_fused(
         "argpartition", [a], a, a.split,
-        lambda d: torch.argsort(_sortable(d), dim=ax, stable=True), (k, ax))
+        lambda d: torch.argsort(_sortable(d), dim=ax, stable=True), (k, ax),
+        axes=(ax,))
 
 
 def _lexsort_body(axis):
@@ -3120,7 +3471,7 @@ def _lexsort(keys, axis=-1):
             return keys.argsort(axis=axis, kind="stable")
         return _device_fused(
             "lexsort", [keys], keys, max(keys.split - 1, 0),
-            lambda d: _lexsort_body(axis)(*d.unbind(0)), (axis,))
+            lambda d: _lexsort_body(axis)(*d.unbind(0)), (axis,), axes=WHOLE)
     seq = list(keys)
     anchor = next((k for k in seq if _is_gpu(k)), None)
     if anchor is None:
@@ -3128,7 +3479,7 @@ def _lexsort(keys, axis=-1):
     if len({np.shape(k) for k in seq}) != 1:
         raise ValueError("all keys need to be the same shape")
     return _device_fused("lexsort", seq, anchor, anchor.split,
-                         _lexsort_body(axis), (axis,))
+                         _lexsort_body(axis), (axis,), axes=WHOLE)
 
 
 @_implements(np.meshgrid)
@@ -3167,7 +3518,7 @@ def _meshgrid(*xi, copy=True, sparse=False, indexing="xy"):
         return tuple(outs)
 
     return list(_device_fused("meshgrid", list(xi), anchor, (0,) * k, body,
-                              (sparse, indexing)))
+                              (sparse, indexing), axes=WHOLE))
 
 
 def _block_depth(node):
@@ -3217,7 +3568,7 @@ def _block(arrays):
     out_shape = _eval_shape(body, *leaves)
     new_split = min(anchor.split, len(out_shape))
     return _device_fused("block", leaves, anchor, new_split, body,
-                         (repr(spec),))
+                         (repr(spec),), axes=WHOLE)
 
 
 @_implements(np.broadcast_arrays)
@@ -3233,7 +3584,8 @@ def _broadcast_arrays(*args, subok=False):
     return tuple(_device_fused(
         "broadcast_arrays", list(args), anchor, splits,
         lambda *ds: tuple(t.contiguous()
-                          for t in torch.broadcast_tensors(*ds)), ()))
+                          for t in torch.broadcast_tensors(*ds)), (),
+        axes=WHOLE))
 
 
 def _static_obj_key(obj):
@@ -3295,7 +3647,7 @@ def _delete(arr, obj, axis=None):
             kept, dtype=torch.int64, device=d.device))
 
     return _device_fused("delete", [arr], arr, arr.split, body,
-                         (ax, _static_obj_key(obj)))
+                         (ax, _static_obj_key(obj)), axes=(ax,))
 
 
 @_implements(np.insert)
@@ -3355,7 +3707,7 @@ def _insert(arr, obj, values, axis=None):
         return out
 
     return _device_fused("insert", [arr, values], arr, arr.split, body,
-                         (ax, _static_obj_key(indices), scalar))
+                         (ax, _static_obj_key(indices), scalar), axes=WHOLE)
 
 
 @_implements(np.resize)
@@ -3376,7 +3728,7 @@ def _resize(a, new_shape):
         return flat.repeat(reps)[:size].reshape(shp)
 
     return _device_fused("resize", [a], a, min(a.split, len(shp)), body,
-                         (shp,))
+                         (shp,), axes=WHOLE)
 
 
 def _cond(d, p):
@@ -3408,7 +3760,8 @@ def _linalg_cond(x, p=None):
         raise np.linalg.LinAlgError(
             "Last 2 dimensions of the array must be square")
     return _device_fused("linalg_cond", [x], x, _mat_split(x),
-                         _float_body(lambda d: _cond(d, p)), (str(p),))
+                         _float_body(lambda d: _cond(d, p)), (str(p),),
+                         axes=_MAT, keep=_batch(x))
 
 
 @_implements(np.linalg.multi_dot)
@@ -3444,7 +3797,7 @@ def _linalg_multi_dot(arrays, *, out=None):
         return out if target is None else torch.round(out).to(target)
 
     return _device_fused("multi_dot", seq, anchor, new_split, body,
-                         (pr, str(target)))
+                         (pr, str(target)), axes=WHOLE)
 
 
 @_implements(np.linalg.tensorsolve)
@@ -3484,7 +3837,7 @@ def _linalg_tensorsolve(a, b, axes=None):
         return out if out.dtype == target else out.to(target)
 
     return _device_fused("tensorsolve", [a, b], anchor, 0, body,
-                         (axs, str(target)))
+                         (axs, str(target)), axes=WHOLE)
 
 
 @_implements(np.linalg.tensorinv)
@@ -3502,7 +3855,8 @@ def _linalg_tensorinv(a, ind=2):
     def body(d):
         return _inv(d.reshape(prod(head), prod(tail))).reshape(tail + head)
 
-    return _device_fused("tensorinv", [a], a, 0, _float_body(body), (ind,))
+    return _device_fused("tensorinv", [a], a, 0, _float_body(body), (ind,),
+                         axes=WHOLE)
 
 
 @_implements(np.linalg.eig, np.linalg.eigvals)

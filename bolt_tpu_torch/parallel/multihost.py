@@ -83,8 +83,10 @@ _DEFAULT_TIMEOUT = 120.0               # seconds: bring-up and every wait
 _COUNTS = {"collectives": 0, "collective_bytes": 0,
            "collective_host_bytes": 0}
 
-# the last bring-up's store, rank, device and backend (kept past a
-# failed one for heal_backend_init, past a teardown for reform)
+# the last bring-up's rank, device and backend (kept past a teardown for
+# reform), and its store while that bring-up has failed and is not yet
+# healed (heal_backend_init's to clean; a bring-up that completes, or a
+# heal, drops it: a pod shut down cleanly leaves nothing to heal)
 _BRINGUP = {"store": None, "rank": None, "device": None, "backend": None}
 
 
@@ -258,6 +260,7 @@ def _bring_up(coordinator_address, world, rank, backend, device,
     probe = torch.zeros(1, device=device if backend == "nccl" else "cpu")
     dist.all_reduce(probe)
     _POD = _Pod(rank, world, backend, device, store, store_dir)
+    _BRINGUP["store"] = None
     _EPOCH[0] += 1
 
 
@@ -435,7 +438,8 @@ def heal_backend_init():
             pass                  # group is unusable either way
     store, rank = _BRINGUP["store"], _BRINGUP["rank"]
     if store is None:
-        return False
+        return False              # no failed bring-up to heal
+    _BRINGUP["store"] = None
     try:
         store.check(["bolt/device/%d" % rank])
     except Exception:             # noqa: BLE001 — a dead store: nothing
@@ -841,8 +845,9 @@ def reset_counters():
 
 
 def _as_bytes(t):
-    """``t`` as a flat ``uint8`` tensor over its own bytes."""
-    t = t.detach().contiguous().reshape(-1)
+    """``t`` as a flat ``uint8`` tensor over its own bytes (a lazily
+    conjugated or negated view is resolved first)."""
+    t = t.detach().resolve_conj().resolve_neg().contiguous().reshape(-1)
     if t.dtype == torch.uint8:
         return t
     if not t.numel():

@@ -150,24 +150,44 @@ def check_main_path(mesh, inputs):
 
 
 def check_not_ported(mesh, inputs):
-    """Outside the ported slices a multi-rank mesh raises, naming the
-    ROADMAP item: numpy's function table (A12d-2).  The array's own
-    surface runs (``None``: the call returned)."""
+    """Nothing is left guarded on a multi-rank mesh: numpy's function
+    table, ``_wrap``, ``map(with_keys=True)``, a host-predicate filter and
+    ``stats(accumulate=)`` run (``None``: the call returned; else the
+    ``NotImplementedError``'s message), and ``np.quantile`` gives numpy's
+    value.  ``_mapped``/``_chain_parts``, which name no mesh form, refuse
+    with a ``TypeError`` (``no_form``: its message)."""
     bolt = _bolt()
-    b = bolt.array(inputs["main_x"], mesh)
+    x = inputs["main_x"]
+    b = bolt.array(x, mesh)
     out = {}
     calls = {
         "quantile": lambda: np.quantile(b, 0.5),
         "getitem": lambda: b[0:2],
         "add": lambda: b + 1,
         "asarray": lambda: np.asarray(b),
+        "with_keys": lambda: b.map(lambda kv: kv[1], with_keys=True).sum(),
+        "host_filter": lambda: b.filter(
+            lambda v: float(np.asarray(v).mean()) > 0).sum(),
+        "accumulate": lambda: b.stats("sum", accumulate="f32"),
+        "wrap": lambda: b._wrap(b._whole_tensor(), 1),
     }
-    for name, call in calls.items():
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for name, call in calls.items():
+            try:
+                call()
+                out[name] = None
+            except NotImplementedError as exc:
+                out[name] = str(exc)
+    out["no_form"] = {}
+    for name in ("_mapped", "_chain_parts"):
         try:
-            call()
-            out[name] = None
-        except NotImplementedError as exc:
-            out[name] = str(exc)
+            getattr(b, name)()
+            out["no_form"][name] = None
+        except TypeError as exc:
+            out["no_form"][name] = str(exc)
+    out["quantile_value"] = np.asarray(np.quantile(b, 0.5).toarray())
+    out["wrap_value"] = b._wrap(b._whole_tensor(), 1).toarray()
     return out
 
 
@@ -358,12 +378,13 @@ def dryrun_multichip(n):
 
 
 def _dryrun_surface(bolt, mesh, kshape, x, m):
-    """The dry run's steps on the array surface and the ops library
-    (the reference's, past the filter, less its numpy-table steps):
+    """The dry run's steps on the array surface, the ops library and
+    numpy's function table (the reference's, past the filter):
     distributed ``pca``, ``median``, ``cov``, the per-chunk SVD, ``set``,
     an in-place ``sort``, the vector quantile, ``segment_reduce`` with
-    labels on the device, ``topk``, ``toarray(out=)`` and
-    ``iter_shards``.  Raises on a wrong answer."""
+    labels on the device, ``topk``, ``toarray(out=)``, ``iter_shards``
+    and the numpy tail (:func:`_dryrun_numpy`).  Raises on a wrong
+    answer."""
     import torch
     n = mesh.size
     pdata = np.random.RandomState(7).randn(n * 6, 5)
@@ -425,7 +446,53 @@ def _dryrun_surface(bolt, mesh, kshape, x, m):
             raise AssertionError("iter_shards")
         walked += blk.size
     return {"pca_svals": np.asarray(svals), "median_shape": list(
-        m.median().shape), "shard_elements": walked}
+        m.median().shape), "shard_elements": walked,
+        "numpy": _dryrun_numpy(bolt, sb, sdata, pb, pdata)}
+
+
+def _dryrun_numpy(bolt, sb, sdata, pb, pdata):
+    """The dry run's numpy-table steps (the reference's tail): ``np.sum``
+    and ``np.concatenate`` on the device, the stack family, the layout
+    expanders and the contractions as one program each, keys surviving
+    where they still lead, and ``np.cov``.  Raises on a wrong answer;
+    returns the splits and the sum it checked."""
+    nsum = np.sum(sb)
+    if nsum.mode != "gpu" or not np.allclose(
+            float(np.asarray(nsum.toarray())), sdata.sum()):
+        raise AssertionError("np.sum")
+    cat = np.concatenate([sb, sb], axis=1)
+    if cat.mode != "gpu" or not np.allclose(
+            cat.toarray(), np.concatenate([sdata, sdata], 1)):
+        raise AssertionError("np.concatenate")
+    stk = np.stack([sb, sb], axis=0)
+    if stk.mode != "gpu" or stk.split != 2 or not np.allclose(
+            stk.toarray(), np.stack([sdata, sdata], axis=0)):
+        raise AssertionError("np.stack")
+    if not np.allclose(np.roll(sb, 3, axis=1).toarray(),
+                       np.roll(sdata, 3, axis=1)):
+        raise AssertionError("np.roll")
+    pads = ((0, 0), (2, 1), (0, 0))
+    if not np.allclose(np.pad(sb, pads, mode="reflect").toarray(),
+                       np.pad(sdata, pads, mode="reflect")):
+        raise AssertionError("np.pad")
+    w = np.ones((sdata.shape[2], 2), sdata.dtype)
+    ein = np.einsum("ijk,kl->ijl", sb, w)
+    if ein.split != sb.split or not np.allclose(
+            ein.toarray(), np.einsum("ijk,kl->ijl", sdata, w)):
+        raise AssertionError("np.einsum")
+    td = np.tensordot(sb, np.ones((3, 2), sdata.dtype), axes=([2], [0]))
+    if not np.allclose(td.toarray(), np.tensordot(
+            sdata, np.ones((3, 2)), axes=([2], [0]))):
+        raise AssertionError("np.tensordot")
+    bcast = np.broadcast_to(sb, (2,) + tuple(sb.shape))
+    if bcast.split != sb.split + 1 or not np.allclose(
+            bcast.toarray(), np.broadcast_to(sdata, (2,) + sdata.shape)):
+        raise AssertionError("np.broadcast_to")
+    ncov = np.cov(pb, rowvar=False)
+    if not np.allclose(ncov, np.cov(pdata, rowvar=False), rtol=1e-5):
+        raise AssertionError("np.cov")
+    return {"sum": float(np.asarray(nsum.toarray())),
+            "splits": [int(stk.split), int(ein.split), int(bcast.split)]}
 
 
 def payload_dryrun(rank, args, inputs):
@@ -793,9 +860,17 @@ def payload_surface(rank, args, inputs):
     return surface.payload_surface(rank, args, inputs)
 
 
+def payload_npsurface(rank, args, inputs):
+    """numpy's function table on the pod's meshes
+    (:mod:`bolt_tpu_torch.parallel.npsurface`)."""
+    from bolt_tpu_torch.parallel import npsurface
+    return npsurface.payload_npsurface(rank, args, inputs)
+
+
 PAYLOADS = {
     "checks": payload_checks,
     "surface": payload_surface,
+    "npsurface": payload_npsurface,
     "dryrun": payload_dryrun,
     "sched": payload_sched,
     "sleep": payload_sleep,
@@ -874,6 +949,32 @@ def constant_box(shape, box, device):
     val = val[tuple(slice(s, e) for s, e in box[1:])]
     n = box[0][1] - box[0][0]
     return val.expand((n,) + tuple(val.shape)).contiguous()
+
+
+def trend_box(shape, box, device):
+    """This rank's box of an array (f32) whose record ``r``, value slot
+    ``j`` holds ``r % 8 - 4 + r / 256 + (j % 16) * 0.5``: exact in f32,
+    every column's variance over the records the same, and the records'
+    mean rising with ``r``, so each rank's box has a mean and a variance
+    of its own (a dropped rank or a dropped mean-delta term in a fold
+    changes the variance)."""
+    import torch
+    (r0, r1) = box[0]
+    vshape = tuple(shape[1:])
+    nv = int(np.prod(vshape, dtype=np.int64))
+    r = torch.arange(r0, r1, device=device)
+    rec = (r % 8 - 4).to(torch.float32) + r.to(torch.float32) / 256.0
+    val = (torch.arange(nv, device=device) % 16).to(torch.float32) * 0.5
+    full = (rec[:, None] + val[None, :]).reshape((r1 - r0,) + vshape)
+    return full[(slice(None),) + tuple(slice(s, e) for s, e in box[1:])] \
+        .contiguous()
+
+
+def trend_variance(n):
+    """The variance over ``n`` records of every column of
+    :func:`trend_box` data, in f64 (exact inputs)."""
+    r = np.arange(n)
+    return float(np.var((r % 8 - 4) + r / 256.0))
 
 
 def _on_mesh(mesh, shape, spec, make, split=1):
@@ -1075,6 +1176,8 @@ def payload_card_pod2(rank, args, inputs):
     if args.get("surface"):
         _surface_ns(out, mesh, args["surface"])
         _surface_ops(out, mesh, args["surface"])
+    if args.get("numpy"):
+        _numpy_two(out, mesh, args["numpy"])
     return out
 
 
@@ -1109,6 +1212,8 @@ def payload_card_pod4(rank, args, inputs):
         _stream_rep(out, mesh, args["stream"])
     if args.get("surface"):
         _surface_c1(out, mesh, args["surface"])
+    if args.get("numpy"):
+        _numpy_four(out, mesh, args["numpy"])
     return out
 
 
@@ -1989,4 +2094,114 @@ def _surface_c1(out, mesh, args):
     boxed("set", lambda: b.set(np.s_[90:110, 95:105, 10:20], -1.0))
     boxed("concatenate", lambda: b.concatenate(b, axis=0))
     boxed("transpose", lambda: b.transpose(1, 0, 3, 2))
+    del b
+
+
+# ---------------------------------------------------------------------
+# numpy's function table on the card's pods (chip_smoke.py phase 19,
+# inside phase 15's pods); each path is named "s19_..."
+# ---------------------------------------------------------------------
+
+def numpy_host_pred(v):
+    """Phase 19's host predicate: it reads a record's mean on the host,
+    which ``vmap`` cannot batch (the filter takes its host form)."""
+    return float(np.asarray(v).mean()) > 1.0
+
+
+def _numpy_two(out, mesh, args):
+    """Phase 19 on the two-rank pod: at the north-star split 1600
+    records a rank, ``b = x + 1`` of the crafted data (a deferred chain,
+    so its sums read the base through the kernel): ``np.sum(b * 2 + 1)``
+    and ``np.mean(b, axis=0)`` (one ``fused_map_reduce`` a rank each), and
+    ``np.var(t, axis=0)`` of a chain of the trend data, whose ranks'
+    boxes differ in mean and variance (one ``fused_welford`` a rank); at
+    config 1, ``map(with_keys=True).sum()``, a host-predicate
+    ``filter(...).sum()`` and ``stats("sum", "max", accumulate="bf16")``."""
+    ns, c1 = tuple(args["north_star"]), tuple(args["config1"])
+    res = out["s19"] = {}
+    b = _on_mesh(mesh, ns, ("k", None, None, None), crafted_box) + 1.0
+    with _Path(out, "s19_ns_sum"):
+        res["sum"] = np.sum(b * 2.0 + 1.0).toarray()
+    with _Path(out, "s19_ns_mean"):
+        res["mean"] = np.mean(b, axis=0).toarray()
+    del b
+    t = _on_mesh(mesh, ns, ("k", None, None, None), trend_box) + 1.0
+    with _Path(out, "s19_ns_var"):
+        res["var"] = np.var(t, axis=0).toarray()
+    del t
+    c = _on_mesh(mesh, c1, ("k", None, None, None), crafted_box)
+    with _Path(out, "s19_c1_with_keys"):
+        res["with_keys"] = c.map(lambda kv: kv[1] + kv[0][0],
+                                 with_keys=True).sum().toarray()
+    with _Path(out, "s19_c1_host_filter"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            f = c.filter(numpy_host_pred)
+        res["host_filter"] = {"count": int(f.shape[0]),
+                              "sum": f.sum().toarray()}
+    with _Path(out, "s19_c1_accumulate"):
+        g = c.stats("sum", "max", accumulate="bf16")
+        res["accumulate"] = {k: v.toarray() for k, v in g.items()}
+    del c, f, g
+
+
+def _numpy_four(out, mesh, args):
+    """Phase 19 on the four-rank ``(2, 2)`` pod: config 1's crafted data
+    with both key axes split, through numpy's table: a contraction over a
+    sharded axis (the fold), ``tensordot`` over a value axis, the stack
+    family, ``roll`` and ``pad`` across box edges, ``broadcast_to``,
+    ``where``, ``nanmean``, the flat sort, ``rfft`` along a sharded axis,
+    ``linalg.inv`` over the sharded batch and ``split``, each rank's box
+    fingerprinted; for ``rfft`` and ``inv``, which the single device's
+    need not equal bit for bit, each rank also builds the single
+    device's result of the whole data (after the measured path) and
+    reports its whole box's largest error against it, relative to the
+    box's largest magnitude; ``cov``, ``histogram`` and ``unique`` (host
+    results) as they come."""
+    import torch
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.parallel import sharding
+    c1 = tuple(args["config1"])
+    b = _on_mesh(mesh, c1, ("k", "v", None, None), crafted_box, split=2)
+    w = (np.arange(c1[3] * 8) % 5).astype(np.float32).reshape(c1[3], 8)
+    eye = np.float32(1000.0) * np.eye(c1[3], dtype=np.float32)
+    res = out["s19"] = {}
+
+    def boxed(name, fn, close=False):
+        with _Path(out, "s19_c1_" + name):
+            r = fn(b)
+            parts = r if isinstance(r, list) else [r]
+            res[name] = [dict(_boxed(p._data, p), shape=list(p.shape),
+                              split=int(p.split)) for p in parts]
+        if close:
+            one = fn(BoltArrayGPU(crafted_box(c1, tuple((0, k) for k in c1),
+                                              mesh.device), 2, mesh.device))
+            want = one.totorch()[sharding.box_slices(parts[0].box)]
+            got = parts[0]._data
+            res[name][0]["err"] = float((got - want).abs().max()
+                                        / want.abs().max())
+            res[name][0]["bits"] = bool(torch.equal(got, want))
+            del one, want
+
+    def host(name, fn):
+        with _Path(out, "s19_c1_" + name):
+            res[name] = fn()
+
+    boxed("einsum", lambda x: np.einsum("ijkl->jkl", x))
+    boxed("tensordot", lambda x: np.tensordot(x, w, axes=([3], [0])))
+    boxed("stack", lambda x: np.stack([x, x]))
+    boxed("concatenate", lambda x: np.concatenate([x, x], axis=1))
+    boxed("roll", lambda x: np.roll(x, 3, axis=0))
+    boxed("pad", lambda x: np.pad(x, ((0, 0), (2, 1), (0, 0), (0, 0)),
+                                  mode="reflect"))
+    boxed("broadcast_to", lambda x: np.broadcast_to(x, (2,) + c1))
+    host("cov", lambda: np.cov(b[:, 0, :, 0], rowvar=False))
+    host("histogram", lambda: list(np.histogram(b, bins=64)))
+    boxed("where", lambda x: np.where(x > 0, x, 0.0))
+    boxed("nanmean", lambda x: np.nanmean(x))
+    boxed("sort", lambda x: np.sort(x, axis=None))
+    host("unique", lambda: list(np.unique(b, return_counts=True)))
+    boxed("rfft", lambda x: np.fft.rfft(x, axis=1), close=True)
+    boxed("inv", lambda x: np.linalg.inv(x + eye), close=True)
+    boxed("split", lambda x: np.split(x, 4, axis=0))
     del b

@@ -294,6 +294,23 @@ result):
    two-rank and four-rank pods launch no kernel.  Each path logs its
    wall, rows produced, transfer bytes, collective and host-staged
    bytes, peak growth, launches and engine misses per rank.
+17. pod liveness and recovery (``recovery_phase``) and 18. the array
+   surface and the ops library on a mesh (``surface_mesh_phase``, paths
+   ``s18_...`` in phase 15's pods).
+19. numpy's function table on a mesh (``numpy_mesh_phase``, paths
+   ``s19_...`` in phase 15's pods): on the two ranks at the north-star
+   ``np.sum(b * 2 + 1)`` (against its exact total) and ``np.mean(b,
+   axis=0)``, one ``fused_map_reduce`` a rank each, and ``np.var`` of the
+   constant columns, one ``fused_welford`` a rank; at config 1
+   ``map(with_keys=True).sum()``, a host-predicate ``filter(...).sum()``
+   and ``stats(accumulate="bf16")``; on the ``(2, 2)`` pod at config 1
+   with both keys split (164 MB a box) ``einsum`` (a fold over a sharded
+   axis), ``tensordot``, ``stack``, ``concatenate``, ``roll``,
+   ``pad(mode="reflect")``, ``broadcast_to``, ``cov``, ``histogram``,
+   ``where``, ``nanmean``, ``sort(axis=None)``, ``unique``, ``rfft``
+   along a sharded axis, ``linalg.inv`` over the sharded batch and
+   ``split``: every rank's box against the single device's (bit for bit
+   where the crafted data keeps the arithmetic exact).
 
 The launch counters are zeroed just before each path (phases 2–3, phase
 4, phase 6, phase 7, phase 8, phase 11, phase 12 and each path of phases
@@ -307,7 +324,8 @@ and ``uint16``, every one counted from 0; ``phase13_launches`` the same
 for phase 13's ``config9``, ``config1``, ``int8_c1`` and ``config14``;
 ``phase14_launches`` for phase 14's paths; ``phase15_launches`` a list
 a path of phase 15, one count a rank; ``phase16_launches`` the same for
-phase 16) and
+phase 16; ``phase17_launches`` to ``phase19_launches`` the same for
+phases 17 to 19) and
 ``{"ok": true, "device": {...}}``.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -3972,9 +3990,10 @@ def mesh_pod(harness, out, name, payload, nproc, backend, args):
     for path in res[0]["paths"]:
         per = [r["paths"][path] for r in res]
         pod["paths"][path] = per
-        # phase 16's and phase 18's paths ride the same pods ("s16_...",
-        # "s18_...")
-        label = path[1:3] if path.startswith(("s16_", "s18_")) else "15"
+        # phase 16's, 18's and 19's paths ride the same pods ("s16_...",
+        # "s18_...", "s19_...")
+        label = path[1:3] if path.startswith(("s16_", "s18_", "s19_")) \
+            else "15"
         log("phase %s %s %s: wall %s s, peak growth %s GB per rank, "
             "launches per rank %s, collective bytes %s, host-staged %s%s "
             "(%s)" % (label, name, path,
@@ -3992,7 +4011,7 @@ def mesh_pod(harness, out, name, payload, nproc, backend, args):
                       out["card"]))
     log("phase %s pod %s: %d ranks (%s) in %.1f s"
         % ("16" if all(p.startswith("s16_") for p in res[0]["paths"])
-           else "15, 16 and 18", name, nproc, backend, wall))
+           else "15, 16, 18 and 19", name, nproc, backend, wall))
     return res
 
 
@@ -4107,7 +4126,7 @@ def mesh_phase(bolt, K, torch, np, dev, report):
                    {"north_star": list(NORTH_STAR),
                     "config1": list(CONFIG1),
                     "stream": pod_stream_args(),
-                    "surface": surface_args()})
+                    "surface": surface_args(), "numpy": numpy_args()})
     for r in res:
         for k in ("map_sum", "reduce", "filter_sum", "filter_mean"):
             same(r[k], two[k], "two-rank crafted %s (rank %d)"
@@ -4153,7 +4172,7 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     res = mesh_pod(harness, out, "pod4", "card_pod4", 4, "gloo",
                    {"config1": list(CONFIG1), "chunk": MESH_CHUNK,
                     "stream": pod_stream_args(),
-                    "surface": surface_args()})
+                    "surface": surface_args(), "numpy": numpy_args()})
     for r in res:
         check(r["spec"] == ["k", None, None, None], "phase 15 pod4 layout")
         same(r["map_sum"], four["map_sum"], "four-rank map(v+1).sum() with "
@@ -4186,7 +4205,7 @@ def mesh_phase(bolt, K, torch, np, dev, report):
     launches = {}
     for name, pod in out["pods"].items():
         for path, per in pod["paths"].items():
-            if not path.startswith(("s16_", "s18_")):
+            if not path.startswith(("s16_", "s18_", "s19_")):
                 launches["%s/%s" % (name, path)] = [p["launches"]
                                                     for p in per]
     out["wall_s"] = time.perf_counter() - t_phase
@@ -4843,6 +4862,200 @@ def surface_mesh_phase(bolt, K, torch, np, dev, report):
     return launches
 
 
+# phase 19 (numpy's function table on a mesh): its paths ride phase 15's
+# pods ("numpy" args)
+def numpy_args():
+    """The ``numpy`` args of phase 19's paths in the phase 15 pods."""
+    return {"north_star": list(NORTH_STAR), "config1": list(CONFIG1)}
+
+
+def crafted_total(np, shape):
+    """The exact sum of ``crafted_box`` data of ``shape`` mapped by ``(v +
+    1) * 2 + 1`` (record ``r``, slot ``j``: ``2 (r % 8) - 5 + j % 16``),
+    in Python integers."""
+    n, nv = shape[0], int(np.prod(shape[1:]))
+    rec = sum(2 * (r % 8) - 5 for r in range(n))
+    return rec * nv + n * sum(j % 16 for j in range(nv))
+
+
+def numpy_mesh_phase(bolt, K, torch, np, dev, report):
+    """Phase 19: numpy's function table on a mesh, whose paths ran inside
+    phase 15's two- and four-rank gloo pods on this card
+    (``payloads._numpy_two``/``_numpy_four``), each held here against the
+    single device on the same data: on two ranks at the north-star, with
+    ``b`` the crafted data plus one (a deferred chain), ``np.sum(b * 2 +
+    1)`` within ``1e-5`` of its exact total (f32 accumulation) and
+    ``np.mean(b, axis=0)`` bit for bit, one ``fused_map_reduce`` a rank
+    each, ``np.var(t + 1, axis=0)`` of the trend data (whose ranks' boxes
+    differ in mean and variance) within ``1e-5`` of its exact f64 value on
+    every column (one ``fused_welford`` a rank), and at config 1 ``map(with_keys=True)
+    .sum()``, a host-predicate ``filter(...).sum()`` and ``stats("sum",
+    "max", accumulate="bf16")`` bit for bit; on the ``(2, 2)`` pod at
+    config 1 with both keys split, every rank's box of ``einsum`` (a
+    fold over a sharded axis), ``tensordot``, ``stack``,
+    ``concatenate``, ``roll``, ``pad(mode="reflect")``,
+    ``broadcast_to``, ``where``, ``nanmean``, ``sort(axis=None)`` and
+    ``split`` bit for bit, ``rfft`` along a sharded axis and
+    ``linalg.inv`` over the sharded batch, every element of every box
+    within phase 10's ``1e-5`` of the box's largest magnitude (each rank
+    holds its box against the single device's result it builds), ``cov`` within phase 9's ``1e-4``, and
+    ``histogram``/``unique`` exactly.  Returns each path's launches per
+    rank."""
+    from bolt_tpu_torch.gpu.array import BoltArrayGPU
+    from bolt_tpu_torch.parallel import payloads, sharding
+    t_phase = time.perf_counter()
+    out = {"card": report["card"], "paths": {}, "errors": {}}
+    report["numpy_mesh"] = out
+    pods = KEEP["pods"]
+    whole = lambda shape: tuple((0, k) for k in shape)  # noqa: E731
+    errs = out["errors"]
+
+    def same(got, want, what):
+        want = want.cpu().numpy() if hasattr(want, "cpu") else want
+        check(np.asarray(got).dtype == np.asarray(want).dtype
+              and np.array_equal(got, want), "phase 19 %s" % what)
+
+    for name in ("pod2", "pod4"):
+        for path, per in report["mesh"]["pods"][name]["paths"].items():
+            if path.startswith("s19_"):
+                out["paths"]["%s/%s" % (name, path)] = per
+
+    # ---- two ranks: the north-star and config 1 -----------------------------
+    x = BoltArrayGPU(payloads.crafted_box(NORTH_STAR, whole(NORTH_STAR),
+                                          dev), 1, dev) + 1.0
+    one = {"mean": np.mean(x, axis=0).toarray(),
+           "sum_one": np.sum(x * 2.0 + 1.0).toarray()}
+    del x
+    c = BoltArrayGPU(payloads.crafted_box(CONFIG1, whole(CONFIG1), dev), 1,
+                     dev)
+    one["with_keys"] = c.map(lambda kv: kv[1] + kv[0][0],
+                             with_keys=True).sum().toarray()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        f = c.filter(payloads.numpy_host_pred)
+    one["host_filter"] = {"count": int(f.shape[0]), "sum": f.sum().toarray()}
+    g = c.stats("sum", "max", accumulate="bf16")
+    one["accumulate"] = {k: v.toarray() for k, v in g.items()}
+    del c, f, g
+    torch.cuda.empty_cache()
+    total = crafted_total(np, NORTH_STAR)
+    var = payloads.trend_variance(NORTH_STAR[0])
+    res2 = pods["pod2"]
+    for r in res2:
+        k, got = r["rank"], r["s19"]
+        err = abs(float(got["sum"]) - total) / abs(total)
+        check(err <= 1e-5, "phase 19 two-rank np.sum(b * 2 + 1) (rank %d): "
+              "%.3g of the exact total" % (k, err))
+        errs["ns_sum_rank%d" % k] = err
+        for name in ("mean", "with_keys"):
+            same(got[name], one[name], "two-rank %s (rank %d)" % (name, k))
+        # every column's variance is the trend's over all the records
+        verr = float(np.max(np.abs(got["var"] - var)) / var)
+        check(got["var"].shape == NORTH_STAR[1:] and verr <= 1e-5,
+              "phase 19 two-rank np.var(t + 1, axis=0) (rank %d): shape %s, "
+              "%.3g of the exact variance" % (k, got["var"].shape, verr))
+        errs["ns_var_rank%d" % k] = verr
+        check(got["host_filter"]["count"] == one["host_filter"]["count"],
+              "phase 19 host-predicate filter count (rank %d)" % k)
+        same(got["host_filter"]["sum"], one["host_filter"]["sum"],
+             "host-predicate filter sum (rank %d)" % k)
+        for name in ("sum", "max"):
+            same(got["accumulate"][name], one["accumulate"][name],
+                 "stats(accumulate='bf16') %s (rank %d)" % (name, k))
+        p = r["paths"]
+        for path, kern in (("s19_ns_sum", "fused_map_reduce"),
+                           ("s19_ns_mean", "fused_map_reduce"),
+                           ("s19_ns_var", "fused_welford")):
+            la = p[path]["launches"]
+            check(la.get(kern, 0) == 1, "phase 19 %s launched %s on rank %d, "
+                  "not one %s" % (path, la, k, kern))
+    same(res2[1]["s19"]["sum"], res2[0]["s19"]["sum"],
+         "np.sum on every rank")
+    errs["ns_sum_single"] = abs(float(one["sum_one"]) - total) / abs(total)
+
+    # ---- four ranks, (2, 2) ("k", "v"): config 1 with both keys split -------
+    c1 = BoltArrayGPU(payloads.crafted_box(CONFIG1, whole(CONFIG1), dev), 2,
+                      dev)
+    w = (np.arange(CONFIG1[3] * 8) % 5).astype(np.float32).reshape(
+        CONFIG1[3], 8)
+    eye = np.float32(1000.0) * np.eye(CONFIG1[3], dtype=np.float32)
+    exact = {
+        "einsum": lambda: np.einsum("ijkl->jkl", c1),
+        "tensordot": lambda: np.tensordot(c1, w, axes=([3], [0])),
+        "stack": lambda: np.stack([c1, c1]),
+        "concatenate": lambda: np.concatenate([c1, c1], axis=1),
+        "roll": lambda: np.roll(c1, 3, axis=0),
+        "pad": lambda: np.pad(c1, ((0, 0), (2, 1), (0, 0), (0, 0)),
+                              mode="reflect"),
+        "broadcast_to": lambda: np.broadcast_to(c1, (2,) + CONFIG1),
+        "where": lambda: np.where(c1 > 0, c1, 0.0),
+        "nanmean": lambda: np.nanmean(c1),
+        "sort": lambda: np.sort(c1, axis=None),
+        "split": lambda: np.split(c1, 4, axis=0)}
+    close_ = {"rfft": lambda: np.fft.rfft(c1, axis=1),
+              "inv": lambda: np.linalg.inv(c1 + eye)}
+    res4 = pods["pod4"]
+    for name, fn in list(exact.items()) + list(close_.items()):
+        outs = fn()
+        outs = outs if isinstance(outs, list) else [outs]
+        for i, o in enumerate(outs):
+            t = o.totorch()
+            for r in res4:
+                got = r["s19"][name][i]
+                check(got["shape"] == list(o.shape)
+                      and got["split"] == o.split, "phase 19 four-rank %s "
+                      "shape/split %s/%s, single device %s/%s"
+                      % (name, got["shape"], got["split"], list(o.shape),
+                         o.split))
+                bx = tuple(tuple(v) for v in got["box"])
+                part = t[sharding.box_slices(bx)]
+                bits = got["fp"] == payloads.fingerprint(part)
+                if name in exact:
+                    check(bits, "phase 19 four-rank %s: rank %d's box %s is "
+                          "not the single device's" % (name, r["rank"], bx))
+                    continue
+                # the whole box within phase 10's bound of its largest
+                # magnitude, held in the pod against the single device's
+                # result there; its bits as the single device's here
+                err = got["err"]
+                check(err <= 1e-5 and got["bits"] == bits,
+                      "phase 19 four-rank %s (rank %d): %.3g of max|x| "
+                      "against the single device" % (name, r["rank"], err))
+                errs["%s_rank%d" % (name, r["rank"])] = {"err": err,
+                                                         "bits": bits}
+            del t
+        del outs
+    torch.cuda.empty_cache()
+    cov = np.cov(c1[:, 0, :, 0], rowvar=False)
+    hist = np.histogram(c1, bins=64)
+    uniq = np.unique(c1, return_counts=True)
+    for r in res4:
+        got = r["s19"]
+        verr = float(np.max(np.abs(got["cov"] - cov)) / np.abs(cov).max())
+        check(verr <= 1e-4, "phase 19 four-rank cov (rank %d): %.3g"
+              % (r["rank"], verr))
+        errs["cov_rank%d" % r["rank"]] = verr
+        same(got["histogram"][0], hist[0], "histogram counts (rank %d)"
+             % r["rank"])
+        same(got["histogram"][1], hist[1], "histogram edges (rank %d)"
+             % r["rank"])
+        same(got["unique"][0], uniq[0], "unique values (rank %d)" % r["rank"])
+        same(got["unique"][1], uniq[1], "unique counts (rank %d)" % r["rank"])
+    del c1
+    torch.cuda.empty_cache()
+
+    launches = {path: [p["launches"] for p in per]
+                for path, per in out["paths"].items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["paths_s"] = sum(max(p["wall_s"] for p in per)
+                         for per in out["paths"].values())
+    report["phases"]["numpy_mesh_s"] = out["wall_s"]
+    log("phase 19 ok: %.1f s here (single-device references) and %.1f s of "
+        "paths inside phase 15's pods; errors %s (%s)"
+        % (out["wall_s"], out["paths_s"], json.dumps(errs), out["card"]))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -5232,6 +5445,9 @@ def main():
     # ---- phase 18: the surface on a mesh (paths ran in phase 15's pods) -----
     surface_mesh_launches = surface_mesh_phase(bolt, K, torch, np, dev,
                                                report)
+
+    # ---- phase 19: numpy's table on a mesh (paths ran in phase 15's pods) ---
+    numpy_mesh_launches = numpy_mesh_phase(bolt, K, torch, np, dev, report)
     report["total_s"] = time.perf_counter() - t_start
 
     # each kernel's launches are those of the path that runs it: the moment
@@ -5282,6 +5498,10 @@ def main():
                         "phase18_launches": {
                             path: [c.get(name, 0) for c in per]
                             for path, per in surface_mesh_launches.items()
+                            if any(c.get(name, 0) for c in per)},
+                        "phase19_launches": {
+                            path: [c.get(name, 0) for c in per]
+                            for path, per in numpy_mesh_launches.items()
                             if any(c.get(name, 0) for c in per)}})
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -296,8 +296,17 @@ def test_dryrun_multichip_device_counts(n):
                                       (x * 2.0 + 1.0).sum(axis=(0, 1)))
         # the surface steps (pca, median, cov, the per-chunk SVD, set,
         # sort, quantile, segment_reduce, topk, toarray(out=),
-        # iter_shards) ran and checked themselves on every rank
+        # iter_shards) and the numpy tail (np.sum, np.concatenate, the
+        # stack family, np.roll, np.pad, np.einsum, np.tensordot,
+        # np.broadcast_to, np.cov) ran and checked themselves on every
+        # rank
         np.testing.assert_allclose(r["result"]["pca_svals"], sv, rtol=1e-6)
+        sdata = np.random.RandomState(11).randn(shape[0], 12, 3)
+        tail = r["result"]["numpy"]
+        np.testing.assert_allclose(tail["sum"], sdata.sum(), rtol=1e-12)
+        # np.stack's new leading key axis, einsum's surviving keys,
+        # broadcast_to's prepended key axis
+        assert tail["splits"] == [2, 1, 2]
         assert r["result"]["median_shape"] == [4, 6]
         assert 0 < r["result"]["shard_elements"] <= res[0]["result"][
             "shape"][0] * 12 * 3
@@ -400,16 +409,26 @@ def test_one_rank_mesh_is_the_single_device_path():
 
 def test_multi_rank_mesh_refuses_what_this_slice_does_not_port(pod_k8):
     _ok(pod_k8, "not_ported")
-    got = pod_k8[0]["not_ported"]
-    # the array's own surface runs on the mesh (A12d-1): only numpy's
-    # function table is left (A12d-2)
-    assert set(got) == {"quantile", "getitem", "add", "asarray"}
-    for name in ("getitem", "add", "asarray"):
-        assert got[name] is None, (name, got[name])
-    msg = got["quantile"]
-    assert msg is not None
-    assert "ROADMAP A12d-2" in msg, msg
-    assert "mesh of 8 ranks" in msg, msg
+    x = INPUTS["main_x"]
+    for r in pod_k8:
+        got = r["not_ported"]
+        # the array's own surface and numpy's function table with the
+        # internals only it reaches run on the mesh: nothing is left
+        # guarded
+        calls = {"quantile", "getitem", "add", "asarray", "with_keys",
+                 "host_filter", "accumulate", "wrap"}
+        assert set(got) == calls | {"no_form", "quantile_value",
+                                    "wrap_value"}
+        for name in calls:
+            assert got[name] is None, (name, got[name])
+        # the single-device internals that name no mesh form refuse
+        # rather than gather the whole array unseen
+        assert set(got["no_form"]) == {"_mapped", "_chain_parts"}
+        for name, msg in got["no_form"].items():
+            assert msg is not None and "names no form" in msg, (name, msg)
+        np.testing.assert_allclose(got["quantile_value"],
+                                   np.quantile(x, 0.5), rtol=1e-12)
+        np.testing.assert_array_equal(got["wrap_value"], x)
 
 
 def test_device_placements_and_reshard(mesh2d):
