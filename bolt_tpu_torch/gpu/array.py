@@ -842,12 +842,15 @@ def _chain_sum_lanes(bases, funcs, split, axes):
     if len(bases) == 1:
         out = _chain_sum(bases[0], funcs, split, axes)
         return {} if out is None else {0: out}
-    plans = {i: _chain_sum_plan(b, funcs, split, axes)
-             for i, b in enumerate(bases)}
-    idx = [i for i, p in plans.items() if p is not None]
+    # the lanes share funcs, shape and dtype, so one plan serves the batch;
+    # only contiguity is a lane's own
+    idx = [i for i, b in enumerate(bases) if b.is_contiguous()]
     if not idx:
         return {}
-    program, cols = plans[idx[0]]
+    plan = _chain_sum_plan(bases[idx[0]], funcs, split, axes)
+    if plan is None:
+        return {}
+    program, cols = plan
     vshape = tuple(bases[0].shape[split:])
     n = prod(bases[0].shape[:split])
     xs = [bases[i].reshape(n, prod(vshape)) if cols else bases[i]

@@ -51,18 +51,23 @@
 //     tiles like the others, and runs each call over the tile through the
 //     register file, one 16-byte unit at a time in a loop the compiler
 //     does not unroll, so few registers are live across a call.
-//   * A grid of one wave.  The column form is split by rows and columns
-//     into as many equal shares as the card holds blocks at once (the
-//     wrapper asks the occupancy API): block b takes row units [b*W/P,
-//     (b+1)*W/P) of the W = column blocks * n units, in one to a few
-//     segments of consecutive column blocks, so no block waits for a
+//   * A grid of one wave, and a floor of work a block.  The column form is
+//     split by rows and columns into as many equal shares as the card holds
+//     blocks at once (the wrapper asks the occupancy API): block b takes row
+//     units [b*W/P, (b+1)*W/P) of the W = column blocks * n units, in one to
+//     a few segments of consecutive column blocks, so no block waits for a
 //     second wave.  Each segment writes its partial sums to scratch and a
 //     second kernel adds the partials of each column in block order; when
 //     every block holds exactly one column block whole, the block writes
 //     the output itself and the second kernel is not launched.  The full
 //     form is a grid-stride pass over the same number of blocks, one
 //     partial a block folded by a fixed-order tree, then one block folds
-//     the partials in order.
+//     the partials in order; a grid of one block writes the output itself.
+//     A small input does not take one wave: the wrapper gives each block a
+//     floor of packs a thread (kernels.py :: _MIN_PACKS), so a (128, 32)
+//     f32 base is one block that writes its output, one launch and no
+//     scratch, where a block a row left 31 of its 32 row lanes idle and
+//     needed the second kernel.  At the north-star the floor does not bind.
 //   Column form (n, C) -> (C,): within a segment each thread owns VEC
 //   neighbouring columns (one 16-byte load a row when the alignment
 //   allows); when C is narrower than a block the block's threads also split
@@ -83,13 +88,18 @@
 // (bolt_tpu/ops/kernels.py:99, its pallas_call at :129) when the serving
 // layer's micro-batching (bolt_tpu/tpu/batched.py) vmaps a terminal over
 // W queued requests.  blockIdx.y is the request: each lane reads its own
-// base in place through a device array of pointers (no stacking copy, and
-// each base keeps the 16-byte alignment its standalone launch had) and runs
-// the standalone grid, so each lane's sum equals its standalone launch bit
-// for bit; only lanes of one pack width share a launch.  Bound: at the
-// serving configuration of 16 requests of (128, 32) f32, about 16 * 16 KB
-// read, some 0.1 us of memory time, so a launch there is bound by its
-// launch and the host, not by bytes; a right and simple kernel is enough.
+// base in place (no stacking copy, and each base keeps the 16-byte
+// alignment its standalone launch had) and runs the standalone grid, so
+// each lane's sum equals its standalone launch bit for bit; only lanes of
+// one pack width share a launch.  The lanes' input and output pointers
+// travel by value in the launch's parameters (Lanes, __grid_constant__, up
+// to kMaxLanes a launch), so a call copies no pointer table to the device;
+// the standalone entries pass their one base through the same table.
+// Bound: at the serving configuration of 16 requests of (128, 32) f32,
+// 256 KB read, some 0.08 us of memory time, so a call there is bound by
+// its launch and the host, not by bytes: what the design does about that
+// is one kernel and no scratch a call, and a host path the wrapper plans
+// once a shape.
 
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
@@ -104,6 +114,7 @@ namespace {
 constexpr int kThreads = 256;   // threads per block, a multiple of 32
 constexpr int kMaxInstrs = 32;  // mapexpr.MAX_INSTRUCTIONS
 constexpr int kRegs = 8;        // mapexpr.MAX_REGISTERS
+constexpr int kCombineLoads = 16;  // partials a combine thread has in flight
 
 // opcodes, in the order of bolt_tpu_torch/ops/mapexpr.py :: OPS; *C takes
 // the constant k as its second operand, RSUBC as its first
@@ -141,6 +152,20 @@ struct Program {
   int32_t n, flags, nfile, pad;
   Instr ins[kMaxInstrs];
 };
+
+// The lanes of one launch (blockIdx.y indexes them): each lane's input base
+// and its output, a kernel parameter by value beside the Program, so no
+// pointer table is copied to the device.  The layout of kernels.py ::
+// _Lanes; the standalone entries fill lane 0.
+constexpr int kMaxLanes = 64;   // kernels.py :: _MAX_LANES
+struct Lanes {
+  const void* in[kMaxLanes];
+  void* out[kMaxLanes];
+};
+// Every CUDA 12 toolkit takes 4 KB of kernel parameters: the Program, the
+// table and the scalar parameters (at most 64 bytes beside them) fit.
+static_assert(sizeof(Program) + sizeof(Lanes) + 64 <= 4096,
+              "a launch's parameters must stay within 4 KB");
 
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<double> { using type = double; };
@@ -536,28 +561,24 @@ __device__ __forceinline__ int64_t unit_start(int64_t b, int64_t W, int64_t P) {
 // in T; otherwise segment s writes its sums, in the accumulator type, to
 // part[(blockIdx.x * segs + s) * cw + column within the column block].
 //
-// Batched lanes (bolt_fused_map_reduce_cols_lanes): with ptrs set,
-// blockIdx.y is the batch lane b of nb; its input is ptrs[b], its output
-// ptrs[nb + b] and its scratch the b-th slice of part.  Every lane runs the
-// standalone grid over its own base, so each lane's sums are the standalone
-// launch's bit for bit.  ptrs is null for the standalone launch (one lane).
+// blockIdx.y is the batch lane b: its input is io.in[b], its output
+// io.out[b] and its scratch the b-th slice of part.  Every lane runs the
+// standalone grid over its own base, so each lane's sums are the
+// standalone launch's bit for bit (the standalone launch is lane 0 of 1).
 template <typename T, int VEC, int ROWS, bool kCalls>
 __global__ void __launch_bounds__(kThreads, 2)
-mr_cols_kernel(const __grid_constant__ Program prog, const T* __restrict__ x,
+mr_cols_kernel(const __grid_constant__ Program prog, const __grid_constant__ Lanes io,
                const uint8_t* __restrict__ mask, typename Acc<T>::type* __restrict__ part,
-               T* __restrict__ out, int64_t n, int64_t C, int lanes, int segs,
-               const int64_t* __restrict__ ptrs, int nb) {
+               int64_t n, int64_t C, int lanes, int segs) {
   using A = typename Acc<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const File<A, ROWS * VEC> file{smem};
   const int width = kThreads / lanes;
   const int lane = threadIdx.x / width;
   const int64_t cw = (int64_t)width * VEC;
-  if (ptrs != nullptr) {
-    x = reinterpret_cast<const T*>(ptrs[blockIdx.y]);
-    out = reinterpret_cast<T*>(ptrs[nb + blockIdx.y]);
-    if (part != nullptr) part += (int64_t)blockIdx.y * gridDim.x * segs * cw;
-  }
+  const T* __restrict__ x = static_cast<const T*>(io.in[blockIdx.y]);
+  T* __restrict__ out = static_cast<T*>(io.out[blockIdx.y]);
+  if (part != nullptr) part += (int64_t)blockIdx.y * gridDim.x * segs * cw;
   const int64_t W = (C + cw - 1) / cw * n;
   const int64_t u0 = unit_start(blockIdx.x, W, gridDim.x);
   const int64_t u1 = unit_start((int64_t)blockIdx.x + 1, W, gridDim.x);
@@ -591,19 +612,22 @@ mr_cols_kernel(const __grid_constant__ Program prog, const T* __restrict__ x,
 }
 
 // out[c] = the partials of column c, from the blocks whose shares hold its
-// column block, added in block order, in T.
-// With ptrs set, blockIdx.y is the batch lane (its partials and its output,
-// as in mr_cols_kernel).
+// column block, added in block order, in T.  blockIdx.y is the batch lane
+// (its partials and its output io.out[b], as in mr_cols_kernel).  The
+// partials are loaded kCombineLoads at a time, all in flight before they
+// are added in order, and only the first block's segment is computed (a
+// 64-bit division): a narrow input split by rows gives a column the
+// partials of hundreds of blocks, and a division and one load at a time
+// left the thread waiting on each (96 us of a (8192, 256) f32 launch's
+// 102, PERF.md).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mr_cols_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __restrict__ out,
-                       int64_t n, int64_t C, int64_t cw, int64_t P, int segs,
-                       const int64_t* __restrict__ ptrs, int nb) {
+mr_cols_combine_kernel(const typename Acc<T>::type* __restrict__ part,
+                       const __grid_constant__ Lanes io, int64_t n, int64_t C, int64_t cw,
+                       int64_t P, int segs) {
   using A = typename Acc<T>::type;
-  if (ptrs != nullptr) {
-    part += (int64_t)blockIdx.y * P * segs * cw;
-    out = reinterpret_cast<T*>(ptrs[nb + blockIdx.y]);
-  }
+  part += (int64_t)blockIdx.y * P * segs * cw;
+  T* __restrict__ out = static_cast<T*>(io.out[blockIdx.y]);
   const int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (c >= C) return;
   const int64_t W = (C + cw - 1) / cw * n;
@@ -611,11 +635,23 @@ mr_cols_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __rest
   // the block holding unit u is the last b with unit_start(b) <= u
   const int64_t b0 = ((g * n + 1) * P - 1) / W;
   const int64_t b1 = ((g * n + n) * P - 1) / W;
+  // block b0 may start in an earlier column block, so this one is its
+  // segment g - (its first); every later block of the range starts inside
+  // this column block, so this is its segment 0
+  const int64_t col = c - g * cw;
+  const int64_t stride = (int64_t)segs * cw;   // from one block's partials to the next's
   A s = A(0);
-  for (int64_t b = b0; b <= b1; ++b) {
-    const int64_t seg = g - unit_start(b, W, P) / n;
-    s += part[(b * segs + seg) * cw + (c - g * cw)];
+  s += part[(b0 * segs + g - unit_start(b0, W, P) / n) * cw + col];
+  const A* __restrict__ p = part + (b0 + 1) * stride + col;
+  int64_t left = b1 - b0;
+  for (; left >= kCombineLoads; left -= kCombineLoads, p += kCombineLoads * stride) {
+    A v[kCombineLoads];
+#pragma unroll
+    for (int j = 0; j < kCombineLoads; ++j) v[j] = p[j * stride];
+#pragma unroll
+    for (int j = 0; j < kCombineLoads; ++j) s += v[j];
   }
+  for (int64_t j = 0; j < left; ++j) s += p[j * stride];
   out[c] = from_acc<T>(s);
 }
 
@@ -639,25 +675,24 @@ cudaError_t allow_smem(F kernel, size_t smem) {
 
 struct ColsLaunch {
   template <typename T, int VEC, int ROWS, bool kCalls>
-  static cudaError_t run(const Program& prog, const void* x, const void* mask, void* part,
-                         void* out, int64_t n, int64_t C, int lanes, int blocks, int segs,
-                         const int64_t* ptrs, int nb, cudaStream_t stream) {
+  static cudaError_t run(const Program& prog, const Lanes* io, const void* mask, void* part,
+                         int64_t n, int64_t C, int lanes, int blocks, int segs, int nb,
+                         cudaStream_t stream) {
     using A = typename Acc<T>::type;
     if (lanes < 1 || lanes > kThreads || kThreads % lanes != 0 || blocks < 1 || segs < 1 ||
-        nb < 1 || nb > 65535)
+        nb < 1 || nb > kMaxLanes)
       return cudaErrorInvalidValue;
     const size_t smem = cols_smem<T, VEC, ROWS, kCalls>(prog.nfile, lanes);
     cudaError_t err = allow_smem(mr_cols_kernel<T, VEC, ROWS, kCalls>, smem);
     if (err != cudaSuccess) return err;
     mr_cols_kernel<T, VEC, ROWS, kCalls><<<dim3(blocks, nb), kThreads, smem, stream>>>(
-        prog, static_cast<const T*>(x), static_cast<const uint8_t*>(mask), static_cast<A*>(part),
-        static_cast<T*>(out), n, C, lanes, segs, ptrs, nb);
+        prog, *io, static_cast<const uint8_t*>(mask), static_cast<A*>(part), n, C, lanes, segs);
     err = cudaGetLastError();
     if (err != cudaSuccess || part == nullptr) return err;
     const int64_t cw = (int64_t)(kThreads / lanes) * VEC;
     const unsigned cgrid = (unsigned)((C + kThreads - 1) / kThreads);
     mr_cols_combine_kernel<T><<<dim3(cgrid, nb), kThreads, 0, stream>>>(
-        static_cast<const A*>(part), static_cast<T*>(out), n, C, cw, blocks, segs, ptrs, nb);
+        static_cast<const A*>(part), *io, n, C, cw, blocks, segs);
     return cudaGetLastError();
   }
 };
@@ -698,22 +733,19 @@ __device__ __forceinline__ A block_sum(A s) {
 
 // One partial sum of fn per block over a grid-stride pass (thread i takes
 // packs i, i + stride, ..., ROWS of them a tile); part is (gridDim.x,) in
-// the accumulator type.  With ptrs set, blockIdx.y is the batch lane b: its
-// input is ptrs[b] and its partials the b-th slice of part (ptrs is null
-// for the standalone launch).
+// the accumulator type.  A grid of one block writes its sum to the output
+// itself, in T, and takes no scratch (part null).  blockIdx.y is the batch
+// lane b: its input is io.in[b], its output io.out[b] and its partials the
+// b-th slice of part.
 template <typename T, int VEC, int ROWS, bool kCalls>
 __global__ void __launch_bounds__(kThreads, 2)
-mr_full_partial_kernel(const __grid_constant__ Program prog, const T* __restrict__ x,
-                       typename Acc<T>::type* __restrict__ part, int64_t N,
-                       const int64_t* __restrict__ ptrs) {
+mr_full_partial_kernel(const __grid_constant__ Program prog, const __grid_constant__ Lanes io,
+                       typename Acc<T>::type* __restrict__ part, int64_t N) {
   using A = typename Acc<T>::type;
   constexpr int kTile = ROWS * VEC;
   extern __shared__ __align__(16) unsigned char smem[];
   const File<A, kTile> file{smem};
-  if (ptrs != nullptr) {
-    x = reinterpret_cast<const T*>(ptrs[blockIdx.y]);
-    part += (int64_t)blockIdx.y * gridDim.x;
-  }
+  const T* __restrict__ x = static_cast<const T*>(io.in[blockIdx.y]);
   A acc[VEC];
 #pragma unroll
   for (int v = 0; v < VEC; ++v) acc[v] = A(0);
@@ -738,21 +770,23 @@ mr_full_partial_kernel(const __grid_constant__ Program prog, const T* __restrict
     s += t[0];
   }
   s = block_sum(s);
-  if (threadIdx.x == 0) part[blockIdx.x] = s;
+  if (threadIdx.x != 0) return;
+  if (part == nullptr)
+    *static_cast<T*>(io.out[blockIdx.y]) = from_acc<T>(s);
+  else
+    part[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
 // One block folds the P partials: thread t takes t, t + kThreads, ... in
-// order, then the block sum runs in its fixed order.  With ptrs set, block b
-// folds batch lane b's partials into ptrs[nb + b].
+// order, then the block sum runs in its fixed order.  Block b folds batch
+// lane b's partials into io.out[b].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mr_full_combine_kernel(const typename Acc<T>::type* __restrict__ part, T* __restrict__ out,
-                       int P, const int64_t* __restrict__ ptrs, int nb) {
+mr_full_combine_kernel(const typename Acc<T>::type* __restrict__ part,
+                       const __grid_constant__ Lanes io, int P) {
   using A = typename Acc<T>::type;
-  if (ptrs != nullptr) {
-    part += (int64_t)blockIdx.x * P;
-    out = reinterpret_cast<T*>(ptrs[nb + blockIdx.x]);
-  }
+  part += (int64_t)blockIdx.x * P;
+  T* __restrict__ out = static_cast<T*>(io.out[blockIdx.x]);
   A s = A(0);
   for (int p = threadIdx.x; p < P; p += kThreads) s += part[p];
   s = block_sum(s);
@@ -766,19 +800,21 @@ size_t full_smem(int nfile) {
 
 struct FullLaunch {
   template <typename T, int VEC, int ROWS, bool kCalls>
-  static cudaError_t run(const Program& prog, const void* x, void* part, void* out, int64_t N,
-                         int blocks, const int64_t* ptrs, int nb, cudaStream_t stream) {
+  static cudaError_t run(const Program& prog, const Lanes* io, void* part, int64_t N, int blocks,
+                         int nb, cudaStream_t stream) {
     using A = typename Acc<T>::type;
-    if (blocks < 1 || nb < 1 || nb > 65535) return cudaErrorInvalidValue;
+    if (blocks < 1 || nb < 1 || nb > kMaxLanes || (blocks > 1 && part == nullptr))
+      return cudaErrorInvalidValue;
+    if (blocks == 1) part = nullptr;   // the one block writes the output
     const size_t smem = full_smem<T, VEC, ROWS, kCalls>(prog.nfile);
     cudaError_t err = allow_smem(mr_full_partial_kernel<T, VEC, ROWS, kCalls>, smem);
     if (err != cudaSuccess) return err;
     mr_full_partial_kernel<T, VEC, ROWS, kCalls><<<dim3(blocks, nb), kThreads, smem, stream>>>(
-        prog, static_cast<const T*>(x), static_cast<A*>(part), N, ptrs);
+        prog, *io, static_cast<A*>(part), N);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    mr_full_combine_kernel<T><<<nb, kThreads, 0, stream>>>(static_cast<const A*>(part),
-                                                          static_cast<T*>(out), blocks, ptrs, nb);
+    if (err != cudaSuccess || part == nullptr) return err;
+    mr_full_combine_kernel<T><<<nb, kThreads, 0, stream>>>(static_cast<const A*>(part), *io,
+                                                          blocks);
     return cudaGetLastError();
   }
 };
@@ -874,49 +910,53 @@ int bolt_fused_map_reduce_cols(const void* prog, const void* x, const void* mask
                                int dtype, int vec, int rows, void* stream) {
   const Program& p = *static_cast<const Program*>(prog);
   if (!valid(p)) return cudaErrorInvalidValue;
-  return by_dtype<ColsLaunch>(dtype, vec, rows, calls(p), p, x, mask, part, out, n, C, lanes,
-                              blocks, segs, static_cast<const int64_t*>(nullptr), 1,
+  Lanes io{};
+  io.in[0] = x;
+  io.out[0] = out;
+  return by_dtype<ColsLaunch>(dtype, vec, rows, calls(p), p, static_cast<const Lanes*>(&io),
+                              mask, part, n, C, lanes, blocks, segs, 1,
                               static_cast<cudaStream_t>(stream));
 }
 
 // prog: as above; x: N contiguous elements; part: (blocks,) scratch in the
-// accumulator type; out: one element in x's type.
+// accumulator type, or null for a grid of one block; out: one element in
+// x's type.
 int bolt_fused_map_reduce_full(const void* prog, const void* x, void* part, void* out, int64_t N,
                                int blocks, int dtype, int vec, int rows, void* stream) {
   const Program& p = *static_cast<const Program*>(prog);
   if (!valid(p)) return cudaErrorInvalidValue;
-  return by_dtype<FullLaunch>(dtype, vec, rows, calls(p), p, x, part, out, N, blocks,
-                              static_cast<const int64_t*>(nullptr), 1,
-                              static_cast<cudaStream_t>(stream));
+  Lanes io{};
+  io.in[0] = x;
+  io.out[0] = out;
+  return by_dtype<FullLaunch>(dtype, vec, rows, calls(p), p, static_cast<const Lanes*>(&io),
+                              part, N, blocks, 1, static_cast<cudaStream_t>(stream));
 }
 
-// The batched lanes of the two forms: nb bases of one shape, each summed by
-// the standalone grid (the wrapper passes the standalone plan: blocks,
-// segs, vec and rows exactly as for one base), blockIdx.y the lane.  ptrs:
-// 2 * nb device int64s, the lanes' input pointers then their output
-// pointers (one element for the full form, C for the column form); part:
-// nb slices of the standalone scratch, lane after lane.  No mask.
-int bolt_fused_map_reduce_cols_lanes(const void* prog, const void* ptrs, int nb, void* part,
+// The batched lanes of the two forms: nb (at most kMaxLanes) bases of one
+// shape, each summed by the standalone grid (the wrapper passes the
+// standalone plan: blocks, segs, vec and rows exactly as for one base),
+// blockIdx.y the lane.  table: the host Lanes of the nb lanes' input and
+// output pointers (one output element for the full form, C for the column
+// form), copied into the launch's parameters; part: nb slices of the
+// standalone scratch, lane after lane, or null where the standalone plan
+// takes none.  No mask.
+int bolt_fused_map_reduce_cols_lanes(const void* prog, const void* table, int nb, void* part,
                                      int64_t n, int64_t C, int lanes, int blocks, int segs,
                                      int dtype, int vec, int rows, void* stream) {
   const Program& p = *static_cast<const Program*>(prog);
-  if (!valid(p) || ptrs == nullptr) return cudaErrorInvalidValue;
-  return by_dtype<ColsLaunch>(dtype, vec, rows, calls(p), p, static_cast<const void*>(nullptr),
-                              static_cast<const void*>(nullptr), part,
-                              static_cast<void*>(nullptr), n, C, lanes, blocks, segs,
-                              static_cast<const int64_t*>(ptrs), nb,
-                              static_cast<cudaStream_t>(stream));
+  if (!valid(p) || table == nullptr) return cudaErrorInvalidValue;
+  return by_dtype<ColsLaunch>(dtype, vec, rows, calls(p), p, static_cast<const Lanes*>(table),
+                              static_cast<const void*>(nullptr), part, n, C, lanes, blocks, segs,
+                              nb, static_cast<cudaStream_t>(stream));
 }
 
-int bolt_fused_map_reduce_full_lanes(const void* prog, const void* ptrs, int nb, void* part,
+int bolt_fused_map_reduce_full_lanes(const void* prog, const void* table, int nb, void* part,
                                      int64_t N, int blocks, int dtype, int vec, int rows,
                                      void* stream) {
   const Program& p = *static_cast<const Program*>(prog);
-  if (!valid(p) || ptrs == nullptr) return cudaErrorInvalidValue;
-  return by_dtype<FullLaunch>(dtype, vec, rows, calls(p), p, static_cast<const void*>(nullptr),
-                              part, static_cast<void*>(nullptr), N, blocks,
-                              static_cast<const int64_t*>(ptrs), nb,
-                              static_cast<cudaStream_t>(stream));
+  if (!valid(p) || table == nullptr) return cudaErrorInvalidValue;
+  return by_dtype<FullLaunch>(dtype, vec, rows, calls(p), p, static_cast<const Lanes*>(table),
+                              part, N, blocks, nb, static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of a variant's kernel (form 0: the column form with `lanes` row
@@ -930,7 +970,9 @@ int bolt_map_reduce_resident(int form, int lanes, int dtype, int vec, int rows, 
   return by_dtype<FullResident>(dtype, vec, rows, calls != 0, nfile, lanes, blocks_per_sm);
 }
 
-// sizeof(Program), for the wrapper's check of its ctypes mirror.
+// sizeof(Program) and sizeof(Lanes), for the wrapper's check of its ctypes
+// mirrors.
 int bolt_map_program_bytes() { return (int)sizeof(Program); }
+int bolt_map_lanes_bytes() { return (int)sizeof(Lanes); }
 
 }  // extern "C"

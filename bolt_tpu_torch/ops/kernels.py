@@ -31,8 +31,9 @@ the kernel.
   ``(n, C) -> (C,)`` with an optional record mask, the body of
   ``map(fn).sum()`` and ``filter(...).sum()`` (``csrc/mapreduce.cu``);
   :func:`fused_map_reduce_lanes` runs either form over the bases of W
-  batched serve requests in one launch (the batch axis ``jax.vmap`` gives
-  the reference's kernel), counted as ``fused_map_reduce_lanes``.
+  batched serve requests in one launch of up to ``_MAX_LANES`` lanes (the
+  batch axis ``jax.vmap`` gives the reference's kernel), their pointers
+  in the launch's parameters, counted as ``fused_map_reduce_lanes``.
 
 The reference's TPU gates (128-lane minor dimension, the VMEM budgets,
 ``_MINOR_MAX_TAPS``, the band's radius of 128) are not carried over: each
@@ -107,6 +108,7 @@ _SIGNATURES = {
         "bolt_map_reduce_resident": [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int)],
         "bolt_map_program_bytes": [],
+        "bolt_map_lanes_bytes": [],
     },
 }
 
@@ -695,27 +697,56 @@ def _calls(program):
         for op, _, _, _, k in program.instrs)
 
 
+class _Encoded:
+    """What the wrapper derives from a program once: its :func:`_encode`
+    struct (and that struct's address, which each launch passes), its
+    :func:`_calls`, and its launch records by form, shape, device and
+    pack width (:func:`_record`)."""
+
+    __slots__ = ("struct", "addr", "calls", "records")
+
+    def __init__(self, program):
+        self.struct = _encode(program)
+        self.addr = ctypes.addressof(self.struct)
+        self.calls = _calls(program)
+        self.records = {}
+
+
 def _encoded(program):
-    """``(struct, calls)`` of ``program``: its :func:`_encode` struct and
-    :func:`_calls`, made on its first launch and kept on the program."""
+    """The :class:`_Encoded` of ``program``, made on its first launch and
+    kept on the program."""
     enc = program.kernel
     if enc is None:
-        enc = program.kernel = (_encode(program), _calls(program))
+        enc = program.kernel = _Encoded(program)
     return enc
 
 
 def _program_struct(program):
     """The kernel's encoding of ``program`` (kept on the program)."""
-    return _encoded(program)[0]
+    return _encoded(program).struct
+
+
+# lanes a launch of fused_map_reduce_lanes takes (mapreduce.cu kMaxLanes):
+# the lanes' pointers travel in the launch's parameters, by value
+_MAX_LANES = 64
+
+
+class _Lanes(ctypes.Structure):
+    """mapreduce.cu's ``Lanes``: the input base and the output of each lane
+    of a launch, copied into the launch's parameters."""
+    _fields_ = [("inp", ctypes.c_void_p * _MAX_LANES),
+                ("out", ctypes.c_void_p * _MAX_LANES)]
 
 
 @lru_cache(maxsize=None)
 def _mapreduce_lib():
     lib = _lib("mapreduce.cu")
-    if lib.bolt_map_program_bytes() != ctypes.sizeof(_Program):
-        raise RuntimeError("mapreduce.cu's Program is %d bytes, its ctypes "
-                           "mirror %d" % (lib.bolt_map_program_bytes(),
-                                          ctypes.sizeof(_Program)))
+    for name, mirror in (("Program", _Program), ("Lanes", _Lanes)):
+        size = getattr(lib, "bolt_map_%s_bytes" % name.lower())()
+        if size != ctypes.sizeof(mirror):
+            raise RuntimeError("mapreduce.cu's %s is %d bytes, its ctypes "
+                               "mirror %d" % (name, size,
+                                              ctypes.sizeof(mirror)))
     return lib
 
 
@@ -742,6 +773,14 @@ def tile_rows(element_size, vec, nregs):
     return wide if nregs * per_register <= _FILE_BYTES else wide // 2
 
 
+# the floor of work a map-reduce block takes: packs of one thread (16
+# bytes each, or one element where the alignment is lost) before the plan
+# adds a block.  It binds only where the input is too small to fill the
+# card's resident blocks at that much work each: a (128, 32) f32 base is
+# then one block that writes its output (sized on the card with
+# tools/mapreduce_probe.py --lanes --floors; PERF.md)
+_MIN_PACKS = 8
+
 MapReducePlan = namedtuple("MapReducePlan", "lanes blocks segs direct")
 
 
@@ -752,18 +791,44 @@ def map_reduce_plan(n, columns, vec, resident):
     cover ``G`` column blocks of ``_THREADS // lanes * vec`` columns, and
     the ``W = G * n`` row units split into ``blocks = min(resident, W)``
     equal shares, one a block: one wave, so no SM waits on a second one.
-    ``segs`` bounds the column blocks one share touches (the scratch holds
-    ``blocks * segs`` partial rows); ``direct`` when every block holds one
-    column block whole (``blocks == G``), so the kernel writes the output
-    and no partials are combined."""
+    A small input takes fewer blocks: each gets at least ``lanes *
+    _MIN_PACKS`` units (``_MIN_PACKS`` packs a thread) but never fewer
+    than ``G`` blocks, which each hold one column block whole; the floor
+    binds only where ``W < lanes * _MIN_PACKS * resident``.  ``segs``
+    bounds the column blocks one share touches (the scratch holds ``blocks
+    * segs`` partial rows); ``direct`` when every block holds one column
+    block whole (``blocks == G``), so the kernel writes the output and no
+    partials are combined."""
     lanes = _lanes(columns, vec)
     groups = -(-columns // (_THREADS // lanes * vec))
     units = groups * n
-    blocks = max(1, min(resident, units))
+    floor = -(-units // (lanes * _MIN_PACKS))
+    blocks = max(1, min(resident, units, max(groups, floor)))
     if blocks == groups:
         return MapReducePlan(lanes, blocks, 1, True)
     segs = (-(-units // blocks) - 1) // n + 2
     return MapReducePlan(lanes, blocks, segs, False)
+
+
+def _full_plan(numel, vec, resident):
+    """The grid of :func:`fused_map_reduce_program` on ``numel`` elements,
+    ``vec`` a pack: one wave of at most ``resident`` blocks, each thread
+    taking at least ``_MIN_PACKS`` packs, so a small input is one block,
+    which writes the output with no scratch and no fold kernel."""
+    units = -(-numel // (vec * _THREADS))
+    return max(1, min(resident, -(-units // _MIN_PACKS)))
+
+
+def lane_launches(vecs, capacity=_MAX_LANES):
+    """How :func:`fused_map_reduce_lanes` splits a batch whose lanes load
+    ``vecs[i]`` elements a pack: ``[(vec, [lane, ...]), ...]``, the lanes
+    of one pack width together (in the order the widths first appear,
+    each in lane order), at most ``capacity`` lanes a launch."""
+    groups = {}
+    for i, vec in enumerate(vecs):
+        groups.setdefault(vec, []).append(i)
+    return [(vec, idx[k:k + capacity]) for vec, idx in groups.items()
+            for k in range(0, len(idx), capacity)]
 
 
 @lru_cache(maxsize=None)
@@ -826,20 +891,16 @@ def fused_map_reduce_cols(x, program, mask=None):
     if n == 0 or columns == 0:
         return out.zero_()
     m = None if mask is None else mask.contiguous().view(torch.uint8)
-    struct, calls = _encoded(program)
-    vec, rows, lanes, plan = _cols_plan(x, struct, calls)
-    part = None if plan.direct else torch.empty(
-        plan.blocks * plan.segs * (_THREADS // lanes) * vec,
-        dtype=_acc_dtype(x.dtype), device=x.device)
-    lib = _mapreduce_lib()
-    stream = _stream(x.device)
+    enc = _encoded(program)
+    rec = _record(enc, True, (n, columns), x.dtype, x.device,
+                  _vec(x, columns))
+    part = None if not rec.part else torch.empty(
+        rec.part, dtype=_acc_dtype(x.dtype), device=x.device)
     with _on_device(x.device):
-        code = lib.bolt_fused_map_reduce_cols(
-            ctypes.byref(struct), x.data_ptr(),
-            None if m is None else m.data_ptr(),
-            None if part is None else part.data_ptr(), out.data_ptr(), n,
-            columns, lanes, plan.blocks, plan.segs, _DTYPE_CODE[x.dtype],
-            vec, rows, stream)
+        code = _mapreduce_lib().bolt_fused_map_reduce_cols(
+            enc.addr, x.data_ptr(), None if m is None else m.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            *rec.args, _stream(x.device))
     _check(code, "fused_map_reduce")
     LAUNCHES["fused_map_reduce"] += 1
     return out
@@ -852,46 +913,67 @@ def fused_map_reduce_program(x, program):
     _check_program(x, program)
     if x.device.type == "cpu":
         return _fused_map_reduce_plain(x, program)
-    x = _on_card(x, "fused_map_reduce").reshape(-1)
-    out = torch.empty(1, dtype=x.dtype, device=x.device)
-    if x.numel() == 0:
-        return out.zero_().reshape(())
-    struct, calls = _encoded(program)
+    x = _on_card(x, "fused_map_reduce")
+    out = torch.empty((), dtype=x.dtype, device=x.device)
+    numel = x.numel()
+    if numel == 0:
+        return out.zero_()
+    enc = _encoded(program)
     # one row: the kernel folds the ragged tail itself
-    vec, rows, blocks = _full_plan(x, struct, calls)
-    part = torch.empty(blocks, dtype=_acc_dtype(x.dtype), device=x.device)
-    lib = _mapreduce_lib()
-    stream = _stream(x.device)
+    rec = _record(enc, False, numel, x.dtype, x.device, _vec(x, 0))
+    part = None if not rec.part else torch.empty(
+        rec.part, dtype=_acc_dtype(x.dtype), device=x.device)
     with _on_device(x.device):
-        code = lib.bolt_fused_map_reduce_full(
-            ctypes.byref(struct), x.data_ptr(), part.data_ptr(),
-            out.data_ptr(), x.numel(), blocks, _DTYPE_CODE[x.dtype], vec,
-            rows, stream)
+        code = _mapreduce_lib().bolt_fused_map_reduce_full(
+            enc.addr, x.data_ptr(), None if part is None else part.data_ptr(),
+            out.data_ptr(), *rec.args, _stream(x.device))
     _check(code, "fused_map_reduce")
     LAUNCHES["fused_map_reduce"] += 1
-    return out.reshape(())
+    return out
 
 
-def _cols_plan(x, struct, calls):
-    """The standalone column-form plan of the contiguous 2-d ``x``:
-    ``(vec, rows, lanes, MapReducePlan)``."""
-    n, columns = x.shape
-    vec = _vec(x, columns)
-    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
-    lanes = _lanes(columns, vec)
-    plan = map_reduce_plan(n, columns, vec, _resident(
-        x.device, 0, lanes, x.dtype, vec, rows, calls, struct.nfile))
-    return vec, rows, lanes, plan
+# a launch of the map-reduce kernel planned once: ``args``, the C entry
+# points' arguments from the shape on (the plan, the dtype code and the
+# variant); ``part``, the scratch elements a lane takes (0: none, the
+# kernel writes its output); ``kernels``, the kernels a launch runs (2
+# where a combine or fold kernel adds the partials)
+_Launch = namedtuple("_Launch", "args part kernels")
+_RECORDS_MAX = 64       # launch records kept a program
 
 
-def _full_plan(x, struct, calls):
-    """The standalone full-form plan of the flat ``x``: ``(vec, rows,
-    blocks)``."""
-    vec = _vec(x, 0)
-    rows = tile_rows(x.element_size(), vec, struct.nfile + calls)
-    blocks = max(1, min(-(-x.numel() // (vec * _THREADS)), _resident(
-        x.device, 1, 1, x.dtype, vec, rows, calls, struct.nfile)))
-    return vec, rows, blocks
+def _record(enc, cols, dims, dtype, device, vec):
+    """The :data:`_Launch` of the program ``enc`` on a contiguous base of
+    ``dtype`` on the CUDA ``device``, loading ``vec`` elements a pack:
+    the column form on ``dims = (n, C)`` or the full form on ``dims``
+    elements.  Planned on first use (the tile, the occupancy API's
+    resident blocks, the grid) and kept on the program, so a launch only
+    fills in its pointers."""
+    key = (cols, dims, device, vec)
+    rec = enc.records.get(key)
+    if rec is not None:
+        return rec
+    struct, calls = enc.struct, enc.calls
+    rows = tile_rows(dtype.itemsize, vec, struct.nfile + calls)
+    code = _DTYPE_CODE[dtype]
+    if cols:
+        n, columns = dims
+        lanes = _lanes(columns, vec)
+        plan = map_reduce_plan(n, columns, vec, _resident(
+            device, 0, lanes, dtype, vec, rows, calls, struct.nfile))
+        part = 0 if plan.direct else \
+            plan.blocks * plan.segs * (_THREADS // lanes) * vec
+        rec = _Launch((n, columns, lanes, plan.blocks, plan.segs, code, vec,
+                       rows), part, 1 if plan.direct else 2)
+    else:
+        blocks = _full_plan(dims, vec, _resident(
+            device, 1, 1, dtype, vec, rows, calls, struct.nfile))
+        part = 0 if blocks == 1 else blocks
+        rec = _Launch((dims, blocks, code, vec, rows), part,
+                      1 if blocks == 1 else 2)
+    if len(enc.records) >= _RECORDS_MAX:
+        enc.records.clear()
+    enc.records[key] = rec
+    return rec
 
 
 def _fused_map_reduce_lanes_plain(xs, program, cols=False):
@@ -909,70 +991,60 @@ def fused_map_reduce_lanes(xs, program, cols=False):
     (``gpu/batched.py``).  Each lane gets the standalone plan of its own
     base (pack width, tile, grid and scratch), so lane ``i`` equals the
     standalone launch on ``xs[i]`` bit for bit; the lanes of one pack
-    width (a base's 16-byte alignment decides it) share one launch, whose
-    grid's second axis is the lane, reading each base in place through a
-    device array of pointers."""
+    width (a base's 16-byte alignment decides it) share a launch, up to
+    ``_MAX_LANES`` a launch (:func:`lane_launches`), whose grid's second
+    axis is the lane, reading each base in place through the pointers
+    the launch's parameters carry (no table is copied to the device).
+    The plan comes from the program's launch record, made once a shape."""
     xs = list(xs)
     if not xs:
         raise ValueError("fused_map_reduce_lanes needs at least one lane")
     x0 = xs[0]
+    _check_program(x0, program)
+    shape, dtype, device = x0.shape, x0.dtype, x0.device
     for x in xs:
-        _check_program(x, program)
-        if (tuple(x.shape) != tuple(x0.shape) or x.dtype != x0.dtype
-                or x.device != x0.device):
+        if x.shape != shape or x.dtype != dtype or x.device != device:
             raise ValueError("fused_map_reduce_lanes takes lanes of one "
                              "shape, dtype and device; got %s %s on %s "
                              "beside %s %s on %s"
                              % (tuple(x.shape), x.dtype, x.device,
-                                tuple(x0.shape), x0.dtype, x0.device))
-    if cols and x0.ndim != 2:
+                                tuple(shape), dtype, device))
+    if cols and len(shape) != 2:
         raise ValueError("the column form takes 2-d lanes, got shape %s"
-                         % (tuple(x0.shape),))
-    if x0.device.type == "cpu":
+                         % (tuple(shape),))
+    if device.type == "cpu":
         return _fused_map_reduce_lanes_plain(xs, program, cols)
-    xs = [_on_card(x, "fused_map_reduce") for x in xs]
-    if not cols:
-        xs = [x.reshape(-1) for x in xs]
-    device, dtype = x0.device, x0.dtype
-    nb = len(xs)
-    out = torch.empty((nb,) + ((x0.shape[1],) if cols else ()),
+    if dtype not in _DTYPE_CODE:
+        _on_card(x0, "fused_map_reduce")        # raises the TypeError
+    out = torch.empty((len(xs),) + ((shape[1],) if cols else ()),
                       dtype=dtype, device=device)
-    if xs[0].numel() == 0:
+    numel = x0.numel()
+    if numel == 0:
         return out.zero_()
-    struct, calls = _encoded(program)
+    xs = [x if x.is_contiguous() else x.contiguous() for x in xs]
+    ptrs = [x.data_ptr() for x in xs]
+    width = 16 // x0.element_size()
+    row = shape[1] if cols else 0
+    vecs = [width if p % 16 == 0 and row % width == 0 else 1 for p in ptrs]
+    o, step = out.data_ptr(), (shape[1] if cols else 1) * x0.element_size()
+    enc = _encoded(program)
     lib = _mapreduce_lib()
-    # lanes of one pack width share a launch
-    groups = {}
-    for i, x in enumerate(xs):
-        vec = _vec(x, x.shape[1] if cols else 0)
-        groups.setdefault(vec, []).append(i)
-    for idx in groups.values():
-        lane = [xs[i] for i in idx]
-        ptrs = torch.tensor([x.data_ptr() for x in lane]
-                            + [out[i].data_ptr() for i in idx],
-                            dtype=torch.int64).to(device)
-        stream = _stream(device)
-        if cols:
-            n, columns = lane[0].shape
-            vec, rows, lanes, plan = _cols_plan(lane[0], struct, calls)
-            part = None if plan.direct else torch.empty(
-                len(idx) * plan.blocks * plan.segs * (_THREADS // lanes)
-                * vec, dtype=_acc_dtype(dtype), device=device)
-            with _on_device(device):
-                code = lib.bolt_fused_map_reduce_cols_lanes(
-                    ctypes.byref(struct), ptrs.data_ptr(), len(idx),
-                    None if part is None else part.data_ptr(), n, columns,
-                    lanes, plan.blocks, plan.segs, _DTYPE_CODE[dtype], vec,
-                    rows, stream)
-        else:
-            vec, rows, blocks = _full_plan(lane[0], struct, calls)
-            part = torch.empty(len(idx) * blocks, dtype=_acc_dtype(dtype),
-                               device=device)
-            with _on_device(device):
-                code = lib.bolt_fused_map_reduce_full_lanes(
-                    ctypes.byref(struct), ptrs.data_ptr(), len(idx),
-                    part.data_ptr(), lane[0].numel(), blocks,
-                    _DTYPE_CODE[dtype], vec, rows, stream)
+    entry = lib.bolt_fused_map_reduce_cols_lanes if cols else \
+        lib.bolt_fused_map_reduce_full_lanes
+    dims = tuple(shape) if cols else numel
+    stream = _stream(device)
+    for vec, idx in lane_launches(vecs):
+        rec = _record(enc, cols, dims, dtype, device, vec)
+        table = _Lanes()
+        k = len(idx)
+        table.inp[:k] = [ptrs[i] for i in idx]
+        table.out[:k] = [o + i * step for i in idx]
+        part = None if not rec.part else torch.empty(
+            k * rec.part, dtype=_acc_dtype(dtype), device=device)
+        with _on_device(device):
+            code = entry(enc.addr, ctypes.byref(table), k,
+                         None if part is None else part.data_ptr(),
+                         *rec.args, stream)
         _check(code, "fused_map_reduce_lanes")
         LAUNCHES["fused_map_reduce_lanes"] += 1
     return out

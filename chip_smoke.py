@@ -220,9 +220,12 @@ result):
    steady state, ``fused_map_reduce_lanes`` once a batched dispatch and the
    standalone ``fused_map_reduce`` only for the requests that ran alone;
    req/s and the p50 ratio logged beside the reference's bench gates);
-   then ``fused_map_reduce_lanes`` at 16 lanes of config 14, bit for bit
-   against 16 standalone launches and timed beside them, its plain
-   version, ``torch.sum`` of a stacked copy and its bound.
+   then ``fused_map_reduce_lanes`` at config 14, bit for bit against
+   the standalone launches at 1, 2, 5, 16 and 80 lanes (more than a
+   launch's table of 64) in both forms, one kernel a call and no scratch
+   at 16 lanes, timed beside 16 standalone launches (host-paced, and on
+   the device alone with the calls queued behind ``torch.cuda._sleep``),
+   its plain version, ``torch.sum`` of a stacked copy and its bound.
 14. the analysis layer (``bolt_tpu_torch.analysis``), each path with its
    launches counted from 0: ``analysis.check`` of the north-star's
    ``map(v + 1).sum()``, ``stats()``, a seven-member group and config 4's
@@ -444,6 +447,32 @@ def timed_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def queued_device_us(fn, reps=200):
+    """Device microseconds a call of ``fn``: CUDA events around ``reps``
+    calls queued behind ``torch.cuda._sleep``, so the card runs them back
+    to back and never waits on the host (``timed_ms`` of a call the host
+    paces measures the host).  ``(us, paced)``: ``paced`` when even the
+    longest sleep tried ran out before the last call was queued."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000                 # about 10 ms at the H100's clock
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        paced = start.query()
+        torch.cuda.synchronize()
+        if not paced:
+            break
+        cycles *= 4
+    return start.elapsed_time(stop) * 1e3 / reps, paced
 
 
 def device_us(fn):
@@ -3435,7 +3464,8 @@ def serve_config14(bolt, K, torch, np, dev, engine, serve, batched, add1,
         "3x), occupancy %.2f, sparse p50 %.1f us on / %.1f us off (%.3fx; "
         "its gate < 1.2x), %d standalone requests, steady-state builds 0; "
         "a lone request's queue wait %.1f us and run %.1f us (unbatched "
-        "server), a batched dispatch's run %s us and assembly %s us"
+        "server), a batched dispatch's run %s us (1772.5 us before the lanes "
+        "form's redesign, NVIDIA H100 80GB HBM3, 700 W) and assembly %s us"
         % (SERVE_REQUESTS, CONFIG14, out["reqs_per_s_batched"],
            out["reqs_per_s_unbatched"], out["ratio"], out["occupancy"],
            1e6 * p50_on, 1e6 * p50_off, out["p50_ratio"], alone,
@@ -3448,32 +3478,72 @@ def serve_config14(bolt, K, torch, np, dev, engine, serve, batched, add1,
 
 def lanes_timings(K, torch, dev, bases, add1):
     """``fused_map_reduce_lanes`` at config 14 (16 lanes of ``(128, 32)``
-    f32): bit for bit against 16 standalone launches, against its plain
-    version, and timed beside them, the library call on a stacked copy
-    and its bound."""
+    f32): bit for bit against 16 standalone launches in both forms, and at
+    1, 2, 5 and 16 lanes and more lanes than a launch's table holds;
+    against its plain version; the kernels a call runs (1) and the scratch
+    it allocates (none); timed beside the standalone launches, the library
+    call on a stacked copy and its bound, host-paced and on the device
+    alone."""
     from bolt_tpu_torch.ops import mapexpr
     gen = torch.Generator(device=dev).manual_seed(141)
+    wide = K._MAX_LANES + 16
     xs = [b for b in bases] + [torch.randn(CONFIG14, generator=gen,
                                            device=dev)
-                               for _ in range(16 - len(bases))]
+                               for _ in range(wide - len(bases))]
     prog = mapexpr.compile((add1,), CONFIG14[1:], torch.float32)
     full = mapexpr.compile((add1,), CONFIG14, torch.float32)
+    ones = [K.fused_map_reduce_cols(x, prog) for x in xs]
+    onesf = [K.fused_map_reduce_program(x, full) for x in xs]
+    for w in (1, 2, 5, 16, wide):
+        before = K.LAUNCHES["fused_map_reduce_lanes"]
+        got = K.fused_map_reduce_lanes(xs[:w], prog, cols=True)
+        gotf = K.fused_map_reduce_lanes(xs[:w], full)
+        check(K.LAUNCHES["fused_map_reduce_lanes"] - before
+              == 2 * -(-w // K._MAX_LANES), "fused_map_reduce_lanes at %d "
+              "lanes launched %d times" % (
+                  w, K.LAUNCHES["fused_map_reduce_lanes"] - before))
+        for i in range(w):
+            check(torch.equal(got[i], ones[i])
+                  and torch.equal(gotf[i], onesf[i]),
+                  "lane %d of %d of fused_map_reduce_lanes differs from "
+                  "its standalone launch" % (i, w))
+    xs = xs[:16]
     got = K.fused_map_reduce_lanes(xs, prog, cols=True)
-    gotf = K.fused_map_reduce_lanes(xs, full)
     plain = K._fused_map_reduce_lanes_plain(xs, prog, True)
-    for i, x in enumerate(xs):
-        check(torch.equal(got[i], K.fused_map_reduce_cols(x, prog))
-              and torch.equal(gotf[i], K.fused_map_reduce_program(x, full)),
-              "lane %d of fused_map_reduce_lanes differs from its "
-              "standalone launch" % i)
     err = float((got.double() - plain.double()).abs().max())
     mag = float(plain.double().abs().max())
     check(err <= 1e-4 * (1 + mag), "fused_map_reduce_lanes: max abs err "
           "%.3g against its plain version" % err)
+    # the kernels a call runs (the plan's: 2 where a combine or fold
+    # kernel adds partials) and the bytes it allocates beyond its output
+    # (the caching allocator's counts around one call)
+    kernels, scratch = {}, {}
+    for form, p, cols, out_bytes in (("cols", prog, True, 16 * 32 * 4),
+                                     ("full", full, False, 16 * 4)):
+        rec = K._record(K._encoded(p), cols, CONFIG14 if cols else
+                        CONFIG14[0] * CONFIG14[1], torch.float32,
+                        xs[0].device, 4)
+        kernels[form] = rec.kernels
+        torch.cuda.synchronize()
+        s0 = torch.cuda.memory_stats(dev)
+        K.fused_map_reduce_lanes(xs, p, cols=cols)
+        torch.cuda.synchronize()
+        s1 = torch.cuda.memory_stats(dev)
+        scratch[form] = (s1["allocated_bytes.all.allocated"]
+                         - s0["allocated_bytes.all.allocated"]
+                         - 512 * -(-out_bytes // 512))
+    check(kernels == {"cols": 1, "full": 1}
+          and scratch == {"cols": 0, "full": 0},
+          "config 14's lanes call runs %s kernels and allocates %s scratch "
+          "bytes (one kernel and none expected)" % (kernels, scratch))
     stacked = torch.stack(xs)
     n_el = stacked.numel()
     t_bytes = (n_el + 16 * CONFIG14[1]) * 4 / HBM_BYTES_PER_S
     t_ops = OPS_PER_ELEMENT["fused_map_reduce"] * n_el / PEAK_OPS["float32"]
+    dev_us, paced = queued_device_us(lambda: K.fused_map_reduce_lanes(
+        xs, prog, cols=True))
+    full_us, full_paced = queued_device_us(
+        lambda: K.fused_map_reduce_lanes(xs, full))
     row = {"ms": timed_ms(lambda: K.fused_map_reduce_lanes(
                xs, prog, cols=True), 200),
            "full_ms": timed_ms(lambda: K.fused_map_reduce_lanes(xs, full),
@@ -3490,14 +3560,34 @@ def lanes_timings(K, torch, dev, bases, add1):
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "max_abs_err": err,
-           # the device's share: the kernels of one call, by the profiler
-           "device_us": device_us(lambda: K.fused_map_reduce_lanes(
-               xs, prog, cols=True))[1],
-           "standalone_1_device_us": device_us(
-               lambda: K.fused_map_reduce_cols(xs[0], prog))[1]}
-    log("fused_map_reduce_lanes config14 x16: device %s us a call (one "
-        "standalone launch %s us)" % (row["device_us"],
-                                      row["standalone_1_device_us"]))
+           "kernels_a_call": kernels, "scratch_bytes": scratch,
+           "bit_for_bit_lanes": [1, 2, 5, 16, wide],
+           # the device's own time a call: calls queued behind a sleep
+           "device_us": dev_us, "device_paced": paced,
+           "full_device_us": full_us, "full_device_paced": full_paced,
+           "standalone_1_device_us": queued_device_us(
+               lambda: K.fused_map_reduce_cols(xs[0], prog))[0],
+           "library_device_us": queued_device_us(
+               lambda: torch.sum(stacked, 1))[0],
+           # the profiler's kernel time a call, over 50 calls, and its
+           # view of the library call (does it see any kernel here?)
+           "profiler_device_us": (lambda k: None if k is None else k / 50)(
+               device_us(lambda: [K.fused_map_reduce_lanes(
+                   xs, prog, cols=True) for _ in range(50)])[1]),
+           "profiler_library_us": (lambda k: None if k is None else k / 50)(
+               device_us(lambda: [torch.sum(stacked, 1)
+                                  for _ in range(50)])[1])}
+    log("fused_map_reduce_lanes config14 x16: device %.2f us a call (full "
+        "form %.2f us; one standalone launch %.2f us; torch.sum of the "
+        "stacked copy %.2f us; %s), the profiler %s us (of torch.sum %s "
+        "us); %s kernels a call, scratch bytes %s; every lane bit for bit "
+        "at %s lanes"
+        % (dev_us, full_us, row["standalone_1_device_us"],
+           row["library_device_us"],
+           "paced by the host" if paced or full_paced else "not paced",
+           row["profiler_device_us"], row["profiler_library_us"], kernels,
+           scratch,
+           row["bit_for_bit_lanes"]))
     log("fused_map_reduce_lanes config14 x16 kernel_ms %.4f (full form "
         "%.4f) standalone_16_ms %.4f (one launch %.4f) plain_ms %.4f "
         "library_ms %.4f (torch.sum(x.reshape(16, -1), 1) %.4f) bound_ms "

@@ -50,8 +50,11 @@ Serving on the card: ``fused_map_reduce_lanes`` in both forms, 1, 2, 5
 and 16 lanes, f32/f64/bf16/f16, at the serving shape ``(128, 32)`` and
 at ``(257, 33)`` (a numel that is not a multiple of the pack, ragged
 columns), each lane bit for bit against its standalone launch in one
-lanes launch, and a misaligned view lane taking a launch of its own; a
-batched serve of ``sum``, ``mean``, ``var``, ``std``, ``min``, ``max``,
+lanes launch, and a misaligned view lane taking a launch of its own; 130
+lanes in three launches (a launch's table holds 64); config 14's call one
+launch of one kernel that allocates only its output; standalone small
+shapes on each side of the plan's floor of packs a thread, in all four
+dtypes, against the plain version; a batched serve of ``sum``, ``mean``, ``var``, ``std``, ``min``, ``max``,
 ``prod``, ``reduce(add)`` and chain materialisation, each lane bit for
 bit against its standalone result; a child process started with
 ``Server(start_warm=dir)`` running no ``nvcc``.
@@ -1277,6 +1280,102 @@ def test_fused_map_reduce_lanes_misaligned_view_lane_on_card(cols):
         one = K.fused_map_reduce_cols(x, prog) if cols else \
             K.fused_map_reduce_program(x, prog)
         assert torch.equal(out[i], one), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [False, True], ids=["full", "cols"])
+def test_fused_map_reduce_lanes_wider_than_the_table_on_card(cols):
+    # 130 lanes, more than a launch's table holds (64): three launches of
+    # 64, 64 and 2 lanes, every lane bit for bit its standalone launch
+    M, programs = _mr_programs()
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(34)
+    shape = (128, 32)
+    xs = [torch.randn(shape, generator=g, device=dev) for _ in range(130)]
+    prog = M.compile((programs["v*2+1"],), shape[1:] if cols else shape,
+                     torch.float32)
+    before = K.LAUNCHES["fused_map_reduce_lanes"]
+    out = K.fused_map_reduce_lanes(xs, prog, cols=cols)
+    torch.cuda.synchronize()
+    assert K._MAX_LANES == 64
+    assert K.LAUNCHES["fused_map_reduce_lanes"] == before + 3
+    for i, x in enumerate(xs):
+        one = K.fused_map_reduce_cols(x, prog) if cols else \
+            K.fused_map_reduce_program(x, prog)
+        assert torch.equal(out[i], one), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [False, True], ids=["full", "cols"])
+def test_fused_map_reduce_lanes_one_kernel_no_scratch_on_card(cols):
+    # config 14, 16 lanes of (128, 32) f32: one launch of one kernel (the
+    # plan is direct: one block a lane writes its output), and the call
+    # allocates its output and nothing else
+    M, programs = _mr_programs()
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(35)
+    shape = (128, 32)
+    xs = [torch.randn(shape, generator=g, device=dev) for _ in range(16)]
+    prog = M.compile((programs["v+1"],), shape[1:] if cols else shape,
+                     torch.float32)
+    K.fused_map_reduce_lanes(xs, prog, cols=cols)       # plans once
+    torch.cuda.synchronize()
+    rec = K._record(K._encoded(prog), cols, shape if cols else 4096,
+                    torch.float32, xs[0].device, 4)
+    assert rec.kernels == 1 and rec.part == 0
+    stats = torch.cuda.memory_stats(dev)
+    n0 = stats["allocation.all.allocated"]
+    b0 = stats["allocated_bytes.all.allocated"]
+    before = K.LAUNCHES["fused_map_reduce_lanes"]
+    out = K.fused_map_reduce_lanes(xs, prog, cols=cols)
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats(dev)
+    assert K.LAUNCHES["fused_map_reduce_lanes"] == before + 1
+    assert stats["allocation.all.allocated"] - n0 == 1
+    assert stats["allocated_bytes.all.allocated"] - b0 == 512 * -(
+        -out.numel() * 4 // 512)
+    for i, x in enumerate(xs):
+        one = K.fused_map_reduce_cols(x, prog) if cols else \
+            K.fused_map_reduce_program(x, prog)
+        assert torch.equal(out[i], one), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+def test_fused_map_reduce_small_plans_match_plain_on_card(dtype):
+    # standalone small shapes on each side of the floor of packs a thread
+    # (one direct block; two blocks and their combine), both forms,
+    # against the plain version (f64 1e-10, f32 1e-4, f16/bf16 1.6e-2)
+    M, programs = _mr_programs()
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(36)
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}.get(dtype, 1.6e-2)
+    vec = 16 // dtype.itemsize
+    # rows a block at the floor, where 32 columns leave lanes idle threads
+    edge = K._lanes(32, vec) * K._MIN_PACKS
+    for shape in ((edge, 32), (edge + 1, 32), (3, 35), (128, 32)):
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        for name in ("v+1", "where", "trans"):
+            prog = M.compile((programs[name],), shape[1:], dtype)
+            got = K.fused_map_reduce_cols(x, prog)
+            want = K._fused_map_reduce_plain(x, prog, cols=True)
+            torch.testing.assert_close(got.double(), want.double(),
+                                       rtol=tol, atol=tol)
+        rec = K._record(K._encoded(prog), True, shape, dtype, x.device,
+                        K._vec(x, shape[1]))
+        assert (rec.kernels == 1) == (shape != (edge + 1, 32)), shape
+    per_block = K._MIN_PACKS * 256 * vec
+    for numel in (per_block, per_block + 1, 4096):
+        x = torch.randn(numel, generator=g, device=dev).to(dtype)
+        prog = M.compile((programs["v+1"],), (numel,), dtype)
+        got = K.fused_map_reduce_program(x, prog)
+        want = K._fused_map_reduce_plain(x, prog)
+        mag = float(M.evaluate(prog, x).abs().sum(dtype=torch.float64))
+        assert abs(float(got) - float(want)) <= tol * (1 + mag), numel
+        rec = K._record(K._encoded(prog), False, numel, dtype, x.device,
+                        K._vec(x, 0))
+        assert (rec.kernels == 1) == (numel != per_block + 1), numel
 
 
 @pytest.mark.gpu

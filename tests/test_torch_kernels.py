@@ -195,11 +195,115 @@ def test_map_reduce_tile_rows(element_size, vec, nregs, rows):
     (1, 4099, 1, 396, K.MapReducePlan(1, 17, 1, True)),
     # 16 column threads: 16 lanes, one column block split by rows
     (50000, 64, 4, 264, K.MapReducePlan(16, 264, 2, False)),
-    # fewer units than resident blocks: one unit a block
-    (3, 35, 1, 264, K.MapReducePlan(4, 3, 2, False)),
+    # fewer units than the floor's one block: one block (4 row lanes of
+    # 64 column threads) holds the column block whole and writes it
+    (3, 35, 1, 264, K.MapReducePlan(4, 1, 1, True)),
+    # config 14's (128, 32) f32 at any resident count: 32 row lanes of 4
+    # packs each, one block, direct (no scratch, no combine kernel)
+    (128, 32, 4, 264, K.MapReducePlan(32, 1, 1, True)),
+    (128, 32, 4, 528, K.MapReducePlan(32, 1, 1, True)),
+    # the floor's edge at 32 lanes: 256 rows (8 packs a thread) are one
+    # block, 257 take two blocks and scratch
+    (256, 32, 4, 264, K.MapReducePlan(32, 1, 1, True)),
+    (257, 32, 4, 264, K.MapReducePlan(32, 2, 2, False)),
+    # and where it stops binding: 263 blocks of 256 rows below 264 * 256
+    # units, the whole wave at it
+    (67328, 32, 4, 264, K.MapReducePlan(32, 263, 2, False)),
+    (67584, 32, 4, 264, K.MapReducePlan(32, 264, 2, False)),
+    # one lane: 8 rows a block, 395 blocks, then the wave of 396
+    (3160, 1024, 4, 396, K.MapReducePlan(1, 395, 2, False)),
+    (3168, 1024, 4, 396, K.MapReducePlan(1, 396, 2, False)),
+    # one row of 800 column blocks, more than the wave: the floor never
+    # takes a block below one column block's share
+    (1, 819200, 4, 396, K.MapReducePlan(1, 396, 4, False)),
 ])
 def test_map_reduce_plan(n, columns, vec, resident, plan):
     assert K.map_reduce_plan(n, columns, vec, resident) == plan
+
+
+@pytest.mark.parametrize("numel,vec,resident,blocks", [
+    # config 14's 4096 elements, and up to 8 packs a thread: one block,
+    # which writes the output (no scratch, no fold kernel)
+    (4096, 4, 264, 1), (8192, 4, 264, 1), (1, 4, 264, 1),
+    (8193, 4, 264, 2),                      # past the floor: two blocks
+    (4097, 1, 264, 3),                      # single elements: 17 rows
+    (3200 * 819200, 4, 396, 396),           # the north-star: one wave
+    (64 * 8 * 256 * 4, 4, 264, 64),          # 64 blocks at the floor
+    (65 * 8 * 256 * 4, 4, 264, 65)])
+def test_map_reduce_full_plan(numel, vec, resident, blocks):
+    assert K._full_plan(numel, vec, resident) == blocks
+
+
+@pytest.mark.parametrize("vecs,capacity,launches", [
+    ([4] * 16, 64, [(4, list(range(16)))]),          # serving default
+    ([4, 1, 4], 64, [(4, [0, 2]), (1, [1])]),          # a misaligned lane
+    ([1, 4, 1, 4], 64, [(1, [0, 2]), (4, [1, 3])]),
+    ([4] * 130, 64, [(4, list(range(64))), (4, list(range(64, 128))),
+                     (4, [128, 129])]),               # wider than the table
+    ([4, 1] * 3, 2, [(4, [0, 2]), (4, [4]), (1, [1, 3]), (1, [5])]),
+    ([2], 64, [(2, [0])])])
+def test_lane_launches_split_by_pack_width_and_capacity(vecs, capacity,
+                                                        launches):
+    assert K.lane_launches(vecs, capacity) == launches
+
+
+def test_lanes_table_mirror_layout():
+    # kernels.py's _Lanes mirrors mapreduce.cu's Lanes: kMaxLanes input
+    # pointers, then kMaxLanes output pointers, and the launch's
+    # parameters (the Program, the table and the scalars) stay within 4 KB
+    import ctypes
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(K.__file__), "csrc",
+                            "mapreduce.cu")).read()
+    cap = int(re.search(r"constexpr int kMaxLanes = (\d+);", src).group(1))
+    assert cap == K._MAX_LANES
+    assert ctypes.sizeof(K._Lanes) == 2 * 8 * K._MAX_LANES
+    assert K._Lanes.inp.offset == 0 and K._Lanes.out.offset == 8 * cap
+    assert ctypes.sizeof(K._Program) + ctypes.sizeof(K._Lanes) + 64 <= 4096
+    t = K._Lanes()
+    t.inp[:2] = [16, 32]
+    t.out[:2] = [1 << 40, (1 << 40) + 128]
+    assert list(t.inp[:3]) == [16, 32, None]
+    assert t.out[1] == (1 << 40) + 128
+
+
+def test_launch_record_is_planned_once(monkeypatch):
+    # a launch record holds the plan and the C entry points' arguments
+    # from the shape on; it is made on first use and reused, so a launch
+    # asks the occupancy API and plans nothing
+    from bolt_tpu_torch.ops import mapexpr
+    asked = []
+
+    def resident(device, form, lanes, dtype, vec, rows, calls, nfile):
+        asked.append(form)
+        return 264
+
+    monkeypatch.setattr(K, "_resident", resident)
+    dev = torch.device("cuda", 0)
+    prog = mapexpr.compile((lambda v: v + 1,), (32,), torch.float32)
+    full = mapexpr.compile((lambda v: v + 1,), (128, 32), torch.float32)
+    for p in (prog, full):
+        p.kernel = None
+    enc, encf = K._encoded(prog), K._encoded(full)
+    rec = K._record(enc, True, (128, 32), torch.float32, dev, 4)
+    # config 14: 32 lanes, one block, one segment, f32 (code 0), 16-byte
+    # packs, the wide tile; no scratch and one kernel
+    assert rec == K._Launch((128, 32, 32, 1, 1, 0, 4, 4), 0, 1)
+    assert K._record(enc, True, (128, 32), torch.float32, dev, 4) is rec
+    assert K._record(encf, False, 4096, torch.float32, dev, 4) == \
+        K._Launch((4096, 1, 0, 4, 4), 0, 1)
+    assert asked == [0, 1]
+    # a larger lane: 256 blocks of 4 lanes, their partials combined
+    big = K._record(enc, True, (8192, 256), torch.float32, dev, 4)
+    assert big.args[:5] == (8192, 256, 4, 256, 2) and big.kernels == 2
+    assert big.part == 256 * 2 * 64 * 4
+    # a misaligned base loads single elements: a record of its own
+    one = K._record(enc, True, (128, 32), torch.float32, dev, 1)
+    assert one.args[6:] == (1, 4) and one is not rec
+    assert asked == [0, 1, 0, 0]
+    for p in (prog, full):
+        p.kernel = None
 
 
 def _cols_grid(n, columns, vec, plan):
@@ -234,6 +338,9 @@ def _cols_grid(n, columns, vec, plan):
             slot, rr = slots[(g, b)]
             assert slot == (("out", g) if plan.direct
                             else (b, g - (b * W // P) // n))
+            # every block past the first starts inside this column block:
+            # the combine kernel reads its segment 0 without dividing
+            assert b == b0 or (b * W // P) // n == g
             got += rr
         rows[c] = got
     return rows
@@ -242,7 +349,8 @@ def _cols_grid(n, columns, vec, plan):
 @pytest.mark.parametrize("n,columns,vec,resident", [
     (3200, 8192, 4, 396), (200, 20480, 4, 396), (7, 4099, 1, 132),
     (1, 4099, 1, 396), (50000, 64, 4, 264), (3, 35, 1, 264),
-    (1000, 333, 1, 528), (64, 4096, 4, 1056)])
+    (1000, 333, 1, 528), (64, 4096, 4, 1056), (128, 32, 4, 264),
+    (257, 32, 4, 264), (67328, 32, 4, 264), (3160, 1024, 4, 396)])
 def test_map_reduce_grid_adds_every_row_once_in_order(n, columns, vec,
                                                       resident):
     plan = K.map_reduce_plan(n, columns, vec, resident)
