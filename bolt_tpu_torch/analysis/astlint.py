@@ -83,6 +83,9 @@ _EXEMPT = {
         os.path.join("ops", "linalg.py"),
         # donation counts a storage's holders (torch._C._storage_Use_Count)
         os.path.join("gpu", "array.py"),
+        # obs spans open torch's fast record function as profiler ranges
+        # (torch._C._profiler._RecordFunctionFast)
+        "profile.py",
     ),
     "BLT103": ("_precision.py",),
     "BLT104": (os.path.join("gpu", "array.py"),),

@@ -20,6 +20,10 @@ What the reference's XLA terms mean here:
 * ``dispatches``/``dispatch_seconds`` are the host time of a cached
   program's call (launches are asynchronous; device completion is
   :func:`bolt_tpu_torch.profile.timeit`'s job);
+* ``host_syncs``/``host_sync_seconds`` count and time the copies the
+  host blocks on (:func:`host_sync`); ``dispatch_sync_seconds`` is their
+  part inside dispatches, so ``dispatch_seconds - dispatch_sync_seconds``
+  is the dispatches' host cost without their waits;
 * the persistent cache (:func:`persistent_cache`) is the directory of
   the ``nvcc``-built libraries, the only compiled artifacts that outlive
   a process: ``persistent_hits`` counts libraries loaded without
@@ -143,6 +147,12 @@ _SCHEMA = {
     "shuffle_bytes": 0,
     "spill_bytes": 0,
     "shuffle_seconds": 0.0,
+    # blocking copies between host and device memory (host_sync): how
+    # many, their seconds, and the part of those seconds spent inside an
+    # engine dispatch (which dispatch_seconds therefore includes)
+    "host_syncs": 0,
+    "host_sync_seconds": 0.0,
+    "dispatch_sync_seconds": 0.0,
 }
 
 _COUNTERS = _metrics.registry().group("engine", _SCHEMA)
@@ -615,6 +625,28 @@ def _working():
         yield
     finally:
         _WORK_TLS.depth -= 1
+
+
+def host_sync(why, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a copy or read the host blocks on until
+    the device has run everything queued before it (``.cpu()``,
+    ``.item()``, a boolean gather, a pageable upload), counted and timed
+    where it happens: ``host_syncs``, ``host_sync_seconds`` and, inside
+    an engine dispatch (:func:`in_program`), ``dispatch_sync_seconds``,
+    under a ``host.sync`` span with ``why``.  What is copied, and when,
+    is the caller's: this only watches."""
+    sp = _obs.begin("host.sync", why=why)
+    t0 = _clock()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        dt = _clock() - t0
+        if in_program():
+            _COUNTERS.update(host_syncs=1, host_sync_seconds=dt,
+                             dispatch_sync_seconds=dt)
+        else:
+            _COUNTERS.update(host_syncs=1, host_sync_seconds=dt)
+        _obs.end(sp)
 
 
 class _Dispatch:

@@ -779,7 +779,8 @@ def _filter_final(slot, acc, fused, count, any_kept, vshape, vdtype):
     :func:`_filter_partials`), the kept ``count`` and whether any record
     was kept."""
     name, _, keepdims, _ = slot
-    if name in ("max", "min") and not bool(any_kept):
+    if name in ("max", "min") and not _engine.host_sync(
+            "filter.any_kept", bool, any_kept):
         raise ValueError("zero-size array to reduction operation %s "
                          "which has no identity" % name)
     if not fused:
@@ -1154,7 +1155,7 @@ def _masked_tree(fp, dtype, func, keepdims):
             valid = torch.cat([vsel, vrem], dim=0)
         else:
             x, valid = sel, vsel
-    if not bool(valid[0]):
+    if not _engine.host_sync("filter.any_valid", bool, valid[0]):
         # every record was filtered out: the contract of reducing an
         # (0, ...)-shaped resolved result
         raise TypeError("reduce of an empty array with no initial value")
@@ -1594,7 +1595,8 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         def build():
             def run(data):
                 fp = (data,) + geom
-                parts = [dtypes.rows(recs, _pred_mask(fp[2], recs))
+                parts = [_engine.host_sync("filter.rows", dtypes.rows,
+                                           recs, _pred_mask(fp[2], recs))
                          if recs.shape[0] else recs
                          for _, _, recs in _filter_blocks(fp, dtype)]
                 return torch.cat(parts) if len(parts) > 1 else parts[0]
@@ -1637,7 +1639,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
                           tuple(base.shape), str(base.dtype), geom[2], axes,
                           keepdims, ddof, donate, self._device), build)
         try:
-            out = fn(base)
+            with _obs.span("array.filter_stat", op=name,
+                           funcs=len(geom[0]), donate=donate):
+                out = fn(base)
         finally:
             if donate:
                 # the terminal read the base: a zero-size raise leaves this
@@ -2160,7 +2164,9 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
 
         fn = _cached_jit(("swap", funcs, tuple(base.shape), str(base.dtype),
                           split, tuple(perm), self._device), build)
-        out = fn(base)
+        with _obs.span("array.swap", funcs=len(funcs),
+                       bytes=base.numel() * base.element_size()):
+            out = fn(base)
         if donate:
             del base
             self._consume_donated("swap(..., donate=True)", granted=False)
@@ -2518,5 +2524,7 @@ def _upload(a, device):
 
 
 def _download(t):
-    """A tensor as a host numpy array that aliases nothing."""
-    return t.detach().to("cpu", copy=True).numpy()
+    """A tensor as a host numpy array that aliases nothing (a counted
+    synchronisation: :func:`bolt_tpu_torch.engine.host_sync`)."""
+    return _engine.host_sync("download", t.detach().to, "cpu",
+                             copy=True).numpy()

@@ -433,7 +433,9 @@ class BoltArrayMesh(BoltArrayGPU):
                 m = _pred_mask(pred, recs) if recs.shape[0] else \
                     torch.zeros(0, dtype=torch.bool, device=recs.device)
                 masks.append(m)
-                parts.append(dtypes.rows(recs, m) if recs.shape[0] else recs)
+                parts.append(_engine.host_sync("filter.rows", dtypes.rows,
+                                               recs, m)
+                             if recs.shape[0] else recs)
             surv = torch.cat(parts) if len(parts) > 1 else parts[0]
             mask = torch.cat(masks) if len(masks) > 1 else masks[0]
         self._place(surv, mask, kbox, gkshape, kspec, vshape)

@@ -16,6 +16,7 @@ split no reduced axis hold replicas and are never combined over.
 """
 
 from bolt_tpu_torch import engine as _engine
+from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.gpu import dtypes
 from bolt_tpu_torch.statcounter import StatCounter
 from bolt_tpu_torch.utils import inshape, prod, tupleize
@@ -55,13 +56,16 @@ def _moments(x, axes):
             dtypes.uncarry(c.amax(dim=axes), x.dtype, ordered=True))
 
 
+@_obs.span("array.stats")
 def welford(barray, requested=("mean", "var", "std", "min", "max"),
             axis=None):
     """Count/mean/var/std/min/max over any axes, returned as a
     :class:`~bolt_tpu_torch.statcounter.StatCounter` holding value-shaped
     moments.  ``axis=None`` reduces over all key axes (the reference's
     ``stats()``); any subset of key and value axes is allowed, and the
-    remaining axes stay as leading dimensions of each moment."""
+    remaining axes stay as leading dimensions of each moment.  The whole
+    call, a deferred chain's materialisation and the four moments' copies
+    to the host included, is the span ``array.stats``."""
     if axis is None:
         axes = tuple(range(barray.split))
     else:
@@ -78,7 +82,8 @@ def welford(barray, requested=("mean", "var", "std", "min", "max"),
     x = barray._data
     fn = _cached_jit(("welford", tuple(x.shape), str(x.dtype), axes,
                       x.device), lambda: lambda data: _moments(data, axes))
-    mu, m2, mn, mx = (t.detach().cpu().numpy() for t in fn(x))
+    mu, m2, mn, mx = (_engine.host_sync("stats", t.detach().cpu).numpy()
+                      for t in fn(x))
     return StatCounter.from_moments(n_total, mu, m2, minValue=mn,
                                     maxValue=mx, stats=requested)
 

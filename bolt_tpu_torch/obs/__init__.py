@@ -9,7 +9,10 @@ reading engine internals.
   allocation-free hot-path pair the engine and streaming executor use;
   ``obs.event`` instant marks; ``obs.clock`` THE blessed monotonic
   timer.  Off by default; near-zero
-  cost while off.
+  cost while off.  While a ``torch.profiler`` records, every span is
+  also the profiler range ``bolt.<name>`` (the hook
+  ``bolt_tpu_torch.profile`` installs), so the device trace shows the
+  program's layers.
 * :mod:`bolt_tpu_torch.obs.metrics` — typed registry (counters, gauges,
   log2-bucket histograms, locked counter groups).  The dispatch
   engine's counters are the group named ``"engine"`` here;

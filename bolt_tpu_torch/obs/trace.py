@@ -27,6 +27,16 @@ adds the structure:
 Tracing is OFF by default.  :func:`enable` arms it process-wide;
 :func:`bolt_tpu_torch.obs.timeline` scopes it around one run and writes a
 Chrome trace-event file.  This module imports ONLY the standard library.
+
+The device trace's clock: while a profiler records, every span also
+opens a profiler range named ``bolt.<span name>`` (:func:`mirror`
+installs the hook; ``bolt_tpu_torch.profile`` installs torch's).  The
+profiler records the range on its own clock beside the device
+operations launched inside it, so a kernel or an idle gap of the card
+can be put down to the span open on the host.  The ring and the
+profiler are armed apart: a span lands in the ring only while
+:func:`enable` is in force, and opens a range only while the profiler
+records.
 """
 
 import functools
@@ -61,7 +71,8 @@ def _lockdep():
 
 _RING_DEFAULT = 4096
 
-_ON = False                      # the one hot-path check
+_ON = False                      # the ring's hot-path check
+_MIRROR = None                   # (recording, open_range): see mirror()
 _LOCK = _lockdep().lock("obs.trace")   # guards ring + active count
 _RING = deque(maxlen=_RING_DEFAULT)
 _ACTIVE = 0                      # begun-but-not-ended spans (leak gate)
@@ -73,12 +84,15 @@ class Span:
     """One recorded interval: ``name``, ``attrs``, ids and timestamps.
 
     ``sid`` is the span's id, ``pid`` its parent span's id (0 = root);
-    ``tid``/``tname`` identify the recording thread; ``t0``/``t1`` are
-    :func:`clock` seconds (``t1`` is ``None`` while open).  ``kind`` is
-    ``"S"`` for spans, ``"I"`` for instant events."""
+    ``sid`` 0 marks a span begun while only the profiler recorded: it
+    closes its range and never lands in the ring.  ``tid``/``tname``
+    identify the recording thread; ``t0``/``t1`` are :func:`clock`
+    seconds (``t1`` is ``None`` while open).  ``kind`` is ``"S"`` for
+    spans, ``"I"`` for instant events; ``range`` is the open profiler
+    range (``None`` when the profiler was not recording)."""
 
     __slots__ = ("name", "attrs", "sid", "pid", "tid", "tname", "t0",
-                 "t1", "kind")
+                 "t1", "kind", "range")
 
     def __init__(self, name, attrs, sid, pid, tid, tname, t0, kind="S"):
         self.name = name
@@ -90,6 +104,7 @@ class Span:
         self.t0 = t0
         self.t1 = None
         self.kind = kind
+        self.range = None
 
     def set(self, **attrs):
         """Attach attributes to an open span; chainable."""
@@ -156,6 +171,17 @@ def disable():
     _ON = False
 
 
+def mirror(recording, open_range):
+    """Install the profiler hook: ``recording()`` says, cheaply and
+    without allocating, whether a profiler records now;
+    ``open_range(name)`` opens a range ``name`` on it and returns the
+    entered context manager, whose ``__exit__(None, None, None)`` closes
+    it.  While ``recording()`` is true every span also opens
+    ``bolt.<span name>``.  ``mirror(None, None)`` removes the hook."""
+    global _MIRROR
+    _MIRROR = None if recording is None else (recording, open_range)
+
+
 def clear():
     """Drop every completed span and zero the leak counter (open spans
     begun before ``clear`` still end cleanly — ``end`` tolerates an
@@ -175,31 +201,48 @@ def spans():
 
 def active_count():
     """Spans begun but not yet ended — a nonzero value after a run means
-    an instrumented path leaked a span (``scripts/bench_all.py --check``
-    gates on this)."""
+    an instrumented path leaked a span (the pod payloads of
+    ``parallel/payloads.py`` report it as ``leaked_spans``, which their
+    tests hold at zero, as ``tests/test_torch_obs.py`` does)."""
     with _LOCK:
         return _ACTIVE
 
 
 def begin(name, parent=None, **attrs):
     """Open a span; the hot-path primitive.  Returns ``None`` when
-    tracing is disabled — one module-global check, NO allocation — so
-    per-dispatch instrumentation costs nothing until someone arms the
-    tracer.  ``parent`` overrides the calling thread's current span (the
-    explicit cross-thread handoff; see the streaming executor)."""
+    neither the ring nor the profiler is armed — flag checks only, NO
+    allocation — so per-dispatch instrumentation costs nothing until
+    someone arms either.  ``parent`` overrides the calling thread's
+    current span (the explicit cross-thread handoff; see the streaming
+    executor).  While a profiler records (:func:`mirror`), the span also
+    opens the profiler range ``bolt.<name>``."""
     global _ACTIVE
-    if not _ON:
+    hook = _MIRROR
+    ranged = hook is not None and hook[0]()
+    if not (_ON or ranged):
         return None
-    st = _stack()
-    if parent is None and st:
-        parent = st[-1]
     th = threading.current_thread()
-    sp = Span(name, attrs, next(_IDS), parent.sid if parent else 0,
-              th.ident, th.name, clock())
-    st.append(sp)
-    with _LOCK:
-        _ACTIVE += 1
+    if _ON:
+        st = _stack()
+        if parent is None and st:
+            parent = st[-1]
+        sp = Span(name, attrs, next(_IDS), parent.sid if parent else 0,
+                  th.ident, th.name, clock())
+        st.append(sp)
+        with _LOCK:
+            _ACTIVE += 1
+    else:
+        # the profiler alone: a range, no stack, no ring (sid 0)
+        sp = Span(name, attrs, 0, 0, th.ident, th.name, clock())
+    if ranged:
+        sp.range = hook[1]("bolt." + name)
     return sp
+
+
+def _close_range(sp):
+    rng, sp.range = sp.range, None
+    if rng is not None:
+        rng.__exit__(None, None, None)
 
 
 def end(sp, **attrs):
@@ -207,9 +250,12 @@ def end(sp, **attrs):
     global _ACTIVE
     if sp is None:
         return
+    _close_range(sp)
     sp.t1 = clock()
     if attrs:
         sp.attrs.update(attrs)
+    if not sp.sid:
+        return
     st = getattr(_TLS, "stack", None)
     if st and sp in st:
         # pop through: defensive against misordered ends so the stack
@@ -225,11 +271,14 @@ def end(sp, **attrs):
 
 def cancel(sp):
     """Abandon an open span: it leaves the thread stack and the leak
-    counter but never lands in the ring.  For probes that turn out to
-    have observed nothing (e.g. the streaming executor's ingest probe
-    that hits end-of-source)."""
+    counter but never lands in the ring (its profiler range closes).
+    For probes that turn out to have observed nothing (e.g. the
+    streaming executor's ingest probe that hits end-of-source)."""
     global _ACTIVE
     if sp is None:
+        return
+    _close_range(sp)
+    if not sp.sid:
         return
     st = getattr(_TLS, "stack", None)
     if st and sp in st:
@@ -252,7 +301,8 @@ def current():
 
 def event(name, **attrs):
     """Record a zero-duration instant mark (donation grants, gate
-    rejections); parents under the thread's current span.  Tolerates a
+    rejections); parents under the thread's current span, and is an
+    empty profiler range while a profiler records.  Tolerates a
     concurrent ``disable()``: ``begin`` re-checks the flag and may
     return ``None``, in which case the mark is silently dropped rather
     than crashing the instrumented operation."""
@@ -274,9 +324,10 @@ class span:
         @obs.span("analysis.check")
         def check(obj): ...
 
-    When tracing is disabled the body runs against a shared no-op span
-    (one small object per ``with``; hot per-dispatch paths use
-    :func:`begin`/:func:`end` directly, which allocate nothing)."""
+    When neither the ring nor the profiler is armed the body runs
+    against a shared no-op span (one small object per ``with``; hot
+    per-dispatch paths use :func:`begin`/:func:`end` directly, which
+    allocate nothing)."""
 
     __slots__ = ("_name", "_attrs", "_parent", "_live")
 

@@ -39,6 +39,8 @@ import numpy as np
 import torch
 
 from bolt_tpu_torch import _precision
+from bolt_tpu_torch import engine as _engine
+from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.utils import prod, tupleize
 
 
@@ -254,7 +256,8 @@ def _gram_eigvalsh(g):
 def _card_eigh(g):
     if _use_jacobi(g):
         return jacobi_eigh(g, vectors=True)
-    return torch.linalg.eigh(g)
+    # the solver's error check reads its status on the host
+    return _engine.host_sync("eigh", torch.linalg.eigh, g)
 
 
 def svdvals(x, gram_ratio=4):
@@ -613,31 +616,36 @@ def pca(b, k=None, center=False, axis=None, return_mean=False,
 
     def build():
         def run(data):
-            g, mu = _moments(data, funcs, split, n, d, dtype, pr, True)
-            if not center:
-                mu = torch.zeros_like(mu)
-            else:
-                g = g - n * torch.outer(mu.conj(), mu)
-            vec, ev = _decompose_gram(g, k, _card_eigh)
-            off = None
-            scores = None
-            with _precision.f32_matmul(pr):
-                if center:
-                    off = torch.matmul(mu, vec)
-                for s, e, x in _blocks(data, funcs, split, n, d, dtype):
-                    blk = torch.matmul(x, vec)
-                    if off is not None:
-                        blk = blk - off
-                    if e - s == n:
-                        scores = blk
+            with _obs.span("linalg.pca", n=n, d=d, k=k):
+                with _obs.span("linalg.gram"):
+                    g, mu = _moments(data, funcs, split, n, d, dtype, pr,
+                                     True)
+                    if not center:
+                        mu = torch.zeros_like(mu)
                     else:
-                        if scores is None:
-                            scores = torch.empty((n, k), dtype=blk.dtype,
-                                                 device=blk.device)
-                        scores[s:e] = blk
-                    del x, blk
-            return (scores.reshape(kshape + (k,)), vec, torch.sqrt(ev),
-                    mu)
+                        g = g - n * torch.outer(mu.conj(), mu)
+                with _obs.span("linalg.eigh"):
+                    vec, ev = _decompose_gram(g, k, _card_eigh)
+                off = None
+                scores = None
+                with _obs.span("linalg.project"), \
+                        _precision.f32_matmul(pr):
+                    if center:
+                        off = torch.matmul(mu, vec)
+                    for s, e, x in _blocks(data, funcs, split, n, d, dtype):
+                        blk = torch.matmul(x, vec)
+                        if off is not None:
+                            blk = blk - off
+                        if e - s == n:
+                            scores = blk
+                        else:
+                            if scores is None:
+                                scores = torch.empty((n, k), dtype=blk.dtype,
+                                                     device=blk.device)
+                            scores[s:e] = blk
+                        del x, blk
+                return (scores.reshape(kshape + (k,)), vec, torch.sqrt(ev),
+                        mu)
         return run
 
     fn = _cached_jit(("ops-pca", funcs, tuple(base.shape), str(base.dtype),

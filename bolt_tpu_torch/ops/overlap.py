@@ -27,6 +27,7 @@ from itertools import product as _product
 import numpy as np
 import torch
 
+from bolt_tpu_torch.obs import trace as _obs
 from bolt_tpu_torch.utils import chunk_axes, iterexpand, tupleize
 
 # boundary-mode names follow numpy.pad; scipy.ndimage's names are accepted
@@ -154,24 +155,31 @@ def _separable_filter(b, taps_list, axes, size, mode, shard=None,
     """Shared core of :func:`smooth`/:func:`convolve`/:func:`gaussian`:
     a 1-d tap filter per axis.  On the gpu mode a floating array is
     filtered whole by the window kernel (:func:`_whole_array_sepfilter`);
-    everything else takes the halo-chunked map."""
+    everything else takes the halo-chunked map.  The span
+    ``overlap.filter`` names the route taken: ``"window"`` (the window
+    kernels, B4/B5), ``"mesh"`` or ``"torch"`` (the chunked map)."""
     from bolt_tpu_torch._precision import resolve
     pr = resolve(precision)
     mode = _canon_mode(mode)
     depth = tuple(len(t) // 2 for t in taps_list)
     taps_key = tuple(tuple(float(t) for t in taps) for taps in taps_list)
-    if getattr(b, "mesh", None) is not None:
-        out = _mesh_sepfilter(b, taps_key, tuple(axes), mode, pr, depth,
-                              size, shard)
-        if out is not None:
-            return out
-    elif b.mode == "gpu" and shard is None:
-        out = _whole_array_sepfilter(b, taps_key, tuple(axes), mode, pr)
-        if out is not None:
-            return out
-    sepfilter = _sepfilter_fn(taps_key, tuple(axes), mode)
-    return map_overlap(b, sepfilter, depth, axis=axes, size=size,
-                       shard=shard)
+    with _obs.span("overlap.filter", taps=tuple(len(t) for t in taps_key),
+                   axes=tuple(axes)) as sp:
+        if getattr(b, "mesh", None) is not None:
+            out = _mesh_sepfilter(b, taps_key, tuple(axes), mode, pr, depth,
+                                  size, shard)
+            if out is not None:
+                sp.set(route="mesh")
+                return out
+        elif b.mode == "gpu" and shard is None:
+            out = _whole_array_sepfilter(b, taps_key, tuple(axes), mode, pr)
+            if out is not None:
+                sp.set(route="window")
+                return out
+        sp.set(route="torch")
+        sepfilter = _sepfilter_fn(taps_key, tuple(axes), mode)
+        return map_overlap(b, sepfilter, depth, axis=axes, size=size,
+                           shard=shard)
 
 
 def _whole_array_sepfilter(b, taps_key, axes, mode, precision="highest"):

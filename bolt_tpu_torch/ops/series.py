@@ -21,6 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from bolt_tpu_torch import engine as _engine
 from bolt_tpu_torch._precision import f32_matmul
 
 
@@ -94,8 +95,12 @@ def _detrend_fn(length, order, ax):
             moved = np.moveaxis(v.astype(dt), ax, -1)
             fit = (moved @ pinv_a.astype(dt).T) @ a_mat.astype(dt).T
             return np.moveaxis(moved - fit, -1, ax)
-        a_ = torch.as_tensor(a_mat, dtype=dt, device=v.device)
-        p_ = torch.as_tensor(pinv_a, dtype=dt, device=v.device)
+        # host constants, uploaded from pageable memory at each call: the
+        # host waits for the card before each copy
+        a_ = _engine.host_sync("detrend.fit", torch.as_tensor, a_mat,
+                               dtype=dt, device=v.device)
+        p_ = _engine.host_sync("detrend.fit", torch.as_tensor, pinv_a,
+                               dtype=dt, device=v.device)
         moved = torch.movedim(v.to(dt), ax, -1)
         # pinned to "highest" whatever the precision scope, as the
         # reference pins it: the fit matrices are f32/f64 host constants,

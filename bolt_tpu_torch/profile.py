@@ -4,8 +4,9 @@ Port of ``bolt_tpu/profile.py``:
 
 * :func:`trace` — ``torch.profiler`` over a region, writing a Chrome
   trace under a log directory.
-* :func:`annotate` — names a region in that trace (and, on a CUDA
-  device, as an NVTX range).
+* :func:`annotate` — names a region in that trace: an ``obs`` span,
+  so the range is ``bolt.<name>`` (and, on a CUDA device, an NVTX
+  range too).
 * :func:`timeit` — best wall-clock of a function, each run synchronised
   with the card, so the time includes the device's completion.
 * :func:`throughput` — GB/s given bytes touched.
@@ -21,6 +22,29 @@ import time
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+from bolt_tpu_torch.obs import trace as _obs
+
+
+def _profiler_recording():
+    """Whether a ``torch.profiler`` records now: torch's own flag, which
+    ``profile.start()`` sets (a module attribute read, no allocation)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _open_range(name):
+    """A profiler range ``name`` opened now and returned entered: torch's
+    fast record function, a host-side range whose device operations link
+    to it through the aten ops inside, and which puts no annotation of
+    its own on the device's timeline."""
+    rng = torch._C._profiler._RecordFunctionFast(name)
+    rng.__enter__()
+    return rng
+
+
+# every obs span opens bolt.<name> while a profiler records
+_obs.mirror(_profiler_recording, _open_range)
 
 
 @contextlib.contextmanager
@@ -44,13 +68,15 @@ def trace(logdir):
 
 @contextlib.contextmanager
 def annotate(name):
-    """Name a region in the trace timeline (an NVTX range too when CUDA
-    is available)."""
+    """Name a region in the trace timeline: the ``obs`` span ``name``,
+    which the profiler shows as ``bolt.<name>`` while it records and the
+    ring keeps while tracing is armed (an NVTX range too when CUDA is
+    available)."""
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
-        with torch.profiler.record_function(name):
+        with _obs.span(name):
             yield
     finally:
         if nvtx:

@@ -59,6 +59,11 @@ dtypes, against the plain version; a batched serve of ``sum``, ``mean``, ``var``
 bit against its standalone result; a child process started with
 ``Server(start_warm=dir)`` running no ``nvcc``.
 
+The benchmark's four cells on the card, one pass each at its own size
+under ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising
+call the pass makes is one ``host_syncs`` of the engine's counters
+(``engine.host_sync``), and every counted sync is one such call.
+
 The analysis layer on the card: ``analysis.check`` of a CUDA map chain, a
 pending filter, a stat group and a stream allocates no device byte
 (``torch.cuda.memory_allocated`` and ``max_memory_allocated`` flat) and
@@ -1631,3 +1636,42 @@ def test_nccl_refused_for_two_ranks_on_one_card_after_reform():
     for r in res:
         assert "distinct GPU per rank" in (r["refused"] or ""), r
         assert r["healed"] is True and r["pod_up"] is False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["ns.fused", "img.path", "ns.series",
+                                  "img.pca"])
+def test_host_syncs_count_each_sync_of_a_pass_on_card(cell):
+    import sys
+    import warnings
+    dev = _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import bolt_tpu_torch as bolt
+    from benchmark import harness
+    from benchmark.pipeline import Pass
+    from bolt_tpu_torch import engine
+    seed = 2 ** 31 + 22
+    _, config, traffic, _, _ = harness.load_cell(cell)
+    x, _ = harness.make_data(torch, config, seed, dev)
+    data = bolt.array(x, context=dev, axis=tuple(sorted(config["key_axes"])))
+    del x
+    run = Pass(traffic, data, seed)
+    for _ in range(2):                  # every program built and warm
+        run()
+        torch.cuda.synchronize()
+    c0 = engine.counters()["host_syncs"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            outs = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counted = engine.counters()["host_syncs"] - c0
+    torch.cuda.synchronize()
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == counted, (cell, [str(w.message) for w in syncs])
+    del outs, run, data

@@ -154,6 +154,185 @@ def test_explicit_cross_thread_parent_handoff():
 
 
 # ----------------------------------------------------------------------
+# tracer x torch.profiler: the spans on the device trace's clock
+# ----------------------------------------------------------------------
+
+def _profiled(fn):
+    """``fn()`` under a CPU ``torch.profiler``: ``(result, the profiler's
+    events)``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof.events()
+
+
+def _program_parent(e):
+    """The nearest enclosing ``bolt.`` range of the profiler event ``e``
+    (its name without the prefix), or ``""``."""
+    p = e.cpu_parent
+    while p is not None and not p.name.startswith("bolt."):
+        p = p.cpu_parent
+    return "" if p is None else p.name[len("bolt."):]
+
+
+def _descendants(e):
+    for c in e.cpu_children:
+        yield c
+        yield from _descendants(c)
+
+
+_PIPELINE_DATA = np.random.RandomState(22).randn(64, 4, 3)
+
+
+def _pipeline(name):
+    b = bolt.array(_PIPELINE_DATA, context=CPU)
+    if name == "map_sum":
+        return b.map(lambda v: v + 1).sum().toarray()
+    if name == "swap":
+        return b.swap((0,), (0,)).toarray()
+    if name == "gaussian":
+        return bolt.ops.gaussian(b, sigma=1.0, axis=(0, 1)).toarray()
+    if name == "stats":
+        return b.stats().mean()
+    return bolt.ops.pca(b, k=3, center=True)[2]
+
+
+@pytest.mark.parametrize("name,layer", [
+    ("map_sum", "array.stat"), ("swap", "array.swap"),
+    ("gaussian", "overlap.filter"), ("stats", "array.stats"),
+    ("pca", "linalg.pca")])
+def test_spans_mirror_into_the_profiler_as_the_ring_nests(name, layer):
+    """While a profiler records, every span also opens ``bolt.<name>``:
+    the ranges nest as the ring nests the spans, the layer's range holds
+    the aten ops it ran, and the values are the untraced ones."""
+    plain = _pipeline(name)
+    obs.enable()
+    got, events = _profiled(lambda: _pipeline(name))
+    np.testing.assert_array_equal(got, plain)
+    ring = obs.spans()
+    by_sid = {s.sid: s.name for s in ring}
+    want = sorted((s.name, by_sid.get(s.pid, "")) for s in ring)
+    ranges = [e for e in events if e.name.startswith("bolt.")]
+    assert sorted((e.name[len("bolt."):], _program_parent(e))
+                  for e in ranges) == want
+    assert layer in [n for n, _ in want]
+    for e in ranges:
+        if e.name == "bolt." + layer:
+            assert any(c.name.startswith("aten::")
+                       for c in _descendants(e)), layer
+    assert obs.active_count() == 0
+
+
+def test_pca_spans_name_its_three_phases():
+    obs.enable()
+    _profiled(lambda: _pipeline("pca"))
+    by_sid = {s.sid: s for s in obs.spans()}
+    phases = [s for s in obs.spans() if by_sid.get(s.pid) is not None
+              and by_sid[s.pid].name == "linalg.pca"]
+    assert [s.name for s in phases] == ["linalg.gram", "linalg.eigh",
+                                        "linalg.project"]
+    # the solver's status read inside the dispatch, then the components
+    # and singular values fetched to the host
+    syncs = [(s.attrs["why"], by_sid[s.pid].name if s.pid else "")
+             for s in obs.spans() if s.name == "host.sync"]
+    assert syncs == [("eigh", "linalg.eigh"), ("download", ""),
+                     ("download", "")]
+
+
+def test_filter_span_names_its_route():
+    obs.enable()
+    _pipeline("gaussian")
+    (sp,) = [s for s in obs.spans() if s.name == "overlap.filter"]
+    assert sp.attrs == {"taps": (9, 9), "axes": (0, 1), "route": "window"}
+    b = bolt.array(_PIPELINE_DATA.astype(np.int64), context=CPU)
+    bolt.ops.gaussian(b, sigma=1.0, axis=(0,)).toarray()
+    sp = [s for s in obs.spans() if s.name == "overlap.filter"][-1]
+    assert sp.attrs["route"] == "torch"
+
+
+def test_profiler_alone_opens_ranges_and_leaves_the_ring_empty():
+    """The ring stays armed only by ``obs.enable``: with it off, a
+    recording profiler still gets the ranges, and no span is kept or
+    left open."""
+    assert not obs.enabled()
+    _, events = _profiled(lambda: _pipeline("swap"))
+    names = [e.name for e in events if e.name.startswith("bolt.")]
+    assert "bolt.array.swap" in names and "bolt.engine.dispatch" in names
+    assert obs.spans() == [] and obs.active_count() == 0
+    assert obs.begin("after") is None       # the profiler stopped
+
+
+def test_begin_off_allocates_nothing():
+    """With the profiler and the ring off, ``begin`` returns None and
+    allocates nothing: flag checks only."""
+    import tracemalloc
+    assert obs.begin("probe") is None
+    for _ in range(10):
+        obs.end(obs.begin("warm"))
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        for _ in range(1000):
+            obs.end(obs.begin("probe"))
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    trace_py = os.path.join("bolt_tpu_torch", "obs", "trace.py")
+    profile_py = os.path.join("bolt_tpu_torch", "profile.py")
+    grown = [d for d in after.compare_to(before, "filename")
+             if d.traceback[0].filename.endswith((trace_py, profile_py))
+             and (d.size_diff or d.count_diff)]
+    assert grown == []
+
+
+def test_annotate_is_an_obs_span():
+    """``profile.annotate`` is a span: the ring keeps it, with the work
+    inside nested under it, and the profiler shows ``bolt.<name>``."""
+    obs.enable()
+
+    def run():
+        with profile.annotate("region"):
+            bolt.ones((8, 2), context=CPU).sum().toarray()
+    _, events = _profiled(run)
+    region = obs.spans()[-1]
+    assert region.name == "region"
+    assert any(s.pid == region.sid for s in obs.spans())
+    (rng,) = [e for e in events if e.name == "bolt.region"]
+    assert "bolt.array.stat" in [c.name for c in _descendants(rng)]
+
+
+def test_host_syncs_are_counted_where_they_happen(mesh):
+    """``stats()`` copies its four moments (four counted syncs), and
+    ``_download`` one; a sync inside an engine dispatch also counts its
+    seconds under ``dispatch_sync_seconds``."""
+    from bolt_tpu_torch.gpu.array import _download
+    x = np.random.RandomState(5).randn(8, 6, 4)
+    b = bolt.array(x, context=CPU)
+    c0 = engine.counters()
+    got = b.stats()
+    c1 = engine.counters()
+    assert c1["host_syncs"] - c0["host_syncs"] == 4
+    assert c1["host_sync_seconds"] > c0["host_sync_seconds"]
+    assert c1["dispatch_sync_seconds"] == c0["dispatch_sync_seconds"]
+    np.testing.assert_allclose(got.mean(), ref.array(x, mesh).stats().mean(),
+                               rtol=1e-10)
+    t = torch.arange(6.0)
+    np.testing.assert_array_equal(_download(t), t.numpy())
+    assert engine.counters()["host_syncs"] - c1["host_syncs"] == 1
+    # inside a dispatch: the solver's status read in pca
+    c2 = engine.counters()
+    bolt.ops.pca(bolt.array(_PIPELINE_DATA, context=CPU), k=2)
+    c3 = engine.counters()
+    assert c3["dispatch_sync_seconds"] > c2["dispatch_sync_seconds"]
+    obs.enable()
+    b.stats()
+    syncs = [s for s in obs.spans() if s.name == "host.sync"]
+    assert [s.attrs["why"] for s in syncs] == ["stats"] * 4
+    parent = {s.sid: s.name for s in obs.spans()}
+    assert {parent[s.pid] for s in syncs} == {"array.stats"}
+
+
+# ----------------------------------------------------------------------
 # tracer x streaming executor: parenting + overlap evidence
 # ----------------------------------------------------------------------
 
@@ -344,6 +523,8 @@ _EXPECTED_ENGINE_KEYS = {
     "codec_bytes_wire": False,
     "shuffle_bytes": False, "spill_bytes": False,
     "shuffle_seconds": True,
+    "host_syncs": False, "host_sync_seconds": True,
+    "dispatch_sync_seconds": True,
 }
 
 
