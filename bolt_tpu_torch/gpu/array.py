@@ -950,14 +950,82 @@ def _final(name, acc, ddof, dtype):
     return acc if acc.dtype == out_dt else acc.to(out_dt)
 
 
-def _chain_stats(base, funcs, split, shape, dtype, slots):
+# the stat terminals one B3 launch (kernels.fused_welford with its column
+# sum) serves over the key axes of a resident base
+_MOMENT_NAMES = ("sum", "mean", "var", "std", "min", "max")
+
+
+def stat_slots(name, axes, keepdims, ddof):
+    """The slots (``(name, axes, keepdims, ddof)``) one stat terminal
+    takes: ``ptp`` is its ``max``/``min`` pair."""
+    if name == "ptp":
+        return (("max", axes, keepdims, None), ("min", axes, keepdims, None))
+    return ((name, axes, keepdims, ddof),)
+
+
+def moments_plan(slots, split, shape, dtype, contiguous, device_type,
+                 chained):
+    """The stat ``slots`` (``(name, axes, keepdims, ddof)``) that one B3
+    launch (``kernels.fused_welford`` with its column sum) serves over a
+    base of ``shape``, torch ``dtype`` and ``split`` key axes: every
+    ``sum``/``mean``/``var``/``std``/``min``/``max`` slot whose axes are
+    exactly the key axes, when the base lies on a CUDA device, is
+    contiguous, is f32 or f64, holds at least two records and some
+    values, and no map chain runs over it (``chained``).  ``()``: every
+    slot takes torch's reductions.  Half floats stay on torch (B3 writes
+    its results in the input's type, so var and std would round twice),
+    and so do integers, bool, complex, non-contiguous bases, value-axis
+    slots and chains (a compiled chain's ``sum`` is B1's).  A plan
+    decision, made from the input before any launch: the caller names
+    the span's ``route`` from it (``"moments"`` when it serves a slot)
+    and hands it to :func:`_chain_stats`."""
+    if chained or device_type != "cuda" or not contiguous or \
+            dtype not in (torch.float32, torch.float64) or \
+            prod(shape[:split]) < 2 or prod(shape[split:]) == 0:
+        return ()
+    keys = tuple(range(split))
+    return tuple(slot for slot in slots
+                 if slot[0] in _MOMENT_NAMES and tuple(slot[1]) == keys)
+
+
+def _key_moments(base, split):
+    """``(mean, m2, min, max, sum)`` over the key axes of ``base``, each
+    shaped like a record, from one ``fused_welford`` launch."""
+    vshape = tuple(base.shape[split:])
+    n = prod(base.shape[:split])
+    return tuple(v.reshape(vshape) for v in kernels.fused_welford(
+        base.reshape(n, prod(vshape)), with_sum=True))
+
+
+def _moment_stat(moments, n, name, axes, keepdims, ddof, dtype):
+    """The key-axis stat terminal ``name`` of ``n`` records from their
+    :func:`_key_moments`, finished as :func:`_final` finishes a folded
+    one (``var`` = ``m2 / max(0, n - ddof)``, ``std`` its root)."""
+    mu, m2, mn, mx, total = moments
+    if name in ("var", "std"):
+        out = _final(name, (n, mu, m2), ddof, dtype)
+    elif name == "mean":
+        # the column sum over n, as torch.mean and the reference take it:
+        # a column holding an infinity keeps it, where the running mean's
+        # x - mean turns the next finite value into NaN
+        out = _final(name, (n, total), ddof, dtype)
+    else:
+        out = {"sum": total, "min": mn, "max": mx}[name]
+    return out.reshape((1,) * len(axes) + tuple(out.shape)) if keepdims \
+        else out
+
+
+def _chain_stats(base, funcs, split, shape, dtype, slots, served=()):
     """The stat terminals ``slots`` (``(name, axes, keepdims, ddof)``;
     ``ptp`` is a group's ``max``/``min`` pair) of the chain ``funcs`` over
     ``base`` (mapped values of ``shape`` and numpy ``dtype``), in order,
     from one application of the chain.
 
     No chain, or one that fits one block (``_BLOCK_BYTES``): every slot
-    reduces the mapped values whole with :func:`_reduce_stat`.  A longer
+    reduces the mapped values whole with :func:`_reduce_stat`, but for
+    the ``served`` slots (the key-axis moments of a resident base that
+    :func:`moments_plan` gave), which one ``fused_welford`` launch serves
+    together.  A longer
     chain is applied block by block of records and never held whole: a
     slot over every key axis folds its blocks' partials in block order,
     a slot over value axes only joins its blocks' results, and a slot
@@ -970,8 +1038,9 @@ def _chain_stats(base, funcs, split, shape, dtype, slots):
     rec = _chain_rec_bytes(base, split, shape, dtype) if funcs else 0
     if not funcs or n <= _block_records(rec):
         mapped = _chain_values(base, funcs, split, shape, dtype)
-        return [_reduce_stat(mapped, name, axes, keepdims, ddof, dtype)
-                for name, axes, keepdims, ddof in slots]
+        moments = _key_moments(base, split) if served else None
+        return [_moment_stat(moments, n, *slot, dtype) if slot in served
+                else _reduce_stat(mapped, *slot, dtype) for slot in slots]
     keys = set(range(split))
     folded = [i for i, sl in enumerate(slots) if keys <= set(sl[1])]
     joined = [i for i, sl in enumerate(slots) if not keys & set(sl[1])]
@@ -1011,12 +1080,14 @@ def _chain_stats(base, funcs, split, shape, dtype, slots):
     return out
 
 
-def _chain_group_lanes(bases, funcs, split, shape, dtype, slots):
+def _chain_group_lanes(bases, funcs, split, shape, dtype, slots,
+                       served=None):
     """The stat ``slots`` (``(name, axes, keepdims, ddof)``) of the chain
     ``funcs`` over each of ``bases`` (mapped values of ``shape`` and numpy
     ``dtype``), as one tuple of results per base: a compiled ``sum``
     through ``fused_map_reduce`` (:func:`_chain_sum_lanes`, one launch for
-    every lane), every other slot by :func:`_chain_stats` of the lane.
+    every lane), every other slot by :func:`_chain_stats` of the lane
+    (``served``: each lane's :func:`moments_plan`, none by default).
     The one body of a chain stat group's program (one base) and of a serve
     batched dispatch of such groups (``gpu/batched.py``, a base a lane),
     so each lane equals its standalone group bit for bit."""
@@ -1030,20 +1101,21 @@ def _chain_group_lanes(bases, funcs, split, shape, dtype, slots):
             d for a, d in enumerate(shape) if a not in axes)
         for i, r in _chain_sum_lanes(bases, funcs, split, axes).items():
             outs[i][slot] = r.reshape(oshape)
-    for base, out in zip(bases, outs):
+    for base, out, plan in zip(bases, outs, served or [()] * len(bases)):
         rest = [s for s in slots if s not in out]
         out.update(zip(rest, _chain_stats(base, funcs, split, shape, dtype,
-                                          rest)))
+                                          rest, plan)))
     return [tuple(out[s] for s in slots) for out in outs]
 
 
 def _chain_stat(base, funcs, split, shape, dtype, name, axes, keepdims,
-                ddof):
+                ddof, served=()):
     """The stat terminal ``name`` over ``axes`` of the chain ``funcs``
     over ``base`` (mapped values of ``shape`` and numpy ``dtype``): a
     compiled chain's ``sum`` through ``fused_map_reduce``
-    (:func:`_chain_sum`), everything else by :func:`_chain_stats`
-    (``ptp`` as its ``max``/``min`` pair, as a group takes it)."""
+    (:func:`_chain_sum`), everything else by :func:`_chain_stats` with
+    the ``served`` slots of :func:`moments_plan` (``ptp`` as its
+    ``max``/``min`` pair, as a group takes it)."""
     if name == "sum":
         out = _chain_sum(base, funcs, split, axes)
         if out is not None:
@@ -1053,31 +1125,31 @@ def _chain_stat(base, funcs, split, shape, dtype, name, axes, keepdims,
             return out
     if name == "ptp":
         mx, mn = _chain_stats(base, funcs, split, shape, dtype,
-                              [("max", axes, keepdims, None),
-                               ("min", axes, keepdims, None)])
+                              stat_slots(name, axes, keepdims, ddof), served)
         return ufuncs.binary("subtract", mx, mn)
     return _chain_stats(base, funcs, split, shape, dtype,
-                        [(name, axes, keepdims, ddof)])[0]
+                        [(name, axes, keepdims, ddof)], served)[0]
 
 
 def _stat_program(name, funcs, base, split, shape, dtype, axes, keepdims,
-                  ddof, donate, device):
+                  ddof, donate, device, served=()):
     """The engine's program of the stat terminal ``name`` over ``axes``
     of the chain ``funcs`` over ``base`` (mapped values of ``shape`` and
-    numpy ``dtype``): :func:`_chain_stat`, with a compiled chain's
-    expression program traced at the build."""
+    numpy ``dtype``): :func:`_chain_stat` with the ``served`` slots of
+    :func:`moments_plan`, with a compiled chain's expression program
+    traced at the build."""
     def build():
         if name == "sum" and funcs:
             mapexpr.compile(funcs, tuple(base.shape[split:]), base.dtype)
 
         def run(data):
             return _chain_stat(data, funcs, split, shape, dtype, name, axes,
-                               keepdims, ddof)
+                               keepdims, ddof, served)
         return run
 
     return _cached_jit(("stat", name, funcs, tuple(base.shape),
                         str(base.dtype), split, axes, keepdims, ddof, donate,
-                        device), build)
+                        device, served), build)
 
 
 def stat_axes(shape, split, axis):
@@ -1791,11 +1863,16 @@ class BoltArrayGPU(ArrayMethods, BoltArray):
         # donating terminal (checked before the base local exists)
         donate = self.deferred and _chain_donate_ok(self._chain)
         base, funcs = self._chain_parts()
+        served = moments_plan(stat_slots(name, axes, keepdims, ddof),
+                              self._split, tuple(base.shape), base.dtype,
+                              base.is_contiguous(), base.device.type,
+                              bool(funcs))
         fn = _stat_program(name, funcs, base, self._split, self.shape,
                            self.dtype, axes, keepdims, ddof, donate,
-                           self._device)
+                           self._device, served)
         with _obs.span("array.stat", op=name, funcs=len(funcs),
-                       donate=donate):
+                       donate=donate,
+                       route="moments" if served else "torch"):
             out = fn(base)
         if donate:
             del base

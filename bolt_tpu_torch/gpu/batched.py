@@ -296,8 +296,12 @@ def _program(kind, slots, funcs, rfunc, split, shape, dtype):
                                          keepdims),) for b in bases]
     elif kind == "stat":
         def run(*bases):
+            # each lane planned as its standalone group is
+            served = [_array.moments_plan(
+                slots, split, tuple(b.shape), b.dtype, b.is_contiguous(),
+                b.device.type, bool(funcs)) for b in bases]
             return _array._chain_group_lanes(list(bases), funcs, split,
-                                             shape, dtype, slots)
+                                             shape, dtype, slots, served)
     else:
         def run(*bases):
             return [(_array._chain_values(b, funcs, split, shape, dtype),)

@@ -21,7 +21,11 @@ standalone terminal bit for bit:
   (``gpu/array.py :: _chain_stats``: whole within one block of records,
   else each block's partials folded in block order); a ``sum`` the chain
   compiles for still takes ``fused_map_reduce`` from the base, as its
-  standalone does; ``ptp`` is its group's ``max - min`` pair;
+  standalone does; the key-axis ``sum``/``mean``/``var``/``std``/``min``/
+  ``max`` of a resident f32/f64 base with no chain take one
+  ``fused_welford`` launch with its column sum, as their standalone
+  terminals do (the span's ``route``: ``"moments"``, else ``"torch"``);
+  ``ptp`` is its group's ``max - min`` pair;
 * an ``fpending`` group (a pending filter) runs the chain and predicate
   over blocks once and folds that mask into every member
   (``gpu/array.py :: _filter_stats``);
@@ -109,10 +113,9 @@ class PendingStat:
 def _slot(member):
     """The group results a member needs: ``ptp`` is the max/min pair, so
     its slots are shared with sibling ``max``/``min`` members."""
-    if member.name == "ptp":
-        return (("max", member.axes, member.keepdims, None),
-                ("min", member.axes, member.keepdims, None))
-    return ((member.name, member.axes, member.keepdims, member.ddof),)
+    from bolt_tpu_torch.gpu.array import stat_slots
+    return stat_slots(member.name, member.axes, member.keepdims,
+                      member.ddof)
 
 
 def _out_shape(shape, axes, keepdims):
@@ -309,29 +312,41 @@ class _StatGroup:
             m.result = fn(base)
 
     def _resolve_chain(self, members, mode):
-        from bolt_tpu_torch.gpu.array import _stat_program
+        from bolt_tpu_torch.gpu.array import _stat_program, moments_plan
         base, funcs, split = self.base, self.funcs, self.split
         donate = self.donate
+
+        def plan(slots):
+            return moments_plan(slots, split, tuple(base.shape), base.dtype,
+                                base.is_contiguous(), base.device.type,
+                                bool(funcs))
         if len(members) == 1 and mode is None:
             # the standalone terminal itself (the same engine entry)
             m = members[0]
+            served = plan(_slot(m))
             fn = _stat_program(m.name, funcs, base, split, self.shape,
                                self.dtype, m.axes, m.keepdims, m.ddof,
-                               donate, self.device)
+                               donate, self.device, served)
             with _obs.span("array.stat", op=m.name, funcs=len(funcs),
-                           donate=donate):
+                           donate=donate,
+                           route="moments" if served else "torch"):
                 m.result = fn(base)
             return
         slots = tuple(sorted({s for m in members for s in _slot(m)},
                              key=repr))
         shape, dtype = self.shape, self.dtype
+        # a reduced-precision mode reduces a mapped tensor with torch
+        served = () if mode is not None else plan(slots)
         fn = _cached_jit(("multi-stat", slots, funcs, tuple(base.shape),
-                          str(base.dtype), split, donate, mode, self.device),
+                          str(base.dtype), split, donate, mode, self.device,
+                          served),
                          lambda: _chain_group_program(funcs, split, shape,
-                                                      dtype, slots, mode))
+                                                      dtype, slots, mode,
+                                                      served))
         with _obs.span("array.multi_stat", terminals=len(members),
                        slots=len(slots), funcs=len(funcs), donate=donate,
-                       accumulate=mode or "exact"):
+                       accumulate=mode or "exact",
+                       route="moments" if served else "torch"):
             out = dict(zip(slots, fn(base)))
         if len(members) > 1:
             engine.record_fused_stats(len(members))
@@ -384,7 +399,8 @@ class _StatGroup:
                           str(base.dtype), geom[2], donate, self.device),
                          build)
         with _obs.span("array.multi_stat", terminals=len(members),
-                       slots=len(slots), filtered=True, donate=donate):
+                       slots=len(slots), filtered=True, donate=donate,
+                       route="torch"):
             out = dict(zip(slots, fn(base)))
         if len(members) > 1:
             engine.record_fused_stats(len(members))
@@ -398,17 +414,20 @@ def _cached_jit(key, builder):
     return engine.get(key, builder)
 
 
-def _chain_group_program(funcs, split, shape, dtype, slots, mode):
+def _chain_group_program(funcs, split, shape, dtype, slots, mode,
+                         served=()):
     """The program of a chain group's ``slots``: a compiled ``sum`` reads
     the base through ``fused_map_reduce``, as its standalone terminal
-    does, and the other slots share one application of the chain; under
-    a reduced-precision ``mode`` every slot reduces one mapped tensor."""
+    does, the ``served`` slots of ``gpu/array.py :: moments_plan`` one
+    ``fused_welford`` launch, and the other slots share one application
+    of the chain; under a reduced-precision ``mode`` every slot reduces
+    one mapped tensor."""
     from bolt_tpu_torch.gpu.array import _chain_group_lanes, _chain_values
 
     def run(base):
         if mode is None:
             return _chain_group_lanes([base], funcs, split, shape, dtype,
-                                      slots)[0]
+                                      slots, [served])[0]
         mapped = _chain_values(base, funcs, split, shape, dtype)
         out = tuple(_accumulated(mapped, *slot, mode, dtype)
                     for slot in slots)

@@ -10,6 +10,16 @@ the kernel.
 * :func:`fused_welford` replaces ``bolt_tpu/ops/kernels.py ::
   fused_welford`` — column-wise ``(mean, m2, min, max)`` over axis 0 in
   one read of device memory (the body of ``stats()``; ``csrc/moments.cu``).
+  ``with_sum=True`` takes the kernel's instantiation with a column-sum
+  accumulator, added in a fixed order (each row lane's rows in order,
+  four at a time as a pairwise block into its running sum, then the
+  lanes by a tree, then the row chunks in chunk order with Kahan's
+  compensation), so the sum is the same from run to run: the one launch
+  that serves a stat
+  group's (or a lone terminal's) key-axis ``sum``/``mean``/``var``/
+  ``std``/``min``/``max`` of a resident f32/f64 base
+  (``gpu/array.py :: _chain_stats``).  ``stats()`` and the mesh moments
+  take the instantiation without the sum.
 * :func:`fused_stats` replaces ``bolt_tpu/ops/kernels.py :: fused_stats``
   — ``(sum, sum_sq, min, max)`` over every element (``csrc/moments.cu``).
 * :func:`sepfilter1d` replaces ``bolt_tpu/ops/kernels.py :: sepfilter1d``
@@ -73,7 +83,7 @@ _RESIDENT_THREADS = 2048   # threads one SM holds at once (Hopper)
 # C entry points of each source and their argument types
 _SIGNATURES = {
     "moments.cu": {
-        "bolt_fused_welford": [ctypes.c_void_p] * 6 + [
+        "bolt_fused_welford": [ctypes.c_void_p] * 7 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "bolt_fused_stats": [ctypes.c_void_p] * 3 + [
@@ -183,15 +193,17 @@ def _on_card(x, name):
 # fused_welford
 # ---------------------------------------------------------------------------
 
-def _fused_welford_plain(x):
+def _fused_welford_plain(x, with_sum=False):
     """The plain PyTorch version: two-pass ``m2``, NaN-propagating
     ``amin``/``amax``, accumulated in f32 for f16/bf16, results in
-    ``x.dtype``."""
+    ``x.dtype``; ``with_sum`` adds the column sum."""
     xa = x.to(_acc_dtype(x.dtype))
     mu = xa.mean(dim=0)
     m2 = ((xa - mu) ** 2).sum(dim=0)
-    return tuple(v.to(x.dtype) for v in
-                 (mu, m2, torch.amin(xa, dim=0), torch.amax(xa, dim=0)))
+    out = (mu, m2, torch.amin(xa, dim=0), torch.amax(xa, dim=0))
+    if with_sum:
+        out += (xa.sum(dim=0),)
+    return tuple(v.to(x.dtype) for v in out)
 
 
 def _lanes(columns, vec):
@@ -224,15 +236,18 @@ def welford_rows(n, columns, vec, sm_count):
     return lanes, rpc, -(-n // rpc)
 
 
-def fused_welford(x):
+def fused_welford(x, with_sum=False):
     """Single-pass ``(mean, m2, min, max)`` over axis 0 of ``x``, each
     shaped ``x.shape[1:]`` and in ``x.dtype`` (``m2`` = sum of squared
-    deviations, the StatCounter field).  ``None`` for a non-floating
-    dtype, ``x.ndim < 2`` or ``x.shape[0] < 2``."""
+    deviations, the StatCounter field); ``with_sum`` adds a fifth, the
+    sum over axis 0, from the same read (the kernel's SUM instantiation:
+    each row lane adds its rows in order, four at a time as a pairwise
+    block, the lanes and then the row chunks fold in a fixed order).  ``None`` for a non-floating dtype,
+    ``x.ndim < 2`` or ``x.shape[0] < 2``."""
     if not x.is_floating_point() or x.ndim < 2 or x.shape[0] < 2:
         return None
     if x.device.type == "cpu":
-        return _fused_welford_plain(x)
+        return _fused_welford_plain(x, with_sum)
     if x.device.type != "cuda":
         raise ValueError("fused_welford runs on CUDA or CPU tensors, got "
                          "device %s" % x.device)
@@ -241,15 +256,17 @@ def fused_welford(x):
     columns = prod(vshape)
     vec = _vec(x, columns)
     lanes, rpc, chunks = welford_rows(n, columns, vec, _sm_count(x.device))
-    part = torch.empty((chunks, 4, columns), dtype=_acc_dtype(x.dtype),
+    fields = 5 if with_sum else 4
+    part = torch.empty((chunks, fields, columns), dtype=_acc_dtype(x.dtype),
                        device=x.device)
     outs = [torch.empty(vshape, dtype=x.dtype, device=x.device)
-            for _ in range(4)]
+            for _ in range(fields)]
     lib = _lib()
     stream = _stream(x.device)
     with _on_device(x.device):
         code = lib.bolt_fused_welford(
-            x.data_ptr(), part.data_ptr(), *(o.data_ptr() for o in outs),
+            x.data_ptr(), part.data_ptr(), *(o.data_ptr() for o in outs[:4]),
+            outs[4].data_ptr() if with_sum else None,
             n, columns, rpc, chunks, lanes, _DTYPE_CODE[x.dtype], vec, stream)
     _check(code, "fused_welford")
     LAUNCHES["fused_welford"] += 1

@@ -59,6 +59,19 @@ dtypes, against the plain version; a batched serve of ``sum``, ``mean``, ``var``
 bit against its standalone result; a child process started with
 ``Server(start_warm=dir)`` running no ``nvcc``.
 
+The key-axis moments of a resident base on the card: ``fused_welford``'s
+instantiation with a column sum, its four moments bit for bit those of
+the instantiation without it and its sum the plain version's; a
+``(512, 64, 128)`` f32 group of ``sum``, ``mean``, ``var``, ``std``,
+``min``, ``max``, ``ptp`` and ``var(ddof=1)`` in one launch, its span's
+``route`` ``"moments"``, each member bit for bit its standalone terminal,
+min/max exact and the rest within ``4 n 2**-24`` of an f64 reference, a
+NaN column kept; a float16 base and value-axis slots on torch.  Its
+``mean`` is the column sum over the records, so columns holding +inf,
+-inf, both, or finite values whose sum overflows read as numpy's mean
+does, and its sum within ``8 * 2**-24`` of the column's absolute sum on
+a tall narrow matrix with row lanes and row chunks.
+
 The benchmark's four cells on the card, one pass each at its own size
 under ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising
 call the pass makes is one ``host_syncs`` of the engine's counters
@@ -112,6 +125,104 @@ def test_kernels_match_plain_on_card(shape, dtype):
     torch.cuda.synchronize()
     assert K.LAUNCHES["fused_welford"] == before["fused_welford"] + 1
     assert K.LAUNCHES["fused_stats"] == before["fused_stats"] + 1
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and bits (a NaN equals the same NaN)."""
+    it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(it), b.contiguous().view(it))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((3200, 8192), torch.float32), ((257, 64, 64), torch.float64),
+    ((128, 4096), torch.bfloat16), ((3, 5, 7), torch.float32),
+    # narrow columns: row lanes in each block and many row chunks
+    ((50000, 64), torch.float32), ((100000, 3), torch.float64),
+    ((4097, 2), torch.float32), ((70000, 24), torch.float16)])
+def test_fused_welford_with_sum_on_card(shape, dtype):
+    # the SUM instantiation: its four moments equal the instantiation
+    # without the sum bit for bit, the same bits again on a second launch,
+    # and its sum the plain version's within the moment tolerances
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x.reshape(shape[0], -1)[:, 1] = float("nan")
+    before = K.LAUNCHES["fused_welford"]
+    four = K.fused_welford(x)
+    five = K.fused_welford(x, with_sum=True)
+    again = K.fused_welford(x, with_sum=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_welford"] == before + 3
+    assert len(four) == 4 and len(five) == 5
+    for a, b in zip(four, five):
+        assert _same_bits(a, b)
+    for a, b in zip(five, again):
+        assert _same_bits(a, b)
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}.get(dtype, 1.6e-2)
+    want = K._fused_welford_plain(x, with_sum=True)[4]
+    torch.testing.assert_close(five[4].double(), want.double(), rtol=tol,
+                               atol=tol, equal_nan=True)
+    assert bool(five[4].reshape(-1)[1].isnan())
+
+
+@pytest.mark.gpu
+def test_fused_welford_sum_error_bounded_on_card():
+    # a tall narrow f32 matrix with a mean of 1: row lanes in each block
+    # and many row chunks, whose partial sums the combining kernel adds
+    # with Kahan's compensation; the sum stays within a few roundings of
+    # the column's absolute sum
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn((1048576, 64), generator=g, device=dev) + 1.0
+    got = K.fused_welford(x, with_sum=True)[4].double()
+    xd = x.double()
+    err = (got - xd.sum(0)).abs() / xd.abs().sum(0)
+    assert float(err.max()) <= 8 * 2.0 ** -24, float(err.max())
+
+
+@pytest.mark.gpu
+def test_group_mean_keeps_infinities_on_card():
+    # the moments route's mean is the column sum over n, as numpy's: +inf
+    # stays +inf, -inf -inf, both NaN, finite values whose sum overflows
+    # inf; sum, min and max as numpy's; var/std NaN where an infinity is,
+    # and 0 on a constant column (numpy's overflows there)
+    import bolt_tpu_torch as bolt
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(31)
+    t = torch.randn((512, 8192), generator=g, device=dev)
+    t[7, 1] = float("inf")
+    t[3, 2], t[300, 2] = float("inf"), float("-inf")
+    t[500, 3] = float("-inf")
+    t[:, 4] = 3e38
+    b = bolt.array(t, dev)
+    before = K.LAUNCHES["fused_welford"]
+    out = {k: v.totorch() for k, v in
+           b.stats("sum", "mean", "var", "std", "min", "max").items()}
+    lone = b.mean().totorch()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_welford"] == before + 2
+    assert _same_bits(out["mean"], lone)
+    x = t.cpu().numpy()
+    with np.errstate(invalid="ignore", over="ignore"):
+        for name in ("sum", "mean", "var", "std", "min", "max"):
+            want = getattr(x, name)(0)
+            got = out[name].cpu().numpy()
+            if name in ("var", "std"):
+                # the constant overflowing column: numpy centres on its
+                # overflowed mean, the running variance reads 0 (an empty
+                # state's combine takes the other state whole, so the
+                # mean's square never overflows against a zero weight)
+                assert got[4] == 0, name
+                want, got = np.delete(want, 4), np.delete(got, 4)
+            bad = ~np.isfinite(want)
+            np.testing.assert_array_equal(got[bad], want[bad], name)
+            np.testing.assert_allclose(got[~bad], want[~bad], rtol=1e-4,
+                                       atol=1e-3, err_msg=name)
+    m = out["mean"].cpu().numpy()
+    assert np.isposinf(m[1]) and np.isnan(m[2]) and np.isneginf(m[3]) \
+        and np.isposinf(m[4])
 
 
 @pytest.mark.gpu
@@ -577,6 +688,87 @@ def test_group_members_equal_standalone_terminals_on_card():
     for name in out:
         assert torch.equal(out[name].totorch(),
                            getattr(b, name)().totorch()), name
+
+
+@pytest.mark.gpu
+def test_group_moments_read_once_through_fused_welford_on_card():
+    # a resident f32 base's key-axis sum/mean/var/std/min/max (ptp their
+    # max/min pair, var(ddof=1) too) take one fused_welford launch with its
+    # column sum, named route="moments" on the group's span; each member
+    # equals its standalone terminal bit for bit, and an f64 reference:
+    # min/max/ptp exactly, the rest within f32 rounding of n rows; a NaN
+    # column stays NaN; a half-float base and value-axis slots stay on
+    # torch
+    import bolt_tpu_torch as bolt
+    from bolt_tpu_torch import obs
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(23)
+    t = torch.randn((512, 64, 128), generator=g, device=dev)
+    t[:, 5, 7] = float("nan")
+    b = bolt.array(t, dev)
+    names = ("sum", "mean", "var", "std", "min", "max", "ptp")
+    obs.enable()
+    try:
+        obs.clear()
+        torch.cuda.synchronize()
+        before = K.LAUNCHES["fused_welford"]
+        group = bolt.compute(*(getattr(b, n)() for n in names),
+                             b.var(ddof=1))
+        group = [h.totorch() for h in group]
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fused_welford"] == before + 1
+        routes = [sp.attrs["route"] for sp in obs.spans()
+                  if sp.name == "array.multi_stat"]
+        assert routes == ["moments"]
+        lone = [getattr(b, n)().totorch() for n in names]
+        lone.append(b.var(ddof=1).totorch())
+        for name, got, want in zip(names + ("var1",), group, lone):
+            assert _same_bits(got, want), name
+        assert all(sp.attrs["route"] == "moments" for sp in obs.spans()
+                   if sp.name == "array.stat")
+        # the f64 reference
+        xd = t.double()
+        n = t.shape[0]
+        eps = n * 2.0 ** -24
+        absum = xd.abs().sum(0)
+        ref = {"sum": (xd.sum(0), absum), "mean": (xd.mean(0), absum / n),
+               "var": (xd.var(0, correction=0), None),
+               "std": (xd.std(0, correction=0), None),
+               "var1": (xd.var(0, correction=1), None)}
+        got = dict(zip(names + ("var1",), group))
+        keep = torch.ones(t.shape[1:], dtype=torch.bool, device=dev)
+        keep[5, 7] = False
+        for name, (want, scale) in ref.items():
+            v = got[name]
+            assert v.dtype == torch.float32 and bool(v[5, 7].isnan()), name
+            scale = want.abs() if scale is None else scale
+            err = ((v.double() - want).abs()[keep]
+                   / scale[keep].clamp_min(1e-300))
+            assert float(err.max()) <= 4 * eps, (name, float(err.max()))
+        for name, want in (("min", t.amin(0)), ("max", t.amax(0)),
+                           ("ptp", t.amax(0) - t.amin(0))):
+            assert _same_bits(got[name], want), name
+        assert bool(got["min"][5, 7].isnan() & got["max"][5, 7].isnan())
+        # a half-float base (a port array is never bf16: numpy has no
+        # such type) and value-axis slots: torch, no launch
+        obs.clear()
+        bh = bolt.array(t.to(torch.float16), dev)
+        out = bh.stats("sum", "max")
+        s1, m1 = bolt.compute(b.sum(axis=(1,)), b.max(axis=(2,)))
+        torch.cuda.synchronize()
+        # the group's launch, then one a lone terminal (ptp's pair one)
+        assert K.LAUNCHES["fused_welford"] == before + 2 + len(names)
+        routes = [sp.attrs["route"] for sp in obs.spans()
+                  if sp.name == "array.multi_stat"]
+        assert routes == ["torch", "torch"]
+        assert _same_bits(out["sum"].totorch(), torch.sum(
+            t.to(torch.float16), dim=(0,), dtype=torch.float16))
+        assert _same_bits(s1.totorch(),
+                          torch.sum(t, dim=(1,), dtype=torch.float32))
+        assert _same_bits(m1.totorch(), torch.amax(t, dim=(2,)))
+    finally:
+        obs.disable()
+        obs.clear()
 
 
 @pytest.mark.gpu

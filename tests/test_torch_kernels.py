@@ -107,6 +107,34 @@ def test_fused_welford_none_contract(x):
     assert ref_welford(jnp.asarray(x.numpy())) is None
 
 
+@pytest.mark.parametrize("shape", [(64, 256), (37, 6, 5), (2, 3)])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_fused_welford_with_sum_adds_the_column_sum(shape, dtype):
+    # with_sum: the four moments exactly as without it, then the column
+    # sum (accumulated in f32 for bf16, in x's type); without the flag
+    # the four moments the plain version has always given
+    _, xt = _inputs(shape, dtype, seed=4, nan_col=shape[-1] > 3)
+    four = K.fused_welford(xt)
+    five = K.fused_welford(xt, with_sum=True)
+    assert len(four) == 4 and len(five) == 5
+    for a, b in zip(four, five[:4]):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    xa = xt.to(K._acc_dtype(xt.dtype))
+    mu = xa.mean(dim=0)
+    want = (mu, ((xa - mu) ** 2).sum(dim=0), torch.amin(xa, dim=0),
+            torch.amax(xa, dim=0))
+    for a, w in zip(four, want):
+        assert a.dtype == xt.dtype and torch.equal(
+            a.nan_to_num(7.0), w.to(xt.dtype).nan_to_num(7.0))
+    s = five[4]
+    assert s.dtype == xt.dtype and tuple(s.shape) == shape[1:]
+    assert torch.equal(s.nan_to_num(7.0),
+                       xa.sum(dim=0).to(xt.dtype).nan_to_num(7.0))
+    x64 = xt.double().numpy()
+    np.testing.assert_allclose(_np(s), x64.sum(axis=0), equal_nan=True,
+                               **_TOL[dtype])
+
+
 @pytest.mark.parametrize("shape", [(16, 128), (32, 256), (5, 7)])
 @pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
 def test_fused_stats_matches_reference(shape, dtype):

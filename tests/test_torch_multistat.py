@@ -11,7 +11,16 @@ counted here by the applications of its chain and by
 ``engine.counters()``'s ``fused_stat_groups``/``fused_stat_terminals``.
 A group donates once (``test_group_donates_once_and_guards_source``).
 The BLT009 forecast and the strict gate are checked at the end, with no
-build, against the reference's forecast.
+build, against the reference's forecast.  Last, the key-axis moments of a
+resident base: ``moments_plan`` case by case (f32/f64 on a CUDA device
+in; half floats, integers, bool, complex, non-contiguous bases,
+value-axis slots, chains and other devices out), and the route itself,
+planned on CPU tensors as if they lay on the card (``cuda_plan``), so
+one ``fused_welford`` call (its plain version) serves a group whose
+members equal their standalone terminals bit for bit, with the spans'
+``route`` beside it; its ``mean`` is the column sum over the records, so
+an infinity stays one as in numpy; a serve batch plans each lane as its
+own group.
 """
 
 import threading
@@ -766,3 +775,221 @@ def test_strict_gate_still_fires_at_call():
         with pytest.raises(analysis.PipelineError, match="BLT001"):
             bolt.compute(bad.mean(), bad.var())
     assert engine.counters()["misses"] == c0["misses"]
+
+
+# ---------------------------------------------------------------------------
+# the key-axis moments of a resident base: one B3 launch (fused_welford
+# with its column sum) on a CUDA device, torch's reductions elsewhere
+# ---------------------------------------------------------------------------
+
+_KEY = (("sum", (0,), False, None), ("mean", (0,), False, None),
+        ("var", (0,), False, 1), ("std", (0,), True, None),
+        ("min", (0,), False, None), ("max", (0,), False, None))
+
+
+def _plan(x, slots=_KEY, split=1, device_type="cuda", chained=False):
+    return garray.moments_plan(slots, split, tuple(x.shape), x.dtype,
+                               x.is_contiguous(), device_type, chained)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_moments_plan_takes_resident_f32_f64_on_cuda(dtype):
+    x = torch.zeros((8, 3, 4), dtype=dtype)
+    assert _plan(x) == _KEY
+    # two key axes: the slots over both
+    two = (("sum", (0, 1), False, None), ("max", (0,), False, None))
+    assert _plan(x, two, split=2) == two[:1]
+
+
+@pytest.mark.parametrize("case", [
+    "float16", "bfloat16", "int32", "int64", "bool", "complex64",
+    "non_contiguous", "compiled_chain", "cpu", "meta", "one_record",
+    "no_values", "no_keys"])
+def test_moments_plan_leaves_torch_its_cases(case):
+    x = torch.zeros((8, 3, 4))
+    kw = {}
+    if case in ("float16", "bfloat16", "int32", "int64", "bool",
+                "complex64"):
+        x = x.to(getattr(torch, case))
+    elif case == "non_contiguous":
+        x = x.transpose(1, 2)
+    elif case == "compiled_chain":
+        kw["chained"] = True
+    elif case in ("cpu", "meta"):
+        kw["device_type"] = case
+    elif case == "one_record":
+        x = torch.zeros((1, 3, 4))
+    elif case == "no_values":
+        x = torch.zeros((8, 0, 4))
+    else:
+        kw["split"] = 0
+    assert _plan(x, **kw) == ()
+
+
+def test_moments_plan_serves_only_key_axis_moment_slots():
+    x = torch.zeros((8, 3, 4))
+    slots = (("sum", (0,), False, None), ("sum", (1,), False, None),
+             ("mean", (0, 1), False, None), ("prod", (0,), False, None),
+             ("all", (0,), False, None), ("var", (0,), True, 0),
+             ("max", (2,), False, None))
+    assert _plan(x, slots) == (slots[0], slots[5])
+    assert _plan(x, slots[1:5]) == ()
+
+
+@pytest.fixture
+def cuda_plan(monkeypatch):
+    """Plan the CPU tensors as if they lay on the card, so the route runs
+    here through ``fused_welford``'s plain version; counts its calls."""
+    from bolt_tpu_torch.ops import kernels as K
+    calls = []
+    real = K.fused_welford
+
+    def counted(x, with_sum=False):
+        calls.append(with_sum)
+        return real(x, with_sum=with_sum)
+
+    plan = garray.moments_plan
+    monkeypatch.setattr(K, "fused_welford", counted)
+    monkeypatch.setattr(
+        garray, "moments_plan",
+        lambda slots, split, shape, dtype, contiguous, device_type, chained:
+        plan(slots, split, shape, dtype, contiguous, "cuda", chained))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_moments_route_one_read_members_equal_standalone(cuda_plan, dtype):
+    x = _x((40, 5, 3), seed=31).astype(dtype)
+    names = ("sum", "mean", "var", "std", "min", "max", "ptp")
+    b = bolt.array(x, CPU)
+    group = bolt.compute(*(getattr(b, n)() for n in names),
+                         b.var(ddof=1), b.std(keepdims=True))
+    group = [g.toarray() for g in group]
+    assert cuda_plan == [True]
+    lone = [getattr(bolt.array(x, CPU), n)().toarray() for n in names]
+    lone += [bolt.array(x, CPU).var(ddof=1).toarray(),
+             bolt.array(x, CPU).std(keepdims=True).toarray()]
+    for name, got, want in zip(names + ("var1", "std_kd"), group, lone):
+        assert _bits(got, want), name
+    x64 = x.astype(np.float64)
+    want = [x64.sum(0), x64.mean(0), x64.var(0), x64.std(0), x64.min(0),
+            x64.max(0), np.ptp(x64, 0), x64.var(0, ddof=1),
+            x64.std(0, keepdims=True)]
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    for got, w in zip(group, want):
+        assert got.dtype == dtype and got.shape == w.shape
+        np.testing.assert_allclose(got, w, rtol=tol, atol=tol)
+    assert _bits(group[4], x.min(0)) and _bits(group[5], x.max(0))
+
+
+def test_moments_route_spans_name_it(cuda_plan):
+    from bolt_tpu_torch import obs
+    x = _x((12, 4), seed=32).astype(np.float32)
+    obs.enable()
+    try:
+        obs.clear()
+        bolt.array(x, CPU).stats("sum", "var", "ptp")
+        bolt.array(x, CPU).mean().toarray()
+        bolt.array(x.astype(np.float16), CPU).stats("sum", "max")
+        bolt.array(x, CPU).stats("sum", "max", axis=(1,))
+        bolt.array(x, CPU).map(lambda v: v + 1).stats("sum", "var")
+        routes = [(s.name, s.attrs["route"]) for s in obs.spans()
+                  if s.name in ("array.stat", "array.multi_stat")]
+    finally:
+        obs.disable()
+        obs.clear()
+    assert routes == [("array.multi_stat", "moments"),
+                      ("array.stat", "moments"),
+                      ("array.multi_stat", "torch"),
+                      ("array.multi_stat", "torch"),
+                      ("array.multi_stat", "torch")]
+    assert cuda_plan == [True, True]
+
+
+def test_moments_route_keeps_nan_and_value_axis_slots(cuda_plan):
+    x = _x((20, 6), seed=33)
+    x[:, 2] = np.nan
+    b = bolt.array(x, CPU)
+    out = b.stats("sum", "mean", "var", "min", "max")
+    for name, got in out.items():
+        got = got.toarray()
+        assert np.isnan(got[2]) and not np.isnan(np.delete(got, 2)).any(), \
+            name
+    s, m = bolt.compute(b.sum(axis=(1,)), b.max())
+    assert cuda_plan == [True, True]
+    assert _bits(s.toarray(), bolt.array(x, CPU).sum(axis=(1,)).toarray())
+    assert _bits(m.toarray(), bolt.array(x, CPU).max().toarray())
+
+
+def test_moments_route_mean_keeps_infinities(cuda_plan):
+    # mean is the column sum over n, as numpy's and the reference's: a
+    # column with one infinity keeps it, +inf with -inf is NaN, and
+    # finite values whose sum overflows give inf; var and std turn NaN
+    # wherever an infinity is, as numpy's do
+    x = _x((20, 6), seed=35).astype(np.float32)
+    x[3, 1] = np.inf
+    x[4, 2], x[9, 2] = np.inf, -np.inf
+    x[5, 3] = -np.inf
+    x[:, 4] = np.float32(3e38)
+    b = bolt.array(x, CPU)
+    out = {k: v.toarray() for k, v in
+           b.stats("sum", "mean", "var", "std", "min", "max").items()}
+    lone = bolt.array(x, CPU).mean().toarray()
+    assert cuda_plan == [True, True]
+    assert _bits(out["mean"], lone)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for name in ("sum", "mean", "var", "std", "min", "max"):
+            want = getattr(x, name)(0)
+            inf = ~np.isfinite(want)
+            np.testing.assert_array_equal(out[name][inf], want[inf], name)
+            np.testing.assert_allclose(out[name][~inf], want[~inf],
+                                       rtol=1e-5, atol=1e-5)
+    m = out["mean"]
+    assert np.isposinf(m[1]) and np.isnan(m[2]) and np.isneginf(m[3]) \
+        and np.isposinf(m[4])
+
+
+def test_moments_route_plans_each_serve_lane_as_its_group(cuda_plan):
+    # a serve batch's stat program plans every lane from its own base: a
+    # contiguous lane takes the launch, a transposed one torch, and each
+    # equals its standalone group bit for bit
+    from bolt_tpu_torch.gpu import batched
+    a = torch.from_numpy(_x((12, 5), seed=36).astype(np.float32))
+    t = torch.from_numpy(_x((5, 12), seed=37).astype(np.float32)).t()
+    assert not t.is_contiguous()
+    slots = tuple(sorted({("sum", (0,), False, None),
+                          ("mean", (0,), False, None),
+                          ("var", (0,), False, 1),
+                          ("max", (0,), False, None)}, key=repr))
+    run = batched._program("stat", slots, (), None, 1, (12, 5),
+                           np.dtype(np.float32))
+    got_a, got_t = run(a, t)
+    assert cuda_plan == [True]
+    alone = bolt.array(a.numpy(), CPU).stats("sum", "mean", "max")
+    var1 = bolt.array(a.numpy(), CPU).var(ddof=1).toarray()
+    for slot, got in zip(slots, got_a):
+        want = var1 if slot[0] == "var" else alone[slot[0]].toarray()
+        assert _bits(got.numpy(), want), slot
+    # the strided lane: torch's reductions, as with no plan at all
+    launches = len(cuda_plan)
+    want_t = garray._chain_stats(t, (), 1, (12, 5), np.dtype(np.float32),
+                                 list(slots))
+    assert len(cuda_plan) == launches
+    for slot, got, want in zip(slots, got_t, want_t):
+        assert _bits(got.numpy(), want.numpy()), slot
+
+
+def test_stat_span_routes_torch_on_the_cpu():
+    from bolt_tpu_torch import obs
+    x = _x((12, 4), seed=34).astype(np.float32)
+    obs.enable()
+    try:
+        obs.clear()
+        bolt.array(x, CPU).stats("sum", "var")
+        bolt.array(x, CPU).sum().toarray()
+        routes = [s.attrs["route"] for s in obs.spans()
+                  if s.name in ("array.stat", "array.multi_stat")]
+    finally:
+        obs.disable()
+        obs.clear()
+    assert routes == ["torch", "torch"]

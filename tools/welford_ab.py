@@ -12,9 +12,17 @@ them::
 Each shape prints one JSON line with the card's name and power limit,
 the times (mean of CUDA-event runs after a warm-up), the bound (bytes read
 once over 3.35 TB/s) and the largest difference from the plain version.
+Where the checkout's ``fused_welford`` takes ``with_sum``, the line adds
+the instantiation with the column sum (``sum_ms``; ``sum_err``, its
+largest difference from the f64 sum, beside ``torch_sum_err``,
+``torch.sum``'s).  At the north-star it also times the array surface: the
+six-member key-axis group ``stats("sum", "mean", "var", "std", "min",
+"max")`` (``group_ms``) and a lone ``sum()`` (``lone_sum_ms``), each
+read back with ``totorch()``.
 """
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -38,6 +46,17 @@ def timed_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def surface_ms(torch, x, reps):
+    """The group's and a lone ``sum()``'s times through the array
+    surface over ``x`` (its rows the records)."""
+    import bolt_tpu_torch as bolt
+    b = bolt.array(x, x.device)
+    names = ("sum", "mean", "var", "std", "min", "max")
+    return {"group_ms": timed_ms(torch, lambda: [
+                v.totorch() for v in b.stats(*names).values()], reps),
+            "lone_sum_ms": timed_ms(torch, lambda: b.sum().totorch(), reps)}
 
 
 def main():
@@ -79,6 +98,19 @@ def main():
                "bound_ms": 1e3 * 4 * (x.numel() + 4 * shape[1])
                / HBM_BYTES_PER_S,
                "max_abs_err": err}
+        if "with_sum" in inspect.signature(K.fused_welford).parameters:
+            total = K.fused_welford(x, with_sum=True)[4]
+            row["sum_ms"] = timed_ms(
+                torch, lambda: K.fused_welford(x, with_sum=True), args.reps)
+            # each sum's largest error against the f64 sum, beside
+            # torch.sum's
+            exact = x.double().sum(0)
+            row["sum_err"] = float((total.double() - exact).abs().max())
+            row["torch_sum_err"] = float((x.sum(0).double() - exact)
+                                         .abs().max())
+            del total, exact
+        if label == "north_star":
+            row.update(surface_ms(torch, x, args.reps))
         print(json.dumps(row), flush=True)
         del x, got, want
     return 0
