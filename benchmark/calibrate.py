@@ -7,7 +7,8 @@ in one process, on the card:
 
 Each program seed is a run of the cell (``harness.run_cell``: the data,
 the warm-up, a window of ``--seconds``, the comparison), and its numbers
-are the ones that run compares.  Each control seed puts the reference,
+are the ones that run compares; a cell of more than one chip runs its
+seeds one after another in one pod (``pod.py``).  Each control seed puts the reference,
 computed in the precision below the configuration's (``control`` in
 ``limits/<cell>.json``), in the program's place.  Prints one JSON line a
 seed and, last, each number's largest program reading, smallest control
@@ -51,6 +52,27 @@ def program_run(name, seed, seconds, device="cuda", overrides=None):
     res, _ = harness.run_cell(name, seed, seconds, 0, device=device,
                               overrides=dict(overrides or {}, limits={}))
     return {k: c["value"] for k, c in res["checks"].items()}, res
+
+
+def pod_lines(name, chips, seeds, control_seeds, seconds, mode,
+              backend=None, device="cuda", overrides=None, wall_s=3000):
+    """The readings of a pod cell (``pod.py``): the program's seeds run
+    one after another in one pod, then the control's on rank 0's card;
+    one dict a seed, or None where the pod failed (said on standard
+    error)."""
+    from benchmark import pod
+    rc, out, err, wrong = pod.launch(
+        {"mode": "calibrate", "workload": name, "seeds": seeds,
+         "control_seeds": control_seeds, "control": mode,
+         "seconds": seconds, "backend": backend, "device": device,
+         "overrides": overrides}, chips, wall_s=wall_s)
+    if wrong:
+        print("the pod failed: %s\n%s" % (wrong, err), file=sys.stderr)
+        return None
+    lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    return lines
 
 
 def limit_of(lower, upper):
@@ -102,25 +124,34 @@ def main(argv=None):
     mode = old.get("control", {}).get("mode", "bfloat16")
     seeds = [int(v) for v in args.seeds.split(",") if v]
     control_seeds = [int(v) for v in args.control_seeds.split(",") if v]
-    lines = []
+    chips = harness.load_cell(args.workload)[0]["chips"]
+    if chips > 1:
+        lines = pod_lines(args.workload, chips, seeds, control_seeds,
+                          args.seconds, mode)
+        if lines is None:
+            return 3
+    else:
+        lines = []
+        for kind, group in (("program", seeds), ("control", control_seeds)):
+            for s in group:
+                t = time.time()
+                line = {"kind": kind, "seed": s}
+                if kind == "program":
+                    nums, res = program_run(args.workload, s, args.seconds)
+                    line["passes"] = res["setup"]["passes"]
+                    line["failed"] = res["failed"]
+                else:
+                    nums = control_readings(torch, args.workload, s, mode)
+                line.update(seconds=time.time() - t, numbers=nums)
+                lines.append(line)
+                print(json.dumps(line), flush=True)
     lower, upper = {}, {}
-    for kind, group in (("program", seeds), ("control", control_seeds)):
-        for s in group:
-            t = time.time()
-            line = {"kind": kind, "seed": s}
-            if kind == "program":
-                nums, res = program_run(args.workload, s, args.seconds)
-                line["passes"] = res["setup"]["passes"]
-                line["failed"] = res["failed"]
-                for k, v in nums.items():
-                    lower[k] = max(lower.get(k, v), v)
+    for line in lines:
+        for k, v in line["numbers"].items():
+            if line["kind"] == "program":
+                lower[k] = max(lower.get(k, v), v)
             else:
-                nums = control_readings(torch, args.workload, s, mode)
-                for k, v in nums.items():
-                    upper[k] = min(upper.get(k, v), v)
-            line.update(seconds=time.time() - t, numbers=nums)
-            lines.append(line)
-            print(json.dumps(line), flush=True)
+                upper[k] = min(upper.get(k, v), v)
     if lower:
         # the control is judged on what the program's own runs compare
         upper = {k: v for k, v in upper.items() if k in lower}

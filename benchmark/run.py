@@ -4,7 +4,8 @@
 
 It needs the CUDA cards the cell asks for and the ``bolt_tpu_torch``
 package of the checkout; without either it exits with 2 and prints no
-result.  The last line of standard output is one JSON object; the
+result.  A cell of more than one chip runs as a pod, one process a card
+(``pod.py``).  The last line of standard output is one JSON object; the
 numbers compared with the reference close standard error."""
 
 import time
@@ -40,6 +41,8 @@ def main(argv=None):
         print("the cell needs %d cards, %d found"
               % (cell["chips"], torch.cuda.device_count()), file=sys.stderr)
         return 2
+    if cell["chips"] > 1:
+        return run_pod(args, cell["chips"])
     try:
         import bolt_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -54,6 +57,33 @@ def main(argv=None):
     print(json.dumps(result), flush=True)
     for line in lines:
         print(line, file=sys.stderr)
+    sys.stderr.flush()
+    return 0
+
+
+def run_pod(args, chips):
+    """The cell as a pod of ``chips`` NCCL ranks, one a card
+    (``pod.py``): rank 0's result line, or a non-zero exit and none."""
+    from importlib.util import find_spec
+    from benchmark import harness, pod
+    if find_spec("bolt_tpu_torch") is None:
+        print("the program under test is missing", file=sys.stderr)
+        return 2
+    rc, out, err, wrong = pod.launch(
+        {"mode": "run", "workload": args.workload, "seed": args.seed,
+         "seconds": args.seconds, "trace": args.trace, "t_start": T_START,
+         "device": "cuda"}, chips)
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    if not wrong and not last.startswith("{"):
+        wrong = "rank 0 printed no result"
+    found = harness.forbidden_modules()
+    if found:
+        wrong = "the launcher loaded %s" % ", ".join(found)
+    if wrong:
+        print("the pod failed: %s\n%s" % (wrong, err), file=sys.stderr)
+        return rc or 3
+    print(last, flush=True)
+    sys.stderr.write(err)
     sys.stderr.flush()
     return 0
 

@@ -83,8 +83,7 @@ class Spans:
             if tracing._is_device(e):
                 if name.startswith(PROGRAM):
                     self.device_ranges += 1
-                elif not name.startswith(tracing.PREFIX) and not any(
-                        w in name.lower() for w in ("sync", "wait")):
+                elif tracing.is_operation(name):
                     dev.append((e.start_ns(), e.end_ns(),
                                 e.linked_correlation_id()))
                 continue

@@ -13,8 +13,11 @@ if ROOT not in sys.path:
 
 # the configurations' shapes, cut so a test run holds them
 SMALL = {"northstar": {"shape": [96, 20, 8, 8]},
-         "imaging": {"shape": [64, 32, 24]}}
+         "imaging": {"shape": [64, 32, 24]},
+         "northstar.pod4": {"shape": [48, 20, 8, 8], "block_records": 4}}
 CELLS = ("ns.fused", "img.path", "ns.series", "img.pca")
+# the cells run as a pod of several cards (pod.py)
+POD_CELLS = ("ns.mesh4",)
 
 
 def small(cell):

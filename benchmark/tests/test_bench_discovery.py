@@ -10,14 +10,14 @@ import sys
 
 import pytest
 
-from conftest import CELLS, ROOT
+from conftest import CELLS, POD_CELLS, ROOT
 
 
 def test_every_cell_finds_its_pieces():
     from benchmark import common, harness
     spec = harness.benchmark_spec()
-    assert [w["name"] for w in spec["workloads"]] == list(CELLS)
-    for name in CELLS:
+    assert [w["name"] for w in spec["workloads"]] == list(CELLS + POD_CELLS)
+    for name in CELLS + POD_CELLS:
         cell, config, traffic, limits, _ = harness.load_cell(name)
         assert config["name"] == cell["config"]
         assert limits["limits"], name
@@ -75,6 +75,9 @@ def test_a_cell_added_by_new_files_only(tmp_path, trace):
     spec["workloads"].append({"name": "tiny.sum", "config": "tiny",
                               "traffic": "plain_sum", "chips": 1,
                               "why": "a test"})
+    for m in spec["end_to_end"]:
+        if m["name"] in ("scan_gbps", "pass_ms_p95"):
+            m["workloads"].append("tiny.sum")
     spec["per_layer"].append({"name": "passes_seen", "unit": "passes",
                               "better": "higher", "source": "host_clock",
                               "layer": "harness", "moves": "scan_gbps",

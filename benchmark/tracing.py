@@ -74,6 +74,19 @@ def _is_device(e):
     return "cuda" in str(e.device_type()).lower()
 
 
+# a range that a library opens on the card's timeline around its own work
+# (``nccl:all_gather``, torch's NCCL process group): no operation
+ANNOTATION = re.compile(r"^[A-Za-z0-9_]+:[A-Za-z0-9_]+$")
+
+
+def is_operation(name):
+    """Whether the device event ``name`` is a kernel, copy or fill: not a
+    range (the benchmark's or a library's annotation) and not a
+    synchronisation marker."""
+    return not (name.startswith(PREFIX) or ANNOTATION.match(name)
+                or any(w in name.lower() for w in ("sync", "wait")))
+
+
 class Summary:
     """What one profiled window shows.  ``window_s``: the window's host
     span; ``busy_s``: the union of device operations inside it;
@@ -94,8 +107,7 @@ class Summary:
                     # the range as the card saw it (a user annotation)
                     gpu_ranges.append((e.start_ns(), e.end_ns(),
                                        name[len(PREFIX):]))
-                elif not any(w in name.lower() for w in ("sync", "wait")):
-                    # a kernel, copy or fill; not a synchronisation marker
+                elif is_operation(name):
                     dev.append((e.start_ns(), e.end_ns(), name,
                                 e.linked_correlation_id()))
                 continue
